@@ -25,6 +25,10 @@ def pytest_configure(config):
         "markers",
         "slow: long-running (trace capture, big compiles) — excluded "
         "from the tier-1 `-m 'not slow'` run")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (the PyTorch port's kernels) — skips "
+        "on a machine without one")
 
 
 def requires_mesh(n):
