@@ -5,20 +5,31 @@
 
 Run from the root of the repository on a machine with a CUDA GPU, the
 CUDA toolkit (nvcc) and PyTorch built for CUDA.  It builds the port's
-kernels from ``paddle_tpu_torch/csrc``, holds each against its plain
-PyTorch version at the serving path's full-width shapes, then serves
-Llama-3-8B (full width, 32 layers, bf16, random weights from a seeded
-generator) through ``LLMEngine`` and checks that the serving path went
-through both kernels.  Each phase prints one JSON line; the last three
-lines are the kernel table, the card's name and power limit as
-nvidia-smi reports them, and ``{"ok": true, ...}``.  Any failed phase
-exits non-zero before the ``ok`` line.  Without a CUDA device it exits
-non-zero at once.
+kernels from ``paddle_tpu_torch/csrc`` (one nvcc per source, all
+started together) and holds each against its plain PyTorch version at
+the main paths' full-width shapes.  Then it drives the two main paths
+through their user entry points, each with the launch counts set to 0
+just before and read just after:
+
+- serving: Llama-3-8B (full width, 32 layers, bf16, random weights from
+  a seeded generator) through ``LLMEngine``, checked against a dense
+  plain forward;
+- training: Llama-3-8B width cut to 8 layers, bf16 (amp O2), seq 8192,
+  batch 1, AdamW with a global-norm clip, through ``CompiledTrainStep``
+  for 5 steps; then at f32, 2 layers, seq 1024, the loss and every
+  gradient against a composition of plain versions, and one fused
+  update against its plain version.
+
+Each phase prints one JSON line; the last three lines are the kernel
+table, the card's name and power limit as nvidia-smi reports them, and
+``{"ok": true, ...}``.  Any failed phase exits non-zero before the
+``ok`` line.  Without a CUDA device it exits non-zero at once.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -27,8 +38,18 @@ import time
 # bf16 tensor-core rate, for the least time the card could take
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12          # f32 outside the tensor cores
 TOL = 2e-2          # bf16 outputs: one rounding of values of order 1
+# bf16 gradients, relative to the largest element: one output rounding
+# (2^-8) plus f32 sums in another order
+GRAD_TOL = 2e-2
+# relative L2 error of a bf16 output against its plain version: each
+# side rounds once (at most 2^-9 of each element), so 2^-7 is four
+# roundings
+REL_L2_TOL = 2.0 ** -7
 SEED = 0
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_STEPS = 8, 8192, 5
+VOCAB = 128256
 
 
 class SmokeFailure(RuntimeError):
@@ -59,10 +80,16 @@ def timed_ms(torch, fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(n_bytes, flops):
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, flops / PEAK_BF16_FLOPS
+def bound_ms(n_bytes, flops, peak=PEAK_BF16_FLOPS):
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, flops / peak
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
         else "operations"
+
+
+def rel_err(got, want):
+    """Largest absolute error over the largest |want| element."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
 
 
 def ragged_case(torch, gen, dev):
@@ -139,72 +166,76 @@ def flash_case(torch, gen, dev):
     return dict(q=q, k=k, v=v, mask=mask), n_bytes, flops
 
 
-def dense_reference_logits(torch, model, ids):
-    """Last-position logits of a plain causal forward (no pages, no
-    kernels: the flash plain version on the whole prompt)."""
+def plain_hidden(torch, model, ids):
+    """Final-norm hidden states [B, S, H] of a plain causal forward over
+    ids [B, S] (no pages, no kernels, no chunking: embedding, per layer
+    RMSNorm, projections, f32 rope, the flash plain version, SwiGLU),
+    differentiable by autograd."""
     from paddle_tpu_torch.models.llama import _rotate_half
     from paddle_tpu_torch.ops import _nn
     from paddle_tpu_torch.ops.flash_attention import \
         flash_attention_fwd_reference
     c = model.config
     hd = c.hidden_size // c.num_attention_heads
-    n = ids.shape[0]
+    b, n = ids.shape
     lm = model.llama
-    cos = lm.rope_cos[:n][:, None, :]
-    sin = lm.rope_sin[:n][:, None, :]
+    cos = lm.rope_cos[:n][None, :, None, :].float()
+    sin = lm.rope_sin[:n][None, :, None, :].float()
 
     def rope(x):
         xf = x.float()
         return (xf * cos + _rotate_half(xf) * sin).to(x.dtype)
 
-    x = lm.embed_tokens.weight[ids]
+    x = lm.embed_tokens.weight[ids.long()]
+    for layer in lm.layers:
+        a, m = layer.self_attn, layer.mlp
+        hn = _nn.rms_norm(x, layer.input_layernorm.weight,
+                          epsilon=c.rms_norm_eps)
+        q = rope((hn @ a.q_proj.weight).view(b, n, -1, hd))
+        k = rope((hn @ a.k_proj.weight).view(b, n, -1, hd))
+        v = (hn @ a.v_proj.weight).view(b, n, -1, hd)
+        o = flash_attention_fwd_reference(q, k, v, causal=True)[0]
+        x = x + o.reshape(b, n, -1) @ a.o_proj.weight
+        hn = _nn.rms_norm(x, layer.post_attention_layernorm.weight,
+                          epsilon=c.rms_norm_eps)
+        x = x + (_nn.silu(hn @ m.gate_proj.weight)
+                 * (hn @ m.up_proj.weight)) @ m.down_proj.weight
+    return _nn.rms_norm(x, lm.norm.weight, epsilon=c.rms_norm_eps)
+
+
+def dense_reference_logits(torch, model, ids):
+    """Last-position logits of a plain causal forward over one prompt."""
     with torch.no_grad():
-        for layer in lm.layers:
-            a, m = layer.self_attn, layer.mlp
-            hn = _nn.rms_norm(x, layer.input_layernorm.weight,
-                              epsilon=c.rms_norm_eps)
-            q = rope((hn @ a.q_proj.weight).view(n, -1, hd))
-            k = rope((hn @ a.k_proj.weight).view(n, -1, hd))
-            v = (hn @ a.v_proj.weight).view(n, -1, hd)
-            o = flash_attention_fwd_reference(q[None], k[None], v[None],
-                                              causal=True)[0][0]
-            x = x + o.reshape(n, -1) @ a.o_proj.weight
-            hn = _nn.rms_norm(x, layer.post_attention_layernorm.weight,
-                              epsilon=c.rms_norm_eps)
-            x = x + (_nn.silu(hn @ m.gate_proj.weight)
-                     * (hn @ m.up_proj.weight)) @ m.down_proj.weight
-        x = _nn.rms_norm(x, lm.norm.weight, epsilon=c.rms_norm_eps)
-        return x[-1] @ model.lm_head.weight
+        return plain_hidden(torch, model, ids[None])[0, -1] \
+            @ model.lm_head.weight
 
 
 def kernel_family(name):
     for key, fam in (("ragged_attend", "ragged_attend"),
                      ("ragged_append", "ragged_append"),
-                     ("flash_fwd", "flash_fwd")):
+                     ("flash_fwd", "flash_fwd"),
+                     ("flash_bwd_dq", "flash_bwd_dq"),
+                     ("flash_bwd_dkv", "flash_bwd_dkv"),
+                     ("fused_update", "fused_update")):
         if key in name:
             return fam
     low = name.lower()
-    if any(k in low for k in ("gemm", "cutlass", "xmma", "gemv", "sm90")):
+    if any(k in low for k in ("gemm", "cutlass", "xmma", "gemv", "sm90",
+                              "nvjet")):
         return "matmul"
     return "other"
 
 
-def profile_serve(torch, eng, prompts, max_new):
-    """Serve ``prompts`` (deferred admission) under torch.profiler and
-    return the wall time, the summed kernel time by family, and the
-    device's idle share of the wall time (one stream: kernels do not
-    overlap)."""
+def profiled(torch, fn):
+    """Run ``fn()`` under torch.profiler; return its result and the wall
+    time, the summed kernel time by family, and the device's idle share
+    of the wall time (one stream: kernels do not overlap)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for rid, ids in prompts.items():
-            eng.begin_request(rid, ids, max_new_tokens=max_new)
-        steps = 0
-        while eng.has_work():
-            eng.step()
-            steps += 1
+        out = fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     fams, top = {}, []
@@ -220,12 +251,407 @@ def profile_serve(torch, eng, prompts, max_new):
             top.append((us / 1e3, e.key[:80], e.count))
     busy = sum(fams.values())
     top.sort(reverse=True)
-    return {"wall_ms": wall_ms, "steps": steps,
-            "device_busy_ms": busy if busy else None,
-            "idle_share": 1 - busy / wall_ms if busy else None,
-            "kernel_ms_by_family": fams,
-            "top_kernels": [{"ms": ms, "name": n, "count": c}
-                            for ms, n, c in top[:8]]}
+    return out, {"wall_ms": wall_ms,
+                 "device_busy_ms": busy if busy else None,
+                 "idle_share": 1 - busy / wall_ms if busy else None,
+                 "kernel_ms_by_family": fams,
+                 "top_kernels": [{"ms": ms, "name": n, "count": c}
+                                 for ms, n, c in top[:8]]}
+
+
+def profile_serve(torch, eng, prompts, max_new):
+    """Serve ``prompts`` (deferred admission) under torch.profiler."""
+    def serve():
+        for rid, ids in prompts.items():
+            eng.begin_request(rid, ids, max_new_tokens=max_new)
+        steps = 0
+        while eng.has_work():
+            eng.step()
+            steps += 1
+        return steps
+    steps, stats = profiled(torch, serve)
+    return {"steps": steps, **stats}
+
+
+def attention_case(torch, gen, dev, s):
+    """The training path's attention at Llama-3-8B width: q [1, s, 32,
+    128] against k/v [1, s, 8, 128], bf16, and an output gradient."""
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+    return rnd(1, s, 32, 128), rnd(1, s, 8, 128), rnd(1, s, 8, 128), \
+        rnd(1, s, 32, 128)
+
+
+def causal_pairs(s):
+    """(query, key) pairs a causal square attention of length s visits."""
+    return s * (s + 1) // 2
+
+
+def train_batch(np, vocab, batch, seq):
+    """``bench.py``'s ``_train_batch``: random ids and next-token labels
+    with -100 on the last position."""
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, vocab, size=(batch, seq), dtype=np.int32)
+    labels = np.concatenate(
+        [ids[:, 1:], np.full((batch, 1), -100, np.int32)], axis=1)
+    return ids, labels
+
+
+def plain_loss(torch, model, ids, labels):
+    """The training loss of ``plain_hidden``: the whole f32 logits and a
+    log-softmax cross-entropy (mean over labels other than -100)."""
+    x = plain_hidden(torch, model, ids)
+    logp = torch.log_softmax((x @ model.lm_head.weight).float(), dim=-1)
+    lab = labels.long()
+    valid = lab != -100
+    tok = -logp.gather(-1, torch.where(valid, lab, 0)[..., None])[..., 0]
+    return (tok * valid).sum() / valid.sum()
+
+
+def flash_check(torch, fa, s, q, k, v, do):
+    """The causal flash forward, dQ and dK/dV kernels against their plain
+    versions on one [1, s, 32, 128] / [1, s, 8, 128] bf16 case.  Each
+    output is held relative to its values: at 8K an output row averages
+    thousands of values and is of order 0.02, while row 0 copies one V
+    row (order 1), so an absolute bound or one relative to the largest
+    element says little about the long rows.  Returns the errors by
+    output."""
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    ops = fa.flash_attention_bwd_operands(q, k, v, out, lse, do, True, None)
+    got = {"out": out, "dq": fa.flash_attention_bwd_dq(*ops, True)}
+    got["dk"], got["dv"] = fa.flash_attention_bwd_dkv(*ops, True)
+    del ops
+    want = dict(zip(("dq", "dk", "dv"), fa.flash_attention_bwd_reference(
+        q, k, v, out, lse, do, causal=True)))
+    want["out"], ref_lse = fa.flash_attention_fwd_reference(q, k, v,
+                                                            causal=True)
+    torch.cuda.synchronize()
+    errs = {"lse_max_abs_err": (lse - ref_lse).abs().max().item()}
+    for n, g in got.items():
+        w = want[n]
+        diff = (g.float() - w.float()).abs()
+        errs[n] = {"max_abs_err": diff.max().item(),
+                   "max_abs_want": w.float().abs().max().item(),
+                   "rel_l2_err": ((g.float() - w.float()).norm()
+                                  / w.float().norm()).item(),
+                   "rel_to_largest": rel_err(g, w),
+                   "elements_differing": int((g != w).sum()),
+                   "elements": w.numel()}
+    emit({"phase": "check", "what": "flash fwd + bwd, causal",
+          "shape": [1, s, 32, 128], "kv_heads": 8, "errors": errs,
+          "tolerance": {"lse_max_abs_err": 1e-3, "rel_l2_err": REL_L2_TOL,
+                        "rel_to_largest": GRAD_TOL}})
+    check(errs["lse_max_abs_err"] <= 1e-3,
+          f"causal flash lse off its plain version at {s}: {errs}")
+    for n in got:
+        check(errs[n]["rel_l2_err"] <= REL_L2_TOL
+              and errs[n]["rel_to_largest"] <= GRAD_TOL,
+              f"flash {n} off its plain version at {s}: {errs[n]}")
+    return errs
+
+
+def flash_train_kernels(torch, gen, dev, table):
+    """The flash forward, dQ and dK/dV kernels at the training path's
+    attention: checked against their plain versions at [1, 2048, 32,
+    128] and at the 8K training shape (causal, bf16, 8 KV heads), and
+    timed at the 8K shape."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    flash_check(torch, fa, 2048, *attention_case(torch, gen, dev, 2048))
+    torch.cuda.empty_cache()
+
+    s, d, h, hk = TRAIN_SEQ, 128, 32, 8
+    q, k, v, do = attention_case(torch, gen, dev, s)
+    errs = flash_check(torch, fa, s, q, k, v, do)
+    torch.cuda.empty_cache()
+    pairs = causal_pairs(s)
+    el = 2                                       # bf16 bytes
+    qb, kb = s * h * d * el, s * hk * d * el      # one q-like, one k-like
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    ops = fa.flash_attention_bwd_operands(q, k, v, out, lse, do, True, None)
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def fwd_library():
+        sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    # one PyTorch call for the backward: aten's flash backward on K/V
+    # repeated to 32 heads (it takes no GQA; its dK/dV come per query
+    # head, the group sum not included)
+    bwd_library, bwd_note = None, None
+    try:
+        kr, vr = (x.repeat_interleave(h // hk, dim=1) for x in (kt, vt))
+        res = torch.ops.aten._scaled_dot_product_flash_attention(
+            qt, kr, vr, 0.0, True, False)
+        lib_args = (dot, qt, kr, vr, res[0], res[1], res[2], res[3],
+                    res[4], res[5], 0.0, True, res[6], res[7])
+
+        def bwd_library():
+            torch.ops.aten._scaled_dot_product_flash_attention_backward(
+                *lib_args)
+        bwd_library()
+    except Exception as e:             # the yardstick only, never the port
+        bwd_library, bwd_note = None, f"aten flash backward: {e}"[:200]
+    rows = {}
+    for name, src, line, fn, flops, n_bytes, plain, lib in (
+            ("flash_attention_fwd_causal_8k", "flash_attention_fwd.cu",
+             "flash_attention.py:164",
+             lambda: fa.flash_attention_fwd(q, k, v, causal=True),
+             4 * d * h * pairs, 2 * qb + 2 * kb + h * s * 4,
+             lambda: fa.flash_attention_fwd_reference(q, k, v, causal=True),
+             fwd_library),
+            ("flash_attention_bwd_dq", "flash_attention_bwd.cu",
+             "flash_attention.py:390",
+             lambda: fa.flash_attention_bwd_dq(*ops, True),
+             6 * d * h * pairs, 3 * qb + 2 * kb + 2 * h * s * 4,
+             lambda: fa.flash_attention_bwd_reference(
+                 q, k, v, out, lse, do, causal=True), bwd_library),
+            ("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
+             "flash_attention.py:431",
+             lambda: fa.flash_attention_bwd_dkv(*ops, True),
+             8 * d * h * pairs, 2 * qb + 4 * kb + 2 * h * s * 4,
+             lambda: fa.flash_attention_bwd_reference(
+                 q, k, v, out, lse, do, causal=True), bwd_library)):
+        bound, bound_by = bound_ms(n_bytes, flops)
+        ms = timed_ms(torch, fn, 3, warmup=1)
+        rows[name] = {
+            "name": name, "route": "cuda",
+            "source": f"paddle_tpu_torch/csrc/{src}",
+            "replaces": f"paddle_tpu/ops/pallas/{line}",
+            "max_abs_err": None, "ms": ms,
+            "plain_ms": timed_ms(torch, plain, 1, warmup=1),
+            "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": None if lib is None else timed_ms(torch, lib, 3,
+                                                            warmup=1)}
+        torch.cuda.empty_cache()
+    for name, outs in (("flash_attention_fwd_causal_8k", ("out",)),
+                       ("flash_attention_bwd_dq", ("dq",)),
+                       ("flash_attention_bwd_dkv", ("dk", "dv"))):
+        rows[name]["max_abs_err"] = max(errs[o]["max_abs_err"]
+                                        for o in outs)
+    for name, row in rows.items():
+        note = {"shape": [1, s, h, d], "kv_heads": hk, "causal": True}
+        if name != "flash_attention_fwd_causal_8k":
+            note["plain_note"] = "the whole plain backward (dq, dk, dv)"
+            note["library_note"] = bwd_note or \
+                "aten flash backward on K/V repeated to 32 heads"
+        emit({"phase": "kernel", **row, **note})
+        table[name] = row
+
+
+def update_kernel(torch, gen, dev, table):
+    """The fused clip + AdamW update on the embedding leaf [128256,
+    4096]: bf16 param and grad, f32 moments, lr 1e-4, step 3, clip 0.5."""
+    from paddle_tpu_torch.ops import fused_train as ft
+    shape = (VOCAB, 4096)
+    p = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    g = (torch.randn(shape, generator=gen, device=dev) * 1e-3).to(
+        torch.bfloat16)
+    slots = {"moment1": torch.randn(shape, generator=gen, device=dev) * 1e-4,
+             "moment2": torch.rand(shape, generator=gen, device=dev) * 1e-7}
+    hyper = {"weight_decay": 0.01, "decoupled": True, "beta1": 0.9,
+             "beta2": 0.999, "epsilon": 1e-8}
+    scal = torch.tensor([1e-4, 3.0, 0.5], device=dev)
+
+    def plain():
+        return ft.fused_update_reference(
+            "adam", p, g, slots, lr=scal[0], step_f=scal[1],
+            clip_scale=scal[2], hyper=hyper)
+
+    want_p, want_s = plain()
+    ft.fused_update_flat("adam", p, g, slots, scalars=scal, has_clip=True,
+                         hyper=hyper)
+    torch.cuda.synchronize()
+    slots_equal = all(torch.equal(slots[k], want_s[k]) for k in slots)
+    err = (p.float() - want_p.float()).abs().max().item()
+    ulp_ok = bool(((p.float() - want_p.float()).abs()
+                   <= 2 ** -7 * want_p.float().abs()).all())
+    del want_p, want_s
+    check(slots_equal, "update kernel's moments differ from its plain "
+                       "version")
+    check(ulp_ok, f"update kernel's params off their plain version by "
+                  f"more than one bf16 ulp (max abs {err})")
+    n = p.numel()
+    # 22 bytes an element: p 2 + 2, g 2, two f32 moments 4 + 4 each
+    bound, bound_by = bound_ms(22 * n, ft.update_flop_estimate(
+        "adam", n, has_clip=True), peak=PEAK_F32_FLOPS)
+    row = {"name": "fused_update", "route": "cuda",
+           "source": "paddle_tpu_torch/csrc/fused_update.cu",
+           "replaces": "paddle_tpu/ops/pallas/fused_train.py:168",
+           "max_abs_err": err,
+           "ms": timed_ms(torch, lambda: ft.fused_update_flat(
+               "adam", p, g, slots, scalars=scal, has_clip=True,
+               hyper=hyper), 10),
+           "plain_ms": timed_ms(torch, plain, 2, warmup=1),
+           "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+    emit({"phase": "kernel", **row, "shape": list(shape),
+          "slots_bitwise_equal": slots_equal,
+          "library_note": "no PyTorch call folds a global-norm clip into "
+                          "AdamW over bf16 params with f32 moments"})
+    table["fused_update"] = row
+
+
+def train_phase(torch, np, dev, table):
+    """Llama-3-8B width, 8 layers, bf16 (amp O2), seq 8192, batch 1:
+    the recipe's model -> decorate -> AdamW(clip) -> CompiledTrainStep,
+    TRAIN_STEPS steps on one repeated batch, then one traced step."""
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.jit.train import CompiledTrainStep
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                               llama3_8b_config)
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_train as ft
+    cfg = dataclasses.replace(llama3_8b_config(),
+                              num_hidden_layers=TRAIN_LAYERS,
+                              fuse_norm_rope=False)
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(
+        cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(
+            SEED + 2))
+    model = amp.decorate(model, level="O2", dtype="bfloat16")
+    opt = optimizer.AdamW(learning_rate=1e-4,
+                          parameters=model.parameters(),
+                          grad_clip=ClipGradByGlobalNorm(1.0))
+    step = CompiledTrainStep(
+        model, lambda m, b: m(b["input_ids"], labels=b["labels"]), opt)
+    ids, labels = train_batch(np, cfg.vocab_size, 1, TRAIN_SEQ)
+    batch = {"input_ids": torch.tensor(ids, device=dev),
+             "labels": torch.tensor(labels, device=dev)}
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+
+    counters = {"flash_attention_fwd": fa.flash_attention_fwd,
+                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+                "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
+                "fused_update": ft.fused_update_flat}
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        losses.append(step(batch))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    launches = {n: fn.launches for n, fn in counters.items()}
+    losses = [float(x) for x in losses]
+    step_s = sum(times[1:]) / (len(times) - 1)    # the first one warms up
+    tok_s = TRAIN_SEQ / step_s
+    h = cfg.hidden_size
+    # the loss at initialisation: the final RMSNorm gives every token a
+    # hidden vector of norm sqrt(h), so its logits are N(0, sigma^2) with
+    # sigma = initializer_range * sqrt(h) (1.28 here), and the mean
+    # cross-entropy is ln V + sigma^2 / 2 (12.58), not ln V (11.76)
+    sigma = cfg.initializer_range * math.sqrt(h)
+    init_loss = math.log(cfg.vocab_size) + sigma ** 2 / 2
+    f6n = 6 * n_params
+    fattn = f6n + 6 * TRAIN_LAYERS * TRAIN_SEQ * h
+    emit({"phase": "train", "model": "llama3_8b width", "layers":
+          TRAIN_LAYERS, "dtype": "bfloat16", "seq": TRAIN_SEQ, "batch": 1,
+          "params": n_params, "setup_s": setup_s, "step_s": times,
+          "mean_step_s": step_s, "tokens_per_s": tok_s,
+          "mfu_6n": f6n * tok_s / PEAK_BF16_FLOPS,
+          "mfu_6n_attn": fattn * tok_s / PEAK_BF16_FLOPS,
+          "losses": losses, "ln_vocab": math.log(cfg.vocab_size),
+          "expected_first_loss": init_loss,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "launches": launches,
+          "launches_per_step": {n: c / TRAIN_STEPS
+                                for n, c in launches.items()}})
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(abs(losses[0] - init_loss) <= 0.5,
+          f"first loss {losses[0]} not within 0.5 of {init_loss}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    for n in ("flash_attention_fwd", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv"):
+        check(launches[n] == TRAIN_LAYERS * TRAIN_STEPS,
+              f"{n} launched {launches[n]} times in {TRAIN_STEPS} steps")
+    check(launches["fused_update"] >= TRAIN_STEPS,
+          f"the update kernel launched {launches['fused_update']} times")
+    table["flash_attention_fwd_causal_8k"]["launches"] = \
+        launches["flash_attention_fwd"]
+    for n in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+              "fused_update"):
+        table[n]["launches"] = launches[n]
+
+    _, prof = profiled(torch, lambda: step(batch))
+    emit({"phase": "train_profile", **prof})
+
+
+def train_reference_phase(torch, np, dev):
+    """At f32 (full matmul precision), full width, 2 layers, seq 1024:
+    the loss and every gradient of ``grad_step`` (the kernels) against
+    ``plain_loss`` (plain versions, autograd), then one fused update
+    against its plain version on the same gradients."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.jit.train import CompiledTrainStep
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                               llama3_8b_config)
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm, clip_scale
+    from paddle_tpu_torch.ops import fused_train as ft
+    cfg = dataclasses.replace(llama3_8b_config(), num_hidden_layers=2,
+                              fuse_norm_rope=False)
+    model = LlamaForCausalLM(
+        cfg, device=dev, dtype=torch.float32,
+        generator=torch.Generator(device=dev).manual_seed(SEED + 3))
+    opt = optimizer.AdamW(learning_rate=1e-4,
+                          parameters=model.parameters(),
+                          grad_clip=ClipGradByGlobalNorm(1.0))
+    step = CompiledTrainStep(
+        model, lambda m, b: m(b["input_ids"], labels=b["labels"]), opt)
+    ids, labels = train_batch(np, cfg.vocab_size, 1, 1024)
+    batch = {"input_ids": torch.tensor(ids, device=dev),
+             "labels": torch.tensor(labels, device=dev)}
+    loss, grads = step.grad_step(batch)
+    params = step.state["params"]
+    want_loss = plain_loss(torch, model, batch["input_ids"],
+                           batch["labels"])
+    want_grads = torch.autograd.grad(want_loss, list(params.values()))
+    wl = float(want_loss.detach())
+    loss_rel = abs(float(loss) - wl) / abs(wl)
+    grad_rel = {}
+    for (n, _), w in zip(params.items(), want_grads):
+        grad_rel[n] = ((grads[n] - w).norm() / w.norm()).item()
+    del want_grads, want_loss
+    worst = max(grad_rel, key=grad_rel.get)
+
+    # one fused update: every leaf against the plain version, from the
+    # same grads, lr, step 1 and clip scale (the slots start at zero)
+    names = sorted(params)
+    old = {n: params[n].detach().clone() for n in names}
+    scale = clip_scale([grads[n] for n in names], 1.0)
+    lr, step_f = torch.tensor(1e-4, device=dev), torch.tensor(1.0,
+                                                              device=dev)
+    step.apply_grads(grads)
+    upd_err, slots_equal = 0.0, True
+    hyper = opt._fused_hyper()
+    with torch.no_grad():
+        for n in names:
+            zeros = {k: torch.zeros_like(old[n]) for k in ("moment1",
+                                                           "moment2")}
+            want_p, want_s = ft.fused_update_reference(
+                "adam", old[n], grads[n], zeros, lr=lr, step_f=step_f,
+                clip_scale=scale, hyper=hyper)
+            got_s = step.state["opt"]["slots"][n]
+            slots_equal &= all(torch.equal(got_s[k], want_s[k])
+                               for k in want_s)
+            upd_err = max(upd_err, rel_err(params[n], want_p))
+    emit({"phase": "train_reference", "dtype": "float32", "layers": 2,
+          "seq": 1024, "loss": float(loss), "loss_rel_err": loss_rel,
+          "grad_rel_l2_max": grad_rel[worst], "grad_rel_l2_worst": worst,
+          "grad_rel_l2": grad_rel, "update_param_rel_err": upd_err,
+          "update_slots_bitwise_equal": slots_equal,
+          "tolerance": {"loss_rel": 1e-5, "grad_rel_l2": 1e-4,
+                        "update_param_rel": 1e-6}})
+    check(loss_rel <= 1e-5, f"f32 loss off the plain composition by "
+                            f"{loss_rel} (relative)")
+    check(grad_rel[worst] <= 1e-4, f"gradient {worst} off the plain "
+                                   f"composition by {grad_rel[worst]}")
+    check(slots_equal and upd_err <= 1e-6,
+          f"fused update off its plain version: slots equal "
+          f"{slots_equal}, params {upd_err}")
 
 
 def main() -> int:
@@ -258,7 +684,8 @@ def main() -> int:
 
     # -- build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    built = _build.build(["ragged_paged_attention", "flash_attention_fwd"])
+    built = _build.build(["ragged_paged_attention", "flash_attention_fwd",
+                          "flash_attention_bwd", "fused_update"])
     for name, rep in built.items():
         print(f"--- ptxas report, {name}\n{rep['ptxas']}", file=sys.stderr)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -338,6 +765,10 @@ def main() -> int:
     emit({"phase": "kernel", **table["flash_attention_fwd"],
           "lse_max_abs_err": lse_err, "tolerance": TOL})
     del args, out, lse, ref_out, ref_lse, qt, kt, vt, mask_b
+
+    flash_train_kernels(torch, gen, dev, table)
+    update_kernel(torch, gen, dev, table)
+    torch.cuda.empty_cache()
 
     # -- serve Llama-3-8B through the engine's entry points
     cfg = llama3_8b_config()
@@ -462,9 +893,18 @@ def main() -> int:
         f"p{rid}": rng.integers(0, cfg.vocab_size, n).tolist()
         for rid, n in lens.items()}, max_new=8)
     emit({"phase": "profile", **prof})
+    del eng, model
+    torch.cuda.empty_cache()
 
-    emit({"kernels": [table[n] for n in ("ragged_paged_append_attend",
-                                         "flash_attention_fwd")]})
+    # -- train: the recipe's path at 8B width, then its f32 check
+    train_phase(torch, np, dev, table)
+    torch.cuda.empty_cache()
+    train_reference_phase(torch, np, dev)
+
+    emit({"kernels": [table[n] for n in (
+        "ragged_paged_append_attend", "flash_attention_fwd",
+        "flash_attention_fwd_causal_8k", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkv", "fused_update")]})
     print(smi[0], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

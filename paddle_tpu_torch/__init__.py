@@ -6,8 +6,12 @@ it is.  This package mirrors its module paths (``models/llama.py``,
 finds each counterpart, but imports only ``torch`` and ``numpy``:
 nothing of JAX and nothing of ``paddle_tpu``.
 
-What it serves today is the Llama serving path of ``LLMEngine``: the
-ragged unified step and the synchronous chunked prefill, each through a
-kernel written by hand in CUDA C++ for Hopper (``csrc/``).  Entry
-points run on the GPU unless the caller passes ``device="cpu"``.
+It ports two paths so far.  Serving: ``LLMEngine``'s ragged unified
+step and synchronous chunked prefill.  Training: ``LlamaForCausalLM``'s
+forward with the chunked linear + cross-entropy, ``amp.decorate``,
+AdamW with a global-norm clip and ``CompiledTrainStep``.  Their kernels
+(ragged paged attention, flash forward and backward, the fused clip +
+optimizer update) are written by hand in CUDA C++ for Hopper
+(``csrc/``).  Entry points run on the GPU unless the caller passes
+``device="cpu"``.
 """

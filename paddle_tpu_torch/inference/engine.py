@@ -183,10 +183,11 @@ class LLMEngine:
                  unified_step: bool = True,
                  prefill_token_budget: Optional[int] = None,
                  mesh=None, draft_model=None, device=None):
+        serving = "Port: the rest of serving"
         todo = {
-            "kv_dtype='int8'": (kv_dtype == "int8", "Port slice 2"),
-            "weight_dtype": (weight_dtype is not None, "Port slice 2"),
-            "unified_step=False": (not unified_step, "Port slice 2"),
+            "kv_dtype='int8'": (kv_dtype == "int8", serving),
+            "weight_dtype": (weight_dtype is not None, serving),
+            "unified_step=False": (not unified_step, serving),
             "decode_strategy='sampling'": (
                 decode_strategy == "sampling", "Port: remaining modules"),
             "mesh (tensor-parallel serving)": (
@@ -217,7 +218,8 @@ class LLMEngine:
         if self.device.type == "cuda" and dtype != embed.dtype:
             raise NotImplementedError(
                 f"KV pools in {dtype} under {embed.dtype} weights: the "
-                f"ragged kernel takes one dtype (ROADMAP 'Port slice 2')")
+                f"ragged kernel takes one dtype (ROADMAP 'Port: the rest "
+                f"of serving')")
         self.steps_per_sync = steps_per_sync
         self.decode_strategy = decode_strategy
         self.max_seqs = max_seqs

@@ -21,8 +21,8 @@ write into a shared page copies it first (``_make_private``), so shared
 content never changes.
 
 Not ported yet: int8 pools, swap (preemption), export/import
-(migration) and rollback (speculative decoding) — ROADMAP 'Port slice
-2' and 'Port: remaining modules'.
+(migration) and rollback (speculative decoding) — ROADMAP 'Port: the
+rest of serving' and 'Port: remaining modules'.
 """
 from __future__ import annotations
 

@@ -1,10 +1,15 @@
-"""Carry a reference model's parameters into the port.
+"""Carry a reference model's parameters and optimizer state into the
+port.
 
 ``load_raw_state_dict(model, arrays)`` takes the reference's
 ``raw_state_dict()`` converted to numpy (``{name: np.asarray(a)}``) and
 copies it 1:1 into the port's parameters: the two trees share names and
-the ``[in, out]`` Linear layout, so nothing is transposed.  Every name
-and shape is checked both ways; nothing here imports JAX.
+the ``[in, out]`` Linear layout, so nothing is transposed.
+``load_optimizer_state(step, opt_arrays)`` does the same for a
+reference ``CompiledTrainStep``'s ``state["opt"]`` (slots by parameter
+name, plus ``step``), so both frameworks can resume from one mid-run
+state.  Every name and shape is checked both ways; nothing here imports
+JAX.
 """
 from __future__ import annotations
 
@@ -15,7 +20,7 @@ import torch
 
 from ..common.errors import enforce
 
-__all__ = ["load_raw_state_dict"]
+__all__ = ["load_raw_state_dict", "load_optimizer_state"]
 
 
 @torch.no_grad()
@@ -33,3 +38,28 @@ def load_raw_state_dict(model: torch.nn.Module,
                 f"shape mismatch for {name}: {tuple(a.shape)} vs "
                 f"{tuple(p.shape)}")
         p.copy_(torch.tensor(a, dtype=p.dtype))
+
+
+@torch.no_grad()
+def load_optimizer_state(step, opt_arrays: Dict) -> None:
+    """Copy a reference optimizer state — ``{"slots": {name: {slot:
+    array}}, "step": int}`` as numpy — into the port's
+    ``CompiledTrainStep`` ``step``; its update count follows ``step``."""
+    opt = step.state["opt"]
+    slots = opt_arrays["slots"]
+    enforce(set(slots) == set(opt["slots"]),
+            f"optimizer state names differ: "
+            f"{sorted(set(slots) ^ set(opt['slots']))}")
+    for name, mine in opt["slots"].items():
+        theirs = slots[name]
+        enforce(set(theirs) == set(mine),
+                f"slots of {name} differ: {sorted(theirs)} vs {sorted(mine)}")
+        for k, t in mine.items():
+            a = np.asarray(theirs[k])
+            enforce(tuple(a.shape) == tuple(t.shape),
+                    f"shape mismatch for {name}.{k}: {tuple(a.shape)} vs "
+                    f"{tuple(t.shape)}")
+            t.copy_(torch.tensor(a, dtype=t.dtype))
+    n = int(np.asarray(opt_arrays["step"]))
+    opt["step"].fill_(n)
+    step._step_count = n

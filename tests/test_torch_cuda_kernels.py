@@ -11,12 +11,19 @@ Small shapes cover what the full-width check in ``chip_smoke.py`` does
 not: f32 and f16 as well as bf16, head_dim 64, page sizes below and
 above the 64-key tile, ragged tile edges, unused descriptors, causal
 attention with Sq < Sk, broadcast masks and GQA.  Tolerances: f32 1e-4
-(sums in another order), f16/bf16 one output rounding.
+(sums in another order), f16/bf16 one output rounding.  The flash
+backward kernels' gradients are held relative to the largest gradient
+element: f32 1e-5, f16 2e-3, bf16 1e-2 (one output rounding).  The
+update kernel must equal its plain version bit for bit in the f32 slots
+(the same f32 operations in the same order, no contraction) and within
+one ulp of the parameter's dtype (Adam's powf may differ in its last
+bit).
 """
 import pytest
 import torch
 
 from paddle_tpu_torch.ops import flash_attention as fa
+from paddle_tpu_torch.ops import fused_train as ft
 from paddle_tpu_torch.ops import paged_attention as pa
 
 pytestmark = pytest.mark.cuda
@@ -116,10 +123,127 @@ def test_flash_kernel_matches_plain(dev, dtype, b, sq, sk, h, kvh, d,
     torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-3)
 
 
+GRAD_TOL = {torch.float32: 1e-5, torch.float16: 2e-3, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.parametrize("dtype", list(TOL), ids=str)
+@pytest.mark.parametrize("b,sq,sk,h,kvh,d,causal,mshape", [
+    (2, 40, 100, 4, 4, 64, True, None),
+    (1, 130, 130, 8, 2, 128, True, None),
+    (1, 70, 70, 8, 2, 128, True, (1, 8, 1, 70)),
+    (2, 65, 130, 8, 2, 64, False, (2, 1, 65, 130)),
+    (1, 64, 192, 4, 1, 128, False, None),
+])
+def test_flash_bwd_kernels_match_plain(dev, dtype, b, sq, sk, h, kvh, d,
+                                       causal, mshape):
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    q, k, v, do = rnd(b, sq, h, d), rnd(b, sk, kvh, d), rnd(b, sk, kvh, d), \
+        rnd(b, sq, h, d)
+    mask = None
+    if mshape is not None:
+        mask = torch.randn(mshape, generator=gen, device=dev)
+        mask[..., -(sk // 4):] = -1e30
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal, mask=mask)
+    before = (fa.flash_attention_bwd_dq.launches,
+              fa.flash_attention_bwd_dkv.launches)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                 mask=mask)
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
+                                            causal=causal, mask=mask)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_bwd_dq.launches,
+            fa.flash_attention_bwd_dkv.launches) == (before[0] + 1,
+                                                     before[1] + 1)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == dtype
+        scale = w.float().abs().max().item()
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= GRAD_TOL[dtype] * scale, (name, err, scale)
+
+
+@pytest.mark.parametrize("pdtype", [torch.float32, torch.bfloat16],
+                         ids=str)
+@pytest.mark.parametrize("clip", [False, True], ids=["noclip", "clip"])
+@pytest.mark.parametrize("kind,hyper", [
+    ("sgd", {"weight_decay": 0.01, "decoupled": False}),
+    ("momentum", {"weight_decay": 0.01, "decoupled": False,
+                  "momentum": 0.9, "nesterov": True}),
+    ("adam", {"weight_decay": 0.01, "decoupled": False, "beta1": 0.9,
+              "beta2": 0.999, "epsilon": 1e-8}),
+    ("adam", {"weight_decay": 0.1, "decoupled": True, "beta1": 0.9,
+              "beta2": 0.95, "epsilon": 1e-8}),
+], ids=["sgd", "nesterov", "adam_l2", "adamw"])
+def test_update_kernel_matches_plain(dev, kind, hyper, clip, pdtype):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    n = 1_000_003                      # a ragged tail past the 8-wide loads
+    p = torch.randn(n, generator=gen, device=dev).to(pdtype)
+    g = (torch.randn(n, generator=gen, device=dev) * 0.1).to(pdtype)
+    slots = {k: torch.rand(n, generator=gen, device=dev) * 1e-3
+             for k in ft.SLOT_KEYS[kind]}
+    scal = torch.tensor([1e-3, 7.0, 0.37], device=dev)
+    want_p, want_s = ft.fused_update_reference(
+        kind, p, g, slots, lr=scal[0], step_f=scal[1],
+        clip_scale=scal[2] if clip else None, hyper=hyper)
+    before = ft.fused_update_flat.launches
+    ft.fused_update_flat(kind, p, g, slots, scalars=scal, has_clip=clip,
+                         hyper=hyper)
+    torch.cuda.synchronize()
+    assert ft.fused_update_flat.launches == before + 1
+    for k in slots:
+        assert torch.equal(slots[k], want_s[k]), k
+    ulp = torch.finfo(pdtype).eps * want_p.float().abs().clamp(min=1e-30)
+    assert ((p.float() - want_p.float()).abs() <= ulp).all()
+
+
 def test_kernels_refuse_what_they_do_not_take(dev):
     q = torch.zeros(1, 8, 2, 32, device=dev, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="head_dim"):
         fa.flash_attention_fwd(q, q, q)
+    lse = torch.zeros(1, 2, 8, device=dev)
+    with pytest.raises(NotImplementedError, match="head_dim"):
+        fa.flash_attention_bwd(q, q, q, q, lse, q)
     q = torch.zeros(1, 8, 2, 64, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="one dtype"):
         fa.flash_attention_fwd(q.float(), q, q)
+    with pytest.raises(ValueError, match="one dtype"):
+        fa.flash_attention_bwd(q, q, q, q, lse, q.float())
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_bwd(q, q, q, q, lse.double(), q)
+    p = torch.zeros(64, device=dev, dtype=torch.bfloat16)
+    hyper = {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8}
+    scal = torch.ones(3, device=dev)
+    bf16_slots = {"moment1": p.clone(), "moment2": p.clone()}
+    with pytest.raises(ValueError, match="f32 slots"):
+        ft.fused_update_flat("adam", p, p, bf16_slots, scalars=scal,
+                             has_clip=False, hyper=hyper)
+    slots = {k: torch.zeros(64, device=dev) for k in bf16_slots}
+    with pytest.raises(ValueError, match="aligned"):
+        ft.fused_update_flat("adam", p[1:33], p[:32],
+                             {k: s[:32] for k, s in slots.items()},
+                             scalars=scal, has_clip=False, hyper=hyper)
+
+
+def test_plain_paths_refuse_cuda_tensors(dev):
+    """The settings that would run plain PyTorch instead of a kernel
+    raise on the card: ``use_flash_attention=False``,
+    ``fused_step=False`` and the per-leaf ``apply_gradients``."""
+    from paddle_tpu_torch import optimizer as optim
+    from paddle_tpu_torch.jit.train import CompiledTrainStep
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                               llama_tiny_config)
+    cfg = llama_tiny_config()
+    cfg.fuse_norm_rope = False
+    cfg.use_flash_attention = False
+    m = LlamaForCausalLM(cfg, device=dev)
+    with pytest.raises(NotImplementedError, match="flash kernels"):
+        m(torch.zeros(1, 8, dtype=torch.long, device=dev))
+    opt = optim.AdamW(learning_rate=1e-3, parameters=m.parameters())
+    with pytest.raises(NotImplementedError, match="fused_step=False"):
+        CompiledTrainStep(m, lambda mm, b: mm(b["x"]), opt, fused_step=False)
+    params = dict(m.named_parameters())
+    with pytest.raises(NotImplementedError, match="CPU tensors only"):
+        opt.apply_gradients(params, params, opt.init_state(params))
