@@ -16,9 +16,14 @@ just before and read just after:
   plain forward;
 - training: Llama-3-8B width cut to 8 layers, bf16 (amp O2), seq 8192,
   batch 1, AdamW with a global-norm clip, through ``CompiledTrainStep``
-  for 5 steps; then at f32, 2 layers, seq 1024, the loss and every
-  gradient against a composition of plain versions, and one fused
-  update against its plain version.
+  for 5 steps, on the unfused chain without remat;
+- training on the reference's headline recipe: the same at 16 layers
+  with the fused add+RMSNorm and matmul+rope regions
+  (``fuse_norm_rope=True``) and ``recompute_granularity="core_attn"``;
+  then at f32, 2 layers, seq 1024, the loss and every gradient of the
+  unfused chain and of the fused chain under each recompute policy
+  against a composition of plain versions, and one fused update against
+  its plain version.
 
 Each phase prints one JSON line; the last three lines are the kernel
 table, the card's name and power limit as nvidia-smi reports them, and
@@ -28,6 +33,7 @@ table, the card's name and power limit as nvidia-smi reports them, and
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -49,6 +55,7 @@ GRAD_TOL = 2e-2
 REL_L2_TOL = 2.0 ** -7
 SEED = 0
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_STEPS = 8, 8192, 5
+FUSED_LAYERS = 16          # the headline recipe with core_attn remat
 VOCAB = 128256
 
 
@@ -216,7 +223,9 @@ def kernel_family(name):
                      ("flash_fwd", "flash_fwd"),
                      ("flash_bwd_dq", "flash_bwd_dq"),
                      ("flash_bwd_dkv", "flash_bwd_dkv"),
-                     ("fused_update", "fused_update")):
+                     ("fused_update", "fused_update"),
+                     ("add_norm", "add_norm"),
+                     ("matmul_rope", "matmul_rope")):
         if key in name:
             return fam
     low = name.lower()
@@ -491,10 +500,135 @@ def update_kernel(torch, gen, dev, table):
     table["fused_update"] = row
 
 
-def train_phase(torch, np, dev, table):
-    """Llama-3-8B width, 8 layers, bf16 (amp O2), seq 8192, batch 1:
-    the recipe's model -> decorate -> AdamW(clip) -> CompiledTrainStep,
-    TRAIN_STEPS steps on one repeated batch, then one traced step."""
+def rel_l2(got, want):
+    return ((got.float() - want.float()).norm()
+            / want.float().norm()).item()
+
+
+def add_norm_kernel(torch, gen, dev, table):
+    """The add+norm kernel (#9) at the training shape: the post-attention
+    residual add of one layer, x (the attention output) and r (the
+    residual) [1, 8192, 4096] bf16, w [4096] bf16; the RMS body, which
+    the fused training path runs, and the LayerNorm body with a bias,
+    whose path (``nn/transformer.py``) is not ported yet.  h must equal
+    its plain version; y within 2^-7 relative L2."""
+    from paddle_tpu_torch.ops import fused_train as ft
+    shape, hdim = (1, TRAIN_SEQ, 4096), 4096
+    x, r = (torch.randn(shape, generator=gen, device=dev,
+                        dtype=torch.bfloat16) for _ in range(2))
+    w = (1 + 0.1 * torch.randn(hdim, generator=gen, device=dev)).to(
+        torch.bfloat16)
+    b = (0.1 * torch.randn(hdim, generator=gen, device=dev)).to(
+        torch.bfloat16)
+    n = x.numel()
+    for name, run, plain, vectors, flops in (
+            ("add_rms_norm",
+             lambda: ft.add_rms_norm_raw(x, r, w, 1e-5),
+             lambda: ft.add_rms_norm_reference(x, r, w, 1e-5), 1, 5),
+            ("add_layer_norm",
+             lambda: ft.add_layer_norm_raw(x, r, w, b, 1e-5),
+             lambda: ft.add_layer_norm_reference(x, r, w, b, 1e-5), 2, 9)):
+        (h, y), (want_h, want_y) = run(), plain()
+        torch.cuda.synchronize()
+        err = rel_l2(y, want_y)
+        check(torch.equal(h, want_h), f"{name}: h differs from r + x")
+        check(err <= REL_L2_TOL, f"{name} kernel off its plain version: "
+                                 f"relative L2 {err}")
+        # x and r read, h and y written (bf16), the weight (and bias)
+        bound, bound_by = bound_ms(4 * n * 2 + vectors * hdim * 2,
+                                   flops * n, peak=PEAK_F32_FLOPS)
+        row = {"name": "add_norm" if name == "add_rms_norm" else name,
+               "route": "cuda", "source": "paddle_tpu_torch/csrc/add_norm.cu",
+               "replaces": "paddle_tpu/ops/pallas/fused_train.py:322",
+               "max_abs_err": (y.float() - want_y.float()).abs().max().item(),
+               "ms": timed_ms(torch, run, 20),
+               "plain_ms": timed_ms(torch, plain, 5),
+               "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+        emit({"phase": "kernel", **row, "body": name, "shape": list(shape),
+              "rel_l2_err": err, "h_equal": True,
+              "tolerance": {"rel_l2_err": REL_L2_TOL},
+              "library_note": "no single PyTorch call adds the residual "
+                              "and normalises"})
+        if name == "add_rms_norm":
+            table["add_norm"] = row
+        del h, y, want_h, want_y
+
+
+def matmul_rope_kernel(torch, np, gen, dev, table):
+    """The matmul+rope kernel (#10) at the training shape: x [1, 8192,
+    4096] bf16 against Wq [4096, 4096] (32 heads) and Wk [4096, 1024] (8
+    heads), head_dim 128, the rope tables [8192, 128] in bf16 as amp O2
+    leaves them; each within 2^-7 relative L2 of its plain version.  The
+    library figure is torch.matmul of the same product alone.  Then the
+    f32 path (exact FMA products) at seq 1024 against its plain version
+    (relative L2 1e-5: f32 sums in another order)."""
+    from paddle_tpu_torch.models.llama import _rope_cos_sin
+    from paddle_tpu_torch.ops import fused_train as ft
+    s, hidden, hd = TRAIN_SEQ, 4096, 128
+    ang = _rope_cos_sin(s, hd, 500000.0)
+    cos, sin = (torch.from_numpy(f(ang)).to(dev, torch.bfloat16)
+                for f in (np.cos, np.sin))
+    x = torch.randn((1, s, hidden), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    for proj, heads in (("q", 32), ("k", 8)):
+        w = (0.02 * torch.randn(hidden, heads * hd, generator=gen,
+                                device=dev)).to(torch.bfloat16)
+
+        def run():
+            return ft.matmul_rope_raw(x, w, cos, sin, n_heads=heads,
+                                      head_dim=hd)
+
+        def plain():
+            return ft.matmul_rope_reference(x, w, cos, sin, heads, hd)
+
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        err = rel_l2(got, want)
+        check(got.shape == (1, s, heads, hd) and err <= REL_L2_TOL,
+              f"matmul_rope ({proj}) off its plain version: relative L2 "
+              f"{err}")
+        n_out = s * heads * hd
+        bound, bound_by = bound_ms(
+            (x.numel() + w.numel() + n_out + 2 * s * hd) * 2,
+            2 * s * hidden * heads * hd)
+        row = {"name": "matmul_rope", "route": "cuda",
+               "source": "paddle_tpu_torch/csrc/matmul_rope.cu",
+               "replaces": "paddle_tpu/ops/pallas/fused_train.py:501",
+               "max_abs_err": (got.float() - want.float()).abs().max().item(),
+               "ms": timed_ms(torch, run, 10),
+               "plain_ms": timed_ms(torch, plain, 5),
+               "bound_ms": bound, "bound_by": bound_by,
+               "library_ms": timed_ms(torch, lambda: torch.matmul(x, w), 10)}
+        emit({"phase": "kernel", **row, "projection": proj,
+              "shape": [1, s, hidden], "heads": heads, "head_dim": hd,
+              "rel_l2_err": err, "tolerance": {"rel_l2_err": REL_L2_TOL},
+              "library_note": "torch.matmul of the product alone (no "
+                              "rope)"})
+        if proj == "q":
+            table["matmul_rope"] = row
+        del got, want
+    s32 = min(1024, s)
+    x32 = torch.randn((1, s32, hidden), generator=gen, device=dev)
+    w32 = 0.02 * torch.randn(hidden, 32 * hd, generator=gen, device=dev)
+    c32, s32t = cos[:s32].float(), sin[:s32].float()
+    got = ft.matmul_rope_raw(x32, w32, c32, s32t, n_heads=32, head_dim=hd)
+    want = ft.matmul_rope_reference(x32, w32, c32, s32t, 32, hd)
+    torch.cuda.synchronize()
+    err = rel_l2(got, want)
+    emit({"phase": "check", "what": "matmul_rope f32 (FMA path)",
+          "shape": [1, s32, hidden], "heads": 32, "rel_l2_err": err,
+          "tolerance": 1e-5})
+    check(err <= 1e-5, f"f32 matmul_rope off its plain version: {err}")
+
+
+def train_phase(torch, np, dev, table, *, phase, layers, fused):
+    """Llama-3-8B width, ``layers`` layers, bf16 (amp O2), seq 8192,
+    batch 1: the recipe's model -> decorate -> AdamW(clip) ->
+    CompiledTrainStep, TRAIN_STEPS steps on one repeated batch, then one
+    traced step.  ``fused``: the headline recipe's fused regions
+    (``fuse_norm_rope=True``) with ``core_attn`` remat; else the unfused
+    chain without remat.  Every kernel of the path must launch exactly
+    as often as the model's structure says."""
     from paddle_tpu_torch import amp, optimizer
     from paddle_tpu_torch.jit.train import CompiledTrainStep
     from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
@@ -502,9 +636,9 @@ def train_phase(torch, np, dev, table):
     from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import fused_train as ft
-    cfg = dataclasses.replace(llama3_8b_config(),
-                              num_hidden_layers=TRAIN_LAYERS,
-                              fuse_norm_rope=False)
+    cfg = dataclasses.replace(llama3_8b_config(), num_hidden_layers=layers,
+                              fuse_norm_rope=fused, recompute=fused,
+                              recompute_granularity="core_attn")
     t0 = time.perf_counter()
     model = LlamaForCausalLM(
         cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(
@@ -521,13 +655,23 @@ def train_phase(torch, np, dev, table):
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
+    state_bytes = torch.cuda.memory_allocated()   # params and moments
 
-    counters = {"flash_attention_fwd": fa.flash_attention_fwd,
-                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
-                "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
-                "fused_update": ft.fused_update_flat}
+    # kernel: (wrapper, launches a step).  The update runs once for each
+    # of the 7 projections of a layer, the embedding and the head, and
+    # once for the packed norm weights.  Under core_attn the recompute
+    # reruns the add+norm and the q and k matmul+rope kernels of every
+    # layer, but not the flash forward (its output is kept).
+    counters = {
+        "flash_attention_fwd": (fa.flash_attention_fwd, layers),
+        "flash_attention_bwd_dq": (fa.flash_attention_bwd_dq, layers),
+        "flash_attention_bwd_dkv": (fa.flash_attention_bwd_dkv, layers),
+        "fused_update": (ft.fused_update_flat, 7 * layers + 3)}
+    if fused:
+        counters["add_norm"] = (ft.add_rms_norm_raw, 2 * layers)
+        counters["matmul_rope"] = (ft.matmul_rope_raw, 4 * layers)
     torch.cuda.reset_peak_memory_stats()
-    for fn in counters.values():
+    for fn, _ in counters.values():
         fn.launches = 0
     losses, times = [], []
     for _ in range(TRAIN_STEPS):
@@ -535,7 +679,8 @@ def train_phase(torch, np, dev, table):
         losses.append(step(batch))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
-    launches = {n: fn.launches for n, fn in counters.items()}
+    launches = {n: fn.launches for n, (fn, _) in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
     losses = [float(x) for x in losses]
     step_s = sum(times[1:]) / (len(times) - 1)    # the first one warms up
     tok_s = TRAIN_SEQ / step_s
@@ -547,16 +692,18 @@ def train_phase(torch, np, dev, table):
     sigma = cfg.initializer_range * math.sqrt(h)
     init_loss = math.log(cfg.vocab_size) + sigma ** 2 / 2
     f6n = 6 * n_params
-    fattn = f6n + 6 * TRAIN_LAYERS * TRAIN_SEQ * h
-    emit({"phase": "train", "model": "llama3_8b width", "layers":
-          TRAIN_LAYERS, "dtype": "bfloat16", "seq": TRAIN_SEQ, "batch": 1,
+    fattn = f6n + 6 * layers * TRAIN_SEQ * h
+    emit({"phase": phase, "model": "llama3_8b width", "layers": layers,
+          "fuse_norm_rope": fused,
+          "recompute": "core_attn" if fused else None,
+          "dtype": "bfloat16", "seq": TRAIN_SEQ, "batch": 1,
           "params": n_params, "setup_s": setup_s, "step_s": times,
           "mean_step_s": step_s, "tokens_per_s": tok_s,
           "mfu_6n": f6n * tok_s / PEAK_BF16_FLOPS,
           "mfu_6n_attn": fattn * tok_s / PEAK_BF16_FLOPS,
           "losses": losses, "ln_vocab": math.log(cfg.vocab_size),
           "expected_first_loss": init_loss,
-          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "state_bytes": state_bytes, "max_memory_allocated": peak,
           "launches": launches,
           "launches_per_step": {n: c / TRAIN_STEPS
                                 for n, c in launches.items()}})
@@ -564,58 +711,95 @@ def train_phase(torch, np, dev, table):
     check(abs(losses[0] - init_loss) <= 0.5,
           f"first loss {losses[0]} not within 0.5 of {init_loss}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
-    for n in ("flash_attention_fwd", "flash_attention_bwd_dq",
-              "flash_attention_bwd_dkv"):
-        check(launches[n] == TRAIN_LAYERS * TRAIN_STEPS,
-              f"{n} launched {launches[n]} times in {TRAIN_STEPS} steps")
-    check(launches["fused_update"] >= TRAIN_STEPS,
-          f"the update kernel launched {launches['fused_update']} times")
+    check(peak < 80e9, f"peak memory {peak} bytes, not under 80 GB")
+    for n, (_, per_step) in counters.items():
+        check(launches[n] == per_step * TRAIN_STEPS,
+              f"{n} launched {launches[n]} times in {TRAIN_STEPS} steps, "
+              f"not {per_step} a step")
     table["flash_attention_fwd_causal_8k"]["launches"] = \
         launches["flash_attention_fwd"]
-    for n in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-              "fused_update"):
-        table[n]["launches"] = launches[n]
+    for n in launches:
+        if n != "flash_attention_fwd":
+            table[n]["launches"] = launches[n]
 
     _, prof = profiled(torch, lambda: step(batch))
-    emit({"phase": "train_profile", **prof})
+    emit({"phase": f"{phase}_profile", **prof})
 
 
 def train_reference_phase(torch, np, dev):
     """At f32 (full matmul precision), full width, 2 layers, seq 1024:
     the loss and every gradient of ``grad_step`` (the kernels) against
-    ``plain_loss`` (plain versions, autograd), then one fused update
-    against its plain version on the same gradients."""
+    ``plain_loss`` (plain versions, autograd) -- for the unfused chain,
+    and for the fused chain (the add+norm and matmul+rope kernels) with
+    recompute off and under each policy, from the same weights -- then
+    one fused update against its plain version on the same gradients."""
     from paddle_tpu_torch import optimizer
     from paddle_tpu_torch.jit.train import CompiledTrainStep
     from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
                                                llama3_8b_config)
     from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm, clip_scale
+    from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import fused_train as ft
-    cfg = dataclasses.replace(llama3_8b_config(), num_hidden_layers=2,
-                              fuse_norm_rope=False)
-    model = LlamaForCausalLM(
-        cfg, device=dev, dtype=torch.float32,
-        generator=torch.Generator(device=dev).manual_seed(SEED + 3))
-    opt = optimizer.AdamW(learning_rate=1e-4,
-                          parameters=model.parameters(),
-                          grad_clip=ClipGradByGlobalNorm(1.0))
-    step = CompiledTrainStep(
-        model, lambda m, b: m(b["input_ids"], labels=b["labels"]), opt)
-    ids, labels = train_batch(np, cfg.vocab_size, 1, 1024)
+    layers = 2
+
+    def build(fused):
+        cfg = dataclasses.replace(llama3_8b_config(),
+                                  num_hidden_layers=layers,
+                                  fuse_norm_rope=fused)
+        model = LlamaForCausalLM(
+            cfg, device=dev, dtype=torch.float32,
+            generator=torch.Generator(device=dev).manual_seed(SEED + 3))
+        opt = optimizer.AdamW(learning_rate=1e-4,
+                              parameters=model.parameters(),
+                              grad_clip=ClipGradByGlobalNorm(1.0))
+        return model, opt, CompiledTrainStep(
+            model, lambda m, b: m(b["input_ids"], labels=b["labels"]), opt)
+
+    model, opt, step = build(False)
+    ids, labels = train_batch(np, model.config.vocab_size, 1, 1024)
     batch = {"input_ids": torch.tensor(ids, device=dev),
              "labels": torch.tensor(labels, device=dev)}
     loss, grads = step.grad_step(batch)
     params = step.state["params"]
     want_loss = plain_loss(torch, model, batch["input_ids"],
                            batch["labels"])
-    want_grads = torch.autograd.grad(want_loss, list(params.values()))
+    want_grads = dict(zip(params, torch.autograd.grad(
+        want_loss, list(params.values()))))
     wl = float(want_loss.detach())
-    loss_rel = abs(float(loss) - wl) / abs(wl)
-    grad_rel = {}
-    for (n, _), w in zip(params.items(), want_grads):
-        grad_rel[n] = ((grads[n] - w).norm() / w.norm()).item()
-    del want_grads, want_loss
-    worst = max(grad_rel, key=grad_rel.get)
+    del want_loss
+
+    def errors(loss, grads):
+        rel = {n: ((grads[n] - w).norm() / w.norm()).item()
+               for n, w in want_grads.items()}
+        worst = max(rel, key=rel.get)
+        return abs(float(loss) - wl) / abs(wl), rel, worst
+
+    loss_rel, grad_rel, worst = errors(loss, grads)
+
+    # the fused chain from the same weights, under each policy; the
+    # recompute must not relaunch the flash forward under core_attn
+    fmodel, _, fstep = build(True)
+    fused = {}
+    for policy, flash_per_layer in ((None, 1), ("full", 2),
+                                    ("core_attn", 1), ("dots", 2)):
+        fmodel.config.recompute = policy is not None
+        fmodel.config.recompute_granularity = policy or "full"
+        fa.flash_attention_fwd.launches = 0
+        floss, fgrads = fstep.grad_step(batch)
+        f_loss_rel, f_rel, f_worst = errors(floss, fgrads)
+        fused[str(policy)] = {
+            "loss_rel_err": f_loss_rel, "grad_rel_l2_max": f_rel[f_worst],
+            "grad_rel_l2_worst": f_worst,
+            "flash_fwd_launches": fa.flash_attention_fwd.launches}
+        check(f_loss_rel <= 1e-5 and f_rel[f_worst] <= 1e-4,
+              f"fused chain, recompute {policy}: loss off the plain "
+              f"composition by {f_loss_rel}, gradient {f_worst} by "
+              f"{f_rel[f_worst]}")
+        check(fa.flash_attention_fwd.launches == flash_per_layer * layers,
+              f"recompute {policy}: the flash forward launched "
+              f"{fa.flash_attention_fwd.launches} times in one step")
+        del fgrads
+    del fmodel, fstep, want_grads
 
     # one fused update: every leaf against the plain version, from the
     # same grads, lr, step 1 and clip scale (the slots start at zero)
@@ -638,10 +822,12 @@ def train_reference_phase(torch, np, dev):
             slots_equal &= all(torch.equal(got_s[k], want_s[k])
                                for k in want_s)
             upd_err = max(upd_err, rel_err(params[n], want_p))
-    emit({"phase": "train_reference", "dtype": "float32", "layers": 2,
-          "seq": 1024, "loss": float(loss), "loss_rel_err": loss_rel,
-          "grad_rel_l2_max": grad_rel[worst], "grad_rel_l2_worst": worst,
-          "grad_rel_l2": grad_rel, "update_param_rel_err": upd_err,
+    emit({"phase": "train_reference", "dtype": "float32",
+          "layers": layers, "seq": 1024, "loss": float(loss),
+          "loss_rel_err": loss_rel, "grad_rel_l2_max": grad_rel[worst],
+          "grad_rel_l2_worst": worst, "grad_rel_l2": grad_rel,
+          "fused_chain_by_recompute": fused,
+          "update_param_rel_err": upd_err,
           "update_slots_bitwise_equal": slots_equal,
           "tolerance": {"loss_rel": 1e-5, "grad_rel_l2": 1e-4,
                         "update_param_rel": 1e-6}})
@@ -685,7 +871,8 @@ def main() -> int:
     # -- build: one nvcc per source, all started together
     t0 = time.perf_counter()
     built = _build.build(["ragged_paged_attention", "flash_attention_fwd",
-                          "flash_attention_bwd", "fused_update"])
+                          "flash_attention_bwd", "fused_update", "add_norm",
+                          "matmul_rope"])
     for name, rep in built.items():
         print(f"--- ptxas report, {name}\n{rep['ptxas']}", file=sys.stderr)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -768,6 +955,8 @@ def main() -> int:
 
     flash_train_kernels(torch, gen, dev, table)
     update_kernel(torch, gen, dev, table)
+    add_norm_kernel(torch, gen, dev, table)
+    matmul_rope_kernel(torch, np, gen, dev, table)
     torch.cuda.empty_cache()
 
     # -- serve Llama-3-8B through the engine's entry points
@@ -858,6 +1047,9 @@ def main() -> int:
         generator=torch.Generator(device=dev).manual_seed(SEED + 1))
     eng32 = LLMEngine(model32, max_seqs=8, max_len=2048, page_size=128)
     rep = {"prompt_len": len(ids)}
+    # (the loop's names are deleted with the models below: a loop
+    # variable left bound would keep the 8B serving model alive through
+    # the training phases)
     for name, m, e, tol in (("f32_2_layers", model32, eng32, 1e-4),
                             ("bf16_32_layers", model, eng, 0.2)):
         slot = e.cache.allocate(len(ids) + 1)
@@ -885,7 +1077,7 @@ def main() -> int:
     emit({"phase": "reference", **rep})
     check(rep["f32_2_layers"]["greedy_tokens_equal"],
           f"greedy tokens {eng32.result('r')} != dense {want_toks}")
-    del eng32, model32
+    del eng32, model32, m, e
 
     # -- where a serving step's time goes: the same mix, traced
     # (fresh prompts of the same lengths: no prefix-cache hits)
@@ -896,15 +1088,24 @@ def main() -> int:
     del eng, model
     torch.cuda.empty_cache()
 
-    # -- train: the recipe's path at 8B width, then its f32 check
-    train_phase(torch, np, dev, table)
+    # -- train at 8B width: the unfused chain, then the headline recipe
+    # (fused regions, core_attn remat) at twice the depth; then the f32
+    # checks of both chains
+    train_phase(torch, np, dev, table, phase="train", layers=TRAIN_LAYERS,
+                fused=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_phase(torch, np, dev, table, phase="train_fused",
+                layers=FUSED_LAYERS, fused=True)
+    gc.collect()
     torch.cuda.empty_cache()
     train_reference_phase(torch, np, dev)
 
     emit({"kernels": [table[n] for n in (
         "ragged_paged_append_attend", "flash_attention_fwd",
         "flash_attention_fwd_causal_8k", "flash_attention_bwd_dq",
-        "flash_attention_bwd_dkv", "fused_update")]})
+        "flash_attention_bwd_dkv", "fused_update", "add_norm",
+        "matmul_rope")]})
     print(smi[0], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

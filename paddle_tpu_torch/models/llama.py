@@ -16,9 +16,14 @@ under ``torch.no_grad`` (``inference/engine.py``).
 ``cache is None`` path: RMSNorm with f32 statistics, projections, rope
 in f32 on ``[B, S, H, D]``, causal flash attention (its forward and
 backward kernels), SwiGLU, and the chunked linear + cross-entropy when
-``labels`` are given.  The reference's fused step regions
-(``fuse_norm_rope=True``, bit-identical to the unfused chain there) and
-its remat, sequence-parallel and other model-family knobs raise here.
+``labels`` are given.  With ``fuse_norm_rope`` (the default) it takes
+the reference's fused chain: q and k through the matmul+rope kernel,
+the post-attention residual add through the add+RMSNorm kernel
+(``nn/functional.py`` -> ``ops/fused_train.py``); the input and final
+norms stay plain, as there.  ``recompute`` recomputes every decoder
+layer in the backward under ``recompute_granularity`` ("full",
+"core_attn" or "dots", ``jit/recompute.py``).  ``sequence_parallel``
+and the other model-family knobs raise.
 """
 from __future__ import annotations
 
@@ -30,8 +35,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..jit.recompute import product, recompute
 from ..nn import functional as F
+from ..nn.norm import RMSNorm
 from ..ops import _nn
+from ..ops.fused_train import _rotate_half
 from ..runtime.device import resolve_device
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM",
@@ -55,14 +63,15 @@ class LlamaConfig:
     attention_bias: bool = False
     rope_interleaved: bool = False
     fuse_qkv: bool = False
-    # the reference's fused add+norm and matmul+rope regions; the port's
-    # training forward takes only the unfused chain (False), which the
-    # reference documents as bit-identical
+    # fused step regions (ops/fused_train): rope applied in the q/k
+    # projections' output write + residual add fused into the
+    # post-attention RMSNorm; the reference documents them bit-identical
+    # to False (the unfused chain)
     fuse_norm_rope: bool = True
     use_flash_attention: bool = True
     sequence_parallel: bool = False
     recompute: bool = False
-    recompute_granularity: str = "full"
+    recompute_granularity: str = "full"   # "full" | "core_attn" | "dots"
     fuse_linear_cross_entropy: bool = True
 
 
@@ -76,11 +85,7 @@ def _model_knobs(c: LlamaConfig):
 
 
 def _forward_knobs(c: LlamaConfig):
-    return [("fuse_norm_rope=True", c.fuse_norm_rope,
-             "Port: fused step regions and recompute"),
-            ("recompute=True", c.recompute,
-             "Port: fused step regions and recompute"),
-            ("sequence_parallel=True", c.sequence_parallel,
+    return [("sequence_parallel=True", c.sequence_parallel,
              "Port: remaining modules")]
 
 
@@ -115,11 +120,6 @@ def _rope_cos_sin(seq_len: int, head_dim: int, theta: float,
     return emb.astype(dtype)
 
 
-def _rotate_half(x: torch.Tensor) -> torch.Tensor:
-    half = x.shape[-1] // 2
-    return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
-
-
 class _Init:
     """Seeded parameter factory: every tensor is drawn on ``device``
     from one generator, in module-construction order."""
@@ -133,20 +133,22 @@ class _Init:
         w.normal_(0.0, std, generator=self.gen)
         return nn.Parameter(w)
 
-    def ones(self, shape) -> nn.Parameter:
-        return nn.Parameter(torch.ones(shape, device=self.device,
-                                       dtype=self.dtype))
+    def rms_norm(self, dim: int, eps: float) -> RMSNorm:
+        return RMSNorm(dim, eps, device=self.device, dtype=self.dtype)
 
 
 class Linear(nn.Module):
-    """Bias-free projection with Paddle's ``[in, out]`` weight."""
+    """Bias-free projection with Paddle's ``[in, out]`` weight.  Its
+    output is a "dot" to the recompute policies (``names``)."""
 
-    def __init__(self, init: _Init, d_in: int, d_out: int, std: float):
+    def __init__(self, init: _Init, d_in: int, d_out: int, std: float,
+                 names=("dot",)):
         super().__init__()
         self.weight = init.normal((d_in, d_out), std)
+        self.names = names
 
     def forward(self, x):
-        return x @ self.weight
+        return product(x, self.weight, self.names)
 
 
 class Embedding(nn.Module):
@@ -156,16 +158,6 @@ class Embedding(nn.Module):
 
     def forward(self, ids):
         return nn.functional.embedding(ids, self.weight)
-
-
-class RMSNorm(nn.Module):
-    def __init__(self, init: _Init, dim: int, eps: float):
-        super().__init__()
-        self.weight = init.ones((dim,))
-        self.eps = eps
-
-    def forward(self, x):
-        return _nn.rms_norm(x, self.weight, epsilon=self.eps)
 
 
 def _apply_rope(q, k, cos, sin):
@@ -191,17 +183,31 @@ class LlamaAttention(nn.Module):
                              self.num_kv_heads * self.head_dim, std)
         self.v_proj = Linear(init, c.hidden_size,
                              self.num_kv_heads * self.head_dim, std)
+        # its output is the reference's "attn_out" (the residual that
+        # "core_attn" remat keeps)
         self.o_proj = Linear(init, self.num_heads * self.head_dim,
-                             c.hidden_size, out_std)
+                             c.hidden_size, out_std,
+                             names=("dot", "attn_out"))
         self.use_flash = c.use_flash_attention
+        # the reference also needs fuse_qkv off and no q/k/v bias for the
+        # fused chain; the port refuses both at construction
+        self.fuse_norm_rope = c.fuse_norm_rope
 
     def forward(self, x, cos_sin):
         b, s, _ = x.shape
         cos, sin = cos_sin
-        q = self.q_proj(x).view(b, s, self.num_heads, self.head_dim)
-        k = self.k_proj(x).view(b, s, self.num_kv_heads, self.head_dim)
-        v = self.v_proj(x).view(b, s, self.num_kv_heads, self.head_dim)
-        q, k = _apply_rope(q, k, cos, sin)
+        if self.fuse_norm_rope:
+            # rope rides the q/k projections' output write (the
+            # matmul+rope kernel); v is a plain projection
+            q, k, v = F.qkv_rope(
+                x, self.q_proj.weight, self.k_proj.weight,
+                self.v_proj.weight, cos, sin, n_heads=self.num_heads,
+                n_kv=self.num_kv_heads, head_dim=self.head_dim)
+        else:
+            q = self.q_proj(x).view(b, s, self.num_heads, self.head_dim)
+            k = self.k_proj(x).view(b, s, self.num_kv_heads, self.head_dim)
+            v = self.v_proj(x).view(b, s, self.num_kv_heads, self.head_dim)
+            q, k = _apply_rope(q, k, cos, sin)
         if self.use_flash:
             out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
         elif x.device.type == "cpu":
@@ -234,15 +240,26 @@ class LlamaMLP(nn.Module):
 class LlamaDecoderLayer(nn.Module):
     def __init__(self, c: LlamaConfig, init: _Init):
         super().__init__()
-        self.input_layernorm = RMSNorm(init, c.hidden_size, c.rms_norm_eps)
+        self.input_layernorm = init.rms_norm(c.hidden_size, c.rms_norm_eps)
         self.self_attn = LlamaAttention(c, init)
-        self.post_attention_layernorm = RMSNorm(init, c.hidden_size,
-                                                c.rms_norm_eps)
+        self.post_attention_layernorm = init.rms_norm(c.hidden_size,
+                                                      c.rms_norm_eps)
         self.mlp = LlamaMLP(c, init)
+        self.fuse_chain = c.fuse_norm_rope
+
+    def _post_attn(self, x, attn):
+        """Residual add + post-attention RMSNorm + MLP residual."""
+        if self.fuse_chain:
+            # the attention residual's write and the norm's read share
+            # one pass (the add+norm kernel)
+            x, hn = self.post_attention_layernorm.forward_residual(attn, x)
+            return x + self.mlp(hn)
+        x = x + attn
+        return x + self.mlp(self.post_attention_layernorm(x))
 
     def forward(self, x, cos_sin):
-        x = x + self.self_attn(self.input_layernorm(x), cos_sin)
-        return x + self.mlp(self.post_attention_layernorm(x))
+        return self._post_attn(
+            x, self.self_attn(self.input_layernorm(x), cos_sin))
 
 
 class LlamaModel(nn.Module):
@@ -253,7 +270,7 @@ class LlamaModel(nn.Module):
                                       c.initializer_range)
         self.layers = nn.ModuleList([LlamaDecoderLayer(c, init)
                                      for _ in range(c.num_hidden_layers)])
-        self.norm = RMSNorm(init, c.hidden_size, c.rms_norm_eps)
+        self.norm = init.rms_norm(c.hidden_size, c.rms_norm_eps)
         head_dim = c.hidden_size // c.num_attention_heads
         rope = _rope_cos_sin(c.max_position_embeddings, head_dim,
                              c.rope_theta)
@@ -264,12 +281,18 @@ class LlamaModel(nn.Module):
             np.sin(rope)).to(init.device), persistent=False)
 
     def forward(self, input_ids):
-        _refuse(_forward_knobs(self.config), " in the training forward")
+        c = self.config
+        _refuse(_forward_knobs(c), " in the training forward")
         s = input_ids.shape[1]
         cos_sin = (self.rope_cos[:s], self.rope_sin[:s])
         x = self.embed_tokens(input_ids)
         for layer in self.layers:
-            x = layer(x, cos_sin)
+            if c.recompute:
+                gran = c.recompute_granularity
+                x = recompute(layer, x, cos_sin,
+                              policy=None if gran == "full" else gran)
+            else:
+                x = layer(x, cos_sin)
         return self.norm(x)
 
 

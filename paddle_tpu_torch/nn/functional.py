@@ -1,11 +1,15 @@
-"""The attention entry points of ``paddle.nn.functional`` (a subset of
-``paddle_tpu/nn/functional.py``).
+"""The attention and fused-region entry points of
+``paddle.nn.functional`` (a subset of ``paddle_tpu/nn/functional.py``).
 
 ``scaled_dot_product_attention`` routes through the flash kernels and
 their autograd Function (``ops/flash_attention.py``): on the card the
 forward, dQ and dK/dV kernels, on the CPU their plain versions.  The
 reference's context-parallel (``sep`` mesh axis) branch has no
 counterpart: the port has no device mesh yet.
+
+``add_rms_norm``, ``add_layer_norm`` and ``qkv_rope`` are the fused step
+regions of ``ops/fused_train.py`` (the add+norm and matmul+rope
+kernels).
 """
 from __future__ import annotations
 
@@ -13,10 +17,12 @@ import math
 
 import torch
 
+from ..ops import fused_train as _ft
 from ..ops.flash_attention import flash_attention_raw
 
 __all__ = ["scaled_dot_product_attention",
-           "scaled_dot_product_attention_ref"]
+           "scaled_dot_product_attention_ref", "add_rms_norm",
+           "add_layer_norm", "qkv_rope"]
 
 _NEG_INF = -1e30
 
@@ -53,8 +59,8 @@ def scaled_dot_product_attention_ref(query, key, value, attn_mask=None,
     probabilities cast to the query's dtype before the value product."""
     if dropout_p and training:
         raise NotImplementedError(
-            "attention dropout is not ported yet (ROADMAP 'Port: fused "
-            "step regions and recompute')")
+            "attention dropout is not ported yet (ROADMAP 'Port: the "
+            "GPT-2 training path')")
     b, sq, h, d = query.shape
     sk = key.shape[1]
     q, k, v = (x.transpose(1, 2) for x in (query, key, value))
@@ -73,3 +79,30 @@ def scaled_dot_product_attention_ref(query, key, value, attn_mask=None,
             logits = logits + attn_mask.float()
     probs = torch.softmax(logits, dim=-1).to(query.dtype)
     return (probs @ v).transpose(1, 2)
+
+
+# -- fused step regions (ops/fused_train) ------------------------------------
+
+def add_rms_norm(x, residual, weight, epsilon=1e-6):
+    """Fused ``h = residual + x; y = rms_norm(h, weight)``; returns
+    ``(h, y)`` -- the residual -> RMSNorm chain of a pre-norm decoder
+    block (``RMSNorm.forward_residual`` routes here)."""
+    return _ft.add_rms_norm_raw(x, residual, weight, epsilon=epsilon)
+
+
+def add_layer_norm(x, residual, weight, bias, epsilon=1e-5):
+    """Fused ``h = residual + x; y = layer_norm(h)`` over the last axis;
+    returns ``(h, y)`` (``LayerNorm.forward_residual`` routes here)."""
+    return _ft.add_layer_norm_raw(x, residual, weight, bias,
+                                  epsilon=epsilon)
+
+
+def qkv_rope(x, wq, wk, wv, cos, sin, *, n_heads, n_kv, head_dim,
+             interleaved=False):
+    """The fused rotary -> QKV chain: q and k projections with rope
+    applied to the product's output tile, v a plain projection.  Returns
+    ``(q, k, v)`` shaped ``[B, S, heads, head_dim]`` (``models/llama.py``
+    routes here)."""
+    return _ft.qkv_rope_raw(x, wq, wk, wv, cos, sin, n_heads=n_heads,
+                            n_kv=n_kv, head_dim=head_dim,
+                            interleaved=interleaved)

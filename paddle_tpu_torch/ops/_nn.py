@@ -12,7 +12,8 @@ import torch
 
 from ..common.errors import enforce
 
-__all__ = ["rms_norm", "silu", "cross_entropy", "fused_linear_cross_entropy"]
+__all__ = ["rms_norm", "layer_norm", "silu", "cross_entropy",
+           "fused_linear_cross_entropy"]
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -30,6 +31,28 @@ def rms_norm(x: torch.Tensor, weight=None, epsilon: float = 1e-6,
     out = (xf * torch.rsqrt(ms + epsilon)).to(dt)
     if weight is not None:
         out = out * weight
+    return out
+
+
+def layer_norm(x: torch.Tensor, normalized_shape, weight=None, bias=None,
+               epsilon: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the trailing ``normalized_shape`` axes with f32
+    statistics: normalise in f32, cast back, then scale and shift in the
+    input dtype -- the reference's order of roundings (its variance is
+    the mean squared deviation, ``jnp.var``)."""
+    if isinstance(normalized_shape, int):
+        normalized_shape = [normalized_shape]
+    axes = tuple(range(x.dim() - len(list(normalized_shape)), x.dim()))
+    dt = x.dtype
+    xf = x.float()
+    mean = xf.mean(dim=axes, keepdim=True)
+    d = xf - mean
+    var = d.square().mean(dim=axes, keepdim=True)
+    out = (d * torch.rsqrt(var + epsilon)).to(dt)
+    if weight is not None:
+        out = out * weight
+    if bias is not None:
+        out = out + bias
     return out
 
 

@@ -13,7 +13,12 @@ saved output and log-sum-exp it returns dQ ``[B, Sq, H, D]`` and dK/dV
 at KV-head granularity ``[B, Sk, KVH, D]``, through two kernels (dQ
 over query tiles; dK/dV over key tiles, summing the query-head group).
 ``_FlashAttention`` ties the two into an autograd Function, the
-counterpart of the reference's ``_attach_grad``.
+counterpart of the reference's ``_attach_grad``.  Its forward output and
+lse go through ``jit.recompute.kept`` under the names ``flash_out`` and
+``flash_lse``: inside a layer recomputed under ``"core_attn"`` the
+recompute gets the first run's pair back and never relaunches the
+forward kernel (the reference's flash-aware remat, where XLA drops the
+dead forward), while the backward kernels run as always.
 
 On CUDA tensors each wrapper launches its hand-written kernel
 (``csrc/flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu``) or
@@ -28,6 +33,7 @@ import math
 import torch
 
 from ..common.errors import enforce
+from ..jit.recompute import kept
 from . import _build
 
 __all__ = ["flash_attention_raw", "flash_attention_fwd",
@@ -46,9 +52,9 @@ def _check(q, k, v, causal, mask, dropout_p):
     the mask as a 4-D f32 tensor (or None)."""
     if dropout_p:
         raise NotImplementedError(
-            "attention dropout is not ported yet: the training slice "
-            "runs without it (ROADMAP 'Port: fused step regions and "
-            "recompute')")
+            "attention dropout is not ported yet: the Llama training "
+            "recipe runs without it (ROADMAP 'Port: the GPT-2 training "
+            "path')")
     enforce(q.dim() == 4 and k.dim() == 4 and v.shape == k.shape,
             "q/k/v must be [B, S, H, D] with k and v alike")
     b, sq, h, d = q.shape
@@ -329,6 +335,13 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = False,
     return dq, dk, dv
 
 
+def _flash_fwd_kept(q, k, v, causal, mask, dropout_p=0.0):
+    """``flash_attention_fwd``'s (out, lse), kept and replayed by a
+    recompute policy that keeps ``flash_out`` / ``flash_lse``."""
+    return kept(("flash_out", "flash_lse"), lambda: flash_attention_fwd(
+        q, k, v, causal=causal, mask=mask, dropout_p=dropout_p))
+
+
 class _FlashAttention(torch.autograd.Function):
     """Flash forward with its backward kernels attached: saves (q, k, v,
     out, lse) and differentiates q, k and v.  The mask is an input, not
@@ -336,7 +349,7 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, mask, causal):
-        out, lse = flash_attention_fwd(q, k, v, causal=causal, mask=mask)
+        out, lse = _flash_fwd_kept(q, k, v, causal, mask)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.mask, ctx.causal = mask, causal
         return out
@@ -363,5 +376,4 @@ def flash_attention_raw(q, k, v, causal: bool = False, mask=None,
                 "yet (ROADMAP 'Port: MoE and remaining kernels')")
         _check(q, k, v, causal, mask, dropout_p)
         return _FlashAttention.apply(q, k, v, mask, causal)
-    return flash_attention_fwd(q, k, v, causal=causal, mask=mask,
-                               dropout_p=dropout_p)[0]
+    return _flash_fwd_kept(q, k, v, causal, mask, dropout_p)[0]

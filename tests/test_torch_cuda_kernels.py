@@ -17,7 +17,13 @@ element: f32 1e-5, f16 2e-3, bf16 1e-2 (one output rounding).  The
 update kernel must equal its plain version bit for bit in the f32 slots
 (the same f32 operations in the same order, no contraction) and within
 one ulp of the parameter's dtype (Adam's powf may differ in its last
-bit).
+bit).  The add+norm kernel's h must equal r + x, and its y, like the
+matmul+rope kernel's output, is held relative to the largest element:
+f32 1e-5 (row statistics and products summed in another order), bf16
+2^-7 (one bf16 step at the largest element's binade: a sum in another
+order can cross a rounding edge).  For y the dtype that counts is h's:
+the normalised value is rounded to it before the scale, so a bf16 h
+gives an f32 y bf16 steps too.
 """
 import pytest
 import torch
@@ -197,6 +203,107 @@ def test_update_kernel_matches_plain(dev, kind, hyper, clip, pdtype):
         assert torch.equal(slots[k], want_s[k]), k
     ulp = torch.finfo(pdtype).eps * want_p.float().abs().clamp(min=1e-30)
     assert ((p.float() - want_p.float()).abs() <= ulp).all()
+
+
+REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+
+
+def _rel(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+@pytest.mark.parametrize("hdim", [64, 100, 4096, 8192])
+@pytest.mark.parametrize("xdt,wdt", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)],
+    ids=str)
+@pytest.mark.parametrize("body", ["rms", "ln", "ln_bias"])
+def test_add_norm_kernel_matches_plain(dev, body, xdt, wdt, hdim):
+    """Both bodies, with and without bias, every dtype pair; H 100 takes
+    the one-element path, the others the 16-byte one."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x, r = (torch.randn(2, 19, hdim, generator=gen, device=dev).to(xdt)
+            for _ in range(2))
+    w = (1 + 0.2 * torch.randn(hdim, generator=gen, device=dev)).to(wdt)
+    b = (0.2 * torch.randn(hdim, generator=gen, device=dev)).to(wdt)
+    if body == "rms":
+        fn, plain, args = ft.add_rms_norm_raw, ft.add_rms_norm_reference, \
+            (x, r, w, 1e-5)
+    else:
+        fn, plain = ft.add_layer_norm_raw, ft.add_layer_norm_reference
+        args = (x, r, w, b if body == "ln_bias" else None, 1e-5)
+    before = fn.launches
+    h, y = fn(*args)
+    want_h, want_y = plain(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert torch.equal(h, want_h)
+    assert y.dtype == want_y.dtype == torch.promote_types(xdt, wdt)
+    # the normalised value is rounded to h's dtype before the scale
+    assert _rel(y, want_y) <= REL_TOL[xdt], _rel(y, want_y)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("b,s,k,heads,d", [
+    (1, 96, 256, 8, 128),      # fewer rows than one 128-row tile
+    (2, 96, 200, 32, 128),     # tiles across the batch boundary; K % 32
+    (2, 130, 256, 8, 64),
+    (1, 257, 64, 32, 64)])
+def test_matmul_rope_kernel_matches_plain(dev, dtype, b, s, k, heads, d):
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn(b, s, k, generator=gen, device=dev).to(dtype)
+    w = (torch.randn(k, heads * d, generator=gen, device=dev)
+         / k ** 0.5).to(dtype)
+    ang = torch.rand(s, d // 2, generator=gen, device=dev) * 50
+    ang = torch.cat([ang, ang], dim=-1)
+    cos, sin = ang.cos().to(dtype), ang.sin().to(dtype)
+    before = ft.matmul_rope_raw.launches
+    got = ft.matmul_rope_raw(x, w, cos, sin, n_heads=heads, head_dim=d)
+    want = ft.matmul_rope_reference(x, w, cos, sin, heads, d)
+    torch.cuda.synchronize()
+    assert ft.matmul_rope_raw.launches == before + 1
+    assert got.shape == (b, s, heads, d) and got.dtype == dtype
+    assert _rel(got, want) <= REL_TOL[dtype], _rel(got, want)
+    # the backward (plain PyTorch) against autograd of the plain version
+    ct = torch.randn(got.shape, generator=gen, device=dev).to(dtype)
+    xs, ws = x.clone().requires_grad_(), w.clone().requires_grad_()
+    g = torch.autograd.grad(ft.matmul_rope_raw(
+        xs, ws, cos, sin, n_heads=heads, head_dim=d), (xs, ws), ct)
+    g_want = torch.autograd.grad(ft.matmul_rope_reference(
+        xs, ws, cos, sin, heads, d), (xs, ws), ct)
+    for a, e in zip(g, g_want):
+        assert _rel(a, e) <= REL_TOL[dtype], _rel(a, e)
+
+
+def test_fused_regions_refuse_what_the_kernels_do_not_take(dev):
+    x = torch.zeros(4, 64, device=dev, dtype=torch.float16)
+    w = torch.ones(64, device=dev)
+    with pytest.raises(NotImplementedError, match="float32 and bfloat16"):
+        ft.add_rms_norm_raw(x, x, w)
+    big = torch.zeros(2, 8200, device=dev)
+    with pytest.raises(NotImplementedError, match="up to 8192"):
+        ft.add_layer_norm_raw(big, big, torch.ones(8200, device=dev), None)
+    with pytest.raises(NotImplementedError, match="needs a weight"):
+        ft.add_rms_norm_raw(x.float(), x.float(), None)
+    x = torch.zeros(1, 8, 96, device=dev, dtype=torch.bfloat16)
+    cos = torch.zeros(8, 96, device=dev)
+    with pytest.raises(NotImplementedError, match="head_dim 64 and 128"):
+        ft.matmul_rope_raw(x, torch.zeros(96, 96, device=dev,
+                                          dtype=torch.bfloat16), cos, cos,
+                           n_heads=1, head_dim=96)
+    cos = torch.zeros(8, 64, device=dev)
+    with pytest.raises(NotImplementedError, match="float32 and bfloat16"):
+        ft.matmul_rope_raw(x.half(), torch.zeros(96, 64, device=dev).half(),
+                           cos, cos, n_heads=1, head_dim=64)
+    with pytest.raises(NotImplementedError, match="K % 8"):
+        ft.matmul_rope_raw(x[..., :90], torch.zeros(
+            90, 64, device=dev, dtype=torch.bfloat16), cos, cos, n_heads=1,
+            head_dim=64)
+    with pytest.raises(NotImplementedError, match="interleaved"):
+        ft.matmul_rope_raw(x, torch.zeros(96, 64, device=dev,
+                                          dtype=torch.bfloat16), cos, cos,
+                           n_heads=1, head_dim=64, interleaved=True)
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):

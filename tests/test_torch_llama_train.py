@@ -215,8 +215,9 @@ def test_plain_paths_refuse_tensors_off_the_cpu():
 
 
 @pytest.mark.parametrize("setting,item", [
-    ({"fuse_norm_rope": True}, "fused step regions"),
-    ({"fuse_norm_rope": False, "recompute": True}, "fused step regions"),
+    ({"sequence_parallel": True}, "remaining modules"),
+    ({"sequence_parallel": True, "recompute": True,
+      "recompute_granularity": "core_attn"}, "remaining modules"),
     ({"fuse_norm_rope": False, "sequence_parallel": True},
      "remaining modules"),
 ])
@@ -226,6 +227,17 @@ def test_forward_settings_outside_the_slice_raise(setting, item):
         setattr(cfg, k, v)
     m = LlamaForCausalLM(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match=item):
+        m(torch.zeros(1, 4, dtype=torch.long))
+
+
+@pytest.mark.parametrize("gran", ["selective", "core-attn", ""])
+def test_unknown_recompute_granularity_raises(gran):
+    """As in the reference, an unknown policy is a ValueError, raised
+    when the forward reaches the first layer."""
+    cfg = llama_tiny_config()
+    cfg.recompute, cfg.recompute_granularity = True, gran
+    m = LlamaForCausalLM(cfg, device="cpu")
+    with pytest.raises(ValueError, match="unknown recompute policy"):
         m(torch.zeros(1, 4, dtype=torch.long))
 
 
