@@ -7,9 +7,10 @@ Run from the root of the repository on a machine with a CUDA GPU, the
 CUDA toolkit (nvcc) and PyTorch built for CUDA.  It builds the port's
 kernels from ``paddle_tpu_torch/csrc`` (one nvcc per source, all
 started together) and holds each against its plain PyTorch version at
-the main paths' full-width shapes.  Then it drives the two main paths
-through their user entry points, each with the launch counts set to 0
-just before and read just after:
+the main paths' full-width shapes (the attention kernels also at GQA
+group 1, the grouped matmuls at the MoE serving and training shapes).
+Then it drives the main paths through their user entry points, each
+with the launch counts set to 0 just before and read just after:
 
 - serving: Llama-3-8B (full width, 32 layers, bf16, random weights from
   a seeded generator) through ``LLMEngine``, checked against a dense
@@ -23,7 +24,17 @@ just before and read just after:
   then at f32, 2 layers, seq 1024, the loss and every gradient of the
   unfused chain and of the fused chain under each recompute policy
   against a composition of plain versions, and one fused update against
-  its plain version.
+  its plain version;
+- MoE serving: Qwen1.5-MoE-A2.7B (``Qwen2MoeConfig()``: 24 layers, 60
+  experts top-4, bf16) through ``LLMEngine`` on the same request mix,
+  the expert FFN through the grouped matmul kernel, checked against a
+  plain forward with a per-expert loop;
+- MoE training: ``bench.py`` ``bench_moe``'s recipe at Qwen1.5-MoE width
+  cut to 6 layers, bf16 (amp O2), batch 4 x seq 4096, full recompute,
+  AdamW, 5 steps (the fused gate/up, grouped and per-expert dW kernels
+  with the attention and update kernels); then at f32, 2 layers, seq
+  256, the loss and every gradient against a plain composition, with
+  and without recompute.
 
 Each phase prints one JSON line; the last three lines are the kernel
 table, the card's name and power limit as nvidia-smi reports them, and
@@ -57,6 +68,12 @@ SEED = 0
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_STEPS = 8, 8192, 5
 FUSED_LAYERS = 16          # the headline recipe with core_attn remat
 VOCAB = 128256
+# the serving mix: four begin_request prompts and one add_request
+SERVE_LENS = {"b37": 37, "b128": 128, "b300": 300, "b1000": 1000,
+              "a200": 200}
+SERVE_NEW = 32
+# Qwen1.5-MoE-A2.7B training cut: 6 of 24 layers, batch 4, seq 4096
+MOE_LAYERS, MOE_BATCH, MOE_SEQ = 6, 4, 4096
 
 
 class SmokeFailure(RuntimeError):
@@ -99,12 +116,13 @@ def rel_err(got, want):
             / want.float().abs().max()).item()
 
 
-def ragged_case(torch, gen, dev):
-    """The unified step's shapes at Llama-3-8B width: T = S = 136 rows
-    (max_seqs 8 + prefill budget 128), P 128, KVH 8, H 32, D 128: four
-    decode rows at mixed lengths, one 128-row chunk, and one prompt split
-    over two descriptors at a page boundary."""
-    T, P, KVH, H, D, maxp = 136, 128, 8, 32, 128, 16
+def ragged_case(torch, gen, dev, H=32, KVH=8):
+    """The unified step's shapes: T = S = 136 rows (max_seqs 8 + prefill
+    budget 128), P 128, D 128, H query and KVH KV heads (Llama-3-8B: 32
+    and 8; Qwen1.5-MoE-A2.7B: 16 and 16): four decode rows at mixed
+    lengths, one 128-row chunk, and one prompt split over two
+    descriptors at a page boundary."""
+    T, P, D, maxp = 136, 128, 128, 16
     n_pages = 8 * maxp + 1
     seqs = [(36, 1), (127, 1), (300, 1), (1031, 1), (256, 128), (126, 2),
             (128, 2)]                               # (kv_len, q_len)
@@ -147,12 +165,12 @@ def ragged_case(torch, gen, dev):
     return args, n_bytes, flops
 
 
-def flash_case(torch, gen, dev):
-    """The synchronous prefill chunk at Llama-3-8B width: q [1, 128, 32,
-    128] against the sequence's gathered pages [1, 2048, 8, 128] (strided
-    views, as the engine passes them) under the f32 position mask
-    [1, 1, 128, 2048] of chunk 7 of a 1000-token prompt."""
-    P, H, KVH, D, maxp, prev = 128, 32, 8, 128, 16, 896
+def flash_case(torch, gen, dev, H=32, KVH=8):
+    """The synchronous prefill chunk: q [1, 128, H, 128] against the
+    sequence's gathered pages [1, 2048, KVH, 128] (strided views, as the
+    engine passes them) under the f32 position mask [1, 1, 128, 2048] of
+    chunk 7 of a 1000-token prompt (Llama-3-8B: H 32, KVH 8)."""
+    P, D, maxp, prev = 128, 128, 16, 896
     s_kv = maxp * P
 
     def rnd(*shape):
@@ -217,6 +235,45 @@ def dense_reference_logits(torch, model, ids):
             @ model.lm_head.weight
 
 
+def serve_reference(torch, dev, ids, cases, ref_logits):
+    """What comes out agrees with a dense plain forward (no pages, no
+    kernels).  For each (name, model, engine, tolerance) of ``cases``,
+    the engine's prefill logits of prompt ``ids`` (the flash kernel)
+    within the tolerance (relative L2) of ``ref_logits(model, ids)``; on
+    the first case, f32 at full width with the depth cut to 2 layers,
+    where kernels and plain versions agree to f32 rounding, the engine's
+    4 greedy tokens (``begin_request``, the ragged kernel) equal the
+    plain forward's.  At bf16 and full depth roundings compound over
+    the random layers, so only a coarse bound (0.2) catches gross
+    errors.  Returns the report."""
+    rep = {"prompt_len": len(ids)}
+    for name, m, e, tol in cases:
+        slot = e.cache.allocate(len(ids) + 1)
+        got = e._prefill_seq(slot, ids, 0).float()       # flash kernel
+        e.cache.release(slot)
+        want = ref_logits(m, torch.tensor(ids, device=dev)).float()
+        check(bool(torch.isfinite(got).all()), f"{name}: logits not finite")
+        rel = ((got - want).norm() / want.norm()).item()
+        rep[name] = {"logits_rel_l2_err": rel, "tolerance": tol,
+                     "argmax_equal": int(got.argmax()) == int(want.argmax())}
+        check(rel <= tol, f"{name}: prefill logits off a dense forward "
+                          f"by {rel} (relative L2)")
+    name, m, e, _ = cases[0]
+    want_toks, seq = [], list(ids)
+    for _ in range(4):
+        tok = int(ref_logits(m, torch.tensor(seq, device=dev)).argmax())
+        want_toks.append(tok)
+        seq.append(tok)
+    e.begin_request("ref", ids, max_new_tokens=4)        # ragged kernel
+    while e.has_work():
+        e.step()
+    got_toks = e.pop_result("ref")
+    rep[name]["greedy_tokens_equal"] = got_toks == want_toks
+    check(got_toks == want_toks,
+          f"{name}: greedy tokens {got_toks} != dense {want_toks}")
+    return rep
+
+
 def kernel_family(name):
     for key, fam in (("ragged_attend", "ragged_attend"),
                      ("ragged_append", "ragged_append"),
@@ -225,7 +282,14 @@ def kernel_family(name):
                      ("flash_bwd_dkv", "flash_bwd_dkv"),
                      ("fused_update", "fused_update"),
                      ("add_norm", "add_norm"),
-                     ("matmul_rope", "matmul_rope")):
+                     ("matmul_rope", "matmul_rope"),
+                     ("gmm_bf16", "grouped_matmul"),
+                     ("gmm_t_f32", "grouped_matmul"),
+                     ("gmm_rows_f32", "grouped_matmul"),
+                     ("glu_bf16", "grouped_matmul_glu"),
+                     ("glu_f32", "grouped_matmul_glu"),
+                     ("dw_bf16", "grouped_matmul_dw"),
+                     ("dw_f32", "grouped_matmul_dw")):
         if key in name:
             return fam
     low = name.lower()
@@ -268,6 +332,56 @@ def profiled(torch, fn):
                                  for ms, n, c in top[:8]]}
 
 
+def serve_run(torch, eng, prompts, counters):
+    """Serve ``prompts`` (``SERVE_LENS``' ids: the "b" ones through
+    ``begin_request`` + ``step``, then "a200" through ``add_request``),
+    SERVE_NEW tokens each, with the kernels' launch counts set to 0 just
+    before and read just after.  Checks that every request returns its
+    tokens and returns (stats, {rid: tokens})."""
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t_serve = time.perf_counter()
+    submit, ttft, toks = {}, {}, {rid: [] for rid in prompts}
+    for rid in ("b37", "b128", "b300", "b1000"):
+        submit[rid] = time.perf_counter()
+        eng.begin_request(rid, prompts[rid], max_new_tokens=SERVE_NEW)
+    submit["a200"] = time.perf_counter()
+    eng.add_request("a200", prompts["a200"], max_new_tokens=SERVE_NEW)
+    ttft["a200"] = time.perf_counter() - submit["a200"]
+    toks["a200"] = list(eng.requests["a200"].out)
+    steps = decode_steps = decode_tokens = 0
+    decode_s = 0.0
+    while eng.has_work():
+        pure_decode = not eng._prefilling
+        t = time.perf_counter()
+        new = eng.step()                    # returns host ints: synced
+        dt = time.perf_counter() - t
+        steps += 1
+        now = time.perf_counter()
+        for rid, ts in new.items():
+            if not toks[rid]:
+                ttft[rid] = now - submit[rid]
+            toks[rid] += ts
+        if pure_decode:
+            decode_steps += 1
+            decode_s += dt
+            decode_tokens += sum(len(v) for v in new.values())
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t_serve
+    launches = {n: fn.launches for n, fn in counters.items()}
+    results = {rid: eng.result(rid) for rid in prompts}
+    for rid, out in results.items():
+        check(len(out) == SERVE_NEW and out == toks[rid],
+              f"request {rid} returned {len(out)} tokens, not {SERVE_NEW}")
+    return {"serve_s": serve_s, "steps": steps, "prompt_lens": SERVE_LENS,
+            "tokens": {rid: len(v) for rid, v in results.items()},
+            "ttft_s": ttft, "decode_steps": decode_steps,
+            "decode_tok_s": decode_tokens / decode_s if decode_s else None,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "launches": launches}, results
+
+
 def profile_serve(torch, eng, prompts, max_new):
     """Serve ``prompts`` (deferred admission) under torch.profiler."""
     def serve():
@@ -282,14 +396,15 @@ def profile_serve(torch, eng, prompts, max_new):
     return {"steps": steps, **stats}
 
 
-def attention_case(torch, gen, dev, s):
-    """The training path's attention at Llama-3-8B width: q [1, s, 32,
-    128] against k/v [1, s, 8, 128], bf16, and an output gradient."""
+def attention_case(torch, gen, dev, s, b=1, h=32, kvh=8):
+    """The training path's attention: q [b, s, h, 128] against k/v [b, s,
+    kvh, 128], bf16, and an output gradient (Llama-3-8B width: b 1, h 32,
+    kvh 8)."""
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=dev,
                            dtype=torch.bfloat16)
-    return rnd(1, s, 32, 128), rnd(1, s, 8, 128), rnd(1, s, 8, 128), \
-        rnd(1, s, 32, 128)
+    return rnd(b, s, h, 128), rnd(b, s, kvh, 128), rnd(b, s, kvh, 128), \
+        rnd(b, s, h, 128)
 
 
 def causal_pairs(s):
@@ -320,7 +435,7 @@ def plain_loss(torch, model, ids, labels):
 
 def flash_check(torch, fa, s, q, k, v, do):
     """The causal flash forward, dQ and dK/dV kernels against their plain
-    versions on one [1, s, 32, 128] / [1, s, 8, 128] bf16 case.  Each
+    versions on one bf16 case (q [b, s, h, 128], k/v [b, s, kvh, 128]).  Each
     output is held relative to its values: at 8K an output row averages
     thousands of values and is of order 0.02, while row 0 copies one V
     row (order 1), so an absolute bound or one relative to the largest
@@ -348,7 +463,7 @@ def flash_check(torch, fa, s, q, k, v, do):
                    "elements_differing": int((g != w).sum()),
                    "elements": w.numel()}
     emit({"phase": "check", "what": "flash fwd + bwd, causal",
-          "shape": [1, s, 32, 128], "kv_heads": 8, "errors": errs,
+          "shape": list(q.shape), "kv_heads": k.shape[2], "errors": errs,
           "tolerance": {"lse_max_abs_err": 1e-3, "rel_l2_err": REL_L2_TOL,
                         "rel_to_largest": GRAD_TOL}})
     check(errs["lse_max_abs_err"] <= 1e-3,
@@ -840,6 +955,607 @@ def train_reference_phase(torch, np, dev):
           f"{slots_equal}, params {upd_err}")
 
 
+# ---------------------------------------------------------------------------
+# Qwen1.5-MoE-A2.7B: the grouped matmul kernels, serving and training
+# ---------------------------------------------------------------------------
+
+MOE_E, MOE_K, MOE_H, MOE_F = 60, 4, 2048, 1408
+
+
+def group1_kernels(torch, gen, dev):
+    """The ragged kernel and the flash forward at GQA group 1 (16 query
+    and 16 KV heads, D 128: Qwen1.5-MoE-A2.7B's attention), held against
+    their plain versions and timed: the unified step's ragged shapes, the
+    prefill chunk, and the causal forward and backward at the MoE
+    training shape [4, 4096, 16, 128]."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import paged_attention as pa
+    args, n_bytes, flops = ragged_case(torch, gen, dev, H=16, KVH=16)
+    pools = (args["k_pages"], args["v_pages"])
+    kp_k, vp_k = (p.clone() for p in pools)
+    kp_p, vp_p = (p.clone() for p in pools)
+
+    def ragged(fn, kp, vp):
+        return fn(args["q"], kp, vp, args["k_new"], args["v_new"],
+                  args["q_start"], args["q_len"], args["kv_len"],
+                  args["page_tables"])
+
+    got = ragged(pa.ragged_paged_append_attend, kp_k, vp_k)
+    want = ragged(pa.ragged_paged_append_attend_reference, kp_p, vp_p)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    check(torch.equal(kp_k, kp_p) and torch.equal(vp_k, vp_p),
+          "ragged kernel (group 1) appended other K/V than its plain "
+          "version")
+    check(err <= TOL, f"ragged kernel (group 1) off its plain version by "
+                      f"{err}")
+    bound, bound_by = bound_ms(n_bytes, flops)
+    emit({"phase": "kernel", "name": "ragged_paged_append_attend",
+          "group": 1, "heads": 16, "kv_heads": 16, "max_abs_err": err,
+          "tolerance": TOL,
+          "ms": timed_ms(torch, lambda: ragged(
+              pa.ragged_paged_append_attend, kp_k, vp_k), 20),
+          "plain_ms": timed_ms(torch, lambda: ragged(
+              pa.ragged_paged_append_attend_reference, kp_p, vp_p), 5),
+          "bound_ms": bound, "bound_by": bound_by, "library_ms": None})
+    del args, pools, kp_k, vp_k, kp_p, vp_p, got, want
+
+    args, n_bytes, flops = flash_case(torch, gen, dev, H=16, KVH=16)
+    kw = dict(causal=False, mask=args["mask"])
+    out, lse = fa.flash_attention_fwd(args["q"], args["k"], args["v"], **kw)
+    ref_out, ref_lse = fa.flash_attention_fwd_reference(
+        args["q"], args["k"], args["v"], **kw)
+    torch.cuda.synchronize()
+    err = (out.float() - ref_out.float()).abs().max().item()
+    lse_err = (lse - ref_lse).abs().max().item()
+    check(err <= TOL and lse_err <= 1e-3,
+          f"flash kernel (group 1) off its plain version by {err} (lse "
+          f"{lse_err})")
+    qt, kt, vt = (args[n].transpose(1, 2) for n in ("q", "k", "v"))
+    mask_b = args["mask"].to(torch.bfloat16)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bound, bound_by = bound_ms(n_bytes, flops)
+    emit({"phase": "kernel", "name": "flash_attention_fwd", "group": 1,
+          "shape": list(args["q"].shape), "kv_len": args["k"].shape[1],
+          "max_abs_err": err, "lse_max_abs_err": lse_err, "tolerance": TOL,
+          "ms": timed_ms(torch, lambda: fa.flash_attention_fwd(
+              args["q"], args["k"], args["v"], **kw), 20),
+          "plain_ms": timed_ms(torch, lambda: fa.flash_attention_fwd_reference(
+              args["q"], args["k"], args["v"], **kw), 5),
+          "bound_ms": bound, "bound_by": bound_by,
+          "library_ms": timed_ms(torch, lambda: sdpa(qt, kt, vt,
+                                                     attn_mask=mask_b), 20)})
+    del args, out, lse, ref_out, ref_lse, qt, kt, vt, mask_b
+
+    s, b, h, d = MOE_SEQ, MOE_BATCH, 16, 128
+    q, k, v, do = attention_case(torch, gen, dev, s, b=b, h=h, kvh=h)
+    flash_check(torch, fa, s, q, k, v, do)
+    torch.cuda.empty_cache()
+    # q, k, v read and the output written (bf16), the f32 lse written
+    bound, bound_by = bound_ms(4 * b * s * h * d * 2 + b * h * s * 4,
+                               4 * d * h * b * causal_pairs(s))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    emit({"phase": "kernel", "name": "flash_attention_fwd", "group": 1,
+          "causal": True, "shape": [b, s, h, d],
+          "ms": timed_ms(torch, lambda: fa.flash_attention_fwd(
+              q, k, v, causal=True), 3, warmup=1),
+          "bound_ms": bound, "bound_by": bound_by,
+          "plain_ms": timed_ms(torch, lambda: fa.flash_attention_fwd_reference(
+              q, k, v, causal=True), 1, warmup=1),
+          "library_ms": timed_ms(torch, lambda: sdpa(qt, kt, vt,
+                                                     is_causal=True), 3,
+                                 warmup=1)})
+    del q, k, v, do, qt, kt, vt
+    torch.cuda.empty_cache()
+
+
+def moe_plan_rows(torch, gen, dev, tokens, h, dtype, empty=None):
+    """Routes of ``tokens`` tokens to 4 distinct of 60 experts (the top 4
+    of random router scores; expert ``empty`` is never chosen), their
+    dropless plan at the reference's row tile, and random rows scattered
+    into the padded buffer (padding rows zero).  Returns (xs, tile_expert,
+    counts, tm)."""
+    from paddle_tpu_torch.ops import grouped_matmul as gm
+    scores = torch.rand(tokens, MOE_E, generator=gen, device=dev)
+    if empty is not None:
+        scores[:, empty] = -1.0
+    idx = scores.topk(MOE_K, dim=-1).indices
+    tm = gm._auto_tm(MOE_E, tokens * MOE_K)
+    _, dest, te, counts, m_pad = gm.make_dropless_plan(idx, MOE_E, tm)
+    rows = torch.randn(tokens * MOE_K, h, generator=gen, device=dev)
+    xs = torch.zeros(m_pad, h, device=dev, dtype=dtype).index_copy_(
+        0, dest, rows.to(dtype))
+    return xs, te, counts, tm
+
+
+def grouped_mm_library(torch, counts, tm, a, b):
+    """One ``torch._grouped_mm`` call over the padded expert groups of
+    a (bf16) against b, for timing only; (fn, note) or (None, why)."""
+    if not hasattr(torch, "_grouped_mm"):
+        return None, "this PyTorch has no torch._grouped_mm"
+    offs = torch.cumsum((counts + tm - 1) // tm * tm, 0).to(torch.int32)
+    try:
+        torch._grouped_mm(a, b, offs=offs)
+        torch.cuda.synchronize()
+    except Exception as e:              # the yardstick only, never the port
+        return None, f"torch._grouped_mm: {e}"[:200]
+    return (lambda: torch._grouped_mm(a, b, offs=offs)), \
+        "torch._grouped_mm over the padded expert groups (timed only)"
+
+
+def moe_kernels(torch, gen, dev, table):
+    """#11 (gmm), #12 (gmm_glu) and #13 (gmm_dw) at the MoE paths'
+    shapes, each against its plain version and timed:
+
+    - serving, one mixed step of 136 rows x top-4 (544 slots, tm 128,
+      m_pad 8,320): #11 with f32 rows against the bf16 gate stack
+      [60, 2048, 1408] and down stack [60, 1408, 2048] (f32 FMA path,
+      relative L2 1e-5);
+    - training, 4 x 4096 tokens x top-4 (65,536 slots, tm 256, m_pad
+      80,896; expert 59 gets no rows, so #13's zero expert shows): #11
+      forward (down), #11 transpose_w for the down and gate dX, #12 with
+      and without save_pre, #13 for the gate and down weights (bf16 on
+      mma.sync, relative L2 2^-7; #13's empty expert exactly zero).
+
+    bound_ms counts the FLOPs of the routed rows only and the bytes of
+    the routed lhs rows, the weights of the experts with rows, and the
+    output of the routed rows (for #13 the whole [E, K, N] output)."""
+    from paddle_tpu_torch.ops import grouped_matmul as gm
+    E, H, F = MOE_E, MOE_H, MOE_F
+    bf = torch.bfloat16
+
+    def stack(*shape):
+        return (torch.randn(shape, generator=gen, device=dev)
+                / math.sqrt(shape[1])).to(bf)
+
+    wg, wu, wd = stack(E, H, F), stack(E, H, F), stack(E, F, H)
+
+    def cost(counts, k, n, el_a, el_w, el_o, n_w=1, n_out=1):
+        routed = int(counts.sum())
+        live = int((counts > 0).sum())
+        flops = 2 * n_w * routed * k * n
+        n_bytes = routed * k * el_a + n_w * live * k * n * el_w \
+            + n_out * routed * n * el_o
+        return bound_ms(n_bytes, flops)
+
+    def run_case(name, fn, plain, tol, bound, library, note, **extra):
+        got, want = fn(), plain()
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        errs = [rel_l2(g, w) for g, w in zip(got, want)]
+        abs_err = max((g.float() - w.float()).abs().max().item()
+                      for g, w in zip(got, want))
+        check(max(errs) <= tol, f"{name} ({note}) off its plain version: "
+                                f"relative L2 {errs}")
+        lib_fn, lib_note = library
+        row = {"name": name, "route": "cuda",
+               "source": "paddle_tpu_torch/csrc/grouped_matmul.cu",
+               "replaces": {"grouped_matmul": "paddle_tpu/ops/pallas/"
+                            "grouped_matmul.py:89",
+                            "grouped_matmul_glu": "paddle_tpu/ops/pallas/"
+                            "grouped_matmul.py:161",
+                            "grouped_matmul_dw": "paddle_tpu/ops/pallas/"
+                            "grouped_matmul.py:278"}[name],
+               "max_abs_err": abs_err, "ms": timed_ms(torch, fn, 10),
+               "plain_ms": timed_ms(torch, plain, 1, warmup=1),
+               "bound_ms": bound[0], "bound_by": bound[1],
+               "library_ms": None if lib_fn is None
+               else timed_ms(torch, lib_fn, 10)}
+        emit({"phase": "kernel", **row, "case": note, "rel_l2_err": errs,
+              "tolerance": {"rel_l2_err": tol}, "library_note": lib_note,
+              **extra})
+        return row
+
+    # -- serving: f32 rows, bf16 stacks, tm 128
+    xs, te, counts, tm = moe_plan_rows(torch, gen, dev, 136, H,
+                                       torch.float32)
+    no_lib = (None, "torch._grouped_mm takes bf16 operands, not these f32 "
+                    "rows")
+    run_case("grouped_matmul", lambda: gm.gmm_raw(xs, wg, te, counts=counts),
+             lambda: gm.gmm_reference(xs, wg, te), 1e-5,
+             cost(counts, H, F, 4, 2, 4), no_lib, "serve gate, f32 rows",
+             shape=[list(xs.shape), [E, H, F]], tm=tm)
+    hs = torch.randn(xs.shape[0], F, generator=gen, device=dev) \
+        * (xs[:, :1] != 0)
+    run_case("grouped_matmul", lambda: gm.gmm_raw(hs, wd, te, counts=counts),
+             lambda: gm.gmm_reference(hs, wd, te), 1e-5,
+             cost(counts, F, H, 4, 2, 4), no_lib, "serve down, f32 rows",
+             shape=[list(hs.shape), [E, F, H]], tm=tm)
+    del xs, hs
+
+    # -- training: bf16, tm 256, expert 59 empty
+    xs, te, counts, tm = moe_plan_rows(torch, gen, dev, MOE_BATCH * MOE_SEQ,
+                                       H, bf, empty=E - 1)
+    live = (xs[:, :1] != 0).to(bf)
+
+    def rows(n):
+        return torch.randn(xs.shape[0], n, generator=gen, device=dev).to(
+            bf) * live
+
+    hs, dys, dhg = rows(F), rows(H), rows(F)
+    shape = {"m_pad": xs.shape[0], "tm": tm,
+             "routed_rows": int(counts.sum())}
+    table["grouped_matmul"] = run_case(
+        "grouped_matmul", lambda: gm.gmm_raw(hs, wd, te, counts=counts),
+        lambda: gm.gmm_reference(hs, wd, te), REL_L2_TOL,
+        cost(counts, F, H, 2, 2, 2),
+        grouped_mm_library(torch, counts, tm, hs, wd),
+        "train forward (down)", shape=[list(hs.shape), [E, F, H]], **shape)
+    run_case("grouped_matmul", lambda: gm.gmm_raw(
+        dys, wd, te, transpose_w=True, counts=counts),
+        lambda: gm.gmm_reference(dys, wd, te, transpose_w=True),
+        REL_L2_TOL, cost(counts, H, F, 2, 2, 2),
+        grouped_mm_library(torch, counts, tm, dys, wd.transpose(1, 2)),
+        "train transpose_w (down dX)", shape=[list(dys.shape), [E, F, H]],
+        **shape)
+    run_case("grouped_matmul", lambda: gm.gmm_raw(
+        dhg, wg, te, transpose_w=True, counts=counts),
+        lambda: gm.gmm_reference(dhg, wg, te, transpose_w=True),
+        REL_L2_TOL, cost(counts, F, H, 2, 2, 2),
+        grouped_mm_library(torch, counts, tm, dhg, wg.transpose(1, 2)),
+        "train transpose_w (gate dX)", shape=[list(dhg.shape), [E, H, F]],
+        **shape)
+    no_glu = (None, "no single PyTorch call fuses the two products with "
+                    "SwiGLU")
+    run_case("grouped_matmul_glu", lambda: gm.gmm_glu_raw(
+        xs, wg, wu, te, counts=counts),
+        lambda: gm.gmm_glu_reference(xs, wg, wu, te), REL_L2_TOL,
+        cost(counts, H, F, 2, 2, 2, n_w=2), no_glu, "train, hs only",
+        shape=[list(xs.shape), [E, H, F]], **shape)
+    table["grouped_matmul_glu"] = run_case(
+        "grouped_matmul_glu", lambda: gm.gmm_glu_raw(
+            xs, wg, wu, te, save_pre=True, counts=counts),
+        lambda: gm.gmm_glu_reference(xs, wg, wu, te, save_pre=True),
+        REL_L2_TOL, cost(counts, H, F, 2, 2, 2, n_w=2, n_out=3), no_glu,
+        "train, save_pre", shape=[list(xs.shape), [E, H, F]], **shape)
+    for case, lhs, dout in (("train gate dW", xs, dhg),
+                            ("train down dW", hs, dys)):
+        k, n = lhs.shape[1], dout.shape[1]
+        routed = int(counts.sum())
+        bound = bound_ms(2 * routed * (k + n) + 2 * E * k * n,
+                         2 * routed * k * n)
+        got = gm.gmm_dw_raw(lhs, dout, te, counts, E)
+        torch.cuda.synchronize()
+        check(int(counts[E - 1]) == 0 and not got[E - 1].any(),
+              f"{case}: the empty expert's gradient is not zero")
+        del got
+        row = run_case(
+            "grouped_matmul_dw", lambda: gm.gmm_dw_raw(lhs, dout, te, counts,
+                                                       E),
+            lambda: gm.gmm_dw_reference(lhs, dout, te, counts, E),
+            REL_L2_TOL, bound,
+            grouped_mm_library(torch, counts, tm, lhs.t(), dout), case,
+            shape=[list(lhs.shape), list(dout.shape)], empty_expert_zero=True,
+            **shape)
+        table.setdefault("grouped_matmul_dw", row)
+    del xs, hs, dys, dhg, live, wg, wu, wd
+    torch.cuda.empty_cache()
+
+
+def moe_router(torch, m, xf):
+    """The router of MoE layer ``m`` over f32 rows: (probs [T, E],
+    gate values [T, k], expert ids [T, k])."""
+    probs = torch.softmax(xf @ m.gate.weight.float(), dim=-1)
+    gv, idx = torch.topk(probs, m.gate.k, dim=-1)
+    if m.gate.norm_topk_prob:
+        gv = gv / gv.sum(-1, keepdim=True).clamp(min=1e-9)
+    return probs, gv, idx
+
+
+def plain_moe_ffn(torch, m, hn):
+    """The MoE FFN of layer ``m`` over rows hn [T, H], plain: the router
+    in f32, then for each expert a loop over its routed rows (SwiGLU in
+    f32 against the widened weights) combined by the gate values, plus
+    the gated shared expert.  Returns (out in hn's dtype, aux loss), both
+    differentiable."""
+    from paddle_tpu_torch.ops import _nn
+    xf = hn.float()
+    probs, gv, idx = moe_router(torch, m, xf)
+    y = torch.zeros_like(xf)
+    ex = m.experts
+    for e in range(m.gate.num_experts):
+        tok, slot = (idx == e).nonzero(as_tuple=True)
+        if tok.numel() == 0:
+            continue
+        xe = xf[tok]
+        he = _nn.silu(xe @ ex.gate_w[e].float()) * (xe @ ex.up_w[e].float())
+        y = y.index_add(0, tok, gv[tok, slot, None]
+                        * (he @ ex.down_w[e].float()))
+    sh = (_nn.silu(xf @ m.shared_gate.weight.float())
+          * (xf @ m.shared_up.weight.float())) @ m.shared_down.weight.float()
+    sh = sh * torch.sigmoid(xf @ m.shared_expert_gate.weight.float())
+    e_n = m.gate.num_experts
+    density = torch.nn.functional.one_hot(idx, e_n).float().sum(1).mean(0) \
+        / m.gate.k
+    aux = m.gate.balance_loss_weight * e_n * torch.sum(density
+                                                       * probs.mean(0))
+    return (y + sh).to(hn.dtype), aux
+
+
+def plain_moe_hidden(torch, model, ids):
+    """Final-norm hidden states [B, S, H] of a plain causal forward of a
+    Qwen2-MoE model over ids [B, S] (no pages, no kernels: embedding,
+    per layer RMSNorm, biased projections, f32 rope, the flash plain
+    version, ``plain_moe_ffn``), and the summed aux loss; differentiable
+    by autograd."""
+    from paddle_tpu_torch.models.llama import _rotate_half
+    from paddle_tpu_torch.ops import _nn
+    from paddle_tpu_torch.ops.flash_attention import \
+        flash_attention_fwd_reference
+    c = model.config
+    hd = c.hidden_size // c.num_attention_heads
+    b, n = ids.shape
+    cos = model.rope_cos[:n][None, :, None, :].float()
+    sin = model.rope_sin[:n][None, :, None, :].float()
+
+    def rope(x):
+        xf = x.float()
+        return (xf * cos + _rotate_half(xf) * sin).to(x.dtype)
+
+    def proj(x, lin):
+        return x @ lin.weight + lin.bias
+
+    x = model.embed_tokens.weight[ids.long()]
+    aux = 0.0
+    for layer in model.layers:
+        a = layer.self_attn
+        hn = _nn.rms_norm(x, layer.input_layernorm.weight,
+                          epsilon=c.rms_norm_eps)
+        q = rope(proj(hn, a.q_proj).view(b, n, -1, hd))
+        k = rope(proj(hn, a.k_proj).view(b, n, -1, hd))
+        v = proj(hn, a.v_proj).view(b, n, -1, hd)
+        o = flash_attention_fwd_reference(q, k, v, causal=True)[0]
+        x = x + o.reshape(b, n, -1) @ a.o_proj.weight
+        hn = _nn.rms_norm(x, layer.post_attention_layernorm.weight,
+                          epsilon=c.rms_norm_eps)
+        ff, a_l = plain_moe_ffn(torch, layer.mlp, hn.reshape(b * n, -1))
+        x = x + ff.view(b, n, -1)
+        aux = aux + a_l
+    return _nn.rms_norm(x, model.norm.weight, epsilon=c.rms_norm_eps), aux
+
+
+def moe_reference_logits(torch, model, ids):
+    """Last-position logits of ``plain_moe_hidden`` over one prompt."""
+    with torch.no_grad():
+        return plain_moe_hidden(torch, model, ids[None])[0][0, -1] \
+            @ model.lm_head.weight
+
+
+def serve_moe_phase(torch, np, dev, table):
+    """Qwen1.5-MoE-A2.7B (``Qwen2MoeConfig()``: 24 layers, 60 experts
+    top-4, bf16, random weights from a seeded generator) through
+    ``LLMEngine(max_seqs=8, max_len=2048, page_size=128)``: the serving
+    mix of the Llama serve.  Every forward launches #11 three times a
+    layer; each layer routes 4 slots a live row (dropless).  Then the
+    logits checks against a plain forward (f32 at 2 layers, bf16 at 24)
+    and a traced serve."""
+    from paddle_tpu_torch.inference.engine import LLMEngine
+    from paddle_tpu_torch.models.qwen2_moe import (Qwen2MoeConfig,
+                                                   Qwen2MoeForCausalLM)
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import grouped_matmul as gm
+    from paddle_tpu_torch.ops import paged_attention as pa
+    cfg = Qwen2MoeConfig()
+    t0 = time.perf_counter()
+    model = Qwen2MoeForCausalLM(
+        cfg, device=dev, dtype=torch.bfloat16,
+        generator=torch.Generator(device=dev).manual_seed(SEED + 5))
+    eng = LLMEngine(model, max_seqs=8, max_len=2048, page_size=128)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    rng = np.random.default_rng(SEED + 5)
+    prompts = {rid: rng.integers(0, cfg.vocab_size, n).tolist()
+               for rid, n in SERVE_LENS.items()}
+    counters = {"ragged_paged_append_attend": pa.ragged_paged_append_attend,
+                "flash_attention_fwd": fa.flash_attention_fwd,
+                "grouped_matmul": gm.gmm_raw}
+    stats, results = serve_run(torch, eng, prompts, counters)
+    launches = stats["launches"]
+    layers = cfg.num_hidden_layers
+    chunks = -(-SERVE_LENS["a200"] // 128)       # add_request's prefill
+    forwards = stats["steps"] + chunks
+    load = eng._moe_counts.sum(dim=0).tolist()
+    per_layer = eng._moe_counts.sum(dim=1).tolist()
+    live_rows = sum(SERVE_LENS.values()) + len(SERVE_LENS) * (SERVE_NEW - 1)
+    emit({"phase": "serve_moe", "model": "qwen1.5_moe_a2.7b",
+          "layers": layers, "experts": MOE_E, "top_k": MOE_K,
+          "dtype": "bfloat16", "weight_bytes": weight_bytes,
+          "setup_s": setup_s, **stats, "forwards": forwards,
+          "grouped_matmul_launches_per_forward":
+          launches["grouped_matmul"] / forwards,
+          "expert_load": load, "routed_slots_per_layer": per_layer[0]})
+    for rid, out in results.items():
+        check(all(0 <= t < cfg.vocab_size for t in out),
+              f"request {rid} returned a token outside the vocabulary")
+    check(launches["grouped_matmul"] == 3 * layers * forwards,
+          f"#11 launched {launches['grouped_matmul']} times in {forwards} "
+          f"forwards, not {3 * layers} a forward")
+    check(launches["ragged_paged_append_attend"] == layers * stats["steps"]
+          and launches["flash_attention_fwd"] == layers * chunks,
+          f"attention launches {launches}")
+    check(all(n == MOE_K * live_rows for n in per_layer),
+          f"routed slots per layer {per_layer}, not {MOE_K} x {live_rows} "
+          f"live rows (dropless)")
+
+    cfg32 = Qwen2MoeConfig(num_hidden_layers=2)
+    model32 = Qwen2MoeForCausalLM(
+        cfg32, device=dev, dtype=torch.float32,
+        generator=torch.Generator(device=dev).manual_seed(SEED + 6))
+    eng32 = LLMEngine(model32, max_seqs=8, max_len=2048, page_size=128)
+    rep = serve_reference(
+        torch, dev, prompts["b37"],
+        (("f32_2_layers", model32, eng32, 1e-4),
+         ("bf16_24_layers", model, eng, 0.2)),
+        lambda m, ids: moe_reference_logits(torch, m, ids))
+    emit({"phase": "reference_moe", **rep})
+    del eng32, model32
+    torch.cuda.empty_cache()
+
+    prof = profile_serve(torch, eng, {
+        f"p{rid}": rng.integers(0, cfg.vocab_size, n).tolist()
+        for rid, n in SERVE_LENS.items()}, max_new=8)
+    emit({"phase": "serve_moe_profile", **prof})
+
+
+def train_moe_phase(torch, np, dev, table):
+    """``bench.py`` ``bench_moe``'s recipe at Qwen1.5-MoE-A2.7B width:
+    ``Qwen2MoeForCausalLM(Qwen2MoeConfig(num_hidden_layers=6,
+    recompute=True))`` -> amp O2 (bf16) -> AdamW(lr 1e-4) ->
+    ``CompiledTrainStep``, batch 4 x seq 4096 of ``_train_batch`` data,
+    5 steps (the first warms up), then a traced step.  Under full
+    recompute each layer launches, a step: #12 twice (forward, and the
+    recompute with save_pre), #11 five times (forward and recompute of
+    the down projection, its dX, the gate and up dX), #13 three times,
+    the flash forward twice, dQ and dK/dV once."""
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.jit.train import CompiledTrainStep
+    from paddle_tpu_torch.models.qwen2_moe import (Qwen2MoeConfig,
+                                                   Qwen2MoeForCausalLM)
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_train as ft
+    from paddle_tpu_torch.ops import grouped_matmul as gm
+    layers = MOE_LAYERS
+    cfg = Qwen2MoeConfig(num_hidden_layers=layers, recompute=True)
+    t0 = time.perf_counter()
+    model = Qwen2MoeForCausalLM(
+        cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(
+            SEED + 7))
+    model = amp.decorate(model, level="O2", dtype="bfloat16")
+    opt = optimizer.AdamW(learning_rate=1e-4,
+                          parameters=model.parameters())
+    step = CompiledTrainStep(
+        model, lambda m, b: m(b["input_ids"], labels=b["labels"]), opt)
+    ids, labels = train_batch(np, cfg.vocab_size, MOE_BATCH, MOE_SEQ)
+    batch = {"input_ids": torch.tensor(ids, device=dev),
+             "labels": torch.tensor(labels, device=dev)}
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    params = list(model.parameters())
+    n_params = sum(p.numel() for p in params)
+    expert_params = sum(p.numel() for n, p in model.named_parameters()
+                        if ".experts." in n)
+    active = n_params - expert_params + expert_params * MOE_K // MOE_E
+    state_bytes = torch.cuda.memory_allocated()   # params and moments
+    # the update: one launch per leaf of 1 MiB or more, one for the pack
+    big = sum(p.numel() * p.element_size() >= 1 << 20 for p in params)
+    counters = {
+        "grouped_matmul_glu": (gm.gmm_glu_raw, 2 * layers),
+        "grouped_matmul": (gm.gmm_raw, 5 * layers),
+        "grouped_matmul_dw": (gm.gmm_dw_raw, 3 * layers),
+        "flash_attention_fwd": (fa.flash_attention_fwd, 2 * layers),
+        "flash_attention_bwd_dq": (fa.flash_attention_bwd_dq, layers),
+        "flash_attention_bwd_dkv": (fa.flash_attention_bwd_dkv, layers),
+        "fused_update": (ft.fused_update_flat, big + 1)}
+    torch.cuda.reset_peak_memory_stats()
+    for fn, _ in counters.values():
+        fn.launches = 0
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        losses.append(step(batch))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    launches = {n: fn.launches for n, (fn, _) in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    step_s = sum(times[1:]) / (len(times) - 1)
+    tokens = MOE_BATCH * MOE_SEQ
+    tok_s = tokens / step_s
+    # ln V + sigma^2 / 2 (sigma = 0.02 sqrt(h), see train_phase), plus
+    # the aux loss: about 1 a layer at a balanced router, times 0.001
+    sigma = cfg.initializer_range * math.sqrt(cfg.hidden_size)
+    init_loss = math.log(cfg.vocab_size) + sigma ** 2 / 2 \
+        + cfg.router_aux_loss_coef * layers
+    emit({"phase": "train_moe", "model": "qwen1.5_moe_a2.7b width",
+          "layers": layers, "recompute": "full", "dtype": "bfloat16",
+          "batch": MOE_BATCH, "seq": MOE_SEQ, "params": n_params,
+          "active_params_per_token": active, "setup_s": setup_s,
+          "step_s": times, "mean_step_s": step_s, "tokens_per_s": tok_s,
+          "mfu_6n_active": 6 * active * tok_s / PEAK_BF16_FLOPS,
+          "losses": losses, "expected_first_loss": init_loss,
+          "state_bytes": state_bytes, "max_memory_allocated": peak,
+          "launches": launches,
+          "launches_per_step": {n: c / TRAIN_STEPS
+                                for n, c in launches.items()}})
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(abs(losses[0] - init_loss) <= 0.5,
+          f"first loss {losses[0]} not within 0.5 of {init_loss}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    check(peak < 80e9, f"peak memory {peak} bytes, not under 80 GB")
+    for n, (_, per_step) in counters.items():
+        check(launches[n] == per_step * TRAIN_STEPS,
+              f"{n} launched {launches[n]} times in {TRAIN_STEPS} steps, "
+              f"not {per_step} a step")
+    for n in ("grouped_matmul", "grouped_matmul_glu", "grouped_matmul_dw"):
+        table[n]["launches"] = launches[n]
+
+    _, prof = profiled(torch, lambda: step(batch))
+    emit({"phase": "train_moe_profile", **prof})
+
+
+def train_moe_reference_phase(torch, np, dev):
+    """At f32 (TF32 off), Qwen1.5-MoE width, 2 layers, batch 1, seq 256:
+    the loss and every gradient of ``grad_step`` (the kernels: #12, #11,
+    #13 on the f32 FMA path, the flash kernels) against autograd of
+    ``plain_moe_hidden`` + a log-softmax cross-entropy + the aux loss,
+    with recompute off and on."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.jit.train import CompiledTrainStep
+    from paddle_tpu_torch.models.qwen2_moe import (Qwen2MoeConfig,
+                                                   Qwen2MoeForCausalLM)
+    from paddle_tpu_torch.ops import grouped_matmul as gm
+    cfg = Qwen2MoeConfig(num_hidden_layers=2)
+    model = Qwen2MoeForCausalLM(
+        cfg, device=dev, dtype=torch.float32,
+        generator=torch.Generator(device=dev).manual_seed(SEED + 8))
+    step = CompiledTrainStep(
+        model, lambda m, b: m(b["input_ids"], labels=b["labels"]),
+        optimizer.AdamW(learning_rate=1e-4, parameters=model.parameters()))
+    ids, labels = train_batch(np, cfg.vocab_size, 1, 256)
+    batch = {"input_ids": torch.tensor(ids, device=dev),
+             "labels": torch.tensor(labels, device=dev)}
+    params = step.state["params"]
+    x, aux = plain_moe_hidden(torch, model, batch["input_ids"])
+    logp = torch.log_softmax((x @ model.lm_head.weight).float(), dim=-1)
+    lab = batch["labels"].long()
+    valid = lab != -100
+    tok = -logp.gather(-1, torch.where(valid, lab, 0)[..., None])[..., 0]
+    want_loss = (tok * valid).sum() / valid.sum() \
+        + cfg.router_aux_loss_coef * aux
+    want_grads = dict(zip(params, torch.autograd.grad(
+        want_loss, list(params.values()))))
+    wl = float(want_loss.detach())
+    del x, aux, logp, tok, want_loss
+    rep = {}
+    for recompute_on in (False, True):
+        model.config.recompute = recompute_on
+        for fn in (gm.gmm_raw, gm.gmm_glu_raw, gm.gmm_dw_raw):
+            fn.launches = 0
+        loss, grads = step.grad_step(batch)
+        rel = {n: ((grads[n] - w).norm() / w.norm().clamp(min=1e-30)).item()
+               for n, w in want_grads.items()}
+        worst = max(rel, key=rel.get)
+        loss_rel = abs(float(loss) - wl) / abs(wl)
+        rep["recompute" if recompute_on else "no_recompute"] = {
+            "loss": float(loss), "loss_rel_err": loss_rel,
+            "grad_rel_l2_max": rel[worst], "grad_rel_l2_worst": worst,
+            "launches": {"grouped_matmul": gm.gmm_raw.launches,
+                         "grouped_matmul_glu": gm.gmm_glu_raw.launches,
+                         "grouped_matmul_dw": gm.gmm_dw_raw.launches}}
+        check(loss_rel <= 1e-5 and rel[worst] <= 1e-4,
+              f"MoE f32, recompute {recompute_on}: loss off the plain "
+              f"composition by {loss_rel}, gradient {worst} by "
+              f"{rel[worst]}")
+        del grads
+    emit({"phase": "train_moe_reference", "dtype": "float32", "layers": 2,
+          "seq": 256, **rep,
+          "tolerance": {"loss_rel": 1e-5, "grad_rel_l2": 1e-4}})
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -872,7 +1588,7 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _build.build(["ragged_paged_attention", "flash_attention_fwd",
                           "flash_attention_bwd", "fused_update", "add_norm",
-                          "matmul_rope"])
+                          "matmul_rope", "grouped_matmul"])
     for name, rep in built.items():
         print(f"--- ptxas report, {name}\n{rep['ptxas']}", file=sys.stderr)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -957,6 +1673,8 @@ def main() -> int:
     update_kernel(torch, gen, dev, table)
     add_norm_kernel(torch, gen, dev, table)
     matmul_rope_kernel(torch, np, gen, dev, table)
+    group1_kernels(torch, gen, dev)
+    moe_kernels(torch, gen, dev, table)
     torch.cuda.empty_cache()
 
     # -- serve Llama-3-8B through the engine's entry points
@@ -973,117 +1691,43 @@ def main() -> int:
     pool_bytes = 2 * eng.cache.k_pages.numel() * \
         eng.cache.k_pages.element_size()
     rng = np.random.default_rng(SEED)
-    lens = {"b37": 37, "b128": 128, "b300": 300, "b1000": 1000,
-            "a200": 200}
     prompts = {rid: rng.integers(0, cfg.vocab_size, n).tolist()
-               for rid, n in lens.items()}
-    max_new = 32
-
-    torch.cuda.reset_peak_memory_stats()
-    pa.ragged_paged_append_attend.launches = 0
-    fa.flash_attention_fwd.launches = 0
-    t_serve = time.perf_counter()
-    submit, ttft, toks = {}, {}, {rid: [] for rid in prompts}
-    for rid in ("b37", "b128", "b300", "b1000"):
-        submit[rid] = time.perf_counter()
-        eng.begin_request(rid, prompts[rid], max_new_tokens=max_new)
-    submit["a200"] = time.perf_counter()
-    eng.add_request("a200", prompts["a200"], max_new_tokens=max_new)
-    ttft["a200"] = time.perf_counter() - submit["a200"]
-    toks["a200"] = list(eng.requests["a200"].out)
-    steps = decode_steps = decode_tokens = 0
-    decode_s = 0.0
-    while eng.has_work():
-        pure_decode = not eng._prefilling
-        t = time.perf_counter()
-        new = eng.step()                    # returns host ints: synced
-        dt = time.perf_counter() - t
-        steps += 1
-        now = time.perf_counter()
-        for rid, ts in new.items():
-            if not toks[rid]:
-                ttft[rid] = now - submit[rid]
-            toks[rid] += ts
-        if pure_decode:
-            decode_steps += 1
-            decode_s += dt
-            decode_tokens += sum(len(v) for v in new.values())
-    torch.cuda.synchronize()
-    serve_s = time.perf_counter() - t_serve
-    launches = {"ragged_paged_append_attend":
-                pa.ragged_paged_append_attend.launches,
-                "flash_attention_fwd": fa.flash_attention_fwd.launches}
-    results = {rid: eng.result(rid) for rid in prompts}
+               for rid, n in SERVE_LENS.items()}
+    counters = {"ragged_paged_append_attend": pa.ragged_paged_append_attend,
+                "flash_attention_fwd": fa.flash_attention_fwd}
+    stats, results = serve_run(torch, eng, prompts, counters)
+    launches = stats["launches"]
     emit({"phase": "serve", "model": "llama3_8b", "layers":
           cfg.num_hidden_layers, "dtype": "bfloat16",
           "weight_bytes": weight_bytes, "kv_pool_bytes": pool_bytes,
-          "setup_s": setup_s, "serve_s": serve_s, "steps": steps,
-          "prompt_lens": lens,
-          "tokens": {rid: len(v) for rid, v in results.items()},
-          "ttft_s": ttft, "decode_steps": decode_steps,
-          "decode_tok_s": decode_tokens / decode_s if decode_s else None,
-          "max_memory_allocated": torch.cuda.max_memory_allocated(),
-          "launches": launches})
+          "setup_s": setup_s, **stats})
     for rid, out in results.items():
-        check(len(out) == max_new and out == toks[rid],
-              f"request {rid} returned {len(out)} tokens, not {max_new}")
         check(all(0 <= t < cfg.vocab_size for t in out),
               f"request {rid} returned a token outside the vocabulary")
     for name, n in launches.items():
         check(n > 0, f"the serving path never launched {name}")
         table[name]["launches"] = n
 
-    # -- what comes out agrees with a dense plain forward (no pages, no
-    # kernels).  f32 at full width, depth cut to 2 layers: the kernels
-    # and their plain versions agree to f32 rounding, so logits must
-    # match closely and greedy tokens exactly, through both admission
-    # paths.  bf16 at full depth: roundings compound over 32 random
-    # layers, so only a coarse bound (0.2 relative L2) catches gross
-    # errors there.
-    ids = prompts["b37"]
+    # -- what comes out agrees with a dense plain forward: f32 at full
+    # width and 2 layers, bf16 at full depth
     cfg32 = dataclasses.replace(cfg, num_hidden_layers=2)
     model32 = LlamaForCausalLM(
         cfg32, device=dev, dtype=torch.float32,
         generator=torch.Generator(device=dev).manual_seed(SEED + 1))
     eng32 = LLMEngine(model32, max_seqs=8, max_len=2048, page_size=128)
-    rep = {"prompt_len": len(ids)}
-    # (the loop's names are deleted with the models below: a loop
-    # variable left bound would keep the 8B serving model alive through
-    # the training phases)
-    for name, m, e, tol in (("f32_2_layers", model32, eng32, 1e-4),
-                            ("bf16_32_layers", model, eng, 0.2)):
-        slot = e.cache.allocate(len(ids) + 1)
-        got = e._prefill_seq(slot, ids, 0).float()       # flash kernel
-        e.cache.release(slot)
-        want = dense_reference_logits(torch, m, torch.tensor(
-            ids, device=dev)).float()
-        check(bool(torch.isfinite(got).all()), f"{name}: logits not finite")
-        rel = ((got - want).norm() / want.norm()).item()
-        rep[name] = {"logits_rel_l2_err": rel, "tolerance": tol,
-                     "argmax_equal": int(got.argmax()) == int(want.argmax())}
-        check(rel <= tol, f"{name}: prefill logits off a dense forward "
-                          f"by {rel} (relative L2)")
-    want_toks, seq = [], list(ids)
-    for _ in range(4):
-        tok = int(dense_reference_logits(torch, model32, torch.tensor(
-            seq, device=dev)).argmax())
-        want_toks.append(tok)
-        seq.append(tok)
-    eng32.begin_request("r", ids, max_new_tokens=4)      # ragged kernel
-    while eng32.has_work():
-        eng32.step()
-    rep["f32_2_layers"]["greedy_tokens_equal"] = \
-        eng32.result("r") == want_toks
+    rep = serve_reference(
+        torch, dev, prompts["b37"],
+        (("f32_2_layers", model32, eng32, 1e-4),
+         ("bf16_32_layers", model, eng, 0.2)),
+        lambda m, ids: dense_reference_logits(torch, m, ids))
     emit({"phase": "reference", **rep})
-    check(rep["f32_2_layers"]["greedy_tokens_equal"],
-          f"greedy tokens {eng32.result('r')} != dense {want_toks}")
-    del eng32, model32, m, e
+    del eng32, model32
 
     # -- where a serving step's time goes: the same mix, traced
     # (fresh prompts of the same lengths: no prefix-cache hits)
     prof = profile_serve(torch, eng, {
         f"p{rid}": rng.integers(0, cfg.vocab_size, n).tolist()
-        for rid, n in lens.items()}, max_new=8)
+        for rid, n in SERVE_LENS.items()}, max_new=8)
     emit({"phase": "profile", **prof})
     del eng, model
     torch.cuda.empty_cache()
@@ -1100,12 +1744,25 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train_reference_phase(torch, np, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- Qwen1.5-MoE-A2.7B: serve at full depth, train at 6 layers, then
+    # the f32 checks of the training chain (the Llama models are freed)
+    serve_moe_phase(torch, np, dev, table)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_moe_phase(torch, np, dev, table)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_moe_reference_phase(torch, np, dev)
 
     emit({"kernels": [table[n] for n in (
         "ragged_paged_append_attend", "flash_attention_fwd",
         "flash_attention_fwd_causal_8k", "flash_attention_bwd_dq",
         "flash_attention_bwd_dkv", "fused_update", "add_norm",
-        "matmul_rope")]})
+        "matmul_rope", "grouped_matmul", "grouped_matmul_glu",
+        "grouped_matmul_dw")]})
     print(smi[0], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -6,9 +6,11 @@ model — the decoder layer list, the final norm, the embedding and head
 weights, the rope buffers — and a small predicate registry resolves a
 model instance to its spec by duck typing, never by class identity.
 
-Only the ``llama`` backbone is ported.  MoE families (Qwen2-MoE,
-DeepSeekMoE) resolve to an error naming the ROADMAP item that ports
-them.
+Two backbones register here: ``llama`` (``LlamaForCausalLM``-shaped
+models, ``model.llama.*``) and ``qwen2_moe`` (``Qwen2MoeForCausalLM``-
+shaped: top-level ``layers`` whose ``mlp`` is a shared-expert MoE
+layer), whose spec also carries the router geometry the engine freezes
+into its MoE dispatch configuration (``inference/moe_dispatch.py``).
 """
 from __future__ import annotations
 
@@ -23,7 +25,9 @@ __all__ = ["BackboneSpec", "register_backbone", "resolve_backbone"]
 @dataclass
 class BackboneSpec:
     """Everything LLMEngine reads off a model, named once.  ``moe`` is
-    ``None`` for dense-FFN backbones (the only kind served here)."""
+    ``None`` for dense-FFN backbones; for MoE backbones the router
+    geometry (num_experts, top_k, norm_topk, capacity_factor, shared,
+    shared_gate)."""
     arch: str
     config: Any
     layers: List[Any]
@@ -61,17 +65,14 @@ def resolve_backbone(model) -> BackboneSpec:
             matched = False
         if matched:
             return build(model)
-    layers = list(getattr(model, "layers", None) or [])
-    if layers and hasattr(getattr(layers[0], "mlp", None), "experts"):
-        raise NotImplementedError(
-            f"{type(model).__name__} is an MoE backbone; MoE serving is "
-            f"not ported yet (ROADMAP 'Port: MoE and remaining kernels')")
     supported = ", ".join(a for a, _, _ in _REGISTRY)
     raise ValueError(
         f"LLMEngine cannot serve {type(model).__name__}: no registered "
         f"backbone matches it (supported: {supported}).  A servable "
-        f"model exposes a ``.llama`` submodule with ``layers``; register "
-        f"new families with inference.backbone.register_backbone().")
+        f"model exposes either a ``.llama`` submodule (Llama family) or "
+        f"top-level ``layers``/``norm``/``embed_tokens``/``rope_*`` with "
+        f"a shared-expert MoE ``mlp`` (Qwen2-MoE family); register new "
+        f"families with inference.backbone.register_backbone().")
 
 
 # -- llama ------------------------------------------------------------------
@@ -96,4 +97,46 @@ def _build_llama(model) -> BackboneSpec:
         rope_sin=lm.rope_sin, attn_bias=False, moe=None)
 
 
+# -- qwen2-moe ----------------------------------------------------------------
+
+def _is_qwen2_moe(model) -> bool:
+    if hasattr(model, "llama") or not hasattr(model, "layers"):
+        return False
+    layers = list(model.layers)
+    if not layers:
+        return False
+    mlp = getattr(layers[0], "mlp", None)
+    gate = getattr(mlp, "gate", None)
+    return (hasattr(model, "norm") and hasattr(model, "embed_tokens")
+            and hasattr(model, "rope_cos")
+            and hasattr(mlp, "experts")
+            and hasattr(gate, "num_experts") and hasattr(gate, "k"))
+
+
+def _build_qwen2_moe(model) -> BackboneSpec:
+    layers = list(model.layers)
+    g0, m0 = layers[0].mlp.gate, layers[0].mlp
+    for l in layers[1:]:
+        g, m = l.mlp.gate, l.mlp
+        enforce(g.num_experts == g0.num_experts and g.k == g0.k
+                and g.norm_topk_prob == g0.norm_topk_prob
+                and (m.shared_gate is None) == (m0.shared_gate is None)
+                and (m.shared_expert_gate is None)
+                == (m0.shared_expert_gate is None),
+                "MoE serving needs one router/shared-expert geometry "
+                "across all decoder layers")
+    attn_bias = layers[0].self_attn.q_proj.bias is not None
+    return BackboneSpec(
+        arch="qwen2_moe", config=model.config, layers=layers,
+        norm=model.norm, embed_tokens=model.embed_tokens,
+        lm_head=model.lm_head, rope_cos=model.rope_cos,
+        rope_sin=model.rope_sin, attn_bias=attn_bias,
+        moe={"num_experts": int(g0.num_experts), "top_k": int(g0.k),
+             "norm_topk": bool(g0.norm_topk_prob),
+             "capacity_factor": float(g0.capacity_factor),
+             "shared": m0.shared_gate is not None,
+             "shared_gate": m0.shared_expert_gate is not None})
+
+
 register_backbone("llama", _is_llama, _build_llama)
+register_backbone("qwen2_moe", _is_qwen2_moe, _build_qwen2_moe)

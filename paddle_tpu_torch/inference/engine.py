@@ -27,6 +27,13 @@ Automatic prefix caching: admission looks up the longest cached
 page-aligned prefix of the prompt, maps those pages into the new slot
 (host-side only) and prefills only the tail.
 
+MoE backbones (Qwen2-MoE, ``inference/backbone.py``): every decoder
+layer's FFN is the dropless grouped dispatch of
+``inference/moe_dispatch.py`` (kernel #11 for the gate, up and down
+projections) on both forwards, with the q/k/v biases of the model; the
+routed slots of every (layer, expert) are summed into
+``self._moe_counts`` [L, E] on the device.  Padding rows route nowhere.
+
 Greedy decoding only.  Knobs of the reference engine that this port does
 not take yet raise ``NotImplementedError`` naming their ROADMAP item;
 metrics, tracing and request capsules are not ported.
@@ -50,6 +57,7 @@ from ..ops.flash_attention import flash_attention_raw
 from ..ops.paged_attention import ragged_paged_append_attend
 from ..runtime.device import resolve_device
 from .backbone import resolve_backbone
+from .moe_dispatch import MoEArch, moe_ffn
 from .paged_cache import PagedKVCache
 
 __all__ = ["LLMEngine", "GenRequest"]
@@ -85,12 +93,37 @@ def _ffn(x, pln, gw, uw, dw, eps):
     return x + (_nn.silu(hn @ gw) * (hn @ uw)) @ dw
 
 
+def _unpack(lp, arch):
+    """One layer's weights: (iln, qw, qb, kw, kb, vw, vb, ow, pln, ffn)
+    with ``ffn`` the dense (gw, uw, dw) or, under an MoE ``arch``, the
+    MoE tuple of ``moe_ffn``; the biases are None without them."""
+    if arch is None:
+        iln, qw, kw, vw, ow, pln, gw, uw, dw = lp
+        return iln, qw, None, kw, None, vw, None, ow, pln, (gw, uw, dw)
+    iln, qw, qb, kw, kb, vw, vb, ow, pln, *mw = lp
+    return iln, qw, qb, kw, kb, vw, vb, ow, pln, tuple(mw)
+
+
+def _proj(x, w, b):
+    return x @ w if b is None else x @ w + b
+
+
+def _ffn_block(x, pln, ffn, eps, arch, live, counts):
+    """The post-attention FFN with its residual: dense SwiGLU, or the
+    MoE FFN, whose routed-slot counts are appended to ``counts``."""
+    if arch is None:
+        return _ffn(x, pln, *ffn, eps)
+    out, cnt = moe_ffn(_nn.rms_norm(x, pln, epsilon=eps), ffn, arch, live)
+    counts.append(cnt)
+    return x + out
+
+
 @torch.no_grad()
 def _paged_prefill_chunk(layers, norm_w, head_w, embed_w, rope,
                          k_pages, v_pages, ids, table, prev_len: int,
                          page_slot: int, last_in_chunk: int, *,
                          eps: float, kvh: int, head_dim: int,
-                         tied: bool):
+                         tied: bool, arch: Optional[MoEArch] = None):
     """Chunked prefill of ``ids`` [C] — one page-sized chunk of one
     prompt — against the paged cache.  The chunk's K/V fill exactly one
     page (``page_slot``; C == page_size), written whole, and its queries
@@ -98,7 +131,9 @@ def _paged_prefill_chunk(layers, norm_w, head_w, embed_w, rope,
     the flash kernel under an additive mask: chunk row r (position
     prev_len + r) sees kv positions <= prev_len + r.  The pools are
     updated in place.  ``last_in_chunk`` is the row whose logits matter
-    on the final chunk.  Returns logits [V]."""
+    on the final chunk.  Returns logits [V]; under an MoE ``arch`` also
+    the routed-slot counts [L, E] (the chunk's real rows, ``<=
+    last_in_chunk``, are the ones routed)."""
     cos_t, sin_t = rope
     c = ids.shape[0]
     maxp = table.shape[0]
@@ -111,13 +146,17 @@ def _paged_prefill_chunk(layers, norm_w, head_w, embed_w, rope,
         c, device=ids.device)[:, None]
     amask = torch.zeros(allow.shape, dtype=torch.float32,
                         device=ids.device).masked_fill_(~allow, -1e30)
-    for li, (iln, qw, kw, vw, ow, pln, gw, uw, dw) in enumerate(layers):
+    live = None if arch is None else \
+        torch.arange(c, device=ids.device) <= last_in_chunk
+    counts = []
+    for li, lp in enumerate(layers):
+        iln, qw, qb, kw, kb, vw, vb, ow, pln, ffn = _unpack(lp, arch)
         kp, vp = k_pages[li], v_pages[li]
         hn = _nn.rms_norm(x, iln, epsilon=eps)
         nh = qw.shape[-1] // head_dim
-        q = _rope((hn @ qw).view(c, nh, head_dim), cos, sin)
-        k = _rope((hn @ kw).view(c, kvh, head_dim), cos, sin)
-        v = (hn @ vw).view(c, kvh, head_dim)
+        q = _rope(_proj(hn, qw, qb).view(c, nh, head_dim), cos, sin)
+        k = _rope(_proj(hn, kw, kb).view(c, kvh, head_dim), cos, sin)
+        v = _proj(hn, vw, vb).view(c, kvh, head_dim)
         # whole-page write: [C, KVH, D] -> page [KVH, C(=P), D]
         kp[:, page_slot] = k.transpose(0, 1)
         vp[:, page_slot] = v.transpose(0, 1)
@@ -127,50 +166,62 @@ def _paged_prefill_chunk(layers, norm_w, head_w, embed_w, rope,
         attn = flash_attention_raw(q[None], k_full[None], v_full[None],
                                    causal=False, mask=amask[None, None])[0]
         x = x + attn.reshape(c, nh * head_dim) @ ow
-        x = _ffn(x, pln, gw, uw, dw, eps)
+        x = _ffn_block(x, pln, ffn, eps, arch, live, counts)
     x = _nn.rms_norm(x, norm_w, epsilon=eps)
-    return _head(x[last_in_chunk], head_w, tied)
+    logits = _head(x[last_in_chunk], head_w, tied)
+    return logits if arch is None else (logits, torch.stack(counts))
 
 
 @torch.no_grad()
 def _mixed_forward(layers, norm_w, head_w, embed_w, rope, k_pages,
                    v_pages, ids, positions, q_start, q_len, kv_len,
                    desc_tables, desc_of_row, off_of_row, *, eps: float,
-                   kvh: int, head_dim: int, tied: bool):
+                   kvh: int, head_dim: int, tied: bool,
+                   arch: Optional[MoEArch] = None):
     """One forward of the ragged unified step over a flat batch of T
     rows: every row appends its K/V at its own position and attends over
     its own sequence's pages (the ragged kernel, pools updated in
     place); descriptor outputs gather back to flat rows through
     (desc_of_row, off_of_row).  ids/positions [T]; q_start/q_len/kv_len
     [S] and desc_tables [S, maxp] int32 with ``q_len == 0`` marking
-    unused descriptors.  Returns logits [T, V]."""
+    unused descriptors.  Returns logits [T, V]; under an MoE ``arch``
+    also the routed-slot counts [L, E] (rows past their descriptor's
+    ``q_len`` are padding and route nowhere)."""
     cos_t, sin_t = rope
     t = ids.shape[0]
     x = embed_w[ids]                                   # [T, H]
     cos = cos_t[positions][:, None, :]                 # [T, 1, D]
     sin = sin_t[positions][:, None, :]
-    for li, (iln, qw, kw, vw, ow, pln, gw, uw, dw) in enumerate(layers):
+    live = None if arch is None else off_of_row < q_len.long()[desc_of_row]
+    counts = []
+    for li, lp in enumerate(layers):
+        iln, qw, qb, kw, kb, vw, vb, ow, pln, ffn = _unpack(lp, arch)
         hn = _nn.rms_norm(x, iln, epsilon=eps)
         nh = qw.shape[-1] // head_dim
-        q = _rope((hn @ qw).view(t, nh, head_dim), cos, sin)
-        k = _rope((hn @ kw).view(t, kvh, head_dim), cos, sin)
-        v = (hn @ vw).view(t, kvh, head_dim)
+        q = _rope(_proj(hn, qw, qb).view(t, nh, head_dim), cos, sin)
+        k = _rope(_proj(hn, kw, kb).view(t, kvh, head_dim), cos, sin)
+        v = _proj(hn, vw, vb).view(t, kvh, head_dim)
         blocks = ragged_paged_append_attend(
             q, k_pages[li], v_pages[li], k.to(k_pages.dtype),
             v.to(v_pages.dtype), q_start, q_len, kv_len, desc_tables)
         attn = blocks[desc_of_row, off_of_row]         # [T, NH, D]
         x = x + attn.reshape(t, nh * head_dim) @ ow
-        x = _ffn(x, pln, gw, uw, dw, eps)
+        x = _ffn_block(x, pln, ffn, eps, arch, live, counts)
     x = _nn.rms_norm(x, norm_w, epsilon=eps)
-    return _head(x, head_w, tied)
+    logits = _head(x, head_w, tied)
+    return logits if arch is None else (logits, torch.stack(counts))
 
 
 class LLMEngine:
-    """Continuous batching for Llama-family models (greedy decoding).
+    """Continuous batching for Llama-family and Qwen2-MoE models (greedy
+    decoding).
 
     ``dtype`` is the KV pools' dtype; ``None`` takes the model's weight
     dtype.
-    ``device`` defaults to the GPU and must hold the model."""
+    ``device`` defaults to the GPU and must hold the model.
+    ``moe_dispatch`` ("grouped", or "dense": the per-row comparator, CPU
+    tensors only) and ``moe_dropless`` (only True) apply to MoE
+    backbones."""
 
     def __init__(self, model, max_seqs: int = 8, max_len: int = 2048,
                  page_size: int = 128, n_pages: Optional[int] = None,
@@ -182,9 +233,12 @@ class LLMEngine:
                  enable_prefix_caching: bool = True,
                  unified_step: bool = True,
                  prefill_token_budget: Optional[int] = None,
-                 mesh=None, draft_model=None, device=None):
+                 mesh=None, draft_model=None, device=None,
+                 moe_dispatch: str = "grouped", moe_dropless: bool = True):
         serving = "Port: the rest of serving"
         todo = {
+            "moe_dropless=False (capacity-factor MoE dispatch)": (
+                not moe_dropless, serving),
             "kv_dtype='int8'": (kv_dtype == "int8", serving),
             "weight_dtype": (weight_dtype is not None, serving),
             "unified_step=False": (not unified_step, serving),
@@ -206,6 +260,8 @@ class LLMEngine:
                 f"unsupported kv_dtype {kv_dtype!r}; pass the pool dtype "
                 f"as dtype=")
         enforce(steps_per_sync >= 1, "steps_per_sync must be >= 1")
+        enforce(moe_dispatch in ("grouped", "dense"),
+                f"unsupported moe_dispatch {moe_dispatch!r}")
         self.device = resolve_device(device)
         spec = resolve_backbone(model)
         c = spec.config
@@ -248,12 +304,26 @@ class LLMEngine:
             dtype=dtype, num_layers=len(spec.layers), device=self.device)
         # per-layer references to the model's own weights: a stacked
         # copy would duplicate every weight (16 GB at 8B)
-        self._layers = [
-            (l.input_layernorm.weight, l.self_attn.q_proj.weight,
-             l.self_attn.k_proj.weight, l.self_attn.v_proj.weight,
-             l.self_attn.o_proj.weight, l.post_attention_layernorm.weight,
-             l.mlp.gate_proj.weight, l.mlp.up_proj.weight,
-             l.mlp.down_proj.weight) for l in spec.layers]
+        self._arch = None
+        if spec.moe is None:
+            self._layers = [
+                (l.input_layernorm.weight, l.self_attn.q_proj.weight,
+                 l.self_attn.k_proj.weight, l.self_attn.v_proj.weight,
+                 l.self_attn.o_proj.weight,
+                 l.post_attention_layernorm.weight, l.mlp.gate_proj.weight,
+                 l.mlp.up_proj.weight, l.mlp.down_proj.weight)
+                for l in spec.layers]
+        else:
+            m = spec.moe
+            self._arch = MoEArch(
+                num_experts=m["num_experts"], top_k=m["top_k"],
+                norm_topk=m["norm_topk"], shared=m["shared"],
+                shared_gate=m["shared_gate"], attn_bias=spec.attn_bias,
+                dispatch=moe_dispatch)
+            self._layers = [self._moe_layer(l) for l in spec.layers]
+            self._moe_counts = torch.zeros(
+                (len(spec.layers), m["num_experts"]), dtype=torch.int64,
+                device=self.device)
         self._norm_w = spec.norm.weight
         self._tied = spec.lm_head is None
         self._embed_w = embed
@@ -271,6 +341,36 @@ class LLMEngine:
         self._active: List[GenRequest] = []
 
     # -- internals -------------------------------------------------------------
+    def _moe_layer(self, l):
+        """One MoE decoder layer's weights: (iln, qw, qb, kw, kb, vw, vb,
+        ow, pln, rw, egw, euw, edw, sgw, suw, sdw, seg); biases and
+        shared-expert weights a model lacks are None (the arch flags
+        skip them)."""
+        a, mlp = l.self_attn, l.mlp
+        ex = mlp.experts
+
+        def w(mod):
+            return None if mod is None else mod.weight
+
+        shared = mlp.shared_gate is not None
+        return (l.input_layernorm.weight, a.q_proj.weight, a.q_proj.bias,
+                a.k_proj.weight, a.k_proj.bias, a.v_proj.weight,
+                a.v_proj.bias, a.o_proj.weight,
+                l.post_attention_layernorm.weight, mlp.gate.weight,
+                ex.gate_w, ex.up_w, ex.down_w,
+                w(mlp.shared_gate), w(mlp.shared_up) if shared else None,
+                w(mlp.shared_down) if shared else None,
+                w(mlp.shared_expert_gate))
+
+    def _note_expert_counts(self, out):
+        """Split an MoE forward's (logits, counts [L, E]) and add the
+        counts to ``self._moe_counts`` on the device (no host copy)."""
+        if self._arch is None:
+            return out
+        logits, counts = out
+        self._moe_counts += counts
+        return logits
+
     def _dev(self, a, dtype=torch.int32):
         return torch.as_tensor(np.asarray(a), dtype=dtype,
                                device=self.device)
@@ -288,13 +388,13 @@ class LLMEngine:
             chunk = np.zeros(P, np.int64)
             real = min(P, plen - base)
             chunk[:real] = seq[base:base + real]
-            logits = _paged_prefill_chunk(
+            logits = self._note_expert_counts(_paged_prefill_chunk(
                 self._layers, self._norm_w, self._head_w, self._embed_w,
                 self._rope_prefill, self.cache.k_pages, self.cache.v_pages,
                 self._dev(chunk, torch.long), table, base,
                 int(self.cache.page_table[slot, ci]),
                 min(plen - 1 - base, P - 1), eps=self.eps, kvh=self.kvh,
-                head_dim=self.head_dim, tied=self._tied)
+                head_dim=self.head_dim, tied=self._tied, arch=self._arch))
         return logits
 
     def _admit(self, rid, prompt_ids, max_new_tokens, eos_token_id):
@@ -475,13 +575,13 @@ class LLMEngine:
         doff_of_row = self._dev(off_of_row, torch.long)
         toks_all = []
         for si in range(nsteps):
-            logits = _mixed_forward(
+            logits = self._note_expert_counts(_mixed_forward(
                 self._layers, self._norm_w, self._head_w, self._embed_w,
                 self._rope, self.cache.k_pages, self.cache.v_pages,
                 self._dev(ids, torch.long), self._dev(positions, torch.long),
                 dq_start, dq_len, self._dev(kv_len), ddesc_tables,
                 ddesc_of_row, doff_of_row, eps=self.eps, kvh=self.kvh,
-                head_dim=self.head_dim, tied=self._tied)
+                head_dim=self.head_dim, tied=self._tied, arch=self._arch))
             nxt, _ = sample_logits(logits, strategy=self.decode_strategy)
             nxt = nxt.cpu().numpy()
             toks_all.append(nxt)

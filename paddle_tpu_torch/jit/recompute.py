@@ -132,21 +132,30 @@ def product(x, w, names=("dot",)):
     return _KeptProduct.apply(x, w, tuple(names))
 
 
+def _outputs(out):
+    """The region's outputs as a tuple, and whether it returned one
+    tensor."""
+    single = isinstance(out, torch.Tensor)
+    outs = (out,) if single else tuple(out)
+    enforce(all(isinstance(t, torch.Tensor) for t in outs),
+            "recompute takes a region that returns a tensor or a tuple of "
+            "tensors")
+    return outs, single
+
+
 class _Recompute(torch.autograd.Function):
     @staticmethod
     def forward(ctx, run, keep, n_args, *tensors):
         frame = _Frame(keep)
         with _in_frame(frame):
-            out = run(*tensors[:n_args])
-        enforce(isinstance(out, torch.Tensor),
-                "recompute takes a region that returns one tensor")
-        ctx.run, ctx.frame = run, frame
+            outs, single = _outputs(run(*tensors[:n_args]))
+        ctx.run, ctx.frame, ctx.single = run, frame, single
         ctx.save_for_backward(*tensors[:n_args])
         ctx.params = tensors[n_args:]        # the module's own Parameters
-        return out
+        return outs[0] if single else outs
 
     @staticmethod
-    def backward(ctx, grad):
+    def backward(ctx, *grads):
         frame, ctx.frame = ctx.frame, None
         enforce(frame is not None,
                 "a recomputed region is differentiated once")
@@ -155,17 +164,21 @@ class _Recompute(torch.autograd.Function):
         args = [t.detach().requires_grad_(r)
                 for t, r in zip(ctx.saved_tensors, need)]
         with torch.enable_grad(), _in_frame(frame):
-            out = ctx.run(*args)
+            outs, _ = _outputs(ctx.run(*args))
+        # a gradient for each output that carries one
+        live = [(o, g) for o, g in zip(outs, grads) if o.requires_grad]
         wrt = [t for t, r in zip(args + list(ctx.params), need) if r]
-        grads = iter(torch.autograd.grad(out, wrt, grad, allow_unused=True))
+        grads = iter(torch.autograd.grad([o for o, _ in live], wrt,
+                                         [g for _, g in live],
+                                         allow_unused=True))
         return (None, None, None) + tuple(next(grads) if r else None
                                           for r in need)
 
 
 def recompute(function, *args, policy=None, **kwargs):
     """``function(*args, **kwargs)`` -- a module or a plain function that
-    returns one tensor -- with its activations recomputed in the
-    backward, keeping what ``policy`` names (see the module docstring).
+    returns a tensor or a tuple of tensors (a decoder layer's ``(x,
+    aux_loss)``) -- with its activations recomputed in the backward, keeping what ``policy`` names (see the module docstring).
     Tensors may sit inside tuples, lists or dicts of the arguments.
     Without grad, or when nothing requires grad, it just runs."""
     keep = _resolve_policy(policy)

@@ -75,7 +75,9 @@ class LlamaConfig:
     fuse_linear_cross_entropy: bool = True
 
 
-# knobs the port does not take yet: (setting, asked, ROADMAP item)
+# knobs the port does not take yet: (setting, asked, ROADMAP item).
+# ``LlamaAttention`` takes ``attention_bias`` (the Qwen2-MoE decoder
+# builds it so); ``LlamaForCausalLM`` still refuses a biased Llama.
 def _model_knobs(c: LlamaConfig):
     return [("attention_bias=True", c.attention_bias,
              "Port: remaining modules"),
@@ -133,22 +135,29 @@ class _Init:
         w.normal_(0.0, std, generator=self.gen)
         return nn.Parameter(w)
 
+    def zeros(self, shape) -> nn.Parameter:
+        return nn.Parameter(torch.zeros(shape, device=self.device,
+                                        dtype=self.dtype))
+
     def rms_norm(self, dim: int, eps: float) -> RMSNorm:
         return RMSNorm(dim, eps, device=self.device, dtype=self.dtype)
 
 
 class Linear(nn.Module):
-    """Bias-free projection with Paddle's ``[in, out]`` weight.  Its
-    output is a "dot" to the recompute policies (``names``)."""
+    """Projection with Paddle's ``[in, out]`` weight and, with ``bias``,
+    a bias (zeros at construction) added to the product.  The product is
+    a "dot" to the recompute policies (``names``)."""
 
     def __init__(self, init: _Init, d_in: int, d_out: int, std: float,
-                 names=("dot",)):
+                 names=("dot",), bias: bool = False):
         super().__init__()
         self.weight = init.normal((d_in, d_out), std)
+        self.bias = init.zeros((d_out,)) if bias else None
         self.names = names
 
     def forward(self, x):
-        return product(x, self.weight, self.names)
+        y = product(x, self.weight, self.names)
+        return y if self.bias is None else y + self.bias
 
 
 class Embedding(nn.Module):
@@ -177,21 +186,24 @@ class LlamaAttention(nn.Module):
         self.head_dim = c.hidden_size // c.num_attention_heads
         std = c.initializer_range
         out_std = std / math.sqrt(2 * c.num_hidden_layers)
+        bias = c.attention_bias                 # q/k/v biases, no o bias
         self.q_proj = Linear(init, c.hidden_size,
-                             self.num_heads * self.head_dim, std)
+                             self.num_heads * self.head_dim, std, bias=bias)
         self.k_proj = Linear(init, c.hidden_size,
-                             self.num_kv_heads * self.head_dim, std)
+                             self.num_kv_heads * self.head_dim, std,
+                             bias=bias)
         self.v_proj = Linear(init, c.hidden_size,
-                             self.num_kv_heads * self.head_dim, std)
+                             self.num_kv_heads * self.head_dim, std,
+                             bias=bias)
         # its output is the reference's "attn_out" (the residual that
         # "core_attn" remat keeps)
         self.o_proj = Linear(init, self.num_heads * self.head_dim,
                              c.hidden_size, out_std,
                              names=("dot", "attn_out"))
         self.use_flash = c.use_flash_attention
-        # the reference also needs fuse_qkv off and no q/k/v bias for the
-        # fused chain; the port refuses both at construction
-        self.fuse_norm_rope = c.fuse_norm_rope
+        # as in the reference, a biased attention (Qwen2's) takes the
+        # unfused rope path; the port refuses fuse_qkv at construction
+        self.fuse_norm_rope = c.fuse_norm_rope and not bias
 
     def forward(self, x, cos_sin):
         b, s, _ = x.shape

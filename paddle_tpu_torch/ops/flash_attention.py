@@ -373,7 +373,7 @@ def flash_attention_raw(q, k, v, causal: bool = False, mask=None,
         if mask is not None and mask.requires_grad:
             raise NotImplementedError(
                 "the gradient of a trained attention bias is not ported "
-                "yet (ROADMAP 'Port: MoE and remaining kernels')")
+                "yet (ROADMAP 'Port: remaining kernels')")
         _check(q, k, v, causal, mask, dropout_p)
         return _FlashAttention.apply(q, k, v, mask, causal)
     return _flash_fwd_kept(q, k, v, causal, mask, dropout_p)[0]

@@ -30,6 +30,7 @@ import torch
 
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import fused_train as ft
+from paddle_tpu_torch.ops import grouped_matmul as gm
 from paddle_tpu_torch.ops import paged_attention as pa
 
 pytestmark = pytest.mark.cuda
@@ -274,6 +275,129 @@ def test_matmul_rope_kernel_matches_plain(dev, dtype, b, s, k, heads, d):
         xs, ws, cos, sin, heads, d), (xs, ws), ct)
     for a, e in zip(g, g_want):
         assert _rel(a, e) <= REL_TOL[dtype], _rel(a, e)
+
+
+def _rel_l2(got, want):
+    return ((got.float() - want.float()).norm()
+            / want.float().norm()).item()
+
+
+def _plan_rows(dev, gen, dtype, *, t, k, e, h, tm, empty=2):
+    """Routes of t tokens to k of e experts (expert ``empty`` gets none),
+    their plan, and random rows scattered into the padded buffer."""
+    idx = torch.randint(0, e, (t, k), generator=gen, device=dev)
+    idx = torch.where(idx == empty, (idx + 1) % e, idx)
+    order, dest, te, counts, m_pad = gm.make_dropless_plan(idx, e, tm)
+    rows = torch.randn(t * k, h, generator=gen, device=dev).to(dtype)
+    xs = torch.zeros(m_pad, h, device=dev, dtype=dtype).index_copy(
+        0, dest, rows)
+    return xs, te, counts
+
+
+GMM_CASES = [  # (rows dtype, weight dtype, tm)
+    (torch.bfloat16, torch.bfloat16, 128), (torch.bfloat16, torch.bfloat16, 256),
+    (torch.float32, torch.float32, 128), (torch.float32, torch.bfloat16, 128),
+    (torch.float32, torch.bfloat16, 32)]
+
+
+@pytest.mark.parametrize("adt,wdt,tm", GMM_CASES, ids=str)
+@pytest.mark.parametrize("transpose_w", [False, True], ids=["nn", "nt"])
+def test_gmm_kernel_matches_plain(dev, adt, wdt, tm, transpose_w):
+    gen = torch.Generator(device=dev).manual_seed(7)
+    e, kdim, n = 6, 264, 200
+    xs, te, counts = _plan_rows(dev, gen, adt, t=300, k=3, e=e, h=kdim,
+                                tm=tm)
+    shape = (e, n, kdim) if transpose_w else (e, kdim, n)
+    w = (torch.randn(shape, generator=gen, device=dev) / kdim ** 0.5).to(wdt)
+    want = gm.gmm_reference(xs, w, te, transpose_w=transpose_w)
+    before = gm.gmm_raw.launches
+    for cnt in (counts, None):       # the padding skip changes nothing here
+        got = gm.gmm_raw(xs, w, te, transpose_w=transpose_w, counts=cnt)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and got.dtype == adt
+        assert _rel_l2(got, want) <= REL_TOL[adt], _rel_l2(got, want)
+    assert gm.gmm_raw.launches == before + 2
+
+
+@pytest.mark.parametrize("adt,wdt,tm", GMM_CASES, ids=str)
+@pytest.mark.parametrize("save_pre", [False, True], ids=["hs", "save_pre"])
+def test_gmm_glu_kernel_matches_plain(dev, adt, wdt, tm, save_pre):
+    gen = torch.Generator(device=dev).manual_seed(8)
+    e, h, f = 6, 256, 136
+    xs, te, counts = _plan_rows(dev, gen, adt, t=300, k=3, e=e, h=h, tm=tm)
+    wg, wu = ((torch.randn(e, h, f, generator=gen, device=dev)
+               / h ** 0.5).to(wdt) for _ in range(2))
+    want = gm.gmm_glu_reference(xs, wg, wu, te, save_pre=save_pre)
+    before = gm.gmm_glu_raw.launches
+    got = gm.gmm_glu_raw(xs, wg, wu, te, save_pre=save_pre, counts=counts)
+    torch.cuda.synchronize()
+    assert gm.gmm_glu_raw.launches == before + 1
+    assert len(got) == len(want) == (3 if save_pre else 1)
+    for a, b in zip(got, want):
+        assert a.dtype == adt and _rel_l2(a, b) <= REL_TOL[adt], \
+            _rel_l2(a, b)
+
+
+@pytest.mark.parametrize("dtype,tm", [(torch.bfloat16, 128),
+                                      (torch.bfloat16, 256),
+                                      (torch.float32, 128)], ids=str)
+def test_gmm_dw_kernel_matches_plain(dev, dtype, tm):
+    gen = torch.Generator(device=dev).manual_seed(9)
+    e, kdim, n = 6, 264, 200
+    xs, te, counts = _plan_rows(dev, gen, dtype, t=300, k=3, e=e, h=kdim,
+                                tm=tm)
+    dout = torch.randn(xs.shape[0], n, generator=gen, device=dev).to(dtype)
+    dout = torch.where(xs[:, :1] != 0, dout, torch.zeros_like(dout))
+    want = gm.gmm_dw_reference(xs, dout, te, counts, e)
+    before = gm.gmm_dw_raw.launches
+    got = gm.gmm_dw_raw(xs, dout, te, counts, e)
+    torch.cuda.synchronize()
+    assert gm.gmm_dw_raw.launches == before + 1
+    assert got.shape == (e, kdim, n) and got.dtype == dtype
+    assert int(counts[2]) == 0 and torch.equal(got[2], torch.zeros_like(got[2]))
+    assert _rel_l2(got, want) <= REL_TOL[dtype], _rel_l2(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_dropless_moe_ffn_on_the_kernels_matches_plain(dev, dtype):
+    """Values and gradients of the dropless FFN (the kernels and their
+    autograd Functions) against the same FFN on the CPU (the plain
+    versions), from the same inputs."""
+    gen = torch.Generator(device=dev).manual_seed(10)
+    t, k, e, h, f = 160, 4, 8, 128, 96
+    x = torch.randn(t, h, generator=gen, device=dev).to(dtype)
+    gv = torch.rand(t, k, generator=gen, device=dev)
+    idx = torch.randint(0, e, (t, k), generator=gen, device=dev)
+    ws = [(torch.randn(s, generator=gen, device=dev) / s[1] ** 0.5).to(dtype)
+          for s in ((e, h, f), (e, h, f), (e, f, h))]
+    ct = torch.randn(t, h, generator=gen, device=dev).to(dtype)
+    res = []
+    for d in (dev, torch.device("cpu")):
+        xi = x.to(d).requires_grad_()
+        wi = [w.to(d).requires_grad_() for w in ws]
+        out = gm.dropless_moe_ffn(xi, gv.to(d), idx.to(d), *wi)
+        grads = torch.autograd.grad(out, [xi, *wi], ct.to(d))
+        res.append([out.cpu(), *(g.cpu() for g in grads)])
+    for a, b in zip(*res):
+        assert _rel_l2(a, b) <= (1e-5 if dtype == torch.float32
+                                 else 2 * REL_TOL[dtype]), _rel_l2(a, b)
+
+
+def test_grouped_matmul_refuses_what_the_kernels_do_not_take(dev):
+    te = torch.zeros(2, dtype=torch.int32, device=dev)
+    w = torch.zeros(1, 64, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="multiple of 128"):
+        gm.gmm_raw(torch.zeros(128, 64, device=dev, dtype=torch.bfloat16),
+                   w, te)
+    with pytest.raises(NotImplementedError, match="float32 and bfloat16"):
+        gm.gmm_raw(torch.zeros(256, 64, device=dev, dtype=torch.float16),
+                   w.half(), te)
+    with pytest.raises(NotImplementedError, match="bfloat16 weights"):
+        gm.gmm_raw(torch.zeros(256, 64, device=dev, dtype=torch.bfloat16),
+                   w.float(), te)
+    with pytest.raises(NotImplementedError, match="multiples of 8"):
+        gm.gmm_raw(torch.zeros(256, 60, device=dev, dtype=torch.bfloat16),
+                   w[:, :60], te)
 
 
 def test_fused_regions_refuse_what_the_kernels_do_not_take(dev):
