@@ -8,7 +8,8 @@ CUDA toolkit (nvcc) and PyTorch built for CUDA.  It builds the port's
 kernels from ``paddle_tpu_torch/csrc`` (one nvcc per source, all
 started together) and holds each against its plain PyTorch version at
 the main paths' full-width shapes (the attention kernels also at GQA
-group 1, the grouped matmuls at the MoE serving and training shapes).
+group 1 and with int8 pools, the grouped matmuls at the MoE serving and
+training shapes).
 Then it drives the main paths through their user entry points, each
 with the launch counts set to 0 just before and read just after:
 
@@ -25,10 +26,16 @@ with the launch counts set to 0 just before and read just after:
   unfused chain and of the fused chain under each recompute policy
   against a composition of plain versions, and one fused update against
   its plain version;
+- quantized and split-path serving: the same Llama-3-8B on the split
+  path (``unified_step=False``, kernel #7), on the unified step with int8
+  KV pools and int8 weights (#1's int8 mode) and on the split path with
+  both; ``PagedKVCache.attend`` (#6) on the live caches; then at f32, 2
+  layers, the three engines on the card against the same on the CPU;
 - MoE serving: Qwen1.5-MoE-A2.7B (``Qwen2MoeConfig()``: 24 layers, 60
   experts top-4, bf16) through ``LLMEngine`` on the same request mix,
   the expert FFN through the grouped matmul kernel, checked against a
-  plain forward with a per-expert loop;
+  plain forward with a per-expert loop; then on the split path with
+  both int8 knobs (#7 at group 1, #11 on int8 expert stacks);
 - MoE training: ``bench.py`` ``bench_moe``'s recipe at Qwen1.5-MoE width
   cut to 6 layers, bf16 (amp O2), batch 4 x seq 4096, full recompute,
   AdamW, 5 steps (the fused gate/up, grouped and per-expert dW kernels
@@ -277,6 +284,7 @@ def serve_reference(torch, dev, ids, cases, ref_logits):
 def kernel_family(name):
     for key, fam in (("ragged_attend", "ragged_attend"),
                      ("ragged_append", "ragged_append"),
+                     ("paged_decode", "paged_decode"),
                      ("flash_fwd", "flash_fwd"),
                      ("flash_bwd_dq", "flash_bwd_dq"),
                      ("flash_bwd_dkv", "flash_bwd_dkv"),
@@ -1398,6 +1406,10 @@ def serve_moe_phase(torch, np, dev, table):
         f"p{rid}": rng.integers(0, cfg.vocab_size, n).tolist()
         for rid, n in SERVE_LENS.items()}, max_new=8)
     emit({"phase": "serve_moe_profile", **prof})
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_moe_split_int8(torch, np, dev, model)
 
 
 def train_moe_phase(torch, np, dev, table):
@@ -1556,6 +1568,472 @@ def train_moe_reference_phase(torch, np, dev):
 
 
 
+# ---------------------------------------------------------------------------
+# quantized and split-path serving: kernels #6, #7 and the int8 mode of #1
+# ---------------------------------------------------------------------------
+
+# the split decode kernels' serving shape: 8 rows (one with length 0),
+# lengths spread over 1-2048, P 128, D 128, 129 pages (16 a row + pad)
+DECODE_LENS = [0, 1, 37, 300, 777, 1000, 1500, 2047]
+SPLIT_SPS = 4                      # steps_per_sync of the split serves
+
+
+def int8_pools(pools):
+    """Int8 codes and per-token scales of float pools (the plain
+    quantization), as a serving cache would hold them."""
+    from paddle_tpu_torch.quantization.ops import quantize_rows
+    out = []
+    for p in pools:
+        codes, scale = quantize_rows(p)
+        out += [codes, scale]
+    return out[0], out[2], out[1], out[3]           # kc, vc, ks, vs
+
+
+def decode_case(torch, gen, dev, H=32, KVH=8, int8=False):
+    """Kernels #6/#7 at the serving shape: q [8, H, 128], new rows
+    [8, KVH, 128] and pools [KVH, 129, 128, 128] in bf16 (int8 pools: the
+    same quantized per token), tables of 16 distinct pages a row.  Returns
+    (q, k_new, v_new, pools (kp, vp, ks, vs), tables, lens)."""
+    B, P, D, maxp = len(DECODE_LENS), 128, 128, 16
+    n_pages = B * maxp + 1
+    perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
+    tables = perm.reshape(B, maxp).to(torch.int32).contiguous()
+    lens = torch.tensor(DECODE_LENS, dtype=torch.int32, device=dev)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+
+    pools = (rnd(KVH, n_pages, P, D), rnd(KVH, n_pages, P, D))
+    pools = int8_pools(pools) if int8 else pools + (None, None)
+    return (rnd(B, H, D), rnd(B, KVH, D), rnd(B, KVH, D), pools, tables,
+            lens)
+
+
+def decode_cost(H, KVH, int8, append):
+    """(bytes, flops) of one #6 (append False) or #7 call at the decode
+    case: each K/V token read once (codes plus scale in int8), q read,
+    out written, new rows read and appended (#7), tables and lengths."""
+    D, el = 128, 1 if int8 else 2
+    tokens = sum(n + int(append) for n in DECODE_LENS)
+    B = len(DECODE_LENS)
+    row = D * el + (4 if int8 else 0)
+    n_bytes = (2 * tokens * KVH * row + 2 * B * H * D * 2
+               + 4 * (B * 16 + B))
+    if append:
+        n_bytes += 2 * B * KVH * D * 2 + 2 * B * KVH * row
+    return n_bytes, 4 * H * D * tokens
+
+
+def decode_kernels(torch, gen, dev, table):
+    """#7 and #6 (bf16 float pools and int8 pools) against their plain
+    versions at the decode case, at group 4 (32/8 heads, Llama-3-8B) and
+    group 1 (16/16, Qwen1.5-MoE): outputs within one bf16 step (``TOL``),
+    pools after #7's append equal (int8: codes and scales equal).  The
+    group-4 rows fill the kernel table (#7 float: the split serve's; #6
+    float: ``PagedKVCache.attend``'s)."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    for (H, KVH), int8 in ((h, i) for h in ((32, 8), (16, 16))
+                           for i in (False, True)):
+        q, kn, vn, pools, tables, lens = decode_case(torch, gen, dev, H, KVH,
+                                                     int8)
+        mode = "int8" if int8 else "bf16"
+        for name, fn, plain, new in (
+                ("paged_decode_append_attend", pa.paged_decode_append_attend,
+                 pa.paged_decode_append_attend_reference, (kn, vn)),
+                ("paged_attention", pa.paged_attention,
+                 pa.paged_attention_reference, ())):
+            mine = [None if p is None else p.clone() for p in pools]
+            ref = [None if p is None else p.clone() for p in pools]
+
+            def call(f, ps):
+                return f(q, ps[0], ps[1], *new, tables, lens, ps[2], ps[3])
+            got = call(fn, mine)
+            want = call(plain, ref)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            pools_equal = all(a is None or torch.equal(a, b)
+                              for a, b in zip(mine, ref))
+            check(err <= TOL, f"{name} ({mode}, group {H // KVH}) off its "
+                              f"plain version by {err}")
+            check(pools_equal, f"{name} ({mode}, group {H // KVH}) wrote "
+                               f"other pools than its plain version")
+            check(not got[0].any() if not new else True,
+                  f"{name}: the row of length 0 is not zero")
+            bound, bound_by = bound_ms(*decode_cost(H, KVH, int8, bool(new)))
+            row = {"name": name, "route": "cuda",
+                   "source": "paddle_tpu_torch/csrc/paged_decode_attention.cu",
+                   "replaces": "paddle_tpu/ops/pallas/paged_attention.py:"
+                               + ("422" if new else "274"),
+                   "max_abs_err": err,
+                   "ms": timed_ms(torch, lambda: call(fn, mine), 50),
+                   "plain_ms": timed_ms(torch, lambda: call(plain, ref), 5),
+                   "bound_ms": bound, "bound_by": bound_by,
+                   "library_ms": None}
+            emit({"phase": "kernel", **row, "pools": mode,
+                  "group": H // KVH, "heads": H, "kv_heads": KVH,
+                  "lens": DECODE_LENS, "pools_equal": pools_equal,
+                  "tolerance": TOL,
+                  "library": "none: no one PyTorch call reads a paged pool"})
+            if H == 32 and not int8:
+                table[name] = row
+        del q, kn, vn, pools, mine, ref, got, want
+        torch.cuda.empty_cache()
+
+
+def ragged_int8_kernel(torch, gen, dev, table):
+    """#1's int8 mode at the unified step's shapes (``ragged_case``, the
+    pools quantized per token), group 4 and group 1: codes and scales
+    after the append equal the plain version's, outputs within TOL."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    for H, KVH in ((32, 8), (16, 16)):
+        args, _, flops = ragged_case(torch, gen, dev, H=H, KVH=KVH)
+        pools = int8_pools((args.pop("k_pages"), args.pop("v_pages")))
+        mine = [p.clone() for p in pools]
+        ref = [p.clone() for p in pools]
+
+        def call(fn, ps):
+            return fn(args["q"], ps[0], ps[1], args["k_new"], args["v_new"],
+                      args["q_start"], args["q_len"], args["kv_len"],
+                      args["page_tables"], ps[2], ps[3])
+        got = call(pa.ragged_paged_append_attend, mine)
+        want = call(pa.ragged_paged_append_attend_reference, ref)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        check(all(torch.equal(a, b) for a, b in zip(mine, ref)),
+              f"ragged int8 (group {H // KVH}): codes or scales differ "
+              f"from the plain version's")
+        check(err <= TOL, f"ragged int8 (group {H // KVH}) off its plain "
+                          f"version by {err}")
+        # int8 pages and their scales read, the rest as ragged_case counts
+        T, P, D, maxp = 136, 128, 128, 16
+        live = [(36, 1), (127, 1), (300, 1), (1031, 1), (256, 128),
+                (126, 2), (128, 2)]
+        pages_read = sum(-(-(kl + ql) // P) for kl, ql in live) * KVH
+        rows = sum(ql for _, ql in live)
+        n_bytes = (2 * pages_read * P * (D + 4) + rows * H * D * 2
+                   + 2 * rows * KVH * D * 2 + 2 * rows * KVH * (D + 4)
+                   + T * P * H * D * 2 + 4 * (3 * T + T * maxp))
+        bound, bound_by = bound_ms(n_bytes, flops)
+        row = {"name": "ragged_paged_append_attend_int8", "route": "cuda",
+               "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
+               "replaces": "paddle_tpu/ops/pallas/paged_attention.py:912",
+               "max_abs_err": err,
+               "ms": timed_ms(torch, lambda: call(
+                   pa.ragged_paged_append_attend, mine), 20),
+               "plain_ms": timed_ms(torch, lambda: call(
+                   pa.ragged_paged_append_attend_reference, ref), 5),
+               "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+        emit({"phase": "kernel", **row, "group": H // KVH,
+              "codes_and_scales_equal": True, "tolerance": TOL})
+        if H == 32:
+            table["ragged_paged_append_attend_int8"] = row
+        del args, pools, mine, ref, got, want
+        torch.cuda.empty_cache()
+
+
+def kv_bytes(cache):
+    return sum(t.numel() * t.element_size() for t in (
+        cache.k_pages, cache.v_pages, cache.k_scales, cache.v_scales)
+        if t is not None)
+
+
+def engine_weight_bytes(eng):
+    """Bytes of the projection weights an engine computes with: int8
+    values plus scales, or the float parameters."""
+    seen, total = set(), 0
+    ws = [w for layer in eng._layers for w in layer] + [eng._head_w]
+    for w in ws:
+        for t in (w if isinstance(w, tuple) else (w,)):
+            if t is not None and id(t) not in seen:
+                seen.add(id(t))
+                total += t.numel() * t.element_size()
+    return total
+
+
+def cache_attend_check(torch, eng, phase, layers):
+    """``PagedKVCache.attend`` (#6) on a live engine's cache, right after
+    its ``add_request`` prefills, against the plain version over the
+    same pools, for two layers; launches counted from 0."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    cache = eng.cache
+    slots = sorted(r.slot for r in eng._active)
+    gen = torch.Generator(device=eng.device).manual_seed(SEED + 7)
+    c = eng.config
+    q = torch.randn((len(slots), c.num_attention_heads, eng.head_dim),
+                    generator=gen, device=eng.device, dtype=torch.bfloat16)
+    table = torch.as_tensor(cache.page_table[slots], device=eng.device)
+    lens = torch.as_tensor(cache.seq_lens[slots], device=eng.device)
+    pa.paged_attention.launches = 0
+    errs = {}
+    for layer in layers:
+        got = cache.attend(slots, q.to(eng._embed_w.dtype), layer)
+        want = pa.paged_attention_reference(
+            q.to(eng._embed_w.dtype), cache.k_pages[layer],
+            cache.v_pages[layer], table, lens, *cache.scales(layer))
+        torch.cuda.synchronize()
+        errs[layer] = (got.float() - want.float()).abs().max().item()
+    launches = pa.paged_attention.launches
+    emit({"phase": "cache_attend", "engine": phase,
+          "pools": cache.kv_dtype or str(cache.k_pages.dtype),
+          "rows": len(slots), "lens": lens.tolist(), "layers": list(layers),
+          "max_abs_err": errs, "tolerance": TOL,
+          "paged_attention_launches": launches})
+    check(all(e <= TOL for e in errs.values()),
+          f"PagedKVCache.attend off its plain version: {errs}")
+    check(launches == len(layers), f"#6 launched {launches} times")
+    return launches
+
+
+def serve_split_run(torch, eng, prompts, counters, attend_layers=None):
+    """Serve ``prompts`` on the split path: every request through
+    ``add_request`` (the flash prefill), then ``step`` windows of up to
+    SPLIT_SPS host-chained forwards (kernel #7), SERVE_NEW tokens each,
+    launch counts set to 0 just before and read just after.  With
+    ``attend_layers`` the cache's #6 is checked after admission (its
+    launches are not the serve's).  Returns the stats."""
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t_serve = time.perf_counter()
+    ttft = {}
+    for rid, ids in prompts.items():
+        t = time.perf_counter()
+        eng.add_request(rid, ids, max_new_tokens=SERVE_NEW)
+        ttft[rid] = time.perf_counter() - t
+    attend = None
+    if attend_layers is not None:
+        attend = cache_attend_check(torch, eng, "split", attend_layers)
+    forwards = steps = 0
+    decode_s, decode_tokens = 0.0, 0
+    while eng.has_work():
+        t = time.perf_counter()
+        new = eng.step()                    # returns host ints: synced
+        decode_s += time.perf_counter() - t
+        steps += 1
+        forwards += eng.last_window_steps
+        decode_tokens += sum(len(v) for v in new.values())
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t_serve
+    launches = {n: fn.launches for n, fn in counters.items()}
+    results = {rid: eng.result(rid) for rid in prompts}
+    for rid, out in results.items():
+        check(len(out) == SERVE_NEW,
+              f"request {rid} returned {len(out)} tokens, not {SERVE_NEW}")
+        check(all(0 <= t < eng.config.vocab_size for t in out),
+              f"request {rid} returned a token outside the vocabulary")
+    return {"serve_s": serve_s, "steps": steps, "forwards": forwards,
+            "prompt_lens": {r: len(p) for r, p in prompts.items()},
+            "tokens": {rid: len(v) for rid, v in results.items()},
+            "ttft_s": ttft, "decode_tok_s": decode_tokens / decode_s,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "launches": launches, "cache_attend_launches": attend}
+
+
+def profile_split_serve(torch, eng, prompts, max_new=8):
+    """Serve ``prompts`` on the split path (``add_request``, then
+    ``step``) under torch.profiler."""
+    def serve():
+        for rid, ids in prompts.items():
+            eng.add_request(f"p{rid}", ids, max_new_tokens=max_new)
+        forwards = 0
+        while eng.has_work():
+            eng.step()
+            forwards += eng.last_window_steps
+        return forwards
+    forwards, stats = profiled(torch, serve)
+    return {"forwards": forwards, **stats}
+
+
+def split_prompts(np, vocab, seed):
+    """The split serves' five ``add_request`` prompts (37, 128, 300, 1000
+    and 200 ids)."""
+    rng = np.random.default_rng(seed)
+    return {f"s{n}": rng.integers(0, vocab, n).tolist()
+            for n in (37, 128, 300, 1000, 200)}
+
+
+def check_split_launches(stats, layers, name):
+    """#7 exactly once a layer a single-token forward, #1 never, the
+    flash forward once a layer a prefill chunk."""
+    n = stats["launches"]
+    chunks = sum(-(-m // 128) for m in stats["prompt_lens"].values())
+    check(n["paged_decode_append_attend"] == layers * stats["forwards"],
+          f"{name}: #7 launched {n['paged_decode_append_attend']} times in "
+          f"{stats['forwards']} forwards, not {layers} a forward")
+    check(n["ragged_paged_append_attend"] == 0,
+          f"{name}: the split path launched #1")
+    check(n["flash_attention_fwd"] == layers * chunks,
+          f"{name}: flash launches {n['flash_attention_fwd']}, not "
+          f"{layers} x {chunks} prefill chunks")
+
+
+def quant_serve_phases(torch, np, dev, table, model, prompts, bf16_pool_bytes):
+    """Llama-3-8B (the ``serve`` model) on the split path in bf16
+    (``serve_split``), on the unified step with both int8 knobs
+    (``serve_int8``, the ``serve`` requests) and on the split path with
+    both (``serve_split_int8``); #6 on the live caches (``cache_attend``)."""
+    from paddle_tpu_torch.inference.engine import LLMEngine
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import paged_attention as pa
+    layers = model.config.num_hidden_layers
+    counters = {"ragged_paged_append_attend": pa.ragged_paged_append_attend,
+                "flash_attention_fwd": fa.flash_attention_fwd,
+                "paged_decode_append_attend": pa.paged_decode_append_attend}
+    sp = split_prompts(np, model.config.vocab_size, SEED + 8)
+    launches = {}
+    for phase, kw in (("serve_split", {}),
+                      ("serve_split_int8", {"kv_dtype": "int8",
+                                            "weight_dtype": "int8"})):
+        t0 = time.perf_counter()
+        eng = LLMEngine(model, max_seqs=8, max_len=2048, page_size=128,
+                        unified_step=False, steps_per_sync=SPLIT_SPS, **kw)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        stats = serve_split_run(torch, eng, sp, counters,
+                                attend_layers=(0, layers - 1))
+        emit({"phase": phase, "model": "llama3_8b", "layers": layers,
+              "steps_per_sync": SPLIT_SPS, **kw, "setup_s": setup_s,
+              "kv_pool_bytes": kv_bytes(eng.cache),
+              "weight_bytes": engine_weight_bytes(eng), **stats})
+        check_split_launches(stats, layers, phase)
+        launches[phase] = stats
+        # where a split decode forward's time goes: fresh prompts, traced
+        prof = profile_split_serve(
+            torch, eng, split_prompts(np, model.config.vocab_size,
+                                      SEED + 11))
+        emit({"phase": f"{phase}_profile", **prof})
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    eng = LLMEngine(model, max_seqs=8, max_len=2048, page_size=128,
+                    kv_dtype="int8", weight_dtype="int8")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    stats, _ = serve_run(torch, eng, prompts, counters)
+    c = eng.cache
+    emit({"phase": "serve_int8", "model": "llama3_8b", "layers": layers,
+          "kv_dtype": "int8", "weight_dtype": "int8", "setup_s": setup_s,
+          "kv_pool_bytes": kv_bytes(c),
+          "kv_code_bytes": 2 * c.k_pages.numel(),
+          "kv_scale_bytes": 2 * 4 * c.k_scales.numel(),
+          "bf16_kv_pool_bytes": bf16_pool_bytes,
+          "weight_bytes": engine_weight_bytes(eng), **stats})
+    n = stats["launches"]
+    check(n["ragged_paged_append_attend"] == layers * stats["steps"]
+          and n["flash_attention_fwd"] > 0
+          and n["paged_decode_append_attend"] == 0,
+          f"serve_int8 launches {n}")
+    table["ragged_paged_append_attend_int8"]["launches"] = \
+        n["ragged_paged_append_attend"]
+    table["paged_decode_append_attend"]["launches"] = \
+        launches["serve_split"]["launches"]["paged_decode_append_attend"]
+    table["paged_attention"]["launches"] = \
+        launches["serve_split"]["cache_attend_launches"]
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_moe_split_int8(torch, np, dev, model):
+    """Qwen1.5-MoE-A2.7B at full depth on the split path with both int8
+    knobs: #7 int8 at group 1, #11 on the int8 expert stacks widened to
+    bf16 (3 a layer a forward, prefill chunks included)."""
+    from paddle_tpu_torch.inference.engine import LLMEngine
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import grouped_matmul as gm
+    from paddle_tpu_torch.ops import paged_attention as pa
+    layers = model.config.num_hidden_layers
+    t0 = time.perf_counter()
+    eng = LLMEngine(model, max_seqs=8, max_len=2048, page_size=128,
+                    unified_step=False, steps_per_sync=SPLIT_SPS,
+                    kv_dtype="int8", weight_dtype="int8")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    counters = {"ragged_paged_append_attend": pa.ragged_paged_append_attend,
+                "flash_attention_fwd": fa.flash_attention_fwd,
+                "paged_decode_append_attend": pa.paged_decode_append_attend,
+                "grouped_matmul": gm.gmm_raw}
+    stats = serve_split_run(torch, eng, split_prompts(
+        np, model.config.vocab_size, SEED + 9), counters)
+    chunks = sum(-(-m // 128) for m in stats["prompt_lens"].values())
+    emit({"phase": "serve_moe_split_int8", "model": "qwen1.5_moe_a2.7b",
+          "layers": layers, "steps_per_sync": SPLIT_SPS, "kv_dtype": "int8",
+          "weight_dtype": "int8", "setup_s": setup_s,
+          "kv_pool_bytes": kv_bytes(eng.cache),
+          "weight_bytes": engine_weight_bytes(eng),
+          "grouped_matmul_launches_per_forward":
+          stats["launches"]["grouped_matmul"] / (stats["forwards"] + chunks),
+          **stats})
+    check_split_launches(stats, layers, "serve_moe_split_int8")
+    check(stats["launches"]["grouped_matmul"]
+          == 3 * layers * (stats["forwards"] + chunks),
+          f"#11 launched {stats['launches']['grouped_matmul']} times, not "
+          f"{3 * layers} a forward")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_quant_reference(torch, np, dev):
+    """f32, 2 layers at Llama-3-8B width, TF32 off: split-float,
+    unified-int8 and split-int8 engines on the card and on the CPU (the
+    plain versions) with the same weights and prompts.  Greedy tokens
+    must be equal; the first-token logits within 1e-4 (relative L2) in
+    float mode and 1e-3 in int8 mode, where cuBLAS and the CPU may round
+    a K/V element across a code boundary (one code is 1/254 of a row's
+    range) or a weight product differently before the scale."""
+    from paddle_tpu_torch.inference.engine import LLMEngine
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                               llama3_8b_config)
+    cfg = dataclasses.replace(llama3_8b_config(), num_hidden_layers=2)
+    cpu = torch.device("cpu")
+    model_cpu = LlamaForCausalLM(
+        cfg, device=cpu, dtype=torch.float32,
+        generator=torch.Generator(device=cpu).manual_seed(SEED + 10))
+    model_gpu = LlamaForCausalLM(
+        cfg, device=dev, dtype=torch.float32,
+        generator=torch.Generator(device=dev).manual_seed(SEED + 10))
+    model_gpu.load_state_dict(model_cpu.state_dict())
+    rng = np.random.default_rng(SEED + 10)
+    prompts = {"q37": rng.integers(0, cfg.vocab_size, 37).tolist(),
+               "q150": rng.integers(0, cfg.vocab_size, 150).tolist()}
+    rep = {}
+    for name, kw, tol in (
+            ("split_float", {"unified_step": False}, 1e-4),
+            ("unified_int8", {"kv_dtype": "int8", "weight_dtype": "int8"},
+             1e-3),
+            ("split_int8", {"unified_step": False, "kv_dtype": "int8",
+                            "weight_dtype": "int8"}, 1e-3)):
+        out = []
+        for m, d in ((model_gpu, dev), (model_cpu, cpu)):
+            eng = LLMEngine(m, max_seqs=4, max_len=512, page_size=128,
+                            steps_per_sync=SPLIT_SPS, device=d, **kw)
+            slot = eng.cache.allocate(len(prompts["q37"]) + 1)
+            logits = eng._prefill_seq(slot, prompts["q37"], 0).float().cpu()
+            eng.cache.release(slot)
+            for rid, ids in prompts.items():
+                eng.add_request(rid, ids, max_new_tokens=4)
+            while eng.has_work():
+                eng.step()
+            out.append((logits, {r: eng.result(r) for r in prompts}))
+            del eng
+        (lg, tg), (lc, tc) = out
+        rel = ((lg - lc).norm() / lc.norm()).item()
+        rep[name] = {"logits_rel_l2_err": rel, "tolerance": tol,
+                     "greedy_tokens_equal": tg == tc, "tokens": tg}
+        check(bool(torch.isfinite(lg).all()), f"{name}: logits not finite")
+        check(rel <= tol, f"{name}: card logits off the CPU's by {rel}")
+        check(tg == tc, f"{name}: card tokens {tg} != CPU tokens {tc}")
+    emit({"phase": "serve_quant_reference", "dtype": "float32", "layers": 2,
+          **rep})
+    del model_cpu, model_gpu
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1588,7 +2066,8 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _build.build(["ragged_paged_attention", "flash_attention_fwd",
                           "flash_attention_bwd", "fused_update", "add_norm",
-                          "matmul_rope", "grouped_matmul"])
+                          "matmul_rope", "grouped_matmul",
+                          "paged_decode_attention"])
     for name, rep in built.items():
         print(f"--- ptxas report, {name}\n{rep['ptxas']}", file=sys.stderr)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -1675,6 +2154,8 @@ def main() -> int:
     matmul_rope_kernel(torch, np, gen, dev, table)
     group1_kernels(torch, gen, dev)
     moe_kernels(torch, gen, dev, table)
+    decode_kernels(torch, gen, dev, table)
+    ragged_int8_kernel(torch, gen, dev, table)
     torch.cuda.empty_cache()
 
     # -- serve Llama-3-8B through the engine's entry points
@@ -1729,8 +2210,16 @@ def main() -> int:
         f"p{rid}": rng.integers(0, cfg.vocab_size, n).tolist()
         for rid, n in SERVE_LENS.items()}, max_new=8)
     emit({"phase": "profile", **prof})
-    del eng, model
+    del eng
+    gc.collect()
     torch.cuda.empty_cache()
+
+    # -- the same model on the split path and with int8 pools and weights
+    quant_serve_phases(torch, np, dev, table, model, prompts, pool_bytes)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_quant_reference(torch, np, dev)
 
     # -- train at 8B width: the unfused chain, then the headline recipe
     # (fused regions, core_attn remat) at twice the depth; then the f32
@@ -1762,7 +2251,8 @@ def main() -> int:
         "flash_attention_fwd_causal_8k", "flash_attention_bwd_dq",
         "flash_attention_bwd_dkv", "fused_update", "add_norm",
         "matmul_rope", "grouped_matmul", "grouped_matmul_glu",
-        "grouped_matmul_dw")]})
+        "grouped_matmul_dw", "paged_attention", "paged_decode_append_attend",
+        "ragged_paged_append_attend_int8")]})
     print(smi[0], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -7,11 +7,14 @@ finds each counterpart, but imports only ``torch`` and ``numpy``:
 nothing of JAX and nothing of ``paddle_tpu``.
 
 It ports two paths so far.  Serving: ``LLMEngine``'s ragged unified
-step and synchronous chunked prefill.  Training: ``LlamaForCausalLM``'s
-forward with the chunked linear + cross-entropy, ``amp.decorate``,
-AdamW with a global-norm clip and ``CompiledTrainStep``.  Their kernels
-(ragged paged attention, flash forward and backward, the fused clip +
-optimizer update) are written by hand in CUDA C++ for Hopper
-(``csrc/``).  Entry points run on the GPU unless the caller passes
-``device="cpu"``.
+step, its split decode path and synchronous chunked prefill, with float
+or int8 KV pools and float or int8 weights (``quantization/``), for the
+Llama and Qwen2-MoE families.  Training: ``LlamaForCausalLM``'s and
+``Qwen2MoeForCausalLM``'s forward with the chunked linear +
+cross-entropy, ``amp.decorate``, AdamW with a global-norm clip and
+``CompiledTrainStep``.  Their kernels (paged attention for the unified
+and split steps, flash forward and backward, the fused clip + optimizer
+update, add + norm, matmul + rope, the MoE grouped matmuls) are written
+by hand in CUDA C++ for Hopper (``csrc/``).  Entry points run on the
+GPU unless the caller passes ``device="cpu"``.
 """

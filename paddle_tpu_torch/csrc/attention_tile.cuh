@@ -20,6 +20,11 @@
 // revision); at the serving shapes this leaves the kernel bounded by
 // the f32 pipe rather than by bytes, which PERF.md records.
 //
+// A context whose pools are int8 (`static constexpr bool kInt8 = true`,
+// with per-token f32 scale pools `ks`/`vs` indexed by a key's row, its
+// element offset over D) stages K and V tiles as f32: each 16-byte chunk
+// of 16 codes is dequantized (code * scale) as it is stored.
+//
 // Where a context hides a key (`mask`), the score becomes -1e30 — the
 // reference's masking value, not -inf — so a row whose first tiles are
 // all hidden carries finite garbage that the rescale factor alpha =
@@ -33,6 +38,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace ptt {
 
@@ -81,6 +88,17 @@ struct Tile {
   }
 };
 
+// Whether a context's pools are int8 (its `kInt8`, false if it has none).
+template <class Ctx, class = void>
+struct CtxInt8 : std::false_type {};
+template <class Ctx>
+struct CtxInt8<Ctx, std::void_t<decltype(Ctx::kInt8)>>
+    : std::integral_constant<bool, Ctx::kInt8> {};
+
+// The element type of a context's staged K/V tiles.
+template <typename T, class Ctx>
+using TileElem = typename std::conditional<CtxInt8<Ctx>::value, float, T>::type;
+
 // Per-row FlashAttention-2 state of one thread.
 template <int D>
 struct RowState {
@@ -98,12 +116,13 @@ struct RowState {
 //   long long k_off(int pos)      element offset of key pos in ctx.k, <0 if none;
 //   long long v_off(int pos)      element offset of value pos in ctx.v;
 //   float mask(int lr, int pos, float s)  the score after masking;
-//   int key_end;  const T* k;  const T* v.
+//   int key_end;  const T* k;  const T* v;
+// or, with kInt8, const int8_t* k, v and const float* ks, vs.
 template <typename T, int D, class Ctx>
 __device__ __forceinline__ void attend_rows(const Ctx& ctx, float scale,
                                             unsigned char* smem,
                                             RowState<D>& st) {
-  using Sm = Tile<T, D>;
+  using Sm = Tile<TileElem<T, Ctx>, D>;
   constexpr int VEC = 16 / (int)sizeof(T);   // elements per 16-byte load
   constexpr int CH = D / VEC;                 // 16-byte chunks per row
   constexpr int DC = D / 16;                  // output columns per thread
@@ -127,20 +146,51 @@ __device__ __forceinline__ void attend_rows(const Ctx& ctx, float scale,
 
   for (int t0 = 0; t0 < ctx.key_end; t0 += BK) {
     __syncthreads();   // previous tile's readers are done
-    for (int idx = tid; idx < BK * CH; idx += NT) {
-      const int row = idx / CH, c = idx % CH;
-      const int pos = t0 + row;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-      if (pos < ctx.key_end) {
-        const long long ko = ctx.k_off(pos), vo = ctx.v_off(pos);
-        if (ko >= 0) kv = *reinterpret_cast<const uint4*>(ctx.k + ko + c * VEC);
-        if (vo >= 0) vv = *reinterpret_cast<const uint4*>(ctx.v + vo + c * VEC);
+    if constexpr (CtxInt8<Ctx>::value) {
+      // 16 int8 codes a chunk, dequantized into the f32 tiles
+      for (int idx = tid; idx < BK * (D / 16); idx += NT) {
+        const int row = idx / (D / 16), c = idx % (D / 16);
+        const int pos = t0 + row;
+        float kf[16], vf[16];
+#pragma unroll
+        for (int i = 0; i < 16; ++i) kf[i] = vf[i] = 0.f;
+        const long long ko = pos < ctx.key_end ? ctx.k_off(pos) : -1;
+        if (ko >= 0) {
+          const uint4 ku = *reinterpret_cast<const uint4*>(ctx.k + ko + c * 16);
+          const uint4 vu = *reinterpret_cast<const uint4*>(ctx.v + ko + c * 16);
+          const int8_t* kc = reinterpret_cast<const int8_t*>(&ku);
+          const int8_t* vc = reinterpret_cast<const int8_t*>(&vu);
+          const float ks = ctx.ks[ko / D], vs = ctx.vs[ko / D];
+#pragma unroll
+          for (int i = 0; i < 16; ++i) {
+            kf[i] = (float)kc[i] * ks;
+            vf[i] = (float)vc[i] * vs;
+          }
+        }
+        float* kd = sm.k + row * Sm::KLD + c * 16;
+        float* vd = sm.v + row * Sm::KLD + c * 16;
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          kd[i] = kf[i];
+          vd[i] = vf[i];
+        }
       }
-      // padded rows are only 4-byte aligned: store word by word
-      uint32_t* kd = reinterpret_cast<uint32_t*>(sm.k + row * Sm::KLD + c * VEC);
-      uint32_t* vd = reinterpret_cast<uint32_t*>(sm.v + row * Sm::KLD + c * VEC);
-      kd[0] = kv.x; kd[1] = kv.y; kd[2] = kv.z; kd[3] = kv.w;
-      vd[0] = vv.x; vd[1] = vv.y; vd[2] = vv.z; vd[3] = vv.w;
+    } else {
+      for (int idx = tid; idx < BK * CH; idx += NT) {
+        const int row = idx / CH, c = idx % CH;
+        const int pos = t0 + row;
+        uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
+        if (pos < ctx.key_end) {
+          const long long ko = ctx.k_off(pos), vo = ctx.v_off(pos);
+          if (ko >= 0) kv = *reinterpret_cast<const uint4*>(ctx.k + ko + c * VEC);
+          if (vo >= 0) vv = *reinterpret_cast<const uint4*>(ctx.v + vo + c * VEC);
+        }
+        // padded rows are only 4-byte aligned: store word by word
+        uint32_t* kd = reinterpret_cast<uint32_t*>(sm.k + row * Sm::KLD + c * VEC);
+        uint32_t* vd = reinterpret_cast<uint32_t*>(sm.v + row * Sm::KLD + c * VEC);
+        kd[0] = kv.x; kd[1] = kv.y; kd[2] = kv.z; kd[3] = kv.w;
+        vd[0] = vv.x; vd[1] = vv.y; vd[2] = vv.z; vd[3] = vv.w;
+      }
     }
     __syncthreads();
 

@@ -22,6 +22,15 @@
 //      last position those rows may see, with the causal-within-chunk mask
 //      kv_pos <= kv_len + row.  Tiles without a query row exit at once.
 //
+// Int8 pools (`int8`): the pools hold int8 codes and the scale pools
+// [KVH, n_pages, P] f32 one scale per token row.  The append launch
+// (ragged_append_int8) quantizes each live row in a warp, as
+// quantization/ops.py quantize_rows does (int8_kv.cuh: the same codes
+// and scale bit for bit), and writes codes and scale; the attend launch
+// dequantizes K/V tiles as it stages them into shared memory
+// (attention_tile.cuh, f32 tiles).  q, the new rows and the output keep
+// the model's dtype.
+//
 // What bounds it on an H100: bytes.  The output block [S, P, H, D] is
 // written whole (142.6 MB in bf16 at the engine's default shapes, most of
 // it zeros), and decode rows read every page of their sequence once per
@@ -32,8 +41,24 @@
 // (attention_tile.cuh); skips pages past the rows' last visible position
 // and row groups without a query.
 #include "attention_tile.cuh"
+#include "int8_kv.cuh"
 
 namespace ptt {
+
+// Zero descriptor s's output rows r >= ql of kv head h's G query heads,
+// with 16-byte stores (D * sizeof(T) is a multiple of 16).
+template <typename T>
+__device__ __forceinline__ void zero_rows_without_query(T* out, int s, int h,
+                                                        int ql, int H, int KVH,
+                                                        int P, int D) {
+  constexpr int VEC = 16 / (int)sizeof(T);
+  const int G = H / KVH, rch = G * D / VEC;  // chunks per row of G heads
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+  for (int idx = threadIdx.x; idx < (P - ql) * rch; idx += blockDim.x) {
+    const int r = ql + idx / rch, c = idx % rch;
+    *reinterpret_cast<uint4*>(out + (((size_t)s * P + r) * H + h * G) * D + c * VEC) = zero;
+  }
+}
 
 // One block per (kv head, descriptor): copy the descriptor's new K/V rows
 // into their page slots, then zero the output rows of this kv head's G
@@ -66,19 +91,47 @@ ragged_append(const T* __restrict__ k_new, const T* __restrict__ v_new,
       *reinterpret_cast<uint4*>(v_pages + dst) = *reinterpret_cast<const uint4*>(v_new + src);
     }
   }
-  const int G = H / KVH, rch = G * ch;       // chunks per row of G heads
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-  for (int idx = threadIdx.x; idx < (P - ql) * rch; idx += blockDim.x) {
-    const int r = ql + idx / rch, c = idx % rch;
-    *reinterpret_cast<uint4*>(out + (((size_t)s * P + r) * H + h * G) * D + c * VEC) = zero;
-  }
+  zero_rows_without_query(out, s, h, ql, H, KVH, P, D);
 }
 
+// One block per (kv head, descriptor), int8 pools: each warp quantizes
+// the descriptor's new K and V rows r = warp, warp + 8, ... into their
+// page slots (codes and the per-token scale), then the block zeroes the
+// output rows without a query as ragged_append does.
 template <typename T, int D>
+__global__ void __launch_bounds__(256)
+ragged_append_int8(const T* __restrict__ k_new, const T* __restrict__ v_new,
+                   int8_t* __restrict__ k_pages, int8_t* __restrict__ v_pages,
+                   float* __restrict__ k_scales, float* __restrict__ v_scales,
+                   const int* __restrict__ q_start, const int* __restrict__ q_len,
+                   const int* __restrict__ kv_len, const int* __restrict__ tables,
+                   T* __restrict__ out, int H, int KVH, int n_pages, int P,
+                   int maxp) {
+  const int h = blockIdx.x, s = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ql = min(max(q_len[s], 0), P);
+  const int kv = kv_len[s], qs = q_start[s];
+  for (int r = warp; r < ql; r += blockDim.x >> 5) {
+    const int pos = kv + r;
+    if (pos / P >= maxp) continue;
+    const int page = tables[(size_t)s * maxp + pos / P];
+    if (page < 0 || page >= n_pages) continue;
+    const size_t row = ((size_t)h * n_pages + page) * P + pos % P;
+    const size_t src = ((size_t)(qs + r) * KVH + h) * D;
+    quantize_row_warp<T, D>(k_new + src, k_pages + row * D, k_scales + row, lane);
+    quantize_row_warp<T, D>(v_new + src, v_pages + row * D, v_scales + row, lane);
+  }
+  zero_rows_without_query(out, s, h, ql, H, KVH, P, D);
+}
+
+template <typename T, int D, typename TP>
 struct RaggedCtx {
+  static constexpr bool kInt8 = std::is_same<TP, int8_t>::value;
   const T* q;
-  const T* k;
-  const T* v;
+  const TP* k;
+  const TP* v;
+  const float* ks;     // int8 pools: per-token scales, else unused
+  const float* vs;
   const int* table;    // this descriptor's page table [maxp]
   int H, G, kvh, P, n_pages, maxp;
   int q_start, q_len, kv_len, row0, rows, key_end;
@@ -100,10 +153,11 @@ struct RaggedCtx {
   }
 };
 
-template <typename T, int D>
+template <typename T, int D, typename TP>
 __global__ void __launch_bounds__(NT)
-ragged_attend(const T* __restrict__ q, const T* __restrict__ k_pages,
-              const T* __restrict__ v_pages, const int* __restrict__ q_start,
+ragged_attend(const T* __restrict__ q, const TP* __restrict__ k_pages,
+              const TP* __restrict__ v_pages, const float* __restrict__ k_scales,
+              const float* __restrict__ v_scales, const int* __restrict__ q_start,
               const int* __restrict__ q_len, const int* __restrict__ kv_len,
               const int* __restrict__ tables, T* __restrict__ out, int H,
               int KVH, int n_pages, int P, int maxp, float scale) {
@@ -115,10 +169,12 @@ ragged_attend(const T* __restrict__ q, const T* __restrict__ k_pages,
   const int live = ql * G;                 // rows rr < live have a query
   if (row0 >= live) return;                // zeroed by ragged_append
 
-  RaggedCtx<T, D> ctx;
+  RaggedCtx<T, D, TP> ctx;
   ctx.q = q;
   ctx.k = k_pages;
   ctx.v = v_pages;
+  ctx.ks = k_scales;
+  ctx.vs = v_scales;
   ctx.table = tables + (size_t)s * maxp;
   ctx.H = H;
   ctx.G = G;
@@ -152,44 +208,65 @@ ragged_attend(const T* __restrict__ q, const T* __restrict__ k_pages,
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k_new, const void* v_new,
-                   void* k_pages, void* v_pages, const int* q_start,
-                   const int* q_len, const int* kv_len, const int* tables,
-                   void* out, int S, int H, int KVH, int n_pages, int P,
-                   int maxp, float scale, cudaStream_t stream) {
-  ragged_append<T><<<dim3(KVH, S), 256, 0, stream>>>(
-      static_cast<const T*>(k_new), static_cast<const T*>(v_new),
-      static_cast<T*>(k_pages), static_cast<T*>(v_pages), q_start, q_len,
-      kv_len, tables, static_cast<T*>(out), H, KVH, n_pages, P, D, maxp);
+                   void* k_pages, void* v_pages, float* k_scales,
+                   float* v_scales, const int* q_start, const int* q_len,
+                   const int* kv_len, const int* tables, void* out, int S,
+                   int H, int KVH, int n_pages, int P, int maxp, float scale,
+                   int int8, cudaStream_t stream) {
+  if (int8)
+    ragged_append_int8<T, D><<<dim3(KVH, S), 256, 0, stream>>>(
+        static_cast<const T*>(k_new), static_cast<const T*>(v_new),
+        static_cast<int8_t*>(k_pages), static_cast<int8_t*>(v_pages),
+        k_scales, v_scales, q_start, q_len, kv_len, tables,
+        static_cast<T*>(out), H, KVH, n_pages, P, maxp);
+  else
+    ragged_append<T><<<dim3(KVH, S), 256, 0, stream>>>(
+        static_cast<const T*>(k_new), static_cast<const T*>(v_new),
+        static_cast<T*>(k_pages), static_cast<T*>(v_pages), q_start, q_len,
+        kv_len, tables, static_cast<T*>(out), H, KVH, n_pages, P, D, maxp);
   cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  const size_t smem = Tile<T, D>::kBytes;
-  static bool smem_set = false;
-  e = allow_smem(ragged_attend<T, D>, smem, &smem_set);
   if (e != cudaSuccess) return e;
   const int G = H / KVH;
   const dim3 grid((P * G + BR - 1) / BR, KVH, S);
-  ragged_attend<T, D><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), q_start, q_len, kv_len, tables,
-      static_cast<T*>(out), H, KVH, n_pages, P, maxp, scale);
+  if (int8) {
+    const size_t smem = Tile<float, D>::kBytes;
+    static bool smem_set = false;
+    e = allow_smem(ragged_attend<T, D, int8_t>, smem, &smem_set);
+    if (e != cudaSuccess) return e;
+    ragged_attend<T, D, int8_t><<<grid, NT, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const int8_t*>(k_pages),
+        static_cast<const int8_t*>(v_pages), k_scales, v_scales, q_start,
+        q_len, kv_len, tables, static_cast<T*>(out), H, KVH, n_pages, P,
+        maxp, scale);
+  } else {
+    const size_t smem = Tile<T, D>::kBytes;
+    static bool smem_set = false;
+    e = allow_smem(ragged_attend<T, D, T>, smem, &smem_set);
+    if (e != cudaSuccess) return e;
+    ragged_attend<T, D, T><<<grid, NT, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k_pages),
+        static_cast<const T*>(v_pages), nullptr, nullptr, q_start, q_len,
+        kv_len, tables, static_cast<T*>(out), H, KVH, n_pages, P, maxp,
+        scale);
+  }
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_d(int D, const void* q, const void* k_new,
                        const void* v_new, void* k_pages, void* v_pages,
-                       const int* q_start, const int* q_len,
-                       const int* kv_len, const int* tables, void* out,
-                       int S, int H, int KVH, int n_pages, int P, int maxp,
-                       float scale, cudaStream_t stream) {
+                       float* k_scales, float* v_scales, const int* q_start,
+                       const int* q_len, const int* kv_len, const int* tables,
+                       void* out, int S, int H, int KVH, int n_pages, int P,
+                       int maxp, float scale, int int8, cudaStream_t stream) {
   if (D == 64)
-    return launch<T, 64>(q, k_new, v_new, k_pages, v_pages, q_start, q_len,
-                         kv_len, tables, out, S, H, KVH, n_pages, P, maxp,
-                         scale, stream);
+    return launch<T, 64>(q, k_new, v_new, k_pages, v_pages, k_scales,
+                         v_scales, q_start, q_len, kv_len, tables, out, S, H,
+                         KVH, n_pages, P, maxp, scale, int8, stream);
   if (D == 128)
-    return launch<T, 128>(q, k_new, v_new, k_pages, v_pages, q_start, q_len,
-                          kv_len, tables, out, S, H, KVH, n_pages, P, maxp,
-                          scale, stream);
+    return launch<T, 128>(q, k_new, v_new, k_pages, v_pages, k_scales,
+                          v_scales, q_start, q_len, kv_len, tables, out, S, H,
+                          KVH, n_pages, P, maxp, scale, int8, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -197,34 +274,40 @@ cudaError_t dispatch_d(int D, const void* q, const void* k_new,
 
 extern "C" {
 
-// dtype: 0 float32, 1 bfloat16, 2 float16.  Returns a cudaError_t.
+// dtype (q, new rows, out): 0 float32, 1 bfloat16, 2 float16.  int8: the
+// pools are int8 with f32 scale pools (else float pools in q's dtype).
+// Returns a cudaError_t.
 int ragged_paged_append_attend(const void* q, const void* k_new,
                                const void* v_new, void* k_pages,
-                               void* v_pages, const int* q_start,
+                               void* v_pages, float* k_scales,
+                               float* v_scales, const int* q_start,
                                const int* q_len, const int* kv_len,
                                const int* tables, void* out, int S, int H,
                                int KVH, int n_pages, int P, int D, int maxp,
-                               float scale, int dtype, void* stream) {
+                               float scale, int dtype, int int8,
+                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
       return ptt::dispatch_d<float>(D, q, k_new, v_new, k_pages, v_pages,
-                                    q_start, q_len, kv_len, tables, out, S, H,
-                                    KVH, n_pages, P, maxp, scale, st);
+                                    k_scales, v_scales, q_start, q_len,
+                                    kv_len, tables, out, S, H, KVH, n_pages,
+                                    P, maxp, scale, int8, st);
     case 1:
-      return ptt::dispatch_d<__nv_bfloat16>(D, q, k_new, v_new, k_pages,
-                                            v_pages, q_start, q_len, kv_len,
-                                            tables, out, S, H, KVH, n_pages,
-                                            P, maxp, scale, st);
+      return ptt::dispatch_d<__nv_bfloat16>(
+          D, q, k_new, v_new, k_pages, v_pages, k_scales, v_scales, q_start,
+          q_len, kv_len, tables, out, S, H, KVH, n_pages, P, maxp, scale,
+          int8, st);
     case 2:
       return ptt::dispatch_d<__half>(D, q, k_new, v_new, k_pages, v_pages,
-                                     q_start, q_len, kv_len, tables, out, S,
-                                     H, KVH, n_pages, P, maxp, scale, st);
+                                     k_scales, v_scales, q_start, q_len,
+                                     kv_len, tables, out, S, H, KVH, n_pages,
+                                     P, maxp, scale, int8, st);
   }
   return cudaErrorInvalidValue;
 }
 
-const char* ragged_error_string(int e) {
+const char* ragged_paged_attention_error_string(int e) {
   return cudaGetErrorString(static_cast<cudaError_t>(e));
 }
 

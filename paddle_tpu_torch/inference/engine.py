@@ -34,6 +34,30 @@ projections) on both forwards, with the q/k/v biases of the model; the
 routed slots of every (layer, expert) are summed into
 ``self._moe_counts`` [L, E] on the device.  Padding rows route nowhere.
 
+``unified_step=False`` is the split path: ``add_request`` prefills as
+above and ``step()`` decodes one token for every active request a
+forward, the batch padded to ``max_seqs`` rows (pad rows: length 0,
+table 0, writing into the pad page), each layer's attention one call of
+the fused decode kernel #7 (append the row's K/V at its length, attend
+over the sequence).  ``steps_per_sync > 1`` runs power-of-two windows of
+host-chained forwards that stop early once every live row has hit its
+EOS or its budget (the reference's ``_paged_decode_window``).
+
+Quantized serving: ``kv_dtype="int8"`` keeps the pools as int8 codes
+with one f32 scale per token row; every kernel quantizes the rows it
+appends (bit-equal to ``quantization/ops.py``) and dequantizes the pages
+it reads, and the synchronous prefill quantizes its chunk's rows before
+the page write and attends, through the flash kernel in f32, over the
+dequantized pages, its own rows included.  ``weight_dtype="int8"``
+quantizes every decoder projection and an untied head per (layer,
+output channel) (the embedding, norms, router and biases stay float);
+a model that went through ``quantization.quantize_model`` is taken as it
+is.  An int8 weight is widened to the activation's dtype for the product
+and its scale folds into the output (``quantization.ops.
+quantized_matmul``); an MoE expert stack widens to bf16 for #11.
+``kv_dtype`` may also name a float pool dtype ("float32", "bfloat16",
+"float16"); on the card the pools must then match the weights.
+
 Greedy decoding only.  Knobs of the reference engine that this port does
 not take yet raise ``NotImplementedError`` naming their ROADMAP item;
 metrics, tracing and request capsules are not ported.
@@ -54,13 +78,21 @@ from ..models.llama import _rotate_half
 from ..nn.generation import sample_logits
 from ..ops import _nn
 from ..ops.flash_attention import flash_attention_raw
-from ..ops.paged_attention import ragged_paged_append_attend
+from ..ops.paged_attention import (paged_decode_append_attend,
+                                   ragged_paged_append_attend)
+from ..quantization.layers import QuantizedLinear
+from ..quantization.ops import (quantize_absmax, quantize_rows,
+                                quantized_matmul)
 from ..runtime.device import resolve_device
 from .backbone import resolve_backbone
 from .moe_dispatch import MoEArch, moe_ffn
 from .paged_cache import PagedKVCache
 
 __all__ = ["LLMEngine", "GenRequest"]
+
+# float pool dtypes that ``kv_dtype`` may name
+_FLOAT_KV = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+             "float16": torch.float16}
 
 
 class GenRequest:
@@ -84,13 +116,24 @@ def _rope(x, cos, sin):
     return (xf * cos + _rotate_half(xf) * sin).to(x.dtype)
 
 
+def _mm(x, w):
+    """x @ w for a float weight or an int8 ``(values, scale)`` pair,
+    whose per-output-channel scale folds into the product."""
+    return quantized_matmul(x, *w) if isinstance(w, tuple) else x @ w
+
+
+def _wout(w) -> int:
+    """Output width of a float weight or an int8 pair."""
+    return (w[0] if isinstance(w, tuple) else w).shape[-1]
+
+
 def _head(x, head_w, tied):
-    return x @ head_w.T if tied else x @ head_w
+    return x @ head_w.T if tied else _mm(x, head_w)
 
 
 def _ffn(x, pln, gw, uw, dw, eps):
     hn = _nn.rms_norm(x, pln, epsilon=eps)
-    return x + (_nn.silu(hn @ gw) * (hn @ uw)) @ dw
+    return x + _mm(_nn.silu(_mm(hn, gw)) * _mm(hn, uw), dw)
 
 
 def _unpack(lp, arch):
@@ -105,7 +148,25 @@ def _unpack(lp, arch):
 
 
 def _proj(x, w, b):
-    return x @ w if b is None else x @ w + b
+    return _mm(x, w) if b is None else _mm(x, w) + b
+
+
+def _layer_scales(k_scales, v_scales, li):
+    return (None, None) if k_scales is None else (k_scales[li],
+                                                  v_scales[li])
+
+
+def _attn_qkv(x, iln, qw, qb, kw, kb, vw, vb, cos, sin, eps, kvh,
+              head_dim):
+    """Input norm, q/k/v projections and rope of a layer's rows: q
+    [N, NH, D], k and v [N, KVH, D], all in x's dtype."""
+    n = x.shape[0]
+    hn = _nn.rms_norm(x, iln, epsilon=eps)
+    nh = _wout(qw) // head_dim
+    q = _rope(_proj(hn, qw, qb).view(n, nh, head_dim), cos, sin)
+    k = _rope(_proj(hn, kw, kb).view(n, kvh, head_dim), cos, sin)
+    v = _proj(hn, vw, vb).view(n, kvh, head_dim)
+    return q, k, v
 
 
 def _ffn_block(x, pln, ffn, eps, arch, live, counts):
@@ -123,7 +184,8 @@ def _paged_prefill_chunk(layers, norm_w, head_w, embed_w, rope,
                          k_pages, v_pages, ids, table, prev_len: int,
                          page_slot: int, last_in_chunk: int, *,
                          eps: float, kvh: int, head_dim: int,
-                         tied: bool, arch: Optional[MoEArch] = None):
+                         tied: bool, arch: Optional[MoEArch] = None,
+                         k_scales=None, v_scales=None):
     """Chunked prefill of ``ids`` [C] — one page-sized chunk of one
     prompt — against the paged cache.  The chunk's K/V fill exactly one
     page (``page_slot``; C == page_size), written whole, and its queries
@@ -133,7 +195,11 @@ def _paged_prefill_chunk(layers, norm_w, head_w, embed_w, rope,
     updated in place.  ``last_in_chunk`` is the row whose logits matter
     on the final chunk.  Returns logits [V]; under an MoE ``arch`` also
     the routed-slot counts [L, E] (the chunk's real rows, ``<=
-    last_in_chunk``, are the ones routed)."""
+    last_in_chunk``, are the ones routed).  With the scale pools
+    ``k_scales``/``v_scales`` [L, KVH, n_pages, P] the pools are int8:
+    the chunk's rows are quantized per token before the page write, and
+    the attention runs in f32 over the dequantized pages (the chunk's
+    own rows after their round trip through int8)."""
     cos_t, sin_t = rope
     c = ids.shape[0]
     maxp = table.shape[0]
@@ -152,20 +218,36 @@ def _paged_prefill_chunk(layers, norm_w, head_w, embed_w, rope,
     for li, lp in enumerate(layers):
         iln, qw, qb, kw, kb, vw, vb, ow, pln, ffn = _unpack(lp, arch)
         kp, vp = k_pages[li], v_pages[li]
-        hn = _nn.rms_norm(x, iln, epsilon=eps)
-        nh = qw.shape[-1] // head_dim
-        q = _rope(_proj(hn, qw, qb).view(c, nh, head_dim), cos, sin)
-        k = _rope(_proj(hn, kw, kb).view(c, kvh, head_dim), cos, sin)
-        v = _proj(hn, vw, vb).view(c, kvh, head_dim)
-        # whole-page write: [C, KVH, D] -> page [KVH, C(=P), D]
-        kp[:, page_slot] = k.transpose(0, 1)
-        vp[:, page_slot] = v.transpose(0, 1)
-        # this sequence's pages, chunk included, as [S_kv, KVH, D] views
-        k_full = kp[:, table].reshape(kvh, s_kv, head_dim).transpose(0, 1)
-        v_full = vp[:, table].reshape(kvh, s_kv, head_dim).transpose(0, 1)
-        attn = flash_attention_raw(q[None], k_full[None], v_full[None],
-                                   causal=False, mask=amask[None, None])[0]
-        x = x + attn.reshape(c, nh * head_dim) @ ow
+        ksp, vsp = _layer_scales(k_scales, v_scales, li)
+        q, k, v = _attn_qkv(x, iln, qw, qb, kw, kb, vw, vb, cos, sin, eps,
+                            kvh, head_dim)
+        # whole-page write: [C, KVH, D] -> page [KVH, C(=P), D]; this
+        # sequence's pages, chunk included, as [S_kv, KVH, D] views
+        if ksp is None:
+            kp[:, page_slot] = k.transpose(0, 1)
+            vp[:, page_slot] = v.transpose(0, 1)
+            k_full, v_full = (
+                pool[:, table].reshape(kvh, s_kv, head_dim).transpose(0, 1)
+                for pool in (kp, vp))
+        else:
+            for pool, spool, rows in ((kp, ksp, k), (vp, vsp, v)):
+                codes, scale = quantize_rows(rows)     # [C, KVH, D], [C, KVH]
+                pool[:, page_slot] = codes.transpose(0, 1)
+                spool[:, page_slot] = scale.transpose(0, 1)
+            k_full, v_full = (
+                (pool[:, table].float() * spool[:, table][..., None])
+                .reshape(kvh, s_kv, head_dim).transpose(0, 1)
+                for pool, spool in ((kp, ksp), (vp, vsp)))
+        qa = q
+        if k_full.dtype != q.dtype:
+            # int8 (dequantized) or another float dtype's pages: attend
+            # in f32, as the reference does (the flash kernel takes one
+            # dtype)
+            qa, k_full, v_full = q.float(), k_full.float(), v_full.float()
+        attn = flash_attention_raw(qa[None], k_full[None], v_full[None],
+                                   causal=False,
+                                   mask=amask[None, None])[0].to(q.dtype)
+        x = x + _mm(attn.reshape(c, -1), ow)
         x = _ffn_block(x, pln, ffn, eps, arch, live, counts)
     x = _nn.rms_norm(x, norm_w, epsilon=eps)
     logits = _head(x[last_in_chunk], head_w, tied)
@@ -177,7 +259,8 @@ def _mixed_forward(layers, norm_w, head_w, embed_w, rope, k_pages,
                    v_pages, ids, positions, q_start, q_len, kv_len,
                    desc_tables, desc_of_row, off_of_row, *, eps: float,
                    kvh: int, head_dim: int, tied: bool,
-                   arch: Optional[MoEArch] = None):
+                   arch: Optional[MoEArch] = None, k_scales=None,
+                   v_scales=None):
     """One forward of the ragged unified step over a flat batch of T
     rows: every row appends its K/V at its own position and attends over
     its own sequence's pages (the ragged kernel, pools updated in
@@ -186,7 +269,8 @@ def _mixed_forward(layers, norm_w, head_w, embed_w, rope, k_pages,
     [S] and desc_tables [S, maxp] int32 with ``q_len == 0`` marking
     unused descriptors.  Returns logits [T, V]; under an MoE ``arch``
     also the routed-slot counts [L, E] (rows past their descriptor's
-    ``q_len`` are padding and route nowhere)."""
+    ``q_len`` are padding and route nowhere).  Scale pools make the
+    pools int8 (the ragged kernel's int8 mode)."""
     cos_t, sin_t = rope
     t = ids.shape[0]
     x = embed_w[ids]                                   # [T, H]
@@ -196,16 +280,57 @@ def _mixed_forward(layers, norm_w, head_w, embed_w, rope, k_pages,
     counts = []
     for li, lp in enumerate(layers):
         iln, qw, qb, kw, kb, vw, vb, ow, pln, ffn = _unpack(lp, arch)
-        hn = _nn.rms_norm(x, iln, epsilon=eps)
-        nh = qw.shape[-1] // head_dim
-        q = _rope(_proj(hn, qw, qb).view(t, nh, head_dim), cos, sin)
-        k = _rope(_proj(hn, kw, kb).view(t, kvh, head_dim), cos, sin)
-        v = _proj(hn, vw, vb).view(t, kvh, head_dim)
+        q, k, v = _attn_qkv(x, iln, qw, qb, kw, kb, vw, vb, cos, sin, eps,
+                            kvh, head_dim)
+        ksp, vsp = _layer_scales(k_scales, v_scales, li)
         blocks = ragged_paged_append_attend(
-            q, k_pages[li], v_pages[li], k.to(k_pages.dtype),
-            v.to(v_pages.dtype), q_start, q_len, kv_len, desc_tables)
+            q, k_pages[li], v_pages[li], *_new_rows(k, v, k_pages, ksp),
+            q_start, q_len, kv_len, desc_tables, ksp, vsp)
         attn = blocks[desc_of_row, off_of_row]         # [T, NH, D]
-        x = x + attn.reshape(t, nh * head_dim) @ ow
+        x = x + _mm(attn.reshape(t, -1), ow)
+        x = _ffn_block(x, pln, ffn, eps, arch, live, counts)
+    x = _nn.rms_norm(x, norm_w, epsilon=eps)
+    logits = _head(x, head_w, tied)
+    return logits if arch is None else (logits, torch.stack(counts))
+
+
+def _new_rows(k, v, pools, scales):
+    """The rows a kernel appends: in the model's dtype for int8 pools
+    (the kernel quantizes them), else in the pools' dtype."""
+    if scales is not None:
+        return k, v
+    return k.to(pools.dtype), v.to(pools.dtype)
+
+
+@torch.no_grad()
+def _decode_forward(layers, norm_w, head_w, embed_w, rope, k_pages,
+                    v_pages, tokens, tables, lens, *, eps: float, kvh: int,
+                    head_dim: int, tied: bool,
+                    arch: Optional[MoEArch] = None, live=None,
+                    k_scales=None, v_scales=None):
+    """One decode token for each of B rows, the split path's step: row b
+    (token ``tokens[b]`` at position ``lens[b]``) appends its K/V at
+    ``lens[b]`` and attends over ``lens[b] + 1`` tokens through kernel
+    #7 in every layer, pools updated in place (scale pools: int8).
+    tokens [B] long, tables [B, maxp] and lens [B] int32.  Returns
+    logits [B, V]; under an MoE ``arch`` also the routed-slot counts
+    [L, E] (``live`` [B] bool: the rows that route)."""
+    cos_t, sin_t = rope
+    b = tokens.shape[0]
+    x = embed_w[tokens]                                # [B, H]
+    pos = lens.long()
+    cos = cos_t[pos][:, None, :]
+    sin = sin_t[pos][:, None, :]
+    counts = []
+    for li, lp in enumerate(layers):
+        iln, qw, qb, kw, kb, vw, vb, ow, pln, ffn = _unpack(lp, arch)
+        q, k, v = _attn_qkv(x, iln, qw, qb, kw, kb, vw, vb, cos, sin, eps,
+                            kvh, head_dim)
+        ksp, vsp = _layer_scales(k_scales, v_scales, li)
+        attn = paged_decode_append_attend(
+            q, k_pages[li], v_pages[li], *_new_rows(k, v, k_pages, ksp),
+            tables, lens, ksp, vsp)
+        x = x + _mm(attn.reshape(b, -1), ow)
         x = _ffn_block(x, pln, ffn, eps, arch, live, counts)
     x = _nn.rms_norm(x, norm_w, epsilon=eps)
     logits = _head(x, head_w, tied)
@@ -231,17 +356,20 @@ class LLMEngine:
                  kv_dtype: Optional[str] = None,
                  weight_dtype: Optional[str] = None,
                  enable_prefix_caching: bool = True,
+                 swap_pool_pages: Optional[int] = None,
                  unified_step: bool = True,
                  prefill_token_budget: Optional[int] = None,
                  mesh=None, draft_model=None, device=None,
-                 moe_dispatch: str = "grouped", moe_dropless: bool = True):
+                 moe_dispatch: str = "grouped", moe_dropless: bool = True,
+                 moe_capacity_factor: Optional[float] = None):
         serving = "Port: the rest of serving"
         todo = {
             "moe_dropless=False (capacity-factor MoE dispatch)": (
                 not moe_dropless, serving),
-            "kv_dtype='int8'": (kv_dtype == "int8", serving),
-            "weight_dtype": (weight_dtype is not None, serving),
-            "unified_step=False": (not unified_step, serving),
+            "moe_capacity_factor (capacity-factor MoE dispatch)": (
+                moe_capacity_factor is not None, serving),
+            "swap_pool_pages (preemption and swap)": (
+                swap_pool_pages is not None, serving),
             "decode_strategy='sampling'": (
                 decode_strategy == "sampling", "Port: remaining modules"),
             "mesh (tensor-parallel serving)": (
@@ -256,9 +384,10 @@ class LLMEngine:
                     f"'{item}')")
         enforce(decode_strategy == "greedy_search",
                 f"unsupported decode_strategy {decode_strategy!r}")
-        enforce(kv_dtype is None,
-                f"unsupported kv_dtype {kv_dtype!r}; pass the pool dtype "
-                f"as dtype=")
+        enforce(kv_dtype in (None, "int8") or kv_dtype in _FLOAT_KV,
+                f"unsupported kv_dtype {kv_dtype!r}")
+        enforce(weight_dtype in (None, "int8"),
+                f"unsupported weight_dtype {weight_dtype!r}")
         enforce(steps_per_sync >= 1, "steps_per_sync must be >= 1")
         enforce(moe_dispatch in ("grouped", "dense"),
                 f"unsupported moe_dispatch {moe_dispatch!r}")
@@ -270,12 +399,18 @@ class LLMEngine:
         enforce(embed.device == self.device,
                 f"model parameters live on {embed.device}, the engine on "
                 f"{self.device}")
-        dtype = embed.dtype if dtype is None else dtype
-        if self.device.type == "cuda" and dtype != embed.dtype:
+        dtype = _FLOAT_KV.get(kv_dtype, embed.dtype if dtype is None
+                              else dtype)
+        if self.device.type == "cuda" and kv_dtype != "int8" \
+                and dtype != embed.dtype:
             raise NotImplementedError(
                 f"KV pools in {dtype} under {embed.dtype} weights: the "
-                f"ragged kernel takes one dtype (ROADMAP 'Port: the rest "
+                f"kernels take one float dtype (ROADMAP 'Port: the rest "
                 f"of serving')")
+        self.kv_dtype = kv_dtype
+        self.weight_dtype = weight_dtype
+        self.unified_step = bool(unified_step)
+        self.last_window_steps = 0     # forwards of the last split window
         self.steps_per_sync = steps_per_sync
         self.decode_strategy = decode_strategy
         self.max_seqs = max_seqs
@@ -301,17 +436,22 @@ class LLMEngine:
         self.cache = PagedKVCache(
             n_pages=n_pages, page_size=page_size, n_kv_heads=self.kvh,
             head_dim=self.head_dim, max_seqs=max_seqs, max_len=max_len,
-            dtype=dtype, num_layers=len(spec.layers), device=self.device)
+            dtype=dtype, num_layers=len(spec.layers),
+            kv_dtype="int8" if kv_dtype == "int8" else None,
+            device=self.device)
         # per-layer references to the model's own weights: a stacked
-        # copy would duplicate every weight (16 GB at 8B)
+        # copy would duplicate every weight (16 GB at 8B).  Int8 weights
+        # are (values, scale) pairs: a quantize_model'd model's buffers,
+        # or quantized here under weight_dtype="int8"
         self._arch = None
         if spec.moe is None:
+            w = self._weight
             self._layers = [
-                (l.input_layernorm.weight, l.self_attn.q_proj.weight,
-                 l.self_attn.k_proj.weight, l.self_attn.v_proj.weight,
-                 l.self_attn.o_proj.weight,
-                 l.post_attention_layernorm.weight, l.mlp.gate_proj.weight,
-                 l.mlp.up_proj.weight, l.mlp.down_proj.weight)
+                (l.input_layernorm.weight, w(l.self_attn.q_proj),
+                 w(l.self_attn.k_proj), w(l.self_attn.v_proj),
+                 w(l.self_attn.o_proj),
+                 l.post_attention_layernorm.weight, w(l.mlp.gate_proj),
+                 w(l.mlp.up_proj), w(l.mlp.down_proj))
                 for l in spec.layers]
         else:
             m = spec.moe
@@ -327,7 +467,7 @@ class LLMEngine:
         self._norm_w = spec.norm.weight
         self._tied = spec.lm_head is None
         self._embed_w = embed
-        self._head_w = embed if self._tied else spec.lm_head.weight
+        self._head_w = embed if self._tied else self._weight(spec.lm_head)
         self._rope = (spec.rope_cos.float(), spec.rope_sin.float())
         # the chunked prefill slices a full page of rope rows at the
         # last chunk's base: pad the tables to a page multiple so the
@@ -341,23 +481,40 @@ class LLMEngine:
         self._active: List[GenRequest] = []
 
     # -- internals -------------------------------------------------------------
+    def _weight(self, mod):
+        """A projection's weight [in, out] as the forwards take it: the
+        float parameter itself, or an int8 ``(values, scale)`` pair with
+        one scale per output channel (a ``QuantizedLinear``'s buffers,
+        or quantized here under ``weight_dtype="int8"``)."""
+        if mod is None:
+            return None
+        if isinstance(mod, QuantizedLinear):
+            return (mod.qweight, mod.weight_scale)
+        if self.weight_dtype == "int8":
+            return quantize_absmax(mod.weight, axis=0)
+        return mod.weight
+
+    def _stack(self, w):
+        """An expert stack [E, in, out]; int8 per (expert, output
+        channel) under ``weight_dtype="int8"``."""
+        return quantize_absmax(w, axis=1) \
+            if self.weight_dtype == "int8" else w
+
     def _moe_layer(self, l):
         """One MoE decoder layer's weights: (iln, qw, qb, kw, kb, vw, vb,
         ow, pln, rw, egw, euw, edw, sgw, suw, sdw, seg); biases and
         shared-expert weights a model lacks are None (the arch flags
-        skip them)."""
+        skip them).  The router stays float."""
         a, mlp = l.self_attn, l.mlp
         ex = mlp.experts
-
-        def w(mod):
-            return None if mod is None else mod.weight
-
+        w = self._weight
         shared = mlp.shared_gate is not None
-        return (l.input_layernorm.weight, a.q_proj.weight, a.q_proj.bias,
-                a.k_proj.weight, a.k_proj.bias, a.v_proj.weight,
-                a.v_proj.bias, a.o_proj.weight,
+        return (l.input_layernorm.weight, w(a.q_proj), a.q_proj.bias,
+                w(a.k_proj), a.k_proj.bias, w(a.v_proj),
+                a.v_proj.bias, w(a.o_proj),
                 l.post_attention_layernorm.weight, mlp.gate.weight,
-                ex.gate_w, ex.up_w, ex.down_w,
+                self._stack(ex.gate_w), self._stack(ex.up_w),
+                self._stack(ex.down_w),
                 w(mlp.shared_gate), w(mlp.shared_up) if shared else None,
                 w(mlp.shared_down) if shared else None,
                 w(mlp.shared_expert_gate))
@@ -393,9 +550,15 @@ class LLMEngine:
                 self._rope_prefill, self.cache.k_pages, self.cache.v_pages,
                 self._dev(chunk, torch.long), table, base,
                 int(self.cache.page_table[slot, ci]),
-                min(plen - 1 - base, P - 1), eps=self.eps, kvh=self.kvh,
-                head_dim=self.head_dim, tied=self._tied, arch=self._arch))
+                min(plen - 1 - base, P - 1), **self._fwd_kw()))
         return logits
+
+    def _fwd_kw(self):
+        """The keyword arguments every forward takes."""
+        return dict(eps=self.eps, kvh=self.kvh, head_dim=self.head_dim,
+                    tied=self._tied, arch=self._arch,
+                    k_scales=self.cache.k_scales,
+                    v_scales=self.cache.v_scales)
 
     def _admit(self, rid, prompt_ids, max_new_tokens, eos_token_id):
         """Shared admission: validate, look up the cached prefix and
@@ -474,7 +637,11 @@ class LLMEngine:
         prefill the prompt inside later ``step()`` calls, page-sized
         chunks riding the same mixed batch as the ongoing decodes, up to
         ``prefill_token_budget`` tokens a step.  The first token arrives
-        in a later ``step()`` return value."""
+        in a later ``step()`` return value.  The split path
+        (``unified_step=False``) admits through ``add_request`` only."""
+        enforce(self.unified_step,
+                "begin_request requires unified_step=True (the split "
+                "path admits synchronously via add_request)")
         req, cached = self._admit(rid, prompt_ids, max_new_tokens,
                                   eos_token_id)
         req.pf_pos = cached
@@ -487,12 +654,16 @@ class LLMEngine:
         """One serving step: returns {request_id: [new tokens]} and
         retires finished requests.
 
-        One mixed-batch forward packs every active decode slot plus up
-        to ``prefill_token_budget`` tokens of pending ``begin_request``
-        prefill chunks (chunks never cross a page boundary, so one
-        request may contribute several descriptors).  When no prefill is
-        pending, a window of up to ``steps_per_sync`` decode steps runs
-        host-chained, each step's tokens fed back as the next input."""
+        Unified (default): one mixed-batch forward packs every active
+        decode slot plus up to ``prefill_token_budget`` tokens of pending
+        ``begin_request`` prefill chunks (chunks never cross a page
+        boundary, so one request may contribute several descriptors).
+        When no prefill is pending, a window of up to ``steps_per_sync``
+        decode steps runs host-chained, each step's tokens fed back as
+        the next input.  Split (``unified_step=False``): a decode window
+        of the split path (``_step_split``)."""
+        if not self.unified_step:
+            return self._step_split()
         if not self._active and not self._prefilling:
             return {}
         P = self.cache.page_size
@@ -529,14 +700,7 @@ class LLMEngine:
         if not batch and not plan:
             return {}
 
-        if plan or n == 0:
-            nsteps = 1
-        else:
-            nsteps = min([self.steps_per_sync] +
-                         [r.max_new - len(r.out) for r in batch])
-            nsteps = max(nsteps, 1)
-            while nsteps & (nsteps - 1):      # power-of-two windows
-                nsteps &= nsteps - 1
+        nsteps = 1 if plan or n == 0 else self._window(batch)
         slots = np.array([r.slot for r in batch], np.int64)
         for r in batch:
             self.cache.extend(r.slot, nsteps)
@@ -580,8 +744,7 @@ class LLMEngine:
                 self._rope, self.cache.k_pages, self.cache.v_pages,
                 self._dev(ids, torch.long), self._dev(positions, torch.long),
                 dq_start, dq_len, self._dev(kv_len), ddesc_tables,
-                ddesc_of_row, doff_of_row, eps=self.eps, kvh=self.kvh,
-                head_dim=self.head_dim, tied=self._tied, arch=self._arch))
+                ddesc_of_row, doff_of_row, **self._fwd_kw()))
             nxt, _ = sample_logits(logits, strategy=self.decode_strategy)
             nxt = nxt.cpu().numpy()
             toks_all.append(nxt)
@@ -594,22 +757,7 @@ class LLMEngine:
                 positions[:n] += 1
                 kv_len[:n] += 1
 
-        out = {}
-        for i, req in enumerate(batch):
-            new_toks = []
-            for j in range(nsteps):
-                if req.done:
-                    break
-                tok = int(toks_all[j][i])
-                req.out.append(tok)
-                new_toks.append(tok)
-                if (req.eos is not None and tok == req.eos) or \
-                        len(req.out) >= req.max_new:
-                    req.done = True
-                    self.cache.release(req.slot)
-                    self._active.remove(req)
-            if new_toks:
-                out[req.rid] = new_toks
+        out = self._retire_tokens(batch, toks_all)
         # prefill bookkeeping after the forward succeeded — a raise
         # above leaves every pf_pos where it was
         for req, pos, cl, row0, d in plan:
@@ -619,6 +767,92 @@ class LLMEngine:
             self._finish_prefill(req, int(toks_all[0][last_row]))
             out[req.rid] = [req.out[-1]]
         return out
+
+    def _window(self, batch) -> int:
+        """Decode steps of a pure-decode window: ``steps_per_sync``,
+        capped by every request's remaining budget, rounded down to a
+        power of two."""
+        nsteps = max(1, min([self.steps_per_sync] +
+                            [r.max_new - len(r.out) for r in batch]))
+        while nsteps & (nsteps - 1):
+            nsteps &= nsteps - 1
+        return nsteps
+
+    def _retire_tokens(self, batch, toks) -> Dict[object, List[int]]:
+        """Merge a window's tokens (``toks[j][i]``: step j, row i) into
+        the requests, stopping each at its EOS or budget and releasing
+        it; returns {rid: new tokens}."""
+        out = {}
+        for i, req in enumerate(batch):
+            new_toks = []
+            for step_toks in toks:
+                if req.done:
+                    break
+                tok = int(step_toks[i])
+                req.out.append(tok)
+                new_toks.append(tok)
+                if (req.eos is not None and tok == req.eos) or \
+                        len(req.out) >= req.max_new:
+                    req.done = True
+                    self.cache.release(req.slot)
+                    self._active.remove(req)
+            if new_toks:
+                out[req.rid] = new_toks
+        return out
+
+    def _step_split(self) -> Dict[object, List[int]]:
+        """The split path's decode window: up to ``_window`` host-chained
+        single-token forwards (kernel #7 in every layer) over every
+        active request, the batch padded to ``max_seqs`` rows (pad rows:
+        token 0, length 0, table 0: they write into the pad page and are
+        discarded).  The window stops early once every live row has hit
+        its EOS or its budget, and the cache advances by the steps run
+        (``last_window_steps``), as the reference's
+        ``_paged_decode_window`` does."""
+        if not self._active:
+            return {}
+        batch = list(self._active)
+        n, pad = len(batch), self.max_seqs - len(batch)
+        nsteps = self._window(batch)
+        slots = np.array([r.slot for r in batch], np.int64)
+        for s in slots:
+            self.cache.extend(int(s), nsteps)
+        maxp = self.cache.page_table.shape[1]
+        tokens = np.array([r.out[-1] for r in batch] + [0] * pad, np.int64)
+        lens = np.concatenate([self.cache.seq_lens[slots],
+                               np.zeros(pad, np.int32)]).astype(np.int32)
+        tables = np.concatenate([self.cache.page_table[slots],
+                                 np.zeros((pad, maxp), np.int32)])
+        # the window-start lengths fix which rows route (MoE)
+        live = self._dev(lens > 0, torch.bool)
+        eos = np.array([-1 if r.eos is None else r.eos for r in batch]
+                       + [-1] * pad)
+        budgets = np.array([r.max_new - len(r.out) for r in batch]
+                           + [1] * pad)
+        done = np.arange(self.max_seqs) >= n
+        emitted = np.zeros(self.max_seqs, np.int64)
+        dtables = self._dev(tables)
+        toks = []
+        for _ in range(nsteps):
+            logits = self._note_expert_counts(_decode_forward(
+                self._layers, self._norm_w, self._head_w, self._embed_w,
+                self._rope, self.cache.k_pages, self.cache.v_pages,
+                self._dev(tokens, torch.long), dtables, self._dev(lens),
+                live=live, **self._fwd_kw()))
+            nxt, _ = sample_logits(logits, strategy=self.decode_strategy)
+            nxt = nxt.cpu().numpy()
+            toks.append(nxt)
+            fresh = ~done
+            emitted += fresh
+            done |= fresh & (((eos >= 0) & (nxt == eos))
+                             | (emitted >= budgets))
+            tokens = nxt.astype(np.int64)
+            lens = lens + 1
+            if done.all():
+                break
+        self.cache.advance(slots, len(toks))
+        self.last_window_steps = len(toks)
+        return self._retire_tokens(batch, toks)
 
     def has_work(self) -> bool:
         return bool(self._active or self._prefilling)

@@ -14,8 +14,16 @@ are the reference's: the sorted buffer and the expert products are f32
 
 ``dispatch="grouped"`` is the path; ``"dense"`` is the reference's
 per-row comparator (each slot gathers its expert's weights), which runs
-on CPU tensors only.  Capacity-factor dispatch and int8 expert stacks
-are not ported (the engine refuses them).
+on CPU tensors only.  Capacity-factor dispatch is not ported (the engine
+refuses it).
+
+Int8 weights (``weight_dtype="int8"``): an expert stack arrives as
+``(values [E, in, out] int8, scale [E, out] f32)``, one scale per
+(expert, output channel) over the contraction axis.  The grouped path
+widens the values to bf16 for #11 (exact: |q| <= 127) and folds each
+sorted row's expert scale into the product, as the reference does; the
+shared expert and its gate take ``(values, scale)`` pairs through
+``_mm``.  The router stays in float.
 """
 from __future__ import annotations
 
@@ -24,6 +32,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops.grouped_matmul import _auto_tm, gmm_raw, make_dropless_plan_rows
+from ..quantization.ops import quantized_matmul
 
 __all__ = ["MoEArch", "moe_ffn"]
 
@@ -42,14 +51,33 @@ class MoEArch(NamedTuple):
 
 
 def _mm(x, w):
-    """x @ w in x's dtype (an f32 x widens a bf16 weight)."""
+    """x @ w in x's dtype (an f32 x widens a bf16 weight); an int8
+    ``(values, scale)`` pair folds its per-output-channel scale into the
+    product."""
+    if isinstance(w, tuple):
+        return quantized_matmul(x, *w)
     return x @ w.to(x.dtype)
 
 
 def _expert_rows_mm(x, w, row_expert):
     """Row i of x [M, K] against ``w[row_expert[i]]`` in f32: the dense
-    comparator's per-row contraction."""
+    comparator's per-row contraction (an int8 pair times its expert's
+    scale after)."""
+    if isinstance(w, tuple):
+        qw, sc = w
+        return _expert_rows_mm(x, qw, row_expert) * sc[row_expert]
     return torch.einsum("mk,mkn->mn", x.float(), w[row_expert].float())
+
+
+def _gmm(xs, w, tile_expert, counts):
+    """#11 over the sorted buffer; an int8 stack is widened to bf16 for
+    the kernel and each row times its tile's expert scale."""
+    if not isinstance(w, tuple):
+        return gmm_raw(xs, w, tile_expert, counts=counts)
+    qw, sc = w
+    y = gmm_raw(xs, qw.to(torch.bfloat16), tile_expert, counts=counts)
+    tm = xs.shape[0] // tile_expert.shape[0]
+    return y * sc[tile_expert.long()].repeat_interleave(tm, dim=0)
 
 
 def moe_ffn(hn, mw, arch: MoEArch, live):
@@ -58,8 +86,9 @@ def moe_ffn(hn, mw, arch: MoEArch, live):
     hn [T, H] post-attention-norm rows; ``mw`` the layer's ``(rw, egw,
     euw, edw, sgw, suw, sdw, seg)`` (router [H, E]; expert stacks [E, H,
     F] / [E, F, H]; shared-expert weights, unused when ``arch.shared`` is
-    off); ``live`` [T] bool masks padding rows out of routing (their
-    output is not read).  Returns ``(ffn_out [T, H] in hn's dtype,
+    off; int8 ``(values, scale)`` pairs under ``weight_dtype="int8"``);
+    ``live`` [T] bool masks padding rows out of routing (their output is
+    not read).  Returns ``(ffn_out [T, H] in hn's dtype,
     counts [E] int32)``: the routed slots of each expert."""
     rw, egw, euw, edw, sgw, suw, sdw, seg = mw
     t, h = hn.shape
@@ -83,10 +112,10 @@ def moe_ffn(hn, mw, arch: MoEArch, live):
         # invalid slots land in a spare row past the buffer
         xs = xf.new_zeros((m_pad + 1, h)).index_copy_(
             0, dest, xf[order // k])[:m_pad]
-        hg = gmm_raw(xs, egw, tile_expert, counts=counts)
-        hu = gmm_raw(xs, euw, tile_expert, counts=counts)
+        hg = _gmm(xs, egw, tile_expert, counts)
+        hu = _gmm(xs, euw, tile_expert, counts)
         hs = torch.nn.functional.silu(hg) * hu
-        ys = gmm_raw(hs, edw, tile_expert, counts=counts)
+        ys = _gmm(hs, edw, tile_expert, counts)
         y_sorted = torch.where(valid_sorted[:, None],
                                ys[dest.clamp(max=m_pad - 1)], 0.0)
         y = xf.new_zeros((t * k, h)).index_copy_(0, order, y_sorted)

@@ -20,9 +20,15 @@ and ``release`` parks unreferenced registered pages in an LRU pool that
 write into a shared page copies it first (``_make_private``), so shared
 content never changes.
 
-Not ported yet: int8 pools, swap (preemption), export/import
-(migration) and rollback (speculative decoding) — ROADMAP 'Port: the
-rest of serving' and 'Port: remaining modules'.
+``kv_dtype="int8"`` stores the pools as int8 codes with one f32 absmax
+scale per token row in the scale pools ``k_scales``/``v_scales`` [L,
+KVH, n_pages, P]; the kernels quantize rows on the way in and
+dequantize pages as they read them, and a copied page carries its scale
+rows.  ``append``/``attend`` are the cache's own decode-step entry
+points (the engine's forwards call the kernels directly).
+
+Not ported yet: swap (preemption), export/import (migration) and
+rollback (speculative decoding) — ROADMAP 'Port: the rest of serving'.
 """
 from __future__ import annotations
 
@@ -34,6 +40,8 @@ import numpy as np
 import torch
 
 from ..common.errors import enforce
+from ..ops.paged_attention import (paged_attention, paged_write,
+                                   paged_write_quant)
 from ..runtime.device import resolve_device
 
 __all__ = ["PagedKVCache"]
@@ -50,17 +58,28 @@ class PagedKVCache:
     def __init__(self, n_pages: int, page_size: int, n_kv_heads: int,
                  head_dim: int, max_seqs: int, max_len: int,
                  dtype: torch.dtype = torch.float32, num_layers: int = 1,
-                 device=None):
+                 kv_dtype: Optional[str] = None, device=None):
+        enforce(kv_dtype in (None, "int8"),
+                f"unsupported kv_dtype {kv_dtype!r} (None or 'int8')")
         self.device = resolve_device(device)
         self.n_pages = n_pages
         self.page_size = page_size
         self.num_layers = num_layers
+        self.kv_dtype = kv_dtype
         self.max_pages_per_seq = (max_len + page_size - 1) // page_size
         # [L, KVH, n_pages, P, D]
-        self.k_pages = torch.zeros((num_layers, n_kv_heads, n_pages,
-                                    page_size, head_dim), dtype=dtype,
-                                   device=self.device)
+        self.k_pages = torch.zeros(
+            (num_layers, n_kv_heads, n_pages, page_size, head_dim),
+            dtype=torch.int8 if kv_dtype == "int8" else dtype,
+            device=self.device)
         self.v_pages = torch.zeros_like(self.k_pages)
+        # int8 pools: one f32 dequantization scale per token row
+        self.k_scales = self.v_scales = None
+        if kv_dtype == "int8":
+            self.k_scales = torch.zeros(
+                (num_layers, n_kv_heads, n_pages, page_size),
+                dtype=torch.float32, device=self.device)
+            self.v_scales = torch.zeros_like(self.k_scales)
         self._free = list(range(n_pages - 1, 0, -1))   # page 0 = pad
         self._pages: Dict[int, List[int]] = {}
         self._lens = np.zeros(max_seqs, np.int32)
@@ -107,9 +126,12 @@ class PagedKVCache:
         return True
 
     def _copy_page(self, src: int, dst: int):
-        """Copy one physical page in every layer, K and V."""
-        self.k_pages[:, :, dst] = self.k_pages[:, :, src]
-        self.v_pages[:, :, dst] = self.v_pages[:, :, src]
+        """Copy one physical page in every layer, K and V (and their
+        scale rows in int8 mode: scales travel with their pages)."""
+        for pool in (self.k_pages, self.v_pages, self.k_scales,
+                     self.v_scales):
+            if pool is not None:
+                pool[:, :, dst] = pool[:, :, src]
 
     def _make_private(self, slot: int, idx: int):
         """Copy-on-write guard before writing into the slot's idx-th
@@ -264,3 +286,46 @@ class PagedKVCache:
     def free_slot_count(self) -> int:
         """Sequence slots not currently bound to a live request."""
         return sum(1 for u in self._used if not u)
+
+    # -- device-side ops -------------------------------------------------------
+    def scales(self, layer: int):
+        """One layer's (k_scales, v_scales) [KVH, n_pages, P] views, or
+        (None, None) for float pools."""
+        if self.k_scales is None:
+            return None, None
+        return self.k_scales[layer], self.v_scales[layer]
+
+    def append(self, slots, k_new, v_new):
+        """Decode step: one new token for each sequence in ``slots``.
+        k_new/v_new [L, B, KVH, D] (or [B, KVH, D] for one layer), in the
+        model's dtype; int8 pools quantize each row per token.  Lengths
+        advance by 1, once across all layers."""
+        if k_new.dim() == 3:
+            enforce(self.num_layers == 1,
+                    f"cache holds {self.num_layers} layers; pass "
+                    f"[L, ...] keys/values")
+            k_new, v_new = k_new[None], v_new[None]
+        slots = np.atleast_1d(slots)
+        for s in slots:
+            self.extend(int(s), 1)
+        table = torch.as_tensor(self._table[slots], device=self.device)
+        lens = torch.as_tensor(self._lens[slots], device=self.device)
+        for layer in range(self.num_layers):
+            kp, vp = self.k_pages[layer], self.v_pages[layer]
+            if self.k_scales is None:
+                paged_write(kp, vp, k_new[layer], v_new[layer], table, lens)
+            else:
+                paged_write_quant(kp, vp, *self.scales(layer), k_new[layer],
+                                  v_new[layer], table, lens)
+        self.advance(slots, 1)
+
+    def attend(self, slots, q, layer: int = 0):
+        """Decode attention of ``q`` [B, H, D] over the cached tokens of
+        ``slots`` in ``layer``: kernel #6 on CUDA tensors, its plain
+        version on CPU tensors (the tensors' device decides; int8 pools
+        hand their scale pools to either)."""
+        slots = np.atleast_1d(slots)
+        table = torch.as_tensor(self._table[slots], device=self.device)
+        lens = torch.as_tensor(self._lens[slots], device=self.device)
+        return paged_attention(q, self.k_pages[layer], self.v_pages[layer],
+                               table, lens, *self.scales(layer))

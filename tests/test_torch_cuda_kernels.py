@@ -8,10 +8,13 @@ runs where only PyTorch is installed:
         tests/test_torch_cuda_kernels.py
 
 Small shapes cover what the full-width check in ``chip_smoke.py`` does
-not: f32 and f16 as well as bf16, head_dim 64, page sizes below and
+not (the paged decode kernels #6 and #7 and the int8 pools of #1 too): f32 and f16 as well as bf16, head_dim 64, page sizes below and
 above the 64-key tile, ragged tile edges, unused descriptors, causal
 attention with Sq < Sk, broadcast masks and GQA.  Tolerances: f32 1e-4
-(sums in another order), f16/bf16 one output rounding.  The flash
+(sums in another order), f16/bf16 one output rounding.  Int8 pools:
+the codes and scales a kernel writes equal its plain version's bit for
+bit (the same IEEE operations), and float pools are equal after an
+append.  The flash
 backward kernels' gradients are held relative to the largest gradient
 element: f32 1e-5, f16 2e-3, bf16 1e-2 (one output rounding).  The
 update kernel must equal its plain version bit for bit in the f32 slots
@@ -94,6 +97,144 @@ def test_ragged_kernel_matches_plain(dev, dtype, P, D, G):
     torch.testing.assert_close(got.float(), want.float(), rtol=0,
                                atol=TOL[dtype])
     assert not got[len(descs):].any()
+
+
+def _int8_pools(gen, dev, kvh, n_pages, P, D):
+    """Random int8 pools and scale pools (codes * scale within about 1)."""
+    codes = [torch.randint(-127, 128, (kvh, n_pages, P, D), generator=gen,
+                           device=dev, dtype=torch.int8) for _ in range(2)]
+    scales = [torch.rand((kvh, n_pages, P), generator=gen, device=dev)
+              * 0.008 + 1e-4 for _ in range(2)]
+    return codes, scales
+
+
+@pytest.mark.parametrize("dtype", list(TOL), ids=str)
+@pytest.mark.parametrize("P,D,G", [(8, 64, 4), (128, 128, 4), (96, 128, 1)])
+def test_ragged_kernel_int8_matches_plain(dev, dtype, P, D, G):
+    """#1's int8 mode: the appended rows' codes and scales equal the
+    plain version's (bit for bit), outputs within one rounding."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    kvh, maxp = 2, 6
+    h = kvh * G
+    n_pages = 2 * maxp + 1
+    descs = [(0, 1), (3 * P - 1, 1), (P, P), (2 * P - 3, 3)]
+    S = T = sum(ql for _, ql in descs) + 2
+    q_start = torch.zeros(S, dtype=torch.int32)
+    q_len = torch.zeros(S, dtype=torch.int32)
+    kv_len = torch.zeros(S, dtype=torch.int32)
+    tables = torch.zeros((S, maxp), dtype=torch.int32)
+    perm = torch.randperm(n_pages - 1, generator=gen, device=dev).cpu() + 1
+    row, used = 0, 0
+    for d, (kl, ql) in enumerate(descs):
+        q_start[d], q_len[d], kv_len[d] = row, ql, kl
+        npg = -(-(kl + ql) // P)
+        tables[d, :npg] = perm[used:used + npg]
+        used, row = used + npg, row + ql
+    q, kn, vn = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                 for shape in ((T, h, D), (T, kvh, D), (T, kvh, D)))
+    (kc, vc), (ks, vs) = _int8_pools(gen, dev, kvh, n_pages, P, D)
+    desc = [x.to(dev) for x in (q_start, q_len, kv_len, tables)]
+    mine = [x.clone() for x in (kc, vc, ks, vs)]
+    plain = [x.clone() for x in (kc, vc, ks, vs)]
+    before = pa.ragged_paged_append_attend.launches
+    got = pa.ragged_paged_append_attend(q, mine[0], mine[1], kn, vn, *desc,
+                                        mine[2], mine[3])
+    want = pa.ragged_paged_append_attend_reference(
+        q, plain[0], plain[1], kn, vn, *desc, plain[2], plain[3])
+    torch.cuda.synchronize()
+    assert pa.ragged_paged_append_attend.launches == before + 1
+    for a, b in zip(mine, plain):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=TOL[dtype])
+    assert not got[len(descs):].any()
+
+
+def _decode_case(gen, dev, dtype, int8, P, D, G, append):
+    """Rows of lengths 0 (a live row with its own table), 1, P - 1, P
+    (the append opens a new page) and 3P + 5, and a pad row (length 0,
+    table 0: page 0).  Returns (args, plain_args) with separate pools."""
+    kvh, maxp = 2, 5
+    h = kvh * G
+    n_pages = 6 * maxp
+    lens = torch.tensor([0, 1, P - 1, P, 3 * P + 5, 0], dtype=torch.int32)
+    b = lens.shape[0]
+    tables = torch.zeros((b, maxp), dtype=torch.int32)
+    perm = torch.randperm(n_pages - 1, generator=gen, device=dev).cpu() + 1
+    for i in range(b - 1):
+        tables[i] = perm[i * maxp:(i + 1) * maxp]
+    q = torch.randn((b, h, D), generator=gen, device=dev).to(dtype)
+    new = [torch.randn((b, kvh, D), generator=gen, device=dev).to(dtype)
+           for _ in range(2)] if append else []
+    if int8:
+        pools, scales = _int8_pools(gen, dev, kvh, n_pages, P, D)
+    else:
+        pools = [torch.randn((kvh, n_pages, P, D), generator=gen,
+                             device=dev).to(dtype) for _ in range(2)]
+        scales = [None, None]
+    tail = [tables.to(dev), lens.to(dev)]
+
+    def args(copy):
+        ps = [x.clone() if copy and x is not None else x
+              for x in pools + scales]
+        return [q, ps[0], ps[1], *new, *tail, ps[2], ps[3]]
+    return args(True), args(True)
+
+
+@pytest.mark.parametrize("dtype", list(TOL), ids=str)
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("P,D,G", [(8, 64, 4), (128, 128, 4), (96, 128, 1),
+                                   (16, 128, 8), (32, 64, 2)])
+def test_paged_decode_append_kernel_matches_plain(dev, dtype, int8, P, D,
+                                                  G):
+    """#7: pools (and int8 codes and scales) equal the plain version's
+    after the append, outputs within one rounding."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    mine, plain = _decode_case(gen, dev, dtype, int8, P, D, G, True)
+    before = pa.paged_decode_append_attend.launches
+    got = pa.paged_decode_append_attend(*mine)
+    want = pa.paged_decode_append_attend_reference(*plain)
+    torch.cuda.synchronize()
+    assert pa.paged_decode_append_attend.launches == before + 1
+    for a, b in zip(mine[1:3] + mine[-2:], plain[1:3] + plain[-2:]):
+        if a is not None:
+            assert torch.equal(a[:, 1:], b[:, 1:])     # page 0: pad row
+    torch.testing.assert_close(got.float()[:-1], want.float()[:-1], rtol=0,
+                               atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", list(TOL), ids=str)
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("P,D,G", [(8, 64, 4), (128, 128, 4), (96, 128, 1),
+                                   (16, 128, 8), (32, 64, 2)])
+def test_paged_attention_kernel_matches_plain(dev, dtype, int8, P, D, G):
+    """#6: outputs within one rounding; rows of length 0 get zeros."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    mine, plain = _decode_case(gen, dev, dtype, int8, P, D, G, False)
+    before = pa.paged_attention.launches
+    got = pa.paged_attention(*mine)
+    want = pa.paged_attention_reference(*plain)
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=TOL[dtype])
+    assert not got[0].any() and not got[-1].any()
+
+
+def test_paged_kernels_refuse_what_they_do_not_take(dev):
+    q = torch.zeros(2, 12, 128, device=dev, dtype=torch.bfloat16)
+    pools = torch.zeros(4, 3, 8, 128, device=dev, dtype=torch.bfloat16)
+    table = torch.zeros(2, 2, dtype=torch.int32, device=dev)
+    lens = torch.zeros(2, dtype=torch.int32, device=dev)
+    with pytest.raises(NotImplementedError, match="GQA group 3"):
+        pa.paged_attention(q, pools, pools, table, lens)
+    with pytest.raises(ValueError, match="pools"):
+        pa.paged_attention(q[:, :8], pools.float(), pools.float(), table,
+                           lens)
+    with pytest.raises(ValueError, match="both"):
+        pa.paged_attention(q[:, :8], pools.to(torch.int8),
+                           pools.to(torch.int8), table, lens,
+                           torch.zeros(4, 3, 8, device=dev), None)
 
 
 @pytest.mark.parametrize("dtype", list(TOL), ids=str)
@@ -456,6 +597,19 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         ft.fused_update_flat("adam", p[1:33], p[:32],
                              {k: s[:32] for k, s in slots.items()},
                              scalars=scal, has_clip=False, hyper=hyper)
+
+
+def test_engine_refuses_float_pools_of_another_dtype(dev):
+    """The kernels take one float dtype: on the card, pools in another
+    float dtype than the weights raise (int8 pools are taken)."""
+    from paddle_tpu_torch.inference.engine import LLMEngine
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                               llama_tiny_config)
+    m = LlamaForCausalLM(llama_tiny_config(), device=dev)
+    with pytest.raises(NotImplementedError, match="the rest of serving"):
+        LLMEngine(m, max_len=64, page_size=8, kv_dtype="bfloat16")
+    eng = LLMEngine(m, max_len=64, page_size=8, kv_dtype="int8")
+    assert eng.cache.k_pages.dtype == torch.int8
 
 
 def test_plain_paths_refuse_cuda_tensors(dev):

@@ -165,8 +165,8 @@ def test_abort_and_pop_result(models):
 
 
 @pytest.mark.parametrize("knob", [
-    {"kv_dtype": "int8"}, {"weight_dtype": "int8"},
-    {"unified_step": False}, {"decode_strategy": "sampling"},
+    {"moe_dropless": False}, {"swap_pool_pages": 16},
+    {"moe_capacity_factor": 2.0}, {"decode_strategy": "sampling"},
     {"mesh": object()}, {"draft_model": object()},
 ])
 def test_knobs_outside_the_slice_raise(models, knob):

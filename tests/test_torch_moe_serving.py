@@ -149,7 +149,7 @@ def test_backbone_spec_and_referenced_weights(models):
 
 
 @pytest.mark.parametrize("knob", [{"moe_dropless": False},
-                                  {"weight_dtype": "int8"}])
+                                  {"moe_capacity_factor": 2.0}])
 def test_knobs_outside_the_slice_raise(models, knob):
     _, port = models
     with pytest.raises(NotImplementedError, match="ROADMAP"):
