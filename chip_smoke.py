@@ -8,8 +8,9 @@ CUDA toolkit (nvcc) and PyTorch built for CUDA.  It builds the port's
 kernels from ``paddle_tpu_torch/csrc`` (one nvcc per source, all
 started together) and holds each against its plain PyTorch version at
 the main paths' full-width shapes (the attention kernels also at GQA
-group 1 and with int8 pools, the grouped matmuls at the MoE serving and
-training shapes).
+group 1, with int8 pools and with dropout, the grouped matmuls at the
+MoE serving and training shapes, the bias gradient at GPT-2's
+attention).
 Then it drives the main paths through their user entry points, each
 with the launch counts set to 0 just before and read just after:
 
@@ -41,7 +42,15 @@ with the launch counts set to 0 just before and read just after:
   AdamW, 5 steps (the fused gate/up, grouped and per-expert dW kernels
   with the attention and update kernels); then at f32, 2 layers, seq
   256, the loss and every gradient against a plain composition, with
-  and without recompute.
+  and without recompute;
+- GPT-2 training: ``bench.py`` ``bench_gpt2``'s recipe at GPT-2 124M
+  (12 layers, full width, vocab 50,304), f32, batch 8 x 1024, AdamW,
+  attention dropout 0.1 inside the flash kernels and hidden dropout 0.1,
+  5 steps; then at f32, 2 layers, seq 256, the loss and every gradient
+  against a plain composition at dropout 0 and 0.1 (the same masks from
+  the same generator seed); and one post-norm ``TransformerEncoderLayer``
+  at GPT-2 width with a trained attention bias (the add+norm kernel's
+  LayerNorm body, the flash kernels and the bias gradient #5).
 
 Each phase prints one JSON line; the last three lines are the kernel
 table, the card's name and power limit as nvidia-smi reports them, and
@@ -63,6 +72,7 @@ import time
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12          # f32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12        # f32 inputs on the tensor cores (TF32)
 TOL = 2e-2          # bf16 outputs: one rounding of values of order 1
 # bf16 gradients, relative to the largest element: one output rounding
 # (2^-8) plus f32 sums in another order
@@ -81,6 +91,13 @@ SERVE_LENS = {"b37": 37, "b128": 128, "b300": 300, "b1000": 1000,
 SERVE_NEW = 32
 # Qwen1.5-MoE-A2.7B training cut: 6 of 24 layers, batch 4, seq 4096
 MOE_LAYERS, MOE_BATCH, MOE_SEQ = 6, 4, 4096
+# GPT-2 124M, bench.py bench_gpt2's recipe: batch 8 x seq 1024, f32,
+# attention and hidden dropout 0.1; 12 heads of 64
+GPT_BATCH, GPT_SEQ, GPT_WIDTH, GPT_HEADS, GPT_STEPS = 8, 1024, 768, 12, 5
+GPT_DROP = 0.1
+# relative L2 error of an f32 output against its plain version: f32 sums
+# in another order
+F32_REL_L2_TOL = 1e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -288,6 +305,7 @@ def kernel_family(name):
                      ("flash_fwd", "flash_fwd"),
                      ("flash_bwd_dq", "flash_bwd_dq"),
                      ("flash_bwd_dkv", "flash_bwd_dkv"),
+                     ("flash_dbias", "flash_dbias"),
                      ("fused_update", "fused_update"),
                      ("add_norm", "add_norm"),
                      ("matmul_rope", "matmul_rope"),
@@ -629,36 +647,49 @@ def rel_l2(got, want):
 
 
 def add_norm_kernel(torch, gen, dev, table):
-    """The add+norm kernel (#9) at the training shape: the post-attention
-    residual add of one layer, x (the attention output) and r (the
-    residual) [1, 8192, 4096] bf16, w [4096] bf16; the RMS body, which
-    the fused training path runs, and the LayerNorm body with a bias,
-    whose path (``nn/transformer.py``) is not ported yet.  h must equal
-    its plain version; y within 2^-7 relative L2."""
+    """The add+norm kernel (#9) at its paths' shapes: the RMS body at the
+    Llama training path's post-attention residual add, x (the attention
+    output) and r (the residual) [1, 8192, 4096] bf16, w [4096] bf16 (h
+    equal to its plain version, y within 2^-7 relative L2); the
+    LayerNorm body with a bias at the post-norm encoder layer's shape
+    (``encoder_bias``), [8, 1024, 768] f32 (h equal, y within 1e-5
+    relative L2)."""
     from paddle_tpu_torch.ops import fused_train as ft
-    shape, hdim = (1, TRAIN_SEQ, 4096), 4096
-    x, r = (torch.randn(shape, generator=gen, device=dev,
-                        dtype=torch.bfloat16) for _ in range(2))
-    w = (1 + 0.1 * torch.randn(hdim, generator=gen, device=dev)).to(
-        torch.bfloat16)
-    b = (0.1 * torch.randn(hdim, generator=gen, device=dev)).to(
-        torch.bfloat16)
-    n = x.numel()
-    for name, run, plain, vectors, flops in (
-            ("add_rms_norm",
-             lambda: ft.add_rms_norm_raw(x, r, w, 1e-5),
-             lambda: ft.add_rms_norm_reference(x, r, w, 1e-5), 1, 5),
-            ("add_layer_norm",
-             lambda: ft.add_layer_norm_raw(x, r, w, b, 1e-5),
-             lambda: ft.add_layer_norm_reference(x, r, w, b, 1e-5), 2, 9)):
+    for name, shape, dt, tol in (
+            ("add_rms_norm", (1, TRAIN_SEQ, 4096), torch.bfloat16,
+             REL_L2_TOL),
+            ("add_layer_norm", (GPT_BATCH, GPT_SEQ, GPT_WIDTH),
+             torch.float32, F32_REL_L2_TOL)):
+        hdim = shape[-1]
+        x, r = (torch.randn(shape, generator=gen, device=dev, dtype=dt)
+                for _ in range(2))
+        w = (1 + 0.1 * torch.randn(hdim, generator=gen, device=dev)).to(dt)
+        b = (0.1 * torch.randn(hdim, generator=gen, device=dev)).to(dt)
+        if name == "add_rms_norm":
+            vectors, flops = 1, 5
+
+            def run():
+                return ft.add_rms_norm_raw(x, r, w, 1e-5)
+
+            def plain():
+                return ft.add_rms_norm_reference(x, r, w, 1e-5)
+        else:
+            vectors, flops = 2, 9
+
+            def run():
+                return ft.add_layer_norm_raw(x, r, w, b, 1e-5)
+
+            def plain():
+                return ft.add_layer_norm_reference(x, r, w, b, 1e-5)
+        n, el = x.numel(), x.element_size()
         (h, y), (want_h, want_y) = run(), plain()
         torch.cuda.synchronize()
         err = rel_l2(y, want_y)
         check(torch.equal(h, want_h), f"{name}: h differs from r + x")
-        check(err <= REL_L2_TOL, f"{name} kernel off its plain version: "
-                                 f"relative L2 {err}")
-        # x and r read, h and y written (bf16), the weight (and bias)
-        bound, bound_by = bound_ms(4 * n * 2 + vectors * hdim * 2,
+        check(err <= tol, f"{name} kernel off its plain version: "
+                          f"relative L2 {err}")
+        # x and r read, h and y written, the weight (and bias)
+        bound, bound_by = bound_ms(4 * n * el + vectors * hdim * el,
                                    flops * n, peak=PEAK_F32_FLOPS)
         row = {"name": "add_norm" if name == "add_rms_norm" else name,
                "route": "cuda", "source": "paddle_tpu_torch/csrc/add_norm.cu",
@@ -668,13 +699,12 @@ def add_norm_kernel(torch, gen, dev, table):
                "plain_ms": timed_ms(torch, plain, 5),
                "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
         emit({"phase": "kernel", **row, "body": name, "shape": list(shape),
-              "rel_l2_err": err, "h_equal": True,
-              "tolerance": {"rel_l2_err": REL_L2_TOL},
+              "dtype": str(dt), "rel_l2_err": err, "h_equal": True,
+              "tolerance": {"rel_l2_err": tol},
               "library_note": "no single PyTorch call adds the residual "
                               "and normalises"})
-        if name == "add_rms_norm":
-            table["add_norm"] = row
-        del h, y, want_h, want_y
+        table[row["name"]] = row
+        del x, r, h, y, want_h, want_y
 
 
 def matmul_rope_kernel(torch, np, gen, dev, table):
@@ -2034,6 +2064,632 @@ def serve_quant_reference(torch, np, dev):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# GPT-2 124M: attention dropout (#2-#4) and the trained-bias gradient (#5)
+# ---------------------------------------------------------------------------
+
+def attention_cost(b, s, h, hk, d, el):
+    """(flops, bytes) of the causal flash forward, dQ and dK/dV at [b, s,
+    h, d] with hk kv heads and el-byte elements: each input read once,
+    each output written once (lse and delta f32)."""
+    pairs = b * causal_pairs(s)
+    qb, kb, rows = b * s * h * d * el, b * s * hk * d * el, b * h * s * 4
+    return {"fwd": (4 * d * h * pairs, 2 * qb + 2 * kb + rows),
+            "dq": (6 * d * h * pairs, 3 * qb + 2 * kb + 2 * rows),
+            "dkv": (8 * d * h * pairs, 2 * qb + 4 * kb + 2 * rows)}
+
+
+def dropout_check(torch, fa, what, q, k, v, do, seed, tol):
+    """#2, #3 and #4 in dropout mode (causal, p = GPT_DROP) against their
+    plain versions fed the same seed tensor: relative L2 per output."""
+    kw = dict(causal=True, dropout_p=GPT_DROP, seed=seed)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    ops = fa.flash_attention_bwd_operands(q, k, v, out, lse, do, True, None)
+    got = {"out": out,
+           "dq": fa.flash_attention_bwd_dq(*ops, True, GPT_DROP, seed)}
+    got["dk"], got["dv"] = fa.flash_attention_bwd_dkv(*ops, True, GPT_DROP,
+                                                      seed)
+    del ops
+    want = dict(zip(("dq", "dk", "dv"), fa.flash_attention_bwd_reference(
+        q, k, v, out, lse, do, **kw)))
+    want["out"], ref_lse = fa.flash_attention_fwd_reference(q, k, v, **kw)
+    torch.cuda.synchronize()
+    errs = {"lse_max_abs_err": (lse - ref_lse).abs().max().item()}
+    for n, g in got.items():
+        errs[n] = {"rel_l2_err": rel_l2(g, want[n]),
+                   "max_abs_err": (g.float() - want[n].float()).abs()
+                   .max().item()}
+    del got, want, out, lse, ref_lse
+    emit({"phase": "check", "what": what, "shape": list(q.shape),
+          "kv_heads": k.shape[2], "dtype": str(q.dtype),
+          "dropout_p": GPT_DROP, "errors": errs,
+          "tolerance": {"rel_l2_err": tol, "lse_max_abs_err": 1e-3}})
+    check(errs["lse_max_abs_err"] <= 1e-3, f"{what}: lse off {errs}")
+    for n in ("out", "dq", "dk", "dv"):
+        check(errs[n]["rel_l2_err"] <= tol,
+              f"{what}: {n} off its plain version: {errs[n]}")
+    return errs
+
+
+def extracted_keep_rate(torch, fa, q, k, seed):
+    """The forward kernel's own keep bits for keys [0, 64): V holds the
+    one-hot of those keys (D = 64), so each output row is its dropped
+    probabilities over them.  They must equal ``dropout_keep`` bit for
+    bit on the visible (causal) elements; returns the keep rate there."""
+    b, s, h, d = q.shape
+    onehot = torch.zeros(b, s, h, d, device=q.device, dtype=q.dtype)
+    onehot[:, :d] = torch.eye(d, device=q.device, dtype=q.dtype)[
+        None, :, None, :]
+    out, _ = fa.flash_attention_fwd(q, k, onehot, causal=True,
+                                    dropout_p=GPT_DROP, seed=seed)
+    got = out.transpose(1, 2) > 0                       # [B, H, S, 64]
+    visible = torch.arange(s, device=q.device)[:, None] >= \
+        torch.arange(d, device=q.device)[None, :]
+    want = fa.dropout_keep(seed, GPT_DROP, b, h, s, d) & visible
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "the forward kernel's keep bits differ "
+                                  "from dropout_keep")
+    n = int(visible.sum()) * b * h
+    rate = int(want.sum()) / n
+    sigma = (GPT_DROP * (1 - GPT_DROP) / n) ** 0.5
+    check(abs(rate - (1 - GPT_DROP)) <= 4 * sigma,
+          f"keep rate {rate} off 1 - p by more than 4 sigma ({sigma})")
+    return {"elements": n, "keep_rate": rate, "sigma": sigma,
+            "bits_equal": True}
+
+
+def dropout_kernels(torch, gen, dev, table):
+    """#2, #3 and #4 in dropout mode at GPT-2's training attention (q, k,
+    v [8, 1024, 12, 64] f32, causal, p 0.1, fixed seed) against their
+    plain versions (1e-5 relative L2), the keep rate of the forward's own
+    bits, and timed; then the same check at Llama's [1, 8192, 32/8, 128]
+    bf16 (2^-7)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    b, s, h, d = GPT_BATCH, GPT_SEQ, GPT_HEADS, GPT_WIDTH // GPT_HEADS
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+
+    q, k, v, do = (rnd(b, s, h, d) for _ in range(4))
+    seed = torch.tensor(SEED + 11, dtype=torch.int64, device=dev)
+    errs = dropout_check(torch, fa, "flash fwd + bwd, dropout, GPT-2",
+                         q, k, v, do, seed, F32_REL_L2_TOL)
+    keep = extracted_keep_rate(torch, fa, q, k, seed)
+    emit({"phase": "check", "what": "forward kernel keep bits, keys 0-63",
+          "shape": [b, s, h, d], "dropout_p": GPT_DROP, **keep})
+    torch.cuda.empty_cache()
+
+    kw = dict(causal=True, dropout_p=GPT_DROP, seed=seed)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    ops = fa.flash_attention_bwd_operands(q, k, v, out, lse, do, True, None)
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def fwd_library():
+        sdpa(qt, kt, vt, is_causal=True, dropout_p=GPT_DROP)
+
+    # the backward of the same PyTorch call (its dq, dk and dv), on a
+    # graph kept for repeated timing
+    lib_in = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+    lib_out = sdpa(*lib_in, is_causal=True, dropout_p=GPT_DROP)
+
+    def bwd_library():
+        torch.autograd.grad(lib_out, lib_in, dot, retain_graph=True)
+
+    cost = attention_cost(b, s, h, h, d, 4)
+    outputs = {"fwd": ("out",), "dq": ("dq",), "dkv": ("dk", "dv")}
+    for name, key, line, fn, plain, lib in (
+            ("flash_attention_fwd_dropout", "fwd",
+             "flash_attention.py:164",
+             lambda: fa.flash_attention_fwd(q, k, v, **kw),
+             lambda: fa.flash_attention_fwd_reference(q, k, v, **kw),
+             fwd_library),
+            ("flash_attention_bwd_dq_dropout", "dq",
+             "flash_attention.py:390",
+             lambda: fa.flash_attention_bwd_dq(*ops, True, GPT_DROP, seed),
+             lambda: fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
+                                                      **kw), bwd_library),
+            ("flash_attention_bwd_dkv_dropout", "dkv",
+             "flash_attention.py:431",
+             lambda: fa.flash_attention_bwd_dkv(*ops, True, GPT_DROP, seed),
+             lambda: fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
+                                                      **kw), bwd_library)):
+        flops, n_bytes = cost[key]
+        outs = outputs[key]
+        bound, bound_by = bound_ms(n_bytes, flops, peak=PEAK_F32_FLOPS)
+        bound_tf32, _ = bound_ms(n_bytes, flops, peak=PEAK_TF32_FLOPS)
+        src = "flash_attention_fwd.cu" if key == "fwd" \
+            else "flash_attention_bwd.cu"
+        row = {"name": name, "route": "cuda",
+               "source": f"paddle_tpu_torch/csrc/{src}",
+               "replaces": f"paddle_tpu/ops/pallas/{line}",
+               "max_abs_err": max(errs[o]["max_abs_err"] for o in outs),
+               "ms": timed_ms(torch, fn, 10),
+               "plain_ms": timed_ms(torch, plain, 2, warmup=1),
+               "bound_ms": bound, "bound_by": bound_by,
+               "bound_tf32_ms": bound_tf32,
+               "library_ms": timed_ms(torch, lib, 10)}
+        emit({"phase": "kernel", **row, "shape": [b, s, h, d],
+              "dtype": "float32", "causal": True, "dropout_p": GPT_DROP,
+              "bound_peak": "f32 67 TFLOP/s (bound_tf32_ms: 495)",
+              "library_note": "scaled_dot_product_attention(dropout_p=0.1)"
+                              + ("" if key == "fwd" else
+                                 ", its backward (dq, dk, dv)")})
+        table[name] = row
+    del ops, out, lse, lib_out, lib_in, q, k, v, do, qt, kt, vt, dot
+    torch.cuda.empty_cache()
+
+    # Llama-3-8B's training attention with dropout
+    q, do = (rnd(1, TRAIN_SEQ, 32, 128, dtype=torch.bfloat16)
+             for _ in range(2))
+    k, v = (rnd(1, TRAIN_SEQ, 8, 128, dtype=torch.bfloat16)
+            for _ in range(2))
+    dropout_check(torch, fa, "flash fwd + bwd, dropout, Llama 8K",
+                  q, k, v, do, seed, REL_L2_TOL)
+    del q, k, v, do
+    torch.cuda.empty_cache()
+
+
+def dbias_kernels(torch, gen, dev, table):
+    """#5 at GPT-2's attention with a trained bias: the bias [1, 12, 1024,
+    1024], [8, 1, 1024, 1024] and [1, 1, 1024, 1024] f32, p 0 and 0.1,
+    and [1, 12, 1024, 1024] at GQA group 4 (3 kv heads), each against its
+    plain version (1e-5 relative L2); timed at [1, 12, 1024, 1024], p
+    0.1 (the ``encoder_bias`` shape)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    b, s, h, d = GPT_BATCH, GPT_SEQ, GPT_HEADS, GPT_WIDTH // GPT_HEADS
+    seed = torch.tensor(SEED + 12, dtype=torch.int64, device=dev)
+    checks = []
+    timed = None
+    for mshape, p, hk in (((1, h, s, s), 0.0, h), ((1, h, s, s), 0.1, h),
+                          ((b, 1, s, s), 0.0, h), ((b, 1, s, s), 0.1, h),
+                          ((1, 1, s, s), 0.0, h), ((1, 1, s, s), 0.1, h),
+                          ((1, h, s, s), 0.1, h // 4)):
+        q, do = (torch.randn(b, s, h, d, generator=gen, device=dev)
+                 for _ in range(2))
+        k, v = (torch.randn(b, s, hk, d, generator=gen, device=dev)
+                for _ in range(2))
+        bias = 0.5 * torch.randn(mshape, generator=gen, device=dev)
+        kw = dict(causal=True, dropout_p=p, seed=seed)
+        out, lse = fa.flash_attention_fwd(q, k, v, mask=bias, **kw)
+        got = fa.flash_attention_dbias(q, k, v, out, lse, do, bias, **kw)
+        want = fa.flash_attention_dbias_reference(q, k, v, out, lse, do,
+                                                  bias, **kw)
+        torch.cuda.synchronize()
+        err = rel_l2(got, want)
+        checks.append({"bias": list(mshape), "dropout_p": p,
+                       "kv_heads": hk, "rel_l2_err": err,
+                       "max_abs_err": (got - want).abs().max().item()})
+        check(err <= F32_REL_L2_TOL,
+              f"dbias kernel off its plain version: {checks[-1]}")
+        del got, want
+        if mshape == (1, h, s, s) and p and hk == h:
+            timed = (q, k, v, do, bias, out, lse, kw, checks[-1])
+        else:
+            del q, k, v, do, bias, out, lse
+    emit({"phase": "check", "what": "dbias kernel against its plain "
+          "version", "shape": [b, s, h, d], "causal": True,
+          "cases": checks, "tolerance": {"rel_l2_err": F32_REL_L2_TOL}})
+
+    q, k, v, do, bias, out, lse, kw, err = timed
+    ops = fa.flash_attention_bwd_operands(q, k, v, out, lse, do, True, bias)
+    # the library's yardstick: scaled_dot_product_attention with an
+    # attn_mask that requires grad, whose backward (one call) returns dq,
+    # dk, dv and the bias gradient.  q, k and v require grad too: the
+    # memory-efficient forward keeps its logsumexp only then, and its
+    # backward refuses to run without it.  Where the installed PyTorch
+    # still refuses these inputs, the same call is timed on the math
+    # backend.  Timed only, never on the port's path.
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    causal = torch.zeros(s, s, device=dev).masked_fill_(
+        ~torch.ones(s, s, dtype=torch.bool, device=dev).tril(),
+        float("-inf"))
+    lib_in = [x.transpose(1, 2).detach().requires_grad_()
+              for x in (q, k, v)] + [bias.detach().requires_grad_()]
+    dot = do.transpose(1, 2)
+    library, refused = None, None
+    for backend in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel(backend):
+                lib_out = torch.nn.functional.scaled_dot_product_attention(
+                    *lib_in[:3], attn_mask=lib_in[3] + causal,
+                    dropout_p=GPT_DROP)
+
+            def library(lib_out=lib_out):
+                torch.autograd.grad(lib_out, lib_in, dot, retain_graph=True)
+            library()
+            torch.cuda.synchronize()
+            break
+        except RuntimeError as e:      # the yardstick only, never the port
+            library, refused = None, f"{backend.name}: {e}"[:200]
+    check(library is not None, f"no PyTorch backend computes the bias "
+                               f"gradient here: {refused}")
+    note = (f"scaled_dot_product_attention on {backend.name} with an "
+            f"attn_mask that requires grad: its backward (dq, dk, dv and "
+            f"dbias in one call)")
+    flops = 4 * d * h * b * causal_pairs(s)         # s and dP per pair
+    n_bytes = 4 * b * s * h * d * 4 + 2 * b * h * s * 4 + 2 * h * s * s * 4
+    bound, bound_by = bound_ms(n_bytes, flops, peak=PEAK_F32_FLOPS)
+    row = {"name": "flash_attention_dbias", "route": "cuda",
+           "source": "paddle_tpu_torch/csrc/flash_attention_dbias.cu",
+           "replaces": "paddle_tpu/ops/pallas/flash_attention.py:608",
+           "max_abs_err": err["max_abs_err"],
+           "ms": timed_ms(torch, lambda: fa.flash_attention_bwd_dbias(
+               *ops[:6], bias, True, GPT_DROP, seed), 10),
+           "plain_ms": timed_ms(torch, lambda: fa.flash_attention_dbias_reference(
+               q, k, v, out, lse, do, bias, **kw), 2, warmup=1),
+           "bound_ms": bound, "bound_by": bound_by,
+           "bound_tf32_ms": bound_ms(n_bytes, flops, peak=PEAK_TF32_FLOPS)[0],
+           "library_ms": timed_ms(torch, library, 10)}
+    emit({"phase": "kernel", **row, "shape": [b, s, h, d],
+          "bias": [1, h, s, s], "dtype": "float32", "causal": True,
+          "dropout_p": GPT_DROP,
+          "bound_peak": "f32 67 TFLOP/s (bound_tf32_ms: 495)",
+          "library_note": note, "library_refused": refused})
+    table["flash_attention_dbias"] = row
+    del timed, ops, q, k, v, do, bias, out, lse, lib_in, lib_out, library
+    torch.cuda.empty_cache()
+
+
+def gpt_batch(torch, np, dev, vocab, batch, seq):
+    """``bench_gpt2``'s batch: ids from ``default_rng(0)`` [batch, seq +
+    1], inputs the first seq, labels the last seq."""
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, vocab, (batch, seq + 1), dtype=np.int32)
+    return {"x": torch.tensor(ids[:, :-1], device=dev),
+            "y": torch.tensor(ids[:, 1:].astype(np.int64), device=dev)}
+
+
+def gpt_trainer(torch, cfg, dev, seed):
+    """``bench_gpt2``'s recipe: GPTForCausalLM -> AdamW(lr 1e-4) ->
+    CompiledTrainStep on GPTPretrainingCriterion, f32."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.jit.train import CompiledTrainStep
+    from paddle_tpu_torch.models.gpt import (GPTForCausalLM,
+                                             GPTPretrainingCriterion)
+    model = GPTForCausalLM(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(seed))
+    crit = GPTPretrainingCriterion()
+    opt = optimizer.AdamW(learning_rate=1e-4, parameters=model.parameters())
+    return model, CompiledTrainStep(
+        model, lambda m, b: crit(m(b["x"]), b["y"]), opt, seed=seed)
+
+
+def train_gpt2_phase(torch, np, dev, table):
+    """GPT-2 124M at full width and depth (12 layers, vocab 50,304) on
+    ``bench_gpt2``'s recipe: batch 8 x 1024, f32, attention and hidden
+    dropout 0.1, GPT_STEPS steps on one repeated batch (the first warms
+    up), then two traced steps."""
+    from paddle_tpu_torch.models.gpt import gpt2_124m_config
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_train as ft
+    cfg = gpt2_124m_config()
+    layers = cfg.num_hidden_layers
+    t0 = time.perf_counter()
+    model, step = gpt_trainer(torch, cfg, dev, SEED + 4)
+    batch = gpt_batch(torch, np, dev, cfg.vocab_size, GPT_BATCH, GPT_SEQ)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    big = sum(p.numel() * p.element_size() >= (1 << 20)
+              for p in model.parameters())
+    # the update: one launch per leaf of 1 MiB or more (the embeddings
+    # and the four projections of each layer), one for the packed rest
+    counters = {"flash_attention_fwd": (fa.flash_attention_fwd, layers),
+                "flash_attention_bwd_dq": (fa.flash_attention_bwd_dq,
+                                           layers),
+                "flash_attention_bwd_dkv": (fa.flash_attention_bwd_dkv,
+                                            layers),
+                "fused_update": (ft.fused_update_flat, big + 1)}
+    torch.cuda.reset_peak_memory_stats()
+    for fn, _ in counters.values():
+        fn.launches = 0
+    losses, times = [], []
+    for _ in range(GPT_STEPS):
+        t = time.perf_counter()
+        losses.append(step(batch))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    launches = {n: fn.launches for n, (fn, _) in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    step_s = sum(times[1:]) / (len(times) - 1)
+    tokens = GPT_BATCH * GPT_SEQ
+    tok_s = tokens / step_s
+    f6n = 6 * n_params
+    # causal attention: 6 L S h a token (the two S x S products, forward
+    # and backward, over the visible half)
+    fattn = f6n + 6 * layers * GPT_SEQ * cfg.hidden_size
+    emit({"phase": "train_gpt2", "model": "gpt2_124m", "layers": layers,
+          "dtype": "float32", "seq": GPT_SEQ, "batch": GPT_BATCH,
+          "dropout": {"attention": cfg.attention_probs_dropout_prob,
+                      "hidden": cfg.hidden_dropout_prob},
+          "params": n_params, "setup_s": setup_s, "step_s": times,
+          "mean_step_s": step_s, "steps_per_s": 1 / step_s,
+          "tokens_per_s": tok_s,
+          "mfu_6n_attn": fattn * tok_s / PEAK_BF16_FLOPS,
+          "mfu_convention": "(6N + 6 L S h) x tokens/s over 989 TFLOP/s "
+                            "(bf16 dense peak); f32 recipe",
+          "losses": losses, "ln_vocab": math.log(cfg.vocab_size),
+          "max_memory_allocated": peak, "launches": launches,
+          "launches_per_step": {n: c / GPT_STEPS
+                                for n, c in launches.items()}})
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(abs(losses[0] - math.log(cfg.vocab_size)) <= 0.5,
+          f"first loss {losses[0]} not within 0.5 of ln V")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    check(peak < 80e9, f"peak memory {peak} bytes, not under 80 GB")
+    for n, (_, per_step) in counters.items():
+        check(launches[n] == per_step * GPT_STEPS,
+              f"{n} launched {launches[n]} times in {GPT_STEPS} steps, "
+              f"not {per_step} a step")
+    for n in ("fwd", "bwd_dq", "bwd_dkv"):
+        table[f"flash_attention_{n}_dropout"]["launches"] = \
+            launches[f"flash_attention_{n}"]
+
+    _, prof = profiled(torch, lambda: [step(batch) for _ in range(2)])
+    emit({"phase": "train_gpt2_profile", "steps": 2, **prof})
+    del model, step, batch
+
+
+def plain_gpt_loss(torch, model, ids, labels):
+    """GPT-2's training loss as a composition of plain versions: the
+    model's own weights, plain LayerNorm, GELU and dropout, and
+    ``scaled_dot_product_attention_ref`` (dense, its keep mask drawn as
+    the kernels' is), in the model's order of draws, and a log-softmax
+    cross-entropy over the whole f32 logits."""
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import _nn
+    c, g = model.config, model.gpt
+    b, s = ids.shape
+    e, nh = c.hidden_size, c.num_attention_heads
+    p_h, p_a, train = c.hidden_dropout_prob, \
+        c.attention_probs_dropout_prob, model.training
+
+    def ln(x, norm):
+        return _nn.layer_norm(x, [e], norm.weight, norm.bias,
+                              c.layer_norm_epsilon)
+
+    def lin(x, layer):
+        return x @ layer.weight + layer.bias
+
+    pos = torch.arange(s, device=ids.device)
+    x = _nn.dropout(g.wte.weight[ids.long()] + g.wpe.weight[pos], p_h, train)
+    for blk in g.h:
+        qkv = lin(ln(x, blk.ln_1), blk.attn.qkv_proj).reshape(
+            b, s, 3, nh, e // nh)
+        a = F.scaled_dot_product_attention_ref(
+            *qkv.unbind(2), dropout_p=p_a, is_causal=True, training=train)
+        x = x + _nn.dropout(lin(a.reshape(b, s, e), blk.attn.out_proj),
+                            p_h, train)
+        m = _nn.gelu(lin(ln(x, blk.ln_2), blk.mlp.fc_in), approximate=True)
+        x = x + _nn.dropout(lin(m, blk.mlp.fc_out), p_h, train)
+    logits = ln(x, g.ln_f) @ g.wte.weight.t()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, labels.long()[..., None]).mean()
+
+
+def train_gpt2_reference_phase(torch, np, dev):
+    """At f32 (full matmul precision), full width, 2 layers, batch 2 x
+    seq 256: the loss and every gradient of ``grad_step`` (the kernels)
+    against ``plain_gpt_loss`` (plain versions, autograd) from the same
+    weights and the same generator seed -- at dropout 0, and at 0.1,
+    where both routes draw the same masks."""
+    from paddle_tpu_torch.models.gpt import gpt2_124m_config
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops.random import rng_guard
+    layers, seq, seed = 2, 256, SEED + 5
+    results = {}
+    for p in (0.0, GPT_DROP):
+        cfg = dataclasses.replace(gpt2_124m_config(),
+                                  num_hidden_layers=layers,
+                                  hidden_dropout_prob=p,
+                                  attention_probs_dropout_prob=p)
+        model, step = gpt_trainer(torch, cfg, dev, seed)
+        batch = gpt_batch(torch, np, dev, cfg.vocab_size, 2, seq)
+        for fn in (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+                   fa.flash_attention_bwd_dkv):
+            fn.launches = 0
+        loss, grads = step.grad_step(batch)
+        launches = [fa.flash_attention_fwd.launches,
+                    fa.flash_attention_bwd_dq.launches,
+                    fa.flash_attention_bwd_dkv.launches]
+        params = step.state["params"]
+        with rng_guard(torch.Generator(device=dev).manual_seed(seed)):
+            want_loss = plain_gpt_loss(torch, model, batch["x"], batch["y"])
+            want = dict(zip(params, torch.autograd.grad(
+                want_loss, list(params.values()))))
+        rel = {n: ((grads[n] - w).norm() / w.norm()).item()
+               for n, w in want.items()}
+        worst = max(rel, key=rel.get)
+        wl = float(want_loss.detach())
+        loss_rel = abs(float(loss) - wl) / abs(wl)
+        results[str(p)] = {"loss": float(loss), "loss_rel_err": loss_rel,
+                           "grad_rel_l2_max": rel[worst],
+                           "grad_rel_l2_worst": worst,
+                           "launches_fwd_dq_dkv": launches}
+        check(loss_rel <= 1e-5, f"GPT-2 loss at dropout {p} off the plain "
+                                f"composition by {loss_rel} (relative)")
+        check(rel[worst] <= 1e-4, f"GPT-2 gradient {worst} at dropout {p} "
+                                  f"off the plain composition by "
+                                  f"{rel[worst]}")
+        check(launches == [layers] * 3,
+              f"flash fwd, dQ, dK/dV launched {launches} in one step")
+        del model, step, grads, want, want_loss
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "train_gpt2_reference", "dtype": "float32",
+          "layers": layers, "seq": seq, "batch": 2, "by_dropout": results,
+          "tolerance": {"loss_rel": 1e-5, "grad_rel_l2": 1e-4}})
+
+
+def plain_encoder(torch, layer, x, bias):
+    """The post-norm ``TransformerEncoderLayer`` as a composition of plain
+    versions (dense attention with the kernels' keep mask, plain
+    LayerNorm and dropout), in the layer's order of draws; returns the
+    output and linear1's pre-activations."""
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import _nn
+    mha = layer.self_attn
+    b, s, e = x.shape
+
+    def lin(t, m):
+        return t @ m.weight + m.bias
+
+    def heads(t):
+        return t.reshape(b, s, mha.num_heads, mha.head_dim)
+
+    def ln(t, norm):
+        return _nn.layer_norm(t, [e], norm.weight, norm.bias, norm.epsilon)
+
+    a = F.scaled_dot_product_attention_ref(
+        heads(lin(x, mha.q_proj)), heads(lin(x, mha.k_proj)),
+        heads(lin(x, mha.v_proj)), attn_mask=bias, dropout_p=mha.dropout)
+    h = ln(x + _nn.dropout(lin(a.reshape(b, s, e), mha.out_proj),
+                           layer.dropout1.p), layer.norm1)
+    pre = lin(h, layer.linear1)
+    f = lin(_nn.dropout(layer.activation(pre), layer.dropout.p),
+            layer.linear2)
+    return ln(h + _nn.dropout(f, layer.dropout2.p), layer.norm2), pre
+
+
+def encoder_run(torch, dev, activation, counters=None):
+    """One post-norm ``TransformerEncoderLayer`` at GPT-2 width (768, 12
+    heads, FFN 3072), batch 8 x seq 1024, dropout 0.1, with a trained
+    ``attn_mask`` [1, 12, 1024, 1024], forward and backward through the
+    kernels, then through the plain composition from the same generator
+    seed.  With ``counters``, their launches count the kernel route alone.
+    Returns what the bias-gradient kernel was given and gave (captured
+    from the layer's own backward), both routes' dbias and outputs, how
+    many of linear1's pre-activations differ in sign between them, and
+    the query rows of the tokens where any does."""
+    from paddle_tpu_torch.nn.transformer import TransformerEncoderLayer
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops.random import rng_guard
+    e, h, s, b = GPT_WIDTH, GPT_HEADS, GPT_SEQ, GPT_BATCH
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    layer = TransformerEncoderLayer(e, h, 4 * e, dropout=GPT_DROP,
+                                    activation=activation, device=dev,
+                                    generator=gen)
+    x = torch.randn(b, s, e, generator=gen, device=dev)
+    ct = torch.randn(b, s, e, generator=gen, device=dev)
+    bias = torch.nn.Parameter(0.1 * torch.randn(1, h, s, s, generator=gen,
+                                                device=dev))
+    params = [bias] + list(layer.parameters())
+    seen = {}
+    grads_fn = fa._grads
+
+    def capture(*args, **kw):          # the inputs and result of #5
+        got = grads_fn(*args, **kw)
+        if kw.get("bias") is not None:
+            seen["args"], seen["bias"], seen["dbias"] = args, kw["bias"], \
+                got[3]
+        return got
+    hook = layer.linear1.register_forward_hook(
+        lambda m, i, o: seen.__setitem__("pre", o.detach()))
+    fa._grads = capture
+    try:
+        for fn in (counters or {}).values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with rng_guard(torch.Generator(device=dev).manual_seed(SEED + 7)):
+            out = layer(x, bias)
+            grads = torch.autograd.grad((out * ct).sum(), params)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: fn.launches for n, fn in (counters or {}).items()}
+    finally:
+        fa._grads = grads_fn
+        hook.remove()
+    with rng_guard(torch.Generator(device=dev).manual_seed(SEED + 7)):
+        want_out, want_pre = plain_encoder(torch, layer, x, bias)
+        want, = torch.autograd.grad((want_out * ct).sum(), [bias])
+    flipped = (seen["pre"] > 0) != (want_pre > 0)       # [B, S, FFN]
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    return {"wall": wall, "launches": launches, "seen": seen,
+            "dbias": grads[0], "want": want, "out": out,
+            "want_out": want_out, "flips": int(flipped.sum()),
+            "flipped_rows": flipped.any(-1).any(0), "finite": finite}
+
+
+def encoder_bias_phase(torch, dev, table):
+    """The post-norm ``TransformerEncoderLayer`` with a trained bias
+    (``encoder_run``), at the layer's default ReLU: the add+norm kernel's
+    LayerNorm body (#9, twice: norm1 and norm2), the flash forward, dQ,
+    dK/dV and the bias gradient (#2-#5, once each) launch; #5's result
+    is held within 1e-5 (relative L2) of its plain version on exactly
+    the tensors the layer's backward gave it.  The layer's dbias is held
+    against the plain composition's within 1e-5 where no ReLU derivative
+    differs between the two routes, and the count of those that do is
+    reported: ReLU's derivative jumps at 0, so two f32 routes whose
+    forwards differ by rounding can flip it at a few elements.  A flip
+    at token s changes only dO's row s, and dbias[h, i, j] reads only
+    dO's row i, so the layer's dbias is held within 1e-5 on every query
+    row but those of flipped tokens, and its whole error is reported.
+    The same layer with GELU (GPT-2's activation, smooth at 0) is held
+    against the plain composition within 1e-5 on every row."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_train as ft
+    e, h, s, b = GPT_WIDTH, GPT_HEADS, GPT_SEQ, GPT_BATCH
+    counters = {"add_layer_norm": ft.add_layer_norm_raw,
+                "flash_attention_fwd": fa.flash_attention_fwd,
+                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+                "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
+                "flash_attention_dbias": fa.flash_attention_bwd_dbias}
+    expect = {"add_layer_norm": 2, "flash_attention_fwd": 1,
+              "flash_attention_bwd_dq": 1, "flash_attention_bwd_dkv": 1,
+              "flash_attention_dbias": 1}
+    relu = encoder_run(torch, dev, "relu", counters)
+    launches = relu["launches"]
+    q, k, v, out, lse, do, causal, _, p, seed = relu["seen"]["args"]
+    kernel_db = relu["seen"]["dbias"]
+    plain_db = fa.flash_attention_dbias_reference(
+        q, k, v, out, lse, do, relu["seen"]["bias"], causal=causal,
+        dropout_p=p, seed=seed)
+    iso = rel_l2(kernel_db, plain_db)
+    rest = ~relu["flipped_rows"]
+    relu_err = rel_l2(relu["dbias"][..., rest, :], relu["want"][..., rest, :])
+    del q, k, v, out, lse, do, kernel_db, plain_db
+    result = {"dbias_kernel_vs_plain_on_its_inputs_rel_l2": iso,
+              "dbias_rel_l2_err_all_rows": rel_l2(relu["dbias"],
+                                                  relu["want"]),
+              "dbias_rel_l2_err_unflipped_rows": relu_err,
+              "out_rel_l2_err": rel_l2(relu["out"], relu["want_out"]),
+              "relu_sign_flips": relu["flips"],
+              "flipped_query_rows": relu["flipped_rows"].nonzero()
+              .flatten().tolist(),
+              "fwd_bwd_wall_s": relu["wall"], "finite": relu["finite"]}
+    del relu
+    torch.cuda.empty_cache()
+    gelu = encoder_run(torch, dev, "gelu")
+    gelu_err = rel_l2(gelu["dbias"], gelu["want"])
+    gelu_res = {"dbias_rel_l2_err": gelu_err,
+                "out_rel_l2_err": rel_l2(gelu["out"], gelu["want_out"]),
+                "finite": gelu["finite"]}
+    del gelu
+    torch.cuda.empty_cache()
+    emit({"phase": "encoder_bias", "shape": [b, s, e], "heads": h,
+          "ffn": 4 * e, "dropout": GPT_DROP, "bias": [1, h, s, s],
+          "launches": launches, "relu": result, "gelu": gelu_res,
+          "pre_activations": b * s * 4 * e,
+          "tolerance": {"dbias_rel_l2": F32_REL_L2_TOL}})
+    check(launches == expect, f"encoder layer launches {launches}, not "
+                              f"{expect}")
+    check(result["finite"] and gelu_res["finite"],
+          "non-finite encoder gradients")
+    check(iso <= F32_REL_L2_TOL, f"the encoder's dbias kernel off its plain "
+                                 f"version on its own inputs by {iso}")
+    check(relu_err <= F32_REL_L2_TOL,
+          f"encoder dbias (ReLU) off the plain composition by {relu_err} "
+          f"on the query rows of unflipped tokens")
+    check(gelu_err <= F32_REL_L2_TOL, f"encoder dbias (GELU) off the plain "
+                                      f"composition by {gelu_err}")
+    table["flash_attention_dbias"]["launches"] = \
+        launches["flash_attention_dbias"]
+    table["add_layer_norm"]["launches"] = launches["add_layer_norm"]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2065,9 +2721,9 @@ def main() -> int:
     # -- build: one nvcc per source, all started together
     t0 = time.perf_counter()
     built = _build.build(["ragged_paged_attention", "flash_attention_fwd",
-                          "flash_attention_bwd", "fused_update", "add_norm",
-                          "matmul_rope", "grouped_matmul",
-                          "paged_decode_attention"])
+                          "flash_attention_bwd", "flash_attention_dbias",
+                          "fused_update", "add_norm", "matmul_rope",
+                          "grouped_matmul", "paged_decode_attention"])
     for name, rep in built.items():
         print(f"--- ptxas report, {name}\n{rep['ptxas']}", file=sys.stderr)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -2149,6 +2805,8 @@ def main() -> int:
     del args, out, lse, ref_out, ref_lse, qt, kt, vt, mask_b
 
     flash_train_kernels(torch, gen, dev, table)
+    dropout_kernels(torch, gen, dev, table)
+    dbias_kernels(torch, gen, dev, table)
     update_kernel(torch, gen, dev, table)
     add_norm_kernel(torch, gen, dev, table)
     matmul_rope_kernel(torch, np, gen, dev, table)
@@ -2245,14 +2903,27 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train_moe_reference_phase(torch, np, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- GPT-2 124M: train on bench_gpt2's recipe (dropout in the flash
+    # kernels), the f32 checks of its chain, and a post-norm encoder
+    # layer with a trained attention bias
+    train_gpt2_phase(torch, np, dev, table)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_gpt2_reference_phase(torch, np, dev)
+    encoder_bias_phase(torch, dev, table)
 
     emit({"kernels": [table[n] for n in (
         "ragged_paged_append_attend", "flash_attention_fwd",
         "flash_attention_fwd_causal_8k", "flash_attention_bwd_dq",
-        "flash_attention_bwd_dkv", "fused_update", "add_norm",
-        "matmul_rope", "grouped_matmul", "grouped_matmul_glu",
-        "grouped_matmul_dw", "paged_attention", "paged_decode_append_attend",
-        "ragged_paged_append_attend_int8")]})
+        "flash_attention_bwd_dkv", "flash_attention_fwd_dropout",
+        "flash_attention_bwd_dq_dropout", "flash_attention_bwd_dkv_dropout",
+        "flash_attention_dbias", "fused_update", "add_norm",
+        "add_layer_norm", "matmul_rope", "grouped_matmul",
+        "grouped_matmul_glu", "grouped_matmul_dw", "paged_attention",
+        "paged_decode_append_attend", "ragged_paged_append_attend_int8")]})
     print(smi[0], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

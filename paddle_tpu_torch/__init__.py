@@ -11,10 +11,14 @@ step, its split decode path and synchronous chunked prefill, with float
 or int8 KV pools and float or int8 weights (``quantization/``), for the
 Llama and Qwen2-MoE families.  Training: ``LlamaForCausalLM``'s and
 ``Qwen2MoeForCausalLM``'s forward with the chunked linear +
-cross-entropy, ``amp.decorate``, AdamW with a global-norm clip and
-``CompiledTrainStep``.  Their kernels (paged attention for the unified
-and split steps, flash forward and backward, the fused clip + optimizer
-update, add + norm, matmul + rope, the MoE grouped matmuls) are written
-by hand in CUDA C++ for Hopper (``csrc/``).  Entry points run on the
+cross-entropy, ``GPTForCausalLM`` with hidden and attention dropout
+(``ops/random.py``'s generator), ``amp.decorate``, AdamW with a
+global-norm clip and ``CompiledTrainStep``; ``nn/transformer.py``'s
+attention and encoder layers, with a trained attention bias.  Their
+kernels (paged attention for the unified and split steps, flash forward
+and backward with in-kernel dropout, the trained bias's gradient, the
+fused clip + optimizer update, add + norm, matmul + rope, the MoE
+grouped matmuls) are written by hand in CUDA C++ for Hopper
+(``csrc/``).  Entry points run on the
 GPU unless the caller passes ``device="cpu"``.
 """

@@ -25,6 +25,13 @@
 // element offset over D) stages K and V tiles as f32: each 16-byte chunk
 // of 16 codes is dequantized (code * scale) as it is stored.
 //
+// A context with dropout (`static constexpr bool kDropout = true`, with a
+// `Dropout drop` (attention_dropout.cuh) and `int row0`, the query row of
+// its first tile row) drops probabilities in the P·V product only: the
+// row max and the normaliser l stay those of the undropped softmax, so
+// the output is dropout(softmax) · V and the lse the undropped one, as
+// the reference's `_fwd_kernel` keeps them.
+//
 // Where a context hides a key (`mask`), the score becomes -1e30 — the
 // reference's masking value, not -inf — so a row whose first tiles are
 // all hidden carries finite garbage that the rescale factor alpha =
@@ -40,6 +47,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "attention_dropout.cuh"
 
 namespace ptt {
 
@@ -95,6 +104,13 @@ template <class Ctx>
 struct CtxInt8<Ctx, std::void_t<decltype(Ctx::kInt8)>>
     : std::integral_constant<bool, Ctx::kInt8> {};
 
+// Whether a context drops attention probabilities (its `kDropout`).
+template <class Ctx, class = void>
+struct CtxDropout : std::false_type {};
+template <class Ctx>
+struct CtxDropout<Ctx, std::void_t<decltype(Ctx::kDropout)>>
+    : std::integral_constant<bool, Ctx::kDropout> {};
+
 // The element type of a context's staged K/V tiles.
 template <typename T, class Ctx>
 using TileElem = typename std::conditional<CtxInt8<Ctx>::value, float, T>::type;
@@ -135,6 +151,11 @@ __device__ __forceinline__ void attend_rows(const Ctx& ctx, float scale,
     const int lr = idx / D, d = idx % D;
     const T* qr = ctx.q_row(lr);
     sm.q[lr * Sm::QLD + d] = qr ? to_f(qr[d]) * scale : 0.f;
+  }
+  uint32_t rk[4];                             // dropout row keys
+  if constexpr (CtxDropout<Ctx>::value) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) rk[i] = ctx.drop.row(ctx.row0 + ty + 16 * i);
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -248,7 +269,10 @@ __device__ __forceinline__ void attend_rows(const Ctx& ctx, float scale,
       for (int j = 0; j < 4; ++j) {
         const float p = expf(s[i][j] - m_new);
         sum += p;
-        sm.p[lr * Sm::PLD + tx + 16 * j] = p;
+        float pv = p;
+        if constexpr (CtxDropout<Ctx>::value)
+          pv = ctx.drop.apply(rk[i], t0 + tx + 16 * j, p);
+        sm.p[lr * Sm::PLD + tx + 16 * j] = pv;
       }
 #pragma unroll
       for (int o = 8; o > 0; o >>= 1)

@@ -12,6 +12,15 @@
 //   dQ = ds K / sqrt(D)            (dQ kernel)
 //   dV = sum_g p^T dO,  dK = sum_g ds^T Q / sqrt(D)   (dK/dV kernel)
 //
+// Dropout mode (DROP = true, a seed pointer): both kernels regenerate the
+// forward's keep bits (attention_dropout.cuh, a hash of seed, b, query
+// head, query row, key column) and follow the reference's
+// `_bwd_dq_kernel` / `_bwd_dkv_kernel`: dP = dO V^T is masked and scaled,
+// dP' = keep ? dP / (1 - p) : 0, and ds = p * (dP' - delta); dV takes the
+// dropped probabilities keep ? p / (1 - p) : 0.  delta = rowsum(dO * O)
+// stays as it is, O already holding the dropout.  Each kernel computes
+// one hash an element of the tiles it visits.
+//
 // Layout: contiguous [B, S, H, D] (q, dO, dQ) and [B, S, KVH, D] (k, v,
 // dK, dV); lse and delta [B, H, Sq] f32; D 64 or 128; f32, bf16, f16.
 //
@@ -39,50 +48,19 @@
 // tensor-core rate; tensor cores (mma/wgmma) are the next step.  Reading
 // each K/V (dQ) or Q/dO (dK/dV) tile once per 64-row tile keeps the bytes
 // near the minimum.
-#include "attention_tile.cuh"
+#include "flash_bwd_tile.cuh"
 
 namespace ptt {
 
-template <int D>
-struct BwdTile {
-  static constexpr int LD = D + 1;       // f32 row pitch: conflict-free columns
-  static constexpr int PLD = BK + 1;     // f32 pitch of the p / ds tiles
-  // dQ: q, dO [BR][LD]; k, v [BK][LD]; ds [BR][PLD]; lse, delta [BR]
-  static constexpr size_t kDqBytes =
-      ((size_t)(2 * BR + 2 * BK) * LD + (size_t)BR * PLD + 2 * BR) * 4;
-  // dK/dV: k, v [BK][LD]; q, dO [BR][LD]; p, ds [BK][PLD]; lse, delta [BR]
-  static constexpr size_t kDkvBytes =
-      ((size_t)(2 * BR + 2 * BK) * LD + (size_t)2 * BK * PLD + 2 * BR) * 4;
-};
-
-// Copies rows [r0, r0 + n) of one head (row stride rs elements) into a
-// f32 shared tile [64][D + 1], multiplied by `scale`; rows past n are 0.
-template <typename T, int D>
-__device__ __forceinline__ void load_rows(float* dst, const T* src, int r0,
-                                          int n, long long rs, float scale) {
-  constexpr int VEC = 16 / (int)sizeof(T);
-  constexpr int CH = D / VEC;
-  for (int idx = threadIdx.x; idx < 64 * CH; idx += NT) {
-    const int row = idx / CH, c = idx % CH;
-    uint4 raw = make_uint4(0, 0, 0, 0);
-    if (row < n)
-      raw = *reinterpret_cast<const uint4*>(src + (long long)(r0 + row) * rs +
-                                            c * VEC);
-    const T* e = reinterpret_cast<const T*>(&raw);
-    float* d = dst + row * BwdTile<D>::LD + c * VEC;
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) d[i] = to_f(e[i]) * scale;
-  }
-}
-
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, const T* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ delta,
              const float* __restrict__ mask, T* __restrict__ dq, int H,
              int KVH, int Sq, int Sk, long long msb, long long msh,
-             long long msq, int causal, float scale) {
+             long long msq, int causal, float scale, const long long* seed,
+             unsigned thresh, float inv_keep) {
   using Sm = BwdTile<D>;
   constexpr int LD = Sm::LD, PLD = Sm::PLD, DC = D / 16;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -114,6 +92,13 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
     sdelta[tid] = tid < rows ? delta[lo + row0 + tid] : 0.f;
   }
   const int key_end = causal ? min(Sk, off + row0 + rows) : Sk;
+  Dropout drop;
+  uint32_t rk[4];
+  if constexpr (DROP) {
+    drop.init(seed, b, h, thresh, inv_keep);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) rk[i] = drop.row(row0 + ty + 16 * i);
+  }
 
   float acc[4][DC];
 #pragma unroll
@@ -129,31 +114,7 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
 
     float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[4], ov[4], kv[4], vv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = sq[(ty + 16 * i) * LD + d];
-        ov[i] = sdo[(ty + 16 * i) * LD + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kv[j] = sk[(tx + 16 * j) * LD + d];
-        vv[j] = sv[(tx + 16 * j) * LD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
-        }
-    }
+    tile_products<D>(sq, sk, sdo, sv, s, dp);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int lr = ty + 16 * i, r = row0 + lr;
@@ -165,7 +126,9 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
           float sc = s[i][j];
           if (mb) sc += mb[(long long)r * msq + pos];
           if (causal && pos > off + r) sc = kMasked;
-          ds = expf(sc - slse[lr]) * (dp[i][j] - sdelta[lr]);
+          float dpv = dp[i][j];
+          if constexpr (DROP) dpv = drop.apply(rk[i], pos, dpv);
+          ds = expf(sc - slse[lr]) * (dpv - sdelta[lr]);
         }
         sds[lr * PLD + tx + 16 * j] = ds;
       }
@@ -195,7 +158,7 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const T* __restrict__ dout,
@@ -203,7 +166,8 @@ flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
               const float* __restrict__ mask, T* __restrict__ dk,
               T* __restrict__ dv, int H, int KVH, int Sq, int Sk,
               long long msb, long long msh, long long msq, int causal,
-              float scale) {
+              float scale, const long long* seed, unsigned thresh,
+              float inv_keep) {
   using Sm = BwdTile<D>;
   constexpr int LD = Sm::LD, PLD = Sm::PLD, DC = D / 16;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -242,6 +206,8 @@ flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
     const T* dob = dout + ((long long)b * Sq * H + h) * D;
     const float* mb = mask ? mask + b * msb + h * msh : nullptr;
     const long long lo = ((long long)b * H + h) * Sq;
+    Dropout drop;
+    if constexpr (DROP) drop.init(seed, b, h, thresh, inv_keep);
     for (int r0 = (r_first / BR) * BR; r0 < Sq; r0 += BR) {
       const int rows = min(BR, Sq - r0);
       __syncthreads();             // previous tile's readers are done
@@ -255,30 +221,11 @@ flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
 
       // keys ty + 16 i against query rows tx + 16 j
       float s[4][4], dp[4][4];
+      tile_products<D>(sk, sq, sv, sdo, s, dp);
+      uint32_t rk[4];
+      if constexpr (DROP) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        float kv[4], vv[4], qv[4], ov[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          kv[i] = sk[(ty + 16 * i) * LD + d];
-          vv[i] = sv[(ty + 16 * i) * LD + d];
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          qv[j] = sq[(tx + 16 * j) * LD + d];
-          ov[j] = sdo[(tx + 16 * j) * LD + d];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
-            dp[i][j] = fmaf(vv[i], ov[j], dp[i][j]);
-          }
+        for (int j = 0; j < 4; ++j) rk[j] = drop.row(r0 + tx + 16 * j);
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -292,7 +239,14 @@ flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
             if (mb) sc += mb[(long long)r * msq + key];
             if (causal && key > off + r) sc = kMasked;
             p = expf(sc - slse[lq]);
-            ds = p * (dp[i][j] - sdelta[lq]);
+            float dpv = dp[i][j];
+            if constexpr (DROP) {
+              dpv = drop.apply(rk[j], key, dpv);
+              ds = p * (dpv - sdelta[lq]);
+              p = drop.apply(rk[j], key, p);     // dV takes the dropped p
+            } else {
+              ds = p * (dpv - sdelta[lq]);
+            }
           }
           sp[lk * PLD + lq] = p;
           sds[lk * PLD + lq] = ds;
@@ -336,89 +290,78 @@ flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* dout, const float* lse, const float* delta,
-                      const float* mask, void* dq, int B, int H, int KVH,
-                      int Sq, int Sk, const long long* ms, int causal,
-                      float scale, cudaStream_t stream) {
+// The operands of one backward launch, as the C entry points take them.
+struct BwdArgs {
+  const void *q, *k, *v, *dout;
+  const float *lse, *delta, *mask;
+  void *o0, *o1;
+  int B, H, KVH, Sq, Sk;
+  const long long* ms;
+  int causal;
+  float scale;
+  const long long* seed;
+  unsigned thresh;
+  float inv_keep;
+  cudaStream_t stream;
+};
+
+template <typename T, int D, bool DROP>
+cudaError_t launch_dq(const BwdArgs& a) {
   const size_t smem = BwdTile<D>::kDqBytes;
   static bool smem_set = false;
-  cudaError_t e = allow_smem(flash_bwd_dq<T, D>, smem, &smem_set);
+  cudaError_t e = allow_smem(flash_bwd_dq<T, D, DROP>, smem, &smem_set);
   if (e != cudaSuccess) return e;
-  const dim3 grid((Sq + BR - 1) / BR, H, B);
-  flash_bwd_dq<T, D><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, mask,
-      static_cast<T*>(dq), H, KVH, Sq, Sk, ms[0], ms[1], ms[2], causal,
-      scale);
+  const dim3 grid((a.Sq + BR - 1) / BR, a.H, a.B);
+  flash_bwd_dq<T, D, DROP><<<grid, NT, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+      a.delta, a.mask, static_cast<T*>(a.o0), a.H, a.KVH, a.Sq, a.Sk,
+      a.ms[0], a.ms[1], a.ms[2], a.causal, a.scale, a.seed, a.thresh,
+      a.inv_keep);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v,
-                       const void* dout, const float* lse,
-                       const float* delta, const float* mask, void* dk,
-                       void* dv, int B, int H, int KVH, int Sq, int Sk,
-                       const long long* ms, int causal, float scale,
-                       cudaStream_t stream) {
+template <typename T, int D, bool DROP>
+cudaError_t launch_dkv(const BwdArgs& a) {
   const size_t smem = BwdTile<D>::kDkvBytes;
   static bool smem_set = false;
-  cudaError_t e = allow_smem(flash_bwd_dkv<T, D>, smem, &smem_set);
+  cudaError_t e = allow_smem(flash_bwd_dkv<T, D, DROP>, smem, &smem_set);
   if (e != cudaSuccess) return e;
-  const dim3 grid((Sk + BK - 1) / BK, KVH, B);
-  flash_bwd_dkv<T, D><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, mask,
-      static_cast<T*>(dk), static_cast<T*>(dv), H, KVH, Sq, Sk, ms[0], ms[1],
-      ms[2], causal, scale);
+  const dim3 grid((a.Sk + BK - 1) / BK, a.KVH, a.B);
+  flash_bwd_dkv<T, D, DROP><<<grid, NT, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+      a.delta, a.mask, static_cast<T*>(a.o0), static_cast<T*>(a.o1), a.H,
+      a.KVH, a.Sq, a.Sk, a.ms[0], a.ms[1], a.ms[2], a.causal, a.scale,
+      a.seed, a.thresh, a.inv_keep);
   return cudaGetLastError();
+}
+
+template <typename T, int D, bool DROP>
+cudaError_t launch(int which, const BwdArgs& a) {
+  return which == 0 ? launch_dq<T, D, DROP>(a) : launch_dkv<T, D, DROP>(a);
 }
 
 template <typename T>
-cudaError_t dispatch(int which, int D, const void* q, const void* k,
-                     const void* v, const void* dout, const float* lse,
-                     const float* delta, const float* mask, void* o0,
-                     void* o1, int B, int H, int KVH, int Sq, int Sk,
-                     const long long* ms, int causal, float scale,
-                     cudaStream_t s) {
-  if (which == 0) {
-    if (D == 64)
-      return launch_dq<T, 64>(q, k, v, dout, lse, delta, mask, o0, B, H, KVH,
-                              Sq, Sk, ms, causal, scale, s);
-    if (D == 128)
-      return launch_dq<T, 128>(q, k, v, dout, lse, delta, mask, o0, B, H,
-                               KVH, Sq, Sk, ms, causal, scale, s);
-  } else {
-    if (D == 64)
-      return launch_dkv<T, 64>(q, k, v, dout, lse, delta, mask, o0, o1, B, H,
-                               KVH, Sq, Sk, ms, causal, scale, s);
-    if (D == 128)
-      return launch_dkv<T, 128>(q, k, v, dout, lse, delta, mask, o0, o1, B,
-                                H, KVH, Sq, Sk, ms, causal, scale, s);
-  }
+cudaError_t dispatch(int which, int D, const BwdArgs& a) {
+  const bool drop = a.seed != nullptr;
+  if (D == 64)
+    return drop ? launch<T, 64, true>(which, a)
+                : launch<T, 64, false>(which, a);
+  if (D == 128)
+    return drop ? launch<T, 128, true>(which, a)
+                : launch<T, 128, false>(which, a);
   return cudaErrorInvalidValue;
 }
 
-cudaError_t dispatch_dtype(int which, int dtype, int D, const void* q,
-                           const void* k, const void* v, const void* dout,
-                           const float* lse, const float* delta,
-                           const float* mask, void* o0, void* o1, int B,
-                           int H, int KVH, int Sq, int Sk,
-                           const long long* ms, int causal, float scale,
-                           void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+cudaError_t dispatch_dtype(int which, int dtype, int D, const BwdArgs& a) {
   switch (dtype) {
     case 0:
-      return dispatch<float>(which, D, q, k, v, dout, lse, delta, mask, o0,
-                             o1, B, H, KVH, Sq, Sk, ms, causal, scale, s);
+      return dispatch<float>(which, D, a);
     case 1:
-      return dispatch<__nv_bfloat16>(which, D, q, k, v, dout, lse, delta,
-                                     mask, o0, o1, B, H, KVH, Sq, Sk, ms,
-                                     causal, scale, s);
+      return dispatch<__nv_bfloat16>(which, D, a);
     case 2:
-      return dispatch<__half>(which, D, q, k, v, dout, lse, delta, mask, o0,
-                              o1, B, H, KVH, Sq, Sk, ms, causal, scale, s);
+      return dispatch<__half>(which, D, a);
   }
   return cudaErrorInvalidValue;
 }
@@ -430,16 +373,20 @@ extern "C" {
 // Operands contiguous: q, dout [B, Sq, H, D]; k, v [B, Sk, KVH, D]; lse,
 // delta [B, H, Sq] f32; mask f32 with element strides b/h/q (0 where it
 // broadcasts), null when there is none; dtype: 0 float32, 1 bfloat16,
-// 2 float16.  Each returns a cudaError_t.
+// 2 float16; seed: the forward's device int64 dropout seed (null: no
+// dropout), thresh the keep threshold and inv_keep 1 / (1 - p).  Each
+// returns a cudaError_t.
 int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                            const void* dout, const float* lse,
                            const float* delta, const float* mask, void* dq,
                            int B, int H, int KVH, int Sq, int Sk, int D,
                            const long long* mask_strides, int causal,
-                           float scale, int dtype, void* stream) {
-  return ptt::dispatch_dtype(0, dtype, D, q, k, v, dout, lse, delta, mask, dq,
-                             nullptr, B, H, KVH, Sq, Sk, mask_strides, causal,
-                             scale, stream);
+                           float scale, int dtype, const long long* seed,
+                           unsigned thresh, float inv_keep, void* stream) {
+  const ptt::BwdArgs a{q, k, v, dout, lse, delta, mask, dq, nullptr, B, H,
+                       KVH, Sq, Sk, mask_strides, causal, scale, seed,
+                       thresh, inv_keep, static_cast<cudaStream_t>(stream)};
+  return ptt::dispatch_dtype(0, dtype, D, a);
 }
 
 int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
@@ -447,10 +394,12 @@ int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                             const float* delta, const float* mask, void* dk,
                             void* dv, int B, int H, int KVH, int Sq, int Sk,
                             int D, const long long* mask_strides, int causal,
-                            float scale, int dtype, void* stream) {
-  return ptt::dispatch_dtype(1, dtype, D, q, k, v, dout, lse, delta, mask, dk,
-                             dv, B, H, KVH, Sq, Sk, mask_strides, causal,
-                             scale, stream);
+                            float scale, int dtype, const long long* seed,
+                            unsigned thresh, float inv_keep, void* stream) {
+  const ptt::BwdArgs a{q, k, v, dout, lse, delta, mask, dk, dv, B, H, KVH,
+                       Sq, Sk, mask_strides, causal, scale, seed, thresh,
+                       inv_keep, static_cast<cudaStream_t>(stream)};
+  return ptt::dispatch_dtype(1, dtype, D, a);
 }
 
 const char* flash_bwd_error_string(int e) {

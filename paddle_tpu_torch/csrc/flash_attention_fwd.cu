@@ -16,6 +16,14 @@
 // the engine's gathered pages enter without a transposing copy; the
 // output is contiguous [B, Sq, H, D] and the log-sum-exp [B, H, Sq] f32.
 //
+// Dropout mode (the GPT-2 training path, p = 0.1): with a seed pointer
+// the kernel is instantiated with DROP = true, and the P·V product takes
+// p / (1 - p) where the element's keep bit (attention_dropout.cuh: a hash
+// of seed, b, h, query row, key column) is set and 0 elsewhere; the row
+// max, the normaliser and the lse stay undropped, as in the reference's
+// `_fwd_kernel`.  The bit depends on no tile size, so both backward
+// kernels and the bias gradient regenerate it from the same seed.
+//
 // What bounds it on an H100: operations.  At the prefill shape (Sq 128,
 // Sk 2048, G 4 query heads per kv head) the work is 4 * Sq * Sk * D
 // flops per head against 4 * Sk * D bytes of bf16 K/V per kv head — about
@@ -27,8 +35,10 @@
 
 namespace ptt {
 
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 struct FlashCtx {
+  static constexpr bool kDropout = DROP;
+  Dropout drop;
   const T* q;
   const T* k;
   const T* v;
@@ -50,7 +60,7 @@ struct FlashCtx {
   }
 };
 
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(NT)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, const float* __restrict__ mask,
@@ -58,13 +68,15 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           int Sq, int Sk, long long qsb, long long qss, long long qsh,
           long long ksb, long long kss, long long ksh, long long vsb,
           long long vss, long long vsh, long long msb, long long msh,
-          long long msq, int causal, float scale) {
+          long long msq, int causal, float scale, const long long* seed,
+          unsigned thresh, float inv_keep) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KVH);
   const int row0 = blockIdx.x * BR;
 
-  FlashCtx<T, D> ctx;
+  FlashCtx<T, D, DROP> ctx;
+  if constexpr (DROP) ctx.drop.init(seed, b, h, thresh, inv_keep);
   ctx.q = q + b * qsb + h * qsh;
   ctx.k = k + b * ksb + kvh * ksh;
   ctx.v = v + b * vsb + kvh * vsh;
@@ -97,35 +109,53 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* mask, void* out, float* lse, int B, int H,
                    int KVH, int Sq, int Sk, const long long* st,
-                   int causal, float scale, cudaStream_t stream) {
+                   int causal, float scale, const long long* seed,
+                   unsigned thresh, float inv_keep, cudaStream_t stream) {
   const size_t smem = Tile<T, D>::kBytes;
   static bool smem_set = false;
-  cudaError_t e = allow_smem(flash_fwd<T, D>, smem, &smem_set);
+  cudaError_t e = allow_smem(flash_fwd<T, D, DROP>, smem, &smem_set);
   if (e != cudaSuccess) return e;
   const dim3 grid((Sq + BR - 1) / BR, H, B);
-  flash_fwd<T, D><<<grid, NT, smem, stream>>>(
+  flash_fwd<T, D, DROP><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), mask, static_cast<T*>(out), lse, H, KVH, Sq,
       Sk, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      st[9], st[10], st[11], causal, scale);
+      st[9], st[10], st[11], causal, scale, seed, thresh, inv_keep);
   return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t dispatch_drop(const void* q, const void* k, const void* v,
+                          const float* mask, void* out, float* lse, int B,
+                          int H, int KVH, int Sq, int Sk,
+                          const long long* st, int causal, float scale,
+                          const long long* seed, unsigned thresh,
+                          float inv_keep, cudaStream_t stream) {
+  if (seed)
+    return launch<T, D, true>(q, k, v, mask, out, lse, B, H, KVH, Sq, Sk, st,
+                              causal, scale, seed, thresh, inv_keep, stream);
+  return launch<T, D, false>(q, k, v, mask, out, lse, B, H, KVH, Sq, Sk, st,
+                             causal, scale, seed, thresh, inv_keep, stream);
 }
 
 template <typename T>
 cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
                        const float* mask, void* out, float* lse, int B,
                        int H, int KVH, int Sq, int Sk, const long long* st,
-                       int causal, float scale, cudaStream_t stream) {
+                       int causal, float scale, const long long* seed,
+                       unsigned thresh, float inv_keep, cudaStream_t stream) {
   if (D == 64)
-    return launch<T, 64>(q, k, v, mask, out, lse, B, H, KVH, Sq, Sk, st,
-                         causal, scale, stream);
+    return dispatch_drop<T, 64>(q, k, v, mask, out, lse, B, H, KVH, Sq, Sk,
+                                st, causal, scale, seed, thresh, inv_keep,
+                                stream);
   if (D == 128)
-    return launch<T, 128>(q, k, v, mask, out, lse, B, H, KVH, Sq, Sk, st,
-                          causal, scale, stream);
+    return dispatch_drop<T, 128>(q, k, v, mask, out, lse, B, H, KVH, Sq, Sk,
+                                 st, causal, scale, seed, thresh, inv_keep,
+                                 stream);
   return cudaErrorInvalidValue;
 }
 
@@ -134,25 +164,29 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
 extern "C" {
 
 // strides (elements): q b/s/h, k b/s/h, v b/s/h, mask b/h/q (0 where the
-// mask broadcasts); dtype: 0 float32, 1 bfloat16, 2 float16.
-// Returns a cudaError_t.
+// mask broadcasts); dtype: 0 float32, 1 bfloat16, 2 float16; seed: a
+// device int64 for dropout (null: none), thresh the keep threshold and
+// inv_keep 1 / (1 - p).  Returns a cudaError_t.
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         const float* mask, void* out, float* lse, int B,
                         int H, int KVH, int Sq, int Sk, int D,
                         const long long* strides, int causal, float scale,
-                        int dtype, void* stream) {
+                        int dtype, const long long* seed, unsigned thresh,
+                        float inv_keep, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
       return ptt::dispatch_d<float>(D, q, k, v, mask, out, lse, B, H, KVH,
-                                    Sq, Sk, strides, causal, scale, s);
+                                    Sq, Sk, strides, causal, scale, seed,
+                                    thresh, inv_keep, s);
     case 1:
       return ptt::dispatch_d<__nv_bfloat16>(D, q, k, v, mask, out, lse, B, H,
                                             KVH, Sq, Sk, strides, causal,
-                                            scale, s);
+                                            scale, seed, thresh, inv_keep, s);
     case 2:
       return ptt::dispatch_d<__half>(D, q, k, v, mask, out, lse, B, H, KVH,
-                                     Sq, Sk, strides, causal, scale, s);
+                                     Sq, Sk, strides, causal, scale, seed,
+                                     thresh, inv_keep, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -346,24 +346,45 @@ class LLMEngine:
     ``device`` defaults to the GPU and must hold the model.
     ``moe_dispatch`` ("grouped", or "dense": the per-row comparator, CPU
     tensors only) and ``moe_dropless`` (only True) apply to MoE
-    backbones."""
+    backbones.  The reference's other keywords are taken at the value
+    the port runs (``scan_decode=False``: the host-chained decode window,
+    which gives the reference's tokens; the sampling knobs at their
+    defaults, which greedy decoding does not read; no metrics; the
+    default ``tp_axis`` and ``spec_k``) and raise otherwise."""
 
     def __init__(self, model, max_seqs: int = 8, max_len: int = 2048,
                  page_size: int = 128, n_pages: Optional[int] = None,
                  dtype: Optional[torch.dtype] = None,
                  decode_strategy: str = "greedy_search",
+                 top_k: int = 0, top_p: float = 1.0,
+                 temperature: float = 1.0, seed: int = 0,
                  steps_per_sync: int = 1,
                  kv_dtype: Optional[str] = None,
                  weight_dtype: Optional[str] = None,
+                 enable_metrics: bool = False,
                  enable_prefix_caching: bool = True,
                  swap_pool_pages: Optional[int] = None,
                  unified_step: bool = True,
                  prefill_token_budget: Optional[int] = None,
-                 mesh=None, draft_model=None, device=None,
+                 scan_decode: bool = False,
+                 mesh=None, tp_axis: str = "tp", draft_model=None,
+                 spec_k: int = 4, device=None,
                  moe_dispatch: str = "grouped", moe_dropless: bool = True,
                  moe_capacity_factor: Optional[float] = None):
         serving = "Port: the rest of serving"
         todo = {
+            "scan_decode=True (the decode window as one device program)": (
+                scan_decode, "Port: speed of what is ported"),
+            "top_k (sampling)": (top_k != 0, serving),
+            "top_p (sampling)": (top_p != 1.0, serving),
+            "temperature (sampling)": (temperature != 1.0, serving),
+            "seed (sampling)": (seed != 0, serving),
+            "enable_metrics=True (engine metrics)": (
+                enable_metrics, serving),
+            "tp_axis (tensor-parallel serving)": (
+                tp_axis != "tp", "Port: remaining modules"),
+            "spec_k (speculative decoding)": (
+                spec_k != 4, "Port: remaining modules"),
             "moe_dropless=False (capacity-factor MoE dispatch)": (
                 not moe_dropless, serving),
             "moe_capacity_factor (capacity-factor MoE dispatch)": (

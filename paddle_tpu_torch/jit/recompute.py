@@ -20,15 +20,24 @@ The site's own backward stays as it is:
 - ``"dots"`` keeps every projection's output (``product``); the
   matmul+rope kernel's output is a kernel output there, not a dot, as on
   the reference's TPU path, and is recomputed;
-- ``None`` or ``"full"`` keeps nothing.
+- ``None`` or ``"full"`` keeps nothing;
+- every policy keeps ``dropout_seed``, the per-call seed of the
+  in-kernel attention dropout (``nn/functional.py``), so a recomputed
+  forward regenerates the first run's keep masks.
 
 The mechanism is a ``torch.autograd.Function`` around the region whose
 forward runs under ``no_grad`` and whose backward re-runs the region
 with grad on and differentiates it with ``torch.autograd.grad``.  The
 region's inputs and, for a module, its parameters are the Function's
 inputs; a plain function gets gradients only for the tensors passed to
-it.  The port's forward draws no random numbers, so no RNG state is
-replayed.  A region is differentiated once (no ``retain_graph``).
+it.  A region that draws random numbers (plain dropout, the attention
+seed) draws them from the dropout generator of ``ops/random.py``: the
+Function records that generator and its state where the region starts,
+and runs the recompute under it, set back to that state (restoring its
+later state after), so the recompute draws what the first run drew,
+wherever the backward runs, as the reference's ``jax.checkpoint``
+replays its keys.  A region is differentiated once (no
+``retain_graph``).
 """
 from __future__ import annotations
 
@@ -40,20 +49,23 @@ from torch import nn
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from ..common.errors import enforce
+from ..ops import random as _random
 
 __all__ = ["recompute", "kept", "product"]
 
-_POLICIES = {None: frozenset(), "full": frozenset(),
-             "core_attn": frozenset({"attn_out", "flash_out", "flash_lse"}),
-             "dots": frozenset({"dot"})}
+_ALWAYS = frozenset({"dropout_seed"})
+_POLICIES = {None: _ALWAYS, "full": _ALWAYS,
+             "core_attn": _ALWAYS | {"attn_out", "flash_out", "flash_lse"},
+             "dots": _ALWAYS | {"dot"}}
 
 _local = threading.local()
 
 
 def _resolve_policy(policy):
-    """The names a policy keeps: None or "full" nothing, "core_attn" the
-    attention output and the flash forward's (out, lse), "dots" the
-    projections' outputs.  Anything else raises ValueError."""
+    """The names a policy keeps: None or "full" only the dropout seed,
+    "core_attn" also the attention output and the flash forward's (out,
+    lse), "dots" also the projections' outputs.  Anything else raises
+    ValueError."""
     if (policy is None or isinstance(policy, str)) and policy in _POLICIES:
         return _POLICIES[policy]
     raise ValueError(f"unknown recompute policy {policy!r}")
@@ -147,6 +159,8 @@ class _Recompute(torch.autograd.Function):
     @staticmethod
     def forward(ctx, run, keep, n_args, *tensors):
         frame = _Frame(keep)
+        gen = _random.generator_for(tensors[0].device)
+        ctx.rng = (gen, gen.get_state())
         with _in_frame(frame):
             outs, single = _outputs(run(*tensors[:n_args]))
         ctx.run, ctx.frame, ctx.single = run, frame, single
@@ -163,8 +177,15 @@ class _Recompute(torch.autograd.Function):
         need = ctx.needs_input_grad[3:]
         args = [t.detach().requires_grad_(r)
                 for t, r in zip(ctx.saved_tensors, need)]
-        with torch.enable_grad(), _in_frame(frame):
-            outs, _ = _outputs(ctx.run(*args))
+        gen, state = ctx.rng
+        later = gen.get_state()
+        gen.set_state(state)
+        try:
+            with torch.enable_grad(), _in_frame(frame), \
+                    _random.rng_guard(gen):
+                outs, _ = _outputs(ctx.run(*args))
+        finally:
+            gen.set_state(later)
         # a gradient for each output that carries one
         live = [(o, g) for o, g in zip(outs, grads) if o.requires_grad]
         wrt = [t for t, r in zip(args + list(ctx.params), need) if r]

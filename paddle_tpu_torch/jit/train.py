@@ -7,7 +7,11 @@ update are issued op by op on the current stream, with no compile step.
 One call is one optimizer step.  The loss comes back as a device tensor
 and lr, step and clip scale reach the update kernel as device scalars,
 so a step never waits for the host; reading the loss (``float(loss)``)
-is the caller's sync.
+is the caller's sync.  The trainer owns the dropout stream: a
+``torch.Generator`` on the model's device seeded from ``seed``, under
+which (``ops.random.rng_guard``) every forward and backward runs, so
+hidden and attention dropout are reproducible from ``seed``; their
+draws stay on the device.
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ from typing import Any, Callable, Dict, Tuple
 
 import torch
 
+from ..ops.random import rng_guard
 from ..optimizer.optimizer import Optimizer
 
 __all__ = ["CompiledTrainStep"]
@@ -32,18 +37,25 @@ class CompiledTrainStep:
     and the model sees them at once."""
 
     def __init__(self, model: torch.nn.Module, loss_fn: Callable,
-                 optimizer: Optimizer, seed: int = 0,
-                 state_sharding_fn=None, fused_step: bool = True):
-        if state_sharding_fn is not None:
-            raise NotImplementedError(
-                "sharded train state (state_sharding_fn) is not ported yet "
-                "(ROADMAP 'Port: remaining modules')")
+                 optimizer: Optimizer, seed: int = 0, donate: bool = True,
+                 state_sharding_fn=None, has_aux: bool = False,
+                 fused_step: bool = True, grad_norm_tap: bool = False):
+        # reference keywords outside the slice; donate=True is what the
+        # port does (updates land in place)
+        todo = {"donate=False": (not donate, "Port: remaining modules"),
+                "sharded train state (state_sharding_fn)": (
+                    state_sharding_fn is not None, "Port: remaining modules"),
+                "has_aux=True": (has_aux, "Port: remaining modules"),
+                "grad_norm_tap=True": (grad_norm_tap,
+                                       "Port: remaining modules")}
+        for knob, (asked, item) in todo.items():
+            if asked:
+                raise NotImplementedError(
+                    f"CompiledTrainStep {knob} is not ported yet (ROADMAP "
+                    f"'{item}')")
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer
-        # the reference's RNG stream for dropout; the port's forward
-        # draws no random numbers (attention dropout raises)
-        self.seed = seed
         params = dict(model.named_parameters())
         self._device = next(iter(params.values())).device
         if not fused_step and self._device.type != "cpu":
@@ -51,6 +63,9 @@ class CompiledTrainStep:
                 "fused_step=False (the per-leaf plain update) runs on CPU "
                 "tensors only; on the card the update goes through the "
                 "fused kernel (ROADMAP 'Port: remaining modules')")
+        self.seed = seed
+        self.generator = torch.Generator(device=self._device).manual_seed(
+            seed)
         self.state: Dict[str, Any] = {
             "params": params, "opt": optimizer.init_state(params)}
         self._fused_step = fused_step
@@ -72,7 +87,7 @@ class CompiledTrainStep:
         """Forward + backward only: (loss, {name: grad}), each grad in
         its parameter's dtype; nothing is updated."""
         params = self.state["params"]
-        with torch.enable_grad():
+        with torch.enable_grad(), rng_guard(self.generator):
             loss = self.loss_fn(self.model, self._batch(batch))
             grads = torch.autograd.grad(loss, list(params.values()),
                                         allow_unused=True)

@@ -35,9 +35,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..jit.recompute import product, recompute
+from ..jit.recompute import recompute
 from ..nn import functional as F
-from ..nn.norm import RMSNorm
+from ..nn.common import Init
 from ..ops import _nn
 from ..ops.fused_train import _rotate_half
 from ..runtime.device import resolve_device
@@ -122,53 +122,6 @@ def _rope_cos_sin(seq_len: int, head_dim: int, theta: float,
     return emb.astype(dtype)
 
 
-class _Init:
-    """Seeded parameter factory: every tensor is drawn on ``device``
-    from one generator, in module-construction order."""
-
-    def __init__(self, device: torch.device, dtype: torch.dtype,
-                 generator: torch.Generator):
-        self.device, self.dtype, self.gen = device, dtype, generator
-
-    def normal(self, shape, std: float) -> nn.Parameter:
-        w = torch.empty(shape, device=self.device, dtype=self.dtype)
-        w.normal_(0.0, std, generator=self.gen)
-        return nn.Parameter(w)
-
-    def zeros(self, shape) -> nn.Parameter:
-        return nn.Parameter(torch.zeros(shape, device=self.device,
-                                        dtype=self.dtype))
-
-    def rms_norm(self, dim: int, eps: float) -> RMSNorm:
-        return RMSNorm(dim, eps, device=self.device, dtype=self.dtype)
-
-
-class Linear(nn.Module):
-    """Projection with Paddle's ``[in, out]`` weight and, with ``bias``,
-    a bias (zeros at construction) added to the product.  The product is
-    a "dot" to the recompute policies (``names``)."""
-
-    def __init__(self, init: _Init, d_in: int, d_out: int, std: float,
-                 names=("dot",), bias: bool = False):
-        super().__init__()
-        self.weight = init.normal((d_in, d_out), std)
-        self.bias = init.zeros((d_out,)) if bias else None
-        self.names = names
-
-    def forward(self, x):
-        y = product(x, self.weight, self.names)
-        return y if self.bias is None else y + self.bias
-
-
-class Embedding(nn.Module):
-    def __init__(self, init: _Init, vocab: int, dim: int, std: float):
-        super().__init__()
-        self.weight = init.normal((vocab, dim), std)
-
-    def forward(self, ids):
-        return nn.functional.embedding(ids, self.weight)
-
-
 def _apply_rope(q, k, cos, sin):
     """q/k ``[B, S, H, D]``; cos/sin ``[S, D]`` (cat(freqs, freqs)
     layout), applied in f32 and cast back."""
@@ -179,7 +132,7 @@ def _apply_rope(q, k, cos, sin):
 
 
 class LlamaAttention(nn.Module):
-    def __init__(self, c: LlamaConfig, init: _Init):
+    def __init__(self, c: LlamaConfig, init: Init):
         super().__init__()
         self.num_heads = c.num_attention_heads
         self.num_kv_heads = c.num_key_value_heads
@@ -187,19 +140,20 @@ class LlamaAttention(nn.Module):
         std = c.initializer_range
         out_std = std / math.sqrt(2 * c.num_hidden_layers)
         bias = c.attention_bias                 # q/k/v biases, no o bias
-        self.q_proj = Linear(init, c.hidden_size,
-                             self.num_heads * self.head_dim, std, bias=bias)
-        self.k_proj = Linear(init, c.hidden_size,
-                             self.num_kv_heads * self.head_dim, std,
-                             bias=bias)
-        self.v_proj = Linear(init, c.hidden_size,
-                             self.num_kv_heads * self.head_dim, std,
-                             bias=bias)
+        self.q_proj = init.linear(c.hidden_size,
+                                  self.num_heads * self.head_dim, std,
+                                  bias=bias)
+        self.k_proj = init.linear(c.hidden_size,
+                                  self.num_kv_heads * self.head_dim, std,
+                                  bias=bias)
+        self.v_proj = init.linear(c.hidden_size,
+                                  self.num_kv_heads * self.head_dim, std,
+                                  bias=bias)
         # its output is the reference's "attn_out" (the residual that
         # "core_attn" remat keeps)
-        self.o_proj = Linear(init, self.num_heads * self.head_dim,
-                             c.hidden_size, out_std,
-                             names=("dot", "attn_out"))
+        self.o_proj = init.linear(self.num_heads * self.head_dim,
+                                  c.hidden_size, out_std, bias=False,
+                                  names=("dot", "attn_out"))
         self.use_flash = c.use_flash_attention
         # as in the reference, a biased attention (Qwen2's) takes the
         # unfused rope path; the port refuses fuse_qkv at construction
@@ -234,23 +188,23 @@ class LlamaAttention(nn.Module):
 
 
 class LlamaMLP(nn.Module):
-    def __init__(self, c: LlamaConfig, init: _Init):
+    def __init__(self, c: LlamaConfig, init: Init):
         super().__init__()
         std = c.initializer_range
         out_std = std / math.sqrt(2 * c.num_hidden_layers)
-        self.gate_proj = Linear(init, c.hidden_size, c.intermediate_size,
-                                std)
-        self.up_proj = Linear(init, c.hidden_size, c.intermediate_size,
-                              std)
-        self.down_proj = Linear(init, c.intermediate_size, c.hidden_size,
-                                out_std)
+        self.gate_proj = init.linear(c.hidden_size, c.intermediate_size,
+                                     std, bias=False)
+        self.up_proj = init.linear(c.hidden_size, c.intermediate_size, std,
+                                   bias=False)
+        self.down_proj = init.linear(c.intermediate_size, c.hidden_size,
+                                     out_std, bias=False)
 
     def forward(self, x):
         return self.down_proj(_nn.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
 class LlamaDecoderLayer(nn.Module):
-    def __init__(self, c: LlamaConfig, init: _Init):
+    def __init__(self, c: LlamaConfig, init: Init):
         super().__init__()
         self.input_layernorm = init.rms_norm(c.hidden_size, c.rms_norm_eps)
         self.self_attn = LlamaAttention(c, init)
@@ -275,11 +229,11 @@ class LlamaDecoderLayer(nn.Module):
 
 
 class LlamaModel(nn.Module):
-    def __init__(self, c: LlamaConfig, init: _Init):
+    def __init__(self, c: LlamaConfig, init: Init):
         super().__init__()
         self.config = c
-        self.embed_tokens = Embedding(init, c.vocab_size, c.hidden_size,
-                                      c.initializer_range)
+        self.embed_tokens = init.embedding(c.vocab_size, c.hidden_size,
+                                           c.initializer_range)
         self.layers = nn.ModuleList([LlamaDecoderLayer(c, init)
                                      for _ in range(c.num_hidden_layers)])
         self.norm = init.rms_norm(c.hidden_size, c.rms_norm_eps)
@@ -323,12 +277,12 @@ class LlamaForCausalLM(nn.Module):
         dev = resolve_device(device)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
-        init = _Init(dev, dtype, generator)
+        init = Init(dev, dtype, generator)
         self.config = config
         self.llama = LlamaModel(config, init)
-        self.lm_head = None if config.tie_word_embeddings else Linear(
-            init, config.hidden_size, config.vocab_size,
-            config.initializer_range)
+        self.lm_head = None if config.tie_word_embeddings else init.linear(
+            config.hidden_size, config.vocab_size, config.initializer_range,
+            bias=False)
 
     def forward(self, input_ids, labels=None):
         """Logits ``[B, S, V]``, or with ``labels`` (-100 = ignored) the

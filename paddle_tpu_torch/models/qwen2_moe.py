@@ -28,8 +28,9 @@ from ..jit.recompute import recompute
 from ..nn.moe import MoELayer
 from ..ops import _nn
 from ..runtime.device import resolve_device
-from .llama import (Embedding, LlamaAttention, LlamaConfig, Linear,
-                    LlamaPretrainingCriterion, _Init, _rope_cos_sin)
+from ..nn.common import Init
+from .llama import (LlamaAttention, LlamaConfig, LlamaPretrainingCriterion,
+                    _rope_cos_sin)
 
 __all__ = ["Qwen2MoeConfig", "Qwen2MoeDecoderLayer", "Qwen2MoeForCausalLM",
            "qwen2_moe_tiny_config"]
@@ -88,7 +89,7 @@ def qwen2_moe_tiny_config() -> Qwen2MoeConfig:
 
 
 class Qwen2MoeDecoderLayer(nn.Module):
-    def __init__(self, c: Qwen2MoeConfig, init: _Init):
+    def __init__(self, c: Qwen2MoeConfig, init: Init):
         super().__init__()
         self.input_layernorm = init.rms_norm(c.hidden_size, c.rms_norm_eps)
         self.self_attn = LlamaAttention(c.as_llama(), init)
@@ -132,15 +133,15 @@ class Qwen2MoeForCausalLM(nn.Module):
         dev = resolve_device(device)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
-        init = _Init(dev, dtype, generator)
+        init = Init(dev, dtype, generator)
         self.config = c
-        self.embed_tokens = Embedding(init, c.vocab_size, c.hidden_size,
-                                      c.initializer_range)
+        self.embed_tokens = init.embedding(c.vocab_size, c.hidden_size,
+                                           c.initializer_range)
         self.layers = nn.ModuleList([Qwen2MoeDecoderLayer(c, init)
                                      for _ in range(c.num_hidden_layers)])
         self.norm = init.rms_norm(c.hidden_size, c.rms_norm_eps)
-        self.lm_head = None if c.tie_word_embeddings else Linear(
-            init, c.hidden_size, c.vocab_size, c.initializer_range)
+        self.lm_head = None if c.tie_word_embeddings else init.linear(
+            c.hidden_size, c.vocab_size, c.initializer_range, bias=False)
         rope = _rope_cos_sin(c.max_position_embeddings,
                              c.hidden_size // c.num_attention_heads,
                              c.rope_theta)

@@ -24,10 +24,10 @@ import torch
 from torch import nn
 
 from ..common.errors import enforce
-from ..models.llama import Linear, _Init
 from ..ops import _nn
 from ..ops.grouped_matmul import dropless_moe_ffn
 from ..runtime.device import resolve_device
+from .common import Init
 
 __all__ = ["TopKGate", "ExpertFFN", "MoELayer"]
 
@@ -79,7 +79,7 @@ def _default_init(init, device, dtype, generator):
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-    return _Init(dev, dtype, generator)
+    return Init(dev, dtype, generator)
 
 
 class TopKGate(nn.Module):
@@ -89,7 +89,7 @@ class TopKGate(nn.Module):
                  capacity_factor: float = 1.25,
                  balance_loss_weight: float = 0.01,
                  z_loss_weight: float = 0.0, norm_topk_prob: bool = True,
-                 *, init: Optional[_Init] = None, device=None,
+                 *, init: Optional[Init] = None, device=None,
                  dtype: torch.dtype = torch.float32, generator=None):
         super().__init__()
         init = _default_init(init, device, dtype, generator)
@@ -120,7 +120,7 @@ class ExpertFFN(nn.Module):
     def __init__(self, num_experts: int, hidden_size: int,
                  intermediate_size: int, init_std: float = 0.02,
                  num_layers_scale: int = 1, *,
-                 init: Optional[_Init] = None, device=None,
+                 init: Optional[Init] = None, device=None,
                  dtype: torch.dtype = torch.float32, generator=None):
         super().__init__()
         init = _default_init(init, device, dtype, generator)
@@ -158,7 +158,7 @@ class MoELayer(nn.Module):
                  norm_topk_prob: bool = True,
                  use_shared_expert_gate: bool = False,
                  ep_capacity_factor: Optional[float] = 2.0, *,
-                 init: Optional[_Init] = None, device=None,
+                 init: Optional[Init] = None, device=None,
                  dtype: torch.dtype = torch.float32, generator=None):
         super().__init__()
         enforce(dispatch_mode in ("auto", "dense", "grouped", "grouped_ep"),
@@ -177,12 +177,14 @@ class MoELayer(nn.Module):
         self.shared_gate = self.shared_expert_gate = None
         if shared_expert_intermediate:
             h, f = hidden_size, shared_expert_intermediate
-            self.shared_gate = Linear(init, h, f, _xavier_std(h, f))
-            self.shared_up = Linear(init, h, f, _xavier_std(h, f))
-            self.shared_down = Linear(init, f, h, _xavier_std(f, h))
+            self.shared_gate = init.linear(h, f, _xavier_std(h, f),
+                                           bias=False)
+            self.shared_up = init.linear(h, f, _xavier_std(h, f), bias=False)
+            self.shared_down = init.linear(f, h, _xavier_std(f, h),
+                                           bias=False)
             if use_shared_expert_gate:
-                self.shared_expert_gate = Linear(init, h, 1,
-                                                 _xavier_std(h, 1))
+                self.shared_expert_gate = init.linear(
+                    h, 1, _xavier_std(h, 1), bias=False)
         self.aux_loss: Optional[torch.Tensor] = None
 
     def _resolve_dispatch(self) -> str:

@@ -1,23 +1,51 @@
 """Plain tensor ops of the serving and training paths (subset of
 ``paddle_tpu/ops/_nn.py``).
 
-None of these is a Pallas kernel in the reference either: the norms and
-activations are elementwise passes the compiler fuses there, and the
-losses' matrix products are left to XLA.  Here they are plain PyTorch,
-with the products on ``torch.matmul``.
+None of these is a Pallas kernel in the reference either: the norms,
+activations and dropout are elementwise passes the compiler fuses there,
+and the losses' matrix products are left to XLA.  Here they are plain
+PyTorch, with the products on ``torch.matmul``.
 """
 from __future__ import annotations
 
 import torch
 
 from ..common.errors import enforce
+from . import random as _random
 
-__all__ = ["rms_norm", "layer_norm", "silu", "cross_entropy",
-           "fused_linear_cross_entropy"]
+__all__ = ["rms_norm", "layer_norm", "silu", "gelu", "dropout",
+           "cross_entropy", "fused_linear_cross_entropy"]
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.silu(x)
+
+
+def gelu(x: torch.Tensor, approximate: bool = False) -> torch.Tensor:
+    """GELU; ``approximate=True`` is the tanh form (``jax.nn.gelu``'s
+    and GPT-2's)."""
+    return torch.nn.functional.gelu(
+        x, approximate="tanh" if approximate else "none")
+
+
+def dropout(x: torch.Tensor, p: float = 0.5, training: bool = True,
+            mode: str = "upscale_in_train") -> torch.Tensor:
+    """The reference's dropout: ``x`` unchanged when not training or at
+    p = 0; else each element is kept with probability 1 - p, drawn from
+    the guarded generator (``ops/random.py``), and scaled by 1 / (1 - p)
+    under ``"upscale_in_train"`` (``"downscale_in_infer"`` keeps it as
+    it is)."""
+    enforce(mode in ("upscale_in_train", "downscale_in_infer"),
+            f"unsupported dropout mode {mode!r}")
+    if not training or p == 0.0:
+        return x
+    keep = 1.0 - p
+    mask = torch.rand(x.shape, generator=_random.generator_for(x.device),
+                      device=x.device) < keep
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    if mode == "upscale_in_train":
+        return torch.where(mask, x / keep, zero)
+    return torch.where(mask, x, zero)
 
 
 def rms_norm(x: torch.Tensor, weight=None, epsilon: float = 1e-6,

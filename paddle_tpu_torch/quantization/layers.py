@@ -17,7 +17,7 @@ import torch
 from torch import nn
 
 from ..common.errors import enforce
-from ..models.llama import Linear
+from ..nn.common import Linear
 from .ops import dequantize_absmax, quantize_absmax, quantized_matmul
 
 __all__ = ["QuantizedLinear", "quantize_model"]

@@ -632,3 +632,163 @@ def test_plain_paths_refuse_cuda_tensors(dev):
     params = dict(m.named_parameters())
     with pytest.raises(NotImplementedError, match="CPU tensors only"):
         opt.apply_gradients(params, params, opt.init_state(params))
+
+
+# -- attention dropout (#2-#4 dropout mode) and the bias gradient (#5) -----
+
+def _attn_inputs(dev, dtype, b, sq, sk, h, kvh, d, seed=3):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    return rnd(b, sq, h, d), rnd(b, sk, kvh, d), rnd(b, sk, kvh, d), \
+        rnd(b, sq, h, d)
+
+
+def _assert_grads_close(got, want, dtype):
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        scale = w.float().abs().max().item()
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= GRAD_TOL[dtype] * scale, (err, scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("b,s,h,kvh", [(2, 130, 4, 4), (1, 100, 8, 2)],
+                         ids=["group1", "group4"])
+@pytest.mark.parametrize("p", [0.1, 0.5])
+def test_flash_dropout_kernels_match_plain(dev, dtype, d, b, s, h, kvh, p):
+    """#2, #3 and #4 in dropout mode against their plain versions fed the
+    same seed tensor: the same keep bits, so the f32 and bf16 tolerances
+    of the undropped kernels."""
+    q, k, v, do = _attn_inputs(dev, dtype, b, s, s, h, kvh, d)
+    seed = torch.tensor(1234, dtype=torch.int64, device=dev)
+    kw = dict(causal=True, dropout_p=p, seed=seed)
+    before = (fa.flash_attention_fwd.launches,
+              fa.flash_attention_bwd_dq.launches,
+              fa.flash_attention_bwd_dkv.launches)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    want_out, want_lse = fa.flash_attention_fwd_reference(q, k, v, **kw)
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_fwd.launches,
+            fa.flash_attention_bwd_dq.launches,
+            fa.flash_attention_bwd_dkv.launches) == tuple(
+                n + 1 for n in before)
+    torch.testing.assert_close(out.float(), want_out.float(), rtol=0,
+                               atol=TOL[dtype])
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-3)
+    _assert_grads_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("p", [0.1, 0.5])
+def test_flash_forward_keep_bits_equal_the_plain_mask(dev, p):
+    """The forward kernel's keep mask, read through V = I (each output
+    row is the row's dropped probabilities over l), equals
+    ``dropout_keep`` bit for bit, and keeps about 1 - p."""
+    b, s, h, d = 2, 64, 3, 64
+    q, k, _, _ = _attn_inputs(dev, torch.float32, b, s, s, h, h, d)
+    eye = torch.eye(s, device=dev)[None, :, None, :].expand(b, s, h, d)
+    seed = torch.tensor(77, dtype=torch.int64, device=dev)
+    out, _ = fa.flash_attention_fwd(q, k, eye.contiguous(), dropout_p=p,
+                                    seed=seed)
+    got = out.transpose(1, 2) > 0                        # [B, H, Sq, Sk]
+    want = fa.dropout_keep(seed, p, b, h, s, s)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    n = want.numel()
+    rate = want.float().mean().item()
+    assert abs(rate - (1 - p)) <= 4 * (p * (1 - p) / n) ** 0.5
+
+
+@pytest.mark.parametrize("mshape", [(1, 4, 70, 70), (2, 1, 70, 70),
+                                    (1, 1, 70, 70), (2, 4, 70, 70)],
+                         ids=str)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_dbias_kernel_matches_plain(dev, mshape, causal, p):
+    """#5 against its plain version: f32, D 64, GQA group 2, each bias
+    shape, causal and not, with and without dropout (1e-5 of the largest
+    element: f32 sums in another order)."""
+    q, k, v, do = _attn_inputs(dev, torch.float32, 2, 70, 70, 4, 2, 64)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    bias = torch.randn(mshape, generator=gen, device=dev) * 0.5
+    seed = torch.tensor(99, dtype=torch.int64, device=dev)
+    kw = dict(causal=causal, dropout_p=p, seed=seed)
+    out, lse = fa.flash_attention_fwd(q, k, v, mask=bias, **kw)
+    before = fa.flash_attention_bwd_dbias.launches
+    got = fa.flash_attention_dbias(q, k, v, out, lse, do, bias, **kw)
+    want = fa.flash_attention_dbias_reference(q, k, v, out, lse, do, bias,
+                                              **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd_dbias.launches == before + 1
+    _assert_grads_close([got], [want], torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("d", [64, 128])
+def test_dbias_kernel_matches_plain_half_types(dev, dtype, d):
+    q, k, v, do = _attn_inputs(dev, dtype, 2, 96, 96, 8, 2, d)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    bias = (torch.randn(1, 8, 96, 96, generator=gen, device=dev) *
+            0.5).to(dtype)
+    seed = torch.tensor(5, dtype=torch.int64, device=dev)
+    kw = dict(causal=True, dropout_p=0.1, seed=seed)
+    out, lse = fa.flash_attention_fwd(q, k, v, mask=bias, **kw)
+    got = fa.flash_attention_dbias(q, k, v, out, lse, do, bias, **kw)
+    want = fa.flash_attention_dbias_reference(q, k, v, out, lse, do, bias,
+                                              **kw)
+    torch.cuda.synchronize()
+    _assert_grads_close([got], [want], dtype)
+
+
+@pytest.mark.parametrize("need", ["none", "q", "kv"])
+def test_trained_bias_gets_its_gradient_on_the_card(dev, need):
+    """A trained bias routes to the bias path whether or not q, k and v
+    need a gradient (ROADMAP §C 1), and only the kernels of the
+    gradients asked for launch."""
+    from paddle_tpu_torch.nn import functional as F
+    q, k, v, do = _attn_inputs(dev, torch.float32, 1, 8, 8, 2, 2, 64)
+    if need == "q":
+        q.requires_grad_()
+    elif need == "kv":
+        k.requires_grad_()
+        v.requires_grad_()
+    bias = torch.zeros(1, 2, 8, 8, device=dev, requires_grad=True)
+    counts = (fa.flash_attention_bwd_dq.launches,
+              fa.flash_attention_bwd_dkv.launches,
+              fa.flash_attention_bwd_dbias.launches)
+    F.scaled_dot_product_attention(q, k, v, attn_mask=bias).backward(do)
+    added = [n - c for n, c in zip((fa.flash_attention_bwd_dq.launches,
+                                    fa.flash_attention_bwd_dkv.launches,
+                                    fa.flash_attention_bwd_dbias.launches),
+                                   counts)]
+    assert added == [int(need == "q"), int(need == "kv"), 1]
+    cpu = [x.detach().cpu() for x in (q, k, v, do)]
+    b_cpu = torch.zeros(1, 2, 8, 8, requires_grad=True)
+    F.scaled_dot_product_attention(*cpu[:3], attn_mask=b_cpu).backward(
+        cpu[3])
+    torch.testing.assert_close(bias.grad.cpu(), b_cpu.grad, rtol=0,
+                               atol=1e-5)
+
+
+def test_dropout_and_bias_refusals(dev):
+    from paddle_tpu_torch.nn import functional as F
+    q, k, v, _ = _attn_inputs(dev, torch.float32, 1, 8, 8, 2, 2, 64)
+    with pytest.raises(ValueError, match="dropout_p"):
+        F.scaled_dot_product_attention(q, k, v, dropout_p=1.0)
+    with pytest.raises(ValueError, match="dropout_p"):
+        fa.flash_attention_fwd(q, k, v, dropout_p=1.0,
+                               seed=torch.zeros((), dtype=torch.int64,
+                                                device=dev))
+    with pytest.raises(ValueError, match="seed"):
+        fa.flash_attention_fwd(q, k, v, dropout_p=0.1)
+    with pytest.raises(ValueError, match="seed"):
+        fa.flash_attention_fwd(q, k, v, dropout_p=0.1,
+                               seed=torch.zeros((), dtype=torch.int64))
+    bias = torch.zeros(1, 2, 1, 8, device=dev, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="remaining kernels"):
+        F.scaled_dot_product_attention(q, k, v, attn_mask=bias)

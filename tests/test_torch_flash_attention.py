@@ -72,7 +72,10 @@ def test_flash_forward_matches_reference(case):
 def test_flash_forward_outside_the_slice_raises():
     q, k, v, _ = _inputs(1, 16, 8, 4, 4, None)
     t = torch.from_numpy
-    with pytest.raises(NotImplementedError, match="training"):
+    with pytest.raises(ValueError, match="dropout_p"):
+        port.flash_attention_fwd(t(q), t(k), t(v), dropout_p=1.0,
+                                 seed=torch.tensor(0))
+    with pytest.raises(ValueError, match="seed"):
         port.flash_attention_fwd(t(q), t(k), t(v), dropout_p=0.1)
     with pytest.raises(NotImplementedError, match="sq <= sk"):
         port.flash_attention_fwd(t(q), t(k), t(v), causal=True)

@@ -104,14 +104,20 @@ def test_backward_matches_reference_pallas_bwd_impl():
 
 
 def test_backward_outside_the_slice_raises():
+    """What the kernels still refuse: a trained bias that broadcasts over
+    the query rows off the CPU (``meta`` tensors stand for the card's:
+    the refusal comes before any launch), and dropout_p of 1 or more."""
     q, k, v, do, _ = _inputs(1, 8, 8, 4, 4, None)
+    meta = [torch.from_numpy(x).to("meta").requires_grad_()
+            for x in (q, k, v)]
+    bias = torch.zeros(1, 4, 1, 8, device="meta", requires_grad=True)
+    with pytest.raises(NotImplementedError, match="remaining kernels"):
+        F.scaled_dot_product_attention(*meta, attn_mask=bias)
     t = torch.from_numpy
     qt = t(q).requires_grad_()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        F.scaled_dot_product_attention(qt, t(k), t(v), dropout_p=0.1)
-    bias = torch.zeros(1, 1, 8, 8, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        F.scaled_dot_product_attention(qt, t(k), t(v), attn_mask=bias)
+    for p in (1.0, 1.5):
+        with pytest.raises(ValueError, match="dropout_p"):
+            F.scaled_dot_product_attention(qt, t(k), t(v), dropout_p=p)
 
 
 def test_reference_attention_matches_flash_gradients():

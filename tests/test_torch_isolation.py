@@ -15,6 +15,7 @@ import torch
 
 from paddle_tpu_torch.common.errors import UnavailableError
 from paddle_tpu_torch.inference.engine import LLMEngine
+from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt2_tiny_config
 from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_tiny_config
 
 REPO = Path(__file__).resolve().parent.parent
@@ -52,6 +53,8 @@ def no_cuda():
 def test_entry_points_default_to_the_gpu(no_cuda):
     with pytest.raises(UnavailableError, match="device='cpu'"):
         LlamaForCausalLM(llama_tiny_config())
+    with pytest.raises(UnavailableError, match="device='cpu'"):
+        GPTForCausalLM(gpt2_tiny_config())
     model = LlamaForCausalLM(llama_tiny_config(), device="cpu")
     with pytest.raises(UnavailableError, match="device='cpu'"):
         LLMEngine(model, max_len=64, page_size=8)

@@ -168,11 +168,18 @@ def test_abort_and_pop_result(models):
     {"moe_dropless": False}, {"swap_pool_pages": 16},
     {"moe_capacity_factor": 2.0}, {"decode_strategy": "sampling"},
     {"mesh": object()}, {"draft_model": object()},
+    {"scan_decode": True}, {"top_k": 5}, {"top_p": 0.9},
+    {"temperature": 0.5}, {"seed": 3}, {"enable_metrics": True},
+    {"tp_axis": "mp"}, {"spec_k": 2},
 ])
 def test_knobs_outside_the_slice_raise(models, knob):
     _, port = models
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LLMEngine(port, device="cpu", **GEOM, **knob)
+    # the reference's keywords at the value the port runs are taken
+    LLMEngine(port, device="cpu", **GEOM, scan_decode=False, top_k=0,
+              top_p=1.0, temperature=1.0, seed=0, enable_metrics=False,
+              tp_axis="tp", spec_k=4)
 
 
 def test_weights_are_referenced_not_copied(models):

@@ -252,9 +252,13 @@ def test_model_settings_outside_the_slice_raise(setting):
 def test_trainer_and_optimizer_knobs_outside_the_slice_raise():
     m = LlamaForCausalLM(llama_tiny_config(), device="cpu")
     opt = optim.AdamW(learning_rate=LR, parameters=m.parameters())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CompiledTrainStep(m, _loss, opt, state_sharding_fn=lambda s: s)
-    step = CompiledTrainStep(m, _loss, opt)
+    for knob in ({"state_sharding_fn": lambda s: s}, {"donate": False},
+                 {"has_aux": True}, {"grad_norm_tap": True}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            CompiledTrainStep(m, _loss, opt, **knob)
+    # updates land in place: what donate=True means
+    step = CompiledTrainStep(m, _loss, opt, donate=True, has_aux=False,
+                             grad_norm_tap=False)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         step.save_checkpoint("/nonexistent")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
