@@ -8,7 +8,8 @@ CUDA toolkit (nvcc) and PyTorch built for CUDA.  It builds the port's
 kernels from ``paddle_tpu_torch/csrc`` (one nvcc per source, all
 started together) and holds each against its plain PyTorch version at
 the main paths' full-width shapes (the attention kernels also at GQA
-group 1, with int8 pools and with dropout, the grouped matmuls at the
+group 1, with int8 pools, with pools of another float dtype than q and
+with dropout, the grouped matmuls at the
 MoE serving and training shapes, the bias gradient at GPT-2's
 attention).
 Then it drives the main paths through their user entry points, each
@@ -50,7 +51,17 @@ with the launch counts set to 0 just before and read just after:
   against a plain composition at dropout 0 and 0.1 (the same masks from
   the same generator seed); and one post-norm ``TransformerEncoderLayer``
   at GPT-2 width with a trained attention bias (the add+norm kernel's
-  LayerNorm body, the flash kernels and the bias gradient #5).
+  LayerNorm body, the flash kernels and the bias gradient #5);
+- serving as the reference's serving benches configure it: the bf16
+  Llama-3-8B over the engine's default f32 pools (#1 with bf16 q over
+  f32 pools); Llama-3-8B at full depth with f32 weights over bf16 pools
+  (``dtype=bfloat16``, ``steps_per_sync`` 16) on the unified step (#1
+  with f32 q over bf16 pools) and on the split path (#7, and #6 through
+  ``PagedKVCache.attend``), with a 2-layer check against a dense f32
+  forward whose K and V are rounded to bf16; then preemption on that
+  engine: requests suspended into the host swap pool, past a full pool
+  (recomputed through #7), and migrated to a second engine, each
+  request's tokens held against an unpreempted run.
 
 Each phase prints one JSON line; the last three lines are the kernel
 table, the card's name and power limit as nvidia-smi reports them, and
@@ -140,6 +151,24 @@ def rel_err(got, want):
             / want.float().abs().max()).item()
 
 
+# the unified step's live descriptors in ``ragged_case``: (kv_len, q_len)
+RAGGED_LIVE = [(36, 1), (127, 1), (300, 1), (1031, 1), (256, 128), (126, 2),
+               (128, 2)]
+
+
+def ragged_bytes(el_q, el_p, H=32, KVH=8):
+    """Bytes #1 moves at ``ragged_case``'s shapes with q, the new rows and
+    the output ``el_q`` bytes an element and float pools ``el_p``: pages
+    read once a kv head, q and new rows read, new rows appended, the
+    whole output block written, descriptors and tables read."""
+    T, P, D, maxp = 136, 128, 128, 16
+    pages_read = sum(-(-(kl + ql) // P) for kl, ql in RAGGED_LIVE) * KVH
+    rows = sum(ql for _, ql in RAGGED_LIVE)
+    return (2 * pages_read * P * D * el_p + rows * H * D * el_q
+            + 2 * rows * KVH * D * el_q + 2 * rows * KVH * D * el_p
+            + T * P * H * D * el_q + 4 * (3 * T + T * maxp))
+
+
 def ragged_case(torch, gen, dev, H=32, KVH=8):
     """The unified step's shapes: T = S = 136 rows (max_seqs 8 + prefill
     budget 128), P 128, D 128, H query and KVH KV heads (Llama-3-8B: 32
@@ -148,8 +177,7 @@ def ragged_case(torch, gen, dev, H=32, KVH=8):
     descriptors at a page boundary."""
     T, P, D, maxp = 136, 128, 128, 16
     n_pages = 8 * maxp + 1
-    seqs = [(36, 1), (127, 1), (300, 1), (1031, 1), (256, 128), (126, 2),
-            (128, 2)]                               # (kv_len, q_len)
+    seqs = RAGGED_LIVE
     perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
     q_start = torch.zeros(T, dtype=torch.int32)
     q_len = torch.zeros(T, dtype=torch.int32)
@@ -176,17 +204,9 @@ def ragged_case(torch, gen, dev, H=32, KVH=8):
                 v_pages=rnd(KVH, n_pages, P, D), q_start=q_start.to(dev),
                 q_len=q_len.to(dev), kv_len=kv_len.to(dev),
                 page_tables=tables.to(dev))
-    live = [(kl, ql) for kl, ql in seqs]
-    pages_read = sum(-(-(kl + ql) // P) for kl, ql in live) * KVH
-    rows = sum(ql for _, ql in live)
-    n_bytes = (2 * pages_read * P * D * 2          # K and V pages read
-               + rows * H * D * 2                  # q rows
-               + 2 * 2 * rows * KVH * D * 2        # new rows in, appended
-               + T * P * H * D * 2                 # out [S, P, H, D]
-               + 4 * (3 * T + T * maxp))           # descriptors, tables
-    flops = sum(4 * H * D * (kl + r + 1) for kl, ql in live
+    flops = sum(4 * H * D * (kl + r + 1) for kl, ql in seqs
                 for r in range(ql))
-    return args, n_bytes, flops
+    return args, ragged_bytes(2, 2, H, KVH), flops
 
 
 def flash_case(torch, gen, dev, H=32, KVH=8):
@@ -215,11 +235,13 @@ def flash_case(torch, gen, dev, H=32, KVH=8):
     return dict(q=q, k=k, v=v, mask=mask), n_bytes, flops
 
 
-def plain_hidden(torch, model, ids):
+def plain_hidden(torch, model, ids, kv_dtype=None):
     """Final-norm hidden states [B, S, H] of a plain causal forward over
     ids [B, S] (no pages, no kernels, no chunking: embedding, per layer
     RMSNorm, projections, f32 rope, the flash plain version, SwiGLU),
-    differentiable by autograd."""
+    differentiable by autograd.  ``kv_dtype``: K (after rope) and V are
+    rounded to it before the attention, as pools of that dtype hold
+    them."""
     from paddle_tpu_torch.models.llama import _rotate_half
     from paddle_tpu_torch.ops import _nn
     from paddle_tpu_torch.ops.flash_attention import \
@@ -243,6 +265,8 @@ def plain_hidden(torch, model, ids):
         q = rope((hn @ a.q_proj.weight).view(b, n, -1, hd))
         k = rope((hn @ a.k_proj.weight).view(b, n, -1, hd))
         v = (hn @ a.v_proj.weight).view(b, n, -1, hd)
+        if kv_dtype is not None:
+            k, v = (t.to(kv_dtype).to(t.dtype) for t in (k, v))
         o = flash_attention_fwd_reference(q, k, v, causal=True)[0]
         x = x + o.reshape(b, n, -1) @ a.o_proj.weight
         hn = _nn.rms_norm(x, layer.post_attention_layernorm.weight,
@@ -252,10 +276,11 @@ def plain_hidden(torch, model, ids):
     return _nn.rms_norm(x, lm.norm.weight, epsilon=c.rms_norm_eps)
 
 
-def dense_reference_logits(torch, model, ids):
-    """Last-position logits of a plain causal forward over one prompt."""
+def dense_reference_logits(torch, model, ids, kv_dtype=None):
+    """Last-position logits of a plain causal forward over one prompt
+    (K and V rounded to ``kv_dtype`` when given)."""
     with torch.no_grad():
-        return plain_hidden(torch, model, ids[None])[0, -1] \
+        return plain_hidden(torch, model, ids[None], kv_dtype)[0, -1] \
             @ model.lm_head.weight
 
 
@@ -1379,7 +1404,8 @@ def serve_moe_phase(torch, np, dev, table):
     model = Qwen2MoeForCausalLM(
         cfg, device=dev, dtype=torch.bfloat16,
         generator=torch.Generator(device=dev).manual_seed(SEED + 5))
-    eng = LLMEngine(model, max_seqs=8, max_len=2048, page_size=128)
+    eng = LLMEngine(model, max_seqs=8, max_len=2048, page_size=128,
+                    dtype=torch.bfloat16)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     weight_bytes = sum(p.numel() * p.element_size()
@@ -1640,18 +1666,20 @@ def decode_case(torch, gen, dev, H=32, KVH=8, int8=False):
             lens)
 
 
-def decode_cost(H, KVH, int8, append):
+def decode_cost(H, KVH, int8, append, el_q=2, el_p=2):
     """(bytes, flops) of one #6 (append False) or #7 call at the decode
-    case: each K/V token read once (codes plus scale in int8), q read,
-    out written, new rows read and appended (#7), tables and lengths."""
-    D, el = 128, 1 if int8 else 2
+    case: each K/V token read once (codes plus scale in int8, else
+    ``el_p`` bytes an element), q read and out written (``el_q``), new
+    rows read and appended (#7), tables and lengths."""
+    D = 128
+    el_p = 1 if int8 else el_p
     tokens = sum(n + int(append) for n in DECODE_LENS)
     B = len(DECODE_LENS)
-    row = D * el + (4 if int8 else 0)
-    n_bytes = (2 * tokens * KVH * row + 2 * B * H * D * 2
+    row = D * el_p + (4 if int8 else 0)
+    n_bytes = (2 * tokens * KVH * row + 2 * B * H * D * el_q
                + 4 * (B * 16 + B))
     if append:
-        n_bytes += 2 * B * KVH * D * 2 + 2 * B * KVH * row
+        n_bytes += 2 * B * KVH * D * el_q + 2 * B * KVH * row
     return n_bytes, 4 * H * D * tokens
 
 
@@ -1737,10 +1765,8 @@ def ragged_int8_kernel(torch, gen, dev, table):
                           f"version by {err}")
         # int8 pages and their scales read, the rest as ragged_case counts
         T, P, D, maxp = 136, 128, 128, 16
-        live = [(36, 1), (127, 1), (300, 1), (1031, 1), (256, 128),
-                (126, 2), (128, 2)]
-        pages_read = sum(-(-(kl + ql) // P) for kl, ql in live) * KVH
-        rows = sum(ql for _, ql in live)
+        pages_read = sum(-(-(kl + ql) // P) for kl, ql in RAGGED_LIVE) * KVH
+        rows = sum(ql for _, ql in RAGGED_LIVE)
         n_bytes = (2 * pages_read * P * (D + 4) + rows * H * D * 2
                    + 2 * rows * KVH * D * 2 + 2 * rows * KVH * (D + 4)
                    + T * P * H * D * 2 + 4 * (3 * T + T * maxp))
@@ -1760,6 +1786,97 @@ def ragged_int8_kernel(torch, gen, dev, table):
             table["ragged_paged_append_attend_int8"] = row
         del args, pools, mine, ref, got, want
         torch.cuda.empty_cache()
+
+
+def mixed_kernels(torch, gen, dev, table):
+    """The mixed-dtype mode of #1, #7 and #6: pools in another float dtype
+    than q.  #1 at the unified step's shapes (``ragged_case``, group 4) in
+    both directions the serving engines run (f32 q over bf16 pools: f32
+    weights, bf16 pools; bf16 q over f32 pools: bf16 weights, the default
+    pools), #7 and #6 at the decode case with f32 q over bf16 pools.
+    Pools after an append equal the plain version's bit for bit (the new
+    rows rounded to the pool dtype in both), outputs within ``TOL``."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    el = {torch.float32: 4, torch.bfloat16: 2}
+    for qdt, pdt in ((torch.float32, torch.bfloat16),
+                     (torch.bfloat16, torch.float32)):
+        tag = f"{str(qdt)[6:]}_q_{str(pdt)[6:]}_pools"
+        args, _, flops = ragged_case(torch, gen, dev)
+        for n in ("q", "k_new", "v_new"):
+            args[n] = args[n].to(qdt)
+        pools = [args.pop(n).to(pdt) for n in ("k_pages", "v_pages")]
+        mine = [p.clone() for p in pools]
+        ref = [p.clone() for p in pools]
+
+        def call(fn, ps):
+            return fn(args["q"], ps[0], ps[1], args["k_new"], args["v_new"],
+                      args["q_start"], args["q_len"], args["kv_len"],
+                      args["page_tables"])
+        got = call(pa.ragged_paged_append_attend, mine)
+        want = call(pa.ragged_paged_append_attend_reference, ref)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        pools_equal = all(torch.equal(a, b) for a, b in zip(mine, ref))
+        check(pools_equal, f"ragged {tag}: pools differ from the plain "
+                           f"version's")
+        check(got.dtype == qdt and err <= TOL,
+              f"ragged {tag} off its plain version by {err}")
+        bound, bound_by = bound_ms(ragged_bytes(el[qdt], el[pdt]), flops)
+        name = f"ragged_paged_append_attend_{tag}"
+        table[name] = {
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
+            "replaces": "paddle_tpu/ops/pallas/paged_attention.py:912",
+            "max_abs_err": err,
+            "ms": timed_ms(torch, lambda: call(
+                pa.ragged_paged_append_attend, mine), 20),
+            "plain_ms": timed_ms(torch, lambda: call(
+                pa.ragged_paged_append_attend_reference, ref), 5),
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+        emit({"phase": "kernel", **table[name], "q_dtype": str(qdt)[6:],
+              "pool_dtype": str(pdt)[6:], "group": 4,
+              "pools_equal": pools_equal, "tolerance": TOL})
+        del args, pools, mine, ref, got, want
+        torch.cuda.empty_cache()
+
+    q, kn, vn, pools, tables, lens = decode_case(torch, gen, dev)
+    q, kn, vn = q.float(), kn.float(), vn.float()   # f32 q, bf16 pools
+    for name, fn, plain, new in (
+            ("paged_decode_append_attend", pa.paged_decode_append_attend,
+             pa.paged_decode_append_attend_reference, (kn, vn)),
+            ("paged_attention", pa.paged_attention,
+             pa.paged_attention_reference, ())):
+        mine = [p.clone() for p in pools[:2]]
+        ref = [p.clone() for p in pools[:2]]
+
+        def call(f, ps):
+            return f(q, ps[0], ps[1], *new, tables, lens)
+        got = call(fn, mine)
+        want = call(plain, ref)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        pools_equal = all(torch.equal(a, b) for a, b in zip(mine, ref))
+        check(pools_equal, f"{name} (f32 q, bf16 pools) wrote other pools "
+                           f"than its plain version")
+        check(got.dtype == torch.float32 and err <= TOL,
+              f"{name} (f32 q, bf16 pools) off its plain version by {err}")
+        bound, bound_by = bound_ms(*decode_cost(32, 8, False, bool(new),
+                                                el_q=4, el_p=2))
+        key = f"{name}_float32_q_bfloat16_pools"
+        table[key] = {
+            "name": key, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/paged_decode_attention.cu",
+            "replaces": "paddle_tpu/ops/pallas/paged_attention.py:"
+                        + ("422" if new else "274"),
+            "max_abs_err": err,
+            "ms": timed_ms(torch, lambda: call(fn, mine), 50),
+            "plain_ms": timed_ms(torch, lambda: call(plain, ref), 5),
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+        emit({"phase": "kernel", **table[key], "q_dtype": "float32",
+              "pool_dtype": "bfloat16", "group": 4, "lens": DECODE_LENS,
+              "pools_equal": pools_equal, "tolerance": TOL})
+    del q, kn, vn, pools, mine, ref, got, want
+    torch.cuda.empty_cache()
 
 
 def kv_bytes(cache):
@@ -1917,7 +2034,8 @@ def quant_serve_phases(torch, np, dev, table, model, prompts, bf16_pool_bytes):
                                             "weight_dtype": "int8"})):
         t0 = time.perf_counter()
         eng = LLMEngine(model, max_seqs=8, max_len=2048, page_size=128,
-                        unified_step=False, steps_per_sync=SPLIT_SPS, **kw)
+                        dtype=torch.bfloat16, unified_step=False,
+                        steps_per_sync=SPLIT_SPS, **kw)
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
         stats = serve_split_run(torch, eng, sp, counters,
@@ -2060,6 +2178,318 @@ def serve_quant_reference(torch, np, dev):
     emit({"phase": "serve_quant_reference", "dtype": "float32", "layers": 2,
           **rep})
     del model_cpu, model_gpu
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# KV pools in another float dtype than the weights (the mixed-dtype mode of
+# #1, #6 and #7), preemption, swap and migration
+# ---------------------------------------------------------------------------
+
+SERVE_SPS = 16          # bench.py bench_engine's steps_per_sync
+# the preempt phase: eight requests admitted at once, then three late ones
+PREEMPT_LENS = {"e37": 37, "e128": 128, "e300": 300, "e1000": 1000,
+                "e200": 200, "e64": 64, "e500": 500, "e90": 90}
+PREEMPT_NEW = 48
+LATE_LENS = {"n50": 50, "n150": 150, "n20": 20}
+LATE_NEW = 16
+MARGIN_TOL = 1e-3       # relative top-2 logit margin of a tolerated split
+
+
+def serve_default_pools(torch, dev, table, model, prompts):
+    """The bf16 ``serve`` model with the pool dtype left at its default:
+    f32 pools, as the reference builds them (``dtype=np.float32``), so #1
+    runs bf16 q over f32 pools; the ``serve`` requests."""
+    from paddle_tpu_torch.inference.engine import LLMEngine
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import paged_attention as pa
+    layers = model.config.num_hidden_layers
+    t0 = time.perf_counter()
+    eng = LLMEngine(model, max_seqs=8, max_len=2048, page_size=128)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    check(eng.cache.k_pages.dtype == torch.float32,
+          f"default pools are {eng.cache.k_pages.dtype}, not float32")
+    counters = {"ragged_paged_append_attend": pa.ragged_paged_append_attend,
+                "flash_attention_fwd": fa.flash_attention_fwd}
+    stats, _ = serve_run(torch, eng, prompts, counters)
+    emit({"phase": "serve_default_pools", "model": "llama3_8b",
+          "layers": layers, "weight_dtype": "bfloat16",
+          "pool_dtype": "float32", "setup_s": setup_s,
+          "kv_pool_bytes": kv_bytes(eng.cache),
+          "weight_bytes": engine_weight_bytes(eng), **stats})
+    n = stats["launches"]
+    check(n["ragged_paged_append_attend"] == layers * stats["steps"]
+          and n["flash_attention_fwd"] > 0,
+          f"serve_default_pools launches {n}")
+    table["ragged_paged_append_attend_bfloat16_q_float32_pools"][
+        "launches"] = n["ragged_paged_append_attend"]
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def top2_margin(logits):
+    """Relative gap between the two largest logits."""
+    top = logits.float().topk(2).values
+    return ((top[0] - top[1]) / top[0].abs().clamp_min(1e-30)).item()
+
+
+def agreement(torch, eng, prompts, got, want):
+    """Per request: tokens equal, or the first divergence with the top-2
+    margin (relative) of the unpreempted run's choice there, from a
+    prefill of the prompt and the unpreempted tokens before it on
+    ``eng``.  Fails on a divergence whose margin exceeds MARGIN_TOL."""
+    rep = {}
+    for rid, w in want.items():
+        g = got[rid]
+        if g == w:
+            rep[rid] = {"equal": True}
+            continue
+        j = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b),
+                 min(len(g), len(w)))
+        seq = prompts[rid] + w[:j]
+        slot = eng.cache.allocate(len(seq) + 1)
+        logits = eng._prefill_seq(slot, seq, 0)
+        eng.cache.release(slot)
+        margin = top2_margin(logits)
+        rep[rid] = {"equal": False, "first_divergence": j,
+                    "top2_margin_rel": margin}
+        check(margin <= MARGIN_TOL,
+              f"request {rid} parts from the unpreempted run at token {j} "
+              f"where the top-2 margin is {margin} (relative), above "
+              f"{MARGIN_TOL}")
+    return rep
+
+
+def preempt_phase(torch, np, dev, model, kw):
+    """Preemption, swap and migration on the f32-weight, bf16-pool
+    engine (``kw``: the serving arguments, ``steps_per_sync`` 16).  Eight
+    requests admit and run two windows; three are suspended: e128 swaps
+    and is exported and imported into a second engine on the same model,
+    e300 swaps into a host pool of one page (its private page: its full
+    pages are registered prefix pages, unpinned and re-pinned by key),
+    e1000 finds the pool full and recomputes (its registered prompt
+    pages from the prefix cache, the last chunk through the flash
+    prefill, its 32 generated tokens through #7).  Three late requests
+    admit into the freed slots; the suspended ones resume as soon as the
+    capacity allows.  Checks: the swapped-in pages equal the swapped-out
+    bytes, every request returns its budget, #7 launches exactly once a
+    layer a replayed token, and every request's tokens agree with an
+    unpreempted run of the same prompts (``agreement``)."""
+    from paddle_tpu_torch.inference.engine import LLMEngine
+    from paddle_tpu_torch.ops import paged_attention as pa
+    layers = model.config.num_hidden_layers
+    rng = np.random.default_rng(SEED + 16)
+    lens = {**PREEMPT_LENS, **LATE_LENS}
+    prompts = {rid: rng.integers(0, model.config.vocab_size, n).tolist()
+               for rid, n in lens.items()}
+    budget = {rid: PREEMPT_NEW if rid in PREEMPT_LENS else LATE_NEW
+              for rid in prompts}
+
+    base = LLMEngine(model, **kw)                 # the unpreempted run
+    for group in (PREEMPT_LENS, LATE_LENS):
+        for rid in group:
+            base.add_request(rid, prompts[rid], max_new_tokens=budget[rid])
+        while base.has_work():
+            base.step()
+    want = {rid: base.result(rid) for rid in prompts}
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    eng = LLMEngine(model, **kw, swap_pool_pages=1)
+    dst = LLMEngine(model, **kw)
+    t_run = time.perf_counter()
+    for rid in PREEMPT_LENS:
+        eng.add_request(rid, prompts[rid], max_new_tokens=PREEMPT_NEW)
+    eng.step()
+    eng.step()
+    cache = eng.cache
+    req = eng.requests["e300"]
+    written = cache._pages[req.slot][:-(-int(cache.seq_lens[req.slot])
+                                        // cache.page_size)]
+    before = [p[:, :, written].clone() for p in (cache.k_pages,
+                                                 cache.v_pages)]
+    out_at_suspend = {r: len(eng.requests[r].out)
+                      for r in ("e128", "e300", "e1000")}
+    t = time.perf_counter()
+    armed = {"e128": eng.suspend("e128")}
+    pkg = eng.export_request("e128")
+    export_s = time.perf_counter() - t
+    armed["e300"] = eng.suspend("e300")
+    armed["e1000"] = eng.suspend("e1000")
+    check(armed == {"e128": True, "e300": True, "e1000": False},
+          f"swap paths armed {armed}: e1000 should find the pool full")
+    check(eng.suspended_count() == 2 and eng.capacity()[0] == 3,
+          f"capacity after three suspensions {eng.capacity()}")
+    for rid in LATE_LENS:
+        eng.add_request(rid, prompts[rid], max_new_tokens=LATE_NEW)
+
+    t = time.perf_counter()
+    dst.import_request(pkg)
+    paths = {"e128": dst.resume("e128")}
+    migrate_s = time.perf_counter() - t
+    while dst.has_work():
+        dst.step()
+
+    pending, resume_s, replay = ["e300", "e1000"], {}, None
+    swapped_equal = None
+    while pending or eng.has_work():
+        while pending:
+            r = eng.requests[pending[0]]
+            need = -(-(len(r.prompt) + r.max_new) // cache.page_size)
+            slots, free = eng.capacity()
+            if slots < 1 or free < need:
+                break
+            rid = pending.pop(0)
+            pa.paged_decode_append_attend.launches = 0
+            t = time.perf_counter()
+            paths[rid] = eng.resume(rid)
+            torch.cuda.synchronize()
+            resume_s[rid] = time.perf_counter() - t
+            n7 = pa.paged_decode_append_attend.launches
+            if rid == "e300":
+                now = cache._pages[r.slot][:len(written)]
+                swapped_equal = all(
+                    torch.equal(p[:, :, now], b)
+                    for p, b in zip((cache.k_pages, cache.v_pages), before))
+                check(n7 == 0, f"the swap-in launched #7 {n7} times")
+            else:
+                replay = {"tokens": out_at_suspend[rid] - 1,
+                          "paged_decode_append_attend_launches": n7}
+                check(n7 == layers * (out_at_suspend[rid] - 1),
+                      f"the recompute launched #7 {n7} times, not "
+                      f"{layers} x {out_at_suspend[rid] - 1} replayed "
+                      f"tokens")
+        check(eng.has_work() or not pending,
+              f"{pending} cannot resume on an idle engine")
+        if eng.has_work():
+            eng.step()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run
+    check(paths == {"e128": "swap_in", "e300": "swap_in",
+                    "e1000": "recompute"}, f"restore paths {paths}")
+    check(swapped_equal, "swapped-in pages differ from the swapped-out ones")
+    got = {rid: (dst if rid == "e128" else eng).result(rid)
+           for rid in prompts}
+    for rid, toks in got.items():
+        check(len(toks) == budget[rid],
+              f"request {rid} returned {len(toks)} tokens, not "
+              f"{budget[rid]}")
+    rep = agreement(torch, eng, prompts, got, want)
+    emit({"phase": "preempt", "model": "llama3_8b", "layers": layers,
+          "weight_dtype": "float32", "pool_dtype": "bfloat16",
+          "steps_per_sync": kw["steps_per_sync"], "swap_pool_pages": 1,
+          "prompt_lens": lens, "max_new": budget, "paths": paths,
+          "swapped_pages_equal": swapped_equal,
+          "swapped_pages": len(written),
+          "export_blob_bytes": len(pkg["swap"]), "export_s": export_s,
+          "migrate_s": migrate_s, "resume_s": resume_s, "replay": replay,
+          "run_s": run_s, "agreement": rep,
+          "all_equal": all(v["equal"] for v in rep.values())})
+    del eng, dst
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_f32w_phases(torch, np, dev, table):
+    """Llama-3-8B at full width and depth with f32 weights (32.1 GB) over
+    bf16 pools: the configuration of the reference's serving benches
+    (``bench.py`` ``bench_engine``: ``LLMEngine(model, max_seqs=8,
+    max_len=2048, page_size=128, dtype=bfloat16, steps_per_sync=16)``).
+    ``serve_f32w_bf16kv``: the ``serve`` mix on the unified step (#1 f32 q
+    over bf16 pools, #2 in f32 over the widened pages); its reference
+    check at 2 layers against a dense f32 forward whose K and V are
+    rounded to bf16; ``serve_split_f32w_bf16kv`` (#7 and, through
+    ``PagedKVCache.attend``, #6 in the mixed mode); ``preempt``."""
+    from paddle_tpu_torch.inference.engine import LLMEngine
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                               llama3_8b_config)
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import paged_attention as pa
+    cfg = llama3_8b_config()
+    layers = cfg.num_hidden_layers
+    kw = dict(max_seqs=8, max_len=2048, page_size=128, dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(
+        cfg, device=dev, dtype=torch.float32,
+        generator=torch.Generator(device=dev).manual_seed(SEED + 13))
+    eng = LLMEngine(model, **kw, steps_per_sync=SERVE_SPS)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    rng = np.random.default_rng(SEED + 13)
+    prompts = {rid: rng.integers(0, cfg.vocab_size, n).tolist()
+               for rid, n in SERVE_LENS.items()}
+    counters = {"ragged_paged_append_attend": pa.ragged_paged_append_attend,
+                "flash_attention_fwd": fa.flash_attention_fwd,
+                "paged_decode_append_attend": pa.paged_decode_append_attend}
+    stats, _ = serve_run(torch, eng, prompts, counters)
+    emit({"phase": "serve_f32w_bf16kv", "model": "llama3_8b",
+          "layers": layers, "weight_dtype": "float32",
+          "pool_dtype": "bfloat16", "steps_per_sync": SERVE_SPS,
+          "weight_bytes": weight_bytes, "kv_pool_bytes": kv_bytes(eng.cache),
+          "setup_s": setup_s, **stats})
+    n = stats["launches"]
+    chunks = -(-SERVE_LENS["a200"] // 128)        # add_request's prefill
+    check(n["ragged_paged_append_attend"] >= layers * stats["steps"]
+          and n["ragged_paged_append_attend"] % layers == 0
+          and n["flash_attention_fwd"] == layers * chunks
+          and n["paged_decode_append_attend"] == 0,
+          f"serve_f32w_bf16kv launches {n}")
+    table["ragged_paged_append_attend_float32_q_bfloat16_pools"][
+        "launches"] = n["ragged_paged_append_attend"]
+    # where an f32-weight step's time goes: fresh prompts, traced
+    prof = profile_serve(torch, eng, {
+        f"p{rid}": rng.integers(0, cfg.vocab_size, n).tolist()
+        for rid, n in SERVE_LENS.items()}, max_new=8)
+    emit({"phase": "serve_f32w_bf16kv_profile", **prof})
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg2 = dataclasses.replace(cfg, num_hidden_layers=2)
+    model2 = LlamaForCausalLM(
+        cfg2, device=dev, dtype=torch.float32,
+        generator=torch.Generator(device=dev).manual_seed(SEED + 14))
+    eng2 = LLMEngine(model2, **kw)
+    rep = serve_reference(
+        torch, dev, prompts["b37"],
+        (("f32_weights_bf16_pools_2_layers", model2, eng2, 1e-4),),
+        lambda m, ids: dense_reference_logits(torch, m, ids,
+                                              torch.bfloat16))
+    emit({"phase": "reference_f32w_bf16kv", **rep})
+    del eng2, model2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    eng = LLMEngine(model, **kw, unified_step=False,
+                    steps_per_sync=SPLIT_SPS)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    stats = serve_split_run(torch, eng, split_prompts(
+        np, cfg.vocab_size, SEED + 15), counters,
+        attend_layers=(0, layers - 1))
+    emit({"phase": "serve_split_f32w_bf16kv", "model": "llama3_8b",
+          "layers": layers, "weight_dtype": "float32",
+          "pool_dtype": "bfloat16", "steps_per_sync": SPLIT_SPS,
+          "setup_s": setup_s, "kv_pool_bytes": kv_bytes(eng.cache),
+          "weight_bytes": weight_bytes, **stats})
+    check_split_launches(stats, layers, "serve_split_f32w_bf16kv")
+    table["paged_decode_append_attend_float32_q_bfloat16_pools"][
+        "launches"] = stats["launches"]["paged_decode_append_attend"]
+    table["paged_attention_float32_q_bfloat16_pools"]["launches"] = \
+        stats["cache_attend_launches"]
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    preempt_phase(torch, np, dev, model, dict(kw, steps_per_sync=SERVE_SPS))
+    del model
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2814,6 +3244,7 @@ def main() -> int:
     moe_kernels(torch, gen, dev, table)
     decode_kernels(torch, gen, dev, table)
     ragged_int8_kernel(torch, gen, dev, table)
+    mixed_kernels(torch, gen, dev, table)
     torch.cuda.empty_cache()
 
     # -- serve Llama-3-8B through the engine's entry points
@@ -2822,7 +3253,8 @@ def main() -> int:
     model = LlamaForCausalLM(
         cfg, device=dev, dtype=torch.bfloat16,
         generator=torch.Generator(device=dev).manual_seed(SEED))
-    eng = LLMEngine(model, max_seqs=8, max_len=2048, page_size=128)
+    eng = LLMEngine(model, max_seqs=8, max_len=2048, page_size=128,
+                    dtype=torch.bfloat16)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     weight_bytes = sum(p.numel() * p.element_size()
@@ -2872,12 +3304,18 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- the same model on the split path and with int8 pools and weights
+    # -- the same model on the split path and with int8 pools and weights,
+    # then with the pools at their default dtype (f32)
     quant_serve_phases(torch, np, dev, table, model, prompts, pool_bytes)
+    serve_default_pools(torch, dev, table, model, prompts)
     del model
     gc.collect()
     torch.cuda.empty_cache()
     serve_quant_reference(torch, np, dev)
+
+    # -- f32 weights over bf16 pools, the reference's serving benches'
+    # configuration; preemption, swap and migration on it
+    serve_f32w_phases(torch, np, dev, table)
 
     # -- train at 8B width: the unfused chain, then the headline recipe
     # (fused regions, core_attn remat) at twice the depth; then the f32
@@ -2923,7 +3361,11 @@ def main() -> int:
         "flash_attention_dbias", "fused_update", "add_norm",
         "add_layer_norm", "matmul_rope", "grouped_matmul",
         "grouped_matmul_glu", "grouped_matmul_dw", "paged_attention",
-        "paged_decode_append_attend", "ragged_paged_append_attend_int8")]})
+        "paged_decode_append_attend", "ragged_paged_append_attend_int8",
+        "ragged_paged_append_attend_float32_q_bfloat16_pools",
+        "ragged_paged_append_attend_bfloat16_q_float32_pools",
+        "paged_decode_append_attend_float32_q_bfloat16_pools",
+        "paged_attention_float32_q_bfloat16_pools")]})
     print(smi[0], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

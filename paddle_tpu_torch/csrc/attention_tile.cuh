@@ -25,6 +25,12 @@
 // element offset over D) stages K and V tiles as f32: each 16-byte chunk
 // of 16 codes is dequantized (code * scale) as it is stored.
 //
+// A context whose float pools hold another type than q (`using Pool =
+// TP`, the mixed-dtype mode of the serving kernels) stages K and V
+// tiles in TP, 16 / sizeof(TP) elements a load, and widens them to f32
+// in the products, whatever q's type: scores and accumulators are f32
+// in every mode.
+//
 // A context with dropout (`static constexpr bool kDropout = true`, with a
 // `Dropout drop` (attention_dropout.cuh) and `int row0`, the query row of
 // its first tile row) drops probabilities in the P·V product only: the
@@ -111,9 +117,21 @@ template <class Ctx>
 struct CtxDropout<Ctx, std::void_t<decltype(Ctx::kDropout)>>
     : std::integral_constant<bool, Ctx::kDropout> {};
 
-// The element type of a context's staged K/V tiles.
+// A context's float pool type (its `Pool`, else q's type T).
+template <typename T, class Ctx, class = void>
+struct CtxPool {
+  using type = T;
+};
 template <typename T, class Ctx>
-using TileElem = typename std::conditional<CtxInt8<Ctx>::value, float, T>::type;
+struct CtxPool<T, Ctx, std::void_t<typename Ctx::Pool>> {
+  using type = typename Ctx::Pool;
+};
+
+// The element type of a context's staged K/V tiles: f32 for int8 pools
+// (dequantized as staged), else the pools' own type.
+template <typename T, class Ctx>
+using TileElem = typename std::conditional<CtxInt8<Ctx>::value, float,
+                                           typename CtxPool<T, Ctx>::type>::type;
 
 // Per-row FlashAttention-2 state of one thread.
 template <int D>
@@ -133,13 +151,15 @@ struct RowState {
 //   long long v_off(int pos)      element offset of value pos in ctx.v;
 //   float mask(int lr, int pos, float s)  the score after masking;
 //   int key_end;  const T* k;  const T* v;
-// or, with kInt8, const int8_t* k, v and const float* ks, vs.
+// or, with Pool, const Pool* k, v; with kInt8, const int8_t* k, v and
+// const float* ks, vs.
 template <typename T, int D, class Ctx>
 __device__ __forceinline__ void attend_rows(const Ctx& ctx, float scale,
                                             unsigned char* smem,
                                             RowState<D>& st) {
-  using Sm = Tile<TileElem<T, Ctx>, D>;
-  constexpr int VEC = 16 / (int)sizeof(T);   // elements per 16-byte load
+  using TE = TileElem<T, Ctx>;
+  using Sm = Tile<TE, D>;
+  constexpr int VEC = 16 / (int)sizeof(TE);  // pool elements per 16-byte load
   constexpr int CH = D / VEC;                 // 16-byte chunks per row
   constexpr int DC = D / 16;                  // output columns per thread
   Sm sm(smem);

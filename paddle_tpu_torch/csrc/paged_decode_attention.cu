@@ -27,6 +27,15 @@
 // FMAs (no tensor cores: G <= 8 rows a block).  No split of a sequence
 // over several blocks yet: B * KVH blocks (64 at the Llama serving
 // shape) leave most SMs idle, which PERF.md records.
+//
+// Mixed-dtype mode: float pools of another float type TP than q's TQ
+// (the serving benches run f32 q over bf16 pools).  The pool loads stay
+// 16 bytes of TP; #7's new row is cast to TP (round to
+// nearest even, as Tensor.to does) before it is written, and the
+// attention reads it back from the pool, so the query sees the rounded
+// row, as the reference's `_decode_append_kernel` does (it casts k_new
+// to the pool dtype first).  q is widened to f32 before the scale;
+// output in q's type.
 #include <type_traits>
 
 #include "attention_tile.cuh"
@@ -67,7 +76,7 @@ paged_decode(const TQ* __restrict__ q, const TQ* __restrict__ k_new,
         quantize_row_warp<TQ, D>(src, dst, (warp == 0 ? k_scales : v_scales) + row,
                                  lane);
       } else {
-        for (int i = lane; i < D; i += 32) dst[i] = src[i];
+        for (int i = lane; i < D; i += 32) dst[i] = from_f<TP>(elem_f(src[i]));
       }
     }
     len += 1;
@@ -243,28 +252,39 @@ cudaError_t dispatch_d(int D, int G, const void* q, const void* k_new,
   return cudaErrorInvalidValue;
 }
 
+// The pools' type for q's type TQ: any of the three float types (the
+// mixed-dtype mode when it is not TQ) or int8 (code 3).
 template <typename TQ>
-cudaError_t dispatch_pool(int int8, int D, int G, const void* q,
+cudaError_t dispatch_pool(int pool, int D, int G, const void* q,
                           const void* k_new, const void* v_new, void* k_pages,
                           void* v_pages, float* k_scales, float* v_scales,
                           const int* tables, const int* lens, void* out, int B,
                           int H, int KVH, int n_pages, int P, int maxp,
                           float scale, int append, cudaStream_t st) {
-  if (int8)
-    return dispatch_d<TQ, int8_t>(D, G, q, k_new, v_new, k_pages, v_pages,
-                                  k_scales, v_scales, tables, lens, out, B, H,
-                                  KVH, n_pages, P, maxp, scale, append, st);
-  return dispatch_d<TQ, TQ>(D, G, q, k_new, v_new, k_pages, v_pages, k_scales,
-                            v_scales, tables, lens, out, B, H, KVH, n_pages, P,
-                            maxp, scale, append, st);
+#define PTT_DEC_POOL(TP)                                                      \
+  return dispatch_d<TQ, TP>(D, G, q, k_new, v_new, k_pages, v_pages,         \
+                            k_scales, v_scales, tables, lens, out, B, H, KVH, \
+                            n_pages, P, maxp, scale, append, st)
+  switch (pool) {
+    case 0:
+      PTT_DEC_POOL(float);
+    case 1:
+      PTT_DEC_POOL(__nv_bfloat16);
+    case 2:
+      PTT_DEC_POOL(__half);
+    case 3:
+      PTT_DEC_POOL(int8_t);
+  }
+#undef PTT_DEC_POOL
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace ptt
 
 extern "C" {
 
-// dtype (q, new rows, out): 0 float32, 1 bfloat16, 2 float16.  int8: the
-// pools are int8 with f32 scale pools (else float pools in q's dtype).
+// dtype (q, new rows, out): 0 float32, 1 bfloat16, 2 float16.  pool: the
+// pools' type, the same codes or 3 for int8 pools with f32 scale pools.
 // append: 1 for kernel #7 (k_new/v_new appended first), 0 for #6.
 // Returns a cudaError_t.
 int paged_decode_attention(const void* q, const void* k_new, const void* v_new,
@@ -272,22 +292,22 @@ int paged_decode_attention(const void* q, const void* k_new, const void* v_new,
                            float* v_scales, const int* tables, const int* lens,
                            void* out, int B, int H, int KVH, int n_pages,
                            int P, int D, int maxp, float scale, int dtype,
-                           int int8, int append, void* stream) {
+                           int pool, int append, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B == 0) return cudaSuccess;
   const int G = H / KVH;
   switch (dtype) {
     case 0:
-      return ptt::dispatch_pool<float>(int8, D, G, q, k_new, v_new, k_pages,
+      return ptt::dispatch_pool<float>(pool, D, G, q, k_new, v_new, k_pages,
                                        v_pages, k_scales, v_scales, tables,
                                        lens, out, B, H, KVH, n_pages, P, maxp,
                                        scale, append, st);
     case 1:
       return ptt::dispatch_pool<__nv_bfloat16>(
-          int8, D, G, q, k_new, v_new, k_pages, v_pages, k_scales, v_scales,
+          pool, D, G, q, k_new, v_new, k_pages, v_pages, k_scales, v_scales,
           tables, lens, out, B, H, KVH, n_pages, P, maxp, scale, append, st);
     case 2:
-      return ptt::dispatch_pool<__half>(int8, D, G, q, k_new, v_new, k_pages,
+      return ptt::dispatch_pool<__half>(pool, D, G, q, k_new, v_new, k_pages,
                                         v_pages, k_scales, v_scales, tables,
                                         lens, out, B, H, KVH, n_pages, P, maxp,
                                         scale, append, st);

@@ -31,6 +31,16 @@
 // (attention_tile.cuh, f32 tiles).  q, the new rows and the output keep
 // the model's dtype.
 //
+// Float pools of another float type than q (the mixed-dtype mode; the
+// serving benches run f32 q over bf16 pools): the append launch
+// casts each new row to the pool type as it writes it (round to nearest
+// even, as Tensor.to does, so the pools equal the plain version's bit
+// for bit), and the attend launch stages the pool-typed tiles and widens
+// them to f32 (attention_tile.cuh's `Pool`).  Scores and accumulation
+// are f32 and the output is q's type in every mode, as the reference
+// computes them (paged_attention.py `_ragged_kernel` widens q before
+// the scale and the pages as it reads them).
+//
 // What bounds it on an H100: bytes.  The output block [S, P, H, D] is
 // written whole (142.6 MB in bf16 at the engine's default shapes, most of
 // it zeros), and decode rows read every page of their sequence once per
@@ -61,22 +71,25 @@ __device__ __forceinline__ void zero_rows_without_query(T* out, int s, int h,
 }
 
 // One block per (kv head, descriptor): copy the descriptor's new K/V rows
-// into their page slots, then zero the output rows of this kv head's G
-// query heads that have no query (rows >= q_len; all P rows of an unused
-// descriptor).  No shared memory, so blocks fill the SMs; 16-byte loads
-// and stores (D * sizeof(T) is a multiple of 16).
-template <typename T>
+// (q's type T) into their page slots (pool type TP), then zero the
+// output rows of this kv head's G query heads that have no query (rows
+// >= q_len; all P rows of an unused descriptor).  No shared memory, so
+// blocks fill the SMs.  Pools in T: 16-byte loads and stores (D *
+// sizeof(T) is a multiple of 16); pools in another float type: one
+// element at a time, cast through f32.
+template <typename T, typename TP>
 __global__ void __launch_bounds__(256)
 ragged_append(const T* __restrict__ k_new, const T* __restrict__ v_new,
-              T* __restrict__ k_pages, T* __restrict__ v_pages,
+              TP* __restrict__ k_pages, TP* __restrict__ v_pages,
               const int* __restrict__ q_start, const int* __restrict__ q_len,
               const int* __restrict__ kv_len, const int* __restrict__ tables,
               T* __restrict__ out, int H, int KVH, int n_pages, int P, int D,
               int maxp) {
-  constexpr int VEC = 16 / (int)sizeof(T);
+  constexpr bool SAME = std::is_same<T, TP>::value;
+  constexpr int VEC = SAME ? 16 / (int)sizeof(T) : 1;
   const int h = blockIdx.x, s = blockIdx.y;
   const int ql = min(max(q_len[s], 0), P);
-  const int ch = D / VEC;                    // 16-byte chunks per row
+  const int ch = D / VEC;                    // copies per row
   if (ql > 0) {
     const int kv = kv_len[s], qs = q_start[s];
     for (int idx = threadIdx.x; idx < ql * ch; idx += blockDim.x) {
@@ -87,8 +100,13 @@ ragged_append(const T* __restrict__ k_new, const T* __restrict__ v_new,
       if (page < 0 || page >= n_pages) continue;
       const size_t dst = (((size_t)h * n_pages + page) * P + pos % P) * D + c * VEC;
       const size_t src = ((size_t)(qs + r) * KVH + h) * D + c * VEC;
-      *reinterpret_cast<uint4*>(k_pages + dst) = *reinterpret_cast<const uint4*>(k_new + src);
-      *reinterpret_cast<uint4*>(v_pages + dst) = *reinterpret_cast<const uint4*>(v_new + src);
+      if constexpr (SAME) {
+        *reinterpret_cast<uint4*>(k_pages + dst) = *reinterpret_cast<const uint4*>(k_new + src);
+        *reinterpret_cast<uint4*>(v_pages + dst) = *reinterpret_cast<const uint4*>(v_new + src);
+      } else {
+        k_pages[dst] = from_f<TP>(to_f(k_new[src]));
+        v_pages[dst] = from_f<TP>(to_f(v_new[src]));
+      }
     }
   }
   zero_rows_without_query(out, s, h, ql, H, KVH, P, D);
@@ -126,6 +144,7 @@ ragged_append_int8(const T* __restrict__ k_new, const T* __restrict__ v_new,
 
 template <typename T, int D, typename TP>
 struct RaggedCtx {
+  using Pool = TP;
   static constexpr bool kInt8 = std::is_same<TP, int8_t>::value;
   const T* q;
   const TP* k;
@@ -206,67 +225,85 @@ ragged_attend(const T* __restrict__ q, const TP* __restrict__ k_pages,
   }
 }
 
-template <typename T, int D>
+template <typename T, typename TP, int D>
 cudaError_t launch(const void* q, const void* k_new, const void* v_new,
                    void* k_pages, void* v_pages, float* k_scales,
                    float* v_scales, const int* q_start, const int* q_len,
                    const int* kv_len, const int* tables, void* out, int S,
                    int H, int KVH, int n_pages, int P, int maxp, float scale,
-                   int int8, cudaStream_t stream) {
-  if (int8)
+                   cudaStream_t stream) {
+  constexpr bool INT8 = std::is_same<TP, int8_t>::value;
+  if constexpr (INT8)
     ragged_append_int8<T, D><<<dim3(KVH, S), 256, 0, stream>>>(
         static_cast<const T*>(k_new), static_cast<const T*>(v_new),
         static_cast<int8_t*>(k_pages), static_cast<int8_t*>(v_pages),
         k_scales, v_scales, q_start, q_len, kv_len, tables,
         static_cast<T*>(out), H, KVH, n_pages, P, maxp);
   else
-    ragged_append<T><<<dim3(KVH, S), 256, 0, stream>>>(
+    ragged_append<T, TP><<<dim3(KVH, S), 256, 0, stream>>>(
         static_cast<const T*>(k_new), static_cast<const T*>(v_new),
-        static_cast<T*>(k_pages), static_cast<T*>(v_pages), q_start, q_len,
+        static_cast<TP*>(k_pages), static_cast<TP*>(v_pages), q_start, q_len,
         kv_len, tables, static_cast<T*>(out), H, KVH, n_pages, P, D, maxp);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const int G = H / KVH;
   const dim3 grid((P * G + BR - 1) / BR, KVH, S);
-  if (int8) {
-    const size_t smem = Tile<float, D>::kBytes;
-    static bool smem_set = false;
-    e = allow_smem(ragged_attend<T, D, int8_t>, smem, &smem_set);
-    if (e != cudaSuccess) return e;
-    ragged_attend<T, D, int8_t><<<grid, NT, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const int8_t*>(k_pages),
-        static_cast<const int8_t*>(v_pages), k_scales, v_scales, q_start,
-        q_len, kv_len, tables, static_cast<T*>(out), H, KVH, n_pages, P,
-        maxp, scale);
-  } else {
-    const size_t smem = Tile<T, D>::kBytes;
-    static bool smem_set = false;
-    e = allow_smem(ragged_attend<T, D, T>, smem, &smem_set);
-    if (e != cudaSuccess) return e;
-    ragged_attend<T, D, T><<<grid, NT, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k_pages),
-        static_cast<const T*>(v_pages), nullptr, nullptr, q_start, q_len,
-        kv_len, tables, static_cast<T*>(out), H, KVH, n_pages, P, maxp,
-        scale);
-  }
+  using TE = typename std::conditional<INT8, float, TP>::type;
+  const size_t smem = Tile<TE, D>::kBytes;
+  static bool smem_set = false;
+  e = allow_smem(ragged_attend<T, D, TP>, smem, &smem_set);
+  if (e != cudaSuccess) return e;
+  ragged_attend<T, D, TP><<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const TP*>(k_pages),
+      static_cast<const TP*>(v_pages), INT8 ? k_scales : nullptr,
+      INT8 ? v_scales : nullptr, q_start, q_len, kv_len, tables,
+      static_cast<T*>(out), H, KVH, n_pages, P, maxp, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename TP>
 cudaError_t dispatch_d(int D, const void* q, const void* k_new,
                        const void* v_new, void* k_pages, void* v_pages,
                        float* k_scales, float* v_scales, const int* q_start,
                        const int* q_len, const int* kv_len, const int* tables,
                        void* out, int S, int H, int KVH, int n_pages, int P,
-                       int maxp, float scale, int int8, cudaStream_t stream) {
+                       int maxp, float scale, cudaStream_t stream) {
   if (D == 64)
-    return launch<T, 64>(q, k_new, v_new, k_pages, v_pages, k_scales,
-                         v_scales, q_start, q_len, kv_len, tables, out, S, H,
-                         KVH, n_pages, P, maxp, scale, int8, stream);
+    return launch<T, TP, 64>(q, k_new, v_new, k_pages, v_pages, k_scales,
+                             v_scales, q_start, q_len, kv_len, tables, out, S,
+                             H, KVH, n_pages, P, maxp, scale, stream);
   if (D == 128)
-    return launch<T, 128>(q, k_new, v_new, k_pages, v_pages, k_scales,
-                          v_scales, q_start, q_len, kv_len, tables, out, S, H,
-                          KVH, n_pages, P, maxp, scale, int8, stream);
+    return launch<T, TP, 128>(q, k_new, v_new, k_pages, v_pages, k_scales,
+                              v_scales, q_start, q_len, kv_len, tables, out,
+                              S, H, KVH, n_pages, P, maxp, scale, stream);
+  return cudaErrorInvalidValue;
+}
+
+// The pools' type for q's type T: any of the three float types (the
+// mixed-dtype mode when it is not T) or int8 (code 3).
+template <typename T>
+cudaError_t dispatch_pool(int pool, int D, const void* q, const void* k_new,
+                          const void* v_new, void* k_pages, void* v_pages,
+                          float* k_scales, float* v_scales,
+                          const int* q_start, const int* q_len,
+                          const int* kv_len, const int* tables, void* out,
+                          int S, int H, int KVH, int n_pages, int P, int maxp,
+                          float scale, cudaStream_t st) {
+#define PTT_RAGGED_POOL(TP)                                                  \
+  return dispatch_d<T, TP>(D, q, k_new, v_new, k_pages, v_pages, k_scales,  \
+                           v_scales, q_start, q_len, kv_len, tables, out, S, \
+                           H, KVH, n_pages, P, maxp, scale, st)
+  switch (pool) {
+    case 0:
+      PTT_RAGGED_POOL(float);
+    case 1:
+      PTT_RAGGED_POOL(__nv_bfloat16);
+    case 2:
+      PTT_RAGGED_POOL(__half);
+    case 3:
+      PTT_RAGGED_POOL(int8_t);
+  }
+#undef PTT_RAGGED_POOL
   return cudaErrorInvalidValue;
 }
 
@@ -274,8 +311,8 @@ cudaError_t dispatch_d(int D, const void* q, const void* k_new,
 
 extern "C" {
 
-// dtype (q, new rows, out): 0 float32, 1 bfloat16, 2 float16.  int8: the
-// pools are int8 with f32 scale pools (else float pools in q's dtype).
+// dtype (q, new rows, out): 0 float32, 1 bfloat16, 2 float16.  pool: the
+// pools' type, the same codes or 3 for int8 pools with f32 scale pools.
 // Returns a cudaError_t.
 int ragged_paged_append_attend(const void* q, const void* k_new,
                                const void* v_new, void* k_pages,
@@ -284,25 +321,25 @@ int ragged_paged_append_attend(const void* q, const void* k_new,
                                const int* q_len, const int* kv_len,
                                const int* tables, void* out, int S, int H,
                                int KVH, int n_pages, int P, int D, int maxp,
-                               float scale, int dtype, int int8,
+                               float scale, int dtype, int pool,
                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return ptt::dispatch_d<float>(D, q, k_new, v_new, k_pages, v_pages,
-                                    k_scales, v_scales, q_start, q_len,
-                                    kv_len, tables, out, S, H, KVH, n_pages,
-                                    P, maxp, scale, int8, st);
+      return ptt::dispatch_pool<float>(pool, D, q, k_new, v_new, k_pages,
+                                       v_pages, k_scales, v_scales, q_start,
+                                       q_len, kv_len, tables, out, S, H, KVH,
+                                       n_pages, P, maxp, scale, st);
     case 1:
-      return ptt::dispatch_d<__nv_bfloat16>(
-          D, q, k_new, v_new, k_pages, v_pages, k_scales, v_scales, q_start,
-          q_len, kv_len, tables, out, S, H, KVH, n_pages, P, maxp, scale,
-          int8, st);
+      return ptt::dispatch_pool<__nv_bfloat16>(
+          pool, D, q, k_new, v_new, k_pages, v_pages, k_scales, v_scales,
+          q_start, q_len, kv_len, tables, out, S, H, KVH, n_pages, P, maxp,
+          scale, st);
     case 2:
-      return ptt::dispatch_d<__half>(D, q, k_new, v_new, k_pages, v_pages,
-                                     k_scales, v_scales, q_start, q_len,
-                                     kv_len, tables, out, S, H, KVH, n_pages,
-                                     P, maxp, scale, int8, st);
+      return ptt::dispatch_pool<__half>(pool, D, q, k_new, v_new, k_pages,
+                                        v_pages, k_scales, v_scales, q_start,
+                                        q_len, kv_len, tables, out, S, H, KVH,
+                                        n_pages, P, maxp, scale, st);
   }
   return cudaErrorInvalidValue;
 }

@@ -55,12 +55,28 @@ a model that went through ``quantization.quantize_model`` is taken as it
 is.  An int8 weight is widened to the activation's dtype for the product
 and its scale folds into the output (``quantization.ops.
 quantized_matmul``); an MoE expert stack widens to bf16 for #11.
-``kv_dtype`` may also name a float pool dtype ("float32", "bfloat16",
-"float16"); on the card the pools must then match the weights.
+KV pools in another float dtype than the weights: ``dtype`` (float32 by
+default, as the reference's) or a float ``kv_dtype`` name ("float32",
+"bfloat16", "float16") sets the pools' dtype whatever the weights'; the
+reference's serving benches run f32 weights over bf16 pools.  Every
+kernel takes q and the new rows in the activation dtype, casts the rows
+to the pool dtype as it writes them and attends in f32 (the kernels'
+mixed-dtype mode); the synchronous prefill writes its chunk into the
+pool dtype and attends in f32 over the pages when the dtypes differ.
+
+Preemption: ``suspend`` takes an active request out of the batch,
+swapping its private pages into the cache's host pool (as many pages as
+the device pool unless ``swap_pool_pages`` says otherwise; 0 disables
+swap), or only releasing them when the pool is full; ``resume`` swaps
+them back in, or recomputes the KV from the token history: the prompt
+through the chunked prefill, the generated tokens through the split
+path's decode forward (kernel #7), in power-of-two windows.
+``export_request``/``import_request`` move a suspended request to
+another engine (its swap entry as a portable blob).
 
 Greedy decoding only.  Knobs of the reference engine that this port does
 not take yet raise ``NotImplementedError`` naming their ROADMAP item;
-metrics, tracing and request capsules are not ported.
+metrics, tracing spans and request capsules are not ported.
 
 Weights are read per layer from the model's own parameters (no stacked
 copy), and the engine runs on the model's device: the GPU by default,
@@ -108,6 +124,10 @@ class GenRequest:
         # deferred admission (begin_request): next prompt position to
         # prefill
         self.pf_pos = 0
+        # preemption: a suspended request holds no slot or device pages;
+        # its swap entry (None: resume recomputes)
+        self.suspended = False
+        self.swap_handle: Optional[int] = None
 
 
 def _rope(x, cos, sin):
@@ -284,22 +304,14 @@ def _mixed_forward(layers, norm_w, head_w, embed_w, rope, k_pages,
                             kvh, head_dim)
         ksp, vsp = _layer_scales(k_scales, v_scales, li)
         blocks = ragged_paged_append_attend(
-            q, k_pages[li], v_pages[li], *_new_rows(k, v, k_pages, ksp),
-            q_start, q_len, kv_len, desc_tables, ksp, vsp)
+            q, k_pages[li], v_pages[li], k, v, q_start, q_len, kv_len,
+            desc_tables, ksp, vsp)
         attn = blocks[desc_of_row, off_of_row]         # [T, NH, D]
         x = x + _mm(attn.reshape(t, -1), ow)
         x = _ffn_block(x, pln, ffn, eps, arch, live, counts)
     x = _nn.rms_norm(x, norm_w, epsilon=eps)
     logits = _head(x, head_w, tied)
     return logits if arch is None else (logits, torch.stack(counts))
-
-
-def _new_rows(k, v, pools, scales):
-    """The rows a kernel appends: in the model's dtype for int8 pools
-    (the kernel quantizes them), else in the pools' dtype."""
-    if scales is not None:
-        return k, v
-    return k.to(pools.dtype), v.to(pools.dtype)
 
 
 @torch.no_grad()
@@ -328,8 +340,7 @@ def _decode_forward(layers, norm_w, head_w, embed_w, rope, k_pages,
                             kvh, head_dim)
         ksp, vsp = _layer_scales(k_scales, v_scales, li)
         attn = paged_decode_append_attend(
-            q, k_pages[li], v_pages[li], *_new_rows(k, v, k_pages, ksp),
-            tables, lens, ksp, vsp)
+            q, k_pages[li], v_pages[li], k, v, tables, lens, ksp, vsp)
         x = x + _mm(attn.reshape(b, -1), ow)
         x = _ffn_block(x, pln, ffn, eps, arch, live, counts)
     x = _nn.rms_norm(x, norm_w, epsilon=eps)
@@ -341,8 +352,11 @@ class LLMEngine:
     """Continuous batching for Llama-family and Qwen2-MoE models (greedy
     decoding).
 
-    ``dtype`` is the KV pools' dtype; ``None`` takes the model's weight
-    dtype.
+    ``dtype`` is the KV pools' dtype (float32 by default, as the
+    reference's, whatever the weights' dtype; a float ``kv_dtype`` name
+    overrides it).  ``swap_pool_pages`` sizes the host swap pool for
+    preemption (``None``: as many pages as the device pool; 0 disables
+    swap).
     ``device`` defaults to the GPU and must hold the model.
     ``moe_dispatch`` ("grouped", or "dense": the per-row comparator, CPU
     tensors only) and ``moe_dropless`` (only True) apply to MoE
@@ -354,7 +368,7 @@ class LLMEngine:
 
     def __init__(self, model, max_seqs: int = 8, max_len: int = 2048,
                  page_size: int = 128, n_pages: Optional[int] = None,
-                 dtype: Optional[torch.dtype] = None,
+                 dtype: torch.dtype = torch.float32,
                  decode_strategy: str = "greedy_search",
                  top_k: int = 0, top_p: float = 1.0,
                  temperature: float = 1.0, seed: int = 0,
@@ -389,8 +403,6 @@ class LLMEngine:
                 not moe_dropless, serving),
             "moe_capacity_factor (capacity-factor MoE dispatch)": (
                 moe_capacity_factor is not None, serving),
-            "swap_pool_pages (preemption and swap)": (
-                swap_pool_pages is not None, serving),
             "decode_strategy='sampling'": (
                 decode_strategy == "sampling", "Port: remaining modules"),
             "mesh (tensor-parallel serving)": (
@@ -420,14 +432,9 @@ class LLMEngine:
         enforce(embed.device == self.device,
                 f"model parameters live on {embed.device}, the engine on "
                 f"{self.device}")
-        dtype = _FLOAT_KV.get(kv_dtype, embed.dtype if dtype is None
-                              else dtype)
-        if self.device.type == "cuda" and kv_dtype != "int8" \
-                and dtype != embed.dtype:
-            raise NotImplementedError(
-                f"KV pools in {dtype} under {embed.dtype} weights: the "
-                f"kernels take one float dtype (ROADMAP 'Port: the rest "
-                f"of serving')")
+        dtype = _FLOAT_KV.get(kv_dtype, dtype)
+        enforce(dtype in _FLOAT_KV.values(),
+                f"unsupported pool dtype {dtype!r}")
         self.kv_dtype = kv_dtype
         self.weight_dtype = weight_dtype
         self.unified_step = bool(unified_step)
@@ -454,12 +461,16 @@ class LLMEngine:
         self.head_dim = c.hidden_size // c.num_attention_heads
         if n_pages is None:
             n_pages = max_seqs * (max_len // page_size) + 1
+        # host swap pool for preemption: as many pages as the device
+        # pool by default (0 disables swap: every resume recomputes)
+        if swap_pool_pages is None:
+            swap_pool_pages = n_pages
         self.cache = PagedKVCache(
             n_pages=n_pages, page_size=page_size, n_kv_heads=self.kvh,
             head_dim=self.head_dim, max_seqs=max_seqs, max_len=max_len,
             dtype=dtype, num_layers=len(spec.layers),
             kv_dtype="int8" if kv_dtype == "int8" else None,
-            device=self.device)
+            swap_pool_pages=swap_pool_pages, device=self.device)
         # per-layer references to the model's own weights: a stacked
         # copy would duplicate every weight (16 GB at 8B).  Int8 weights
         # are (values, scale) pairs: a quantize_model'd model's buffers,
@@ -574,6 +585,52 @@ class LLMEngine:
                 min(plen - 1 - base, P - 1), **self._fwd_kw()))
         return logits
 
+    def _split_batch(self, slots):
+        """Lengths [max_seqs] int32 and tables [max_seqs, maxp] of
+        ``slots`` padded to ``max_seqs`` rows, as the split path runs
+        them (pad rows: length 0, table 0: they write into the pad
+        page)."""
+        pad = self.max_seqs - len(slots)
+        maxp = self.cache.page_table.shape[1]
+        lens = np.concatenate([self.cache.seq_lens[slots],
+                               np.zeros(pad, np.int32)]).astype(np.int32)
+        tables = np.concatenate([self.cache.page_table[slots],
+                                 np.zeros((pad, maxp), np.int32)])
+        return lens, tables
+
+    def _decode(self, tokens, dtables, lens, live):
+        """One split-path forward (kernel #7 in every layer) of the padded
+        batch: tokens [max_seqs] host ints at lengths ``lens``.  Returns
+        logits [max_seqs, V]."""
+        return self._note_expert_counts(_decode_forward(
+            self._layers, self._norm_w, self._head_w, self._embed_w,
+            self._rope, self.cache.k_pages, self.cache.v_pages,
+            self._dev(tokens, torch.long), dtables, self._dev(lens),
+            live=live, **self._fwd_kw()))
+
+    def _replay_decode(self, slot, toks):
+        """Recompute-resume tail: re-append the KV of the already
+        generated ``toks`` through the split path's forward (kernel #7 in
+        every layer), in the reference's power-of-two windows of
+        host-chained forwards over the padded batch.  Each forward takes
+        the recorded token; its logits are dropped."""
+        i = 0
+        while i < len(toks):
+            nsteps = min(self.steps_per_sync, len(toks) - i)
+            while nsteps & (nsteps - 1):
+                nsteps &= nsteps - 1
+            self.cache.extend(slot, nsteps)
+            lens, tables = self._split_batch([slot])
+            dtables = self._dev(tables)
+            live = self._dev(lens > 0, torch.bool)
+            for tok in toks[i:i + nsteps]:
+                tokens = np.zeros(self.max_seqs, np.int64)
+                tokens[0] = tok
+                self._decode(tokens, dtables, lens, live)
+                lens = lens + 1
+            self.cache.advance([slot], nsteps)
+            i += nsteps
+
     def _fwd_kw(self):
         """The keyword arguments every forward takes."""
         return dict(eps=self.eps, kvh=self.kvh, head_dim=self.head_dim,
@@ -595,15 +652,7 @@ class LLMEngine:
         enforce(total <= limit,
                 f"prompt ({plen}) + max_new_tokens ({max_new_tokens}) "
                 f"exceeds the engine/model limit {limit}")
-        P = self.cache.page_size
-        cached, shared_pages = 0, []
-        if self.enable_prefix_caching:
-            # cap at the last page boundary strictly below plen so the
-            # chunk holding the last prompt token always runs (its
-            # logits seed decoding; shared pages stay immutable)
-            cacheable = ((plen - 1) // P) * P
-            cached, shared_pages = self.cache.lookup_prefix(
-                req.prompt[:cacheable])
+        cached, shared_pages = self._cached_prefix(req.prompt)
         req.slot = self.cache.allocate(total, shared_pages=shared_pages)
         st = self.prefix_stats
         st["hit_tokens"] += cached
@@ -838,12 +887,8 @@ class LLMEngine:
         slots = np.array([r.slot for r in batch], np.int64)
         for s in slots:
             self.cache.extend(int(s), nsteps)
-        maxp = self.cache.page_table.shape[1]
         tokens = np.array([r.out[-1] for r in batch] + [0] * pad, np.int64)
-        lens = np.concatenate([self.cache.seq_lens[slots],
-                               np.zeros(pad, np.int32)]).astype(np.int32)
-        tables = np.concatenate([self.cache.page_table[slots],
-                                 np.zeros((pad, maxp), np.int32)])
+        lens, tables = self._split_batch(slots)
         # the window-start lengths fix which rows route (MoE)
         live = self._dev(lens > 0, torch.bool)
         eos = np.array([-1 if r.eos is None else r.eos for r in batch]
@@ -855,11 +900,7 @@ class LLMEngine:
         dtables = self._dev(tables)
         toks = []
         for _ in range(nsteps):
-            logits = self._note_expert_counts(_decode_forward(
-                self._layers, self._norm_w, self._head_w, self._embed_w,
-                self._rope, self.cache.k_pages, self.cache.v_pages,
-                self._dev(tokens, torch.long), dtables, self._dev(lens),
-                live=live, **self._fwd_kw()))
+            logits = self._decode(tokens, dtables, lens, live)
             nxt, _ = sample_logits(logits, strategy=self.decode_strategy)
             nxt = nxt.cpu().numpy()
             toks.append(nxt)
@@ -885,18 +926,183 @@ class LLMEngine:
         reserves the full page budget."""
         return self.cache.free_slot_count()
 
-    def abort(self, rid) -> bool:
-        """Cancel a request: release its pages and retire it with
-        ``cancelled=True``.  Returns True if it was live, False if it had
-        already retired; unknown ids raise."""
+    def capacity(self) -> tuple:
+        """Admission snapshot ``(free_slots, free_pages)`` in one call,
+        exact until the next capacity-changing call (``add_request``,
+        ``step``, ``abort``, ``suspend``, ``resume``)."""
+        return self.cache.free_slot_count(), self.cache.free_pages()
+
+    def suspended_count(self) -> int:
+        """Live requests preempted out of the decode batch (they hold no
+        slot or device pages)."""
+        return sum(1 for r in self.requests.values()
+                   if r.suspended and not r.done)
+
+    def _live(self, rid) -> GenRequest:
         enforce(rid in self.requests,
                 f"unknown request id {rid!r} (never admitted to this "
                 f"engine)")
-        req = self.requests[rid]
+        return self.requests[rid]
+
+    # -- preemption ------------------------------------------------------------
+    def suspend(self, rid) -> bool:
+        """Preempt an active request: its tokens so far stay on the
+        request, its KV pages swap into the cache's host pool (or are
+        only released when the pool is full: resume then recomputes),
+        and its slot frees, so another request can admit now.  A request
+        still prefilling (``begin_request``) releases its pages and
+        restarts its prefill on resume.  Returns True when the swap path
+        is armed.  A suspended request's ``result`` raises, and it can
+        be ``abort``-ed (its swap entry is dropped)."""
+        req = self._live(rid)
+        enforce(not req.done, f"request {rid!r} already retired")
+        enforce(not req.suspended, f"request {rid!r} already suspended")
+        if req in self._prefilling:
+            self._prefilling.remove(req)
+            self.cache.release(req.slot)
+            req.swap_handle = None
+            req.pf_pos = 0
+        else:
+            self._active.remove(req)
+            req.swap_handle = self.cache.swap_out(req.slot)
+        req.slot = None
+        req.suspended = True
+        return req.swap_handle is not None
+
+    def resume(self, rid) -> str:
+        """Re-admit a suspended request; it rejoins the batch at the
+        next ``step()``.  Returns the restore path: ``"swap_in"`` (host
+        pages copied back) or ``"recompute"`` (the prompt through the
+        chunked prefill, the generated tokens through ``_replay_decode``;
+        a request suspended mid-prefill rejoins the prefill queue).  The
+        full page budget is re-reserved, as at admission: check
+        ``capacity()`` first."""
+        req = self._live(rid)
+        enforce(req.suspended and not req.done,
+                f"request {rid!r} is not suspended")
+        plen = len(req.prompt)
+        total = plen + req.max_new
+        if not req.out:
+            cached, shared_pages = self._cached_prefix(req.prompt)
+            req.slot = self.cache.allocate(total,
+                                           shared_pages=shared_pages)
+            req.pf_pos = cached
+            req.suspended = False
+            self._prefilling.append(req)
+            return "recompute"
+        path, slot = "recompute", None
+        if req.swap_handle is not None:
+            slot = self.cache.swap_in(req.swap_handle, total)
+            req.swap_handle = None             # consumed either way
+            if slot is not None:
+                # prompt + generated so far, less the last token: the
+                # next step appends its KV
+                self.cache.set_len(slot, plen + len(req.out) - 1)
+                path = "swap_in"
+        if slot is None:
+            slot = self._recompute_resume(req)
+        req.slot = slot
+        req.suspended = False
+        self._active.append(req)
+        return path
+
+    def _cached_prefix(self, prompt):
+        """(cached tokens, shared pages) of the prompt's longest cached
+        page-aligned prefix (none without prefix caching), capped at the
+        last page boundary strictly below its length so the chunk holding
+        the last prompt token always runs (its logits seed decoding;
+        shared pages stay immutable)."""
+        if not self.enable_prefix_caching:
+            return 0, []
+        P = self.cache.page_size
+        return self.cache.lookup_prefix(prompt[:((len(prompt) - 1) // P)
+                                               * P])
+
+    def _recompute_resume(self, req):
+        """Swapless resume: re-derive the request's KV from its token
+        history, the prompt through the chunked prefill (prefix-cache
+        hits still apply) and the generated tokens but the last through
+        ``_replay_decode``.  Returns the new slot."""
+        plen = len(req.prompt)
+        P = self.cache.page_size
+        cached, shared_pages = self._cached_prefix(req.prompt)
+        slot = self.cache.allocate(plen + req.max_new,
+                                   shared_pages=shared_pages)
+        try:
+            self._prefill_seq(slot, req.prompt, cached // P)
+            self.cache.set_len(slot, plen)
+            if self.enable_prefix_caching:
+                self.cache.register_prefix(slot, req.prompt,
+                                           upto=(plen // P) * P)
+            self._replay_decode(slot, req.out[:-1])
+        except BaseException:
+            self.cache.release(slot)
+            raise
+        return slot
+
+    # -- migration -------------------------------------------------------------
+    def export_request(self, rid) -> dict:
+        """Package a suspended request for another engine: its token
+        history and its swap entry as a portable blob
+        (``PagedKVCache.export_swap``), or ``swap=None`` when it has none
+        (the destination then recomputes).  The request leaves this
+        engine."""
+        req = self._live(rid)
+        enforce(req.suspended and not req.done,
+                f"request {rid!r} is not suspended — suspend() before "
+                f"export_request()")
+        blob = self.cache.export_swap(req.swap_handle)
+        req.swap_handle = None
+        del self.requests[rid]
+        return {"rid": rid, "prompt": list(req.prompt),
+                "out": list(req.out), "max_new": req.max_new,
+                "eos": req.eos, "swap": blob}
+
+    def import_request(self, pkg: dict):
+        """Adopt a migration package: the request registers here
+        suspended, its swap blob imported into this cache's host pool
+        when it fits; ``resume`` then restores it.  Raises when it
+        exceeds this engine's limits or the blob's geometry differs.
+        Returns the rid."""
+        rid = pkg["rid"]
+        enforce(rid not in self.requests, f"duplicate request id {rid!r}")
+        plen = len(pkg["prompt"])
+        enforce(plen >= 1, "empty prompt in migration package")
+        total = plen + pkg["max_new"]
+        limit = min(self.max_len, self.config.max_position_embeddings)
+        enforce(total <= limit,
+                f"migrated request {rid!r}: prompt ({plen}) + "
+                f"max_new_tokens ({pkg['max_new']}) exceeds this engine's "
+                f"limit {limit}")
+        need = -(-total // self.cache.page_size)
+        enforce(need <= self.cache.n_pages - 1,
+                f"migrated request {rid!r} needs {need} KV pages but this "
+                f"cache holds {self.cache.n_pages - 1} usable")
+        req = GenRequest(rid, pkg["prompt"], pkg["max_new"], pkg["eos"])
+        req.out = list(pkg["out"])
+        enforce(len(req.out) >= 1,
+                f"migrated request {rid!r} carries no generated tokens — "
+                f"it was never admitted; resubmit it instead")
+        req.suspended = True
+        req.swap_handle = self.cache.import_swap(pkg.get("swap"))
+        self.requests[rid] = req
+        return rid
+
+    def abort(self, rid) -> bool:
+        """Cancel a request: release its pages (a suspended request: drop
+        its swap entry) and retire it with ``cancelled=True``.  Returns
+        True if it was live, False if it had already retired; unknown ids
+        raise."""
+        req = self._live(rid)
         if req.done:
             return False
         req.done = True
         req.cancelled = True
+        if req.suspended:
+            self.cache.drop_swap(req.swap_handle)
+            req.swap_handle = None
+            req.suspended = False
+            return True
         if req in self._active:
             self._active.remove(req)
         else:
@@ -906,12 +1112,9 @@ class LLMEngine:
 
     def result(self, rid) -> List[int]:
         """Final token list of a retired request (EOS, budget, or
-        ``abort``); raises while it is still generating, and for unknown
-        ids.  Results stay readable until ``pop_result``."""
-        enforce(rid in self.requests,
-                f"unknown request id {rid!r} (never admitted to this "
-                f"engine)")
-        req = self.requests[rid]
+        ``abort``); raises while it is still generating or suspended, and
+        for unknown ids.  Results stay readable until ``pop_result``."""
+        req = self._live(rid)
         enforce(req.done,
                 f"request {rid!r} is still generating ({len(req.out)} "
                 f"tokens so far) — consume step() output to stream, "

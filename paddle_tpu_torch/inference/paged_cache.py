@@ -27,12 +27,34 @@ dequantize pages as they read them, and a copied page carries its scale
 rows.  ``append``/``attend`` are the cache's own decode-step entry
 points (the engine's forwards call the kernels directly).
 
-Not ported yet: swap (preemption), export/import (migration) and
-rollback (speculative decoding) — ROADMAP 'Port: the rest of serving'.
+Float pools may hold another float dtype than the model (``dtype``):
+the kernels cast each appended row to the pool dtype.
+
+KV swap (preemption): ``swap_out(slot)`` copies the slot's private
+written pages (and int8 scale rows) into a bounded host swap pool of
+``swap_pool_pages`` pages and releases every device page; shared prefix
+pages are not copied, only unpinned, and recorded by their chain key so
+``swap_in`` can re-pin them.  ``swap_in(handle, n_tokens)`` restores the
+sequence into a fresh slot with its full page budget.  A full or
+disabled pool makes ``swap_out`` release-only (``None``), and an
+evicted shared page or too few free pages make ``swap_in`` return
+``None``: the caller then recomputes the KV from the token history.
+Host copies go through pinned CPU tensors (on a CUDA cache) and finish
+before the pages return to the free list.
+
+Migration: ``export_swap`` serializes a swap entry into a portable blob
+(a self-described npz: a JSON meta record with the cache's geometry and
+the page plan, plus the host page arrays; bf16 pages travel as their
+uint16 bit patterns, which the meta record states), and
+``import_swap`` adopts one into this cache's host pool.  ``rollback``
+un-appends a slot's last tokens (host-side length only).
 """
 from __future__ import annotations
 
 import hashlib
+import io
+import itertools
+import json
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
 
@@ -54,11 +76,34 @@ def _chain_hash(prev: bytes, tokens) -> bytes:
     return h.digest()
 
 
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+class _SwapEntry:
+    """Host-side record of one swapped-out sequence: per written page
+    either ("data", j) — row j of the host page arrays [L, KVH, j, P, D]
+    holds a private page's bytes — or ("key", chain_key) — a shared
+    prefix page to re-pin through the index at swap-in time."""
+
+    __slots__ = ("plan", "k_host", "v_host", "k_scale_host",
+                 "v_scale_host", "n_host_pages")
+
+    def __init__(self, plan, k_host, v_host, k_scale_host, v_scale_host):
+        self.plan = plan
+        self.k_host = k_host
+        self.v_host = v_host
+        self.k_scale_host = k_scale_host
+        self.v_scale_host = v_scale_host
+        self.n_host_pages = 0 if k_host is None else k_host.shape[2]
+
+
 class PagedKVCache:
     def __init__(self, n_pages: int, page_size: int, n_kv_heads: int,
                  head_dim: int, max_seqs: int, max_len: int,
                  dtype: torch.dtype = torch.float32, num_layers: int = 1,
-                 kv_dtype: Optional[str] = None, device=None):
+                 kv_dtype: Optional[str] = None, swap_pool_pages: int = 0,
+                 device=None):
         enforce(kv_dtype in (None, "int8"),
                 f"unsupported kv_dtype {kv_dtype!r} (None or 'int8')")
         self.device = resolve_device(device)
@@ -93,6 +138,12 @@ class PagedKVCache:
         self._index: Dict[bytes, int] = {}       # chain key -> page
         self._page_key: Dict[int, bytes] = {}    # page -> chain key
         self._lru: "OrderedDict[int, None]" = OrderedDict()
+        # swap: a bounded host pool of page copies for preempted
+        # sequences (0 pages: swap disabled, resume recomputes)
+        self.swap_pool_pages = int(swap_pool_pages)
+        self._swap: Dict[int, _SwapEntry] = {}
+        self._swap_used = 0
+        self._swap_ids = itertools.count()
 
     # -- prefix-caching internals ----------------------------------------------
     def _unregister(self, pg: int):
@@ -125,11 +176,14 @@ class PagedKVCache:
         self._free.append(pg)
         return True
 
+    def _pools(self):
+        """(k, v, k_scales, v_scales) pools; the scales None for float."""
+        return self.k_pages, self.v_pages, self.k_scales, self.v_scales
+
     def _copy_page(self, src: int, dst: int):
         """Copy one physical page in every layer, K and V (and their
         scale rows in int8 mode: scales travel with their pages)."""
-        for pool in (self.k_pages, self.v_pages, self.k_scales,
-                     self.v_scales):
+        for pool in self._pools():
             if pool is not None:
                 pool[:, :, dst] = pool[:, :, src]
 
@@ -214,6 +268,248 @@ class PagedKVCache:
         self._lens[slot] = 0
         self._table[slot, :] = 0
 
+    # -- KV swap (preemption) --------------------------------------------------
+    def _to_host(self, sel: List[int]):
+        """Host copies [L, KVH, len(sel), ...] of the pages ``sel`` of
+        every pool (None for absent scale pools), through pinned memory
+        on a CUDA cache.  The copies are complete on return."""
+        idx = torch.as_tensor(sel, dtype=torch.long, device=self.device)
+        pin = self.device.type == "cuda"
+        out = []
+        for pool in self._pools():
+            if pool is None:
+                out.append(None)
+                continue
+            rows = pool[:, :, idx]
+            host = torch.empty(rows.shape, dtype=rows.dtype,
+                               pin_memory=pin)
+            host.copy_(rows)                  # synchronous: complete here
+            out.append(host)
+        return out
+
+    def swap_out(self, slot: int) -> Optional[int]:
+        """Preempt ``slot``: copy its private written pages (and int8
+        scale rows) into the host swap pool, then release every device
+        page it holds.  Shared prefix pages are not copied, only
+        unpinned; their chain keys are recorded so ``swap_in`` can re-pin
+        them (registered pages are immutable).
+
+        Returns a swap handle for ``swap_in``, or ``None`` when the
+        bounded pool cannot hold the private pages (or swap is disabled):
+        the slot is released either way, and the caller recomputes."""
+        P = self.page_size
+        written = -(-int(self._lens[slot]) // P)
+        pages = self._pages[slot]
+        plan: List[tuple] = []
+        data_pages: List[int] = []
+        for i in range(written):
+            pg = pages[i]
+            if pg in self._page_key:
+                plan.append(("key", self._page_key[pg]))
+            else:
+                plan.append(("data", len(data_pages)))
+                data_pages.append(pg)
+        handle = None
+        if self.swap_pool_pages and \
+                self._swap_used + len(data_pages) <= self.swap_pool_pages:
+            # the host copies complete before the pages return to the
+            # free list and can be overwritten
+            host = self._to_host(data_pages) if data_pages \
+                else [None] * 4
+            handle = next(self._swap_ids)
+            self._swap[handle] = _SwapEntry(plan, *host)
+            self._swap_used += len(data_pages)
+        self.release(slot)
+        return handle
+
+    def swap_in(self, handle: int, n_tokens: int) -> Optional[int]:
+        """Restore a swapped-out sequence into a fresh slot with its full
+        ``n_tokens`` page budget re-reserved: shared prefix pages re-pinned
+        through the index, private pages written back from the host pool,
+        the unwritten remainder freshly grabbed.  The caller sets the
+        length.
+
+        Returns the new slot, or ``None`` when the entry cannot be
+        restored (dropped, a shared prefix page evicted while suspended,
+        or too few free/evictable pages).  The handle is consumed either
+        way: on ``None`` the caller recomputes."""
+        entry = self._swap.pop(handle, None)
+        if entry is None:
+            return None
+
+        def _drop(shared_pinned=()):
+            for pg in list(shared_pinned)[::-1]:
+                self._unref(pg)
+            self._swap_used -= entry.n_host_pages
+            return None
+
+        # resolve the shared chain keys first: a miss means the prefix
+        # page was evicted while the sequence was suspended
+        shared: List[int] = []
+        for kind, val in entry.plan:
+            if kind == "key":
+                pg = self._index.get(val)
+                if pg is None:
+                    return _drop()
+                shared.append(pg)
+        free_slots = [i for i, u in enumerate(self._used) if not u]
+        if not free_slots:
+            return _drop()
+        slot = free_slots[0]
+        need = -(-n_tokens // self.page_size)
+        enforce(need >= len(entry.plan),
+                f"swap_in budget {need} pages < {len(entry.plan)} written "
+                f"pages")
+        # pin the shared pages first, as allocate does
+        for pg in shared:
+            self._ref[pg] += 1
+            if pg in self._lru:
+                del self._lru[pg]
+        if len(self._free) + len(self._lru) < need - len(shared):
+            return _drop(shared)
+        sit = iter(shared)
+        pages: List[int] = []
+        restore: List[tuple] = []              # (device page, host row)
+        for kind, val in entry.plan:
+            if kind == "key":
+                pages.append(next(sit))
+            else:
+                pg = self._grab_page("swap-in")
+                pages.append(pg)
+                restore.append((pg, val))
+        pages += [self._grab_page("swap-in")
+                  for _ in range(need - len(entry.plan))]
+        if restore:
+            sel = torch.as_tensor([pg for pg, _ in restore],
+                                  dtype=torch.long, device=self.device)
+            src = torch.as_tensor([j for _, j in restore], dtype=torch.long)
+            hosts = (entry.k_host, entry.v_host, entry.k_scale_host,
+                     entry.v_scale_host)
+            for pool, host in zip(self._pools(), hosts):
+                if pool is not None:
+                    pool[:, :, sel] = host[:, :, src].to(self.device)
+        self._used[slot] = True
+        self._pages[slot] = pages
+        self._lens[slot] = 0                   # the caller set_len()s
+        self._table[slot, :] = 0
+        self._table[slot, :need] = pages
+        self._swap_used -= entry.n_host_pages
+        return slot
+
+    def drop_swap(self, handle: Optional[int]) -> bool:
+        """Free a swap entry without restoring it (abort of a suspended
+        request).  ``None`` and consumed handles are no-ops."""
+        entry = self._swap.pop(handle, None) if handle is not None \
+            else None
+        if entry is None:
+            return False
+        self._swap_used -= entry.n_host_pages
+        return True
+
+    def swap_pool_used(self) -> int:
+        """Host swap-pool pages currently holding preempted KV."""
+        return self._swap_used
+
+    # -- KV migration ----------------------------------------------------------
+    def _swap_geometry(self) -> dict:
+        """The shape contract a migration blob must match (other
+        geometry would reinterpret page bytes)."""
+        return {"page_size": self.page_size,
+                "num_layers": self.num_layers,
+                "n_kv_heads": int(self.k_pages.shape[1]),
+                "head_dim": int(self.k_pages.shape[-1]),
+                "kv_dtype": self.kv_dtype or "",
+                "pool_dtype": _dtype_name(self.k_pages.dtype)}
+
+    def export_swap(self, handle: Optional[int]) -> Optional[bytes]:
+        """Serialize one swap entry into a portable blob: an npz of a
+        JSON meta record (the geometry, the page plan with chain keys in
+        hex, the host page count, and ``bits_as``: the arrays that hold
+        bf16 pages as uint16 bit patterns) plus the host page arrays.
+        The entry is consumed.  Shared-prefix plan entries whose key
+        still resolves here travel as page data (registered pages are
+        immutable), the rest as keys.  ``None`` and consumed handles
+        return ``None``."""
+        entry = self._swap.pop(handle, None) if handle is not None \
+            else None
+        if entry is None:
+            return None
+        self._swap_used -= entry.n_host_pages
+        n_data = entry.n_host_pages
+        extra: List[int] = []
+        plan: List[tuple] = []
+        for kind, val in entry.plan:
+            if kind == "key":
+                pg = self._index.get(val)
+                if pg is not None:
+                    plan.append(("data", n_data + len(extra)))
+                    extra.append(pg)
+                    continue
+            plan.append((kind, val))
+        hosts = [entry.k_host, entry.v_host, entry.k_scale_host,
+                 entry.v_scale_host]
+        if extra:
+            more = self._to_host(extra)
+            hosts = [m if h is None else (None if m is None else
+                                          torch.cat([h, m], dim=2))
+                     for h, m in zip(hosts, more)]
+        meta = dict(self._swap_geometry())
+        meta["plan"] = [["key", val.hex()] if kind == "key"
+                        else ["data", int(val)] for kind, val in plan]
+        meta["n_host_pages"] = n_data + len(extra)
+        meta["bits_as"] = {}
+        arrays = {}
+        for name, h in zip(("k_host", "v_host", "k_scale_host",
+                            "v_scale_host"), hosts):
+            if h is None:
+                continue
+            if h.dtype == torch.bfloat16:       # numpy has no bfloat16
+                meta["bits_as"][name] = [_dtype_name(h.dtype), "uint16"]
+                arrays[name] = h.view(torch.int16).numpy().view(np.uint16)
+            else:
+                arrays[name] = h.numpy()
+        arrays["meta"] = np.frombuffer(json.dumps(meta).encode("utf-8"),
+                                       np.uint8)
+        buf = io.BytesIO()
+        np.savez(buf, **arrays)
+        return buf.getvalue()
+
+    def import_swap(self, blob: Optional[bytes]) -> Optional[int]:
+        """Adopt a migration blob into this cache's host pool; returns a
+        handle ``swap_in`` takes.  A geometry mismatch raises; a pool
+        that cannot hold the blob's pages returns ``None`` (the caller
+        resumes by recomputing)."""
+        if blob is None:
+            return None
+        with np.load(io.BytesIO(blob)) as z:
+            meta = json.loads(bytes(z["meta"]).decode("utf-8"))
+            for k, v in self._swap_geometry().items():
+                enforce(meta.get(k) == v,
+                        f"migration blob geometry mismatch: {k} is "
+                        f"{meta.get(k)!r}, this cache has {v!r}")
+            hosts = []
+            for name in ("k_host", "v_host", "k_scale_host",
+                         "v_scale_host"):
+                if name not in z:
+                    hosts.append(None)
+                    continue
+                a = np.array(z[name])
+                if name in meta.get("bits_as", {}):
+                    dt = getattr(torch, meta["bits_as"][name][0])
+                    hosts.append(torch.from_numpy(a.view(np.int16)).view(dt))
+                else:
+                    hosts.append(torch.from_numpy(a))
+        n_host = int(meta["n_host_pages"])
+        if not self.swap_pool_pages or \
+                self._swap_used + n_host > self.swap_pool_pages:
+            return None
+        plan = [("key", bytes.fromhex(val)) if kind == "key"
+                else ("data", int(val)) for kind, val in meta["plan"]]
+        handle = next(self._swap_ids)
+        self._swap[handle] = _SwapEntry(plan, *hosts)
+        self._swap_used += n_host
+        return handle
+
     # -- prefix index ----------------------------------------------------------
     def lookup_prefix(self, token_ids) -> Tuple[int, List[int]]:
         """Longest page-aligned cached prefix of ``token_ids``:
@@ -269,6 +565,19 @@ class PagedKVCache:
     def advance(self, slots, n: int = 1):
         for s in np.atleast_1d(slots):
             self._lens[s] += n
+
+    def rollback(self, slot: int, n: int):
+        """Un-append the last ``n`` tokens of ``slot``: a host-side
+        length decrement and nothing else.  The rows stay in the pages
+        but are never attended (every path masks at the length) and the
+        next append overwrites them; the pages stay attached."""
+        n = int(n)
+        enforce(n >= 0, f"rollback of {n} tokens")
+        enforce(self._used[slot], f"rollback on free slot {slot}")
+        enforce(self._lens[slot] >= n,
+                f"rollback of {n} tokens but slot {slot} holds "
+                f"{int(self._lens[slot])}")
+        self._lens[slot] -= n
 
     @property
     def seq_lens(self) -> np.ndarray:

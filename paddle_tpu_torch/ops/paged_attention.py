@@ -25,6 +25,13 @@ pools hold int8 codes and one absmax scale per token row
 (``quantization/ops.py``); new rows arrive in the model's dtype and are
 quantized on the way in, pages are dequantized as they are read.
 
+Mixed-dtype pools: float pools may hold another float dtype than q
+(the reference's serving benches run f32 weights over bf16 pools).  q
+and the new rows arrive in the activation dtype; each new row is cast
+to the pool dtype when it is written, so the query attends over the
+rounded row; pages are widened to f32, scores and sums are f32, and
+the output comes back in q's dtype.
+
 Each wrapper (``ragged_paged_append_attend``, ``paged_decode_append_
 attend``, ``paged_attention``) launches its hand-written kernel on CUDA
 tensors (``csrc/ragged_paged_attention.cu``, ``csrc/paged_decode_
@@ -54,6 +61,9 @@ _NEG_INF = -1e30
 _SOURCE = "ragged_paged_attention"
 # kernel element types (the C interface's dtype codes)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# the C interface's pool codes: the float codes, and int8 (with scale
+# pools)
+_POOL_CODE = {**_DTYPE_CODE, torch.int8: 3}
 
 
 def _last_writers(pages, slots, P):
@@ -81,7 +91,8 @@ def paged_write_rows(k_pages, v_pages, k_new, v_new, positions,
     """Per-row pool append, in place: flat row i lands at logical
     position ``positions[i]`` of its own sequence (page
     ``row_tables[i, pos // P]``, slot ``pos % P``); rows that hit the
-    same slot keep the last row's values.
+    same slot keep the last row's values.  The rows are cast to the pool
+    dtype (round to nearest even), as the reference's writes are.
 
     k_pages/v_pages [KVH, n_pages, P, D]; k_new/v_new [T, KVH, D];
     positions [T]; row_tables [T, maxp].  Returns (k_pages, v_pages)."""
@@ -177,9 +188,9 @@ def paged_decode_append_attend_reference(q, k_pages, v_pages, k_new,
                                          v_new, page_table, seq_lens,
                                          k_scales=None, v_scales=None):
     """Plain PyTorch version of kernel #7, same arguments and result:
-    append row b of k_new/v_new at position ``seq_lens[b]`` (quantized
-    per token when the pools are int8), then attend over
-    ``seq_lens[b] + 1`` tokens.  Pools updated in place; returns
+    append row b of k_new/v_new at position ``seq_lens[b]`` (cast to the
+    pool dtype, or quantized per token when the pools are int8), then
+    attend over ``seq_lens[b] + 1`` tokens.  Pools updated in place; returns
     [B, H, D] in q's dtype."""
     if k_scales is not None:
         paged_write_quant(k_pages, v_pages, k_scales, v_scales, k_new,
@@ -208,9 +219,10 @@ def ragged_paged_append_attend_reference(q, k_pages, v_pages, k_new,
                                          page_tables, k_scales=None,
                                          v_scales=None):
     """Plain PyTorch version of the ragged kernel, same arguments and
-    result: append every live row's K/V at its position (quantized per
-    token into int8 pools when ``k_scales``/``v_scales`` [KVH, n_pages,
-    P] f32 are given), then attend each row over its sequence's pages
+    result: append every live row's K/V at its position (cast to the
+    pool dtype, or quantized per token into int8 pools when
+    ``k_scales``/``v_scales`` [KVH, n_pages, P] f32 are given), then
+    attend each row over its sequence's pages
     under ``kv_pos <= kv_len + row``, in f32.  Pools are updated in
     place.  Returns out [S, P, H, D] in q's dtype, zero wherever a
     descriptor row has no query."""
@@ -261,28 +273,29 @@ def _raise_on(err, lib, source, what):
 
 
 def _pool_mode(q, k_pages, v_pages, new_rows, k_scales, v_scales, what):
-    """Checks the kernels' dtype rule and returns the int8 flag: q (and
-    the new rows) in one dtype of ``_DTYPE_CODE``; float pools in that
-    dtype, or int8 pools with f32 per-token scale pools [KVH, n_pages,
-    P]."""
+    """Checks the kernels' dtype rule and returns the pools' code of
+    ``_POOL_CODE``: q (and the new rows) in one dtype of ``_DTYPE_CODE``;
+    float pools in any dtype of ``_DTYPE_CODE`` (another one than q's:
+    the mixed-dtype mode), or int8 pools with f32 per-token scale pools
+    [KVH, n_pages, P]."""
     int8 = k_scales is not None
     enforce(q.dtype in _DTYPE_CODE and all(
         x.dtype == q.dtype for x in new_rows),
         f"the {what} kernel takes q and the new rows in one dtype of "
         f"{list(_DTYPE_CODE)}; got {q.dtype}, "
         f"{[x.dtype for x in new_rows]}")
-    pool_dtype = torch.int8 if int8 else q.dtype
-    enforce(k_pages.dtype == pool_dtype and v_pages.dtype == pool_dtype,
-            f"the {what} kernel takes {'int8' if int8 else q.dtype} pools "
-            f"here, not {k_pages.dtype}/{v_pages.dtype} (float pools in "
-            f"q's dtype, or int8 pools with scale pools)")
+    takes = (torch.int8,) if int8 else tuple(_DTYPE_CODE)
+    enforce(k_pages.dtype == v_pages.dtype and k_pages.dtype in takes,
+            f"the {what} kernel takes {'int8' if int8 else 'float'} pools "
+            f"here, not {k_pages.dtype}/{v_pages.dtype} (float pools of "
+            f"{list(_DTYPE_CODE)}, or int8 pools with scale pools)")
     if int8:
         kvh, n_pages, P, _ = k_pages.shape
         enforce(all(x.dtype == torch.float32
                     and tuple(x.shape) == (kvh, n_pages, P)
                     for x in (k_scales, v_scales)),
                 f"scale pools must be f32 [{kvh}, {n_pages}, {P}]")
-    return int8
+    return _POOL_CODE[k_pages.dtype]
 
 
 def _both_or_neither(k_scales, v_scales):
@@ -353,9 +366,10 @@ def ragged_paged_append_attend(q, k_pages, v_pages, k_new, v_new,
 
     On CUDA tensors this launches the kernel of
     ``csrc/ragged_paged_attention.cu`` (q and new rows in one dtype of
-    float32/bfloat16/float16, pools in that dtype or int8, D of 64 or
-    128) and raises on anything it does not take; on CPU tensors it runs
-    the plain version."""
+    float32/bfloat16/float16; pools in any of those dtypes, the new rows
+    cast to the pool dtype as they are written, or int8; D of 64 or
+    128) and raises on anything it does not
+    take; on CPU tensors it runs the plain version."""
     _check(q, k_pages, v_pages, k_new, v_new, q_start, q_len, kv_len,
            page_tables)
     _both_or_neither(k_scales, v_scales)
@@ -366,9 +380,9 @@ def ragged_paged_append_attend(q, k_pages, v_pages, k_new, v_new,
             q, k_pages, v_pages, k_new, v_new, q_start, q_len, kv_len,
             page_tables, k_scales, v_scales)
     enforce(q.device.type == "cuda", f"unsupported device {q.device}")
-    int8 = _pool_mode(q, k_pages, v_pages, (k_new, v_new), k_scales,
+    pool = _pool_mode(q, k_pages, v_pages, (k_new, v_new), k_scales,
                       v_scales, "ragged")
-    scales = (k_scales, v_scales) if int8 else ()
+    scales = () if k_scales is None else (k_scales, v_scales)
     _cuda_checks("ragged", d, (q, k_pages, v_pages, k_new, v_new, q_start,
                                q_len, kv_len, page_tables, *scales),
                  (q_start, q_len, kv_len, page_tables),
@@ -384,7 +398,7 @@ def ragged_paged_append_attend(q, k_pages, v_pages, k_new, v_new,
             _ptr(v_scales), q_start.data_ptr(), q_len.data_ptr(),
             kv_len.data_ptr(), page_tables.data_ptr(), out.data_ptr(),
             s_max, h, kvh, n_pages, P, d, maxp, 1.0 / math.sqrt(d),
-            _DTYPE_CODE[q.dtype], int(int8),
+            _DTYPE_CODE[q.dtype], pool,
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, lib, src, "ragged paged attention")
     ragged_paged_append_attend.launches += 1
@@ -419,7 +433,7 @@ def _decode_launch(what, q, k_pages, v_pages, k_new, v_new, page_table,
     if q.device.type == "cpu":
         return None
     enforce(q.device.type == "cuda", f"unsupported device {q.device}")
-    int8 = _pool_mode(q, k_pages, v_pages, new_rows, k_scales, v_scales,
+    pool = _pool_mode(q, k_pages, v_pages, new_rows, k_scales, v_scales,
                       what)
     if (h // kvh) not in (1, 2, 4, 8):
         raise NotImplementedError(
@@ -436,7 +450,7 @@ def _decode_launch(what, q, k_pages, v_pages, k_new, v_new, page_table,
             v_pages.data_ptr(), _ptr(k_scales), _ptr(v_scales),
             page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
             b, h, kvh, n_pages, P, d, page_table.shape[1],
-            1.0 / math.sqrt(d), _DTYPE_CODE[q.dtype], int(int8),
+            1.0 / math.sqrt(d), _DTYPE_CODE[q.dtype], pool,
             int(k_new is not None),
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, lib, src, what)
@@ -449,9 +463,10 @@ def paged_attention(q, k_pages, v_pages, page_table, seq_lens,
     heads ``q[b]`` [H, D] attend over the first ``seq_lens[b]`` tokens of
     its sequence's pages; a row with ``seq_lens[b] == 0`` gets zeros.
 
-    q [B, H, D]; k_pages/v_pages [KVH, n_pages, P, D], float in q's
-    dtype or int8 with ``k_scales``/``v_scales`` [KVH, n_pages, P] f32
-    per-token scales; page_table [B, maxp] and seq_lens [B] int32.
+    q [B, H, D]; k_pages/v_pages [KVH, n_pages, P, D], float (in q's
+    dtype or another float dtype) or int8 with
+    ``k_scales``/``v_scales`` [KVH, n_pages, P] f32 per-token scales;
+    page_table [B, maxp] and seq_lens [B] int32.
     Returns [B, H, D] in q's dtype.
 
     On CUDA tensors one launch of the kernel of
@@ -471,9 +486,10 @@ def paged_decode_append_attend(q, k_pages, v_pages, k_new, v_new,
                                v_scales=None):
     """Kernel #7, the split path's decode step: row b appends its new
     K/V (k_new/v_new [B, KVH, D], in q's dtype) at position
-    ``seq_lens[b]`` of its sequence, quantized per token into int8 pools
-    (codes and scale) when the scale pools are given, then attends its
-    query heads over ``seq_lens[b] + 1`` tokens.  The pools are
+    ``seq_lens[b]`` of its sequence, cast to the pool dtype (or
+    quantized per token into int8 pools, codes and scale, when the scale
+    pools are given), then attends its query heads over ``seq_lens[b] +
+    1`` tokens, the appended row as the pool holds it.  The pools are
     **updated in place**; the caller bumps seq_lens.  Other arguments
     and the dispatch as :func:`paged_attention`.  Returns [B, H, D]."""
     out = _decode_launch("paged decode append+attend", q, k_pages,

@@ -8,7 +8,10 @@ runs where only PyTorch is installed:
         tests/test_torch_cuda_kernels.py
 
 Small shapes cover what the full-width check in ``chip_smoke.py`` does
-not (the paged decode kernels #6 and #7 and the int8 pools of #1 too): f32 and f16 as well as bf16, head_dim 64, page sizes below and
+not (the paged decode kernels #6 and #7, the int8 pools of #1 and every
+mixed pair of float q and pool dtypes too; pools equal bit for bit
+after an append, outputs within the coarser dtype's tolerance): f32 and
+f16 as well as bf16, head_dim 64, page sizes below and
 above the 64-key tile, ragged tile edges, unused descriptors, causal
 attention with Sq < Sk, broadcast masks and GQA.  Tolerances: f32 1e-4
 (sums in another order), f16/bf16 one output rounding.  Int8 pools:
@@ -150,10 +153,11 @@ def test_ragged_kernel_int8_matches_plain(dev, dtype, P, D, G):
     assert not got[len(descs):].any()
 
 
-def _decode_case(gen, dev, dtype, int8, P, D, G, append):
+def _decode_case(gen, dev, dtype, int8, P, D, G, append, pool_dtype=None):
     """Rows of lengths 0 (a live row with its own table), 1, P - 1, P
     (the append opens a new page) and 3P + 5, and a pad row (length 0,
-    table 0: page 0).  Returns (args, plain_args) with separate pools."""
+    table 0: page 0); float pools in ``pool_dtype`` (q's by default).
+    Returns (args, plain_args) with separate pools."""
     kvh, maxp = 2, 5
     h = kvh * G
     n_pages = 6 * maxp
@@ -170,7 +174,8 @@ def _decode_case(gen, dev, dtype, int8, P, D, G, append):
         pools, scales = _int8_pools(gen, dev, kvh, n_pages, P, D)
     else:
         pools = [torch.randn((kvh, n_pages, P, D), generator=gen,
-                             device=dev).to(dtype) for _ in range(2)]
+                             device=dev).to(pool_dtype or dtype)
+                 for _ in range(2)]
         scales = [None, None]
     tail = [tables.to(dev), lens.to(dev)]
 
@@ -221,6 +226,124 @@ def test_paged_attention_kernel_matches_plain(dev, dtype, int8, P, D, G):
     assert not got[0].any() and not got[-1].any()
 
 
+# (q dtype, pool dtype): every mixed pair of float types
+MIXED = [(a, b) for a in TOL for b in TOL if a != b]
+
+
+@pytest.mark.parametrize("qdt,pdt", MIXED, ids=str)
+@pytest.mark.parametrize("P,D,G", [(8, 64, 4), (128, 128, 4), (96, 128, 1),
+                                   (16, 128, 8)])
+def test_paged_decode_kernels_mixed_pools_match_plain(dev, qdt, pdt, P, D,
+                                                      G):
+    """#7 and #6 over pools of another float dtype than q: pools equal
+    the plain version's bit for bit after #7's append (the rows cast to
+    the pool dtype), outputs in q's dtype within the tolerance of the
+    coarser of the two dtypes."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    tol = max(TOL[qdt], TOL[pdt])
+    mine, plain = _decode_case(gen, dev, qdt, False, P, D, G, True, pdt)
+    before = pa.paged_decode_append_attend.launches
+    got = pa.paged_decode_append_attend(*mine)
+    want = pa.paged_decode_append_attend_reference(*plain)
+    torch.cuda.synchronize()
+    assert pa.paged_decode_append_attend.launches == before + 1
+    assert got.dtype == qdt and mine[1].dtype == pdt
+    for a, b in zip(mine[1:3], plain[1:3]):
+        assert torch.equal(a[:, 1:], b[:, 1:])         # page 0: pad row
+    torch.testing.assert_close(got.float()[:-1], want.float()[:-1], rtol=0,
+                               atol=tol)
+    args = [mine[0], mine[1], mine[2], *mine[5:]]      # #6 on the same pools
+    before = pa.paged_attention.launches
+    got = pa.paged_attention(*args)
+    want = pa.paged_attention_reference(*args)
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("qdt,pdt", MIXED, ids=str)
+@pytest.mark.parametrize("P,D,G", [(8, 64, 4), (128, 128, 4), (96, 128, 1)])
+def test_ragged_kernel_mixed_pools_match_plain(dev, qdt, pdt, P, D, G):
+    """#1 over pools of another float dtype than q: decode rows, a chunk
+    filling a page, a chunk ending a page; the pools equal the plain
+    version's bit for bit, outputs in q's dtype within the coarser
+    dtype's tolerance."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    kvh, maxp = 2, 6
+    h = kvh * G
+    n_pages = 4 * maxp + 1
+    descs = [(0, 1), (3 * P - 1, 1), (P, P), (2 * P - 3, 3)]
+    S = T = sum(ql for _, ql in descs) + 2
+    q_start = torch.zeros(S, dtype=torch.int32)
+    q_len = torch.zeros(S, dtype=torch.int32)
+    kv_len = torch.zeros(S, dtype=torch.int32)
+    tables = torch.zeros((S, maxp), dtype=torch.int32)
+    perm = torch.randperm(n_pages - 1, generator=gen, device=dev).cpu() + 1
+    row, used = 0, 0
+    for d, (kl, ql) in enumerate(descs):
+        q_start[d], q_len[d], kv_len[d] = row, ql, kl
+        npg = -(-(kl + ql) // P)
+        tables[d, :npg] = perm[used:used + npg]
+        used, row = used + npg, row + ql
+    q, kn, vn = (torch.randn(shape, generator=gen, device=dev).to(qdt)
+                 for shape in ((T, h, D), (T, kvh, D), (T, kvh, D)))
+    pools = [torch.randn((kvh, n_pages, P, D), generator=gen,
+                         device=dev).to(pdt) for _ in range(2)]
+    desc = [x.to(dev) for x in (q_start, q_len, kv_len, tables)]
+    mine = [p.clone() for p in pools]
+    plain = [p.clone() for p in pools]
+    before = pa.ragged_paged_append_attend.launches
+    got = pa.ragged_paged_append_attend(q, mine[0], mine[1], kn, vn, *desc)
+    want = pa.ragged_paged_append_attend_reference(q, plain[0], plain[1], kn,
+                                                   vn, *desc)
+    torch.cuda.synchronize()
+    assert pa.ragged_paged_append_attend.launches == before + 1
+    assert got.dtype == qdt
+    assert all(torch.equal(a, b) for a, b in zip(mine, plain))
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=max(TOL[qdt], TOL[pdt]))
+    assert not got[len(descs):].any()
+
+
+@pytest.mark.parametrize("dtype,kv_dtype", [
+    (torch.bfloat16, None), (torch.float32, None), (torch.float32, "int8")],
+    ids=["bf16", "f32", "int8"])
+def test_swap_round_trip_is_exact_on_card_pools(dev, dtype, kv_dtype):
+    """A slot's pages (and int8 scale rows) swap out through pinned host
+    memory and back into other device pages byte for byte, and through
+    an export/import into a second cache."""
+    from paddle_tpu_torch.inference.paged_cache import PagedKVCache
+    geom = dict(n_pages=12, page_size=16, n_kv_heads=2, head_dim=64,
+                max_seqs=3, max_len=64, num_layers=2, dtype=dtype,
+                kv_dtype=kv_dtype, swap_pool_pages=8, device=dev)
+    cache = PagedKVCache(**geom)
+    gen = torch.Generator(device=dev).manual_seed(10)
+    slot = cache.allocate(40)
+    for _ in range(37):
+        k, v = (torch.randn((2, 1, 2, 64), generator=gen, device=dev)
+                for _ in range(2))
+        cache.append([slot], k, v)
+    pages = list(cache._pages[slot][:3])
+    want = [p[:, :, pages].clone() for p in cache._pools() if p is not None]
+    handle = cache.swap_out(slot)
+    hog = cache.allocate(16)                       # the old pages move on
+    for p in cache._pools():
+        if p is not None:
+            p.normal_(generator=gen) if p.is_floating_point() else p.zero_()
+    back = cache.swap_in(handle, 40)
+    got = [p[:, :, cache._pages[back][:3]] for p in cache._pools()
+           if p is not None]
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    cache.set_len(back, 37)
+    other = PagedKVCache(**geom)
+    moved = other.swap_in(other.import_swap(cache.export_swap(
+        cache.swap_out(back))), 40)
+    got = [p[:, :, other._pages[moved][:3]] for p in other._pools()
+           if p is not None]
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    cache.release(hog)
+
+
 def test_paged_kernels_refuse_what_they_do_not_take(dev):
     q = torch.zeros(2, 12, 128, device=dev, dtype=torch.bfloat16)
     pools = torch.zeros(4, 3, 8, 128, device=dev, dtype=torch.bfloat16)
@@ -229,7 +352,7 @@ def test_paged_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(NotImplementedError, match="GQA group 3"):
         pa.paged_attention(q, pools, pools, table, lens)
     with pytest.raises(ValueError, match="pools"):
-        pa.paged_attention(q[:, :8], pools.float(), pools.float(), table,
+        pa.paged_attention(q[:, :8], pools.double(), pools.double(), table,
                            lens)
     with pytest.raises(ValueError, match="both"):
         pa.paged_attention(q[:, :8], pools.to(torch.int8),
@@ -600,16 +723,36 @@ def test_kernels_refuse_what_they_do_not_take(dev):
 
 
 def test_engine_refuses_float_pools_of_another_dtype(dev):
-    """The kernels take one float dtype: on the card, pools in another
-    float dtype than the weights raise (int8 pools are taken)."""
+    """Float pools of another dtype than the weights serve on the card
+    (the kernels' mixed-dtype mode; f32 by default, as the reference's),
+    int8 pools too; a pool dtype no kernel takes (float64) is refused."""
+    import dataclasses
+
     from paddle_tpu_torch.inference.engine import LLMEngine
     from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
                                                llama_tiny_config)
-    m = LlamaForCausalLM(llama_tiny_config(), device=dev)
-    with pytest.raises(NotImplementedError, match="the rest of serving"):
-        LLMEngine(m, max_len=64, page_size=8, kv_dtype="bfloat16")
-    eng = LLMEngine(m, max_len=64, page_size=8, kv_dtype="int8")
-    assert eng.cache.k_pages.dtype == torch.int8
+    # head_dim 64 (the kernels take 64 and 128), GQA group 2
+    cfg = dataclasses.replace(llama_tiny_config(), hidden_size=128,
+                              num_attention_heads=2, num_key_value_heads=1)
+    m = LlamaForCausalLM(cfg, device=dev)
+    with pytest.raises(ValueError, match="pool dtype"):
+        LLMEngine(m, max_len=64, page_size=8, dtype=torch.float64)
+    for kw, pools in (({"kv_dtype": "bfloat16"}, torch.bfloat16),
+                      ({"dtype": torch.float16}, torch.float16),
+                      ({"kv_dtype": "int8"}, torch.int8)):
+        eng = LLMEngine(m, max_len=64, page_size=8, **kw)
+        assert eng.cache.k_pages.dtype == pools
+        eng.begin_request("a", [1, 2, 3], max_new_tokens=3)
+        while eng.has_work():
+            eng.step()
+        assert len(eng.result("a")) == 3
+    mb = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16)
+    eng = LLMEngine(mb, max_len=64, page_size=8, unified_step=False)
+    assert eng.cache.k_pages.dtype == torch.float32
+    eng.add_request("b", [4, 5, 6], max_new_tokens=3)
+    while eng.has_work():
+        eng.step()
+    assert len(eng.result("b")) == 3
 
 
 def test_plain_paths_refuse_cuda_tensors(dev):

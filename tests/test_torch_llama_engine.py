@@ -165,7 +165,8 @@ def test_abort_and_pop_result(models):
 
 
 @pytest.mark.parametrize("knob", [
-    {"moe_dropless": False}, {"swap_pool_pages": 16},
+    # a swap pool is taken; engine metrics beside it still raise
+    {"moe_dropless": False}, {"swap_pool_pages": 16, "enable_metrics": True},
     {"moe_capacity_factor": 2.0}, {"decode_strategy": "sampling"},
     {"mesh": object()}, {"draft_model": object()},
     {"scan_decode": True}, {"top_k": 5}, {"top_p": 0.9},
@@ -180,6 +181,10 @@ def test_knobs_outside_the_slice_raise(models, knob):
     LLMEngine(port, device="cpu", **GEOM, scan_decode=False, top_k=0,
               top_p=1.0, temperature=1.0, seed=0, enable_metrics=False,
               tp_axis="tp", spec_k=4)
+    for pages in (None, 0, 16):
+        eng = LLMEngine(port, device="cpu", **GEOM, swap_pool_pages=pages)
+        assert eng.cache.swap_pool_pages == (GEOM["n_pages"] if pages is None
+                                             else pages)
 
 
 def test_weights_are_referenced_not_copied(models):
