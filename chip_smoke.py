@@ -74,6 +74,7 @@ import dataclasses
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -110,7 +111,6 @@ GPT_DROP = 0.1
 # in another order
 F32_REL_L2_TOL = 1e-5
 
-
 class SmokeFailure(RuntimeError):
     pass
 
@@ -143,6 +143,27 @@ def bound_ms(n_bytes, flops, peak=PEAK_BF16_FLOPS):
     t_bytes, t_ops = n_bytes / PEAK_BYTES_S, flops / peak
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
         else "operations"
+
+
+def ptxas_usage(report):
+    """Registers and spill bytes of each tensor-core kernel in a build
+    report ({source: {"ptxas": assembler output}}), by mangled name."""
+    usage, cur = {}, None
+    for rep in report.values():
+        for line in rep["ptxas"].splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                cur = m.group(1)
+            elif cur and "wgmma" in cur:
+                m = re.search(r"Used (\d+) registers", line)
+                if m:
+                    usage.setdefault(cur, {})["registers"] = int(m.group(1))
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", line)
+                if m:
+                    usage.setdefault(cur, {})["spill_bytes"] = \
+                        int(m.group(1)) + int(m.group(2))
+    return usage
 
 
 def rel_err(got, want):
@@ -362,7 +383,7 @@ def profiled(torch, fn):
         out = fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    fams, top = {}, []
+    fams, top, flash = {}, [], {}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue                        # host ops: their kernels count
@@ -373,14 +394,28 @@ def profiled(torch, fn):
             fam = kernel_family(e.key)
             fams[fam] = fams.get(fam, 0.0) + us / 1e3
             top.append((us / 1e3, e.key[:80], e.count))
+            if fam.startswith("flash"):
+                flash[e.key.split("(")[0][:80]] = us / 1e3
     busy = sum(fams.values())
     top.sort(reverse=True)
     return out, {"wall_ms": wall_ms,
                  "device_busy_ms": busy if busy else None,
                  "idle_share": 1 - busy / wall_ms if busy else None,
                  "kernel_ms_by_family": fams,
+                 "flash_kernel_ms": flash,
                  "top_kernels": [{"ms": ms, "name": n, "count": c}
                                  for ms, n, c in top[:8]]}
+
+
+def traced_design(torch, fn):
+    """The design of the flash kernel that ``fn()`` launches, read from
+    its traced name: "wgmma" (the tensor cores) or "fma" (the f32 FMA
+    pipe)."""
+    _, prof = profiled(torch, fn)
+    names = list(prof["flash_kernel_ms"])
+    designs = {"wgmma" if "wgmma" in n else "fma" for n in names}
+    check(len(designs) == 1, f"not one flash kernel traced: {names}")
+    return designs.pop()
 
 
 def serve_run(torch, eng, prompts, counters):
@@ -597,7 +632,8 @@ def flash_train_kernels(torch, gen, dev, table):
             "plain_ms": timed_ms(torch, plain, 1, warmup=1),
             "bound_ms": bound, "bound_by": bound_by,
             "library_ms": None if lib is None else timed_ms(torch, lib, 3,
-                                                            warmup=1)}
+                                                            warmup=1),
+            "design": traced_design(torch, fn)}
         torch.cuda.empty_cache()
     for name, outs in (("flash_attention_fwd_causal_8k", ("out",)),
                        ("flash_attention_bwd_dq", ("dq",)),
@@ -902,6 +938,18 @@ def train_phase(torch, np, dev, table, *, phase, layers, fused):
 
     _, prof = profiled(torch, lambda: step(batch))
     emit({"phase": f"{phase}_profile", **prof})
+    check_tensor_core_route(prof, phase)
+
+
+def check_tensor_core_route(prof, phase):
+    """A bf16 step's flash forward and dK/dV launches reached only the
+    tensor-core kernels: every traced kernel of those families is a
+    wgmma one."""
+    names = [n for n in prof["flash_kernel_ms"]
+             if kernel_family(n) in ("flash_fwd", "flash_bwd_dkv")]
+    check(names and all("wgmma" in n for n in names),
+          f"{phase}: flash forward / dK/dV kernels off the tensor-core "
+          f"route: {names}")
 
 
 def train_reference_phase(torch, np, dev):
@@ -1025,12 +1073,13 @@ def train_reference_phase(torch, np, dev):
 MOE_E, MOE_K, MOE_H, MOE_F = 60, 4, 2048, 1408
 
 
-def group1_kernels(torch, gen, dev):
+def group1_kernels(torch, gen, dev, table):
     """The ragged kernel and the flash forward at GQA group 1 (16 query
     and 16 KV heads, D 128: Qwen1.5-MoE-A2.7B's attention), held against
     their plain versions and timed: the unified step's ragged shapes, the
-    prefill chunk, and the causal forward and backward at the MoE
-    training shape [4, 4096, 16, 128]."""
+    prefill chunk, and the causal forward, dQ and dK/dV at the MoE
+    training shape [4, 4096, 16, 128] (rows of the kernel table, their
+    launches from ``train_moe``)."""
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import paged_attention as pa
     args, n_bytes, flops = ragged_case(torch, gen, dev, H=16, KVH=16)
@@ -1087,28 +1136,64 @@ def group1_kernels(torch, gen, dev):
               args["q"], args["k"], args["v"], **kw), 5),
           "bound_ms": bound, "bound_by": bound_by,
           "library_ms": timed_ms(torch, lambda: sdpa(qt, kt, vt,
-                                                     attn_mask=mask_b), 20)})
+                                                     attn_mask=mask_b), 20),
+          "design": traced_design(torch, lambda: fa.flash_attention_fwd(
+              args["q"], args["k"], args["v"], **kw))})
     del args, out, lse, ref_out, ref_lse, qt, kt, vt, mask_b
 
     s, b, h, d = MOE_SEQ, MOE_BATCH, 16, 128
     q, k, v, do = attention_case(torch, gen, dev, s, b=b, h=h, kvh=h)
-    flash_check(torch, fa, s, q, k, v, do)
+    errs = flash_check(torch, fa, s, q, k, v, do)
     torch.cuda.empty_cache()
-    # q, k, v read and the output written (bf16), the f32 lse written
-    bound, bound_by = bound_ms(4 * b * s * h * d * 2 + b * h * s * 4,
-                               4 * d * h * b * causal_pairs(s))
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    emit({"phase": "kernel", "name": "flash_attention_fwd", "group": 1,
-          "causal": True, "shape": [b, s, h, d],
-          "ms": timed_ms(torch, lambda: fa.flash_attention_fwd(
-              q, k, v, causal=True), 3, warmup=1),
-          "bound_ms": bound, "bound_by": bound_by,
-          "plain_ms": timed_ms(torch, lambda: fa.flash_attention_fwd_reference(
-              q, k, v, causal=True), 1, warmup=1),
-          "library_ms": timed_ms(torch, lambda: sdpa(qt, kt, vt,
-                                                     is_causal=True), 3,
-                                 warmup=1)})
-    del q, k, v, do, qt, kt, vt
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    ops = fa.flash_attention_bwd_operands(q, k, v, out, lse, do, True, None)
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    res = torch.ops.aten._scaled_dot_product_flash_attention(
+        qt, kt, vt, 0.0, True, False)
+    lib_args = (dot, qt, kt, vt, res[0], res[1], res[2], res[3], res[4],
+                res[5], 0.0, True, res[6], res[7])
+
+    def plain_bwd():
+        fa.flash_attention_bwd_reference(q, k, v, out, lse, do, causal=True)
+
+    def bwd_library():
+        torch.ops.aten._scaled_dot_product_flash_attention_backward(
+            *lib_args)
+
+    cost = attention_cost(b, s, h, h, d, 2)
+    for name, key, line, fn, plain, lib, outs in (
+            ("flash_attention_fwd_moe", "fwd", "flash_attention.py:164",
+             lambda: fa.flash_attention_fwd(q, k, v, causal=True),
+             lambda: fa.flash_attention_fwd_reference(q, k, v, causal=True),
+             lambda: sdpa(qt, kt, vt, is_causal=True), ("out",)),
+            ("flash_attention_bwd_dq_moe", "dq", "flash_attention.py:390",
+             lambda: fa.flash_attention_bwd_dq(*ops, True), plain_bwd,
+             bwd_library, ("dq",)),
+            ("flash_attention_bwd_dkv_moe", "dkv", "flash_attention.py:431",
+             lambda: fa.flash_attention_bwd_dkv(*ops, True), plain_bwd,
+             bwd_library, ("dk", "dv"))):
+        flops, n_bytes = cost[key]
+        bound, bound_by = bound_ms(n_bytes, flops)
+        src = "flash_attention_fwd.cu" if key == "fwd" \
+            else "flash_attention_bwd.cu"
+        row = {"name": name, "route": "cuda",
+               "source": f"paddle_tpu_torch/csrc/{src}",
+               "replaces": f"paddle_tpu/ops/pallas/{line}",
+               "max_abs_err": max(errs[o]["max_abs_err"] for o in outs),
+               "ms": timed_ms(torch, fn, 3, warmup=1),
+               "plain_ms": timed_ms(torch, plain, 1, warmup=1),
+               "bound_ms": bound, "bound_by": bound_by,
+               "library_ms": timed_ms(torch, lib, 3, warmup=1),
+               "design": traced_design(torch, fn)}
+        emit({"phase": "kernel", **row, "group": 1, "causal": True,
+              "shape": [b, s, h, d],
+              "library_note": "scaled_dot_product_attention" if key == "fwd"
+              else "aten flash backward (dq, dk, dv)",
+              "plain_note": None if key == "fwd"
+              else "the whole plain backward (dq, dk, dv)"})
+        table[name] = row
+        torch.cuda.empty_cache()
+    del q, k, v, do, qt, kt, vt, dot, ops, out, lse, res, lib_args
     torch.cuda.empty_cache()
 
 
@@ -1560,8 +1645,13 @@ def train_moe_phase(torch, np, dev, table):
     for n in ("grouped_matmul", "grouped_matmul_glu", "grouped_matmul_dw"):
         table[n]["launches"] = launches[n]
 
+    for n in ("flash_attention_fwd", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv"):
+        table[f"{n}_moe"]["launches"] = launches[n]
+
     _, prof = profiled(torch, lambda: step(batch))
     emit({"phase": "train_moe_profile", **prof})
+    check_tensor_core_route(prof, "train_moe")
 
 
 def train_moe_reference_phase(torch, np, dev):
@@ -2638,7 +2728,8 @@ def dropout_kernels(torch, gen, dev, table):
                "plain_ms": timed_ms(torch, plain, 2, warmup=1),
                "bound_ms": bound, "bound_by": bound_by,
                "bound_tf32_ms": bound_tf32,
-               "library_ms": timed_ms(torch, lib, 10)}
+               "library_ms": timed_ms(torch, lib, 10),
+               "design": traced_design(torch, fn)}
         emit({"phase": "kernel", **row, "shape": [b, s, h, d],
               "dtype": "float32", "causal": True, "dropout_p": GPT_DROP,
               "bound_peak": "f32 67 TFLOP/s (bound_tf32_ms: 495)",
@@ -3157,7 +3248,15 @@ def main() -> int:
     for name, rep in built.items():
         print(f"--- ptxas report, {name}\n{rep['ptxas']}", file=sys.stderr)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "built": {n: r["seconds"] for n, r in built.items()}})
+          "built": {n: r["seconds"] for n, r in built.items()
+                    if r["seconds"] is not None}})
+    # the tensor-core kernels' registers and spills (0 spill bytes each),
+    # from each library's own build report, fresh or cached
+    usage = ptxas_usage(built)
+    emit({"phase": "ptxas", "kernels": usage})
+    check(usage and all(u.get("spill_bytes", 1) == 0
+                        for u in usage.values()),
+          f"a tensor-core kernel spills (or reported nothing): {usage}")
 
     # -- kernels against their plain versions, full-width bf16 shapes
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -3229,7 +3328,9 @@ def main() -> int:
         "plain_ms": timed_ms(torch, lambda: fa.flash_attention_fwd_reference(
             args["q"], args["k"], args["v"], **kw), 5),
         "bound_ms": bound, "bound_by": bound_by,
-        "library_ms": timed_ms(torch, library, 20)}
+        "library_ms": timed_ms(torch, library, 20),
+        "design": traced_design(torch, lambda: fa.flash_attention_fwd(
+            args["q"], args["k"], args["v"], **kw))}
     emit({"phase": "kernel", **table["flash_attention_fwd"],
           "lse_max_abs_err": lse_err, "tolerance": TOL})
     del args, out, lse, ref_out, ref_lse, qt, kt, vt, mask_b
@@ -3240,7 +3341,7 @@ def main() -> int:
     update_kernel(torch, gen, dev, table)
     add_norm_kernel(torch, gen, dev, table)
     matmul_rope_kernel(torch, np, gen, dev, table)
-    group1_kernels(torch, gen, dev)
+    group1_kernels(torch, gen, dev, table)
     moe_kernels(torch, gen, dev, table)
     decode_kernels(torch, gen, dev, table)
     ragged_int8_kernel(torch, gen, dev, table)
@@ -3353,10 +3454,23 @@ def main() -> int:
     train_gpt2_reference_phase(torch, np, dev)
     encoder_bias_phase(torch, dev, table)
 
+    # each tensor-core row: its kernel's registers and spills (the most
+    # registers and the summed spills over that kernel's instantiations)
+    for row in table.values():
+        if row.get("design") == "wgmma":
+            fam = "flash_fwd_wgmma" if row["source"].endswith("fwd.cu") \
+                else "flash_bwd_dkv_wgmma"
+            got = [u for n, u in usage.items() if fam in n]
+            row["ptxas_registers"] = max(
+                (u.get("registers", 0) for u in got), default=None)
+            row["ptxas_spill_bytes"] = sum(u.get("spill_bytes", 0)
+                                           for u in got) if got else None
     emit({"kernels": [table[n] for n in (
         "ragged_paged_append_attend", "flash_attention_fwd",
         "flash_attention_fwd_causal_8k", "flash_attention_bwd_dq",
-        "flash_attention_bwd_dkv", "flash_attention_fwd_dropout",
+        "flash_attention_bwd_dkv", "flash_attention_fwd_moe",
+        "flash_attention_bwd_dq_moe", "flash_attention_bwd_dkv_moe",
+        "flash_attention_fwd_dropout",
         "flash_attention_bwd_dq_dropout", "flash_attention_bwd_dkv_dropout",
         "flash_attention_dbias", "fused_update", "add_norm",
         "add_layer_norm", "matmul_rope", "grouped_matmul",

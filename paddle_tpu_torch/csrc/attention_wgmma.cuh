@@ -1,0 +1,291 @@
+// Hopper tensor-core tile code for the 16-bit attention kernels
+// (flash_attention_fwd.cu's forward #2, flash_attention_bwd.cu's dK/dV
+// #4): warpgroup matrix multiplies (`wgmma.mma_async`, f32 accumulate),
+// 128-byte-swizzled shared-memory tiles filled by `cp.async`, and the
+// descriptors that let wgmma read them.
+//
+// Tiles.  A [R][D] tile of 16-bit elements (a row a query or a key) is
+// stored as D / 64 column blocks [R][64], each row 128 bytes, with the
+// 16-byte chunk c of row r at chunk position c ^ (r % 8): the 128-byte
+// swizzle, which wgmma's descriptor names (layout type 1) and which
+// spreads the eight rows of an 8 x 128-byte atom over all 32 banks.  The
+// tile base is 1024-byte aligned, so the swizzle the hardware applies
+// from address bits [7, 10) is the one the copies wrote.  One stored
+// layout serves both operand roles:
+//   - K-major (the reduction dim runs along the row: Q and K in S = Q K^T,
+//     K/V and Q/dO in the backward's S^T = K Q^T and dP^T = V dO^T): the
+//     16-column slice kk starts at column block kk / 4, byte 32 (kk % 4);
+//     8-row groups are 1024 bytes apart (SBO);
+//   - MN-major (the reduction dim runs down the rows: V in O += P V, dO
+//     and Q in dV += P^T dO and dK += dS^T Q; wgmma's transpose bit): the
+//     16-row slice kk starts 2048 kk bytes in; 8-row groups are 1024
+//     bytes apart (SBO) and column blocks R * 128 bytes apart (LBO).
+//
+// Fragments.  The f32 accumulator of an m64nN product gives thread t of
+// the warpgroup (warp w = t / 32, lane l) rows 16 w + l / 4 and
+// 16 w + l / 4 + 8, columns 8 j + 2 (l % 4) + {0, 1}: d[4 j + {0, 1}] on
+// the first row, d[4 j + {2, 3}] on the second.  The register A operand
+// of an m64k16 product has the same layout, so the slice kk of an
+// accumulator, rounded to 16 bits two values a register, is the A operand
+// of the next product over those columns (`frag_a`): P = softmax(S) and
+// dS feed P V, P^T dO and dS^T Q without leaving the registers.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <stdint.h>
+
+#include "attention_tile.cuh"
+
+namespace ptt {
+namespace wg {
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// 2^x on the special-function unit (-inf gives 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte (4-byte) asynchronous copy into shared memory; zeros where
+// !valid (nothing is read from src then).
+__device__ __forceinline__ void cp16(uint32_t dst, const void* src,
+                                     bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp4(uint32_t dst, const void* src,
+                                    bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+// Orders this thread's finished shared-memory writes before later reads
+// by wgmma (the async proxy); a barrier then publishes them.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Barrier over one warpgroup (ids 1, 2, ...; 0 is __syncthreads).
+__device__ __forceinline__ void wg_barrier(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// Byte offset of element (r, c) in a swizzled [R][D] tile.
+template <int R>
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return (c >> 6) * (R * 128) + r * 128 + ((((c >> 3) & 7) ^ (r & 7)) << 4) +
+         (c & 7) * 2;
+}
+
+// Starts copying rows [0, n) of src (row stride rs elements, 16-byte
+// aligned rows) into the swizzled tile at dst; rows [n, R) become zeros.
+// Thread tid copies the 16-byte chunk tid % (D / 8) of rows tid / (D / 8)
+// + k NT / (D / 8): a row step that is a multiple of 8 keeps the chunk's
+// swizzled position, so each copy is one address step from the last.
+template <int R, int D, int NT, typename T>
+__device__ __forceinline__ void load_tile(uint32_t dst, const T* src,
+                                          long long rs, int n, int tid) {
+  constexpr int CH = D / 8, STEP = NT / CH;
+  static_assert(NT % CH == 0 && STEP % 8 == 0 && R % STEP == 0,
+                "a thread's rows must share their swizzle phase");
+  const int r0 = tid / CH, c = (tid % CH) * 8;
+  const uint32_t d0 = dst + swz<R>(r0, c);
+  const T* s0 = src + r0 * rs + c;
+#pragma unroll
+  for (int k = 0; k < R / STEP; ++k) {
+    const bool ok = r0 + k * STEP < n;
+    cp16(d0 + k * STEP * 128, ok ? s0 + k * STEP * rs : src, ok);
+  }
+}
+
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+// The 16-column slice kk of a K-major operand whose tile has R rows.
+template <int R>
+__device__ __forceinline__ uint64_t desc_k(uint32_t base, int kk) {
+  return make_desc(base + (kk >> 2) * (R * 128) + (kk & 3) * 32, 16, 1024);
+}
+// The 16-row slice kk of an MN-major operand whose tile has R rows.
+template <int R>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t base, int kk) {
+  return make_desc(base + kk * 2048, R * 128, 1024);
+}
+
+__device__ __forceinline__ void fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Waits until at most N committed groups of this warpgroup are pending
+// (groups complete in order).
+template <int N>
+__device__ __forceinline__ void wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving reads of wgmma's registers above the
+// wait (or reusing its A registers before it).
+template <int M>
+__device__ __forceinline__ void keep(float (&d)[M]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int M>
+__device__ __forceinline__ void keep(uint32_t (&a)[M][4]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo,
+                                                         float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  const __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <typename T>
+__device__ __forceinline__ float2 unpack2(uint32_t v);
+template <>
+__device__ __forceinline__ float2 unpack2<__nv_bfloat16>(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+template <>
+__device__ __forceinline__ float2 unpack2<__half>(uint32_t v) {
+  return __half22float2(*reinterpret_cast<const __half2*>(&v));
+}
+
+// The accumulator's 16-column slice kk as the A operand of a product.
+template <typename T, int M>
+__device__ __forceinline__ void frag_a(const float (&d)[M], int kk,
+                                       uint32_t (&a)[4]) {
+  a[0] = pack2<T>(d[8 * kk + 0], d[8 * kk + 1]);
+  a[1] = pack2<T>(d[8 * kk + 2], d[8 * kk + 3]);
+  a[2] = pack2<T>(d[8 * kk + 4], d[8 * kk + 5]);
+  a[3] = pack2<T>(d[8 * kk + 6], d[8 * kk + 7]);
+}
+
+// The same slice as a 16-bit high part and the 16-bit rounding of what
+// it leaves (hi + lo carries p to about 2^-16 of itself).
+template <typename T, int M>
+__device__ __forceinline__ void frag_a_split(const float (&d)[M], int kk,
+                                             uint32_t (&hi)[4],
+                                             uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float x0 = d[8 * kk + 2 * j], x1 = d[8 * kk + 2 * j + 1];
+    hi[j] = pack2<T>(x0, x1);
+    const float2 h = unpack2<T>(hi[j]);
+    lo[j] = pack2<T>(x0 - h.x, x1 - h.y);
+  }
+}
+
+#define PTT_F8(d, i)                                                     \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),            \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define PTT_WG_D16(d) PTT_F8(d, 0), PTT_F8(d, 8)
+#define PTT_WG_D32(d) PTT_WG_D16(d), PTT_F8(d, 16), PTT_F8(d, 24)
+#define PTT_WG_D64(d)                                                    \
+  PTT_WG_D32(d), PTT_F8(d, 32), PTT_F8(d, 40), PTT_F8(d, 48), PTT_F8(d, 56)
+// the accumulator's operand names in the instruction text
+#define PTT_WG_S16                                                       \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define PTT_WG_S32                                                       \
+  PTT_WG_S16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, " \
+             "%27, %28, %29, %30, %31"
+#define PTT_WG_S64                                                       \
+  PTT_WG_S32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, " \
+             "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, " \
+             "%55, %56, %57, %58, %59, %60, %61, %62, %63"
+
+// ss: A and B descriptors (operands AB), scale_d the predicate (P).
+#define PTT_WG_SS(TY, N, DS, DOPS, AB, P)                                \
+  static __device__ __forceinline__ void ss(float(&d)[N / 2], uint64_t a, \
+                                            uint64_t b, int scale_d) {   \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " P ", 0;\n"          \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY   \
+                 "." TY " {" DS "}, " AB ", p, 1, 1, 0, 0;\n}\n"          \
+                 : DOPS(d)                                               \
+                 : "l"(a), "l"(b), "r"(scale_d));                        \
+  }
+// rs: four A registers and the B descriptor (operands AB), an
+// accumulating predicate (P), B transposed.
+#define PTT_WG_RS(TY, N, DS, DOPS, AB, P)                                \
+  static __device__ __forceinline__ void rs(                             \
+      float(&d)[N / 2], const uint32_t(&a)[4], uint64_t b) {            \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " P ", 0;\n"          \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY   \
+                 "." TY " {" DS "}, " AB ", p, 1, 1, 1;\n}\n"             \
+                 : DOPS(d)                                               \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),   \
+                   "r"(1));                                              \
+  }
+
+// One m64nNk16 product of 16-bit T into an f32 accumulator of N / 2
+// registers a thread.  ss: A and B K-major in shared memory (scale_d 0
+// overwrites d).  rs: A in registers (`frag_a`), B MN-major in shared
+// memory (the transpose bit), accumulating.  N 32 (the dropout dK/dV
+// kernel's score tiles) takes ss only.
+template <typename T, int N>
+struct Wgmma;
+
+#define PTT_WG_TYPE(T, TY)                                               \
+  template <>                                                            \
+  struct Wgmma<T, 32> {                                                  \
+    PTT_WG_SS(TY, 32, PTT_WG_S16, PTT_WG_D16, "%16, %17", "%18")         \
+  };                                                                     \
+  template <>                                                            \
+  struct Wgmma<T, 64> {                                                  \
+    PTT_WG_SS(TY, 64, PTT_WG_S32, PTT_WG_D32, "%32, %33", "%34")         \
+    PTT_WG_RS(TY, 64, PTT_WG_S32, PTT_WG_D32, "{%32, %33, %34, %35}, %36", \
+              "%37")                                                     \
+  };                                                                     \
+  template <>                                                            \
+  struct Wgmma<T, 128> {                                                 \
+    PTT_WG_SS(TY, 128, PTT_WG_S64, PTT_WG_D64, "%64, %65", "%66")        \
+    PTT_WG_RS(TY, 128, PTT_WG_S64, PTT_WG_D64,                           \
+              "{%64, %65, %66, %67}, %68", "%69")                        \
+  };
+
+PTT_WG_TYPE(__nv_bfloat16, "bf16")
+PTT_WG_TYPE(__half, "f16")
+
+#undef PTT_WG_TYPE
+#undef PTT_WG_RS
+#undef PTT_WG_SS
+#undef PTT_WG_S64
+#undef PTT_WG_S32
+#undef PTT_WG_S16
+#undef PTT_WG_D64
+#undef PTT_WG_D32
+#undef PTT_WG_D16
+#undef PTT_F8
+
+}  // namespace wg
+}  // namespace ptt

@@ -1,5 +1,5 @@
-// FlashAttention-2 backward: a dQ kernel and a dK/dV kernel, with an
-// additive mask, causal masking and GQA.
+// FlashAttention-2 backward: a dQ kernel (#3) and a dK/dV kernel (#4),
+// with an additive mask, causal masking and GQA.
 //
 // Replaces the two TPU kernels behind `_bwd_impl`
 // (paddle_tpu/ops/pallas/flash_attention.py): `_bwd_dq_kernel` (grid over
@@ -24,30 +24,43 @@
 // Layout: contiguous [B, S, H, D] (q, dO, dQ) and [B, S, KVH, D] (k, v,
 // dK, dV); lse and delta [B, H, Sq] f32; D 64 or 128; f32, bf16, f16.
 //
-// dQ kernel: one block of 256 threads per (64-row query tile, head,
-// batch).  It keeps its Q (pre-scaled) and dO tiles in shared memory as
-// f32 and loops over 64-key tiles up to the causal diagonal.  Thread
-// (ty, tx) = (tid / 16, tid % 16) computes the 4 x 4 scores s and dO V^T
-// of rows ty + 16 i against keys tx + 16 j, writes ds to shared memory,
-// then accumulates dq for rows ty + 16 i, columns tx + 16 c in registers.
+// What bounds it on an H100: operations.  At the training shape (S 8192
+// causal, H 32, D 128) the dK/dV kernel does four S^2 D H / 2-sized
+// products (1.1 TFLOP) and the dQ kernel three, against some 100 MB of
+// operands -- thousands of flops per byte, far above the bf16 ridge of
+// about 295.
 //
-// dK/dV kernel: one block per (64-key tile, kv head, batch).  K and V stay
+// dQ kernel (all dtypes): one block of 256 threads per (64-row query
+// tile, head, batch) on the f32 FMA pipe (flash_bwd_tile.cuh).  It keeps
+// its Q (pre-scaled) and dO tiles in shared memory as f32 and loops over
+// 64-key tiles up to the causal diagonal; thread (ty, tx) computes the
+// 4 x 4 scores s and dO V^T of rows ty + 16 i against keys tx + 16 j,
+// writes ds to shared memory, then accumulates dq for rows ty + 16 i,
+// columns tx + 16 c in registers.
+//
+// dK/dV kernel: one block per (key tile, kv head, batch).  K and V stay
 // in shared memory; the block loops over the G query heads of the group
 // and over the query tiles that can see its keys (under causal masking
-// from the first row with off + r >= key0), and accumulates dK and dV for
-// keys ty + 16 i, columns tx + 16 c in registers across the whole group.
-// Each kv head's dK/dV is written once: no atomics and no per-query-head
-// partials, so the result does not depend on block order.
-//
-// What bounds it on an H100: operations.  At the training shape (S 8192
-// causal, H 32, D 128) the backward does five S^2 D H / 2-sized products
-// against some 100 MB of operands — thousands of flops per byte, far
-// above the bf16 ridge of about 295.  This first revision runs every
-// product on the f32 FMA pipe from shared memory (each kernel recomputes
-// the scores and dO V^T it needs, seven products in all), far below the
-// tensor-core rate; tensor cores (mma/wgmma) are the next step.  Reading
-// each K/V (dQ) or Q/dO (dK/dV) tile once per 64-row tile keeps the bytes
-// near the minimum.
+// from the first row with off + r >= key0), and accumulates dK and dV in
+// registers across the whole group.  Each kv head's dK/dV is written
+// once: no atomics and no per-query-head partials, so the result does
+// not depend on block order.  Key tiles launch with the most query tiles
+// (the first keys, under causal masking) first.
+// - bf16 / f16: `flash_bwd_dkv_wgmma` (attention_wgmma.cuh), 128 keys a
+//   block, 64 per warpgroup (the M dimension of every product).  Q/dO
+//   tiles of 64 rows and their lse/delta rows stream through a 2-stage
+//   cp.async ring, the next tile's copy in flight during this tile's
+//   four products.  S^T = K Q^T and dP^T = V dO^T run on wgmma
+//   (m64n64k16, K/V and Q/dO K-major in shared memory); P^T and dS^T are
+//   built on the accumulator fragments in f32 (exp2f with log2(e)
+//   folded in; masks only where the tile needs them), rounded to 16 bits
+//   in registers and fed back as the register A operand of dV += P^T dO
+//   and dK += dS^T Q (m64n<D>k16, dO and Q MN-major: the transpose bit).
+//   dK takes the scale once, in the epilogue; dK and dV leave through
+//   shared memory with 16-byte stores.
+// - f32: `flash_bwd_dkv` on the FMA pipe, 64 keys a block, 4 x 4 register
+//   tiles (flash_bwd_tile.cuh): the f32 checks hold it to 1e-5.
+#include "attention_wgmma.cuh"
 #include "flash_bwd_tile.cuh"
 
 namespace ptt {
@@ -290,6 +303,228 @@ flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+constexpr int kBwdKeys = 128;   // keys a block of the wgmma dK/dV kernel
+
+// Query rows a Q/dO tile: 64, or 32 in dropout mode, whose keep bits take
+// registers.
+template <bool DROP>
+__host__ __device__ constexpr int bwd_rows() {
+  return DROP ? 32 : 64;
+}
+
+// Shared memory of flash_bwd_dkv_wgmma: K and V, then 2 stages of Q, dO,
+// lse and delta (each stage padded to 1024 bytes), plus 1024 to align.
+template <int D, bool DROP>
+struct DkvWgmmaSmem {
+  static constexpr int BQ = bwd_rows<DROP>();
+  static constexpr int KB = kBwdKeys * D * 2, QB = BQ * D * 2;
+  static constexpr int kStage = 2 * QB + 1024;
+  static constexpr size_t kBytes = 2 * (size_t)KB + 2 * (size_t)kStage + 1024;
+};
+
+template <typename T, int D, bool DROP>
+__global__ void __launch_bounds__(256, 1)
+flash_bwd_dkv_wgmma(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    const float* __restrict__ mask, T* __restrict__ dk,
+                    T* __restrict__ dv, int H, int KVH, int Sq, int Sk,
+                    long long msb, long long msh, long long msq, int causal,
+                    float scale, const long long* seed, unsigned thresh,
+                    float inv_keep) {
+  using Sm = DkvWgmmaSmem<D, DROP>;
+  constexpr int BN = kBwdKeys, BQ = Sm::BQ, KB = Sm::KB, QB = Sm::QB;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t sk = wg::smem_addr(smem), sv = sk + KB;
+  const int kvh = blockIdx.x, b = blockIdx.y, G = H / KVH;
+  const int key0 = blockIdx.z * BN;       // the most query tiles first
+  const int tid = threadIdx.x, w = tid >> 7, wt = tid & 127;
+  const int warp = wt >> 5, g = (tid & 31) >> 2, t4 = tid & 3;
+  const int off = Sk - Sq;
+  const long long qrs = (long long)H * D, krs = (long long)KVH * D;
+  // this warpgroup's keys and this thread's two key rows
+  const int wk0 = key0 + 64 * w;
+  const int lk = 64 * w + 16 * warp + g;  // block key row of d[4j + {0, 1}]
+  const int key_a = key0 + lk, key_b = key_a + 8;
+
+  const long long kvo = ((long long)b * Sk + key0) * krs + kvh * D;
+  wg::load_tile<BN, D, 256>(sk, k + kvo, krs, min(BN, Sk - key0), tid);
+  wg::load_tile<BN, D, 256>(sv, v + kvo, krs, min(BN, Sk - key0), tid);
+  // the query tiles that see the block's keys: from the first row with
+  // off + r >= key0
+  const int q0 = (causal ? max(0, key0 - off) : 0) / BQ * BQ;
+  const int nq = Sq > q0 ? (Sq - q0 + BQ - 1) / BQ : 0;
+  const int n_it = G * nq;
+
+  // stage s of the Q/dO ring, and the copy of iteration it into it
+  auto stage = [&](int s) { return sk + 2 * KB + s * Sm::kStage; };
+  auto fetch = [&](int it) {
+    const int h = kvh * G + it / nq, r0 = q0 + (it % nq) * BQ;
+    const int n = min(BQ, Sq - r0);
+    const uint32_t st = stage(it & 1);
+    const long long qo = ((long long)b * Sq + r0) * qrs + (long long)h * D;
+    wg::load_tile<BQ, D, 256>(st, q + qo, qrs, n, tid);
+    wg::load_tile<BQ, D, 256>(st + QB, dout + qo, qrs, n, tid);
+    const long long lo = ((long long)b * H + h) * Sq + r0;
+    if (tid < 2 * BQ) {             // lse rows, then delta rows
+      const int i = tid % BQ;
+      wg::cp4(st + 2 * QB + 4 * tid, (tid < BQ ? lse : delta) + lo +
+              (i < n ? i : 0), i < n);
+    }
+  };
+  if (n_it > 0) fetch(0);
+  wg::cp_commit();
+
+  float adk[D / 2], adv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) adk[i] = adv[i] = 0.f;
+  const float sl2 = scale * wg::kLog2e;
+  Dropout drop;
+  int h_drop = -1;
+  for (int it = 0; it < n_it; ++it) {
+    const int h = kvh * G + it / nq, r0 = q0 + (it % nq) * BQ;
+    wg::cp_wait_all();
+    wg::fence_async_smem();
+    __syncthreads();                 // tile it is in; tile it - 1 is read
+    if (it + 1 < n_it) {
+      fetch(it + 1);
+      wg::cp_commit();
+    }
+    // no key of this warpgroup, or none visible to the tile's rows
+    if (wk0 >= Sk || (causal && r0 + BQ - 1 + off < wk0)) continue;
+    const uint32_t st = stage(it & 1), sdo = st + QB;
+    const float* slse =
+        reinterpret_cast<const float*>(smem + (st - sk) + 2 * QB);
+    const float* sdelta = slse + BQ;
+
+    // S^T and dP^T as two groups: P is built while dP^T runs, and dS
+    // while dV += P^T dO runs
+    float s[BQ / 2], dp[BQ / 2];
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wg::Wgmma<T, BQ>::ss(s, wg::desc_k<BN>(sk + w * 64 * 128, kk),
+                           wg::desc_k<BQ>(st, kk), kk > 0);
+    wg::commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wg::Wgmma<T, BQ>::ss(dp, wg::desc_k<BN>(sv + w * 64 * 128, kk),
+                           wg::desc_k<BQ>(sdo, kk), kk > 0);
+    wg::commit();
+    wg::wait<1>();
+    wg::keep(s);
+
+    if constexpr (DROP) {
+      if (h != h_drop) {
+        drop.init(seed, b, h, thresh, inv_keep);
+        h_drop = h;
+      }
+    }
+    const float* mb = mask ? mask + b * msb + h * msh : nullptr;
+    // P^T = exp(s - lse): masked tiles (a mask, the causal diagonal,
+    // ragged ends) element by element, the subtraction first (exact where
+    // both are -1e30); the others one FFMA an element
+    const bool edge = mb != nullptr || r0 + BQ > Sq || wk0 + 64 > Sk ||
+                      (causal && wk0 + 63 > off + r0);
+    if (edge) {
+#pragma unroll
+      for (int i = 0; i < BQ / 2; ++i) {
+        const int lq = 8 * (i >> 2) + 2 * t4 + (i & 1), r = r0 + lq;
+        const int key = (i & 2) ? key_b : key_a;
+        float x = s[i] * scale;
+        const bool ok = key < Sk && r < Sq;
+        if (ok && mb) x += mb[(long long)r * msq + key];
+        if (causal && key > off + r) x = kMasked;
+        s[i] = ok ? wg::ex2((x - slse[lq]) * wg::kLog2e) : 0.f;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < BQ / 2; ++i) {
+        const int lq = 8 * (i >> 2) + 2 * t4 + (i & 1);
+        s[i] = wg::ex2(fmaf(s[i], sl2, -slse[lq] * wg::kLog2e));
+      }
+    }
+    // the keep bit of element i (its query row's key, its key column)
+    auto kept = [&](int i, float x) {
+      const int r = r0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+      return drop.apply(drop.row(r), (i & 2) ? key_b : key_a, x);
+    };
+    uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+    if constexpr (DROP) {
+      float pd[BQ / 2];              // dV takes the dropped p
+#pragma unroll
+      for (int i = 0; i < BQ / 2; ++i) pd[i] = kept(i, s[i]);
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) wg::frag_a<T>(pd, kk, pa[kk]);
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) wg::frag_a<T>(s, kk, pa[kk]);
+    }
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      wg::Wgmma<T, D>::rs(adv, pa[kk], wg::desc_mn<BQ>(sdo, kk));
+    wg::commit();
+
+    wg::wait<1>();                   // dP^T (dV may still run)
+    wg::keep(dp);
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) {
+      const int lq = 8 * (i >> 2) + 2 * t4 + (i & 1);
+      float dpv = dp[i];
+      if constexpr (DROP) dpv = kept(i, dpv);
+      dp[i] = s[i] * (dpv - sdelta[lq]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) wg::frag_a<T>(dp, kk, da[kk]);
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      wg::Wgmma<T, D>::rs(adk, da[kk], wg::desc_mn<BQ>(st, kk));
+    wg::commit();
+    wg::wait<0>();
+    wg::keep(adv);
+    wg::keep(adk);
+    wg::keep(pa);
+    wg::keep(da);
+  }
+  if (n_it == 0) {                   // no query tile: K/V copies in flight
+    wg::cp_wait_all();
+    __syncthreads();
+  }
+  if (wk0 >= Sk) return;
+
+  // dK (scaled once) and dV into this warpgroup's rows of the K and V
+  // tiles (its own products are done), then 16-byte rows out
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int c = 8 * j + 2 * t4;
+    *reinterpret_cast<uint32_t*>(smem + wg::swz<BN>(lk, c)) =
+        wg::pack2<T>(adk[4 * j] * scale, adk[4 * j + 1] * scale);
+    *reinterpret_cast<uint32_t*>(smem + wg::swz<BN>(lk + 8, c)) =
+        wg::pack2<T>(adk[4 * j + 2] * scale, adk[4 * j + 3] * scale);
+    *reinterpret_cast<uint32_t*>(smem + KB + wg::swz<BN>(lk, c)) =
+        wg::pack2<T>(adv[4 * j], adv[4 * j + 1]);
+    *reinterpret_cast<uint32_t*>(smem + KB + wg::swz<BN>(lk + 8, c)) =
+        wg::pack2<T>(adv[4 * j + 2], adv[4 * j + 3]);
+  }
+  wg::wg_barrier(1 + w);
+  constexpr int CH = D / 8;
+  for (int i = wt; i < 64 * CH; i += 128) {
+    const int r = i / CH, c = (i % CH) * 8, key = wk0 + r;
+    if (key >= Sk) continue;
+    const long long o = ((long long)b * Sk + key) * krs + kvh * D + c;
+    const uint32_t so = wg::swz<BN>(64 * w + r, c);
+    *reinterpret_cast<uint4*>(dk + o) =
+        *reinterpret_cast<const uint4*>(smem + so);
+    *reinterpret_cast<uint4*>(dv + o) =
+        *reinterpret_cast<const uint4*>(smem + KB + so);
+  }
+}
+
 // The operands of one backward launch, as the C entry points take them.
 struct BwdArgs {
   const void *q, *k, *v, *dout;
@@ -338,8 +573,30 @@ cudaError_t launch_dkv(const BwdArgs& a) {
 }
 
 template <typename T, int D, bool DROP>
+cudaError_t launch_dkv_wgmma(const BwdArgs& a) {
+  const size_t smem = DkvWgmmaSmem<D, DROP>::kBytes;
+  static bool smem_set = false;
+  cudaError_t e =
+      allow_smem(flash_bwd_dkv_wgmma<T, D, DROP>, smem, &smem_set);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(a.KVH, a.B, (a.Sk + kBwdKeys - 1) / kBwdKeys);
+  flash_bwd_dkv_wgmma<T, D, DROP><<<grid, 256, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+      a.delta, a.mask, static_cast<T*>(a.o0), static_cast<T*>(a.o1), a.H,
+      a.KVH, a.Sq, a.Sk, a.ms[0], a.ms[1], a.ms[2], a.causal, a.scale,
+      a.seed, a.thresh, a.inv_keep);
+  return cudaGetLastError();
+}
+
+template <typename T, int D, bool DROP>
 cudaError_t launch(int which, const BwdArgs& a) {
-  return which == 0 ? launch_dq<T, D, DROP>(a) : launch_dkv<T, D, DROP>(a);
+  if (which == 0) return launch_dq<T, D, DROP>(a);
+  // dK/dV: f32 on the FMA pipe, bf16 / f16 on wgmma
+  if constexpr (std::is_same<T, float>::value)
+    return launch_dkv<T, D, DROP>(a);
+  else
+    return launch_dkv_wgmma<T, D, DROP>(a);
 }
 
 template <typename T>

@@ -8,7 +8,8 @@ hash of the sources, so an edited kernel rebuilds and an unchanged one
 loads as it is.  Nothing is built when the package is imported: the
 first kernel call on a CUDA tensor builds what it needs, and
 ``build()`` builds several sources at once, one ``nvcc`` process each,
-all started together.
+all started together.  The assembler's register/spill report of each
+build is kept beside its library, so a cached build reports it too.
 """
 from __future__ import annotations
 
@@ -50,14 +51,23 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
+def _report_path(name: str) -> Path:
+    return _lib_path(name).with_suffix(".ptxas")
+
+
 def build(names: Iterable[str]) -> Dict[str, dict]:
     """Compile the named sources that are not built yet, all in
-    parallel.  Returns {name: {"seconds", "ptxas"}} for each source built
-    here (``ptxas`` is the assembler's register/spill report); raises
-    with the compiler's output if any fails."""
-    todo = [n for n in names if not _lib_path(n).exists()]
+    parallel.  Returns {name: {"seconds", "ptxas"}} for every source
+    named: ``ptxas`` is the assembler's register/spill report of its
+    build, ``seconds`` its build time here (None when it was built
+    before).  Raises with the compiler's output if any fails."""
+    names = list(names)
+    report = {n: {"seconds": None, "ptxas": _report_path(n).read_text()}
+              for n in names
+              if _lib_path(n).exists() and _report_path(n).exists()}
+    todo = [n for n in names if n not in report]
     if not todo:
-        return {}
+        return report
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
@@ -71,13 +81,14 @@ def build(names: Iterable[str]) -> Dict[str, dict]:
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT,
                                         text=True), tmp)
-    report, failed = {}, []
+    failed = []
     for name, (proc, tmp) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
             failed.append(f"--- {name} (exit {proc.returncode})\n{out}")
             os.unlink(tmp)
             continue
+        _report_path(name).write_text(out)
         os.replace(tmp, _lib_path(name))
         report[name] = {"seconds": time.perf_counter() - t0, "ptxas": out}
     if failed:

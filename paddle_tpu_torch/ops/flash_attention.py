@@ -256,11 +256,14 @@ def flash_attention_fwd(q, k, v, *, causal: bool = False, mask=None,
     H, D] in q's dtype, lse [B, H, Sq] f32).  With ``dropout_p`` > 0 the
     int64 scalar ``seed`` tensor picks the keep mask.
 
-    On CUDA tensors this launches the kernel of
-    ``csrc/flash_attention_fwd.cu``: q/k/v in one dtype of
-    float32/bfloat16/float16, D of 64 or 128, the last dim contiguous
+    On CUDA tensors this launches a kernel of
+    ``csrc/flash_attention_fwd.cu``, chosen by dtype alone: bf16/f16 the
+    tensor-core kernel (``flash_fwd_wgmma``), f32 the FMA-pipe one
+    (``flash_fwd``).  q/k/v in one dtype of float32/bfloat16/float16, D
+    of 64 or 128, the last dim contiguous and every row 16-byte aligned
     (batch, sequence and head strides are free); other shapes raise
-    NotImplementedError.  On CPU tensors it runs the plain version."""
+    NotImplementedError, misaligned rows ValueError.  On CPU tensors it
+    runs the plain version."""
     if q.device.type == "cpu":
         return flash_attention_fwd_reference(q, k, v, causal=causal,
                                              mask=mask, dropout_p=dropout_p,
@@ -283,10 +286,10 @@ def flash_attention_fwd(q, k, v, *, causal: bool = False, mask=None,
     for x in (q, k, v):
         enforce(x.stride(-1) == 1, "flash kernel needs a contiguous "
                                    "last dim")
-    for x in (k, v):
+    for x in (q, k, v):
         enforce(x.data_ptr() % 16 == 0 and all(
             st * esize % 16 == 0 for st in x.stride()[:3]),
-            "flash kernel needs 16-byte aligned K/V rows")
+            "flash kernel needs 16-byte aligned q/K/V rows")
     mask, mstrides = _mask_strides(mask, b, h, sq, sk)
     drop = _seed_args(seed, dropout_p, q.device)
     strides = list(q.stride()[:3]) + list(k.stride()[:3]) + \
@@ -490,9 +493,11 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, mask, mstrides,
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, mask, mstrides,
                             causal, dropout_p: float = 0.0, seed=None):
     """Launch of the dK/dV kernel on ``flash_attention_bwd_operands``:
-    one block per (64-key tile, kv head, batch), looping over the
-    query-head group and the query tiles that see its keys.  Returns
-    (dk, dv) [B, Sk, KVH, D], written once, without atomics."""
+    one block per (key tile, kv head, batch) -- 128 keys on the tensor
+    cores for bf16/f16 (``flash_bwd_dkv_wgmma``), 64 on the FMA pipe for
+    f32 (``flash_bwd_dkv``) -- looping over the query-head group and the
+    query tiles that see its keys.  Returns (dk, dv) [B, Sk, KVH, D],
+    written once, without atomics."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("flash_attention_bwd_dkv", (dk, dv), q, k, v, do, lse, delta,
             mask, mstrides, causal, dropout_p, seed)

@@ -20,6 +20,9 @@ bit (the same IEEE operations), and float pools are equal after an
 append.  The flash
 backward kernels' gradients are held relative to the largest gradient
 element: f32 1e-5, f16 2e-3, bf16 1e-2 (one output rounding).  The
+16-bit flash forward and dK/dV kernels (tensor cores) are held to the
+same tolerances at their edges: GQA groups 1/2/4/8, ragged tiles,
+causal offsets, each mask broadcast, strided views, 1024 keys.  The
 update kernel must equal its plain version bit for bit in the f32 slots
 (the same f32 operations in the same order, no contraction) and within
 one ulp of the parameter's dtype (Adam's powf may differ in its last
@@ -436,6 +439,114 @@ def test_flash_bwd_kernels_match_plain(dev, dtype, b, sq, sk, h, kvh, d,
         assert err <= GRAD_TOL[dtype] * scale, (name, err, scale)
 
 
+# The 16-bit routes of #2 and #4 (the wgmma kernels) at their edges:
+# GQA groups 1/2/4/8, D 64 and 128, Sq and Sk off the 64/128 tiles,
+# causal with off = Sk - Sq > 0, each broadcast mask shape, strided q
+# and K/V views, 1024 keys (the copy ring cycles), and enough blocks for
+# the forward's 128-row tiles (B H ceil(Sq / 128) >= the SM count) as
+# well as its 64-row ones.  A mask marked "+rows" also hides every key of
+# some rows, which the plain version weighs alike (each scores -1e30).
+# With causal those rows lie in the last 64-row tile: a row above it sees
+# only the keys its tile reaches (a key past them scores -inf, as the
+# reference kernel skips the blocks past its tile's diagonal).
+WGMMA_CASES = [
+    # b, sq, sk, h, kvh, d, causal, mask shape (None: no mask)
+    (1, 65, 65, 8, 8, 64, True, None),
+    (2, 130, 200, 8, 4, 128, True, None),
+    (1, 200, 200, 8, 2, 128, False, "b1qk"),
+    (2, 65, 130, 8, 1, 64, False, "1h1k"),
+    (1, 130, 1024, 4, 1, 128, True, "11qk"),
+    (1, 200, 1024, 16, 2, 64, False, None),
+    (2, 520, 520, 32, 4, 128, True, None),
+    (1, 1000, 1000, 32, 8, 64, False, "11qk"),
+    (1, 130, 200, 8, 2, 128, False, "11qk+rows"),
+    (2, 200, 260, 8, 4, 64, True, "b1qk+rows"),
+    (1, 300, 300, 64, 8, 128, True, "11qk+rows"),
+]
+
+
+def _wgmma_inputs(dev, dtype, b, sq, sk, h, kvh, d, causal, mshape, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    # q a strided view (two extra heads a row), k/v views of a [B, KVH,
+    # Sk, D] buffer, like the engine's gathered pages
+    q = rnd(b, sq, h + 2, d)[:, :, :h]
+    kv = rnd(2, b, kvh, sk, d)
+    k, v = kv[0].transpose(1, 2), kv[1].transpose(1, 2)
+    mask = None
+    if mshape is not None:
+        kind, _, rows = mshape.partition("+")
+        shape = {"b1qk": (b, 1, sq, sk), "1h1k": (1, h, 1, sk),
+                 "11qk": (1, 1, sq, sk)}[kind]
+        mask = torch.randn(shape, generator=gen, device=dev)
+        mask[..., -(sk // 4):] = -1e30
+        if rows:
+            first = 64 * ((sq - 1) // 64) if causal else 0
+            mask[..., first::3, :] = -1e30
+            mask[..., -1, :] = -1e30
+    return q, k, v, rnd(b, sq, h, d), mask
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("b,sq,sk,h,kvh,d,causal,mshape", WGMMA_CASES)
+def test_flash_wgmma_forward_matches_plain(dev, dtype, b, sq, sk, h, kvh, d,
+                                           causal, mshape):
+    q, k, v, _, mask = _wgmma_inputs(dev, dtype, b, sq, sk, h, kvh, d,
+                                     causal, mshape, 6)
+    got, lse = fa.flash_attention_fwd(q, k, v, causal=causal, mask=mask)
+    want, want_lse = fa.flash_attention_fwd_reference(q, k, v,
+                                                      causal=causal,
+                                                      mask=mask)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=TOL[dtype])
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("b,sq,sk,h,kvh,d,causal,mshape", WGMMA_CASES)
+def test_flash_wgmma_dkv_matches_plain(dev, dtype, b, sq, sk, h, kvh, d,
+                                       causal, mshape):
+    q, k, v, do, mask = _wgmma_inputs(dev, dtype, b, sq, sk, h, kvh, d,
+                                      causal, mshape, 7)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal, mask=mask)
+    ops = fa.flash_attention_bwd_operands(q, k, v, out, lse, do, causal,
+                                          mask)
+    got = fa.flash_attention_bwd_dkv(*ops, causal)
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
+                                            causal=causal, mask=mask)[1:]
+    torch.cuda.synchronize()
+    _assert_grads_close(got, want, dtype)
+
+
+def test_flash_wgmma_dkv_is_bit_identical_on_two_launches(dev):
+    """#4 writes each kv head's dK/dV once, without atomics: two launches
+    give the same bits."""
+    q, k, v, do = _attn_inputs(dev, torch.bfloat16, 2, 700, 700, 16, 4,
+                               128)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    ops = fa.flash_attention_bwd_operands(q, k, v, out, lse, do, True, None)
+    first = fa.flash_attention_bwd_dkv(*ops, True)
+    second = fa.flash_attention_bwd_dkv(*ops, True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_flash_forward_refuses_misaligned_q(dev):
+    """The forward copies q in 16-byte chunks: a q row off a 16-byte
+    boundary is refused, as misaligned K/V rows are."""
+    buf = torch.zeros(1, 8, 2, 72, device=dev, dtype=torch.bfloat16)
+    q = buf[..., 1:65]
+    k = torch.zeros(1, 8, 2, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention_fwd(q, k, k)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention_fwd(k, q, k)
+
+
 @pytest.mark.parametrize("pdtype", [torch.float32, torch.bfloat16],
                          ids=str)
 @pytest.mark.parametrize("clip", [False, True], ids=["noclip", "clip"])
@@ -827,14 +938,19 @@ def test_flash_dropout_kernels_match_plain(dev, dtype, d, b, s, h, kvh, p):
     _assert_grads_close(got, want, dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=str)
 @pytest.mark.parametrize("p", [0.1, 0.5])
-def test_flash_forward_keep_bits_equal_the_plain_mask(dev, p):
+def test_flash_forward_keep_bits_equal_the_plain_mask(dev, p, dtype):
     """The forward kernel's keep mask, read through V = I (each output
     row is the row's dropped probabilities over l), equals
-    ``dropout_keep`` bit for bit, and keeps about 1 - p."""
+    ``dropout_keep`` bit for bit, and keeps about 1 - p: on the FMA
+    kernel (f32) and on the fragment-indexed bits of the wgmma kernel
+    (bf16, f16)."""
     b, s, h, d = 2, 64, 3, 64
-    q, k, _, _ = _attn_inputs(dev, torch.float32, b, s, s, h, h, d)
-    eye = torch.eye(s, device=dev)[None, :, None, :].expand(b, s, h, d)
+    q, k, _, _ = _attn_inputs(dev, dtype, b, s, s, h, h, d)
+    eye = torch.eye(s, device=dev, dtype=dtype)[None, :, None, :].expand(
+        b, s, h, d)
     seed = torch.tensor(77, dtype=torch.int64, device=dev)
     out, _ = fa.flash_attention_fwd(q, k, eye.contiguous(), dropout_p=p,
                                     seed=seed)
