@@ -63,6 +63,11 @@ with the launch counts set to 0 just before and read just after:
   (recomputed through #7), and migrated to a second engine, each
   request's tokens held against an unpreempted run.
 
+Every 16-bit training step must trace only the tensor-core (``wgmma``)
+kernels of the flash forward, dQ and dK/dV families, and the fused step
+only the tensor-core matmul+rope kernel; every tensor-core kernel must
+build without spills.
+
 Each phase prints one JSON line; the last three lines are the kernel
 table, the card's name and power limit as nvidia-smi reports them, and
 ``{"ok": true, ...}``.  Any failed phase exits non-zero before the
@@ -383,7 +388,7 @@ def profiled(torch, fn):
         out = fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    fams, top, flash = {}, [], {}
+    fams, top, routed = {}, [], {}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue                        # host ops: their kernels count
@@ -394,28 +399,38 @@ def profiled(torch, fn):
             fam = kernel_family(e.key)
             fams[fam] = fams.get(fam, 0.0) + us / 1e3
             top.append((us / 1e3, e.key[:80], e.count))
-            if fam.startswith("flash"):
-                flash[e.key.split("(")[0][:80]] = us / 1e3
+            if fam.startswith("flash") or fam == "matmul_rope":
+                routed[e.key.split("(")[0][:80]] = us / 1e3
     busy = sum(fams.values())
     top.sort(reverse=True)
     return out, {"wall_ms": wall_ms,
                  "device_busy_ms": busy if busy else None,
                  "idle_share": 1 - busy / wall_ms if busy else None,
                  "kernel_ms_by_family": fams,
-                 "flash_kernel_ms": flash,
+                 "routed_kernel_ms": routed,
                  "top_kernels": [{"ms": ms, "name": n, "count": c}
                                  for ms, n, c in top[:8]]}
 
 
-def traced_design(torch, fn):
-    """The design of the flash kernel that ``fn()`` launches, read from
-    its traced name: "wgmma" (the tensor cores) or "fma" (the f32 FMA
-    pipe)."""
-    _, prof = profiled(torch, fn)
-    names = list(prof["flash_kernel_ms"])
+def traced_kernel(torch, fn, family=None, calls=3):
+    """The kernel that ``fn()`` launches, traced over ``calls`` calls:
+    ``design`` read from its name, "wgmma" (the tensor cores) or "fma"
+    (the FMA pipe), for the flash and matmul+rope families (None for
+    another ``family``), and ``device_ms``, its own device time a call
+    (without the wrapper's host work).  ``family`` None: the one flash
+    or matmul+rope family traced."""
+    _, prof = profiled(torch, lambda: [fn() for _ in range(calls)])
+    names = [n for n in prof["routed_kernel_ms"]
+             if family is None or kernel_family(n) == family]
+    fams = {family} if family else {kernel_family(n) for n in names}
     designs = {"wgmma" if "wgmma" in n else "fma" for n in names}
-    check(len(designs) == 1, f"not one flash kernel traced: {names}")
-    return designs.pop()
+    check(len(fams) == 1 and len(designs) <= 1 and (names or family),
+          f"not one kernel traced ({family}): {names}")
+    fam = fams.pop()
+    ms = prof["kernel_ms_by_family"].get(fam)
+    check(ms, f"no {fam} kernel traced")
+    return {"design": designs.pop() if designs else None,
+            "device_ms": ms / calls}
 
 
 def serve_run(torch, eng, prompts, counters):
@@ -633,7 +648,9 @@ def flash_train_kernels(torch, gen, dev, table):
             "bound_ms": bound, "bound_by": bound_by,
             "library_ms": None if lib is None else timed_ms(torch, lib, 3,
                                                             warmup=1),
-            "design": traced_design(torch, fn)}
+            **traced_kernel(torch, fn)}
+        check(rows[name]["design"] == "wgmma",
+              f"{name}: the bf16 call did not reach the tensor cores")
         torch.cuda.empty_cache()
     for name, outs in (("flash_attention_fwd_causal_8k", ("out",)),
                        ("flash_attention_bwd_dq", ("dq",)),
@@ -757,6 +774,8 @@ def add_norm_kernel(torch, gen, dev, table):
                "replaces": "paddle_tpu/ops/pallas/fused_train.py:322",
                "max_abs_err": (y.float() - want_y.float()).abs().max().item(),
                "ms": timed_ms(torch, run, 20),
+               "device_ms": traced_kernel(torch, run, "add_norm")[
+                   "device_ms"],
                "plain_ms": timed_ms(torch, plain, 5),
                "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
         emit({"phase": "kernel", **row, "body": name, "shape": list(shape),
@@ -775,7 +794,8 @@ def matmul_rope_kernel(torch, np, gen, dev, table):
     leaves them; each within 2^-7 relative L2 of its plain version.  The
     library figure is torch.matmul of the same product alone.  Then the
     f32 path (exact FMA products) at seq 1024 against its plain version
-    (relative L2 1e-5: f32 sums in another order)."""
+    (relative L2 1e-5: f32 sums in another order).  Each traced kernel
+    must be the tensor-core one for bf16 and the FMA one for f32."""
     from paddle_tpu_torch.models.llama import _rope_cos_sin
     from paddle_tpu_torch.ops import fused_train as ft
     s, hidden, hd = TRAIN_SEQ, 4096, 128
@@ -812,7 +832,11 @@ def matmul_rope_kernel(torch, np, gen, dev, table):
                "ms": timed_ms(torch, run, 10),
                "plain_ms": timed_ms(torch, plain, 5),
                "bound_ms": bound, "bound_by": bound_by,
-               "library_ms": timed_ms(torch, lambda: torch.matmul(x, w), 10)}
+               "library_ms": timed_ms(torch, lambda: torch.matmul(x, w), 10),
+               **traced_kernel(torch, run, "matmul_rope")}
+        check(row["design"] == "wgmma",
+              f"matmul_rope ({proj}): the bf16 call did not reach the "
+              f"tensor cores")
         emit({"phase": "kernel", **row, "projection": proj,
               "shape": [1, s, hidden], "heads": heads, "head_dim": hd,
               "rel_l2_err": err, "tolerance": {"rel_l2_err": REL_L2_TOL},
@@ -829,10 +853,23 @@ def matmul_rope_kernel(torch, np, gen, dev, table):
     want = ft.matmul_rope_reference(x32, w32, c32, s32t, 32, hd)
     torch.cuda.synchronize()
     err = rel_l2(got, want)
+    def run32():
+        return ft.matmul_rope_raw(x32, w32, c32, s32t, n_heads=32,
+                                  head_dim=hd)
+
+    traced = traced_kernel(torch, run32, "matmul_rope")
+    bound, bound_by = bound_ms(
+        (x32.numel() + w32.numel() + got.numel() + 2 * s32 * hd) * 4,
+        2 * s32 * hidden * w32.shape[1], peak=PEAK_F32_FLOPS)
     emit({"phase": "check", "what": "matmul_rope f32 (FMA path)",
           "shape": [1, s32, hidden], "heads": 32, "rel_l2_err": err,
-          "tolerance": 1e-5})
+          "tolerance": 1e-5, "ms": timed_ms(torch, run32, 5),
+          "plain_ms": timed_ms(torch, lambda: ft.matmul_rope_reference(
+              x32, w32, c32, s32t, 32, hd), 5),
+          "bound_ms": bound, "bound_by": bound_by, **traced})
     check(err <= 1e-5, f"f32 matmul_rope off its plain version: {err}")
+    check(traced["design"] == "fma",
+          f"f32 matmul_rope left the FMA pipe: {traced}")
 
 
 def train_phase(torch, np, dev, table, *, phase, layers, fused):
@@ -938,18 +975,22 @@ def train_phase(torch, np, dev, table, *, phase, layers, fused):
 
     _, prof = profiled(torch, lambda: step(batch))
     emit({"phase": f"{phase}_profile", **prof})
-    check_tensor_core_route(prof, phase)
+    check_tensor_core_route(prof, phase, FLASH_FAMILIES + (
+        ("matmul_rope",) if fused else ()))
 
 
-def check_tensor_core_route(prof, phase):
-    """A bf16 step's flash forward and dK/dV launches reached only the
-    tensor-core kernels: every traced kernel of those families is a
-    wgmma one."""
-    names = [n for n in prof["flash_kernel_ms"]
-             if kernel_family(n) in ("flash_fwd", "flash_bwd_dkv")]
-    check(names and all("wgmma" in n for n in names),
-          f"{phase}: flash forward / dK/dV kernels off the tensor-core "
-          f"route: {names}")
+FLASH_FAMILIES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def check_tensor_core_route(prof, phase, families=FLASH_FAMILIES):
+    """A bf16 step's launches of each family reached only the
+    tensor-core kernels: the family was traced, and every traced kernel
+    of it is a wgmma one."""
+    for fam in families:
+        names = [n for n in prof["routed_kernel_ms"]
+                 if kernel_family(n) == fam]
+        check(names and all("wgmma" in n for n in names),
+              f"{phase}: {fam} kernels off the tensor-core route: {names}")
 
 
 def train_reference_phase(torch, np, dev):
@@ -1137,7 +1178,7 @@ def group1_kernels(torch, gen, dev, table):
           "bound_ms": bound, "bound_by": bound_by,
           "library_ms": timed_ms(torch, lambda: sdpa(qt, kt, vt,
                                                      attn_mask=mask_b), 20),
-          "design": traced_design(torch, lambda: fa.flash_attention_fwd(
+          **traced_kernel(torch, lambda: fa.flash_attention_fwd(
               args["q"], args["k"], args["v"], **kw))})
     del args, out, lse, ref_out, ref_lse, qt, kt, vt, mask_b
 
@@ -1184,7 +1225,9 @@ def group1_kernels(torch, gen, dev, table):
                "plain_ms": timed_ms(torch, plain, 1, warmup=1),
                "bound_ms": bound, "bound_by": bound_by,
                "library_ms": timed_ms(torch, lib, 3, warmup=1),
-               "design": traced_design(torch, fn)}
+               **traced_kernel(torch, fn)}
+        check(row["design"] == "wgmma",
+              f"{name}: the bf16 call did not reach the tensor cores")
         emit({"phase": "kernel", **row, "group": 1, "causal": True,
               "shape": [b, s, h, d],
               "library_note": "scaled_dot_product_attention" if key == "fwd"
@@ -2729,7 +2772,7 @@ def dropout_kernels(torch, gen, dev, table):
                "bound_ms": bound, "bound_by": bound_by,
                "bound_tf32_ms": bound_tf32,
                "library_ms": timed_ms(torch, lib, 10),
-               "design": traced_design(torch, fn)}
+               **traced_kernel(torch, fn)}
         emit({"phase": "kernel", **row, "shape": [b, s, h, d],
               "dtype": "float32", "causal": True, "dropout_p": GPT_DROP,
               "bound_peak": "f32 67 TFLOP/s (bound_tf32_ms: 495)",
@@ -3257,6 +3300,9 @@ def main() -> int:
     check(usage and all(u.get("spill_bytes", 1) == 0
                         for u in usage.values()),
           f"a tensor-core kernel spills (or reported nothing): {usage}")
+    for fam in ("flash_fwd_wgmma", "flash_bwd_dq_wgmma",
+                "flash_bwd_dkv_wgmma", "matmul_rope_wgmma"):
+        check(any(fam in n for n in usage), f"no ptxas report of {fam}")
 
     # -- kernels against their plain versions, full-width bf16 shapes
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -3329,7 +3375,7 @@ def main() -> int:
             args["q"], args["k"], args["v"], **kw), 5),
         "bound_ms": bound, "bound_by": bound_by,
         "library_ms": timed_ms(torch, library, 20),
-        "design": traced_design(torch, lambda: fa.flash_attention_fwd(
+        **traced_kernel(torch, lambda: fa.flash_attention_fwd(
             args["q"], args["k"], args["v"], **kw))}
     emit({"phase": "kernel", **table["flash_attention_fwd"],
           "lse_max_abs_err": lse_err, "tolerance": TOL})
@@ -3458,8 +3504,11 @@ def main() -> int:
     # registers and the summed spills over that kernel's instantiations)
     for row in table.values():
         if row.get("design") == "wgmma":
-            fam = "flash_fwd_wgmma" if row["source"].endswith("fwd.cu") \
-                else "flash_bwd_dkv_wgmma"
+            name = row["name"]
+            fam = ("matmul_rope_wgmma" if name.startswith("matmul_rope")
+                   else "flash_bwd_dq_wgmma" if "bwd_dq" in name
+                   else "flash_bwd_dkv_wgmma" if "bwd_dkv" in name
+                   else "flash_fwd_wgmma")
             got = [u for n, u in usage.items() if fam in n]
             row["ptxas_registers"] = max(
                 (u.get("registers", 0) for u in got), default=None)

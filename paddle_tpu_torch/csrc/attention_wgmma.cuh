@@ -1,7 +1,9 @@
-// Hopper tensor-core tile code for the 16-bit attention kernels
-// (flash_attention_fwd.cu's forward #2, flash_attention_bwd.cu's dK/dV
-// #4): warpgroup matrix multiplies (`wgmma.mma_async`, f32 accumulate),
-// 128-byte-swizzled shared-memory tiles filled by `cp.async`, and the
+// Hopper tensor-core tile code for the port's 16-bit kernels: the flash
+// forward #2 (flash_attention_fwd.cu), the dQ kernel #3 and the dK/dV
+// kernel #4 (flash_attention_bwd.cu), and the matmul+rope kernel #10
+// (matmul_rope.cu): warpgroup matrix multiplies (`wgmma.mma_async`, f32
+// accumulate), 128-byte-swizzled shared-memory tiles filled by
+// `cp.async` (or by TMA, which writes the same layout), and the
 // descriptors that let wgmma read them.
 //
 // Tiles.  A [R][D] tile of 16-bit elements (a row a query or a key) is
@@ -13,13 +15,15 @@
 // from address bits [7, 10) is the one the copies wrote.  One stored
 // layout serves both operand roles:
 //   - K-major (the reduction dim runs along the row: Q and K in S = Q K^T,
-//     K/V and Q/dO in the backward's S^T = K Q^T and dP^T = V dO^T): the
-//     16-column slice kk starts at column block kk / 4, byte 32 (kk % 4);
-//     8-row groups are 1024 bytes apart (SBO);
+//     K/V and Q/dO in the backward's S^T = K Q^T and dP^T = V dO^T, dO
+//     and V in dP = dO V^T, x in x W): the 16-column slice kk starts at
+//     column block kk / 4, byte 32 (kk % 4); 8-row groups are 1024 bytes
+//     apart (SBO);
 //   - MN-major (the reduction dim runs down the rows: V in O += P V, dO
-//     and Q in dV += P^T dO and dK += dS^T Q; wgmma's transpose bit): the
-//     16-row slice kk starts 2048 kk bytes in; 8-row groups are 1024
-//     bytes apart (SBO) and column blocks R * 128 bytes apart (LBO).
+//     and Q in dV += P^T dO and dK += dS^T Q, K in dQ += dS K, W [K][N]
+//     in x W; wgmma's transpose bit): the 16-row slice kk starts 2048 kk
+//     bytes in; 8-row groups are 1024 bytes apart (SBO) and column
+//     blocks R * 128 bytes apart (LBO).
 //
 // Fragments.  The f32 accumulator of an m64nN product gives thread t of
 // the warpgroup (warp w = t / 32, lane l) rows 16 w + l / 4 and
@@ -28,7 +32,7 @@
 // of an m64k16 product has the same layout, so the slice kk of an
 // accumulator, rounded to 16 bits two values a register, is the A operand
 // of the next product over those columns (`frag_a`): P = softmax(S) and
-// dS feed P V, P^T dO and dS^T Q without leaving the registers.
+// dS feed P V, P^T dO, dS^T Q and dS K without leaving the registers.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -234,6 +238,16 @@ __device__ __forceinline__ void frag_a_split(const float (&d)[M], int kk,
                  : DOPS(d)                                               \
                  : "l"(a), "l"(b), "r"(scale_d));                        \
   }
+// ss_mn: as ss, B MN-major (the transpose bit).
+#define PTT_WG_SS_MN(TY, N, DS, DOPS, AB, P)                             \
+  static __device__ __forceinline__ void ss_mn(                          \
+      float(&d)[N / 2], uint64_t a, uint64_t b, int scale_d) {           \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " P ", 0;\n"          \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY   \
+                 "." TY " {" DS "}, " AB ", p, 1, 1, 0, 1;\n}\n"          \
+                 : DOPS(d)                                               \
+                 : "l"(a), "l"(b), "r"(scale_d));                        \
+  }
 // rs: four A registers and the B descriptor (operands AB), an
 // accumulating predicate (P), B transposed.
 #define PTT_WG_RS(TY, N, DS, DOPS, AB, P)                                \
@@ -249,9 +263,10 @@ __device__ __forceinline__ void frag_a_split(const float (&d)[M], int kk,
 
 // One m64nNk16 product of 16-bit T into an f32 accumulator of N / 2
 // registers a thread.  ss: A and B K-major in shared memory (scale_d 0
-// overwrites d).  rs: A in registers (`frag_a`), B MN-major in shared
-// memory (the transpose bit), accumulating.  N 32 (the dropout dK/dV
-// kernel's score tiles) takes ss only.
+// overwrites d).  ss_mn: A K-major, B MN-major (x W in #10).  rs: A in
+// registers (`frag_a`), B MN-major in shared memory (the transpose bit),
+// accumulating.  N 32 (the dropout dK/dV kernel's score tiles) takes ss
+// only.
 template <typename T, int N>
 struct Wgmma;
 
@@ -269,6 +284,7 @@ struct Wgmma;
   template <>                                                            \
   struct Wgmma<T, 128> {                                                 \
     PTT_WG_SS(TY, 128, PTT_WG_S64, PTT_WG_D64, "%64, %65", "%66")        \
+    PTT_WG_SS_MN(TY, 128, PTT_WG_S64, PTT_WG_D64, "%64, %65", "%66")     \
     PTT_WG_RS(TY, 128, PTT_WG_S64, PTT_WG_D64,                           \
               "{%64, %65, %66, %67}, %68", "%69")                        \
   };
@@ -278,6 +294,7 @@ PTT_WG_TYPE(__half, "f16")
 
 #undef PTT_WG_TYPE
 #undef PTT_WG_RS
+#undef PTT_WG_SS_MN
 #undef PTT_WG_SS
 #undef PTT_WG_S64
 #undef PTT_WG_S32

@@ -26,17 +26,34 @@
 //
 // What bounds it on an H100: operations.  At the training shape (S 8192
 // causal, H 32, D 128) the dK/dV kernel does four S^2 D H / 2-sized
-// products (1.1 TFLOP) and the dQ kernel three, against some 100 MB of
-// operands -- thousands of flops per byte, far above the bf16 ridge of
-// about 295.
+// products (1.1 TFLOP) and the dQ kernel three (6 D H pairs: 0.83 TFLOP,
+// 0.83 ms at 989 TFLOP/s), against some 100 MB of operands -- thousands
+// of flops per byte, far above the bf16 ridge of about 295.  So the
+// 16-bit products belong on the tensor cores.
 //
-// dQ kernel (all dtypes): one block of 256 threads per (64-row query
-// tile, head, batch) on the f32 FMA pipe (flash_bwd_tile.cuh).  It keeps
-// its Q (pre-scaled) and dO tiles in shared memory as f32 and loops over
-// 64-key tiles up to the causal diagonal; thread (ty, tx) computes the
-// 4 x 4 scores s and dO V^T of rows ty + 16 i against keys tx + 16 j,
-// writes ds to shared memory, then accumulates dq for rows ty + 16 i,
-// columns tx + 16 c in registers.
+// dQ kernel: one block per (query tile, head, batch).
+// - bf16 / f16: `flash_bwd_dq_wgmma` (attention_wgmma.cuh), 128 query
+//   rows a block, 64 per warpgroup (the M dimension of every product).
+//   Q and dO are copied once into swizzled tiles and the rows' lse and
+//   delta kept in registers; K/V tiles of 64 keys stream through a
+//   2-stage cp.async ring up to the block's causal diagonal, the next
+//   tile's copy in flight during this tile's three products.  S = Q K^T
+//   and dP = dO V^T run on wgmma as two groups (m64n64k16, all four
+//   operands K-major in shared memory); P is built on the accumulator
+//   fragments while dP runs (ex2 with log2(e) folded in; masks only on a
+//   masked, diagonal or ragged tile, the subtraction s - lse first so a
+//   row whose every key is hidden weighs them all alike, as the plain
+//   version does).  dS = P (dP' - delta), dropped by the forward's keep
+//   bits in dropout mode, is rounded to 16 bits in registers and fed
+//   back as the register A operand of dQ += dS K (m64n<D>k16, K MN-major
+//   through the transpose bit: no transposed copy).  dQ takes the scale
+//   once, in the epilogue, and leaves through shared memory with 16-byte
+//   stores: each row is written once, without atomics.  Query tiles
+//   with the most keys launch first, heads fastest.
+// - f32: `flash_bwd_dq` on the FMA pipe (flash_bwd_tile.cuh): 64 rows a
+//   block, Q (pre-scaled) and dO in shared memory as f32, 4 x 4 register
+//   tiles of s and dO V^T, ds through shared memory, dq accumulated in
+//   registers; the f32 checks hold it to 1e-5, which TF32 would not.
 //
 // dK/dV kernel: one block per (key tile, kv head, batch).  K and V stay
 // in shared memory; the block loops over the G query heads of the group
@@ -525,6 +542,192 @@ flash_bwd_dkv_wgmma(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+constexpr int kDqRows = 128;    // query rows a block of the wgmma dQ kernel
+constexpr int kDqKeys = 64;     // keys a K/V tile of it
+
+// Shared memory of flash_bwd_dq_wgmma: Q and dO, then 2 stages of K and V
+// tiles, plus 1024 to align.
+template <int D>
+struct DqWgmmaSmem {
+  static constexpr int QB = kDqRows * D * 2, KB = kDqKeys * D * 2;
+  static constexpr size_t kBytes = 2 * (size_t)QB + 4 * (size_t)KB + 1024;
+};
+
+template <typename T, int D, bool DROP>
+__global__ void __launch_bounds__(256, 1)
+flash_bwd_dq_wgmma(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const T* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta,
+                   const float* __restrict__ mask, T* __restrict__ dq,
+                   int H, int KVH, int Sq, int Sk, long long msb,
+                   long long msh, long long msq, int causal, float scale,
+                   const long long* seed, unsigned thresh, float inv_keep) {
+  using Sm = DqWgmmaSmem<D>;
+  constexpr int BR = kDqRows, BN = kDqKeys, QB = Sm::QB, KB = Sm::KB;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t sq = wg::smem_addr(smem), sdo = sq + QB;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int row0 = (gridDim.z - 1 - blockIdx.z) * BR;   // most keys first
+  const int kvh = h / (H / KVH);
+  const int tid = threadIdx.x, w = tid >> 7, wt = tid & 127;
+  const int warp = wt >> 5, g = (tid & 31) >> 2, t4 = tid & 3;
+  const int off = Sk - Sq;
+  const long long qrs = (long long)H * D, krs = (long long)KVH * D;
+  // the keys the block's rows may see, and this warpgroup's
+  const int key_end =
+      causal ? min(Sk, off + min(Sq - 1, row0 + BR - 1) + 1) : Sk;
+  const int wrow0 = row0 + 64 * w;
+  const int wkey_end =
+      wrow0 >= Sq ? 0
+                  : (causal ? min(Sk, off + min(Sq - 1, wrow0 + 63) + 1) : Sk);
+  const int lr = 64 * w + 16 * warp + g;    // tile row of d[4j + {0, 1}]
+  const int r_a = row0 + lr, r_b = r_a + 8;
+
+  const long long qo = ((long long)b * Sq + row0) * qrs + (long long)h * D;
+  wg::load_tile<BR, D, 256>(sq, q + qo, qrs, min(BR, Sq - row0), tid);
+  wg::load_tile<BR, D, 256>(sdo, dout + qo, qrs, min(BR, Sq - row0), tid);
+  const T* kb = k + (long long)b * Sk * krs + kvh * D;
+  const T* vb = v + (long long)b * Sk * krs + kvh * D;
+  // stage s of the K/V ring, and the copy of tile it into it (every key
+  // of the tile below Sk: a row whose keys are all hidden weighs those
+  // past its diagonal too, as the plain version does)
+  auto stage = [&](int s) { return sdo + QB + s * 2 * KB; };
+  auto fetch = [&](int it) {
+    const int t0 = it * BN, n = min(BN, Sk - t0);
+    const uint32_t st = stage(it & 1);
+    wg::load_tile<BN, D, 256>(st, kb + t0 * krs, krs, n, tid);
+    wg::load_tile<BN, D, 256>(st + KB, vb + t0 * krs, krs, n, tid);
+  };
+  const int ntiles = (key_end + BN - 1) / BN;
+  if (ntiles > 0) fetch(0);
+  wg::cp_commit();
+
+  // this thread's two rows: lse (log2 units for the unmasked tiles) and
+  // delta; rows past Sq take 0 and are never stored
+  const long long lo = ((long long)b * H + h) * Sq;
+  const float lse_a = r_a < Sq ? lse[lo + r_a] : 0.f;
+  const float lse_b = r_b < Sq ? lse[lo + r_b] : 0.f;
+  const float dl_a = r_a < Sq ? delta[lo + r_a] : 0.f;
+  const float dl_b = r_b < Sq ? delta[lo + r_b] : 0.f;
+  const float ml_a = lse_a * wg::kLog2e, ml_b = lse_b * wg::kLog2e;
+  Dropout drop;
+  uint32_t rk_a = 0, rk_b = 0;
+  if constexpr (DROP) {
+    drop.init(seed, b, h, thresh, inv_keep);
+    rk_a = drop.row(r_a);
+    rk_b = drop.row(r_b);
+  }
+  const float* mb = mask ? mask + b * msb + h * msh : nullptr;
+  const float sl2 = scale * wg::kLog2e;
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int t0 = it * BN;
+    wg::cp_wait_all();
+    wg::fence_async_smem();
+    __syncthreads();                 // tile it is in; tile it - 1 is read
+    if (it + 1 < ntiles) {
+      fetch(it + 1);
+      wg::cp_commit();
+    }
+    if (t0 >= wkey_end) continue;    // uniform over the warpgroup
+    const uint32_t sk = stage(it & 1), sv = sk + KB;
+
+    // S = Q K^T and dP = dO V^T as two groups: P is built while dP runs
+    float s[BN / 2], dp[BN / 2];
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wg::Wgmma<T, BN>::ss(s, wg::desc_k<BR>(sq + w * 64 * 128, kk),
+                           wg::desc_k<BN>(sk, kk), kk > 0);
+    wg::commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wg::Wgmma<T, BN>::ss(dp, wg::desc_k<BR>(sdo + w * 64 * 128, kk),
+                           wg::desc_k<BN>(sv, kk), kk > 0);
+    wg::commit();
+    wg::wait<1>();
+    wg::keep(s);
+
+    // P = exp(s - lse): masked tiles (a mask, the causal diagonal, the
+    // ragged end) element by element, the subtraction first (exact where
+    // both are -1e30); the others one FFMA an element
+    const bool edge = mb != nullptr || t0 + BN > Sk ||
+                      (causal && t0 + BN - 1 > off + wrow0);
+    if (edge) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        const int r = (i & 2) ? r_b : r_a;
+        const int key = t0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+        float x = s[i] * scale;
+        const bool ok = key < Sk && r < Sq;
+        if (ok && mb) x += mb[(long long)r * msq + key];
+        if (causal && key > off + r) x = kMasked;
+        s[i] = ok ? wg::ex2((x - ((i & 2) ? lse_b : lse_a)) * wg::kLog2e)
+                  : 0.f;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i)
+        s[i] = wg::ex2(fmaf(s[i], sl2, (i & 2) ? -ml_b : -ml_a));
+    }
+
+    wg::wait<0>();                   // dP
+    wg::keep(dp);
+    // dS = P (dP' - delta), rounded to 16 bits as the A operand of
+    // dQ += dS K (K MN-major: the transpose bit)
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) {
+      float dpv = dp[i];
+      if constexpr (DROP)
+        dpv = drop.apply((i & 2) ? rk_b : rk_a,
+                         t0 + 8 * (i >> 2) + 2 * t4 + (i & 1), dpv);
+      dp[i] = s[i] * (dpv - ((i & 2) ? dl_b : dl_a));
+    }
+    uint32_t da[BN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) wg::frag_a<T>(dp, kk, da[kk]);
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      wg::Wgmma<T, D>::rs(acc, da[kk], wg::desc_mn<BN>(sk, kk));
+    wg::commit();
+    wg::wait<0>();
+    wg::keep(acc);
+    wg::keep(da);
+  }
+  if (ntiles == 0) {                 // no key: Q/dO copies in flight
+    wg::cp_wait_all();
+    __syncthreads();
+  }
+  if (wrow0 >= Sq) return;
+
+  // dQ (scaled once) into this warpgroup's rows of the Q tile (its own
+  // products are done), then 16-byte rows out
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int c = 8 * j + 2 * t4;
+    *reinterpret_cast<uint32_t*>(smem + wg::swz<BR>(lr, c)) =
+        wg::pack2<T>(acc[4 * j] * scale, acc[4 * j + 1] * scale);
+    *reinterpret_cast<uint32_t*>(smem + wg::swz<BR>(lr + 8, c)) =
+        wg::pack2<T>(acc[4 * j + 2] * scale, acc[4 * j + 3] * scale);
+  }
+  wg::wg_barrier(1 + w);
+  constexpr int CH = D / 8;
+  for (int i = wt; i < 64 * CH; i += 128) {
+    const int r = i / CH, c = (i % CH) * 8, row = wrow0 + r;
+    if (row < Sq)
+      *reinterpret_cast<uint4*>(dq + ((long long)b * Sq + row) * qrs +
+                                (long long)h * D + c) =
+          *reinterpret_cast<const uint4*>(smem + wg::swz<BR>(64 * w + r, c));
+  }
+}
+
 // The operands of one backward launch, as the C entry points take them.
 struct BwdArgs {
   const void *q, *k, *v, *dout;
@@ -590,13 +793,30 @@ cudaError_t launch_dkv_wgmma(const BwdArgs& a) {
 }
 
 template <typename T, int D, bool DROP>
+cudaError_t launch_dq_wgmma(const BwdArgs& a) {
+  const size_t smem = DqWgmmaSmem<D>::kBytes;
+  static bool smem_set = false;
+  cudaError_t e = allow_smem(flash_bwd_dq_wgmma<T, D, DROP>, smem, &smem_set);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(a.H, a.B, (a.Sq + kDqRows - 1) / kDqRows);
+  flash_bwd_dq_wgmma<T, D, DROP><<<grid, 256, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+      a.delta, a.mask, static_cast<T*>(a.o0), a.H, a.KVH, a.Sq, a.Sk,
+      a.ms[0], a.ms[1], a.ms[2], a.causal, a.scale, a.seed, a.thresh,
+      a.inv_keep);
+  return cudaGetLastError();
+}
+
+// dQ (which 0) and dK/dV (which 1): f32 on the FMA pipe, bf16 / f16 on
+// wgmma
+template <typename T, int D, bool DROP>
 cudaError_t launch(int which, const BwdArgs& a) {
-  if (which == 0) return launch_dq<T, D, DROP>(a);
-  // dK/dV: f32 on the FMA pipe, bf16 / f16 on wgmma
   if constexpr (std::is_same<T, float>::value)
-    return launch_dkv<T, D, DROP>(a);
+    return which == 0 ? launch_dq<T, D, DROP>(a) : launch_dkv<T, D, DROP>(a);
   else
-    return launch_dkv_wgmma<T, D, DROP>(a);
+    return which == 0 ? launch_dq_wgmma<T, D, DROP>(a)
+                      : launch_dkv_wgmma<T, D, DROP>(a);
 }
 
 template <typename T>

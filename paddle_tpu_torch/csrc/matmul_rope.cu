@@ -3,56 +3,60 @@
 //
 // Replaces the TPU kernel `_matmul_rope_k`
 // (paddle_tpu/ops/pallas/fused_train.py, body `_mmr_kernel_body`).  A
-// block owns a tile of rows times one head's D columns, so the rotation,
-// which pairs column c with c +- D/2 inside the head, never leaves the
-// block.  The product accumulates in f32 and is rounded to the input
-// dtype; the tile then goes through shared memory, and every element is
-// rotated in f32 against the f32 tables, y*cos + rotate_half(y)*sin with
-// each product and the sum rounded as PyTorch rounds them (no FMA), and
-// written once in the input dtype.  Each row takes its table row from its
-// own position, row % S, so a tile may span a batch boundary.
-//
-// bf16: the product runs on the tensor cores with
-// mma.sync.aligned.m16n8k16 (bf16 in, f32 accumulate).  Block tile 128
-// rows x D columns, 8 warps (4 x 2, each 32 rows x D/2 columns), k steps
-// of 32 through a 3-stage cp.async ring in shared memory (rows padded by
-// 16 bytes so the ldmatrix reads are free of bank conflicts); A fragments
-// come from ldmatrix, B fragments from ldmatrix.trans of the [k][n] tile.
-// float32: the product runs on the FMA pipe in exact f32 (64 rows x D
-// columns, 4 x D/16 outputs a thread), for the f32 reference checks.
+// block owns a tile of rows times whole heads (the rotation pairs column
+// c with c +- D/2 inside the head, so it never leaves the block).  The
+// product accumulates in f32 and is rounded to the input dtype; the tile
+// then goes through shared memory, and every element is rotated in f32,
+// y*cos + rotate_half(y)*sin with each product and the sum rounded as
+// PyTorch rounds them (no FMA), and written once in the input dtype.  The
+// tables are read in their own dtype (bf16 or f32) and widened in
+// registers, which is exact, so the wrapper casts nothing.  Each row
+// takes its table row from its own position, row % S, so a tile may span
+// a batch boundary.
 //
 // What bounds it on an H100: operations.  At the training shape, q is
 // 2 x 8192 x 4096 x 4096 = 275 GFLOP (0.278 ms at 989 TFLOP/s) and k
 // 68.7 GFLOP, against 64 MiB + 32 MiB of input and 64 MiB of output.
-// Blocks walk the heads fastest, so one x tile serves every head from L2
-// while it is hot and W (32 MiB for q) stays in the 50 MB L2.  mma.sync
-// reaches a fraction of the wgmma rate; wgmma with TMA is the next step.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+// So the product belongs on the tensor cores at their full rate: wgmma.
+//
+// bf16: `matmul_rope_wgmma` (attention_wgmma.cuh).  A block tile is 128
+// rows x 128 columns: one head at D 128, two at D 64.  Two consumer
+// warpgroups each own 64 rows as one m64n128 f32 accumulator (64
+// registers a thread).  A 256-column tile (two heads at D 128) would
+// read each x tile from L2 half as often, at 128 accumulator registers
+// a thread and an epilogue tile twice the size beside a ring of 3
+// stages; the 128-column tile is the simpler first design, the larger
+// one stays open (PERF.md).  One producer warp fills a 4-stage ring of
+// 64-deep k slices with TMA (x [128][64] K-major; W [64][128] as two
+// [64][64] boxes, MN-major, read through wgmma's transpose bit: no
+// transposed copy of W), each stage with a full and an empty mbarrier;
+// the consumers wait on the full barrier of the slice they read, keep
+// one wgmma group in flight, and free a stage once the group that read
+// it retires.  The
+// tensor maps are built per call on the host (x and W move), zero-filling
+// the ragged M and K edges (K % 8 == 0 for the 16-byte row pitch).  The
+// epilogue rounds the accumulator to bf16 into a padded shared tile,
+// rotates 8 columns a thread against their partners and the tables, and
+// writes 16-byte stores.  Blocks walk the column tiles (heads) fastest,
+// so an x tile serves every head from L2 while it is hot and W (32 MiB
+// for q) stays in the 50 MB L2.
+// float32: the product runs on the FMA pipe in exact f32 (64 rows x D
+// columns, 4 x D/16 outputs a thread), for the f32 reference checks.
+#include <cuda.h>
+
+#include "attention_wgmma.cuh"
 
 namespace ptt {
 
 typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
 // Rotate the tile (rows m0.., columns of one head starting at col0) held
 // in shared memory with row pitch PITCH, and write it out.
-template <typename T, typename ST, int BM, int D, int PITCH>
+template <typename T, typename TT, typename ST, int BM, int D, int PITCH>
 __device__ __forceinline__ void rope_store(const ST* tile, T* out,
-                                           const float* cos,
-                                           const float* sin, int m0, int M,
-                                           int S, int N, int col0) {
+                                           const TT* cos, const TT* sin,
+                                           int m0, int M, int S, int N,
+                                           int col0) {
   constexpr int kHalf = D / 2;
   for (int idx = threadIdx.x; idx < BM * D; idx += blockDim.x) {
     const int rr = idx / D, c = idx % D;
@@ -62,202 +66,273 @@ __device__ __forceinline__ void rope_store(const ST* tile, T* out,
     const float y = to_f(tile[rr * PITCH + c]);
     const float p = c < kHalf ? -to_f(tile[rr * PITCH + c + kHalf])
                               : to_f(tile[rr * PITCH + c - kHalf]);
-    const float o = __fadd_rn(__fmul_rn(y, cos[t]), __fmul_rn(p, sin[t]));
+    const float o = __fadd_rn(__fmul_rn(y, to_f(cos[t])),
+                              __fmul_rn(p, to_f(sin[t])));
     out[static_cast<long long>(row) * N + col0 + c] = from_f<T>(o);
   }
 }
 
 // ----------------------------------------------------------------- bf16
 
-constexpr int kBM = 128, kBK = 32, kStages = 3, kThreads = 256;
-constexpr int kAPitch = kBK + 8;       // bf16 elements a row of the A tile
+constexpr int kTileM = 128, kTileN = 128, kDepth = 64, kStages = 4;
+constexpr int kConsumers = 256;                 // two warpgroups
+constexpr int kMmrThreads = kConsumers + 32;    // and the producer warp
+constexpr int kSliceA = kTileM * kDepth * 2;    // x slice [128][64]
+constexpr int kBoxB = kDepth * 64 * 2;          // W box [64][64]
+constexpr int kStage = kSliceA + 2 * kBoxB;
+constexpr int kOutPitch = (kTileN + 8) * 2;     // bytes a row of the tile
+constexpr size_t kMmrSmem =
+    (size_t)kStages * kStage + (size_t)kTileM * kOutPitch +
+    2 * kStages * 8 + 1024;
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = ok ? 16 : 0;          // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(n));
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const bf16* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
 }
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
-                                                  const bf16* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// Spins until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// The box of the 2-D tensor map at (c0 innermost, c1) into shared memory,
+// completing its bytes on the barrier.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, uint32_t bar) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
 }
 
-template <int D> struct MmaTile {
-  static constexpr int kBPitch = D + 8;       // bf16 elements a B row
-  static constexpr int kA = kBM * kAPitch;
-  static constexpr int kB = kBK * kBPitch;
-  static constexpr int kStage = kA + kB;
-  static constexpr int kSmemBytes = kStages * kStage * 2;
-  static_assert(kBM * kBPitch <= kStages * kStage, "epilogue tile fits");
-};
-
-template <int D>
-__global__ void __launch_bounds__(kThreads, 2)
-matmul_rope_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                 const float* __restrict__ cos,
-                 const float* __restrict__ sin, bf16* __restrict__ out,
-                 int M, int K, int n_heads, int S) {
-  using Tile = MmaTile<D>;
-  constexpr int kBP = Tile::kBPitch;
-  constexpr int kWN = D / 2;          // columns a warp owns
-  constexpr int kNT = kWN / 8;        // n8 tiles a warp owns
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  const int N = n_heads * D;
-  const int head = blockIdx.x % n_heads;
-  const int m0 = (blockIdx.x / n_heads) * kBM;
-  const int n0 = head * D;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-
-  auto load_stage = [&](int stage, int k0) {
-    bf16* sa = smem + stage * Tile::kStage;
-    bf16* sb = sa + Tile::kA;
+// 8 table values from 16-byte aligned t, widened to f32
+__device__ __forceinline__ void load8(const bf16* t, float (&v)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(t);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-    for (int c = tid; c < kBM * kBK / 8; c += kThreads) {
-      const int r = c / (kBK / 8), kc = (c % (kBK / 8)) * 8;
-      const bool ok = m0 + r < M && k0 + kc < K;
-      cp_async16(sa + r * kAPitch + kc,
-                 ok ? x + static_cast<long long>(m0 + r) * K + k0 + kc : x,
-                 ok);
-    }
-#pragma unroll
-    for (int c = tid; c < kBK * D / 8; c += kThreads) {
-      const int r = c / (D / 8), nc = (c % (D / 8)) * 8;
-      const bool ok = k0 + r < K;
-      cp_async16(sb + r * kBP + nc,
-                 ok ? w + static_cast<long long>(k0 + r) * N + n0 + nc : w,
-                 ok);
-    }
-  };
-
-  float acc[2][kNT][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < kNT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  const int KT = (K + kBK - 1) / kBK;
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < KT) load_stage(s, s * kBK);
-    cp_async_commit();                // an empty group keeps the count
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = wg::unpack2<bf16>(w[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
   }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<kStages - 2>();     // k tile kt has landed
-    __syncthreads();                  // ... for every thread; and the
-                                      // stage refilled below is drained
-    const int next = kt + kStages - 1;
-    if (next < KT) load_stage(next % kStages, next * kBK);
-    cp_async_commit();
-    const bf16* sa = smem + (kt % kStages) * Tile::kStage;
-    const bf16* sb = sa + Tile::kA;
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t a[2][4], b[kNT][2];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-        ldmatrix_x4(a[mt], sa + (wm * 32 + mt * 16 + (lane & 15)) * kAPitch
-                               + kk + (lane >> 4) * 8);
-#pragma unroll
-      for (int np = 0; np < kNT / 2; ++np) {
-        uint32_t t[4];
-        ldmatrix_x4_trans(t, sb + (kk + (lane & 15)) * kBP + wn * kWN
-                                 + np * 16 + (lane >> 4) * 8);
-        b[2 * np][0] = t[0];
-        b[2 * np][1] = t[1];
-        b[2 * np + 1][0] = t[2];
-        b[2 * np + 1][1] = t[3];
-      }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < kNT; ++nt) mma_bf16(acc[mt][nt], a[mt], b[nt]);
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();                    // the ring becomes the output tile
+}
+__device__ __forceinline__ void load8(const float* t, float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(t);
+  const float4 b = *reinterpret_cast<const float4*>(t + 4);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
 
-  // round the f32 sums to bf16 (the product's output dtype) into the tile
-  bf16* tile = smem;
-  const int g = lane >> 2, t4 = lane & 3;
+template <int D, typename TT>
+__global__ void __launch_bounds__(kMmrThreads, 1)
+matmul_rope_wgmma(__grid_constant__ const CUtensorMap tmx,
+                  __grid_constant__ const CUtensorMap tmw,
+                  const TT* __restrict__ cos, const TT* __restrict__ sin,
+                  bf16* __restrict__ out, int M, int K, int N, int S) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* tile = smem + kStages * kStage;
+  const uint32_t ring = wg::smem_addr(smem);
+  const uint32_t full0 = ring + kStages * kStage + kTileM * kOutPitch;
+  const uint32_t empty0 = full0 + 8 * kStages;
+  const int n_tiles = (N + kTileN - 1) / kTileN;
+  const int n0 = (blockIdx.x % n_tiles) * kTileN;   // heads fastest
+  const int m0 = (blockIdx.x / n_tiles) * kTileM;
+  const int KT = (K + kDepth - 1) / kDepth;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      const int r = wm * 32 + mt * 16 + g;
-      const int c = wn * kWN + nt * 8 + t4 * 2;
-      *reinterpret_cast<__nv_bfloat162*>(tile + r * kBP + c) =
-          __floats2bfloat162_rn(acc[mt][nt][0], acc[mt][nt][1]);
-      *reinterpret_cast<__nv_bfloat162*>(tile + (r + 8) * kBP + c) =
-          __floats2bfloat162_rn(acc[mt][nt][2], acc[mt][nt][3]);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);               // the producer's arrival
+      mbar_init(empty0 + 8 * s, kConsumers / 32);  // one a consumer warp
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-  rope_store<bf16, bf16, kBM, D, kBP>(tile, out, cos, sin, m0, M, S, N, n0);
+
+  if (tid >= kConsumers) {           // the producer warp: one thread
+    if (tid == kConsumers) {
+      // a W tile of one head at D 64 (the last of an odd count) loads
+      // one box: the columns past N are never stored
+      const bool two = n0 + 64 < N;
+      for (int kt = 0; kt < KT; ++kt) {
+        const int s = kt % kStages;
+        if (kt >= kStages) mbar_wait(empty0 + 8 * s, (kt / kStages - 1) & 1);
+        const uint32_t st = ring + s * kStage, bar = full0 + 8 * s;
+        mbar_expect_tx(bar, kSliceA + (two ? 2 : 1) * kBoxB);
+        tma_load(st, &tmx, kt * kDepth, m0, bar);
+        tma_load(st + kSliceA, &tmw, n0, kt * kDepth, bar);
+        if (two)
+          tma_load(st + kSliceA + kBoxB, &tmw, n0 + 64, kt * kDepth, bar);
+      }
+    }
+    return;
+  }
+
+  const int w = tid >> 7, wt = tid & 127, warp = wt >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  float acc[kTileN / 2];
+#pragma unroll
+  for (int i = 0; i < kTileN / 2; ++i) acc[i] = 0.f;
+  for (int kt = 0; kt < KT; ++kt) {
+    const int s = kt % kStages;
+    mbar_wait(full0 + 8 * s, (kt / kStages) & 1);
+    const uint32_t st = ring + s * kStage;
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < kDepth / 16; ++kk)
+      wg::Wgmma<bf16, kTileN>::ss_mn(
+          acc, wg::desc_k<kTileM>(st + w * 64 * 128, kk),
+          wg::desc_mn<kDepth>(st + kSliceA, kk), 1);
+    wg::commit();
+    wg::wait<1>();                   // the group of slice kt - 1 retired
+    if (kt > 0 && lane == 0) mbar_arrive(empty0 + 8 * ((kt - 1) % kStages));
+  }
+  wg::wait<0>();
+  wg::keep(acc);
+
+  // the product rounded to bf16 into this warpgroup's rows of the tile
+  const int lr = 64 * w + 16 * warp + g;
+#pragma unroll
+  for (int j = 0; j < kTileN / 8; ++j) {
+    const int c = 8 * j + 2 * t4;
+    *reinterpret_cast<uint32_t*>(tile + lr * kOutPitch + 2 * c) =
+        wg::pack2<bf16>(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<uint32_t*>(tile + (lr + 8) * kOutPitch + 2 * c) =
+        wg::pack2<bf16>(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+  wg::wg_barrier(1 + w);
+  // rotate 8 columns a thread against their partners c +- D/2 (same row,
+  // same head) and write them with one 16-byte store
+  constexpr int kHalf = D / 2, CH = kTileN / 8;
+  for (int i = wt; i < 64 * CH; i += 128) {
+    const int r = 64 * w + i / CH, c = (i % CH) * 8;
+    const int row = m0 + r, col = n0 + c;
+    if (row >= M || col >= N) continue;
+    const int cl = c % D;            // the column within its head
+    const bool lo = cl < kHalf;
+    const uint4 yu = *reinterpret_cast<const uint4*>(tile + r * kOutPitch +
+                                                     2 * c);
+    const uint4 pu = *reinterpret_cast<const uint4*>(
+        tile + r * kOutPitch + 2 * (lo ? c + kHalf : c - kHalf));
+    const long long t = static_cast<long long>(row % S) * D + cl;
+    float cv[8], sv[8];
+    load8(cos + t, cv);
+    load8(sin + t, sv);
+    const uint32_t yw[4] = {yu.x, yu.y, yu.z, yu.w};
+    const uint32_t pw[4] = {pu.x, pu.y, pu.z, pu.w};
+    uint32_t ow[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 y = wg::unpack2<bf16>(yw[e]), p = wg::unpack2<bf16>(pw[e]);
+      const float p0 = lo ? -p.x : p.x, p1 = lo ? -p.y : p.y;
+      ow[e] = wg::pack2<bf16>(
+          __fadd_rn(__fmul_rn(y.x, cv[2 * e]), __fmul_rn(p0, sv[2 * e])),
+          __fadd_rn(__fmul_rn(y.y, cv[2 * e + 1]),
+                    __fmul_rn(p1, sv[2 * e + 1])));
+    }
+    *reinterpret_cast<uint4*>(out + static_cast<long long>(row) * N + col) =
+        make_uint4(ow[0], ow[1], ow[2], ow[3]);
+  }
 }
 
-template <int D>
-cudaError_t launch_bf16(const void* x, const void* w, const float* cos,
-                        const float* sin, void* out, int M, int K,
-                        int n_heads, int S, cudaStream_t stream) {
-  static bool configured = false;
-  const int smem = MmaTile<D>::kSmemBytes;
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        matmul_rope_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (e != cudaSuccess) return e;
-    configured = true;
+// cuTensorMapEncodeTiled of the CUDA driver API, looked up through the
+// runtime (the library links no -lcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
   }
-  const long long blocks =
-      static_cast<long long>((M + kBM - 1) / kBM) * n_heads;
+  return fn;
+}
+
+// The tensor map of a row-major bf16 [rows][cols] matrix in boxes of
+// box_rows x 64 columns (128 bytes: the 128-byte swizzle of the wgmma
+// tiles), zeros past its edges.
+inline cudaError_t make_map(CUtensorMap* map, const void* p, int rows,
+                            int cols, int box_rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                         const_cast<void*>(p), dims, strides, box, elem,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int D, typename TT>
+cudaError_t launch_bf16(const void* x, const void* w, const void* cos,
+                        const void* sin, void* out, int M, int K,
+                        int n_heads, int S, cudaStream_t stream) {
+  const int N = n_heads * D;
+  CUtensorMap tmx, tmw;
+  cudaError_t e = make_map(&tmx, x, M, K, kTileM);
+  if (e == cudaSuccess) e = make_map(&tmw, w, K, N, kDepth);
+  if (e != cudaSuccess) return e;
+  static bool smem_set = false;
+  e = allow_smem(matmul_rope_wgmma<D, TT>, kMmrSmem, &smem_set);
+  if (e != cudaSuccess) return e;
+  const long long blocks = static_cast<long long>((M + kTileM - 1) / kTileM) *
+                           ((N + kTileN - 1) / kTileN);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  matmul_rope_bf16<D><<<static_cast<unsigned>(blocks), kThreads, smem,
-                        stream>>>(static_cast<const bf16*>(x),
-                                  static_cast<const bf16*>(w), cos, sin,
-                                  static_cast<bf16*>(out), M, K, n_heads, S);
+  matmul_rope_wgmma<D, TT><<<static_cast<unsigned>(blocks), kMmrThreads,
+                             kMmrSmem, stream>>>(
+      tmx, tmw, static_cast<const TT*>(cos), static_cast<const TT*>(sin),
+      static_cast<bf16*>(out), M, K, N, S);
   return cudaGetLastError();
 }
 
 // ------------------------------------------------------------------ f32
 
-constexpr int kFM = 64, kFK = 16;
+constexpr int kFM = 64, kFK = 16, kThreads = 256;
 
-template <int D>
+template <int D, typename TT>
 __global__ void __launch_bounds__(kThreads)
 matmul_rope_f32(const float* __restrict__ x, const float* __restrict__ w,
-                const float* __restrict__ cos, const float* __restrict__ sin,
+                const TT* __restrict__ cos, const TT* __restrict__ sin,
                 float* __restrict__ out, int M, int K, int n_heads, int S) {
   constexpr int kTN = D / 16;          // columns a thread owns, 16 apart
   constexpr int kTM = 4;               // rows a thread owns, adjacent
@@ -307,21 +382,44 @@ matmul_rope_f32(const float* __restrict__ x, const float* __restrict__ w,
     for (int j = 0; j < kTN; ++j)
       tile[(ty * kTM + i) * kCP + tx + 16 * j] = acc[i][j];
   __syncthreads();
-  rope_store<float, float, kFM, D, kCP>(tile, out, cos, sin, m0, M, S, N, n0);
+  rope_store<float, TT, float, kFM, D, kCP>(tile, out, cos, sin, m0, M, S,
+                                           N, n0);
 }
 
-template <int D>
-cudaError_t launch_f32(const void* x, const void* w, const float* cos,
-                       const float* sin, void* out, int M, int K,
+template <int D, typename TT>
+cudaError_t launch_f32(const void* x, const void* w, const void* cos,
+                       const void* sin, void* out, int M, int K,
                        int n_heads, int S, cudaStream_t stream) {
   const long long blocks =
       static_cast<long long>((M + kFM - 1) / kFM) * n_heads;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  matmul_rope_f32<D><<<static_cast<unsigned>(blocks), kThreads, 0,
-                       stream>>>(static_cast<const float*>(x),
-                                 static_cast<const float*>(w), cos, sin,
-                                 static_cast<float*>(out), M, K, n_heads, S);
+  matmul_rope_f32<D, TT><<<static_cast<unsigned>(blocks), kThreads, 0,
+                           stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<const TT*>(cos), static_cast<const TT*>(sin),
+      static_cast<float*>(out), M, K, n_heads, S);
   return cudaGetLastError();
+}
+
+// The kernel of a dtype (bf16 on wgmma, f32 on the FMA pipe), a head
+// dim and a table dtype.
+template <typename TT>
+cudaError_t dispatch(const void* x, const void* w, const void* cos,
+                     const void* sin, void* out, int M, int K, int n_heads,
+                     int D, int S, int dtype, cudaStream_t s) {
+  if (dtype == 1 && K % 8 == 0) {
+    if (D == 64)
+      return launch_bf16<64, TT>(x, w, cos, sin, out, M, K, n_heads, S, s);
+    if (D == 128)
+      return launch_bf16<128, TT>(x, w, cos, sin, out, M, K, n_heads, S, s);
+  }
+  if (dtype == 0) {
+    if (D == 64)
+      return launch_f32<64, TT>(x, w, cos, sin, out, M, K, n_heads, S, s);
+    if (D == 128)
+      return launch_f32<128, TT>(x, w, cos, sin, out, M, K, n_heads, S, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace ptt
@@ -329,23 +427,22 @@ cudaError_t launch_f32(const void* x, const void* w, const float* cos,
 extern "C" {
 
 // x [M, K] and w [K, n_heads * D] contiguous in one dtype (0 float32,
-// 1 bfloat16), cos/sin [S, D] contiguous float32, out [M, n_heads * D]
-// in x's dtype; row m takes table row m % S.  D is 64 or 128; bfloat16
-// needs K % 8 == 0 and 16-byte aligned x and w.  Returns a cudaError_t.
-int matmul_rope(const void* x, const void* w, const float* cos,
-                const float* sin, void* out, int M, int K, int n_heads,
-                int D, int S, int dtype, void* stream) {
+// 1 bfloat16), cos/sin [S, D] contiguous in table_dtype (0 float32,
+// 1 bfloat16), out [M, n_heads * D] in x's dtype; row m takes table row
+// m % S.  D is 64 or 128; bfloat16 needs K % 8 == 0 and 16-byte aligned
+// x, w and tables.  Returns a cudaError_t.
+int matmul_rope(const void* x, const void* w, const void* cos,
+                const void* sin, void* out, int M, int K, int n_heads,
+                int D, int S, int dtype, int table_dtype, void* stream) {
   if (M <= 0) return cudaSuccess;
   if (K <= 0 || n_heads <= 0 || S <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && K % 8 == 0) {
-    if (D == 64) return ptt::launch_bf16<64>(x, w, cos, sin, out, M, K, n_heads, S, s);
-    if (D == 128) return ptt::launch_bf16<128>(x, w, cos, sin, out, M, K, n_heads, S, s);
-  }
-  if (dtype == 0) {
-    if (D == 64) return ptt::launch_f32<64>(x, w, cos, sin, out, M, K, n_heads, S, s);
-    if (D == 128) return ptt::launch_f32<128>(x, w, cos, sin, out, M, K, n_heads, S, s);
-  }
+  if (table_dtype == 0)
+    return ptt::dispatch<float>(x, w, cos, sin, out, M, K, n_heads, D, S,
+                                dtype, s);
+  if (table_dtype == 1)
+    return ptt::dispatch<ptt::bf16>(x, w, cos, sin, out, M, K, n_heads, D,
+                                    S, dtype, s);
   return cudaErrorInvalidValue;
 }
 

@@ -481,8 +481,10 @@ def _launch(fn, outs, q, k, v, do, lse, delta, mask, mstrides, causal,
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, mask, mstrides,
                            causal, dropout_p: float = 0.0, seed=None):
     """Launch of the dQ kernel on ``flash_attention_bwd_operands``: one
-    block per (64-row query tile, head, batch), streaming K/V tiles up
-    to the causal diagonal.  Returns dq [B, Sq, H, D]."""
+    block per (query tile, head, batch) -- 128 rows on the tensor cores
+    for bf16/f16 (``flash_bwd_dq_wgmma``), 64 on the FMA pipe for f32
+    (``flash_bwd_dq``) -- streaming K/V tiles up to the causal diagonal.
+    Returns dq [B, Sq, H, D], each row written once, without atomics."""
     dq = torch.empty_like(q)
     _launch("flash_attention_bwd_dq", (dq,), q, k, v, do, lse, delta, mask,
             mstrides, causal, dropout_p, seed)

@@ -384,7 +384,7 @@ def _mmr_kernel() -> ctypes.CDLL:
     lib = _build.load(_MMR_SOURCE)
     fn = lib.matmul_rope
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.matmul_rope_error_string.argtypes = [ctypes.c_int]
@@ -414,9 +414,13 @@ def _matmul_rope_launch(x, w, cos, sin, n_heads, head_dim):
         t.device == x.device for t in (w, cos, sin)),
         "matmul_rope arguments must share one CUDA device")
     x2, w = x.reshape(b * s, k).contiguous(), w.contiguous()
-    cosf, sinf = (t.float().contiguous() for t in (cos, sin))
-    enforce(x2.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0,
-            "the matmul_rope kernel needs 16-byte aligned x and w")
+    # the kernel reads f32 and bf16 tables as they are (bf16 widens
+    # exactly in registers); another dtype is widened here
+    if cos.dtype != sin.dtype or cos.dtype not in _MMR_DTYPE:
+        cos, sin = cos.float(), sin.float()
+    cos, sin = cos.contiguous(), sin.contiguous()
+    enforce(all(t.data_ptr() % 16 == 0 for t in (x2, w, cos, sin)),
+            "the matmul_rope kernel needs 16-byte aligned x, w and tables")
     out = torch.empty((b, s, n_heads, head_dim), dtype=x.dtype,
                       device=x.device)
     if out.numel() == 0:
@@ -424,9 +428,9 @@ def _matmul_rope_launch(x, w, cos, sin, n_heads, head_dim):
     lib = _mmr_kernel()
     with torch.cuda.device(x.device):
         err = lib.matmul_rope(
-            x2.data_ptr(), w.data_ptr(), cosf.data_ptr(), sinf.data_ptr(),
+            x2.data_ptr(), w.data_ptr(), cos.data_ptr(), sin.data_ptr(),
             out.data_ptr(), b * s, k, n_heads, head_dim, s,
-            _MMR_DTYPE[x.dtype],
+            _MMR_DTYPE[x.dtype], _MMR_DTYPE[cos.dtype],
             torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError("matmul_rope launch failed: "
@@ -470,8 +474,11 @@ def matmul_rope_raw(x, w, cos, sin, *, n_heads, head_dim,
 
     On CUDA tensors one launch of the kernel of ``csrc/matmul_rope.cu``
     (x ``[B, S, K]`` and w in float32 or bfloat16, head_dim 64 or 128,
-    cos/sin ``[S, head_dim]``; other inputs raise); on CPU tensors the
-    plain version.  Differentiable in x and w.  Interleaved (GPT-J)
+    cos/sin ``[S, head_dim]``; other inputs raise): bfloat16 on the
+    tensor cores (``matmul_rope_wgmma``: TMA-fed ``wgmma``), float32 on
+    the FMA pipe (``matmul_rope_f32``), chosen by dtype alone; f32 and
+    bf16 tables are read as they are.  On CPU tensors the plain
+    version.  Differentiable in x and w.  Interleaved (GPT-J)
     rope raises: the port's models refuse ``rope_interleaved``."""
     enforce(x.dim() == 3 and cos.shape == (x.shape[1], head_dim)
             and sin.shape == cos.shape,

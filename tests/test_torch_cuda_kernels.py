@@ -26,8 +26,12 @@ causal offsets, each mask broadcast, strided views, 1024 keys.  The
 update kernel must equal its plain version bit for bit in the f32 slots
 (the same f32 operations in the same order, no contraction) and within
 one ulp of the parameter's dtype (Adam's powf may differ in its last
-bit).  The add+norm kernel's h must equal r + x, and its y, like the
-matmul+rope kernel's output, is held relative to the largest element:
+bit).  The 16-bit dQ kernel is held to the flash backward tolerances
+over the same edges, in dropout mode too, and must give the same bits
+on two launches.  The add+norm kernel's h must equal r + x, and its y,
+like the matmul+rope kernel's output (M and K off its tiles, odd head
+counts, tables of either dtype; a bf16 call must launch nothing but
+#10), is held relative to the largest element:
 f32 1e-5 (row statistics and products summed in another order), bf16
 2^-7 (one bf16 step at the largest element's binade: a sum in another
 order can cross a rounding edge).  For y the dtype that counts is h's:
@@ -522,6 +526,64 @@ def test_flash_wgmma_dkv_matches_plain(dev, dtype, b, sq, sk, h, kvh, d,
     _assert_grads_close(got, want, dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("b,sq,sk,h,kvh,d,causal,mshape", WGMMA_CASES)
+def test_flash_wgmma_dq_matches_plain(dev, dtype, b, sq, sk, h, kvh, d,
+                                      causal, mshape):
+    q, k, v, do, mask = _wgmma_inputs(dev, dtype, b, sq, sk, h, kvh, d,
+                                      causal, mshape, 8)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal, mask=mask)
+    ops = fa.flash_attention_bwd_operands(q, k, v, out, lse, do, causal,
+                                          mask)
+    before = fa.flash_attention_bwd_dq.launches
+    got = fa.flash_attention_bwd_dq(*ops, causal)
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
+                                            causal=causal, mask=mask)[0]
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd_dq.launches == before + 1
+    _assert_grads_close((got,), (want,), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("b,s,h,kvh,mshape", [
+    (2, 130, 4, 4, None), (1, 200, 8, 2, (1, 1, 200, 200)),
+    (1, 300, 16, 2, None)], ids=["group1", "group4-mask", "group8"])
+@pytest.mark.parametrize("p", [0.1, 0.5])
+def test_flash_wgmma_dq_dropout_matches_plain(dev, dtype, d, b, s, h, kvh,
+                                              mshape, p):
+    """The 16-bit dQ kernel in dropout mode against the plain backward fed
+    the same seed tensor: the same keep bits, so the undropped
+    tolerances."""
+    q, k, v, do = _attn_inputs(dev, dtype, b, s, s, h, kvh, d)
+    mask = None
+    if mshape is not None:
+        gen = torch.Generator(device=dev).manual_seed(9)
+        mask = torch.randn(mshape, generator=gen, device=dev)
+        mask[..., -(s // 4):] = -1e30
+    seed = torch.tensor(4321, dtype=torch.int64, device=dev)
+    kw = dict(causal=True, mask=mask, dropout_p=p, seed=seed)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    ops = fa.flash_attention_bwd_operands(q, k, v, out, lse, do, True, mask)
+    got = fa.flash_attention_bwd_dq(*ops, True, p, seed)
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, **kw)[0]
+    torch.cuda.synchronize()
+    _assert_grads_close((got,), (want,), dtype)
+
+
+def test_flash_wgmma_dq_is_bit_identical_on_two_launches(dev):
+    """#3 writes each dQ row once, without atomics: two launches give the
+    same bits."""
+    q, k, v, do = _attn_inputs(dev, torch.bfloat16, 2, 700, 700, 16, 4,
+                               128)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    ops = fa.flash_attention_bwd_operands(q, k, v, out, lse, do, True, None)
+    first = fa.flash_attention_bwd_dq(*ops, True)
+    second = fa.flash_attention_bwd_dq(*ops, True)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
 def test_flash_wgmma_dkv_is_bit_identical_on_two_launches(dev):
     """#4 writes each kv head's dK/dV once, without atomics: two launches
     give the same bits."""
@@ -620,20 +682,29 @@ def test_add_norm_kernel_matches_plain(dev, body, xdt, wdt, hdim):
     assert _rel(y, want_y) <= REL_TOL[xdt], _rel(y, want_y)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
-@pytest.mark.parametrize("b,s,k,heads,d", [
-    (1, 96, 256, 8, 128),      # fewer rows than one 128-row tile
-    (2, 96, 200, 32, 128),     # tiles across the batch boundary; K % 32
-    (2, 130, 256, 8, 64),
-    (1, 257, 64, 32, 64)])
-def test_matmul_rope_kernel_matches_plain(dev, dtype, b, s, k, heads, d):
+def _rope_case(dev, dtype, b, s, k, heads, d, table_dtype=None):
     gen = torch.Generator(device=dev).manual_seed(6)
     x = torch.randn(b, s, k, generator=gen, device=dev).to(dtype)
     w = (torch.randn(k, heads * d, generator=gen, device=dev)
          / k ** 0.5).to(dtype)
     ang = torch.rand(s, d // 2, generator=gen, device=dev) * 50
     ang = torch.cat([ang, ang], dim=-1)
-    cos, sin = ang.cos().to(dtype), ang.sin().to(dtype)
+    tdt = table_dtype or dtype
+    return gen, x, w, ang.cos().to(tdt), ang.sin().to(tdt)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("b,s,k,heads,d", [
+    (1, 96, 256, 8, 128),      # fewer rows than one 128-row tile
+    (2, 96, 200, 32, 128),     # tiles across the batch boundary; K % 64
+    (2, 130, 256, 8, 64),
+    (1, 257, 64, 32, 64),
+    (3, 50, 200, 3, 64),       # M 150 off the tile, K 200, odd heads at D 64
+    (2, 100, 1000, 4, 128),    # K 1000: the 4-stage ring wraps 4 times
+    (1, 129, 520, 5, 64),      # one row past a tile, K 520 (9 slices)
+    (1, 300, 72, 2, 128)])     # K 72: the second slice mostly past K
+def test_matmul_rope_kernel_matches_plain(dev, dtype, b, s, k, heads, d):
+    gen, x, w, cos, sin = _rope_case(dev, dtype, b, s, k, heads, d)
     before = ft.matmul_rope_raw.launches
     got = ft.matmul_rope_raw(x, w, cos, sin, n_heads=heads, head_dim=d)
     want = ft.matmul_rope_reference(x, w, cos, sin, heads, d)
@@ -650,6 +721,42 @@ def test_matmul_rope_kernel_matches_plain(dev, dtype, b, s, k, heads, d):
         xs, ws, cos, sin, heads, d), (xs, ws), ct)
     for a, e in zip(g, g_want):
         assert _rel(a, e) <= REL_TOL[dtype], _rel(a, e)
+
+
+@pytest.mark.parametrize("dtype,table_dtype", [
+    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)],
+    ids=str)
+@pytest.mark.parametrize("d", [64, 128])
+def test_matmul_rope_kernel_reads_tables_as_they_are(dev, dtype,
+                                                     table_dtype, d):
+    """Tables of the other dtype than x: the kernel widens them in
+    registers, exactly as the plain version's ``.float()`` does."""
+    _, x, w, cos, sin = _rope_case(dev, dtype, 2, 150, 256, 4, d,
+                                   table_dtype)
+    got = ft.matmul_rope_raw(x, w, cos, sin, n_heads=4, head_dim=d)
+    want = ft.matmul_rope_reference(x, w, cos, sin, 4, d)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    assert _rel(got, want) <= REL_TOL[dtype], _rel(got, want)
+
+
+def test_matmul_rope_bf16_launch_is_the_kernel_alone(dev):
+    """A bf16 call with bf16 tables launches #10 and nothing else: no
+    cast of x, W or the tables before it."""
+    from torch.profiler import ProfilerActivity, profile
+    _, x, w, cos, sin = _rope_case(dev, torch.bfloat16, 1, 256, 512, 8, 128)
+
+    def run():
+        return ft.matmul_rope_raw(x, w, cos, sin, n_heads=8, head_dim=128)
+
+    run()                                    # the build and first launch
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert names and all("matmul_rope_wgmma" in n for n in names), names
 
 
 def _rel_l2(got, want):
