@@ -64,9 +64,11 @@ with the launch counts set to 0 just before and read just after:
   request's tokens held against an unpreempted run.
 
 Every 16-bit training step must trace only the tensor-core (``wgmma``)
-kernels of the flash forward, dQ and dK/dV families, and the fused step
-only the tensor-core matmul+rope kernel; every tensor-core kernel must
-build without spills.
+kernels of the flash forward, dQ and dK/dV families, the fused step
+only the tensor-core matmul+rope kernel, and the MoE step only the
+tensor-core grouped matmul (#11) and dW (#13) kernels; every bf16 #11
+and #13 check must trace its wgmma kernel; every tensor-core kernel
+must build without spills.
 
 Each phase prints one JSON line; the last three lines are the kernel
 table, the card's name and power limit as nvidia-smi reports them, and
@@ -360,13 +362,12 @@ def kernel_family(name):
                      ("fused_update", "fused_update"),
                      ("add_norm", "add_norm"),
                      ("matmul_rope", "matmul_rope"),
-                     ("gmm_bf16", "grouped_matmul"),
-                     ("gmm_t_f32", "grouped_matmul"),
-                     ("gmm_rows_f32", "grouped_matmul"),
-                     ("glu_bf16", "grouped_matmul_glu"),
-                     ("glu_f32", "grouped_matmul_glu"),
-                     ("dw_bf16", "grouped_matmul_dw"),
-                     ("dw_f32", "grouped_matmul_dw")):
+                     # grouped_matmul.cu, whatever the design: gmm_wgmma,
+                     # gmm_rows_f32, gmm_t_f32; glu_bf16, glu_f32;
+                     # dw_wgmma, dw_f32
+                     ("ptt::gmm_", "grouped_matmul"),
+                     ("ptt::glu_", "grouped_matmul_glu"),
+                     ("ptt::dw_", "grouped_matmul_dw")):
         if key in name:
             return fam
     low = name.lower()
@@ -374,6 +375,12 @@ def kernel_family(name):
                               "nvjet")):
         return "matmul"
     return "other"
+
+
+# the families whose kernels a trace names one by one (``routed_kernel_ms``,
+# read by the route checks)
+ROUTED_FAMILIES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_dbias",
+                   "matmul_rope", "grouped_matmul", "grouped_matmul_dw")
 
 
 def profiled(torch, fn):
@@ -399,7 +406,7 @@ def profiled(torch, fn):
             fam = kernel_family(e.key)
             fams[fam] = fams.get(fam, 0.0) + us / 1e3
             top.append((us / 1e3, e.key[:80], e.count))
-            if fam.startswith("flash") or fam == "matmul_rope":
+            if fam in ROUTED_FAMILIES:
                 routed[e.key.split("(")[0][:80]] = us / 1e3
     busy = sum(fams.values())
     top.sort(reverse=True)
@@ -415,10 +422,11 @@ def profiled(torch, fn):
 def traced_kernel(torch, fn, family=None, calls=3):
     """The kernel that ``fn()`` launches, traced over ``calls`` calls:
     ``design`` read from its name, "wgmma" (the tensor cores) or "fma"
-    (the FMA pipe), for the flash and matmul+rope families (None for
-    another ``family``), and ``device_ms``, its own device time a call
-    (without the wrapper's host work).  ``family`` None: the one flash
-    or matmul+rope family traced."""
+    (the FMA pipe), for the families of ``ROUTED_FAMILIES`` (flash,
+    matmul+rope, the grouped matmul #11 and its dW #13; None for another
+    ``family``), and ``device_ms``, its own device time a call (without
+    the wrapper's host work).  ``family`` None: the one routed family
+    traced."""
     _, prof = profiled(torch, lambda: [fn() for _ in range(calls)])
     names = [n for n in prof["routed_kernel_ms"]
              if family is None or kernel_family(n) == family]
@@ -980,6 +988,7 @@ def train_phase(torch, np, dev, table, *, phase, layers, fused):
 
 
 FLASH_FAMILIES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+GROUPED_FAMILIES = ("grouped_matmul", "grouped_matmul_dw")    # #11, #13
 
 
 def check_tensor_core_route(prof, phase, families=FLASH_FAMILIES):
@@ -1285,8 +1294,13 @@ def moe_kernels(torch, gen, dev, table):
     - training, 4 x 4096 tokens x top-4 (65,536 slots, tm 256, m_pad
       80,896; expert 59 gets no rows, so #13's zero expert shows): #11
       forward (down), #11 transpose_w for the down and gate dX, #12 with
-      and without save_pre, #13 for the gate and down weights (bf16 on
-      mma.sync, relative L2 2^-7; #13's empty expert exactly zero).
+      and without save_pre, #13 for the gate and down weights (bf16;
+      #11 and #13 on wgmma, #12 on mma.sync; relative L2 2^-7; #13's
+      empty expert exactly zero).
+
+    Each #11 and #13 row carries ``design`` and ``device_ms`` from a
+    trace of its call (wgmma for bf16, fma for the f32 rows), and fails
+    on another design.
 
     bound_ms counts the FLOPs of the routed rows only and the bytes of
     the routed lhs rows, the weights of the experts with rows, and the
@@ -1309,7 +1323,8 @@ def moe_kernels(torch, gen, dev, table):
             + n_out * routed * n * el_o
         return bound_ms(n_bytes, flops)
 
-    def run_case(name, fn, plain, tol, bound, library, note, **extra):
+    def run_case(name, fn, plain, tol, bound, library, note, design=None,
+                 **extra):
         got, want = fn(), plain()
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
@@ -1333,6 +1348,10 @@ def moe_kernels(torch, gen, dev, table):
                "bound_ms": bound[0], "bound_by": bound[1],
                "library_ms": None if lib_fn is None
                else timed_ms(torch, lib_fn, 10)}
+        if design is not None:
+            row.update(traced_kernel(torch, fn, name))
+            check(row["design"] == design,
+                  f"{name} ({note}) ran on {row['design']}, not {design}")
         emit({"phase": "kernel", **row, "case": note, "rel_l2_err": errs,
               "tolerance": {"rel_l2_err": tol}, "library_note": lib_note,
               **extra})
@@ -1346,13 +1365,13 @@ def moe_kernels(torch, gen, dev, table):
     run_case("grouped_matmul", lambda: gm.gmm_raw(xs, wg, te, counts=counts),
              lambda: gm.gmm_reference(xs, wg, te), 1e-5,
              cost(counts, H, F, 4, 2, 4), no_lib, "serve gate, f32 rows",
-             shape=[list(xs.shape), [E, H, F]], tm=tm)
+             design="fma", shape=[list(xs.shape), [E, H, F]], tm=tm)
     hs = torch.randn(xs.shape[0], F, generator=gen, device=dev) \
         * (xs[:, :1] != 0)
     run_case("grouped_matmul", lambda: gm.gmm_raw(hs, wd, te, counts=counts),
              lambda: gm.gmm_reference(hs, wd, te), 1e-5,
              cost(counts, F, H, 4, 2, 4), no_lib, "serve down, f32 rows",
-             shape=[list(hs.shape), [E, F, H]], tm=tm)
+             design="fma", shape=[list(hs.shape), [E, F, H]], tm=tm)
     del xs, hs
 
     # -- training: bf16, tm 256, expert 59 empty
@@ -1372,21 +1391,22 @@ def moe_kernels(torch, gen, dev, table):
         lambda: gm.gmm_reference(hs, wd, te), REL_L2_TOL,
         cost(counts, F, H, 2, 2, 2),
         grouped_mm_library(torch, counts, tm, hs, wd),
-        "train forward (down)", shape=[list(hs.shape), [E, F, H]], **shape)
+        "train forward (down)", design="wgmma",
+        shape=[list(hs.shape), [E, F, H]], **shape)
     run_case("grouped_matmul", lambda: gm.gmm_raw(
         dys, wd, te, transpose_w=True, counts=counts),
         lambda: gm.gmm_reference(dys, wd, te, transpose_w=True),
         REL_L2_TOL, cost(counts, H, F, 2, 2, 2),
         grouped_mm_library(torch, counts, tm, dys, wd.transpose(1, 2)),
-        "train transpose_w (down dX)", shape=[list(dys.shape), [E, F, H]],
-        **shape)
+        "train transpose_w (down dX)", design="wgmma",
+        shape=[list(dys.shape), [E, F, H]], **shape)
     run_case("grouped_matmul", lambda: gm.gmm_raw(
         dhg, wg, te, transpose_w=True, counts=counts),
         lambda: gm.gmm_reference(dhg, wg, te, transpose_w=True),
         REL_L2_TOL, cost(counts, F, H, 2, 2, 2),
         grouped_mm_library(torch, counts, tm, dhg, wg.transpose(1, 2)),
-        "train transpose_w (gate dX)", shape=[list(dhg.shape), [E, H, F]],
-        **shape)
+        "train transpose_w (gate dX)", design="wgmma",
+        shape=[list(dhg.shape), [E, H, F]], **shape)
     no_glu = (None, "no single PyTorch call fuses the two products with "
                     "SwiGLU")
     run_case("grouped_matmul_glu", lambda: gm.gmm_glu_raw(
@@ -1417,8 +1437,8 @@ def moe_kernels(torch, gen, dev, table):
             lambda: gm.gmm_dw_reference(lhs, dout, te, counts, E),
             REL_L2_TOL, bound,
             grouped_mm_library(torch, counts, tm, lhs.t(), dout), case,
-            shape=[list(lhs.shape), list(dout.shape)], empty_expert_zero=True,
-            **shape)
+            design="wgmma", shape=[list(lhs.shape), list(dout.shape)],
+            empty_expert_zero=True, **shape)
         table.setdefault("grouped_matmul_dw", row)
     del xs, hs, dys, dhg, live, wg, wu, wd
     torch.cuda.empty_cache()
@@ -1694,7 +1714,8 @@ def train_moe_phase(torch, np, dev, table):
 
     _, prof = profiled(torch, lambda: step(batch))
     emit({"phase": "train_moe_profile", **prof})
-    check_tensor_core_route(prof, "train_moe")
+    check_tensor_core_route(prof, "train_moe",
+                            FLASH_FAMILIES + GROUPED_FAMILIES)
 
 
 def train_moe_reference_phase(torch, np, dev):
@@ -3301,7 +3322,8 @@ def main() -> int:
                         for u in usage.values()),
           f"a tensor-core kernel spills (or reported nothing): {usage}")
     for fam in ("flash_fwd_wgmma", "flash_bwd_dq_wgmma",
-                "flash_bwd_dkv_wgmma", "matmul_rope_wgmma"):
+                "flash_bwd_dkv_wgmma", "matmul_rope_wgmma", "gmm_wgmma",
+                "dw_wgmma"):
         check(any(fam in n for n in usage), f"no ptxas report of {fam}")
 
     # -- kernels against their plain versions, full-width bf16 shapes
@@ -3506,6 +3528,8 @@ def main() -> int:
         if row.get("design") == "wgmma":
             name = row["name"]
             fam = ("matmul_rope_wgmma" if name.startswith("matmul_rope")
+                   else "gmm_wgmma" if name == "grouped_matmul"
+                   else "dw_wgmma" if name == "grouped_matmul_dw"
                    else "flash_bwd_dq_wgmma" if "bwd_dq" in name
                    else "flash_bwd_dkv_wgmma" if "bwd_dkv" in name
                    else "flash_fwd_wgmma")

@@ -1,7 +1,8 @@
 // Hopper tensor-core tile code for the port's 16-bit kernels: the flash
 // forward #2 (flash_attention_fwd.cu), the dQ kernel #3 and the dK/dV
-// kernel #4 (flash_attention_bwd.cu), and the matmul+rope kernel #10
-// (matmul_rope.cu): warpgroup matrix multiplies (`wgmma.mma_async`, f32
+// kernel #4 (flash_attention_bwd.cu), the matmul+rope kernel #10
+// (matmul_rope.cu) and the grouped matmuls #11 and #13
+// (grouped_matmul.cu): warpgroup matrix multiplies (`wgmma.mma_async`, f32
 // accumulate), 128-byte-swizzled shared-memory tiles filled by
 // `cp.async` (or by TMA, which writes the same layout), and the
 // descriptors that let wgmma read them.
@@ -16,12 +17,13 @@
 // layout serves both operand roles:
 //   - K-major (the reduction dim runs along the row: Q and K in S = Q K^T,
 //     K/V and Q/dO in the backward's S^T = K Q^T and dP^T = V dO^T, dO
-//     and V in dP = dO V^T, x in x W): the 16-column slice kk starts at
-//     column block kk / 4, byte 32 (kk % 4); 8-row groups are 1024 bytes
-//     apart (SBO);
+//     and V in dP = dO V^T, x in x W, lhs in #11 and w[e] [N][K] in its
+//     transpose_w form): the 16-column slice kk starts at column block
+//     kk / 4, byte 32 (kk % 4); 8-row groups are 1024 bytes apart (SBO);
 //   - MN-major (the reduction dim runs down the rows: V in O += P V, dO
 //     and Q in dV += P^T dO and dK += dS^T Q, K in dQ += dS K, W [K][N]
-//     in x W; wgmma's transpose bit): the 16-row slice kk starts 2048 kk
+//     in x W and w[e] [K][N] in #11, lhs and dout in #13's lhs^T dout;
+//     wgmma's transpose bits): the 16-row slice kk starts 2048 kk
 //     bytes in; 8-row groups are 1024 bytes apart (SBO) and column
 //     blocks R * 128 bytes apart (LBO).
 //
@@ -217,6 +219,10 @@ __device__ __forceinline__ void frag_a_split(const float (&d)[M], int kk,
 #define PTT_WG_D32(d) PTT_WG_D16(d), PTT_F8(d, 16), PTT_F8(d, 24)
 #define PTT_WG_D64(d)                                                    \
   PTT_WG_D32(d), PTT_F8(d, 32), PTT_F8(d, 40), PTT_F8(d, 48), PTT_F8(d, 56)
+#define PTT_WG_D128(d)                                                   \
+  PTT_WG_D64(d), PTT_F8(d, 64), PTT_F8(d, 72), PTT_F8(d, 80),             \
+      PTT_F8(d, 88), PTT_F8(d, 96), PTT_F8(d, 104), PTT_F8(d, 112),       \
+      PTT_F8(d, 120)
 // the accumulator's operand names in the instruction text
 #define PTT_WG_S16                                                       \
   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
@@ -227,6 +233,14 @@ __device__ __forceinline__ void frag_a_split(const float (&d)[M], int kk,
   PTT_WG_S32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, " \
              "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, " \
              "%55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define PTT_WG_S128                                                      \
+  PTT_WG_S64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, " \
+             "%75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "    \
+             "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, "    \
+             "%97, %98, %99, %100, %101, %102, %103, %104, %105, %106, "  \
+             "%107, %108, %109, %110, %111, %112, %113, %114, %115, "     \
+             "%116, %117, %118, %119, %120, %121, %122, %123, %124, "     \
+             "%125, %126, %127"
 
 // ss: A and B descriptors (operands AB), scale_d the predicate (P).
 #define PTT_WG_SS(TY, N, DS, DOPS, AB, P)                                \
@@ -248,6 +262,16 @@ __device__ __forceinline__ void frag_a_split(const float (&d)[M], int kk,
                  : DOPS(d)                                               \
                  : "l"(a), "l"(b), "r"(scale_d));                        \
   }
+// ss_tt: as ss, A and B MN-major (both transpose bits; 16-bit types only).
+#define PTT_WG_SS_TT(TY, N, DS, DOPS, AB, P)                             \
+  static __device__ __forceinline__ void ss_tt(                          \
+      float(&d)[N / 2], uint64_t a, uint64_t b, int scale_d) {           \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " P ", 0;\n"          \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY   \
+                 "." TY " {" DS "}, " AB ", p, 1, 1, 1, 1;\n}\n"          \
+                 : DOPS(d)                                               \
+                 : "l"(a), "l"(b), "r"(scale_d));                        \
+  }
 // rs: four A registers and the B descriptor (operands AB), an
 // accumulating predicate (P), B transposed.
 #define PTT_WG_RS(TY, N, DS, DOPS, AB, P)                                \
@@ -263,10 +287,11 @@ __device__ __forceinline__ void frag_a_split(const float (&d)[M], int kk,
 
 // One m64nNk16 product of 16-bit T into an f32 accumulator of N / 2
 // registers a thread.  ss: A and B K-major in shared memory (scale_d 0
-// overwrites d).  ss_mn: A K-major, B MN-major (x W in #10).  rs: A in
+// overwrites d).  ss_mn: A K-major, B MN-major (x W in #10; lhs w[e] in
+// #11).  ss_tt: A and B MN-major (lhs^T dout in #13).  rs: A in
 // registers (`frag_a`), B MN-major in shared memory (the transpose bit),
 // accumulating.  N 32 (the dropout dK/dV kernel's score tiles) takes ss
-// only.
+// only, N 256 (#11 and #13) the three shared-memory forms.
 template <typename T, int N>
 struct Wgmma;
 
@@ -287,6 +312,12 @@ struct Wgmma;
     PTT_WG_SS_MN(TY, 128, PTT_WG_S64, PTT_WG_D64, "%64, %65", "%66")     \
     PTT_WG_RS(TY, 128, PTT_WG_S64, PTT_WG_D64,                           \
               "{%64, %65, %66, %67}, %68", "%69")                        \
+  };                                                                     \
+  template <>                                                            \
+  struct Wgmma<T, 256> {                                                 \
+    PTT_WG_SS(TY, 256, PTT_WG_S128, PTT_WG_D128, "%128, %129", "%130")   \
+    PTT_WG_SS_MN(TY, 256, PTT_WG_S128, PTT_WG_D128, "%128, %129", "%130") \
+    PTT_WG_SS_TT(TY, 256, PTT_WG_S128, PTT_WG_D128, "%128, %129", "%130") \
   };
 
 PTT_WG_TYPE(__nv_bfloat16, "bf16")
@@ -294,11 +325,14 @@ PTT_WG_TYPE(__half, "f16")
 
 #undef PTT_WG_TYPE
 #undef PTT_WG_RS
+#undef PTT_WG_SS_TT
 #undef PTT_WG_SS_MN
 #undef PTT_WG_SS
+#undef PTT_WG_S128
 #undef PTT_WG_S64
 #undef PTT_WG_S32
 #undef PTT_WG_S16
+#undef PTT_WG_D128
 #undef PTT_WG_D64
 #undef PTT_WG_D32
 #undef PTT_WG_D16

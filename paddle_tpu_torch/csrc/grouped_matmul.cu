@@ -13,29 +13,70 @@
 // steps.  Here blocks run in any order: gmm and gmm_glu give a block one
 // 128-row block of one tile and one column block, gmm_dw gives a block
 // one (expert, k tile, n tile) of the output, which loops over that
-// expert's rows and writes its tile once (no atomics).
+// expert's rows and writes its tile once (no atomics: the same bits on
+// every launch).
 //
 // The row layout on the device.  Expert e's tiles start at tile
 // sum_{e' < e} ceil(counts[e'] / tm); a row of a tile past its expert's
 // count is padding, and a tile past the last expert's is dead (the plan
-// maps it to expert E - 1).  When counts is given, a block reads its
-// padding rows as zeros, and a block with no routed row writes zeros and
-// reads no weight: at a decode step, where 32 routed rows sit in 128-row
-// tiles, the products cover the routed rows' 8-row (f32 rows) or
-// 128-row (bf16) blocks, not every tile.  Each block finds its expert's first
-// tile by summing counts (E loads, from L1).  Without counts every row
-// is computed.
+// maps it to expert E - 1).  When counts is given, a block computes its
+// padding rows as zeros whatever they hold, and a block with no routed
+// row writes zeros and reads no weight: at a decode step, where 32 routed
+// rows sit in 128-row tiles, the products cover the routed rows' 8-row
+// (f32 rows) or 128-row (bf16) blocks, not every tile.  Each block finds
+// its expert's first tile by summing counts (E loads, from L1).  Without
+// counts every row is computed.  gmm_dw never reads a row past its
+// expert's count.
 //
-// bf16 rows and weights: mma.sync.aligned.m16n8k16 (bf16 in, f32
-// accumulate), 8 warps (4 x 2), k steps of 32 through a 3-stage cp.async
-// ring in shared memory (rows padded by 16 bytes, so ldmatrix reads are
-// free of bank conflicts).  gmm: 128 x 128 output tile, a warp 32 x 64.
-// gmm_glu: 128 x 64 of each of the gate and up products, one lhs tile
-// feeding both accumulators, so registers stay at one 128 x 128 tile's;
-// the silu(g) * u epilogue runs in f32 in registers.  gmm_dw: the A
-// operand is lhs^T, read from the [rows][k] tile with ldmatrix.trans.
-// B fragments come from ldmatrix.trans of a [k][n] tile, or from ldmatrix
-// of a [n][k] tile when transpose_w reads w[e] as [N, K].
+// What bounds them on an H100: operations at the training shapes (4 x
+// 4096 tokens x top-4 = 65,536 routed rows of m_pad 80,896 at tm 256,
+// 60 experts: 65,536 x 1408 x 2048 x 2 = 0.378 TFLOP a projection, 0.382
+// ms at 989 TFLOP/s, against about 0.9 ms of bytes at 3.35 TB/s); bytes
+// at a decode step (each routed expert's 5.8 MB weight read once a
+// projection).
+//
+// bf16 gmm and gmm_dw run on wgmma (`gmm_wgmma`, `dw_wgmma`), with the
+// design of #10 (matmul_rope.cu).  A block owns a 128 x 256 output tile:
+// two consumer warpgroups, each one m64n256 f32 accumulator (128
+// registers a thread), and one producer warp that fills a 4-stage ring
+// of 64-deep slices over TMA (tma_ring.cuh), a full and an empty
+// mbarrier a stage: 192 KB of ring, one block an SM.  The tile was
+// measured against a 128 x 128 one at two blocks an SM (one block's
+// fill and epilogue hidden behind the other's products), which moves a
+// third more operand bytes from L2 a FLOP and came out 7-19 % slower;
+// and against persistent grids (PERF.md).  At N = 1408 the last column
+// tile is half empty (1536 columns computed for 1408).
+//   - gmm: lhs through a 2-D map [M, K] in [128][64] K-major boxes; w
+//     through a 3-D map with the expert outermost, so a ragged K (or N)
+//     edge zero-fills inside w[e] and never reads w[e + 1].  w [E, K, N]
+//     lands as four [64 k][64 n] boxes, MN-major, read through wgmma's
+//     transpose bit; w [E, N, K] (transpose_w, the dX products) as one
+//     [256 n][64 k] box, K-major.  No transposed copy is made.  Blocks
+//     walk the column tiles fastest, so a lhs tile serves every column
+//     tile from L2 and w[e] (5.8 MB) stays in the 50 MB L2 across its
+//     expert's row tiles.  A block with no routed row writes zeros and
+//     starts no ring; the epilogue writes the rows past the count as
+//     zeros (output row r depends on lhs row r alone, so this is the
+//     product of zero rows).
+//   - gmm_dw: D[k, n] += lhs[r, k] dout[r, n] over 64-row slices of the
+//     expert's rows, both operands MN-major: two lhs [64 r][64 k] boxes,
+//     one a warpgroup as its A, and four dout [64 r][64 n] boxes as B,
+//     read through both transpose bits.  The last slice of an expert
+//     overruns its count into padding rows, which TMA cannot mask by
+//     row: once it lands, the consumers zero those rows of both operands
+//     in shared memory, fence them to the async proxy and meet at a
+//     barrier before wgmma reads them.  An expert with no rows gets a
+//     zero tile and starts no ring.  The gate dW of the training shape is
+//     60 x 16 x 6 blocks of about 17 slices each.
+//   The epilogue rounds the accumulators to bf16 into the idle ring and
+//   writes 16-byte stores.
+// bf16 gmm_glu (still on mma.sync; a later redesign can take this ring):
+// mma.sync.aligned.m16n8k16 (bf16 in, f32 accumulate), 8 warps (4 x 2),
+// k steps of 32 through a 3-stage cp.async ring in shared memory (rows
+// padded by 16 bytes, so ldmatrix reads are free of bank conflicts),
+// 128 x 64 of each of the gate and up products, one lhs tile feeding both
+// accumulators, so registers stay at one 128 x 128 tile's; the
+// silu(g) * u epilogue runs in f32 in registers.
 // f32 rows (the serving path's f32 buffers against bf16 or f32 weights,
 // and the f32 training checks) run on the FMA pipe in exact f32; the
 // product is the plain version's, summed in another order.  gmm against
@@ -45,23 +86,12 @@
 // 16-byte (f32) load a thread for 32 FMAs, and the block's four k
 // groups are summed in shared memory.  transpose_w, gmm_glu and gmm_dw
 // (the f32 training checks) take 32 x 64 output tiles of 4 x 4 a thread.
-//
-// What bounds them on an H100: operations for the training shapes
-// (80,896 x 2048 x 1408 per projection, about 0.47 TFLOP, 0.47 ms at 989
-// TFLOP/s); bytes for a decode step (each routed expert's 5.8 MB weight
-// read once a projection).  mma.sync reaches a fraction of the wgmma
-// rate, and the f32 path runs on the FMA pipe; wgmma with TMA, and bf16
-// hi/lo operands for the f32 rows, are the next steps.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "attention_wgmma.cuh"
+#include "tma_ring.cuh"
 
 namespace ptt {
 
 typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 
 __device__ __forceinline__ float silu_f(float g) {
   return g / (1.f + expf(-g));
@@ -91,7 +121,307 @@ struct Layout {
   }
 };
 
-// ----------------------------------------------------------------- bf16
+// Zeros over rows [0, rows) x columns [0, cols) of a row-major tile.
+template <typename T>
+__device__ __forceinline__ void store_zeros(T* out, long long ld, int rows,
+                                            int cols) {
+  for (int i = threadIdx.x; i < rows * cols; i += blockDim.x)
+    out[(i / cols) * ld + i % cols] = T(0.f);
+}
+
+// ------------------------------------------------------ bf16 on wgmma
+
+constexpr int kTileM = 128;                     // output tile rows: 2 x 64
+constexpr int kTileN = 256;                     // output tile columns
+constexpr int kDepth = 64;                      // rows of a ring slice
+constexpr int kRing = 4;                        // stages
+constexpr int kConsumers = 256;                 // two warpgroups
+constexpr int kWThreads = kConsumers + 32;      // and the producer warp
+constexpr int kBox = 64 * 64 * 2;               // a [64][64] box, 8 KB
+constexpr int kWStage = 6 * kBox;               // A 16 KB, B 32 KB
+constexpr int kEpiPitch = (kTileN + 8) * 2;     // bytes a row of the tile
+constexpr size_t kWSmem = (size_t)kRing * kWStage + 2 * kRing * 8 + 1024;
+static_assert(kTileM * kEpiPitch <= kRing * kWStage,
+              "the epilogue tile must fit in the ring");
+
+// Barrier over the two consumer warpgroups (id 0 is __syncthreads, 2 and
+// 3 each warpgroup's own).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+
+// 16-byte zero stores over rows [0, rows) x columns [0, cols) (cols %
+// 8 == 0) of a row-major bf16 tile, by every thread of the block.
+__device__ __forceinline__ void zero_tile(bf16* o, long long ld, int rows,
+                                          int cols) {
+  const int ch = cols / 8;
+  for (int i = threadIdx.x; i < rows * ch; i += blockDim.x)
+    *reinterpret_cast<uint4*>(o + (i / ch) * ld + (i % ch) * 8) =
+        make_uint4(0, 0, 0, 0);
+}
+
+// [64][64] boxes that cover the columns [c0, c0 + 256) below n, at most 4
+__device__ __forceinline__ int boxes_below(int c0, int n) {
+  return min(4, (n - c0 + 63) / 64);
+}
+
+// The 1024-byte aligned ring (the 128-byte swizzle repeats every 1024)
+// and its barriers after it: full[s] at full0 + 8 s, empty[s] at empty0 +
+// 8 s.
+__device__ __forceinline__ unsigned char* ring_base(unsigned char* raw) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+}
+__device__ __forceinline__ void ring_init(uint32_t full0, uint32_t empty0) {
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kRing; ++s) {
+      mbar_init(full0 + 8 * s, 1);                  // the producer's arrival
+      mbar_init(empty0 + 8 * s, kConsumers / 32);   // one a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// The two warpgroups' m64n256 accumulators (warpgroup w: tile rows
+// 64 w ..) rounded to bf16 through the idle ring and written to o (row
+// pitch ld) with 16-byte stores: rows [live, rows) as zeros, rows past
+// rows and columns past cols not at all.  Every consumer thread calls it.
+__device__ __forceinline__ void store_tile(const float (&acc)[kTileN / 2],
+                                           unsigned char* tile, bf16* o,
+                                           long long ld, int rows, int live,
+                                           int cols) {
+  const int tid = threadIdx.x, w = tid >> 7, wt = tid & 127;
+  const int warp = wt >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int lr = 64 * w + 16 * warp + g;
+  consumers_sync();          // both warpgroups' products have read the ring
+#pragma unroll
+  for (int j = 0; j < kTileN / 8; ++j) {
+    const int c = 8 * j + 2 * t4;
+    *reinterpret_cast<uint32_t*>(tile + lr * kEpiPitch + 2 * c) =
+        wg::pack2<bf16>(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<uint32_t*>(tile + (lr + 8) * kEpiPitch + 2 * c) =
+        wg::pack2<bf16>(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+  wg::wg_barrier(2 + w);     // this warpgroup's 64 rows are in the tile
+  constexpr int CH = kTileN / 8;
+  for (int i = wt; i < 64 * CH; i += 128) {
+    const int r = 64 * w + i / CH, c = (i % CH) * 8;
+    if (r >= rows || c >= cols) continue;
+    const uint4 v = r < live ? *reinterpret_cast<const uint4*>(
+                                   tile + r * kEpiPitch + 2 * c)
+                             : make_uint4(0, 0, 0, 0);
+    *reinterpret_cast<uint4*>(o + static_cast<long long>(r) * ld + c) = v;
+  }
+}
+
+// out rows [r0, r0 + 128) x columns [n0, n0 + 256) = lhs rows @ w[e]
+// (BT: @ w[e]^T).  tma: lhs [M, K], boxes [128][64]; tmw: w as
+// [E][K][N] in [64][64] boxes, or (BT) [E][N][K] in [256][64] boxes.
+template <bool BT>
+__global__ void __launch_bounds__(kWThreads, 1)
+gmm_wgmma(__grid_constant__ const CUtensorMap tma,
+          __grid_constant__ const CUtensorMap tmw, Layout L,
+          bf16* __restrict__ out, int K, int N) {
+  extern __shared__ unsigned char smem_raw[];
+  const int n_tiles = (N + kTileN - 1) / kTileN;
+  const int n0 = (blockIdx.x % n_tiles) * kTileN;   // column tiles fastest
+  const int r0 = (blockIdx.x / n_tiles) * kTileM;
+  const int cols = min(kTileN, N - n0);
+  const int live = L.live_rows(r0, kTileM);
+  bf16* o = out + static_cast<long long>(r0) * N + n0;
+  if (live == 0) {
+    zero_tile(o, N, kTileM, cols);
+    return;
+  }
+  const int e = __ldg(L.te + r0 / L.tm);
+  unsigned char* smem = ring_base(smem_raw);
+  const uint32_t ring = wg::smem_addr(smem);
+  const uint32_t full0 = ring + kRing * kWStage, empty0 = full0 + 8 * kRing;
+  const int KT = (K + kDepth - 1) / kDepth;
+  ring_init(full0, empty0);
+
+  const int tid = threadIdx.x;
+  if (tid >= kConsumers) {           // the producer warp: one thread
+    if (tid == kConsumers) {
+      // w [E, K, N]: only the [64 k][64 n] boxes that hold a column
+      // below N (the columns past N are never stored)
+      const int nb = BT ? 4 : boxes_below(n0, N);
+      for (int kt = 0; kt < KT; ++kt) {
+        const int s = kt % kRing;
+        if (kt >= kRing) mbar_wait(empty0 + 8 * s, (kt / kRing - 1) & 1);
+        const uint32_t st = ring + s * kWStage, bar = full0 + 8 * s;
+        mbar_expect_tx(bar, (2 + nb) * kBox);
+        tma_load(st, &tma, kt * kDepth, r0, bar);
+        if (BT) {
+          tma_load(st + 2 * kBox, &tmw, kt * kDepth, n0, e, bar);
+        } else {
+          for (int j = 0; j < nb; ++j)
+            tma_load(st + (2 + j) * kBox, &tmw, n0 + 64 * j, kt * kDepth, e,
+                     bar);
+        }
+      }
+    }
+    return;
+  }
+
+  const int w = tid >> 7, lane = tid & 31;
+  float acc[kTileN / 2];
+#pragma unroll
+  for (int i = 0; i < kTileN / 2; ++i) acc[i] = 0.f;
+  for (int kt = 0; kt < KT; ++kt) {
+    const int s = kt % kRing;
+    mbar_wait(full0 + 8 * s, (kt / kRing) & 1);
+    const uint32_t st = ring + s * kWStage;
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < kDepth / 16; ++kk) {
+      const uint64_t a = wg::desc_k<kTileM>(st + w * 64 * 128, kk);
+      if (BT)
+        wg::Wgmma<bf16, kTileN>::ss(
+            acc, a, wg::desc_k<kTileN>(st + 2 * kBox, kk), 1);
+      else
+        wg::Wgmma<bf16, kTileN>::ss_mn(
+            acc, a, wg::desc_mn<kDepth>(st + 2 * kBox, kk), 1);
+    }
+    wg::commit();
+    wg::wait<1>();                   // the group of slice kt - 1 retired
+    if (kt > 0 && lane == 0) mbar_arrive(empty0 + 8 * ((kt - 1) % kRing));
+  }
+  wg::wait<0>();
+  wg::keep(acc);
+  store_tile(acc, smem, o, N, kTileM, live, cols);
+}
+
+// dw[e] rows [k0, k0 + 128) x columns [n0, n0 + 256) = sum over expert
+// e's rows of lhs^T @ dout.  tma: lhs [M, K], tmd: dout [M, N], both in
+// [64 rows][64] boxes.
+__global__ void __launch_bounds__(kWThreads, 1)
+dw_wgmma(__grid_constant__ const CUtensorMap tma,
+         __grid_constant__ const CUtensorMap tmd, Layout L,
+         bf16* __restrict__ dw, int K, int N) {
+  extern __shared__ unsigned char smem_raw[];
+  const int n_tiles = (N + kTileN - 1) / kTileN;
+  const int k_tiles = (K + kTileM - 1) / kTileM;
+  const int n0 = (blockIdx.x % n_tiles) * kTileN;   // column tiles fastest
+  const int k0 = (blockIdx.x / n_tiles % k_tiles) * kTileM;
+  const int e = blockIdx.x / (n_tiles * k_tiles);
+  const int rows = min(kTileM, K - k0), cols = min(kTileN, N - n0);
+  bf16* o = dw + (static_cast<long long>(e) * K + k0) * N + n0;
+  const int count = __ldg(L.counts + e);
+  if (count == 0) {
+    zero_tile(o, N, rows, cols);
+    return;
+  }
+  const int row_begin = L.first_tile(e) * L.tm;
+  const int S = (count + kDepth - 1) / kDepth;
+  const int tail = count - (S - 1) * kDepth;        // rows of the last slice
+  unsigned char* smem = ring_base(smem_raw);
+  const uint32_t ring = wg::smem_addr(smem);
+  const uint32_t full0 = ring + kRing * kWStage, empty0 = full0 + 8 * kRing;
+  ring_init(full0, empty0);
+
+  const int tid = threadIdx.x;
+  if (tid >= kConsumers) {           // the producer warp: one thread
+    if (tid == kConsumers) {
+      // only the boxes that hold a k (n) below K (N): the rest is never
+      // stored
+      const int na = k0 + 64 < K ? 2 : 1, nb = boxes_below(n0, N);
+      for (int sl = 0; sl < S; ++sl) {
+        const int s = sl % kRing, r = row_begin + sl * kDepth;
+        if (sl >= kRing) mbar_wait(empty0 + 8 * s, (sl / kRing - 1) & 1);
+        const uint32_t st = ring + s * kWStage, bar = full0 + 8 * s;
+        mbar_expect_tx(bar, (na + nb) * kBox);
+        for (int j = 0; j < na; ++j)
+          tma_load(st + j * kBox, &tma, k0 + 64 * j, r, bar);
+        for (int j = 0; j < nb; ++j)
+          tma_load(st + (2 + j) * kBox, &tmd, n0 + 64 * j, r, bar);
+      }
+    }
+    return;
+  }
+
+  const int w = tid >> 7, wt = tid & 127, lane = tid & 31;
+  float acc[kTileN / 2];
+#pragma unroll
+  for (int i = 0; i < kTileN / 2; ++i) acc[i] = 0.f;
+  for (int sl = 0; sl < S; ++sl) {
+    const int s = sl % kRing;
+    mbar_wait(full0 + 8 * s, (sl / kRing) & 1);
+    const uint32_t st = ring + s * kWStage;
+    if (sl == S - 1 && tail < kDepth) {
+      // rows [tail, 64) of the slice are past the count: zero them in
+      // this warpgroup's lhs box and in dout boxes 2w, 2w + 1 (whole
+      // 128-byte rows, whatever the swizzle), then hand them to wgmma's
+      // proxy
+      unsigned char* a = smem + s * kWStage + w * kBox;
+      unsigned char* b = smem + s * kWStage + (2 + 2 * w) * kBox;
+      for (int i = tail * 8 + wt; i < kDepth * 8; i += 128) {
+        const uint4 z = make_uint4(0, 0, 0, 0);
+        *reinterpret_cast<uint4*>(a + i * 16) = z;
+        *reinterpret_cast<uint4*>(b + i * 16) = z;
+        *reinterpret_cast<uint4*>(b + kBox + i * 16) = z;
+      }
+      wg::fence_async_smem();
+      consumers_sync();              // every dout box is clean
+    }
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < kDepth / 16; ++kk)
+      wg::Wgmma<bf16, kTileN>::ss_tt(
+          acc, wg::desc_mn<kDepth>(st + w * kBox, kk),
+          wg::desc_mn<kDepth>(st + 2 * kBox, kk), 1);
+    wg::commit();
+    wg::wait<1>();                   // the group of slice sl - 1 retired
+    if (sl > 0 && lane == 0) mbar_arrive(empty0 + 8 * ((sl - 1) % kRing));
+  }
+  wg::wait<0>();
+  wg::keep(acc);
+  store_tile(acc, smem, o, N, rows, rows, cols);
+}
+
+template <bool BT>
+cudaError_t launch_gmm_wgmma(const void* lhs, const void* w, Layout L,
+                             void* out, int M, int K, int N, int E,
+                             cudaStream_t stream) {
+  CUtensorMap tma, tmw;
+  cudaError_t e = make_map(&tma, lhs, M, K, kTileM);
+  if (e == cudaSuccess)
+    e = BT ? make_map(&tmw, w, N, K, kTileN, E)
+           : make_map(&tmw, w, K, N, kDepth, E);
+  if (e != cudaSuccess) return e;
+  static bool smem_set = false;
+  e = allow_smem(gmm_wgmma<BT>, kWSmem, &smem_set);
+  if (e != cudaSuccess) return e;
+  const long long grid = static_cast<long long>(M / kTileM) *
+                         ((N + kTileN - 1) / kTileN);
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+  gmm_wgmma<BT><<<static_cast<unsigned>(grid), kWThreads, kWSmem, stream>>>(
+      tma, tmw, L, static_cast<bf16*>(out), K, N);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dw_wgmma(const void* lhs, const void* dout, Layout L,
+                            void* dw, int M, int K, int N, int E,
+                            cudaStream_t stream) {
+  CUtensorMap tma, tmd;
+  cudaError_t e = make_map(&tma, lhs, M, K, kDepth);
+  if (e == cudaSuccess) e = make_map(&tmd, dout, M, N, kDepth);
+  if (e != cudaSuccess) return e;
+  static bool smem_set = false;
+  e = allow_smem(dw_wgmma, kWSmem, &smem_set);
+  if (e != cudaSuccess) return e;
+  const long long grid = static_cast<long long>(E) *
+                         ((K + kTileM - 1) / kTileM) *
+                         ((N + kTileN - 1) / kTileN);
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+  dw_wgmma<<<static_cast<unsigned>(grid), kWThreads, kWSmem, stream>>>(
+      tma, tmd, L, static_cast<bf16*>(dw), K, N);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------ bf16 gmm_glu, mma.sync
 
 constexpr int kBM = 128, kBK = 32, kStages = 3, kThreads = 256;
 
@@ -134,84 +464,59 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Shared-memory geometry of one stage: the A tile (kBM rows x kBK, or
-// stored k-major as kBK x kBM when AT) and NB B tiles (kBK x BN, or
-// stored n-major as BN x kBK when BT), rows padded by 8 elements.
-template <bool AT, bool BT, int NB> struct Tile {
+// Shared-memory geometry of one stage: the A tile (kBM rows x kBK) and
+// NB B tiles (kBK x BN), rows padded by 8 elements.
+template <int NB> struct GluTile {
   static constexpr int BN = 128 / NB;          // columns of each product
   static constexpr int WN = BN / 2;            // columns a warp owns
   static constexpr int NT = WN / 8;            // n8 tiles a warp owns
-  static constexpr int AP = (AT ? kBM : kBK) + 8;
-  static constexpr int AR = AT ? kBK : kBM;
-  static constexpr int BP = (BT ? kBK : BN) + 8;
-  static constexpr int BR = BT ? BN : kBK;
-  static constexpr int A_ELEMS = AR * AP;
-  static constexpr int B_ELEMS = BR * BP;
+  static constexpr int AP = kBK + 8;
+  static constexpr int BP = BN + 8;
+  static constexpr int A_ELEMS = kBM * AP;
+  static constexpr int B_ELEMS = kBK * BP;
   static constexpr int STAGE = A_ELEMS + NB * B_ELEMS;
   static constexpr int SMEM = kStages * STAGE * 2;
 };
 
-// acc[j] += A x B_j over the contraction range [k_begin, k_end).
-// A element (r, k): AT ? a[k * lda + r] : a[r * lda + k], live for
-// r < a_rows; B_j element (k, n): BT ? b[j][n * ldb + k] :
-// b[j][k * ldb + n], live for n < n_lim.  Dead elements load as zeros.
-// Every contiguous run is a multiple of 8 elements (16 bytes).
-template <bool AT, bool BT, int NB>
+// acc[j] += A x B_j over the contraction range [0, K).  A element (r, k)
+// a[r * lda + k], live for r < a_rows; B_j element (k, n) b[j][k * ldb +
+// n], live for n < n_lim.  Dead elements load as zeros.  Every
+// contiguous run is a multiple of 8 elements (16 bytes).
+template <int NB>
 __device__ __forceinline__ void mma_mainloop(
     bf16* smem, const bf16* __restrict__ a, long long lda, int a_rows,
-    const bf16* const* b, long long ldb, int n_lim, int k_begin, int k_end,
-    float (&acc)[NB][2][Tile<AT, BT, NB>::NT][4]) {
-  using T = Tile<AT, BT, NB>;
+    const bf16* const* b, long long ldb, int n_lim, int K,
+    float (&acc)[NB][2][GluTile<NB>::NT][4]) {
+  using T = GluTile<NB>;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp >> 1, wn = warp & 1;
 
   auto load_stage = [&](int stage, int k0) {
     bf16* sa = smem + stage * T::STAGE;
-    if (!AT) {
 #pragma unroll
-      for (int c = tid; c < kBM * kBK / 8; c += kThreads) {
-        const int r = c / (kBK / 8), kc = (c % (kBK / 8)) * 8;
-        const bool ok = r < a_rows && k0 + kc < k_end;
-        cp_async16(sa + r * T::AP + kc, ok ? a + r * lda + k0 + kc : a, ok);
-      }
-    } else {
-#pragma unroll
-      for (int c = tid; c < kBK * kBM / 8; c += kThreads) {
-        const int kr = c / (kBM / 8), rc = (c % (kBM / 8)) * 8;
-        const bool ok = k0 + kr < k_end && rc < a_rows;
-        cp_async16(sa + kr * T::AP + rc,
-                   ok ? a + static_cast<long long>(k0 + kr) * lda + rc : a,
-                   ok);
-      }
+    for (int c = tid; c < kBM * kBK / 8; c += kThreads) {
+      const int r = c / (kBK / 8), kc = (c % (kBK / 8)) * 8;
+      const bool ok = r < a_rows && k0 + kc < K;
+      cp_async16(sa + r * T::AP + kc, ok ? a + r * lda + k0 + kc : a, ok);
     }
 #pragma unroll
     for (int j = 0; j < NB; ++j) {
       bf16* sb = sa + T::A_ELEMS + j * T::B_ELEMS;
-      if (!BT) {
 #pragma unroll
-        for (int c = tid; c < kBK * T::BN / 8; c += kThreads) {
-          const int kr = c / (T::BN / 8), nc = (c % (T::BN / 8)) * 8;
-          const bool ok = k0 + kr < k_end && nc < n_lim;
-          cp_async16(sb + kr * T::BP + nc,
-                     ok ? b[j] + static_cast<long long>(k0 + kr) * ldb + nc
-                        : b[j], ok);
-        }
-      } else {
-#pragma unroll
-        for (int c = tid; c < T::BN * kBK / 8; c += kThreads) {
-          const int nr = c / (kBK / 8), kc = (c % (kBK / 8)) * 8;
-          const bool ok = nr < n_lim && k0 + kc < k_end;
-          cp_async16(sb + nr * T::BP + kc,
-                     ok ? b[j] + nr * ldb + k0 + kc : b[j], ok);
-        }
+      for (int c = tid; c < kBK * T::BN / 8; c += kThreads) {
+        const int kr = c / (T::BN / 8), nc = (c % (T::BN / 8)) * 8;
+        const bool ok = k0 + kr < K && nc < n_lim;
+        cp_async16(sb + kr * T::BP + nc,
+                   ok ? b[j] + static_cast<long long>(k0 + kr) * ldb + nc
+                      : b[j], ok);
       }
     }
   };
 
-  const int KT = k_end > k_begin ? (k_end - k_begin + kBK - 1) / kBK : 0;
+  const int KT = (K + kBK - 1) / kBK;
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
-    if (s < KT) load_stage(s, k_begin + s * kBK);
+    if (s < KT) load_stage(s, s * kBK);
     cp_async_commit();                // an empty group keeps the count
   }
   for (int kt = 0; kt < KT; ++kt) {
@@ -219,39 +524,25 @@ __device__ __forceinline__ void mma_mainloop(
     __syncthreads();                  // ... for every thread; and the
                                       // stage refilled below is drained
     const int next = kt + kStages - 1;
-    if (next < KT) load_stage(next % kStages, k_begin + next * kBK);
+    if (next < KT) load_stage(next % kStages, next * kBK);
     cp_async_commit();
     const bf16* sa = smem + (kt % kStages) * T::STAGE;
 #pragma unroll
     for (int kk = 0; kk < kBK; kk += 16) {
       uint32_t af[2][4];
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int r = wm * 32 + mt * 16;
-        if (!AT)
-          ldmatrix_x4(af[mt], sa + (r + (lane & 15)) * T::AP + kk
-                                  + (lane >> 4) * 8);
-        else
-          ldmatrix_x4_trans(af[mt],
-                            sa + (kk + (lane & 7) + ((lane >> 4) << 3))
-                                     * T::AP
-                               + r + ((lane >> 3) & 1) * 8);
-      }
+      for (int mt = 0; mt < 2; ++mt)
+        ldmatrix_x4(af[mt], sa + (wm * 32 + mt * 16 + (lane & 15)) * T::AP
+                                + kk + (lane >> 4) * 8);
 #pragma unroll
       for (int j = 0; j < NB; ++j) {
         const bf16* sb = sa + T::A_ELEMS + j * T::B_ELEMS;
         uint32_t bfr[T::NT][2];
 #pragma unroll
         for (int np = 0; np < T::NT / 2; ++np) {
-          const int c = wn * T::WN + np * 16;
           uint32_t t[4];
-          if (!BT)
-            ldmatrix_x4_trans(t, sb + (kk + (lane & 15)) * T::BP + c
-                                     + (lane >> 4) * 8);
-          else
-            ldmatrix_x4(t, sb + (c + (lane & 7) + ((lane >> 4) << 3))
-                                    * T::BP
-                               + kk + ((lane >> 3) & 1) * 8);
+          ldmatrix_x4_trans(t, sb + (kk + (lane & 15)) * T::BP
+                                   + wn * T::WN + np * 16 + (lane >> 4) * 8);
           bfr[2 * np][0] = t[0];
           bfr[2 * np][1] = t[1];
           bfr[2 * np + 1][0] = t[2];
@@ -268,14 +559,6 @@ __device__ __forceinline__ void mma_mainloop(
   cp_async_wait<0>();
 }
 
-// Zeros over rows [0, rows) x columns [0, cols) of a row-major tile.
-template <typename T>
-__device__ __forceinline__ void store_zeros(T* out, long long ld, int rows,
-                                            int cols) {
-  for (int i = threadIdx.x; i < rows * cols; i += blockDim.x)
-    out[(i / cols) * ld + i % cols] = T(0.f);
-}
-
 // The thread's accumulator element (mt, nt, h): row and column in the
 // block's output tile.
 template <int WN>
@@ -286,48 +569,11 @@ __device__ __forceinline__ void acc_pos(int mt, int nt, int h, int* r,
   *c = (warp & 1) * WN + nt * 8 + (lane & 3) * 2;
 }
 
-template <bool BT>
-__global__ void __launch_bounds__(kThreads, 2)
-gmm_bf16(const bf16* __restrict__ lhs, const bf16* __restrict__ w,
-         Layout L, bf16* __restrict__ out, int M, int K, int N) {
-  using T = Tile<false, BT, 1>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int r0 = blockIdx.y * kBM, n0 = blockIdx.x * T::BN;
-  const int rows = min(kBM, M - r0), cols = min(T::BN, N - n0);
-  const int live = L.live_rows(r0, rows);
-  bf16* o = out + static_cast<long long>(r0) * N + n0;
-  if (live == 0) {
-    store_zeros(o, N, rows, cols);
-    return;
-  }
-  const long long e = __ldg(L.te + r0 / L.tm);
-  const bf16* we = w + e * K * N;
-  const bf16* bj[1] = {BT ? we + static_cast<long long>(n0) * K : we + n0};
-  float acc[1][2][T::NT][4] = {};
-  mma_mainloop<false, BT, 1>(reinterpret_cast<bf16*>(smem_raw),
-                             lhs + static_cast<long long>(r0) * K, K, live,
-                             bj, BT ? K : N, cols, 0, K, acc);
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < T::NT; ++nt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        int r, c;
-        acc_pos<T::WN>(mt, nt, h, &r, &c);
-        if (r < rows && c < cols)
-          *reinterpret_cast<__nv_bfloat162*>(o + static_cast<long long>(r)
-                                             * N + c) =
-              __floats2bfloat162_rn(acc[0][mt][nt][2 * h],
-                                    acc[0][mt][nt][2 * h + 1]);
-      }
-}
-
 __global__ void __launch_bounds__(kThreads, 2)
 glu_bf16(const bf16* __restrict__ lhs, const bf16* __restrict__ wg,
          const bf16* __restrict__ wu, Layout L, bf16* __restrict__ hs,
          bf16* __restrict__ hg, bf16* __restrict__ hu, int M, int K, int N) {
-  using T = Tile<false, false, 2>;
+  using T = GluTile<2>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int r0 = blockIdx.y * kBM, n0 = blockIdx.x * T::BN;
   const int rows = min(kBM, M - r0), cols = min(T::BN, N - n0);
@@ -344,9 +590,9 @@ glu_bf16(const bf16* __restrict__ lhs, const bf16* __restrict__ wg,
   const long long e = __ldg(L.te + r0 / L.tm);
   const bf16* bj[2] = {wg + e * K * N + n0, wu + e * K * N + n0};
   float acc[2][2][T::NT][4] = {};
-  mma_mainloop<false, false, 2>(reinterpret_cast<bf16*>(smem_raw),
-                                lhs + static_cast<long long>(r0) * K, K,
-                                live, bj, N, cols, 0, K, acc);
+  mma_mainloop<2>(reinterpret_cast<bf16*>(smem_raw),
+                  lhs + static_cast<long long>(r0) * K, K, live, bj, N, cols,
+                  K, acc);
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -368,48 +614,6 @@ glu_bf16(const bf16* __restrict__ lhs, const bf16* __restrict__ wg,
               __floats2bfloat162_rn(u0, u1);
         }
       }
-}
-
-// dw[e][k0.., n0..] = sum over expert e's rows of lhs^T @ dout
-__global__ void __launch_bounds__(kThreads, 2)
-dw_bf16(const bf16* __restrict__ lhs, const bf16* __restrict__ dout,
-        Layout L, bf16* __restrict__ dw, int K, int N) {
-  using T = Tile<true, false, 1>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int e = blockIdx.z;
-  const int k0 = blockIdx.y * kBM, n0 = blockIdx.x * T::BN;
-  const int rows = min(kBM, K - k0), cols = min(T::BN, N - n0);
-  const int row_begin = L.first_tile(e) * L.tm;
-  const int row_end = row_begin + __ldg(L.counts + e);
-  const bf16* bj[1] = {dout + n0};
-  float acc[1][2][T::NT][4] = {};
-  mma_mainloop<true, false, 1>(reinterpret_cast<bf16*>(smem_raw), lhs + k0,
-                               K, rows, bj, N, cols, row_begin, row_end,
-                               acc);
-  bf16* o = dw + (static_cast<long long>(e) * K + k0) * N + n0;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < T::NT; ++nt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        int r, c;
-        acc_pos<T::WN>(mt, nt, h, &r, &c);
-        if (r < rows && c < cols)
-          *reinterpret_cast<__nv_bfloat162*>(o + static_cast<long long>(r)
-                                             * N + c) =
-              __floats2bfloat162_rn(acc[0][mt][nt][2 * h],
-                                    acc[0][mt][nt][2 * h + 1]);
-      }
-}
-
-template <typename KernelT>
-cudaError_t allow_smem(KernelT kernel, int bytes, bool* done) {
-  if (*done) return cudaSuccess;
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e == cudaSuccess) *done = true;
-  return e;
 }
 
 // ------------------------------------------------------------------ f32
@@ -662,24 +866,10 @@ int gmm(const void* lhs, const void* w, const int* tile_expert,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Layout L{tile_expert, counts, E, tm};
   if (a_dtype == 1 && w_dtype == 1) {
-    if (tm % kBM || K % 8 || N % 8) return cudaErrorInvalidValue;
-    const dim3 grid(blocks(N, 128), blocks(M, kBM));
-    static bool ok_n = false, ok_t = false;
-    cudaError_t e;
-    if (transpose_w) {
-      if ((e = allow_smem(gmm_bf16<true>, Tile<false, true, 1>::SMEM,
-                          &ok_t)) != cudaSuccess) return e;
-      gmm_bf16<true><<<grid, kThreads, Tile<false, true, 1>::SMEM, s>>>(
-          static_cast<const bf16*>(lhs), static_cast<const bf16*>(w), L,
-          static_cast<bf16*>(out), M, K, N);
-    } else {
-      if ((e = allow_smem(gmm_bf16<false>, Tile<false, false, 1>::SMEM,
-                          &ok_n)) != cudaSuccess) return e;
-      gmm_bf16<false><<<grid, kThreads, Tile<false, false, 1>::SMEM, s>>>(
-          static_cast<const bf16*>(lhs), static_cast<const bf16*>(w), L,
-          static_cast<bf16*>(out), M, K, N);
-    }
-    return cudaGetLastError();
+    if (tm % kTileM || K % 8 || N % 8) return cudaErrorInvalidValue;
+    return transpose_w
+               ? launch_gmm_wgmma<true>(lhs, w, L, out, M, K, N, E, s)
+               : launch_gmm_wgmma<false>(lhs, w, L, out, M, K, N, E, s);
   }
   if (a_dtype != 0 || tm % kFM || N % 4 || (w_dtype != 0 && w_dtype != 1))
     return cudaErrorInvalidValue;
@@ -719,7 +909,7 @@ int gmm_glu(const void* lhs, const void* wg, const void* wu,
   const Layout L{tile_expert, counts, E, tm};
   if (a_dtype == 1 && w_dtype == 1) {
     if (tm % kBM || K % 8 || N % 8) return cudaErrorInvalidValue;
-    using T = Tile<false, false, 2>;
+    using T = GluTile<2>;
     static bool ok = false;
     const cudaError_t e = allow_smem(glu_bf16, T::SMEM, &ok);
     if (e != cudaSuccess) return e;
@@ -759,15 +949,7 @@ int gmm_dw(const void* lhs, const void* dout, const int* counts, void* dw,
   const Layout L{nullptr, counts, E, tm};
   if (dtype == 1) {
     if (K % 8 || N % 8) return cudaErrorInvalidValue;
-    using T = Tile<true, false, 1>;
-    static bool ok = false;
-    const cudaError_t e = allow_smem(dw_bf16, T::SMEM, &ok);
-    if (e != cudaSuccess) return e;
-    const dim3 grid(blocks(N, T::BN), blocks(K, kBM), E);
-    dw_bf16<<<grid, kThreads, T::SMEM, s>>>(
-        static_cast<const bf16*>(lhs), static_cast<const bf16*>(dout), L,
-        static_cast<bf16*>(dw), K, N);
-    return cudaGetLastError();
+    return launch_dw_wgmma(lhs, dout, L, dw, M, K, N, E, s);
   }
   if (dtype != 0) return cudaErrorInvalidValue;
   const dim3 grid(blocks(N, kFN), blocks(K, kFM), E);

@@ -32,9 +32,9 @@
 // transposed copy of W), each stage with a full and an empty mbarrier;
 // the consumers wait on the full barrier of the slice they read, keep
 // one wgmma group in flight, and free a stage once the group that read
-// it retires.  The
-// tensor maps are built per call on the host (x and W move), zero-filling
-// the ragged M and K edges (K % 8 == 0 for the 16-byte row pitch).  The
+// it retires.  The tensor maps (tma_ring.cuh) are built per call on the
+// host (x and W move), zero-filling the ragged M and K edges (K % 8 == 0
+// for the 16-byte row pitch).  The
 // epilogue rounds the accumulator to bf16 into a padded shared tile,
 // rotates 8 columns a thread against their partners and the tables, and
 // writes 16-byte stores.  Blocks walk the column tiles (heads) fastest,
@@ -42,9 +42,8 @@
 // for q) stays in the 50 MB L2.
 // float32: the product runs on the FMA pipe in exact f32 (64 rows x D
 // columns, 4 x D/16 outputs a thread), for the f32 reference checks.
-#include <cuda.h>
-
 #include "attention_wgmma.cuh"
+#include "tma_ring.cuh"
 
 namespace ptt {
 
@@ -84,45 +83,6 @@ constexpr int kOutPitch = (kTileN + 8) * 2;     // bytes a row of the tile
 constexpr size_t kMmrSmem =
     (size_t)kStages * kStage + (size_t)kTileM * kOutPitch +
     2 * kStages * 8 + 1024;
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-// Spins until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-// The box of the 2-D tensor map at (c0 innermost, c1) into shared memory,
-// completing its bytes on the barrier.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int c0, int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
 
 // 8 table values from 16-byte aligned t, widened to f32
 __device__ __forceinline__ void load8(const bf16* t, float (&v)[8]) {
@@ -254,53 +214,6 @@ matmul_rope_wgmma(__grid_constant__ const CUtensorMap tmx,
     *reinterpret_cast<uint4*>(out + static_cast<long long>(row) * N + col) =
         make_uint4(ow[0], ow[1], ow[2], ow[3]);
   }
-}
-
-// cuTensorMapEncodeTiled of the CUDA driver API, looked up through the
-// runtime (the library links no -lcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// The tensor map of a row-major bf16 [rows][cols] matrix in boxes of
-// box_rows x 64 columns (128 bytes: the 128-byte swizzle of the wgmma
-// tiles), zeros past its edges.
-inline cudaError_t make_map(CUtensorMap* map, const void* p, int rows,
-                            int cols, int box_rows) {
-  const EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                         const_cast<void*>(p), dims, strides, box, elem,
-                         CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 template <int D, typename TT>

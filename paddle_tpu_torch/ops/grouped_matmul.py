@@ -18,10 +18,12 @@ On CUDA tensors each wrapper launches its kernel or raises; on CPU
 tensors it runs the plain version beside it (``*_reference``: each tile
 gathers its expert's weight and contracts in f32).  Each keeps a
 ``.launches`` count of its kernel launches.  Given the plan's
-``counts``, the kernels treat a row past its expert's count as padding:
-they read it as zero, and a tile with no routed row is written as zeros
-without reading any weight.  The plan builds those rows as zeros, so
-the kernels and the plain versions agree on every buffer the plan makes.
+``counts``, a row past its expert's count is padding, whatever it
+holds: #11 and #12 give it a zero output row (a tile with no routed row
+is written as zeros without reading any weight), and #13 never reads it
+into a sum.  The plain versions take ``counts`` and do the same.  The
+plan builds those rows as zeros, and the backward keeps their gradients
+zero, so on the plan's buffers ``counts`` changes no value.
 
 ``grouped_matmul`` and ``glu_grouped`` are the autograd Functions (the
 reference's ``custom_vjp`` rules restated: the backward's dX is the
@@ -37,8 +39,8 @@ import torch
 from ..common.errors import enforce
 from . import _build
 
-__all__ = ["make_dropless_plan", "make_dropless_plan_rows", "gmm_raw",
-           "gmm_glu_raw", "gmm_dw_raw", "gmm_reference",
+__all__ = ["make_dropless_plan", "make_dropless_plan_rows", "routed_rows",
+           "gmm_raw", "gmm_glu_raw", "gmm_dw_raw", "gmm_reference",
            "gmm_glu_reference", "gmm_dw_reference", "grouped_matmul",
            "glu_grouped", "dropless_moe_ffn"]
 
@@ -120,28 +122,60 @@ def _tiles(x, n_tiles):
     return x.float().reshape(n_tiles, -1, x.shape[-1])
 
 
-def _tile_products(lhs, w, tile_expert, transpose_w):
-    """f32 [M, N]: each row tile against its expert's weight."""
+def routed_rows(tile_expert, counts, m):
+    """[m] bool over the plan's m-row layout: True on the rows that hold
+    a routed row (a row of expert e's tiles below ``counts[e]``), False
+    on padding rows and dead tiles."""
+    nt = tile_expert.shape[0]
+    tm = m // nt
+    te = tile_expert.long()
+    cnt = counts.long()
+    tiles = (cnt + tm - 1) // tm
+    first = torch.cumsum(tiles, 0) - tiles
+    start = (torch.arange(nt, device=te.device) - first[te]) * tm
+    rank = start[:, None] + torch.arange(tm, device=te.device)
+    return (rank < cnt[te][:, None]).reshape(m)
+
+
+def _zero_padding(x, tile_expert, counts):
+    """x [M, C] in f32 with the rows past their expert's count zeroed
+    (whatever they held); x as it is when counts is None."""
+    x = x.float()
+    if counts is None:
+        return x
+    keep = routed_rows(tile_expert, counts.to(x.device), x.shape[0])
+    return torch.where(keep[:, None], x, torch.zeros((), device=x.device))
+
+
+def _tile_products(lhs, w, tile_expert, transpose_w, counts=None):
+    """f32 [M, N]: each row tile against its expert's weight (the rows
+    past their expert's count as zero rows when counts is given)."""
     wt = w[tile_expert.long()].float()                   # [nt, K, N]|[nt, N, K]
     if transpose_w:
         wt = wt.transpose(1, 2)
-    y = torch.bmm(_tiles(lhs, tile_expert.shape[0]), wt)
+    a = _zero_padding(lhs, tile_expert, counts)
+    y = torch.bmm(_tiles(a, tile_expert.shape[0]), wt)
     return y.reshape(lhs.shape[0], -1)
 
 
-def gmm_reference(lhs, w, tile_expert, *, transpose_w=False):
+def gmm_reference(lhs, w, tile_expert, *, transpose_w=False, counts=None):
     """Plain version of #11: row tile i of ``lhs`` [M, K] against
     ``w[tile_expert[i]]`` ([E, K, N], or [E, N, K] contracted on its last
-    axis with ``transpose_w``), in f32, rounded to lhs's dtype."""
-    return _tile_products(lhs, w, tile_expert, transpose_w).to(lhs.dtype)
+    axis with ``transpose_w``), in f32, rounded to lhs's dtype; with the
+    plan's ``counts``, the rows past their expert's count give zero
+    rows."""
+    return _tile_products(lhs, w, tile_expert, transpose_w,
+                          counts).to(lhs.dtype)
 
 
-def gmm_glu_reference(lhs, wg, wu, tile_expert, *, save_pre=False):
+def gmm_glu_reference(lhs, wg, wu, tile_expert, *, save_pre=False,
+                      counts=None):
     """Plain version of #12: ``(hs,)`` or ``(hs, hg, hu)`` with
     ``hg = lhs @ wg[e]``, ``hu = lhs @ wu[e]`` in f32 and
-    ``hs = silu(hg) * hu`` in f32, each rounded to lhs's dtype."""
-    g = _tile_products(lhs, wg, tile_expert, False)
-    u = _tile_products(lhs, wu, tile_expert, False)
+    ``hs = silu(hg) * hu`` in f32, each rounded to lhs's dtype; rows past
+    their expert's count as in :func:`gmm_reference`."""
+    g = _tile_products(lhs, wg, tile_expert, False, counts)
+    u = _tile_products(lhs, wu, tile_expert, False, counts)
     hs = (torch.nn.functional.silu(g) * u).to(lhs.dtype)
     if not save_pre:
         return (hs,)
@@ -150,14 +184,17 @@ def gmm_glu_reference(lhs, wg, wu, tile_expert, *, save_pre=False):
 
 def gmm_dw_reference(lhs, dout, tile_expert, counts, num_experts):
     """Plain version of #13: ``dw[e] = sum over the tiles of e of
-    lhs_tile^T @ dout_tile`` in f32, zero where ``counts[e] == 0``,
-    rounded to lhs's dtype.  lhs [M, K], dout [M, N] -> [E, K, N]."""
+    lhs_tile^T @ dout_tile`` in f32 over the rows below e's count (a row
+    past it is never read: zeroed in both operands), zero where
+    ``counts[e] == 0``, rounded to lhs's dtype.  lhs [M, K], dout [M, N]
+    -> [E, K, N]."""
     nt = tile_expert.shape[0]
-    per_tile = torch.bmm(_tiles(lhs, nt).transpose(1, 2), _tiles(dout, nt))
+    a = _zero_padding(lhs, tile_expert, counts)
+    g = _zero_padding(dout, tile_expert, counts)
+    per_tile = torch.bmm(_tiles(a, nt).transpose(1, 2), _tiles(g, nt))
     dw = torch.zeros((num_experts,) + per_tile.shape[1:],
                      dtype=torch.float32, device=lhs.device)
     dw.index_add_(0, tile_expert.long(), per_tile)
-    dw = torch.where((counts > 0)[:, None, None], dw, torch.zeros_like(dw))
     return dw.to(lhs.dtype)
 
 
@@ -323,20 +360,25 @@ def _launch_dw(lhs, dout, tile_expert, counts, num_experts):
 def gmm_raw(lhs, w, tile_expert, *, transpose_w=False, counts=None):
     """Grouped matmul #11: ``lhs`` [M, K] row tile i against
     ``w[tile_expert[i]]`` -> [M, N] in lhs's dtype.  ``w`` is [E, K, N],
-    or [E, N, K] contracted on its last axis with ``transpose_w``.  With
-    the plan's ``counts`` [E] the kernel skips padding rows and dead
-    tiles (see the module docstring).
+    or [E, N, K] contracted on its last axis with ``transpose_w`` (the
+    backward's dX products).  With the plan's ``counts`` [E] a row past
+    its expert's count gives a zero row whatever it holds, and a 128-row
+    block with no routed row reads no weight (see the module docstring).
 
-    On CUDA tensors one launch of the kernel of ``csrc/grouped_matmul.cu``
-    (bf16 rows and weights on the tensor cores; f32 rows against f32 or
-    bf16 weights on the FMA pipe; K and N multiples of 8, row tiles a
-    multiple of 128 (bf16) or 32 (f32) rows; other inputs raise); on CPU
-    tensors :func:`gmm_reference`."""
+    On CUDA tensors one launch of the kernel of ``csrc/grouped_matmul.cu``:
+    bf16 rows and weights on the tensor cores (``gmm_wgmma``: 128 x 256
+    output tiles, a TMA ring of 64-deep slices feeding ``wgmma``; w [E, K,
+    N] read MN-major through the transpose bit, w [E, N, K] K-major, no
+    transposed copy), f32 rows against f32 or bf16 weights on the FMA
+    pipe.  K and N multiples of 8, row tiles a multiple of 128 (bf16) or
+    32 (f32) rows, contiguous 16-byte aligned operands; other inputs
+    raise.  On CPU tensors :func:`gmm_reference`."""
     enforce(lhs.dim() == 2 and w.dim() == 3,
             f"gmm takes lhs [M, K] and w [E, ., .], not "
             f"{tuple(lhs.shape)} and {tuple(w.shape)}")
     if lhs.device.type == "cpu":
-        return gmm_reference(lhs, w, tile_expert, transpose_w=transpose_w)
+        return gmm_reference(lhs, w, tile_expert, transpose_w=transpose_w,
+                             counts=counts)
     return _launch_gmm(lhs, w, tile_expert, transpose_w, counts)
 
 
@@ -349,16 +391,25 @@ def gmm_glu_raw(lhs, wg, wu, tile_expert, *, save_pre=False, counts=None):
             f"gmm_glu takes lhs [M, K] and wg/wu [E, K, F], not "
             f"{tuple(lhs.shape)} and {tuple(wg.shape)}")
     if lhs.device.type == "cpu":
-        return gmm_glu_reference(lhs, wg, wu, tile_expert, save_pre=save_pre)
+        return gmm_glu_reference(lhs, wg, wu, tile_expert, save_pre=save_pre,
+                                 counts=counts)
     return _launch_glu(lhs, wg, wu, tile_expert, save_pre, counts)
 
 
 def gmm_dw_raw(lhs, dout, tile_expert, counts, num_experts):
     """Per-expert weight gradient #13: ``dw[e] = lhs_e^T @ dout_e`` over
-    the rows of expert e, [E, K, N] in lhs's dtype; an expert with no
-    rows gets zeros.  lhs [M, K] and dout [M, N] in one dtype.  On CUDA
-    tensors one launch of the kernel of ``csrc/grouped_matmul.cu`` (rows
-    past an expert's count are not read); on CPU tensors
+    the rows of expert e below ``counts[e]``, [E, K, N] in lhs's dtype;
+    an expert with no rows gets zeros, and a row past its expert's count
+    is never read, whatever it holds.  lhs [M, K] and dout [M, N] in one
+    dtype.
+
+    On CUDA tensors one launch of the kernel of ``csrc/grouped_matmul.cu``:
+    bf16 on the tensor cores (``dw_wgmma``: one block a 128 x 256 tile of
+    dw[e], which reduces e's rows in 64-row slices through a TMA ring,
+    both operands MN-major through wgmma's transpose bits; the last
+    slice's rows past the count are zeroed in shared memory; no atomics,
+    so two launches give the same bits), f32 on the FMA pipe.  K and N
+    multiples of 8, contiguous 16-byte aligned operands.  On CPU tensors
     :func:`gmm_dw_reference`."""
     enforce(lhs.dim() == 2 and dout.dim() == 2,
             f"gmm_dw takes lhs [M, K] and dout [M, N], not "

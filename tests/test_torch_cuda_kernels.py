@@ -36,7 +36,15 @@ f32 1e-5 (row statistics and products summed in another order), bf16
 2^-7 (one bf16 step at the largest element's binade: a sum in another
 order can cross a rounding edge).  For y the dtype that counts is h's:
 the normalised value is rounded to it before the scale, so a bf16 h
-gives an f32 y bf16 steps too.
+gives an f32 y bf16 steps too.  The bf16 grouped matmul #11 (both
+transpose_w) and its dW #13 (tensor cores, TMA-fed) are held to 2^-7
+relative L2 at Qwen1.5-MoE's training widths cut in rows (spread and
+hot-expert routes, an empty expert whose dW must be exactly zero), at a
+ragged K and N (264 x 200) whose K edge falls inside a 64-deep slice
+(the next expert's weights, all inf, must never be read), with padding
+rows full of NaN (#11 must give zero rows there, #13 must leave its
+sums untouched), and must give the same bits on two launches and launch
+nothing but their wgmma kernels.
 """
 import pytest
 import torch
@@ -838,6 +846,190 @@ def test_gmm_dw_kernel_matches_plain(dev, dtype, tm):
     assert got.shape == (e, kdim, n) and got.dtype == dtype
     assert int(counts[2]) == 0 and torch.equal(got[2], torch.zeros_like(got[2]))
     assert _rel_l2(got, want) <= REL_TOL[dtype], _rel_l2(got, want)
+
+
+# The bf16 routes of #11 and #13 (gmm_wgmma, dw_wgmma: TMA ring + wgmma)
+# at Qwen1.5-MoE's training widths (H 2048, F 1408, 60 experts, tm 256),
+# cut in rows: 1024 tokens x top-4 spread over the experts, or 4096
+# tokens x top-1 with 7/8 of them on one hot expert; expert 2 empty.
+MOE_H, MOE_F, MOE_E, MOE_TM = 2048, 1408, 60, 256
+
+
+def _moe_rows(dev, gen, *, hot):
+    """The plan of the routes above over MOE_E experts and its padded
+    buffer's row mask [m_pad, 1]."""
+    t, k = (4096, 1) if hot else (1024, 4)
+    scores = torch.rand(t, MOE_E, generator=gen, device=dev)
+    scores[:, 2] = -1.0
+    if hot:
+        scores[: 7 * t // 8, 1] = 2.0
+    idx = scores.topk(k, dim=-1).indices
+    order, dest, te, counts, m_pad = gm.make_dropless_plan(idx, MOE_E,
+                                                           MOE_TM)
+    live = torch.zeros(m_pad, 1, dtype=torch.bool, device=dev)
+    live[dest] = True
+    return te, counts, live
+
+
+def _moe_stack(gen, dev, *shape):
+    return (torch.randn(shape, generator=gen, device=dev)
+            / shape[1] ** 0.5).to(torch.bfloat16)
+
+
+def _moe_buffer(gen, dev, live, n, padding=0.0):
+    """[m_pad, n] bf16 rows: random on the routed rows, ``padding`` on
+    the others."""
+    x = torch.randn(live.shape[0], n, generator=gen, device=dev)
+    return torch.where(live, x, torch.full_like(x, padding)).to(
+        torch.bfloat16)
+
+
+@pytest.mark.parametrize("hot", [False, True], ids=["spread", "hot"])
+@pytest.mark.parametrize("case", ["gate", "down", "down_dx", "gate_dx"])
+def test_gmm_wgmma_at_the_moe_training_widths(dev, case, hot):
+    """#11 forward (gate and down) and transpose_w (the down and gate
+    dX) against the plain version, relative L2 2^-7."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    te, counts, live = _moe_rows(dev, gen, hot=hot)
+    wg = _moe_stack(gen, dev, MOE_E, MOE_H, MOE_F)
+    wd = _moe_stack(gen, dev, MOE_E, MOE_F, MOE_H)
+    w, k, transpose_w = {"gate": (wg, MOE_H, False),
+                         "down": (wd, MOE_F, False),
+                         "down_dx": (wd, MOE_H, True),
+                         "gate_dx": (wg, MOE_F, True)}[case]
+    lhs = _moe_buffer(gen, dev, live, k)
+    want = gm.gmm_reference(lhs, w, te, transpose_w=transpose_w)
+    got = gm.gmm_raw(lhs, w, te, transpose_w=transpose_w, counts=counts)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert _rel_l2(got, want) <= REL_TOL[torch.bfloat16], _rel_l2(got, want)
+    assert not got[~live[:, 0]].any()
+
+
+@pytest.mark.parametrize("hot", [False, True], ids=["spread", "hot"])
+@pytest.mark.parametrize("case", ["gate_dw", "down_dw"])
+def test_gmm_dw_wgmma_at_the_moe_training_widths(dev, case, hot):
+    """#13 for the gate and down weights against the plain version,
+    relative L2 2^-7; the empty expert's gradient exactly zero."""
+    gen = torch.Generator(device=dev).manual_seed(22)
+    te, counts, live = _moe_rows(dev, gen, hot=hot)
+    k, n = (MOE_H, MOE_F) if case == "gate_dw" else (MOE_F, MOE_H)
+    lhs, dout = (_moe_buffer(gen, dev, live, c) for c in (k, n))
+    want = gm.gmm_dw_reference(lhs, dout, te, counts, MOE_E)
+    got = gm.gmm_dw_raw(lhs, dout, te, counts, MOE_E)
+    torch.cuda.synchronize()
+    assert got.shape == (MOE_E, k, n) and got.dtype == torch.bfloat16
+    assert int(counts[2]) == 0 and torch.equal(got[2],
+                                               torch.zeros_like(got[2]))
+    assert _rel_l2(got, want) <= REL_TOL[torch.bfloat16], _rel_l2(got, want)
+
+
+@pytest.mark.parametrize("transpose_w", [False, True], ids=["nn", "nt"])
+def test_gmm_wgmma_gives_padding_rows_zeros(dev, transpose_w):
+    """Padding rows full of NaN: #11 gives them zero rows and every other
+    row as the plain version fed the buffer with the padding zeroed."""
+    gen = torch.Generator(device=dev).manual_seed(23)
+    e, kdim, n = 6, 264, 200
+    xs, te, counts = _plan_rows(dev, gen, torch.bfloat16, t=300, k=3, e=e,
+                                h=kdim, tm=256)
+    live = gm.routed_rows(te, counts, xs.shape[0])[:, None]
+    dirty = torch.where(live, xs, torch.full_like(xs, float("nan")))
+    shape = (e, n, kdim) if transpose_w else (e, kdim, n)
+    w = (torch.randn(shape, generator=gen, device=dev) / kdim ** 0.5).to(
+        torch.bfloat16)
+    want = gm.gmm_reference(xs, w, te, transpose_w=transpose_w)
+    got = gm.gmm_raw(dirty, w, te, transpose_w=transpose_w, counts=counts)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert not got[~live[:, 0]].any()
+    assert _rel_l2(got, want) <= REL_TOL[torch.bfloat16], _rel_l2(got, want)
+
+
+def test_gmm_dw_wgmma_never_reads_padding_rows(dev):
+    """Padding rows of lhs and dout full of NaN (the last slice of each
+    expert overruns its count into them): #13's sums are those of the
+    plain version fed the same buffers with the padding zeroed."""
+    gen = torch.Generator(device=dev).manual_seed(24)
+    e, kdim, n = 6, 264, 200
+    xs, te, counts = _plan_rows(dev, gen, torch.bfloat16, t=300, k=3, e=e,
+                                h=kdim, tm=256)
+    live = gm.routed_rows(te, counts, xs.shape[0])[:, None]
+    dout = torch.randn(xs.shape[0], n, generator=gen, device=dev).to(
+        torch.bfloat16) * live
+    want = gm.gmm_dw_reference(xs, dout, te, counts, e)
+    nan = float("nan")
+    got = gm.gmm_dw_raw(torch.where(live, xs, torch.full_like(xs, nan)),
+                        torch.where(live, dout, torch.full_like(dout, nan)),
+                        te, counts, e)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got[2], torch.zeros_like(got[2]))
+    assert _rel_l2(got, want) <= REL_TOL[torch.bfloat16], _rel_l2(got, want)
+
+
+def test_gmm_wgmma_reads_no_other_experts_weights(dev):
+    """K 264 ends inside a 64-deep slice: the weights are read through a
+    3-D map whose edge is each expert's own, so expert 1's last slice
+    zero-fills past row 264 and never reaches expert 2's weights (all
+    inf here, and no row is routed to it)."""
+    gen = torch.Generator(device=dev).manual_seed(25)
+    e, kdim, n = 6, 264, 200
+    xs, te, counts = _plan_rows(dev, gen, torch.bfloat16, t=300, k=3, e=e,
+                                h=kdim, tm=128)
+    for transpose_w in (False, True):
+        shape = (e, n, kdim) if transpose_w else (e, kdim, n)
+        w = (torch.randn(shape, generator=gen, device=dev)
+             / kdim ** 0.5).to(torch.bfloat16)
+        w[2] = float("inf")
+        want = gm.gmm_reference(xs, w, te, transpose_w=transpose_w)
+        got = gm.gmm_raw(xs, w, te, transpose_w=transpose_w, counts=counts)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all(), transpose_w
+        assert _rel_l2(got, want) <= REL_TOL[torch.bfloat16], \
+            (transpose_w, _rel_l2(got, want))
+
+
+@pytest.mark.parametrize("kernel", ["gmm", "gmm_t", "gmm_dw"])
+def test_grouped_wgmma_is_bit_identical_on_two_launches(dev, kernel):
+    gen = torch.Generator(device=dev).manual_seed(26)
+    te, counts, live = _moe_rows(dev, gen, hot=True)
+    lhs = _moe_buffer(gen, dev, live, MOE_F)
+    if kernel == "gmm_dw":
+        dout = _moe_buffer(gen, dev, live, MOE_H)
+        run = lambda: gm.gmm_dw_raw(lhs, dout, te, counts, MOE_E)  # noqa: E731
+    else:
+        t = kernel == "gmm_t"
+        w = _moe_stack(gen, dev, MOE_E, MOE_H, MOE_F) if t \
+            else _moe_stack(gen, dev, MOE_E, MOE_F, MOE_H)
+        run = lambda: gm.gmm_raw(lhs, w, te, transpose_w=t,  # noqa: E731
+                                 counts=counts)
+    a, b = run(), run()
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_grouped_bf16_launches_are_the_wgmma_kernels_alone(dev):
+    """A bf16 #11 call (either transpose_w) and a bf16 #13 call each
+    launch their wgmma kernel and nothing else."""
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device=dev).manual_seed(27)
+    xs, te, counts = _plan_rows(dev, gen, torch.bfloat16, t=300, k=3, e=6,
+                                h=256, tm=128)
+    w = (torch.randn(6, 256, 256, generator=gen, device=dev) / 16).to(
+        torch.bfloat16)
+    for want, run in (
+            ("gmm_wgmma", lambda: gm.gmm_raw(xs, w, te, counts=counts)),
+            ("gmm_wgmma", lambda: gm.gmm_raw(xs, w, te, transpose_w=True,
+                                             counts=counts)),
+            ("dw_wgmma", lambda: gm.gmm_dw_raw(xs, xs, te, counts, 6))):
+        run()                                # the build and first launch
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        names = [ev.key for ev in prof.key_averages()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA]
+        assert names and all(want in nm for nm in names), names
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)

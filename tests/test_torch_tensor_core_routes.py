@@ -1,5 +1,6 @@
-"""What the 16-bit tensor-core routes of #3 (dQ) and #10 (matmul+rope)
-are held to, checked on the CPU.
+"""What the 16-bit tensor-core routes of #3 (dQ), #10 (matmul+rope), #11
+(grouped matmul) and #13 (its per-expert dW) are held to, checked on the
+CPU.
 
 - The port's plain backward (the yardstick of the wgmma dQ kernel on the
   card) against the reference's Pallas backward ``_bwd_impl`` in
@@ -8,7 +9,13 @@ are held to, checked on the CPU.
   kernel's "subtraction first" edge path reproduces.  Tolerance 2e-5
   absolute on gradients of order 1 (f32 sums in another order).
 - ``chip_smoke.py``'s route gate: a traced bf16 training step passes
-  only if every traced kernel of each named family is a wgmma one.
+  only if every traced kernel of each named family is a wgmma one (for
+  the MoE step, the grouped matmul and dW families too).
+- The plain dW (the yardstick of the wgmma dW kernel on the card)
+  against the reference's ``_gmm_dw_call`` in interpret mode: rows past
+  an expert's count are never read, whatever they hold, and the plan's
+  own buffers and backward keep those rows zero.  Tolerance 1e-5
+  relative L2 (f32 sums in another order).
 """
 import importlib.util
 from pathlib import Path
@@ -20,6 +27,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from paddle_tpu_torch.ops import flash_attention as port
+from paddle_tpu_torch.ops import grouped_matmul as gm
 
 TOL = 2e-5
 ROOT = Path(__file__).resolve().parent.parent
@@ -112,3 +120,113 @@ def test_route_gate_refuses_a_step_off_the_tensor_cores(swap):
         cs.check_tensor_core_route({"routed_kernel_ms": prof},
                                    "train_fused",
                                    cs.FLASH_FAMILIES + ("matmul_rope",))
+
+
+MOE_STEP = {
+    "void ptt::flash_fwd_wgmma<__nv_bfloat16, 128, 1, false>": 8.4,
+    "void ptt::flash_bwd_dq_wgmma<__nv_bfloat16, 128, false>": 4.6,
+    "void ptt::flash_bwd_dkv_wgmma<__nv_bfloat16, 128, false>": 8.1,
+    "void ptt::gmm_wgmma<false>": 22.0,
+    "void ptt::gmm_wgmma<true>": 33.0,
+    "void ptt::dw_wgmma": 32.0,
+    "void ptt::glu_bf16": 50.0}
+
+
+def test_route_gate_passes_a_moe_step_on_the_tensor_cores():
+    cs = _chip_smoke()
+    assert [cs.kernel_family(n) for n in MOE_STEP] == [
+        "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "grouped_matmul",
+        "grouped_matmul", "grouped_matmul_dw", "grouped_matmul_glu"]
+    cs.check_tensor_core_route({"routed_kernel_ms": MOE_STEP}, "train_moe",
+                               cs.FLASH_FAMILIES + cs.GROUPED_FAMILIES)
+
+
+@pytest.mark.parametrize("swap", [
+    ("void ptt::gmm_wgmma<false>", "void ptt::gmm_bf16<false>"),
+    ("void ptt::gmm_wgmma<true>", "void ptt::gmm_t_f32<__nv_bfloat16>"),
+    ("void ptt::dw_wgmma", "void ptt::dw_bf16"),
+    ("void ptt::dw_wgmma", "void ptt::dw_f32"),
+    ("void ptt::dw_wgmma", None)],
+    ids=["mma_sync_gmm", "fma_gmm_t", "mma_sync_dw", "fma_dw", "no_dw"])
+def test_route_gate_refuses_a_moe_step_off_the_tensor_cores(swap):
+    cs = _chip_smoke()
+    old, new = swap
+    prof = {n: ms for n, ms in MOE_STEP.items() if n != old}
+    if new is not None:
+        prof[new] = MOE_STEP[old]
+    with pytest.raises(cs.SmokeFailure, match="tensor-core route"):
+        cs.check_tensor_core_route({"routed_kernel_ms": prof}, "train_moe",
+                                   cs.FLASH_FAMILIES + cs.GROUPED_FAMILIES)
+
+
+def _dw_buffers(fill, seed=5, *, t=40, k=2, e=5, h=32, n=24, tm=8):
+    """A plan over random routes (expert 2 empty; the dead tail maps to
+    expert 4), lhs [m_pad, h] and dout [m_pad, n] random on the routed
+    rows and ``fill`` (random or NaN) on every other row, the same with
+    those rows zero, and the plan's tile_expert and counts (numpy)."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, e, (t, k))
+    idx = np.where(idx == 2, 3, idx).astype(np.int32)
+    _, _, te, counts, m_pad = gm.make_dropless_plan(torch.tensor(idx), e, tm)
+    keep = gm.routed_rows(te, counts, m_pad).numpy()[:, None]
+    bufs = []
+    for c in (h, n):
+        x = rng.standard_normal((m_pad, c)).astype(np.float32)
+        pad = np.full_like(x, np.nan) if fill == "nan" else \
+            rng.standard_normal(x.shape).astype(np.float32)
+        bufs.append((np.where(keep, x, pad), np.where(keep, x, 0)))
+    return bufs, te.numpy(), counts.numpy()
+
+
+@pytest.mark.parametrize("fill", ["random", "nan"])
+def test_plain_dw_never_reads_rows_past_the_counts(fill):
+    """#13's plain version on buffers whose padding rows and dead tail
+    hold ``fill``: the reference's ``_gmm_dw_call`` (interpret mode) on
+    the same buffers with those rows zero, and bit for bit the plain
+    version on the zeroed buffers."""
+    from paddle_tpu.ops.pallas.grouped_matmul import _gmm_dw_call
+    ((xs, xs0), (dout, dout0)), te, counts = _dw_buffers(fill)
+    e = counts.shape[0]
+    assert counts[2] == 0 and (np.delete(counts, 2) > 0).all()
+    want = _gmm_dw_call(jnp.asarray(xs0), jnp.asarray(dout0),
+                        jnp.asarray(te), jnp.asarray(counts), e, tm=8,
+                        tk=xs.shape[1], tn=dout.shape[1], interpret=True)
+    t = torch.from_numpy
+    got = gm.gmm_dw_raw(t(xs), t(dout), t(te), t(counts), e)
+    clean = gm.gmm_dw_raw(t(xs0), t(dout0), t(te), t(counts), e)
+    assert torch.equal(got, clean)
+    assert not got[2].any()
+    want = np.asarray(want, np.float64)
+    err = np.linalg.norm(got.numpy() - want) / np.linalg.norm(want)
+    assert err <= 1e-5, err
+
+
+def test_plan_and_backward_keep_padding_rows_zero(monkeypatch):
+    """Through the dropless FFN's backward, every buffer that reaches
+    #13 (lhs and dout of the gate, up and down dW) is zero on the rows
+    past their expert's count and on the dead tail: the plan builds them
+    so and the backward keeps them so."""
+    rng = np.random.default_rng(6)
+    t, k, e, h, f = 24, 2, 5, 16, 8
+    x = torch.tensor(rng.standard_normal((t, h)), dtype=torch.float32,
+                     requires_grad=True)
+    gv = torch.tensor(rng.random((t, k)), dtype=torch.float32)
+    idx = torch.tensor(rng.integers(0, e, (t, k)), dtype=torch.int32)
+    ws = [torch.tensor(rng.standard_normal(s), dtype=torch.float32,
+                       requires_grad=True)
+          for s in ((e, h, f), (e, h, f), (e, f, h))]
+    seen = []
+    real = gm.gmm_dw_raw
+
+    def spy(lhs, dout, tile_expert, counts, num_experts):
+        seen.append((lhs, dout, tile_expert, counts))
+        return real(lhs, dout, tile_expert, counts, num_experts)
+
+    monkeypatch.setattr(gm, "gmm_dw_raw", spy)
+    out = gm.dropless_moe_ffn(x, gv, idx, *ws, tm=8)
+    out.sum().backward()
+    assert len(seen) == 3
+    for lhs, dout, te, counts in seen:
+        pad = ~gm.routed_rows(te, counts, lhs.shape[0])
+        assert pad.any()
+        assert not lhs[pad].any() and not dout[pad].any()
