@@ -67,8 +67,13 @@ Every 16-bit training step must trace only the tensor-core (``wgmma``)
 kernels of the flash forward, dQ and dK/dV families, the fused step
 only the tensor-core matmul+rope kernel, and the MoE step only the
 tensor-core grouped matmul (#11) and dW (#13) kernels; every bf16 #11
-and #13 check must trace its wgmma kernel; every tensor-core kernel
-must build without spills.
+and #13 check must trace its wgmma kernel; the f32 attention of the
+GPT-2 step and of the split int8 serve's prefill only the 3xTF32
+forward (``flash_fwd_3xtf32``, at GPT-2's shape and at the prefill
+chunk's in a kernel row too), and the f32-row #11 of MoE serving only
+the streaming kernel (``gmm_rows_stream``, in rows at a mixed and a
+pure decode step); every tensor-core and streaming kernel must build
+without spills.
 
 Each phase prints one JSON line; the last three lines are the kernel
 table, the card's name and power limit as nvidia-smi reports them, and
@@ -77,6 +82,7 @@ table, the card's name and power limit as nvidia-smi reports them, and
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import gc
 import json
@@ -92,6 +98,9 @@ PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12          # f32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12        # f32 inputs on the tensor cores (TF32)
+F32_TC_NOTE = "3xTF32: 3 x operations at 495 TFLOP/s (bound_fma_ms: f32 " \
+              "67 TFLOP/s)"
+F32_FMA_NOTE = "f32 67 TFLOP/s (bound_3xtf32_ms: 3 x operations at 495)"
 TOL = 2e-2          # bf16 outputs: one rounding of values of order 1
 # bf16 gradients, relative to the largest element: one output rounding
 # (2^-8) plus f32 sums in another order
@@ -152,16 +161,42 @@ def bound_ms(n_bytes, flops, peak=PEAK_BF16_FLOPS):
         else "operations"
 
 
+def f32_bounds(n_bytes, flops, tensor_cores):
+    """``bound_ms`` and ``bound_by`` of an f32 kernel, with the bound of
+    the other route beside them: an f32-accurate product on the tensor
+    cores is three TF32 products (3 x flops at 495 TFLOP/s,
+    ``tensor_cores``: ``bound_fma_ms`` beside), on the FMA pipe one f32
+    product (67 TFLOP/s: ``bound_3xtf32_ms`` beside)."""
+    tc = bound_ms(n_bytes, 3 * flops, peak=PEAK_TF32_FLOPS)
+    fma = bound_ms(n_bytes, flops, peak=PEAK_F32_FLOPS)
+    if tensor_cores:
+        return {"bound_ms": tc[0], "bound_by": tc[1], "bound_fma_ms": fma[0]}
+    return {"bound_ms": fma[0], "bound_by": fma[1], "bound_3xtf32_ms": tc[0]}
+
+
+def design_of(name):
+    """The design a kernel's (traced or mangled) name states: "3xtf32"
+    (f32 on the tensor cores as three TF32 products, #2's f32 route),
+    "wgmma" (16-bit on the tensor cores), "stream" (#11's f32 rows
+    streaming their expert's weights) or "fma" (the FMA pipe)."""
+    for key in ("3xtf32", "wgmma", "stream"):
+        if key in name:
+            return key
+    return "fma"
+
+
 def ptxas_usage(report):
-    """Registers and spill bytes of each tensor-core kernel in a build
-    report ({source: {"ptxas": assembler output}}), by mangled name."""
+    """Registers and spill bytes of each kernel of a redesigned route
+    (tensor-core and streaming kernels: every design but "fma") in a
+    build report ({source: {"ptxas": assembler output}}), by mangled
+    name."""
     usage, cur = {}, None
     for rep in report.values():
         for line in rep["ptxas"].splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
                 cur = m.group(1)
-            elif cur and "wgmma" in cur:
+            elif cur and design_of(cur) != "fma":
                 m = re.search(r"Used (\d+) registers", line)
                 if m:
                     usage.setdefault(cur, {})["registers"] = int(m.group(1))
@@ -261,6 +296,81 @@ def flash_case(torch, gen, dev, H=32, KVH=8):
         + q.numel() * 2 + H * P * 4
     flops = 4 * H * P * s_kv * D
     return dict(q=q, k=k, v=v, mask=mask), n_bytes, flops
+
+
+def f32_prefill_kernel(torch, gen, dev, table):
+    """#2's f32 route at the split path's prefill attention with int8 or
+    other-dtype pools (the engine widens q and the gathered pages to f32):
+    q [1, 128, 32, 128] against 1024 keys of 8 kv heads (strided views of
+    [KVH, S, D] pages, as the engine passes them) under the f32 position
+    mask [1, 1, 128, 1024] of a 1000-token prompt's last chunk (-1e30
+    past each row's position), against its plain version (1e-5 relative
+    L2, lse 1e-3), timed, with ``scaled_dot_product_attention`` in f32
+    over the same mask with ``enable_gqa=True`` as the library call.  32
+    blocks of 128 rows on 132 SMs: the keys split."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    H, KVH, P, D, s_kv, prev = 32, 8, 128, 128, 1024, 896
+    q = torch.randn(1, P, H, D, generator=gen, device=dev)
+    pages = torch.randn(2, KVH, s_kv, D, generator=gen, device=dev)
+    k, v = pages[0].transpose(0, 1)[None], pages[1].transpose(0, 1)[None]
+    allow = torch.arange(s_kv, device=dev)[None, :] <= \
+        prev + torch.arange(P, device=dev)[:, None]
+    mask = torch.zeros((1, 1, P, s_kv), device=dev).masked_fill_(
+        ~allow, -1e30)
+    kw = dict(causal=False, mask=mask)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    ref_out, ref_lse = fa.flash_attention_fwd_reference(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = rel_l2(out, ref_out)
+    lse_err = (lse - ref_lse).abs().max().item()
+    check(err <= F32_REL_L2_TOL, f"f32 prefill flash off its plain version: "
+                                 f"relative L2 {err}")
+    check(lse_err <= 1e-3, f"f32 prefill flash lse off by {lse_err}")
+    nsplit = ctypes.c_int()
+    fa._kernel().flash_attention_fwd_workspace(1, H, P, s_kv, D, 0,
+                                               ctypes.byref(nsplit))
+    nsplit = nsplit.value
+    check(nsplit > 1, f"the prefill chunk took {nsplit} key split(s)")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    try:
+        sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+        def library():
+            sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    except TypeError:                   # a PyTorch without enable_gqa
+        kr, vr = (x.repeat_interleave(H // KVH, dim=1) for x in (kt, vt))
+
+        def library():
+            sdpa(qt, kr, vr, attn_mask=mask)
+    n_bytes = 4 * (2 * q.numel() + k.numel() + v.numel() + mask.numel()
+                   + H * P)
+    flops = 4 * H * P * s_kv * D
+    row = {"name": "flash_attention_fwd_f32_prefill", "route": "cuda",
+           "source": "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
+           "replaces": "paddle_tpu/ops/pallas/flash_attention.py:164",
+           "max_abs_err": (out - ref_out).abs().max().item(),
+           "ms": timed_ms(torch, lambda: fa.flash_attention_fwd(q, k, v,
+                                                                **kw), 20),
+           "plain_ms": timed_ms(
+               torch, lambda: fa.flash_attention_fwd_reference(q, k, v,
+                                                               **kw), 5),
+           **f32_bounds(n_bytes, flops, tensor_cores=True),
+           "library_ms": timed_ms(torch, library, 20),
+           **traced_kernel(torch, lambda: fa.flash_attention_fwd(q, k, v,
+                                                                 **kw))}
+    check(row["design"] == "3xtf32",
+          f"f32 prefill ran on {row['design']}, not 3xtf32")
+    table[row["name"]] = row
+    emit({"phase": "kernel", **row, "rel_l2_err": err,
+          "lse_max_abs_err": lse_err, "key_splits": nsplit,
+          "shape": {"q": list(q.shape), "kv": list(k.shape),
+                    "mask": list(mask.shape)}, "dtype": "float32",
+          "bound_peak": F32_TC_NOTE,
+          "tolerance": {"rel_l2_err": F32_REL_L2_TOL,
+                        "lse_max_abs_err": 1e-3},
+          "library_note": "scaled_dot_product_attention, f32, the same "
+                          "mask, enable_gqa=True"})
 
 
 def plain_hidden(torch, model, ids, kv_dtype=None):
@@ -363,7 +473,7 @@ def kernel_family(name):
                      ("add_norm", "add_norm"),
                      ("matmul_rope", "matmul_rope"),
                      # grouped_matmul.cu, whatever the design: gmm_wgmma,
-                     # gmm_rows_f32, gmm_t_f32; glu_bf16, glu_f32;
+                     # gmm_rows_stream, gmm_t_f32; glu_bf16, glu_f32;
                      # dw_wgmma, dw_f32
                      ("ptt::gmm_", "grouped_matmul"),
                      ("ptt::glu_", "grouped_matmul_glu"),
@@ -395,7 +505,7 @@ def profiled(torch, fn):
         out = fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    fams, top, routed = {}, [], {}
+    fams, counts, top, routed = {}, {}, [], {}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue                        # host ops: their kernels count
@@ -405,6 +515,7 @@ def profiled(torch, fn):
         if us > 0:
             fam = kernel_family(e.key)
             fams[fam] = fams.get(fam, 0.0) + us / 1e3
+            counts[fam] = counts.get(fam, 0) + e.count
             top.append((us / 1e3, e.key[:80], e.count))
             if fam in ROUTED_FAMILIES:
                 routed[e.key.split("(")[0][:80]] = us / 1e3
@@ -414,6 +525,7 @@ def profiled(torch, fn):
                  "device_busy_ms": busy if busy else None,
                  "idle_share": 1 - busy / wall_ms if busy else None,
                  "kernel_ms_by_family": fams,
+                 "kernel_count_by_family": counts,
                  "routed_kernel_ms": routed,
                  "top_kernels": [{"ms": ms, "name": n, "count": c}
                                  for ms, n, c in top[:8]]}
@@ -421,24 +533,43 @@ def profiled(torch, fn):
 
 def traced_kernel(torch, fn, family=None, calls=3):
     """The kernel that ``fn()`` launches, traced over ``calls`` calls:
-    ``design`` read from its name, "wgmma" (the tensor cores) or "fma"
-    (the FMA pipe), for the families of ``ROUTED_FAMILIES`` (flash,
+    ``design`` read from its name (``design_of``), for the families of
+    ``ROUTED_FAMILIES`` (flash,
     matmul+rope, the grouped matmul #11 and its dW #13; None for another
     ``family``), and ``device_ms``, its own device time a call (without
     the wrapper's host work).  ``family`` None: the one routed family
-    traced."""
+    traced.  The profiler at times drops kernel events (a dK/dV row's
+    trace held none, an f32 forward row's one of its three; cause not
+    found), so a trace whose count of the family's kernels is 0 or not a
+    multiple of ``calls`` is taken once more, ``trace_retries`` says so,
+    and the check fails if that one is short too."""
+    def lost(prof):
+        fams = [family] if family else \
+            {kernel_family(n) for n in prof["routed_kernel_ms"]}
+        n = [prof["kernel_count_by_family"].get(f, 0) for f in fams]
+        return not n or any(c == 0 or c % calls for c in n)
+
+    retries = 0
     _, prof = profiled(torch, lambda: [fn() for _ in range(calls)])
+    if lost(prof):
+        retries = 1
+        emit({"phase": "trace_retry", "family": family,
+              "top_kernels": prof["top_kernels"]})
+        _, prof = profiled(torch, lambda: [fn() for _ in range(calls)])
+    check(not lost(prof), f"the trace of {family or 'a routed kernel'} "
+                          f"lost events twice: "
+                          f"{prof['kernel_count_by_family']}")
     names = [n for n in prof["routed_kernel_ms"]
              if family is None or kernel_family(n) == family]
     fams = {family} if family else {kernel_family(n) for n in names}
-    designs = {"wgmma" if "wgmma" in n else "fma" for n in names}
+    designs = {design_of(n) for n in names}
     check(len(fams) == 1 and len(designs) <= 1 and (names or family),
           f"not one kernel traced ({family}): {names}")
     fam = fams.pop()
     ms = prof["kernel_ms_by_family"].get(fam)
     check(ms, f"no {fam} kernel traced")
     return {"design": designs.pop() if designs else None,
-            "device_ms": ms / calls}
+            "device_ms": ms / calls, "trace_retries": retries}
 
 
 def serve_run(torch, eng, prompts, counters):
@@ -991,15 +1122,19 @@ FLASH_FAMILIES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 GROUPED_FAMILIES = ("grouped_matmul", "grouped_matmul_dw")    # #11, #13
 
 
-def check_tensor_core_route(prof, phase, families=FLASH_FAMILIES):
-    """A bf16 step's launches of each family reached only the
-    tensor-core kernels: the family was traced, and every traced kernel
-    of it is a wgmma one."""
+def check_tensor_core_route(prof, phase, families=FLASH_FAMILIES,
+                            design="wgmma"):
+    """A traced run's launches of each family reached only the kernels
+    of ``design`` (a bf16 step: the wgmma ones; f32 attention: the 3xTF32
+    forward; f32 MoE serving: the streaming #11): the family was traced,
+    and every traced kernel of it has that design."""
     for fam in families:
         names = [n for n in prof["routed_kernel_ms"]
                  if kernel_family(n) == fam]
-        check(names and all("wgmma" in n for n in names),
-              f"{phase}: {fam} kernels off the tensor-core route: {names}")
+        check(names and all(design_of(n) == design for n in names),
+              f"{phase}: {fam} kernels off the "
+              f"{'tensor-core' if design == 'wgmma' else design} route: "
+              f"{names}")
 
 
 def train_reference_phase(torch, np, dev):
@@ -1289,8 +1424,10 @@ def moe_kernels(torch, gen, dev, table):
 
     - serving, one mixed step of 136 rows x top-4 (544 slots, tm 128,
       m_pad 8,320): #11 with f32 rows against the bf16 gate stack
-      [60, 2048, 1408] and down stack [60, 1408, 2048] (f32 FMA path,
-      relative L2 1e-5);
+      [60, 2048, 1408] and down stack [60, 1408, 2048], and one pure
+      decode step of 8 rows (32 slots, m_pad 7,808) against the gate
+      stack (``gmm_rows_stream``, relative L2 1e-5; padding rows and dead
+      tiles exactly 0);
     - training, 4 x 4096 tokens x top-4 (65,536 slots, tm 256, m_pad
       80,896; expert 59 gets no rows, so #13's zero expert shows): #11
       forward (down), #11 transpose_w for the down and gate dX, #12 with
@@ -1299,8 +1436,8 @@ def moe_kernels(torch, gen, dev, table):
       empty expert exactly zero).
 
     Each #11 and #13 row carries ``design`` and ``device_ms`` from a
-    trace of its call (wgmma for bf16, fma for the f32 rows), and fails
-    on another design.
+    trace of its call (wgmma for bf16, stream for the f32 rows), and
+    fails on another design.
 
     bound_ms counts the FLOPs of the routed rows only and the bytes of
     the routed lhs rows, the weights of the experts with rows, and the
@@ -1357,22 +1494,31 @@ def moe_kernels(torch, gen, dev, table):
               **extra})
         return row
 
-    # -- serving: f32 rows, bf16 stacks, tm 128
-    xs, te, counts, tm = moe_plan_rows(torch, gen, dev, 136, H,
-                                       torch.float32)
+    # -- serving: f32 rows, bf16 stacks, tm 128: a mixed step (136 rows,
+    # 544 slots; gate and down) and a pure decode step (8 rows, 32 slots)
     no_lib = (None, "torch._grouped_mm takes bf16 operands, not these f32 "
                     "rows")
-    run_case("grouped_matmul", lambda: gm.gmm_raw(xs, wg, te, counts=counts),
-             lambda: gm.gmm_reference(xs, wg, te), 1e-5,
-             cost(counts, H, F, 4, 2, 4), no_lib, "serve gate, f32 rows",
-             design="fma", shape=[list(xs.shape), [E, H, F]], tm=tm)
-    hs = torch.randn(xs.shape[0], F, generator=gen, device=dev) \
-        * (xs[:, :1] != 0)
-    run_case("grouped_matmul", lambda: gm.gmm_raw(hs, wd, te, counts=counts),
-             lambda: gm.gmm_reference(hs, wd, te), 1e-5,
-             cost(counts, F, H, 4, 2, 4), no_lib, "serve down, f32 rows",
-             design="fma", shape=[list(hs.shape), [E, F, H]], tm=tm)
-    del xs, hs
+    for tokens, proj, key in ((136, "gate", "grouped_matmul_f32_rows"),
+                              (136, "down", "grouped_matmul_f32_rows_down"),
+                              (8, "gate", "grouped_matmul_f32_rows_decode")):
+        k, n, w = (H, F, wg) if proj == "gate" else (F, H, wd)
+        xs, te, counts, tm = moe_plan_rows(torch, gen, dev, tokens, k,
+                                           torch.float32)
+        row = run_case(
+            "grouped_matmul",
+            lambda: gm.gmm_raw(xs, w, te, counts=counts),
+            lambda: gm.gmm_reference(xs, w, te), 1e-5,
+            cost(counts, k, n, 4, 2, 4), no_lib,
+            f"serve {proj}, f32 rows, {tokens * MOE_K} slots",
+            design="stream", shape=[list(xs.shape), [E, k, n]], tm=tm,
+            routed_rows=int(counts.sum()))
+        live = gm.routed_rows(te, counts, xs.shape[0])
+        got = gm.gmm_raw(xs, w, te, counts=counts)
+        torch.cuda.synchronize()
+        check(not got[~live].any(), f"{key}: padding rows or dead tiles "
+                                    f"not exactly 0")
+        table[key] = dict(row, name=key)
+        del xs, got, live
 
     # -- training: bf16, tm 256, expert 59 empty
     xs, te, counts, tm = moe_plan_rows(torch, gen, dev, MOE_BATCH * MOE_SEQ,
@@ -1610,6 +1756,11 @@ def serve_moe_phase(torch, np, dev, table):
         f"p{rid}": rng.integers(0, cfg.vocab_size, n).tolist()
         for rid, n in SERVE_LENS.items()}, max_new=8)
     emit({"phase": "serve_moe_profile", **prof})
+    check_tensor_core_route(prof, "serve_moe_profile", ("grouped_matmul",),
+                            design="stream")
+    for name in ("grouped_matmul_f32_rows", "grouped_matmul_f32_rows_down",
+                 "grouped_matmul_f32_rows_decode"):
+        table[name]["launches"] = launches["grouped_matmul"]
     del eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -2205,6 +2356,9 @@ def quant_serve_phases(torch, np, dev, table, model, prompts, bf16_pool_bytes):
             torch, eng, split_prompts(np, model.config.vocab_size,
                                       SEED + 11))
         emit({"phase": f"{phase}_profile", **prof})
+        if phase == "serve_split_int8":
+            check_tensor_core_route(prof, f"{phase}_profile",
+                                    ("flash_fwd",), design="3xtf32")
         del eng
         gc.collect()
         torch.cuda.empty_cache()
@@ -2230,6 +2384,8 @@ def quant_serve_phases(torch, np, dev, table, model, prompts, bf16_pool_bytes):
           f"serve_int8 launches {n}")
     table["ragged_paged_append_attend_int8"]["launches"] = \
         n["ragged_paged_append_attend"]
+    table["flash_attention_fwd_f32_prefill"]["launches"] = \
+        launches["serve_split_int8"]["launches"]["flash_attention_fwd"]
     table["paged_decode_append_attend"]["launches"] = \
         launches["serve_split"]["launches"]["paged_decode_append_attend"]
     table["paged_attention"]["launches"] = \
@@ -2780,8 +2936,6 @@ def dropout_kernels(torch, gen, dev, table):
                                                       **kw), bwd_library)):
         flops, n_bytes = cost[key]
         outs = outputs[key]
-        bound, bound_by = bound_ms(n_bytes, flops, peak=PEAK_F32_FLOPS)
-        bound_tf32, _ = bound_ms(n_bytes, flops, peak=PEAK_TF32_FLOPS)
         src = "flash_attention_fwd.cu" if key == "fwd" \
             else "flash_attention_bwd.cu"
         row = {"name": name, "route": "cuda",
@@ -2790,13 +2944,15 @@ def dropout_kernels(torch, gen, dev, table):
                "max_abs_err": max(errs[o]["max_abs_err"] for o in outs),
                "ms": timed_ms(torch, fn, 10),
                "plain_ms": timed_ms(torch, plain, 2, warmup=1),
-               "bound_ms": bound, "bound_by": bound_by,
-               "bound_tf32_ms": bound_tf32,
+               **f32_bounds(n_bytes, flops, tensor_cores=key == "fwd"),
                "library_ms": timed_ms(torch, lib, 10),
                **traced_kernel(torch, fn)}
+        design = "3xtf32" if key == "fwd" else "fma"
+        check(row["design"] == design,
+              f"{name} ran on {row['design']}, not {design}")
         emit({"phase": "kernel", **row, "shape": [b, s, h, d],
               "dtype": "float32", "causal": True, "dropout_p": GPT_DROP,
-              "bound_peak": "f32 67 TFLOP/s (bound_tf32_ms: 495)",
+              "bound_peak": F32_TC_NOTE if key == "fwd" else F32_FMA_NOTE,
               "library_note": "scaled_dot_product_attention(dropout_p=0.1)"
                               + ("" if key == "fwd" else
                                  ", its backward (dq, dk, dv)")})
@@ -2894,7 +3050,6 @@ def dbias_kernels(torch, gen, dev, table):
             f"dbias in one call)")
     flops = 4 * d * h * b * causal_pairs(s)         # s and dP per pair
     n_bytes = 4 * b * s * h * d * 4 + 2 * b * h * s * 4 + 2 * h * s * s * 4
-    bound, bound_by = bound_ms(n_bytes, flops, peak=PEAK_F32_FLOPS)
     row = {"name": "flash_attention_dbias", "route": "cuda",
            "source": "paddle_tpu_torch/csrc/flash_attention_dbias.cu",
            "replaces": "paddle_tpu/ops/pallas/flash_attention.py:608",
@@ -2903,13 +3058,12 @@ def dbias_kernels(torch, gen, dev, table):
                *ops[:6], bias, True, GPT_DROP, seed), 10),
            "plain_ms": timed_ms(torch, lambda: fa.flash_attention_dbias_reference(
                q, k, v, out, lse, do, bias, **kw), 2, warmup=1),
-           "bound_ms": bound, "bound_by": bound_by,
-           "bound_tf32_ms": bound_ms(n_bytes, flops, peak=PEAK_TF32_FLOPS)[0],
+           **f32_bounds(n_bytes, flops, tensor_cores=False),
            "library_ms": timed_ms(torch, library, 10)}
     emit({"phase": "kernel", **row, "shape": [b, s, h, d],
           "bias": [1, h, s, s], "dtype": "float32", "causal": True,
           "dropout_p": GPT_DROP,
-          "bound_peak": "f32 67 TFLOP/s (bound_tf32_ms: 495)",
+          "bound_peak": F32_FMA_NOTE,
           "library_note": note, "library_refused": refused})
     table["flash_attention_dbias"] = row
     del timed, ops, q, k, v, do, bias, out, lse, lib_in, lib_out, library
@@ -3014,6 +3168,8 @@ def train_gpt2_phase(torch, np, dev, table):
 
     _, prof = profiled(torch, lambda: [step(batch) for _ in range(2)])
     emit({"phase": "train_gpt2_profile", "steps": 2, **prof})
+    check_tensor_core_route(prof, "train_gpt2_profile", ("flash_fwd",),
+                            design="3xtf32")
     del model, step, batch
 
 
@@ -3323,7 +3479,7 @@ def main() -> int:
           f"a tensor-core kernel spills (or reported nothing): {usage}")
     for fam in ("flash_fwd_wgmma", "flash_bwd_dq_wgmma",
                 "flash_bwd_dkv_wgmma", "matmul_rope_wgmma", "gmm_wgmma",
-                "dw_wgmma"):
+                "dw_wgmma", "flash_fwd_3xtf32", "gmm_rows_stream"):
         check(any(fam in n for n in usage), f"no ptxas report of {fam}")
 
     # -- kernels against their plain versions, full-width bf16 shapes
@@ -3403,6 +3559,7 @@ def main() -> int:
           "lse_max_abs_err": lse_err, "tolerance": TOL})
     del args, out, lse, ref_out, ref_lse, qt, kt, vt, mask_b
 
+    f32_prefill_kernel(torch, gen, dev, table)
     flash_train_kernels(torch, gen, dev, table)
     dropout_kernels(torch, gen, dev, table)
     dbias_kernels(torch, gen, dev, table)
@@ -3525,9 +3682,11 @@ def main() -> int:
     # each tensor-core row: its kernel's registers and spills (the most
     # registers and the summed spills over that kernel's instantiations)
     for row in table.values():
-        if row.get("design") == "wgmma":
+        if row.get("design") in ("wgmma", "3xtf32", "stream"):
             name = row["name"]
-            fam = ("matmul_rope_wgmma" if name.startswith("matmul_rope")
+            fam = ("flash_fwd_3xtf32" if row["design"] == "3xtf32"
+                   else "gmm_rows_stream" if row["design"] == "stream"
+                   else "matmul_rope_wgmma" if name.startswith("matmul_rope")
                    else "gmm_wgmma" if name == "grouped_matmul"
                    else "dw_wgmma" if name == "grouped_matmul_dw"
                    else "flash_bwd_dq_wgmma" if "bwd_dq" in name
@@ -3543,11 +3702,13 @@ def main() -> int:
         "flash_attention_fwd_causal_8k", "flash_attention_bwd_dq",
         "flash_attention_bwd_dkv", "flash_attention_fwd_moe",
         "flash_attention_bwd_dq_moe", "flash_attention_bwd_dkv_moe",
-        "flash_attention_fwd_dropout",
+        "flash_attention_fwd_dropout", "flash_attention_fwd_f32_prefill",
         "flash_attention_bwd_dq_dropout", "flash_attention_bwd_dkv_dropout",
         "flash_attention_dbias", "fused_update", "add_norm",
         "add_layer_norm", "matmul_rope", "grouped_matmul",
-        "grouped_matmul_glu", "grouped_matmul_dw", "paged_attention",
+        "grouped_matmul_f32_rows", "grouped_matmul_f32_rows_down",
+        "grouped_matmul_f32_rows_decode", "grouped_matmul_glu",
+        "grouped_matmul_dw", "paged_attention",
         "paged_decode_append_attend", "ragged_paged_append_attend_int8",
         "ragged_paged_append_attend_float32_q_bfloat16_pools",
         "ragged_paged_append_attend_bfloat16_q_float32_pools",

@@ -1,4 +1,6 @@
-// Hopper tensor-core tile code for the port's 16-bit kernels: the flash
+// Hopper tensor-core tile code for the port's 16-bit kernels and the f32
+// flash forward's 3xTF32 products (`WgmmaTf32`, `split_tf32`, `swz32`,
+// `frag_a_tf32`): the flash
 // forward #2 (flash_attention_fwd.cu), the dQ kernel #3 and the dK/dV
 // kernel #4 (flash_attention_bwd.cu), the matmul+rope kernel #10
 // (matmul_rope.cu) and the grouped matmuls #11 and #13
@@ -212,6 +214,54 @@ __device__ __forceinline__ void frag_a_split(const float (&d)[M], int kk,
   }
 }
 
+// x rounded to TF32 (10 mantissa bits, to nearest, ties away), as the
+// 32-bit pattern wgmma reads: its low 13 bits are zero.
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+  return y;
+}
+// x = hi + lo to about 2^-22 of x: hi its TF32 rounding, lo the TF32
+// rounding of the remainder (exact in f32).  A product of two such pairs
+// taken as hi hi' + hi lo' + lo hi' (3xTF32) leaves out lo lo', about
+// 2^-22 of the product.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+// Byte offset of f32 element (r, c) in a swizzled [R][D] tile: D / 32
+// column blocks [R][32] of 128-byte rows, the 16-byte chunk c / 4 of row
+// r at chunk position (c / 4) ^ (r % 8) (the layout of `swz` with 4-byte
+// elements; desc_k reads its 8-column slices as TF32 k steps).
+template <int R>
+__device__ __forceinline__ uint32_t swz32(int r, int c) {
+  return (c >> 5) * (R * 128) + r * 128 + ((((c >> 2) & 7) ^ (r & 7)) << 4) +
+         (c & 3) * 4;
+}
+
+// The TF32 A operand of an m64k8 product over the 8 key columns
+// [8 kk, 8 kk + 8) of an f32 accumulator, high and low parts.  The A
+// fragment gives thread (g, t4) rows g, g + 8 at columns t4, t4 + 4; the
+// accumulator holds columns 2 t4, 2 t4 + 1.  So column t4 of the operand
+// carries key 2 t4 and column t4 + 4 key 2 t4 + 1: the product sums over
+// the keys in the order {0, 2, 4, 6, 1, 3, 5, 7}, and the B operand's k
+// rows must follow it (`key_slot`).
+template <int M>
+__device__ __forceinline__ void frag_a_tf32(const float (&d)[M], int kk,
+                                            uint32_t (&hi)[4],
+                                            uint32_t (&lo)[4]) {
+  split_tf32(d[4 * kk + 0], hi[0], lo[0]);   // row g,     key 2 t4
+  split_tf32(d[4 * kk + 2], hi[1], lo[1]);   // row g + 8, key 2 t4
+  split_tf32(d[4 * kk + 1], hi[2], lo[2]);   // row g,     key 2 t4 + 1
+  split_tf32(d[4 * kk + 3], hi[3], lo[3]);   // row g + 8, key 2 t4 + 1
+}
+// The k position of key j in a B operand read against frag_a_tf32.
+__device__ __forceinline__ int key_slot(int j) {
+  return (j & ~7) | ((j & 1) << 2) | ((j & 7) >> 1);
+}
+
 #define PTT_F8(d, i)                                                     \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),            \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
@@ -323,6 +373,52 @@ struct Wgmma;
 PTT_WG_TYPE(__nv_bfloat16, "bf16")
 PTT_WG_TYPE(__half, "f16")
 
+// TF32 forms (m64nNk8: 8 f32 operands, 32 bytes, a k step; no transpose
+// bits, so both shared-memory operands are K-major).  ss: A and B
+// descriptors, scale_d the predicate.  rs: four A registers (`frag_a_tf32`
+// below) and the B descriptor, accumulating.
+#define PTT_TF_SS(N, DS, DOPS, AB, P)                                    \
+  static __device__ __forceinline__ void ss(float(&d)[N / 2], uint64_t a, \
+                                            uint64_t b, int scale_d) {   \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " P ", 0;\n"          \
+                 "wgmma.mma_async.sync.aligned.m64n" #N                   \
+                 "k8.f32.tf32.tf32 {" DS "}, " AB ", p, 1, 1;\n}\n"       \
+                 : DOPS(d)                                               \
+                 : "l"(a), "l"(b), "r"(scale_d));                        \
+  }
+#define PTT_TF_RS(N, DS, DOPS, AB, P)                                    \
+  static __device__ __forceinline__ void rs(                             \
+      float(&d)[N / 2], const uint32_t(&a)[4], uint64_t b) {            \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " P ", 0;\n"          \
+                 "wgmma.mma_async.sync.aligned.m64n" #N                   \
+                 "k8.f32.tf32.tf32 {" DS "}, " AB ", p, 1, 1;\n}\n"       \
+                 : DOPS(d)                                               \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),   \
+                   "r"(1));                                              \
+  }
+
+// One m64nNk8 TF32 product into an f32 accumulator of N / 2 registers a
+// thread (the f32 flash forward's 3xTF32 products: N 32 / 64 for
+// S = Q K^T, 64 / 128 for O += P V).
+template <int N>
+struct WgmmaTf32;
+template <>
+struct WgmmaTf32<32> {
+  PTT_TF_SS(32, PTT_WG_S16, PTT_WG_D16, "%16, %17", "%18")
+};
+template <>
+struct WgmmaTf32<64> {
+  PTT_TF_SS(64, PTT_WG_S32, PTT_WG_D32, "%32, %33", "%34")
+  PTT_TF_RS(64, PTT_WG_S32, PTT_WG_D32, "{%32, %33, %34, %35}, %36", "%37")
+};
+template <>
+struct WgmmaTf32<128> {
+  PTT_TF_RS(128, PTT_WG_S64, PTT_WG_D64, "{%64, %65, %66, %67}, %68",
+            "%69")
+};
+
+#undef PTT_TF_RS
+#undef PTT_TF_SS
 #undef PTT_WG_TYPE
 #undef PTT_WG_RS
 #undef PTT_WG_SS_TT

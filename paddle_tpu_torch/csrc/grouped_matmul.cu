@@ -80,12 +80,21 @@
 // f32 rows (the serving path's f32 buffers against bf16 or f32 weights,
 // and the f32 training checks) run on the FMA pipe in exact f32; the
 // product is the plain version's, summed in another order.  gmm against
-// w [E, K, N] (the serving path) takes blocks of 8 rows x 256 columns:
-// a tile of a decode step holds a few routed rows, so a block of live
-// rows streams its expert's weight columns once, one 8-byte (bf16) or
-// 16-byte (f32) load a thread for 32 FMAs, and the block's four k
-// groups are summed in shared memory.  transpose_w, gmm_glu and gmm_dw
-// (the f32 training checks) take 32 x 64 output tiles of 4 x 4 a thread.
+// w [E, K, N] (the serving path, three launches a layer a forward) is
+// bound by the bytes of the experts it touches: at a mixed step of 544
+// routed rows over 60 experts, about 9 rows a tile read a 5.8 MB expert
+// weight each (0.35 GB a projection), and most of the 8,320 padded rows
+// are padding or dead tiles.  So `gmm_rows_stream` gives a block one
+// row tile and 64 columns (65 x 22 blocks at the mixed step's gate): a
+// tile without routed rows writes its zeros with 16-byte stores and
+// reads nothing; a live one streams w[e]'s [K, 64] slice once a group of
+// up to 16 rows through a 6-stage cp.async ring of 64-deep slices (40
+// KB of bf16 weights in flight a block, three blocks an SM), the rows'
+// slice beside it, and each thread sums its 8 k of a slice into 16 x 4
+// f32 accumulators (the groups' sums meet in shared memory at the end).
+// More than 16 rows re-read the slice, from L2.  transpose_w, gmm_glu
+// and gmm_dw (the f32 training checks) take 32 x 64 output tiles of
+// 4 x 4 a thread.
 #include "attention_wgmma.cuh"
 #include "tma_ring.cuh"
 
@@ -673,13 +682,33 @@ __device__ __forceinline__ void fma_mainloop(
   }
 }
 
-constexpr int kSR = 8, kSN = 256, kSK = 512, kSThreads = 256;
+// f32 rows x w[e] [K, N], streamed: a block owns one row tile and kRN
+// columns, and streams w[e]'s [K, kRN] slice once a group of kRG live
+// rows through a ring of kRK-deep slices (cp.async, RingOf<TB>::kStages
+// stages: 40 KB of bf16 weights in flight a block, three blocks an SM).
+// Thread t owns the columns 4 (t % kRQ) .. + 3 and the kKP k from
+// kKP (t / kRQ) of each slice; the kKG k groups' sums meet in shared
+// memory at the end.
+constexpr int kRN = 64, kRK = 64, kRG = 16, kRThreads = 128;
+constexpr int kRQ = kRN / 4;                 // column quads
+constexpr int kKG = kRThreads / kRQ;         // k groups
+constexpr int kKP = kRK / kKG;               // k a group, a slice
+static_assert(kKP % 4 == 0, "a k group reads its rows' k as float4s");
 
-__device__ __forceinline__ void load4(const float* p, float* v) {
+template <typename TB>
+struct RingOf {
+  static constexpr int kStages = sizeof(TB) == 2 ? 6 : 4;
+  static constexpr int kA = kRG * kRK * 4;              // rows [16][64] f32
+  static constexpr int kStage = kA + kRK * kRN * (int)sizeof(TB);
+  static constexpr int kSmem = kStages * kStage;        // 72 KB / 80 KB
+  static_assert(kKG * kRG * kRN * 4 <= kSmem, "the k groups' sums must fit");
+};
+
+__device__ __forceinline__ void widen4(const float* p, float* v) {
   const float4 q = *reinterpret_cast<const float4*>(p);
   v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
 }
-__device__ __forceinline__ void load4(const bf16* p, float* v) {
+__device__ __forceinline__ void widen4(const bf16* p, float* v) {
   const uint2 q = *reinterpret_cast<const uint2*>(p);
   const float2 a = __bfloat1622float2(
       *reinterpret_cast<const __nv_bfloat162*>(&q.x));
@@ -688,63 +717,142 @@ __device__ __forceinline__ void load4(const bf16* p, float* v) {
   v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
 }
 
-// f32 rows x w[e] [K, N] in blocks of kSR rows x kSN columns.  Thread t
-// owns columns 4 (t % 64) .. + 3 and the k of its group t / 64 (every
-// 4th k of a chunk); the rows' chunk of kSK values sits in shared
-// memory, which then holds the four groups' partial sums.
+// out rows [0, rows) x columns [0, cols) (row pitch N) = the rows of a
+// (row pitch K) @ we (row pitch N), rows <= kRG: the K stream of one
+// group.  Rows past `rows` are neither read nor written.
 template <typename TB>
-__global__ void __launch_bounds__(kSThreads)
-gmm_rows_f32(const float* __restrict__ lhs, const TB* __restrict__ w,
-             Layout L, float* __restrict__ out, int M, int K, int N) {
-  __shared__ __align__(16) float buf[4 * kSR * kSN];
-  const int r0 = blockIdx.y * kSR, n0 = blockIdx.x * kSN;
-  const int rows = min(kSR, M - r0), cols = min(kSN, N - n0);
-  const int live = L.live_rows(r0, rows);
-  float* o = out + static_cast<long long>(r0) * N + n0;
-  if (live == 0) {
-    store_zeros(o, N, rows, cols);
-    return;
+__device__ __forceinline__ void stream_group(unsigned char* smem,
+                                             const float* __restrict__ a,
+                                             const TB* __restrict__ we,
+                                             float* __restrict__ o, int rows,
+                                             int cols, int K, int N) {
+  using R = RingOf<TB>;
+  constexpr int EPC = 16 / (int)sizeof(TB);      // weights a 16-byte copy
+  constexpr int WCH = kRN / EPC;                  // copies a weight row
+  const int tid = threadIdx.x, cq = tid % kRQ, kg = tid / kRQ;
+  const int KT = (K + kRK - 1) / kRK;
+  auto load = [&](int kt) {
+    unsigned char* st = smem + (kt % R::kStages) * R::kStage;
+    const int k0 = kt * kRK;
+    for (int c = tid; c < rows * (kRK / 4); c += kRThreads) {
+      const int r = c / (kRK / 4), kc = (c % (kRK / 4)) * 4;
+      const bool ok = k0 + kc < K;
+      wg::cp16(wg::smem_addr(st + (r * kRK + kc) * 4),
+               ok ? a + (long long)r * K + k0 + kc : a, ok);
+    }
+    for (int c = tid; c < kRK * WCH; c += kRThreads) {
+      const int kr = c / WCH, nc = (c % WCH) * EPC;
+      const bool ok = k0 + kr < K && nc < cols;
+      wg::cp16(wg::smem_addr(st + R::kA + (kr * kRN + nc) * sizeof(TB)),
+               ok ? we + (long long)(k0 + kr) * N + nc : we, ok);
+    }
+  };
+  float acc[kRG][4];
+#pragma unroll
+  for (int r = 0; r < kRG; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+#pragma unroll
+  for (int s = 0; s < R::kStages - 1; ++s) {
+    if (s < KT) load(s);
+    wg::cp_commit();                 // an empty group keeps the count
   }
+  for (int kt = 0; kt < KT; ++kt) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(R::kStages - 2)
+                 : "memory");
+    __syncthreads();                 // slice kt is in; slice kt - 1 is read
+    if (kt + R::kStages - 1 < KT) load(kt + R::kStages - 1);
+    wg::cp_commit();
+    const unsigned char* st = smem + (kt % R::kStages) * R::kStage;
+    const float* sa = reinterpret_cast<const float*>(st) + kKP * kg;
+    const TB* sw = reinterpret_cast<const TB*>(st + R::kA) +
+                   kKP * kg * kRN + 4 * cq;
+    float wv[kKP][4];
+#pragma unroll
+    for (int j = 0; j < kKP; ++j) widen4(sw + j * kRN, wv[j]);
+#pragma unroll
+    for (int r = 0; r < kRG; ++r) {
+      if (r >= rows) break;          // uniform over the block
+      float x[kKP];
+#pragma unroll
+      for (int j = 0; j < kKP; j += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(sa + r * kRK + j);
+        x[j] = v.x; x[j + 1] = v.y; x[j + 2] = v.z; x[j + 3] = v.w;
+      }
+#pragma unroll
+      for (int j = 0; j < kKP; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(x[j], wv[j][c], acc[r][c]);
+    }
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();                   // the ring is idle
+  float* sum = reinterpret_cast<float*>(smem);   // [kKG][kRG][kRN]
+#pragma unroll
+  for (int r = 0; r < kRG; ++r) {
+    if (r >= rows) break;
+    *reinterpret_cast<float4*>(sum + (kg * kRG + r) * kRN + 4 * cq) =
+        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+  }
+  __syncthreads();
+  for (int i = tid; i < rows * (kRN / 4); i += kRThreads) {
+    const int r = i / (kRN / 4), c = (i % (kRN / 4)) * 4;
+    if (c >= cols) continue;
+    float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int q = 0; q < kKG; ++q) {
+      const float4 u =
+          *reinterpret_cast<const float4*>(sum + (q * kRG + r) * kRN + c);
+      t.x += u.x; t.y += u.y; t.z += u.z; t.w += u.w;
+    }
+    *reinterpret_cast<float4*>(o + (long long)r * N + c) = t;
+  }
+  __syncthreads();                   // the sums are read before the next ring
+}
+
+// f32 rows x w[e] [K, N] (the serving path's f32 buffers against bf16 or
+// f32 expert stacks): block (row tile, column block of kRN), column
+// blocks fastest.  Rows past the tile's live rows, and a tile with none
+// (it reads no weight), are written as zeros with 16-byte stores; the
+// live rows stream w[e] in groups of kRG.
+template <typename TB>
+__global__ void __launch_bounds__(kRThreads, 3)
+gmm_rows_stream(const float* __restrict__ lhs, const TB* __restrict__ w,
+                Layout L, float* __restrict__ out, int K, int N) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nb = (N + kRN - 1) / kRN;
+  const int n0 = (blockIdx.x % nb) * kRN;
+  const int r0 = (blockIdx.x / nb) * L.tm;
+  const int cols = min(kRN, N - n0);
+  const int live = L.live_rows(r0, L.tm);
+  float* o = out + (long long)r0 * N + n0;
+  const int ch = cols / 4;
+  for (int i = threadIdx.x; i < (L.tm - live) * ch; i += kRThreads)
+    *reinterpret_cast<float4*>(o + (long long)(live + i / ch) * N +
+                               (i % ch) * 4) = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (live == 0) return;
   const long long e = __ldg(L.te + r0 / L.tm);
   const TB* we = w + e * K * N + n0;
-  const int tid = threadIdx.x, kg = tid / 64, c0 = (tid % 64) * 4;
-  float acc[kSR][4] = {};
-  for (int k0 = 0; k0 < K; k0 += kSK) {
-    const int kc = min(kSK, K - k0);
-    __syncthreads();                  // the last chunk's readers are done
-    for (int i = tid; i < kSR * kSK; i += kSThreads) {
-      const int r = i / kSK, k = i % kSK;
-      buf[i] = r < live && k < kc
-                   ? lhs[static_cast<long long>(r0 + r) * K + k0 + k] : 0.f;
-    }
-    __syncthreads();
-    if (c0 < cols) {
-#pragma unroll 4
-      for (int k = kg; k < kc; k += 4) {
-        float wv[4];
-        load4(we + static_cast<long long>(k0 + k) * N + c0, wv);
-#pragma unroll
-        for (int r = 0; r < kSR; ++r) {
-          const float a = buf[r * kSK + k];
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(a, wv[c], acc[r][c]);
-        }
-      }
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int r = 0; r < kSR; ++r)
-    *reinterpret_cast<float4*>(buf + (kg * kSR + r) * kSN + c0) =
-        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-  __syncthreads();
-  for (int i = tid; i < kSR * kSN; i += kSThreads) {
-    const int r = i / kSN, c = i % kSN;
-    if (r < rows && c < cols)
-      o[static_cast<long long>(r) * N + c] =
-          buf[r * kSN + c] + buf[(kSR + r) * kSN + c]
-          + buf[(2 * kSR + r) * kSN + c] + buf[(3 * kSR + r) * kSN + c];
-  }
+  for (int g0 = 0; g0 < live; g0 += kRG)
+    stream_group<TB>(smem, lhs + (long long)(r0 + g0) * K, we,
+                     o + (long long)g0 * N, min(kRG, live - g0), cols, K, N);
+}
+
+template <typename TB>
+cudaError_t launch_rows_stream(const float* lhs, const void* w, Layout L,
+                               float* out, int M, int K, int N,
+                               cudaStream_t stream) {
+  static bool smem_set = false;
+  cudaError_t e =
+      allow_smem(gmm_rows_stream<TB>, RingOf<TB>::kSmem, &smem_set);
+  if (e != cudaSuccess) return e;
+  const long long grid =
+      static_cast<long long>(M / L.tm) * ((N + kRN - 1) / kRN);
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+  gmm_rows_stream<TB><<<static_cast<unsigned>(grid), kRThreads,
+                        RingOf<TB>::kSmem, stream>>>(
+      lhs, static_cast<const TB*>(w), L, out, K, N);
+  return cudaGetLastError();
 }
 
 // f32 rows x w[e]^T (w [E, N, K]): the transpose_w gmm of the f32 checks
@@ -876,14 +984,9 @@ int gmm(const void* lhs, const void* w, const int* tile_expert,
   const float* a = static_cast<const float*>(lhs);
   float* o = static_cast<float*>(out);
   if (!transpose_w) {
-    const dim3 grid(blocks(N, kSN), blocks(M, kSR));
-    if (w_dtype == 0)
-      gmm_rows_f32<float><<<grid, kSThreads, 0, s>>>(
-          a, static_cast<const float*>(w), L, o, M, K, N);
-    else
-      gmm_rows_f32<bf16><<<grid, kSThreads, 0, s>>>(
-          a, static_cast<const bf16*>(w), L, o, M, K, N);
-    return cudaGetLastError();
+    if (K % 4 || N % (w_dtype == 0 ? 4 : 8)) return cudaErrorInvalidValue;
+    return w_dtype == 0 ? launch_rows_stream<float>(a, w, L, o, M, K, N, s)
+                        : launch_rows_stream<bf16>(a, w, L, o, M, K, N, s);
   }
   const dim3 grid(blocks(N, kFN), blocks(M, kFM));
   if (w_dtype == 0)

@@ -59,7 +59,8 @@ __all__ = ["flash_attention_raw", "flash_attention_fwd",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
            "flash_attention_bwd_dbias", "flash_attention_dbias",
            "flash_attention_dbias_reference", "dropout_bits",
-           "dropout_keep"]
+           "dropout_keep", "key_split_partials_reference",
+           "merge_key_splits_reference"]
 
 _NEG_INF = -1e30
 _SOURCE = "flash_attention_fwd"
@@ -194,16 +195,10 @@ def _seed_args(seed, dropout_p, dev):
     return seed.data_ptr(), _threshold(dropout_p), 1.0 / (1.0 - dropout_p)
 
 
-def flash_attention_fwd_reference(q, k, v, *, causal: bool = False,
-                                  mask=None, dropout_p: float = 0.0,
-                                  seed=None):
-    """Plain PyTorch version of the kernel: the same function in f32 in
-    one pass (max, exp, sum) instead of tiles, with the kernel's keep
-    mask (``dropout_keep``) on the probabilities of the P·V product.
-    Returns (out [B, Sq, H, D] in q's dtype, lse [B, H, Sq] f32, the
-    undropped softmax's)."""
-    mask = _check(q, k, v, causal, mask, dropout_p)
-    keep = _keep_of(q, k, dropout_p, seed)
+def _scores_reference(q, k, v, causal, mask):
+    """The plain forward's scaled, masked scores [B, H, Sq, Sk] f32 (a
+    hidden key -1e30) and V repeated over the query-head group as [B, H,
+    Sk, D] f32."""
     b, sq, h, d = q.shape
     sk, g = k.shape[1], h // k.shape[2]
     qf = q.float().transpose(1, 2) * (1.0 / math.sqrt(d))  # [B, H, Sq, D]
@@ -216,6 +211,20 @@ def flash_attention_fwd_reference(q, k, v, *, causal: bool = False,
         rows = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
         visible = rows >= torch.arange(sk, device=q.device)[None, :]
         s = s.masked_fill(~visible, _NEG_INF)
+    return s, vf
+
+
+def flash_attention_fwd_reference(q, k, v, *, causal: bool = False,
+                                  mask=None, dropout_p: float = 0.0,
+                                  seed=None):
+    """Plain PyTorch version of the kernel: the same function in f32 in
+    one pass (max, exp, sum) instead of tiles, with the kernel's keep
+    mask (``dropout_keep``) on the probabilities of the P·V product.
+    Returns (out [B, Sq, H, D] in q's dtype, lse [B, H, Sq] f32, the
+    undropped softmax's)."""
+    mask = _check(q, k, v, causal, mask, dropout_p)
+    keep = _keep_of(q, k, dropout_p, seed)
+    s, vf = _scores_reference(q, k, v, causal, mask)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -224,6 +233,62 @@ def flash_attention_fwd_reference(q, k, v, *, causal: bool = False,
         p = _dropped(p, keep, dropout_p)
     out = (p @ vf) / l
     return out.transpose(1, 2).to(q.dtype), (m + torch.log(l))[..., 0]
+
+
+def key_split_partials_reference(q, k, v, cuts, *, causal: bool = False,
+                                  mask=None, dropout_p: float = 0.0,
+                                  seed=None):
+    """Plain version of the f32 kernel's key splits: the partial state
+    split i leaves for each row over the keys ``[cuts[i], cuts[i + 1])``
+    (the kernel cuts at its own tile edges; the merge does not depend on
+    where the cuts fall).  A key hidden by the mask or by causality
+    scores -1e30, as in :func:`flash_attention_fwd_reference`; a split
+    in which causality leaves a row no key, or with no key at all, leaves
+    it m = -inf, l = 0 and acc = 0.  Returns ``(acc, m, l)``: acc
+    [nsplit, B, H, Sq, D] the split's unnormalized dropped P V, m and l
+    [nsplit, B, H, Sq] its row max (natural units) and its undropped sum
+    of ``exp(s - m)``."""
+    mask = _check(q, k, v, causal, mask, dropout_p)
+    keep = _keep_of(q, k, dropout_p, seed)
+    b, sq, h, d = q.shape
+    sk, nsplit = k.shape[1], len(cuts) - 1
+    s, vf = _scores_reference(q, k, v, causal, mask)
+    seen = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        seen = torch.arange(sq, device=q.device)[:, None] + (sk - sq) >= \
+            torch.arange(sk, device=q.device)[None, :]
+    acc = q.new_zeros((nsplit, b, h, sq, d), dtype=torch.float32)
+    m = torch.full((nsplit, b, h, sq), -math.inf, device=q.device)
+    l = torch.zeros((nsplit, b, h, sq), device=q.device)
+    for i, (k0, k1) in enumerate(zip(cuts[:-1], cuts[1:])):
+        rows = seen[:, k0:k1].any(dim=-1)     # the rows that see a key
+        if not rows.any():
+            continue
+        st = s[:, :, rows, k0:k1]
+        mi = st.amax(dim=-1, keepdim=True)
+        p = torch.exp(st - mi)
+        m[i][:, :, rows] = mi[..., 0]
+        l[i][:, :, rows] = p.sum(-1)
+        if keep is not None:
+            p = _dropped(p, keep[:, :, rows, k0:k1], dropout_p)
+        acc[i][:, :, rows] = p @ vf[:, :, k0:k1]
+    return acc, m, l
+
+
+def merge_key_splits_reference(acc, m, l, dtype=torch.float32):
+    """Plain version of the f32 kernel's merge of key-split partial
+    states (:func:`key_split_partials_reference`): ``M = max_i m_i``,
+    ``w_i = exp(m_i - M)`` (0 for an empty split), ``O = sum_i w_i acc_i
+    / sum_i w_i l_i`` and ``lse = M + log(sum_i w_i l_i)`` (a sum of 0
+    taken as 1).  Returns (out [B, Sq, H, D] in ``dtype``, lse [B, H,
+    Sq] f32)."""
+    mx = m.amax(dim=0)
+    w = torch.where(m == -math.inf, torch.zeros((), device=m.device),
+                    torch.exp(m - mx))
+    lw = (w * l).sum(0)
+    lw = torch.where(lw == 0, torch.ones_like(lw), lw)
+    out = (w[..., None] * acc).sum(0) / lw[..., None]
+    return out.transpose(1, 2).to(dtype), mx + torch.log(lw)
 
 
 def _mask_strides(mask, b, h, sq, sk):
@@ -243,8 +308,12 @@ def _kernel() -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_uint, ctypes.c_float, ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_uint, ctypes.c_float, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        ws = lib.flash_attention_fwd_workspace
+        ws.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+        ws.restype = ctypes.c_longlong
         lib.flash_error_string.argtypes = [ctypes.c_int]
         lib.flash_error_string.restype = ctypes.c_char_p
     return lib
@@ -256,10 +325,15 @@ def flash_attention_fwd(q, k, v, *, causal: bool = False, mask=None,
     H, D] in q's dtype, lse [B, H, Sq] f32).  With ``dropout_p`` > 0 the
     int64 scalar ``seed`` tensor picks the keep mask.
 
-    On CUDA tensors this launches a kernel of
+    On CUDA tensors this launches the kernels of
     ``csrc/flash_attention_fwd.cu``, chosen by dtype alone: bf16/f16 the
-    tensor-core kernel (``flash_fwd_wgmma``), f32 the FMA-pipe one
-    (``flash_fwd``).  q/k/v in one dtype of float32/bfloat16/float16, D
+    tensor-core kernel ``flash_fwd_wgmma``; f32 ``flash_fwd_3xtf32``
+    (each product as three TF32 ``wgmma`` products of split operands,
+    f32-accurate), whose keys split over up to 4 blocks a row tile where
+    its blocks would not fill the SMs, a merge kernel then combining the
+    partial states (:func:`merge_key_splits_reference` is its plain
+    version); one call counts one launch.  q/k/v in one dtype of
+    float32/bfloat16/float16, D
     of 64 or 128, the last dim contiguous and every row 16-byte aligned
     (batch, sequence and head strides are free); other shapes raise
     NotImplementedError, misaligned rows ValueError.  On CPU tensors it
@@ -298,12 +372,19 @@ def flash_attention_fwd(q, k, v, *, causal: bool = False, mask=None,
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     lib = _kernel()
     with torch.cuda.device(q.device):
+        # the workspace of the f32 route's key splits, where it splits
+        n = 0 if q.dtype != torch.float32 else \
+            lib.flash_attention_fwd_workspace(b, h, sq, sk, d,
+                                              int(bool(dropout_p)), None)
+        part = torch.empty(n, dtype=torch.float32, device=q.device) \
+            if n else None
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if mask is None else mask.data_ptr(), out.data_ptr(),
             lse.data_ptr(), b, h, hk, sq, sk, d,
             (ctypes.c_longlong * 12)(*strides), int(causal),
             1.0 / math.sqrt(d), _DTYPE_CODE[q.dtype], *drop,
+            None if part is None else part.data_ptr(), n,
             torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError("flash attention launch failed: "

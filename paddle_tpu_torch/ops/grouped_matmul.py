@@ -369,10 +369,14 @@ def gmm_raw(lhs, w, tile_expert, *, transpose_w=False, counts=None):
     bf16 rows and weights on the tensor cores (``gmm_wgmma``: 128 x 256
     output tiles, a TMA ring of 64-deep slices feeding ``wgmma``; w [E, K,
     N] read MN-major through the transpose bit, w [E, N, K] K-major, no
-    transposed copy), f32 rows against f32 or bf16 weights on the FMA
-    pipe.  K and N multiples of 8, row tiles a multiple of 128 (bf16) or
-    32 (f32) rows, contiguous 16-byte aligned operands; other inputs
-    raise.  On CPU tensors :func:`gmm_reference`."""
+    transposed copy); f32 rows against f32 or bf16 weights in f32 on the
+    FMA pipe, w [E, K, N] (the serving path) by ``gmm_rows_stream`` (a
+    block a row tile and 64 columns; a tile without routed rows writes
+    zeros and reads nothing, a live one streams its expert's weight
+    slice once a group of 16 rows through a ``cp.async`` ring), w [E, N,
+    K] by 32 x 64 register tiles.  K and N multiples of 8, row tiles a
+    multiple of 128 (bf16) or 32 (f32) rows, contiguous 16-byte aligned
+    operands; other inputs raise.  On CPU tensors :func:`gmm_reference`."""
     enforce(lhs.dim() == 2 and w.dim() == 3,
             f"gmm takes lhs [M, K] and w [E, ., .], not "
             f"{tuple(lhs.shape)} and {tuple(w.shape)}")

@@ -46,6 +46,8 @@ rows full of NaN (#11 must give zero rows there, #13 must leave its
 sums untouched), and must give the same bits on two launches and launch
 nothing but their wgmma kernels.
 """
+import ctypes
+
 import pytest
 import torch
 
@@ -1350,3 +1352,192 @@ def test_dropout_and_bias_refusals(dev):
     bias = torch.zeros(1, 2, 1, 8, device=dev, requires_grad=True)
     with pytest.raises(NotImplementedError, match="remaining kernels"):
         F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+
+
+# -- #11's f32-row route (gmm_rows_stream) and #2's f32 route
+# (flash_fwd_3xtf32) ---------------------------------------------------------
+
+F32_GMM_CASES = [c for c in GMM_CASES if c[0] == torch.float32]
+
+
+def _serving_plan(dev, gen, slots, tm=128, empty=(2,)):
+    """The serving path's plan of ``slots`` routed rows (top-4 of random
+    router scores over MOE_E experts; the experts in ``empty`` get none)
+    at row tile ``tm``: (te, counts, routed-row mask [m_pad, 1])."""
+    t = slots // 4
+    scores = torch.rand(t, MOE_E, generator=gen, device=dev)
+    scores[:, list(empty)] = -1.0
+    idx = scores.topk(4, dim=-1).indices
+    _, dest, te, counts, m_pad = gm.make_dropless_plan(idx, MOE_E, tm)
+    live = torch.zeros(m_pad, 1, dtype=torch.bool, device=dev)
+    live[dest] = True
+    return te, counts, live
+
+
+@pytest.mark.parametrize("adt,wdt,tm", F32_GMM_CASES, ids=str)
+def test_gmm_rows_stream_matches_plain(dev, adt, wdt, tm):
+    """Every f32 entry of GMM_CASES on the streaming kernel, with and
+    without counts, 1e-5 relative L2; rows past the counts exactly 0."""
+    gen = torch.Generator(device=dev).manual_seed(31)
+    e, kdim, n = 6, 264, 200
+    xs, te, counts = _plan_rows(dev, gen, adt, t=300, k=3, e=e, h=kdim,
+                                tm=tm)
+    w = (torch.randn(e, kdim, n, generator=gen, device=dev)
+         / kdim ** 0.5).to(wdt)
+    want = gm.gmm_reference(xs, w, te)
+    live = gm.routed_rows(te, counts, xs.shape[0])
+    for cnt in (counts, None):
+        got = gm.gmm_raw(xs, w, te, counts=cnt)
+        torch.cuda.synchronize()
+        assert _rel_l2(got, want) <= REL_TOL[adt], _rel_l2(got, want)
+    assert not gm.gmm_raw(xs, w, te, counts=counts)[~live].any()
+
+
+@pytest.mark.parametrize("wdt", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("slots", [32, 544], ids=["decode", "mixed"])
+@pytest.mark.parametrize("proj", ["gate", "down"])
+def test_gmm_rows_stream_at_the_serving_widths(dev, proj, slots, wdt):
+    """Qwen1.5-MoE's serving FFN (60 experts, H 2048, F 1408, tm 128) at
+    a decode step (32 slots) and a mixed step (544): f32 rows against the
+    gate [60, 2048, 1408] or down [60, 1408, 2048] stack, 1e-5 relative
+    L2; padding rows and dead tiles exactly 0."""
+    gen = torch.Generator(device=dev).manual_seed(32)
+    te, counts, live = _serving_plan(dev, gen, slots)
+    k, n = (MOE_H, MOE_F) if proj == "gate" else (MOE_F, MOE_H)
+    w = (torch.randn(MOE_E, k, n, generator=gen, device=dev)
+         / k ** 0.5).to(wdt)
+    xs = torch.randn(live.shape[0], k, generator=gen, device=dev) * live
+    want = gm.gmm_reference(xs, w, te)
+    got = gm.gmm_raw(xs, w, te, counts=counts)
+    torch.cuda.synchronize()
+    assert _rel_l2(got, want) <= REL_TOL[torch.float32], _rel_l2(got, want)
+    assert torch.equal(got[~live[:, 0]],
+                       torch.zeros_like(got[~live[:, 0]]))
+
+
+def test_gmm_rows_stream_reads_no_padding_and_no_unrouted_weights(dev):
+    """NaN in every padding row of lhs and inf in the weights of the
+    experts without rows (2, and 3 after it): the streaming kernel reads
+    neither, so its output is finite, its padding rows 0 and the rest
+    the plain version's on the clean buffer."""
+    gen = torch.Generator(device=dev).manual_seed(33)
+    te, counts, live = _serving_plan(dev, gen, 544, empty=(2, 3))
+    w = (torch.randn(MOE_E, MOE_H, MOE_F, generator=gen, device=dev)
+         / MOE_H ** 0.5).to(torch.bfloat16)
+    xs = torch.randn(live.shape[0], MOE_H, generator=gen, device=dev) * live
+    want = gm.gmm_reference(xs, w, te)
+    w[2:4] = float("inf")
+    dirty = torch.where(live, xs, torch.full_like(xs, float("nan")))
+    got = gm.gmm_raw(dirty, w, te, counts=counts)
+    torch.cuda.synchronize()
+    assert int(counts[2]) == int(counts[3]) == 0
+    assert torch.isfinite(got).all()
+    assert not got[~live[:, 0]].any()
+    assert _rel_l2(got, want) <= REL_TOL[torch.float32], _rel_l2(got, want)
+
+
+def test_gmm_rows_stream_is_bit_identical_and_alone(dev):
+    """Two launches give the same bits; a call launches the streaming
+    kernel and nothing else, and counts one launch."""
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device=dev).manual_seed(34)
+    te, counts, live = _serving_plan(dev, gen, 544)
+    w = _moe_stack(gen, dev, MOE_E, MOE_F, MOE_H)
+    xs = torch.randn(live.shape[0], MOE_F, generator=gen, device=dev) * live
+    before = gm.gmm_raw.launches
+    a = gm.gmm_raw(xs, w, te, counts=counts)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        b = gm.gmm_raw(xs, w, te, counts=counts)
+        torch.cuda.synchronize()
+    assert gm.gmm_raw.launches == before + 2
+    assert torch.equal(a, b)
+    names = [ev.key for ev in prof.key_averages()
+             if ev.device_type == torch.autograd.DeviceType.CUDA]
+    assert names and all("gmm_rows_stream" in nm for nm in names), names
+
+
+# the f32 forward at the geometries of the 16-bit route's cases, at the
+# split path's prefill chunk (q [1, 128, 32, 128] against 1024 keys of 8
+# kv heads under a -1e30-striped position mask: 32 blocks of 128 rows at
+# D 128, so the keys split), and causal with few blocks, whose first row
+# tile reaches fewer key tiles than there are splits (empty splits)
+TF32_CASES = WGMMA_CASES + [
+    (1, 128, 1024, 32, 8, 128, False, "11qk"),
+    (1, 128, 1024, 32, 8, 64, False, "11qk+rows"),
+    (1, 130, 130, 4, 2, 64, True, None),
+    (1, 200, 600, 2, 1, 128, True, "11qk+rows"),
+]
+
+
+def _f32_splits(b, sq, sk, h, d, dropout=False):
+    n = ctypes.c_int()
+    fa._kernel().flash_attention_fwd_workspace(b, h, sq, sk, d,
+                                               int(dropout), ctypes.byref(n))
+    return n.value
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kvh,d,causal,mshape", TF32_CASES)
+def test_flash_3xtf32_forward_matches_plain(dev, b, sq, sk, h, kvh, d,
+                                            causal, mshape):
+    """The f32 route against the plain version: 1e-5 relative L2, 1e-4
+    absolute, lse within 1e-3; one launch counted a call, key splits or
+    not."""
+    q, k, v, _, mask = _wgmma_inputs(dev, torch.float32, b, sq, sk, h, kvh,
+                                     d, causal, mshape, 7)
+    before = fa.flash_attention_fwd.launches
+    got, lse = fa.flash_attention_fwd(q, k, v, causal=causal, mask=mask)
+    want, want_lse = fa.flash_attention_fwd_reference(q, k, v,
+                                                      causal=causal,
+                                                      mask=mask)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches == before + 1
+    assert _rel_l2(got, want) <= 1e-5, _rel_l2(got, want)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-3)
+
+
+def test_flash_3xtf32_splits_where_blocks_are_few(dev):
+    """The prefill chunk and the few-block causal case take key splits;
+    GPT-2's training attention, whose blocks fill the card, takes none."""
+    assert _f32_splits(1, 128, 1024, 32, 128) > 1
+    assert _f32_splits(1, 130, 130, 4, 64) > 1
+    assert _f32_splits(8, 1024, 1024, 12, 64, dropout=True) == 1
+
+
+@pytest.mark.parametrize("p", [0.1, 0.5])
+def test_flash_3xtf32_dropout_with_key_splits(dev, p):
+    """Dropout on the split route (few blocks, 600 keys): the plain
+    version's keep bits, f32 tolerances."""
+    q, k, v, _ = _attn_inputs(dev, torch.float32, 1, 300, 600, 2, 1, 64)
+    assert _f32_splits(1, 300, 600, 2, 64, dropout=True) > 1
+    seed = torch.tensor(4321, dtype=torch.int64, device=dev)
+    kw = dict(causal=True, dropout_p=p, seed=seed)
+    got, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    want, want_lse = fa.flash_attention_fwd_reference(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert _rel_l2(got, want) <= 1e-5, _rel_l2(got, want)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-3)
+
+
+def test_flash_3xtf32_launches_its_kernels_alone(dev):
+    """An f32 call launches flash_fwd_3xtf32 (and, with key splits, its
+    merge kernel) and nothing else."""
+    from torch.profiler import ProfilerActivity, profile
+    q, k, v, _, mask = _wgmma_inputs(dev, torch.float32, 1, 128, 1024, 32,
+                                     8, 128, False, "11qk", 8)
+    for split in (True, False):
+        # 8 sequences of 64 keys: 512 blocks, no split
+        kv = (k, v) if split else (k[:, :64].expand(8, -1, -1, -1),
+                                   v[:, :64].expand(8, -1, -1, -1))
+        mk = mask if split else mask[..., :64].contiguous()
+        qq = q if split else q.expand(8, -1, -1, -1)
+        fa.flash_attention_fwd(qq, *kv, mask=mk)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fa.flash_attention_fwd(qq, *kv, mask=mk)
+            torch.cuda.synchronize()
+        names = [ev.key for ev in prof.key_averages()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA]
+        assert names and all("flash_fwd_3xtf32" in nm for nm in names), names
+        assert any("merge" in nm for nm in names) == split, names

@@ -209,3 +209,36 @@ def test_wrappers_refuse_bad_shapes():
     with pytest.raises(ValueError, match="lhs"):
         gm.gmm_dw_raw(torch.zeros(16, 4, 1), torch.zeros(16, 4), te,
                       torch.zeros(1, dtype=torch.int32), 1)
+
+
+@pytest.mark.parametrize("tm", [32, 128])
+def test_plain_gmm_serving_plan_matches_the_pallas_kernel(tm):
+    """The serving plan's #11: f32 rows against a bf16 expert stack (the
+    reference widens it to f32, as its serving dispatch does), experts
+    with 0, 1, tm - 1 and tm + 1 rows, through the plain version with the
+    plan's counts, against ``_gmm_call`` in interpret mode; the padding
+    rows and the dead tiles past the last expert's are exactly 0."""
+    rng = np.random.default_rng(tm)
+    e, k, n = 6, 32, 24
+    sizes = [0, 1, tm - 1, tm + 1, 3, 5]
+    re = np.repeat(np.arange(e), sizes)
+    re = rng.permutation(np.concatenate([re, [e, e]])).astype(np.int32)
+    order, dest, valid, te, counts, m_pad = gm.make_dropless_plan_rows(
+        torch.tensor(re), e, tm)
+    assert counts.tolist() == sizes
+    xs = np.zeros((m_pad, k), np.float32)
+    live = dest[valid].numpy()
+    xs[live] = rng.standard_normal((len(live), k))
+    w = torch.randn(e, k, n, generator=torch.Generator().manual_seed(tm)) \
+        .to(torch.bfloat16)
+    want = G._gmm_call(jnp.asarray(xs), jnp.asarray(w.float().numpy()),
+                       jnp.asarray(te.numpy()), transpose_w=False, tm=tm,
+                       tc=k, tj=n, interpret=True)
+    got = gm.gmm_raw(torch.tensor(xs), w, te, counts=counts)
+    assert got.dtype == torch.float32
+    assert _rel_l2(got, want) <= TOL
+    pad = np.ones(m_pad, bool)
+    pad[live] = False
+    assert not got[torch.tensor(pad)].any()
+    n_tiles = int(sum(-(-c // tm) for c in sizes))
+    assert m_pad > n_tiles * tm and not got[n_tiles * tm:].any()

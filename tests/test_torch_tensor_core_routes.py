@@ -230,3 +230,44 @@ def test_plan_and_backward_keep_padding_rows_zero(monkeypatch):
         pad = ~gm.routed_rows(te, counts, lhs.shape[0])
         assert pad.any()
         assert not lhs[pad].any() and not dout[pad].any()
+
+
+# the redesigned f32 routes: #2's f32 forward (3xTF32 on
+# wgmma, with its key-split merge) on the GPT-2 step and the split
+# path's int8 prefill, #11's f32 rows (the streaming kernel) in MoE
+# serving
+F32_ROUTES = {
+    "train_gpt2_profile": ("flash_fwd", "3xtf32", [
+        "void ptt::flash_fwd_3xtf32<64, true>"]),
+    "serve_split_int8_profile": ("flash_fwd", "3xtf32", [
+        "void ptt::flash_fwd_3xtf32<128, false>",
+        "void ptt::flash_fwd_3xtf32_merge<128>"]),
+    "serve_moe_profile": ("grouped_matmul", "stream", [
+        "void ptt::gmm_rows_stream<__nv_bfloat16>"]),
+}
+OLD_F32 = {"train_gpt2_profile": "void ptt::flash_fwd<float, 64, true>",
+           "serve_split_int8_profile": "void ptt::flash_fwd<float, 128, "
+                                       "false>",
+           "serve_moe_profile": "void ptt::gmm_rows_f32<__nv_bfloat16>"}
+
+
+@pytest.mark.parametrize("phase", list(F32_ROUTES))
+@pytest.mark.parametrize("old", [False, True], ids=["new", "old_kernel"])
+def test_route_gate_holds_the_f32_routes_to_their_designs(phase, old):
+    """The design labels read from traced names, and the gate on them:
+    the redesigned f32 kernels pass, a trace that still shows the kernel
+    they replaced fails."""
+    cs = _chip_smoke()
+    fam, design, names = F32_ROUTES[phase]
+    assert {cs.design_of(n) for n in names} == {design}
+    assert {cs.kernel_family(n) for n in names} == {fam}
+    assert cs.design_of(OLD_F32[phase]) == "fma"
+    prof = {n: 1.0 for n in names}
+    if old:
+        prof[OLD_F32[phase]] = 1.0
+        with pytest.raises(cs.SmokeFailure, match=f"{design} route"):
+            cs.check_tensor_core_route({"routed_kernel_ms": prof}, phase,
+                                       (fam,), design=design)
+    else:
+        cs.check_tensor_core_route({"routed_kernel_ms": prof}, phase,
+                                   (fam,), design=design)
