@@ -66,8 +66,12 @@ with the launch counts set to 0 just before and read just after:
 Every 16-bit training step must trace only the tensor-core (``wgmma``)
 kernels of the flash forward, dQ and dK/dV families, the fused step
 only the tensor-core matmul+rope kernel, and the MoE step only the
-tensor-core grouped matmul (#11) and dW (#13) kernels; every bf16 #11
-and #13 check must trace its wgmma kernel; the f32 attention of the
+tensor-core grouped matmul (#11), fused gate/up (#12) and dW (#13)
+kernels; every bf16 #11-#13 check must trace its wgmma kernel; the
+bf16 serves (Llama-3-8B and Qwen1.5-MoE) only #1's ``mma.sync``
+attention (``ragged_attend_mma``), the f32-weight serve
+over bf16 pools only its 3xTF32 attention (``ragged_attend_3xtf32``),
+and every #1 row its route's kernels; the f32 attention of the
 GPT-2 step and of the split int8 serve's prefill only the 3xTF32
 forward (``flash_fwd_3xtf32``, at GPT-2's shape and at the prefill
 chunk's in a kernel row too), and the f32-row #11 of MoE serving only
@@ -176,10 +180,12 @@ def f32_bounds(n_bytes, flops, tensor_cores):
 
 def design_of(name):
     """The design a kernel's (traced or mangled) name states: "3xtf32"
-    (f32 on the tensor cores as three TF32 products, #2's f32 route),
-    "wgmma" (16-bit on the tensor cores), "stream" (#11's f32 rows
-    streaming their expert's weights) or "fma" (the FMA pipe)."""
-    for key in ("3xtf32", "wgmma", "stream"):
+    (f32 on the tensor cores as three TF32 products: #2's f32 route, #1's
+    f32, mixed and int8 modes), "wgmma" (16-bit on the tensor cores by
+    warpgroup), "stream" (#11's f32 rows streaming their expert's
+    weights), "mma" (16-bit on the tensor cores by warp, ``mma.sync``:
+    #1's 16-bit mode) or "fma" (the FMA pipe, and the copy kernels)."""
+    for key in ("3xtf32", "wgmma", "stream", "mma"):
         if key in name:
             return key
     return "fma"
@@ -219,16 +225,18 @@ RAGGED_LIVE = [(36, 1), (127, 1), (300, 1), (1031, 1), (256, 128), (126, 2),
                (128, 2)]
 
 
-def ragged_bytes(el_q, el_p, H=32, KVH=8):
+def ragged_bytes(el_q, el_p, H=32, KVH=8, int8=False):
     """Bytes #1 moves at ``ragged_case``'s shapes with q, the new rows and
-    the output ``el_q`` bytes an element and float pools ``el_p``: pages
-    read once a kv head, q and new rows read, new rows appended, the
-    whole output block written, descriptors and tables read."""
+    the output ``el_q`` bytes an element and pools ``el_p`` (int8 pools:
+    an f32 scale a pool row besides): pages read once a kv head, q and
+    new rows read, new rows appended, the whole output block written,
+    descriptors and tables read."""
     T, P, D, maxp = 136, 128, 128, 16
     pages_read = sum(-(-(kl + ql) // P) for kl, ql in RAGGED_LIVE) * KVH
     rows = sum(ql for _, ql in RAGGED_LIVE)
-    return (2 * pages_read * P * D * el_p + rows * H * D * el_q
-            + 2 * rows * KVH * D * el_q + 2 * rows * KVH * D * el_p
+    row_p = D * el_p + (4 if int8 else 0)       # bytes a pool row
+    return (2 * pages_read * P * row_p + rows * H * D * el_q
+            + 2 * rows * KVH * D * el_q + 2 * rows * KVH * row_p
             + T * P * H * D * el_q + 4 * (3 * T + T * maxp))
 
 
@@ -270,6 +278,24 @@ def ragged_case(torch, gen, dev, H=32, KVH=8):
     flops = sum(4 * H * D * (kl + r + 1) for kl, ql in seqs
                 for r in range(ql))
     return args, ragged_bytes(2, 2, H, KVH), flops
+
+
+def ragged_row(torch, name, kernel, plain, err, bound, design):
+    """A row of #1's table: ``kernel()`` and ``plain()`` timed (CUDA
+    events), the kernel traced (``RAGGED_FAMILIES``: its append and
+    attention summed as ``device_ms``) and the design of its attention
+    kernel held to ``design`` ("mma" for 16-bit q over pools of its type,
+    "3xtf32" for every other mode)."""
+    row = {"name": name, "route": "cuda",
+           "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
+           "replaces": "paddle_tpu/ops/pallas/paged_attention.py:912",
+           "max_abs_err": err, "ms": timed_ms(torch, kernel, 20),
+           "plain_ms": timed_ms(torch, plain, 5), "bound_ms": bound[0],
+           "bound_by": bound[1], "library_ms": None,
+           **traced_kernel(torch, kernel, RAGGED_FAMILIES)}
+    check(row["design"] == design,
+          f"{name} ran on {row['design']}, not {design}")
+    return row
 
 
 def flash_case(torch, gen, dev, H=32, KVH=8):
@@ -473,7 +499,7 @@ def kernel_family(name):
                      ("add_norm", "add_norm"),
                      ("matmul_rope", "matmul_rope"),
                      # grouped_matmul.cu, whatever the design: gmm_wgmma,
-                     # gmm_rows_stream, gmm_t_f32; glu_bf16, glu_f32;
+                     # gmm_rows_stream, gmm_t_f32; glu_wgmma, glu_f32;
                      # dw_wgmma, dw_f32
                      ("ptt::gmm_", "grouped_matmul"),
                      ("ptt::glu_", "grouped_matmul_glu"),
@@ -490,7 +516,11 @@ def kernel_family(name):
 # the families whose kernels a trace names one by one (``routed_kernel_ms``,
 # read by the route checks)
 ROUTED_FAMILIES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_dbias",
-                   "matmul_rope", "grouped_matmul", "grouped_matmul_dw")
+                   "matmul_rope", "grouped_matmul", "grouped_matmul_glu",
+                   "grouped_matmul_dw", "ragged_append", "ragged_attend")
+# #1's kernels: the append (and the plan) and the attention, which merges
+# its key splits (``ragged_attend_mma`` or ``ragged_attend_3xtf32``)
+RAGGED_FAMILIES = ("ragged_append", "ragged_attend")
 
 
 def profiled(torch, fn):
@@ -531,42 +561,51 @@ def profiled(torch, fn):
                                  for ms, n, c in top[:8]]}
 
 
+# traces of a kernel row taken again where the profiler dropped events
+# (it dropped some from two traces in a row on the card)
+TRACE_RETRIES = 3
+
+
 def traced_kernel(torch, fn, family=None, calls=3):
     """The kernel that ``fn()`` launches, traced over ``calls`` calls:
     ``design`` read from its name (``design_of``), for the families of
-    ``ROUTED_FAMILIES`` (flash,
-    matmul+rope, the grouped matmul #11 and its dW #13; None for another
-    ``family``), and ``device_ms``, its own device time a call (without
-    the wrapper's host work).  ``family`` None: the one routed family
-    traced.  The profiler at times drops kernel events (a dK/dV row's
-    trace held none, an f32 forward row's one of its three; cause not
-    found), so a trace whose count of the family's kernels is 0 or not a
-    multiple of ``calls`` is taken once more, ``trace_retries`` says so,
-    and the check fails if that one is short too."""
+    ``ROUTED_FAMILIES`` (flash, matmul+rope, the grouped matmuls #11-#13,
+    #1; None for another ``family``), and ``device_ms``, its own device
+    time a call (without the wrapper's host work).  ``family`` None: the
+    one routed family traced; a tuple (#1's ``RAGGED_FAMILIES``):
+    ``device_ms`` sums the kernels of those families (append and
+    attention) and ``design`` is the last family's.  The profiler at
+    times drops kernel events (a dK/dV row's trace held none, an f32
+    forward row's one of its three; cause not found), so a trace whose
+    count of a family's kernels is 0 or not a multiple of ``calls`` is
+    taken again, up to ``TRACE_RETRIES`` times, ``trace_retries`` says
+    how often, and the check fails if the last one is short too."""
+    wanted = (family,) if isinstance(family, str) else family
+
     def lost(prof):
-        fams = [family] if family else \
-            {kernel_family(n) for n in prof["routed_kernel_ms"]}
+        fams = wanted or {kernel_family(n) for n in prof["routed_kernel_ms"]}
         n = [prof["kernel_count_by_family"].get(f, 0) for f in fams]
         return not n or any(c == 0 or c % calls for c in n)
 
     retries = 0
     _, prof = profiled(torch, lambda: [fn() for _ in range(calls)])
-    if lost(prof):
-        retries = 1
+    while lost(prof) and retries < TRACE_RETRIES:
+        retries += 1
         emit({"phase": "trace_retry", "family": family,
               "top_kernels": prof["top_kernels"]})
         _, prof = profiled(torch, lambda: [fn() for _ in range(calls)])
     check(not lost(prof), f"the trace of {family or 'a routed kernel'} "
-                          f"lost events twice: "
+                          f"lost events {retries + 1} times: "
                           f"{prof['kernel_count_by_family']}")
     names = [n for n in prof["routed_kernel_ms"]
-             if family is None or kernel_family(n) == family]
-    fams = {family} if family else {kernel_family(n) for n in names}
+             if wanted is None or kernel_family(n) == wanted[-1]]
+    fams = {wanted[-1]} if wanted else {kernel_family(n) for n in names}
     designs = {design_of(n) for n in names}
     check(len(fams) == 1 and len(designs) <= 1 and (names or family),
           f"not one kernel traced ({family}): {names}")
     fam = fams.pop()
-    ms = prof["kernel_ms_by_family"].get(fam)
+    ms = sum(prof["kernel_ms_by_family"].get(f, 0.0)
+             for f in (wanted or (fam,)))
     check(ms, f"no {fam} kernel traced")
     return {"design": designs.pop() if designs else None,
             "device_ms": ms / calls, "trace_retries": retries}
@@ -1119,7 +1158,8 @@ def train_phase(torch, np, dev, table, *, phase, layers, fused):
 
 
 FLASH_FAMILIES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-GROUPED_FAMILIES = ("grouped_matmul", "grouped_matmul_dw")    # #11, #13
+GROUPED_FAMILIES = ("grouped_matmul", "grouped_matmul_glu",   # #11, #12,
+                    "grouped_matmul_dw")                      # #13
 
 
 def check_tensor_core_route(prof, phase, families=FLASH_FAMILIES,
@@ -1286,15 +1326,14 @@ def group1_kernels(torch, gen, dev, table):
           "version")
     check(err <= TOL, f"ragged kernel (group 1) off its plain version by "
                       f"{err}")
-    bound, bound_by = bound_ms(n_bytes, flops)
-    emit({"phase": "kernel", "name": "ragged_paged_append_attend",
-          "group": 1, "heads": 16, "kv_heads": 16, "max_abs_err": err,
-          "tolerance": TOL,
-          "ms": timed_ms(torch, lambda: ragged(
-              pa.ragged_paged_append_attend, kp_k, vp_k), 20),
-          "plain_ms": timed_ms(torch, lambda: ragged(
-              pa.ragged_paged_append_attend_reference, kp_p, vp_p), 5),
-          "bound_ms": bound, "bound_by": bound_by, "library_ms": None})
+    key = "ragged_paged_append_attend_group1"
+    table[key] = ragged_row(
+        torch, key,
+        lambda: ragged(pa.ragged_paged_append_attend, kp_k, vp_k),
+        lambda: ragged(pa.ragged_paged_append_attend_reference, kp_p, vp_p),
+        err, bound_ms(n_bytes, flops), "mma")
+    emit({"phase": "kernel", **table[key], "group": 1, "heads": 16,
+          "kv_heads": 16, "tolerance": TOL})
     del args, pools, kp_k, vp_k, kp_p, vp_p, got, want
 
     args, n_bytes, flops = flash_case(torch, gen, dev, H=16, KVH=16)
@@ -1418,6 +1457,20 @@ def grouped_mm_library(torch, counts, tm, a, b):
         "torch._grouped_mm over the padded expert groups (timed only)"
 
 
+def glu_composed(torch, counts, tm, xs, wg, wu):
+    """#12's yardstick where no one PyTorch call computes it: two
+    ``torch._grouped_mm`` calls (gate and up over the padded expert
+    groups) and ``silu(g) * u``, for timing only; (fn, note) or (None,
+    why)."""
+    gate, note = grouped_mm_library(torch, counts, tm, xs, wg)
+    if gate is None:
+        return None, note
+    up, _ = grouped_mm_library(torch, counts, tm, xs, wu)
+    silu = torch.nn.functional.silu
+    return (lambda: silu(gate()) * up()), \
+        "two torch._grouped_mm calls and silu(g) * u (timed only)"
+
+
 def moe_kernels(torch, gen, dev, table):
     """#11 (gmm), #12 (gmm_glu) and #13 (gmm_dw) at the MoE paths'
     shapes, each against its plain version and timed:
@@ -1431,13 +1484,13 @@ def moe_kernels(torch, gen, dev, table):
     - training, 4 x 4096 tokens x top-4 (65,536 slots, tm 256, m_pad
       80,896; expert 59 gets no rows, so #13's zero expert shows): #11
       forward (down), #11 transpose_w for the down and gate dX, #12 with
-      and without save_pre, #13 for the gate and down weights (bf16;
-      #11 and #13 on wgmma, #12 on mma.sync; relative L2 2^-7; #13's
-      empty expert exactly zero).
+      and without save_pre, #13 for the gate and down weights (bf16, all
+      on wgmma; relative L2 2^-7; #13's empty expert exactly zero).
 
-    Each #11 and #13 row carries ``design`` and ``device_ms`` from a
-    trace of its call (wgmma for bf16, stream for the f32 rows), and
-    fails on another design.
+    Each row carries ``design`` and ``device_ms`` from a trace of its
+    call (wgmma for bf16, stream for the f32 rows), and fails on another
+    design; #12's rows carry ``composed_ms``, two ``torch._grouped_mm``
+    calls and ``silu(g) * u`` (``glu_composed``).
 
     bound_ms counts the FLOPs of the routed rows only and the bytes of
     the routed lhs rows, the weights of the experts with rows, and the
@@ -1461,7 +1514,7 @@ def moe_kernels(torch, gen, dev, table):
         return bound_ms(n_bytes, flops)
 
     def run_case(name, fn, plain, tol, bound, library, note, design=None,
-                 **extra):
+                 composed=None, **extra):
         got, want = fn(), plain()
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
@@ -1485,6 +1538,10 @@ def moe_kernels(torch, gen, dev, table):
                "bound_ms": bound[0], "bound_by": bound[1],
                "library_ms": None if lib_fn is None
                else timed_ms(torch, lib_fn, 10)}
+        if composed is not None:     # #12: no one call; a composition
+            row["composed_ms"] = None if composed[0] is None \
+                else timed_ms(torch, composed[0], 10)
+            extra["composed_note"] = composed[1]
         if design is not None:
             row.update(traced_kernel(torch, fn, name))
             check(row["design"] == design,
@@ -1555,17 +1612,22 @@ def moe_kernels(torch, gen, dev, table):
         shape=[list(dhg.shape), [E, H, F]], **shape)
     no_glu = (None, "no single PyTorch call fuses the two products with "
                     "SwiGLU")
-    run_case("grouped_matmul_glu", lambda: gm.gmm_glu_raw(
-        xs, wg, wu, te, counts=counts),
+    composed = glu_composed(torch, counts, tm, xs, wg, wu)
+    table["grouped_matmul_glu_hs"] = dict(run_case(
+        "grouped_matmul_glu", lambda: gm.gmm_glu_raw(
+            xs, wg, wu, te, counts=counts),
         lambda: gm.gmm_glu_reference(xs, wg, wu, te), REL_L2_TOL,
         cost(counts, H, F, 2, 2, 2, n_w=2), no_glu, "train, hs only",
-        shape=[list(xs.shape), [E, H, F]], **shape)
+        design="wgmma", composed=composed,
+        shape=[list(xs.shape), [E, H, F]], **shape),
+        name="grouped_matmul_glu_hs")
     table["grouped_matmul_glu"] = run_case(
         "grouped_matmul_glu", lambda: gm.gmm_glu_raw(
             xs, wg, wu, te, save_pre=True, counts=counts),
         lambda: gm.gmm_glu_reference(xs, wg, wu, te, save_pre=True),
         REL_L2_TOL, cost(counts, H, F, 2, 2, 2, n_w=2, n_out=3), no_glu,
-        "train, save_pre", shape=[list(xs.shape), [E, H, F]], **shape)
+        "train, save_pre", design="wgmma", composed=composed,
+        shape=[list(xs.shape), [E, H, F]], **shape)
     for case, lhs, dout in (("train gate dW", xs, dhg),
                             ("train down dW", hs, dys)):
         k, n = lhs.shape[1], dout.shape[1]
@@ -1758,6 +1820,10 @@ def serve_moe_phase(torch, np, dev, table):
     emit({"phase": "serve_moe_profile", **prof})
     check_tensor_core_route(prof, "serve_moe_profile", ("grouped_matmul",),
                             design="stream")
+    check_tensor_core_route(prof, "serve_moe_profile", ("ragged_attend",),
+                            design="mma")
+    table["ragged_paged_append_attend_group1"]["launches"] = \
+        launches["ragged_paged_append_attend"]
     for name in ("grouped_matmul_f32_rows", "grouped_matmul_f32_rows_down",
                  "grouped_matmul_f32_rows_decode"):
         table[name]["launches"] = launches["grouped_matmul"]
@@ -1858,6 +1924,9 @@ def train_moe_phase(torch, np, dev, table):
               f"not {per_step} a step")
     for n in ("grouped_matmul", "grouped_matmul_glu", "grouped_matmul_dw"):
         table[n]["launches"] = launches[n]
+    # #12 without save_pre (the forward) and with it (the recompute)
+    table["grouped_matmul_glu_hs"]["launches"] = \
+        launches["grouped_matmul_glu"]
 
     for n in ("flash_attention_fwd", "flash_attention_bwd_dq",
               "flash_attention_bwd_dkv"):
@@ -2068,23 +2137,12 @@ def ragged_int8_kernel(torch, gen, dev, table):
               f"from the plain version's")
         check(err <= TOL, f"ragged int8 (group {H // KVH}) off its plain "
                           f"version by {err}")
-        # int8 pages and their scales read, the rest as ragged_case counts
-        T, P, D, maxp = 136, 128, 128, 16
-        pages_read = sum(-(-(kl + ql) // P) for kl, ql in RAGGED_LIVE) * KVH
-        rows = sum(ql for _, ql in RAGGED_LIVE)
-        n_bytes = (2 * pages_read * P * (D + 4) + rows * H * D * 2
-                   + 2 * rows * KVH * D * 2 + 2 * rows * KVH * (D + 4)
-                   + T * P * H * D * 2 + 4 * (3 * T + T * maxp))
-        bound, bound_by = bound_ms(n_bytes, flops)
-        row = {"name": "ragged_paged_append_attend_int8", "route": "cuda",
-               "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
-               "replaces": "paddle_tpu/ops/pallas/paged_attention.py:912",
-               "max_abs_err": err,
-               "ms": timed_ms(torch, lambda: call(
-                   pa.ragged_paged_append_attend, mine), 20),
-               "plain_ms": timed_ms(torch, lambda: call(
-                   pa.ragged_paged_append_attend_reference, ref), 5),
-               "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+        n_bytes = ragged_bytes(2, 1, H, KVH, int8=True)
+        row = ragged_row(
+            torch, "ragged_paged_append_attend_int8",
+            lambda: call(pa.ragged_paged_append_attend, mine),
+            lambda: call(pa.ragged_paged_append_attend_reference, ref), err,
+            bound_ms(n_bytes, flops), "3xtf32")
         emit({"phase": "kernel", **row, "group": H // KVH,
               "codes_and_scales_equal": True, "tolerance": TOL})
         if H == 32:
@@ -2126,18 +2184,11 @@ def mixed_kernels(torch, gen, dev, table):
                            f"version's")
         check(got.dtype == qdt and err <= TOL,
               f"ragged {tag} off its plain version by {err}")
-        bound, bound_by = bound_ms(ragged_bytes(el[qdt], el[pdt]), flops)
         name = f"ragged_paged_append_attend_{tag}"
-        table[name] = {
-            "name": name, "route": "cuda",
-            "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
-            "replaces": "paddle_tpu/ops/pallas/paged_attention.py:912",
-            "max_abs_err": err,
-            "ms": timed_ms(torch, lambda: call(
-                pa.ragged_paged_append_attend, mine), 20),
-            "plain_ms": timed_ms(torch, lambda: call(
-                pa.ragged_paged_append_attend_reference, ref), 5),
-            "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+        table[name] = ragged_row(
+            torch, name, lambda: call(pa.ragged_paged_append_attend, mine),
+            lambda: call(pa.ragged_paged_append_attend_reference, ref), err,
+            bound_ms(ragged_bytes(el[qdt], el[pdt]), flops), "3xtf32")
         emit({"phase": "kernel", **table[name], "q_dtype": str(qdt)[6:],
               "pool_dtype": str(pdt)[6:], "group": 4,
               "pools_equal": pools_equal, "tolerance": TOL})
@@ -2757,6 +2808,8 @@ def serve_f32w_phases(torch, np, dev, table):
         f"p{rid}": rng.integers(0, cfg.vocab_size, n).tolist()
         for rid, n in SERVE_LENS.items()}, max_new=8)
     emit({"phase": "serve_f32w_bf16kv_profile", **prof})
+    check_tensor_core_route(prof, "serve_f32w_bf16kv_profile",
+                            ("ragged_attend",), design="3xtf32")
     del eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -3479,7 +3532,8 @@ def main() -> int:
           f"a tensor-core kernel spills (or reported nothing): {usage}")
     for fam in ("flash_fwd_wgmma", "flash_bwd_dq_wgmma",
                 "flash_bwd_dkv_wgmma", "matmul_rope_wgmma", "gmm_wgmma",
-                "dw_wgmma", "flash_fwd_3xtf32", "gmm_rows_stream"):
+                "dw_wgmma", "flash_fwd_3xtf32", "gmm_rows_stream",
+                "glu_wgmma", "ragged_attend_mma", "ragged_attend_3xtf32"):
         check(any(fam in n for n in usage), f"no ptxas report of {fam}")
 
     # -- kernels against their plain versions, full-width bf16 shapes
@@ -3503,19 +3557,13 @@ def main() -> int:
     check(torch.equal(kp_k, kp_p) and torch.equal(vp_k, vp_p),
           "ragged kernel appended other K/V than its plain version")
     check(err <= TOL, f"ragged kernel off its plain version by {err}")
-    bound, bound_by = bound_ms(n_bytes, flops)
-    table["ragged_paged_append_attend"] = {
-        "name": "ragged_paged_append_attend", "route": "cuda",
-        "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
-        "replaces": "paddle_tpu/ops/pallas/paged_attention.py:912",
-        "max_abs_err": err,
-        "ms": timed_ms(torch, lambda: ragged(
-            pa.ragged_paged_append_attend, kp_k, vp_k), 20),
-        "plain_ms": timed_ms(torch, lambda: ragged(
-            pa.ragged_paged_append_attend_reference, kp_p, vp_p), 5),
-        "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+    table["ragged_paged_append_attend"] = ragged_row(
+        torch, "ragged_paged_append_attend",
+        lambda: ragged(pa.ragged_paged_append_attend, kp_k, vp_k),
+        lambda: ragged(pa.ragged_paged_append_attend_reference, kp_p, vp_p),
+        err, bound_ms(n_bytes, flops), "mma")
     emit({"phase": "kernel", **table["ragged_paged_append_attend"],
-          "tolerance": TOL})
+          "group": 4, "tolerance": TOL})
     del args, pools, kp_k, vp_k, kp_p, vp_p, got, want
 
     args, n_bytes, flops = flash_case(torch, gen, dev)
@@ -3626,6 +3674,8 @@ def main() -> int:
         f"p{rid}": rng.integers(0, cfg.vocab_size, n).tolist()
         for rid, n in SERVE_LENS.items()}, max_new=8)
     emit({"phase": "profile", **prof})
+    check_tensor_core_route(prof, "profile", ("ragged_attend",),
+                            design="mma")
     del eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -3682,12 +3732,15 @@ def main() -> int:
     # each tensor-core row: its kernel's registers and spills (the most
     # registers and the summed spills over that kernel's instantiations)
     for row in table.values():
-        if row.get("design") in ("wgmma", "3xtf32", "stream"):
+        if row.get("design") in ("wgmma", "3xtf32", "stream", "mma"):
             name = row["name"]
-            fam = ("flash_fwd_3xtf32" if row["design"] == "3xtf32"
+            fam = (f"ragged_attend_{row['design']}" if name.startswith(
+                       "ragged")
+                   else "flash_fwd_3xtf32" if row["design"] == "3xtf32"
                    else "gmm_rows_stream" if row["design"] == "stream"
                    else "matmul_rope_wgmma" if name.startswith("matmul_rope")
                    else "gmm_wgmma" if name == "grouped_matmul"
+                   else "glu_wgmma" if name.startswith("grouped_matmul_glu")
                    else "dw_wgmma" if name == "grouped_matmul_dw"
                    else "flash_bwd_dq_wgmma" if "bwd_dq" in name
                    else "flash_bwd_dkv_wgmma" if "bwd_dkv" in name
@@ -3698,7 +3751,8 @@ def main() -> int:
             row["ptxas_spill_bytes"] = sum(u.get("spill_bytes", 0)
                                            for u in got) if got else None
     emit({"kernels": [table[n] for n in (
-        "ragged_paged_append_attend", "flash_attention_fwd",
+        "ragged_paged_append_attend", "ragged_paged_append_attend_group1",
+        "flash_attention_fwd",
         "flash_attention_fwd_causal_8k", "flash_attention_bwd_dq",
         "flash_attention_bwd_dkv", "flash_attention_fwd_moe",
         "flash_attention_bwd_dq_moe", "flash_attention_bwd_dkv_moe",
@@ -3708,7 +3762,7 @@ def main() -> int:
         "add_layer_norm", "matmul_rope", "grouped_matmul",
         "grouped_matmul_f32_rows", "grouped_matmul_f32_rows_down",
         "grouped_matmul_f32_rows_decode", "grouped_matmul_glu",
-        "grouped_matmul_dw", "paged_attention",
+        "grouped_matmul_glu_hs", "grouped_matmul_dw", "paged_attention",
         "paged_decode_append_attend", "ragged_paged_append_attend_int8",
         "ragged_paged_append_attend_float32_q_bfloat16_pools",
         "ragged_paged_append_attend_bfloat16_q_float32_pools",

@@ -70,13 +70,17 @@
 //     60 x 16 x 6 blocks of about 17 slices each.
 //   The epilogue rounds the accumulators to bf16 into the idle ring and
 //   writes 16-byte stores.
-// bf16 gmm_glu (still on mma.sync; a later redesign can take this ring):
-// mma.sync.aligned.m16n8k16 (bf16 in, f32 accumulate), 8 warps (4 x 2),
-// k steps of 32 through a 3-stage cp.async ring in shared memory (rows
-// padded by 16 bytes, so ldmatrix reads are free of bank conflicts),
-// 128 x 64 of each of the gate and up products, one lhs tile feeding both
-// accumulators, so registers stay at one 128 x 128 tile's; the
-// silu(g) * u epilogue runs in f32 in registers.
+// bf16 gmm_glu (`glu_wgmma`) takes the same ring: a block owns 128 rows x
+// 128 columns of both products, two consumer warpgroups each with one
+// m64n128 accumulator for the gate and one for up (128 registers a
+// thread, as one m64n256), one producer warp; a stage holds the lhs
+// [128][64] box and two [64 k][64 n] boxes each of wg[e] and wu[e]
+// (MN-major, read through the transpose bit, 48 KB as gmm's).  N = 1408
+// is exactly 11 column tiles.  Blocks walk the column tiles fastest; a
+// block with no routed row writes zeros and starts no ring, and the
+// epilogue computes silu(g) * u in f32 in registers (with save_pre also
+// rounding g and u), stages up to three [128][128] bf16 tiles in the
+// idle ring and writes them with 16-byte stores, padding rows as zeros.
 // f32 rows (the serving path's f32 buffers against bf16 or f32 weights,
 // and the f32 training checks) run on the FMA pipe in exact f32; the
 // product is the plain version's, summed in another order.  gmm against
@@ -430,207 +434,168 @@ cudaError_t launch_dw_wgmma(const void* lhs, const void* dout, Layout L,
   return cudaGetLastError();
 }
 
-// ------------------------------------------------ bf16 gmm_glu, mma.sync
+// ------------------------------------------------- bf16 gmm_glu on wgmma
 
-constexpr int kBM = 128, kBK = 32, kStages = 3, kThreads = 256;
+constexpr int kGluN = 128;                      // columns of each product
+constexpr int kGluPitch = (kGluN + 8) * 2;      // bytes a row of a tile
+static_assert(3 * kTileM * kGluPitch <= kRing * kWStage,
+              "the three epilogue tiles must fit in the ring");
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = ok ? 16 : 0;          // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const bf16* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
-                                                  const bf16* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Shared-memory geometry of one stage: the A tile (kBM rows x kBK) and
-// NB B tiles (kBK x BN), rows padded by 8 elements.
-template <int NB> struct GluTile {
-  static constexpr int BN = 128 / NB;          // columns of each product
-  static constexpr int WN = BN / 2;            // columns a warp owns
-  static constexpr int NT = WN / 8;            // n8 tiles a warp owns
-  static constexpr int AP = kBK + 8;
-  static constexpr int BP = BN + 8;
-  static constexpr int A_ELEMS = kBM * AP;
-  static constexpr int B_ELEMS = kBK * BP;
-  static constexpr int STAGE = A_ELEMS + NB * B_ELEMS;
-  static constexpr int SMEM = kStages * STAGE * 2;
-};
-
-// acc[j] += A x B_j over the contraction range [0, K).  A element (r, k)
-// a[r * lda + k], live for r < a_rows; B_j element (k, n) b[j][k * ldb +
-// n], live for n < n_lim.  Dead elements load as zeros.  Every
-// contiguous run is a multiple of 8 elements (16 bytes).
-template <int NB>
-__device__ __forceinline__ void mma_mainloop(
-    bf16* smem, const bf16* __restrict__ a, long long lda, int a_rows,
-    const bf16* const* b, long long ldb, int n_lim, int K,
-    float (&acc)[NB][2][GluTile<NB>::NT][4]) {
-  using T = GluTile<NB>;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-
-  auto load_stage = [&](int stage, int k0) {
-    bf16* sa = smem + stage * T::STAGE;
+// The two warpgroups' m64n128 gate and up accumulators through the idle
+// ring: hs = silu(g) * u (and with hg: hg = g, hu = u) rounded to bf16
+// into up to three [128][128] tiles, written to o + 0, 1, 2 (row pitch
+// ld) with 16-byte stores: rows [live, 128) as zeros, columns past cols
+// not at all.  Every consumer thread calls it.
+__device__ __forceinline__ void store_glu(const float (&ag)[kGluN / 2],
+                                          const float (&au)[kGluN / 2],
+                                          unsigned char* tiles,
+                                          bf16* const (&o)[3], int n_out,
+                                          long long ld, int live, int cols) {
+  const int tid = threadIdx.x, w = tid >> 7, wt = tid & 127;
+  const int warp = wt >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  constexpr int kTile = kTileM * kGluPitch;
+  consumers_sync();          // both warpgroups' products have read the ring
 #pragma unroll
-    for (int c = tid; c < kBM * kBK / 8; c += kThreads) {
-      const int r = c / (kBK / 8), kc = (c % (kBK / 8)) * 8;
-      const bool ok = r < a_rows && k0 + kc < K;
-      cp_async16(sa + r * T::AP + kc, ok ? a + r * lda + k0 + kc : a, ok);
-    }
+  for (int j = 0; j < kGluN / 8; ++j)
 #pragma unroll
-    for (int j = 0; j < NB; ++j) {
-      bf16* sb = sa + T::A_ELEMS + j * T::B_ELEMS;
-#pragma unroll
-      for (int c = tid; c < kBK * T::BN / 8; c += kThreads) {
-        const int kr = c / (T::BN / 8), nc = (c % (T::BN / 8)) * 8;
-        const bool ok = k0 + kr < K && nc < n_lim;
-        cp_async16(sb + kr * T::BP + nc,
-                   ok ? b[j] + static_cast<long long>(k0 + kr) * ldb + nc
-                      : b[j], ok);
+    for (int h = 0; h < 2; ++h) {
+      const int at = (64 * w + 16 * warp + g + 8 * h) * kGluPitch +
+                     2 * (8 * j + 2 * t4);
+      const float g0 = ag[4 * j + 2 * h], g1 = ag[4 * j + 2 * h + 1];
+      const float u0 = au[4 * j + 2 * h], u1 = au[4 * j + 2 * h + 1];
+      *reinterpret_cast<uint32_t*>(tiles + at) =
+          wg::pack2<bf16>(silu_f(g0) * u0, silu_f(g1) * u1);
+      if (n_out == 3) {
+        *reinterpret_cast<uint32_t*>(tiles + kTile + at) =
+            wg::pack2<bf16>(g0, g1);
+        *reinterpret_cast<uint32_t*>(tiles + 2 * kTile + at) =
+            wg::pack2<bf16>(u0, u1);
       }
     }
-  };
-
-  const int KT = (K + kBK - 1) / kBK;
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < KT) load_stage(s, s * kBK);
-    cp_async_commit();                // an empty group keeps the count
-  }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<kStages - 2>();     // k tile kt has landed
-    __syncthreads();                  // ... for every thread; and the
-                                      // stage refilled below is drained
-    const int next = kt + kStages - 1;
-    if (next < KT) load_stage(next % kStages, next * kBK);
-    cp_async_commit();
-    const bf16* sa = smem + (kt % kStages) * T::STAGE;
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-        ldmatrix_x4(af[mt], sa + (wm * 32 + mt * 16 + (lane & 15)) * T::AP
-                                + kk + (lane >> 4) * 8);
-#pragma unroll
-      for (int j = 0; j < NB; ++j) {
-        const bf16* sb = sa + T::A_ELEMS + j * T::B_ELEMS;
-        uint32_t bfr[T::NT][2];
-#pragma unroll
-        for (int np = 0; np < T::NT / 2; ++np) {
-          uint32_t t[4];
-          ldmatrix_x4_trans(t, sb + (kk + (lane & 15)) * T::BP
-                                   + wn * T::WN + np * 16 + (lane >> 4) * 8);
-          bfr[2 * np][0] = t[0];
-          bfr[2 * np][1] = t[1];
-          bfr[2 * np + 1][0] = t[2];
-          bfr[2 * np + 1][1] = t[3];
-        }
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < T::NT; ++nt)
-            mma_bf16(acc[j][mt][nt], af[mt], bfr[nt]);
-      }
+  wg::wg_barrier(2 + w);     // this warpgroup's 64 rows are in the tiles
+  constexpr int CH = kGluN / 8;
+  for (int t = 0; t < n_out; ++t)
+    for (int i = wt; i < 64 * CH; i += 128) {
+      const int r = 64 * w + i / CH, c = (i % CH) * 8;
+      if (c >= cols) continue;
+      const uint4 v = r < live ? *reinterpret_cast<const uint4*>(
+                                     tiles + t * kTile + r * kGluPitch + 2 * c)
+                               : make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint4*>(o[t] + static_cast<long long>(r) * ld + c) =
+          v;
     }
-  }
-  cp_async_wait<0>();
 }
 
-// The thread's accumulator element (mt, nt, h): row and column in the
-// block's output tile.
-template <int WN>
-__device__ __forceinline__ void acc_pos(int mt, int nt, int h, int* r,
-                                        int* c) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  *r = (warp >> 1) * 32 + mt * 16 + (lane >> 2) + h * 8;
-  *c = (warp & 1) * WN + nt * 8 + (lane & 3) * 2;
-}
-
-__global__ void __launch_bounds__(kThreads, 2)
-glu_bf16(const bf16* __restrict__ lhs, const bf16* __restrict__ wg,
-         const bf16* __restrict__ wu, Layout L, bf16* __restrict__ hs,
-         bf16* __restrict__ hg, bf16* __restrict__ hu, int M, int K, int N) {
-  using T = GluTile<2>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int r0 = blockIdx.y * kBM, n0 = blockIdx.x * T::BN;
-  const int rows = min(kBM, M - r0), cols = min(T::BN, N - n0);
-  const int live = L.live_rows(r0, rows);
+// hs rows [r0, r0 + 128) x columns [n0, n0 + 128) = silu(lhs rows @
+// wg[e]) * (lhs rows @ wu[e]), and with hg / hu the two products.  tma:
+// lhs [M, K] in [128][64] boxes; tmg, tmu: wg and wu as [E][K][N] in
+// [64][64] boxes.
+__global__ void __launch_bounds__(kWThreads, 1)
+glu_wgmma(__grid_constant__ const CUtensorMap tma,
+          __grid_constant__ const CUtensorMap tmg,
+          __grid_constant__ const CUtensorMap tmu, Layout L,
+          bf16* __restrict__ hs, bf16* __restrict__ hg,
+          bf16* __restrict__ hu, int K, int N) {
+  extern __shared__ unsigned char smem_raw[];
+  const int n_tiles = (N + kGluN - 1) / kGluN;
+  const int n0 = (blockIdx.x % n_tiles) * kGluN;    // column tiles fastest
+  const int r0 = (blockIdx.x / n_tiles) * kTileM;
+  const int cols = min(kGluN, N - n0);
+  const int live = L.live_rows(r0, kTileM);
   const long long off = static_cast<long long>(r0) * N + n0;
+  const int n_out = hg != nullptr ? 3 : 1;
+  bf16* const o[3] = {hs + off, n_out == 3 ? hg + off : nullptr,
+                      n_out == 3 ? hu + off : nullptr};
   if (live == 0) {
-    store_zeros(hs + off, N, rows, cols);
-    if (hg != nullptr) {
-      store_zeros(hg + off, N, rows, cols);
-      store_zeros(hu + off, N, rows, cols);
+    for (int t = 0; t < n_out; ++t) zero_tile(o[t], N, kTileM, cols);
+    return;
+  }
+  const int e = __ldg(L.te + r0 / L.tm);
+  unsigned char* smem = ring_base(smem_raw);
+  const uint32_t ring = wg::smem_addr(smem);
+  const uint32_t full0 = ring + kRing * kWStage, empty0 = full0 + 8 * kRing;
+  const int KT = (K + kDepth - 1) / kDepth;
+  ring_init(full0, empty0);
+
+  const int tid = threadIdx.x;
+  if (tid >= kConsumers) {           // the producer warp: one thread
+    if (tid == kConsumers) {
+      // a stage: lhs [128][64] at box 0-1, wg at boxes 2-3, wu at 4-5;
+      // only the [64 k][64 n] boxes that hold a column below N
+      const int nb = min(2, (N - n0 + 63) / 64);
+      for (int kt = 0; kt < KT; ++kt) {
+        const int s = kt % kRing;
+        if (kt >= kRing) mbar_wait(empty0 + 8 * s, (kt / kRing - 1) & 1);
+        const uint32_t st = ring + s * kWStage, bar = full0 + 8 * s;
+        mbar_expect_tx(bar, (2 + 2 * nb) * kBox);
+        tma_load(st, &tma, kt * kDepth, r0, bar);
+        for (int j = 0; j < nb; ++j) {
+          tma_load(st + (2 + j) * kBox, &tmg, n0 + 64 * j, kt * kDepth, e,
+                   bar);
+          tma_load(st + (4 + j) * kBox, &tmu, n0 + 64 * j, kt * kDepth, e,
+                   bar);
+        }
+      }
     }
     return;
   }
-  const long long e = __ldg(L.te + r0 / L.tm);
-  const bf16* bj[2] = {wg + e * K * N + n0, wu + e * K * N + n0};
-  float acc[2][2][T::NT][4] = {};
-  mma_mainloop<2>(reinterpret_cast<bf16*>(smem_raw),
-                  lhs + static_cast<long long>(r0) * K, K, live, bj, N, cols,
-                  K, acc);
+
+  const int w = tid >> 7, lane = tid & 31;
+  float ag[kGluN / 2], au[kGluN / 2];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int i = 0; i < kGluN / 2; ++i) ag[i] = au[i] = 0.f;
+  for (int kt = 0; kt < KT; ++kt) {
+    const int s = kt % kRing;
+    mbar_wait(full0 + 8 * s, (kt / kRing) & 1);
+    const uint32_t st = ring + s * kWStage;
+    wg::fence();
 #pragma unroll
-    for (int nt = 0; nt < T::NT; ++nt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        int r, c;
-        acc_pos<T::WN>(mt, nt, h, &r, &c);
-        if (r >= rows || c >= cols) continue;
-        const long long i = off + static_cast<long long>(r) * N + c;
-        const float g0 = acc[0][mt][nt][2 * h], g1 = acc[0][mt][nt][2 * h + 1];
-        const float u0 = acc[1][mt][nt][2 * h], u1 = acc[1][mt][nt][2 * h + 1];
-        *reinterpret_cast<__nv_bfloat162*>(hs + i) =
-            __floats2bfloat162_rn(silu_f(g0) * u0, silu_f(g1) * u1);
-        if (hg != nullptr) {
-          *reinterpret_cast<__nv_bfloat162*>(hg + i) =
-              __floats2bfloat162_rn(g0, g1);
-          *reinterpret_cast<__nv_bfloat162*>(hu + i) =
-              __floats2bfloat162_rn(u0, u1);
-        }
-      }
+    for (int kk = 0; kk < kDepth / 16; ++kk) {
+      const uint64_t a = wg::desc_k<kTileM>(st + w * 64 * 128, kk);
+      wg::Wgmma<bf16, kGluN>::ss_mn(
+          ag, a, wg::desc_mn<kDepth>(st + 2 * kBox, kk), 1);
+      wg::Wgmma<bf16, kGluN>::ss_mn(
+          au, a, wg::desc_mn<kDepth>(st + 4 * kBox, kk), 1);
+    }
+    wg::commit();
+    wg::wait<1>();                   // the group of slice kt - 1 retired
+    if (kt > 0 && lane == 0) mbar_arrive(empty0 + 8 * ((kt - 1) % kRing));
+  }
+  wg::wait<0>();
+  wg::keep(ag);
+  wg::keep(au);
+  store_glu(ag, au, smem, o, n_out, N, live, cols);
+}
+
+cudaError_t launch_glu_wgmma(const void* lhs, const void* wg,
+                             const void* wu, Layout L, void* hs, void* hg,
+                             void* hu, int M, int K, int N, int E,
+                             cudaStream_t stream) {
+  CUtensorMap tma, tmg, tmu;
+  cudaError_t e = make_map(&tma, lhs, M, K, kTileM);
+  if (e == cudaSuccess) e = make_map(&tmg, wg, K, N, kDepth, E);
+  if (e == cudaSuccess) e = make_map(&tmu, wu, K, N, kDepth, E);
+  if (e != cudaSuccess) return e;
+  static bool smem_set = false;
+  e = allow_smem(glu_wgmma, kWSmem, &smem_set);
+  if (e != cudaSuccess) return e;
+  const long long grid = static_cast<long long>(M / kTileM) *
+                         ((N + kGluN - 1) / kGluN);
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+  glu_wgmma<<<static_cast<unsigned>(grid), kWThreads, kWSmem, stream>>>(
+      tma, tmg, tmu, L, static_cast<bf16*>(hs), static_cast<bf16*>(hg),
+      static_cast<bf16*>(hu), K, N);
+  return cudaGetLastError();
 }
 
 // ------------------------------------------------------------------ f32
 
 constexpr int kFM = 32, kFN = 64, kFK = 16, kFThreads = 128;
 
-// acc[j] += A x B_j on the FMA pipe, A and the B_j read as in
-// mma_mainloop (f32 A; B_j in TB, widened to f32).  Thread (ty, tx) owns
+// acc[j] += A x B_j on the FMA pipe: A element (r, k) a[r * lda + k]
+// (AT: a[k * lda + r]), live for r < a_rows; B_j element (k, n)
+// b[j][k * ldb + n] (BT: b[j][n * ldb + k]), live for n < n_lim, widened
+// to f32; dead elements load as zeros.  Thread (ty, tx) owns
 // rows ty * 4 + i and columns tx + 16 * c of the 32 x 64 tile.
 template <typename TB, bool AT, bool BT, int NB>
 __device__ __forceinline__ void fma_mainloop(
@@ -1011,17 +976,8 @@ int gmm_glu(const void* lhs, const void* wg, const void* wu,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Layout L{tile_expert, counts, E, tm};
   if (a_dtype == 1 && w_dtype == 1) {
-    if (tm % kBM || K % 8 || N % 8) return cudaErrorInvalidValue;
-    using T = GluTile<2>;
-    static bool ok = false;
-    const cudaError_t e = allow_smem(glu_bf16, T::SMEM, &ok);
-    if (e != cudaSuccess) return e;
-    const dim3 grid(blocks(N, T::BN), blocks(M, kBM));
-    glu_bf16<<<grid, kThreads, T::SMEM, s>>>(
-        static_cast<const bf16*>(lhs), static_cast<const bf16*>(wg),
-        static_cast<const bf16*>(wu), L, static_cast<bf16*>(hs),
-        static_cast<bf16*>(hg), static_cast<bf16*>(hu), M, K, N);
-    return cudaGetLastError();
+    if (tm % kTileM || K % 8 || N % 8) return cudaErrorInvalidValue;
+    return launch_glu_wgmma(lhs, wg, wu, L, hs, hg, hu, M, K, N, E, s);
   }
   if (a_dtype != 0 || tm % kFM) return cudaErrorInvalidValue;
   const dim3 grid(blocks(N, kFN), blocks(M, kFM));

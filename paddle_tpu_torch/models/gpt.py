@@ -41,8 +41,8 @@ __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM",
            "GPTPretrainingCriterion", "gpt2_124m_config", "gpt2_tiny_config"]
 
 _CACHED_DECODE = ("the model's own cached decode (caches, gen_caches) is "
-                  "not ported yet (ROADMAP §A 3 'The model's own cached "
-                  "decode')")
+                  "not ported yet (ROADMAP §A 1 'Port: the rest of "
+                  "serving', 'The model's own cached decode')")
 
 
 @dataclass

@@ -340,6 +340,17 @@ def _check(q, k_pages, v_pages, k_new, v_new, q_start, q_len, kv_len,
     enforce(len(devs) == 1, f"arguments on several devices: {devs}")
 
 
+def _ragged_splits(t, h, kvh, d, P, s_max):
+    """The ragged kernel's scratch, from the shapes alone (the host reads
+    no length): at most ``split_max`` spans of a 64-row block's keys (8,
+    fewer where their f32 sums [T, H, split_max, D] would pass 64 MB),
+    and the plan's capacity: every 64-row block of every descriptor and
+    kv head times its spans."""
+    split_max = max(1, min(8, (64 << 20) // max(1, t * h * d * 4)))
+    items_cap = kvh * s_max * -(-(h // kvh) * P // 64) * split_max
+    return split_max, items_cap
+
+
 def ragged_paged_append_attend(q, k_pages, v_pages, k_new, v_new,
                                q_start, q_len, kv_len, page_tables,
                                k_scales=None, v_scales=None):
@@ -364,12 +375,13 @@ def ragged_paged_append_attend(q, k_pages, v_pages, k_new, v_new,
     ``out[s, j]``; rows j >= q_len, and all rows of a ``q_len == 0``
     descriptor, are zero.
 
-    On CUDA tensors this launches the kernel of
-    ``csrc/ragged_paged_attention.cu`` (q and new rows in one dtype of
-    float32/bfloat16/float16; pools in any of those dtypes, the new rows
-    cast to the pool dtype as they are written, or int8; D of 64 or
-    128) and raises on anything it does not
-    take; on CPU tensors it runs the plain version."""
+    On CUDA tensors this launches the kernels of
+    ``csrc/ragged_paged_attention.cu`` (the append, then the attention,
+    which merges its key splits; q and new rows in one dtype of float32/bfloat16/float16;
+    pools in any of those dtypes, the new rows cast to the pool dtype as
+    they are written, or int8; D of 64 or 128; descriptors' flat rows
+    disjoint, as the engine lays them out) and raises on anything it
+    does not take; on CPU tensors it runs the plain version."""
     _check(q, k_pages, v_pages, k_new, v_new, q_start, q_len, kv_len,
            page_tables)
     _both_or_neither(k_scales, v_scales)
@@ -389,15 +401,27 @@ def ragged_paged_append_attend(q, k_pages, v_pages, k_new, v_new,
                  (k_pages, v_pages, k_new, v_new))
     s_max, maxp = page_tables.shape
     out = torch.empty((s_max, P, h, d), dtype=q.dtype, device=q.device)
+    split_max, items_cap = _ragged_splits(t, h, kvh, d, P, s_max)
+    # scratch: the plan (items int2 [items_cap], a merge counter an item,
+    # the item count and the zeros' claim counter), each split's f32 sums
+    # [T, H, split_max, D] and (max, sum) [T, H, split_max]
+    n_part = t * h * split_max
+    sizes = (8 * items_cap, 4 * items_cap, 16, 4 * n_part * d, 8 * n_part)
+    offs = [0]
+    for n in sizes:
+        offs.append(offs[-1] + -(-n // 256) * 256)
+    scratch = torch.empty(offs[-1], dtype=torch.uint8, device=q.device)
+    base = scratch.data_ptr()
     src = "ragged_paged_attention"
-    lib = _kernel(src, "ragged_paged_append_attend", 12, 7, 2)
+    lib = _kernel(src, "ragged_paged_append_attend", 17, 8, 2)
     with torch.cuda.device(q.device):
         err = lib.ragged_paged_append_attend(
             q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
             k_pages.data_ptr(), v_pages.data_ptr(), _ptr(k_scales),
             _ptr(v_scales), q_start.data_ptr(), q_len.data_ptr(),
             kv_len.data_ptr(), page_tables.data_ptr(), out.data_ptr(),
-            s_max, h, kvh, n_pages, P, d, maxp, 1.0 / math.sqrt(d),
+            *(base + o for o in offs[:5]), s_max, h, kvh, n_pages, P, d,
+            maxp, split_max, 1.0 / math.sqrt(d),
             _DTYPE_CODE[q.dtype], pool,
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, lib, src, "ragged paged attention")

@@ -44,7 +44,16 @@ ragged K and N (264 x 200) whose K edge falls inside a 64-deep slice
 (the next expert's weights, all inf, must never be read), with padding
 rows full of NaN (#11 must give zero rows there, #13 must leave its
 sums untouched), and must give the same bits on two launches and launch
-nothing but their wgmma kernels.
+nothing but their wgmma kernels; so must the bf16 fused gate/up #12
+(``glu_wgmma``) at those widths, its padding rows zero and every product
+within 2^-7.  The ragged kernel #1 is held in every mode (16-bit q over
+its own pools on ``mma.sync``, f32 q or pools, the mixed pairs and int8
+pools on 3xTF32) at key lengths on and just past the edges of its key
+spans, at GQA groups 1, 4 and 8, D 64 and 128 and pages of 16 and 128
+keys: outputs within the coarser dtype's tolerance, pools bit-equal,
+the rows without a query exactly zero over memory that held NaN, the
+same bits on two launches, and nothing launched but its append and its
+route's attention kernel.
 """
 import ctypes
 
@@ -320,6 +329,134 @@ def test_ragged_kernel_mixed_pools_match_plain(dev, qdt, pdt, P, D, G):
     torch.testing.assert_close(got.float(), want.float(), rtol=0,
                                atol=max(TOL[qdt], TOL[pdt]))
     assert not got[len(descs):].any()
+
+
+# The redesigned #1 (append + plan, a persistent attention grid over 64-row
+# blocks and key splits, merging its splits, with the zeros beside it):
+# every mode at key lengths on and just past a split edge.
+RAGGED_MODES = [  # (q dtype, pool dtype or "int8")
+    (torch.bfloat16, torch.bfloat16), (torch.float16, torch.float16),
+    (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.float32), (torch.bfloat16, "int8"),
+    (torch.float32, "int8")]
+
+
+def _ragged_edge_case(dev, gen, qdt, pdt, P, D, G, maxp=6, kvh=2):
+    """Descriptors whose key ranges (kv_len + q_len) are 1, P - 1, P,
+    P + 1, 2P and maxp P, and on and just past the edges of the kernel's
+    key spans (64-key multiples, about 128 keys a span: 64, 128, 192,
+    256, 384, 768 and one past each) as decode rows, a q_len = P chunk
+    from position 0 and from P, a prompt split over two descriptors
+    inside one page, and an unused descriptor; the pools (float or int8
+    with scales) and the descriptor tensors."""
+    h = kvh * G
+    edges = [n + e for n in (64, 128, 192, 256, 384, 768) for e in (0, 1)]
+    lens = sorted({n for n in [1, P - 1, P, P + 1, 2 * P, maxp * P] + edges
+                   if 1 <= n <= maxp * P})
+    descs = [(n - 1, 1) for n in lens] + [(0, P), (P, P),
+                                          (P, P // 2), (P + P // 2, P // 2)]
+    S = len(descs) + 1
+    T = sum(ql for _, ql in descs)
+    q_start = torch.zeros(S, dtype=torch.int32)
+    q_len = torch.zeros(S, dtype=torch.int32)
+    kv_len = torch.zeros(S, dtype=torch.int32)
+    tables = torch.zeros((S, maxp), dtype=torch.int32)
+    need = sum(-(-(kl + ql) // P) for kl, ql in descs[:-1])
+    n_pages = need + 1
+    perm = torch.randperm(n_pages - 1, generator=gen, device=dev).cpu() + 1
+    row, used = 0, 0
+    for d, (kl, ql) in enumerate(descs):
+        q_start[d], q_len[d], kv_len[d] = row, ql, kl
+        if d == len(descs) - 1:          # the split prompt's second half
+            tables[d] = tables[d - 1]
+        else:
+            npg = -(-(kl + ql) // P)
+            tables[d, :npg] = perm[used:used + npg]
+            used += npg
+        row += ql
+
+    def rnd(*shape, dtype=qdt):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    q, kn, vn = rnd(T, h, D), rnd(T, kvh, D), rnd(T, kvh, D)
+    if pdt == "int8":
+        codes, scales = _int8_pools(gen, dev, kvh, n_pages, P, D)
+        pools = codes + scales
+    else:
+        pools = [rnd(kvh, n_pages, P, D, dtype=pdt) for _ in range(2)]
+    desc = [x.to(dev) for x in (q_start, q_len, kv_len, tables)]
+    return q, kn, vn, pools, desc, len(descs)
+
+
+def _ragged_call(fn, q, kn, vn, pools, desc):
+    return fn(q, pools[0], pools[1], kn, vn, *desc, *pools[2:])
+
+
+@pytest.mark.parametrize("qdt,pdt", RAGGED_MODES, ids=str)
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("P,D", [(128, 128), (128, 64), (16, 128)])
+def test_ragged_kernel_matches_plain_at_split_edges(dev, qdt, pdt, P, D, G):
+    """Outputs within the coarser dtype's tolerance, pools (codes and
+    scales) equal bit for bit, and every row without a query exactly
+    zero though the output's memory held NaN before the call."""
+    gen = torch.Generator(device=dev).manual_seed(31)
+    q, kn, vn, pools, desc, live = _ragged_edge_case(dev, gen, qdt, pdt, P,
+                                                     D, G)
+    mine = [p.clone() for p in pools]
+    plain = [p.clone() for p in pools]
+    junk = torch.full((desc[0].shape[0], P, q.shape[1], D), float("nan"),
+                      dtype=qdt, device=dev)
+    junk_ptr = junk.data_ptr()
+    del junk                       # the caching allocator hands it to out
+    before = pa.ragged_paged_append_attend.launches
+    got = _ragged_call(pa.ragged_paged_append_attend, q, kn, vn, mine, desc)
+    want = _ragged_call(pa.ragged_paged_append_attend_reference, q, kn, vn,
+                        plain, desc)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == junk_ptr
+    assert pa.ragged_paged_append_attend.launches == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(mine, plain))
+    tol = max(TOL[qdt], TOL.get(pdt, 0.0))
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+    ql = desc[1].cpu()
+    for s in range(got.shape[0]):
+        assert not got[s, int(ql[s]):].any(), s
+
+
+@pytest.mark.parametrize("qdt,pdt", [(torch.bfloat16, torch.bfloat16),
+                                     (torch.float32, torch.bfloat16),
+                                     (torch.bfloat16, "int8")], ids=str)
+def test_ragged_kernel_is_bit_identical_on_two_launches(dev, qdt, pdt):
+    gen = torch.Generator(device=dev).manual_seed(32)
+    q, kn, vn, pools, desc, _ = _ragged_edge_case(dev, gen, qdt, pdt, 128,
+                                                  128, 4)
+    a = _ragged_call(pa.ragged_paged_append_attend, q, kn, vn, pools, desc)
+    b = _ragged_call(pa.ragged_paged_append_attend, q, kn, vn, pools, desc)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("qdt,pdt,design", [
+    (torch.bfloat16, torch.bfloat16, "ragged_attend_mma"),
+    (torch.float32, torch.bfloat16, "ragged_attend_3xtf32"),
+    (torch.bfloat16, "int8", "ragged_attend_3xtf32")], ids=str)
+def test_ragged_launch_is_the_new_kernels_alone(dev, qdt, pdt, design):
+    """A call launches the append and its route's attention kernel (which
+    merges its key splits), and nothing else."""
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device=dev).manual_seed(33)
+    q, kn, vn, pools, desc, _ = _ragged_edge_case(dev, gen, qdt, pdt, 128,
+                                                  128, 4)
+    _ragged_call(pa.ragged_paged_append_attend, q, kn, vn, pools, desc)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _ragged_call(pa.ragged_paged_append_attend, q, kn, vn, pools, desc)
+        torch.cuda.synchronize()
+    names = {ev.key.split("(")[0] for ev in prof.key_averages()
+             if ev.device_type == torch.autograd.DeviceType.CUDA}
+    assert len(names) == 2, names
+    assert sum("ragged_append<" in n for n in names) == 1, names
+    assert sum(f"{design}<" in n for n in names) == 1, names
 
 
 @pytest.mark.parametrize("dtype,kv_dtype", [
@@ -1032,6 +1169,102 @@ def test_grouped_bf16_launches_are_the_wgmma_kernels_alone(dev):
         names = [ev.key for ev in prof.key_averages()
                  if ev.device_type == torch.autograd.DeviceType.CUDA]
         assert names and all(want in nm for nm in names), names
+
+
+# The bf16 #12 (glu_wgmma: TMA ring + wgmma, 128 x 128 of both products)
+# at Qwen1.5-MoE's training widths cut in rows, and at its edges.
+
+
+@pytest.mark.parametrize("save_pre", [False, True], ids=["hs", "save_pre"])
+@pytest.mark.parametrize("hot", [False, True], ids=["spread", "hot"])
+def test_gmm_glu_wgmma_at_the_moe_training_widths(dev, hot, save_pre):
+    """#12 against the plain version, relative L2 2^-7 on hs (and hg,
+    hu); the empty expert's and padding rows exactly zero."""
+    gen = torch.Generator(device=dev).manual_seed(41)
+    te, counts, live = _moe_rows(dev, gen, hot=hot)
+    wg = _moe_stack(gen, dev, MOE_E, MOE_H, MOE_F)
+    wu = _moe_stack(gen, dev, MOE_E, MOE_H, MOE_F)
+    lhs = _moe_buffer(gen, dev, live, MOE_H)
+    want = gm.gmm_glu_reference(lhs, wg, wu, te, save_pre=save_pre)
+    got = gm.gmm_glu_raw(lhs, wg, wu, te, save_pre=save_pre, counts=counts)
+    torch.cuda.synchronize()
+    assert int(counts[2]) == 0
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == torch.bfloat16
+        assert _rel_l2(a, b) <= REL_TOL[torch.bfloat16], _rel_l2(a, b)
+        assert not a[~live[:, 0]].any()
+
+
+def test_gmm_glu_wgmma_gives_padding_rows_zeros(dev):
+    """Padding rows full of NaN: hs, hg and hu get zero rows there and
+    every other row as the plain version fed the buffer with the padding
+    zeroed."""
+    gen = torch.Generator(device=dev).manual_seed(42)
+    e, kdim, n = 6, 264, 200
+    xs, te, counts = _plan_rows(dev, gen, torch.bfloat16, t=300, k=3, e=e,
+                                h=kdim, tm=256)
+    live = gm.routed_rows(te, counts, xs.shape[0])[:, None]
+    dirty = torch.where(live, xs, torch.full_like(xs, float("nan")))
+    wg, wu = ((torch.randn(e, kdim, n, generator=gen, device=dev)
+               / kdim ** 0.5).to(torch.bfloat16) for _ in range(2))
+    want = gm.gmm_glu_reference(xs, wg, wu, te, save_pre=True)
+    got = gm.gmm_glu_raw(dirty, wg, wu, te, save_pre=True, counts=counts)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert not a[~live[:, 0]].any()
+        assert _rel_l2(a, b) <= REL_TOL[torch.bfloat16], _rel_l2(a, b)
+
+
+def test_gmm_glu_wgmma_reads_no_other_experts_weights(dev):
+    """K 264 ends inside a 64-deep slice and N 200 inside a 64-column box:
+    the weights are read through 3-D maps whose edges are each expert's
+    own, so no block reaches expert 2's weights (all inf, no row routed
+    to it)."""
+    gen = torch.Generator(device=dev).manual_seed(43)
+    e, kdim, n = 6, 264, 200
+    xs, te, counts = _plan_rows(dev, gen, torch.bfloat16, t=300, k=3, e=e,
+                                h=kdim, tm=128)
+    wg, wu = ((torch.randn(e, kdim, n, generator=gen, device=dev)
+               / kdim ** 0.5).to(torch.bfloat16) for _ in range(2))
+    wg[2] = float("inf")
+    wu[2] = float("inf")
+    want = gm.gmm_glu_reference(xs, wg, wu, te, save_pre=True)
+    got = gm.gmm_glu_raw(xs, wg, wu, te, save_pre=True, counts=counts)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert _rel_l2(a, b) <= REL_TOL[torch.bfloat16], _rel_l2(a, b)
+
+
+def test_gmm_glu_wgmma_is_bit_identical_on_two_launches(dev):
+    gen = torch.Generator(device=dev).manual_seed(44)
+    te, counts, live = _moe_rows(dev, gen, hot=True)
+    wg = _moe_stack(gen, dev, MOE_E, MOE_H, MOE_F)
+    wu = _moe_stack(gen, dev, MOE_E, MOE_H, MOE_F)
+    lhs = _moe_buffer(gen, dev, live, MOE_H)
+    a = gm.gmm_glu_raw(lhs, wg, wu, te, save_pre=True, counts=counts)
+    b = gm.gmm_glu_raw(lhs, wg, wu, te, save_pre=True, counts=counts)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_gmm_glu_bf16_launch_is_the_wgmma_kernel_alone(dev):
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device=dev).manual_seed(45)
+    xs, te, counts = _plan_rows(dev, gen, torch.bfloat16, t=300, k=3, e=6,
+                                h=256, tm=128)
+    w = (torch.randn(6, 256, 256, generator=gen, device=dev) / 16).to(
+        torch.bfloat16)
+    gm.gmm_glu_raw(xs, w, w, te, counts=counts)   # the build
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for save_pre in (False, True):
+            gm.gmm_glu_raw(xs, w, w, te, save_pre=save_pre, counts=counts)
+        torch.cuda.synchronize()
+    names = [ev.key for ev in prof.key_averages()
+             if ev.device_type == torch.autograd.DeviceType.CUDA]
+    assert names and all("glu_wgmma" in nm for nm in names), names
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)

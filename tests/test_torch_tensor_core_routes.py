@@ -10,7 +10,10 @@ CPU.
   absolute on gradients of order 1 (f32 sums in another order).
 - ``chip_smoke.py``'s route gate: a traced bf16 training step passes
   only if every traced kernel of each named family is a wgmma one (for
-  the MoE step, the grouped matmul and dW families too).
+  the MoE step, the grouped matmul, fused gate/up and dW families too);
+  a traced serve only if #1's attention kernels are its route's
+  (``mma.sync`` for bf16 over bf16 pools, 3xTF32 for f32 q over bf16
+  pools) and not the FMA-pipe ``ragged_attend`` they replaced.
 - The plain dW (the yardstick of the wgmma dW kernel on the card)
   against the reference's ``_gmm_dw_call`` in interpret mode: rows past
   an expert's count are never read, whatever they hold, and the plan's
@@ -129,7 +132,7 @@ MOE_STEP = {
     "void ptt::gmm_wgmma<false>": 22.0,
     "void ptt::gmm_wgmma<true>": 33.0,
     "void ptt::dw_wgmma": 32.0,
-    "void ptt::glu_bf16": 50.0}
+    "void ptt::glu_wgmma": 18.0}
 
 
 def test_route_gate_passes_a_moe_step_on_the_tensor_cores():
@@ -146,8 +149,11 @@ def test_route_gate_passes_a_moe_step_on_the_tensor_cores():
     ("void ptt::gmm_wgmma<true>", "void ptt::gmm_t_f32<__nv_bfloat16>"),
     ("void ptt::dw_wgmma", "void ptt::dw_bf16"),
     ("void ptt::dw_wgmma", "void ptt::dw_f32"),
-    ("void ptt::dw_wgmma", None)],
-    ids=["mma_sync_gmm", "fma_gmm_t", "mma_sync_dw", "fma_dw", "no_dw"])
+    ("void ptt::dw_wgmma", None),
+    ("void ptt::glu_wgmma", "void ptt::glu_bf16"),
+    ("void ptt::glu_wgmma", None)],
+    ids=["mma_sync_gmm", "fma_gmm_t", "mma_sync_dw", "fma_dw", "no_dw",
+         "mma_sync_glu", "no_glu"])
 def test_route_gate_refuses_a_moe_step_off_the_tensor_cores(swap):
     cs = _chip_smoke()
     old, new = swap
@@ -271,3 +277,104 @@ def test_route_gate_holds_the_f32_routes_to_their_designs(phase, old):
     else:
         cs.check_tensor_core_route({"routed_kernel_ms": prof}, phase,
                                    (fam,), design=design)
+
+
+# #1's routes in the traced serves: the bf16 serves (Llama-3-8B at group
+# 4, Qwen1.5-MoE at group 1) on mma.sync, the f32-weight serve over bf16
+# pools on 3xTF32; each with its append
+RAGGED_ROUTES = {
+    "profile": ("mma", [
+        "void ptt::rg::ragged_append<__nv_bfloat16, __nv_bfloat16, 128>",
+        "void ptt::rg::ragged_attend_mma<__nv_bfloat16, 128>"]),
+    "serve_f32w_bf16kv_profile": ("3xtf32", [
+        "void ptt::rg::ragged_append<float, __nv_bfloat16, 128>",
+        "void ptt::rg::ragged_attend_3xtf32<float, __nv_bfloat16, 128>"]),
+}
+OLD_RAGGED = {
+    "profile": "void ptt::ragged_attend<__nv_bfloat16, 128, __nv_bfloat16>",
+    "serve_f32w_bf16kv_profile":
+        "void ptt::ragged_attend<float, 128, __nv_bfloat16>"}
+
+
+@pytest.mark.parametrize("phase", list(RAGGED_ROUTES))
+@pytest.mark.parametrize("case", ["new", "old_kernel", "other_route"])
+def test_route_gate_holds_the_ragged_kernel_to_its_route(phase, case):
+    """The families and design labels read from #1's traced names, and
+    the gate on them: the redesigned kernels pass; a trace that still
+    shows the FMA-pipe ``ragged_attend`` they replaced, or the other
+    route's attention kernel, fails."""
+    cs = _chip_smoke()
+    design, names = RAGGED_ROUTES[phase]
+    assert [cs.kernel_family(n) for n in names] == [
+        "ragged_append", "ragged_attend"]
+    assert cs.design_of(names[1]) == design
+    assert set(cs.RAGGED_FAMILIES) <= set(cs.ROUTED_FAMILIES)
+    old = OLD_RAGGED[phase]
+    assert cs.kernel_family(old) == "ragged_attend"
+    assert cs.design_of(old) == "fma"
+    prof = {n: 1.0 for n in names}
+    if case == "new":
+        cs.check_tensor_core_route({"routed_kernel_ms": prof}, phase,
+                                   ("ragged_attend",), design=design)
+        return
+    other = [n for p, (_, ns) in RAGGED_ROUTES.items() if p != phase
+             for n in ns][1]
+    prof[old if case == "old_kernel" else other] = 1.0
+    with pytest.raises(cs.SmokeFailure, match=f"{design} route"):
+        cs.check_tensor_core_route({"routed_kernel_ms": prof}, phase,
+                                   ("ragged_attend",), design=design)
+
+
+def test_ragged_trace_sums_the_append_and_attention(monkeypatch):
+    """``traced_kernel`` over #1's families: ``device_ms`` is the append
+    and attention kernels' time a call, ``design`` the attention
+    kernel's label."""
+    cs = _chip_smoke()
+    names = RAGGED_ROUTES["profile"][1]
+    ms = dict(zip(names, (0.3, 4.5)))
+
+    def fake_profiled(torch_mod, fn):
+        fn()
+        fams, counts = {}, {}
+        for n, t in ms.items():
+            f = cs.kernel_family(n)
+            fams[f] = fams.get(f, 0.0) + t
+            counts[f] = counts.get(f, 0) + 3
+        return None, {"routed_kernel_ms": dict(ms),
+                      "kernel_ms_by_family": fams,
+                      "kernel_count_by_family": counts,
+                      "top_kernels": []}
+
+    monkeypatch.setattr(cs, "profiled", fake_profiled)
+    got = cs.traced_kernel(torch, lambda: None, cs.RAGGED_FAMILIES)
+    assert got["design"] == "mma" and got["trace_retries"] == 0
+    assert got["device_ms"] == pytest.approx((0.3 + 4.5) / 3)
+
+
+@pytest.mark.parametrize("short", [0, 1, 3, 4])
+def test_trace_is_taken_again_while_the_profiler_drops_events(
+        monkeypatch, short):
+    """``traced_kernel`` takes a trace whose kernel count is not a
+    multiple of its calls again, up to ``TRACE_RETRIES`` times, and fails
+    when the last one is short too."""
+    cs = _chip_smoke()
+    name = "void ptt::glu_wgmma"
+    traces = []
+
+    def fake_profiled(torch_mod, fn):
+        fn()
+        n = 2 if len(traces) < short else 3      # 3 calls, 1 kernel each
+        traces.append(n)
+        return None, {"routed_kernel_ms": {name: 1.0 * n},
+                      "kernel_ms_by_family": {"grouped_matmul_glu": 1.0 * n},
+                      "kernel_count_by_family": {"grouped_matmul_glu": n},
+                      "top_kernels": []}
+
+    monkeypatch.setattr(cs, "profiled", fake_profiled)
+    if short > cs.TRACE_RETRIES:
+        with pytest.raises(cs.SmokeFailure, match="lost events"):
+            cs.traced_kernel(torch, lambda: None, "grouped_matmul_glu")
+        return
+    got = cs.traced_kernel(torch, lambda: None, "grouped_matmul_glu")
+    assert got["trace_retries"] == short and got["design"] == "wgmma"
+    assert got["device_ms"] == pytest.approx(1.0)
