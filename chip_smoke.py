@@ -180,14 +180,18 @@ def f32_bounds(n_bytes, flops, tensor_cores):
 
 def design_of(name):
     """The design a kernel's (traced or mangled) name states: "3xtf32"
-    (f32 on the tensor cores as three TF32 products: #2's f32 route, #1's
-    f32, mixed and int8 modes), "wgmma" (16-bit on the tensor cores by
-    warpgroup), "stream" (#11's f32 rows streaming their expert's
-    weights), "mma" (16-bit on the tensor cores by warp, ``mma.sync``:
-    #1's 16-bit mode) or "fma" (the FMA pipe, and the copy kernels)."""
+    (f32 on the tensor cores as three TF32 products: #2's f32 route, #4's
+    f32 route at D 64, #1's f32, mixed and int8 modes), "wgmma" (16-bit
+    on the tensor cores by warpgroup), "stream" (#11's f32 rows streaming
+    their expert's weights), "mma" (16-bit on the tensor cores by warp,
+    ``mma.sync``: #1's 16-bit mode), "split" (#6 and #7 spread over
+    blocks by key span, ``paged_decode_split``) or "fma" (the FMA pipe,
+    and the copy kernels)."""
     for key in ("3xtf32", "wgmma", "stream", "mma"):
         if key in name:
             return key
+    if "paged_decode_split" in name:
+        return "split"
     return "fma"
 
 
@@ -517,7 +521,8 @@ def kernel_family(name):
 # read by the route checks)
 ROUTED_FAMILIES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_dbias",
                    "matmul_rope", "grouped_matmul", "grouped_matmul_glu",
-                   "grouped_matmul_dw", "ragged_append", "ragged_attend")
+                   "grouped_matmul_dw", "ragged_append", "ragged_attend",
+                   "paged_decode")
 # #1's kernels: the append (and the plan) and the attention, which merges
 # its key splits (``ragged_attend_mma`` or ``ragged_attend_3xtf32``)
 RAGGED_FAMILIES = ("ragged_append", "ragged_attend")
@@ -1166,8 +1171,9 @@ def check_tensor_core_route(prof, phase, families=FLASH_FAMILIES,
                             design="wgmma"):
     """A traced run's launches of each family reached only the kernels
     of ``design`` (a bf16 step: the wgmma ones; f32 attention: the 3xTF32
-    forward; f32 MoE serving: the streaming #11): the family was traced,
-    and every traced kernel of it has that design."""
+    forward and dK/dV; f32 MoE serving: the streaming #11; the split
+    decode path: the span-split #7): the family was traced, and every
+    traced kernel of it has that design."""
     for fam in families:
         names = [n for n in prof["routed_kernel_ms"]
                  if kernel_family(n) == fam]
@@ -2057,6 +2063,25 @@ def decode_cost(H, KVH, int8, append, el_q=2, el_p=2):
     return n_bytes, 4 * H * D * tokens
 
 
+def decode_row(torch, name, kernel, plain, err, bound, bound_by):
+    """A row of #7's or #6's table: ``kernel()`` and ``plain()`` timed
+    (CUDA events), the kernel traced (family ``paged_decode``: its own
+    device time a call, ``device_ms``) and its design held to the
+    span-split one ("split")."""
+    row = {"name": name, "route": "cuda",
+           "source": "paddle_tpu_torch/csrc/paged_decode_attention.cu",
+           "replaces": "paddle_tpu/ops/pallas/paged_attention.py:"
+                       + ("274" if name.startswith("paged_attention")
+                          else "422"),
+           "max_abs_err": err, "ms": timed_ms(torch, kernel, 50),
+           "plain_ms": timed_ms(torch, plain, 5), "bound_ms": bound,
+           "bound_by": bound_by, "library_ms": None,
+           **traced_kernel(torch, kernel, "paged_decode")}
+    check(row["design"] == "split",
+          f"{name} ran on {row['design']}, not the span-split kernel")
+    return row
+
+
 def decode_kernels(torch, gen, dev, table):
     """#7 and #6 (bf16 float pools and int8 pools) against their plain
     versions at the decode case, at group 4 (32/8 heads, Llama-3-8B) and
@@ -2093,15 +2118,8 @@ def decode_kernels(torch, gen, dev, table):
             check(not got[0].any() if not new else True,
                   f"{name}: the row of length 0 is not zero")
             bound, bound_by = bound_ms(*decode_cost(H, KVH, int8, bool(new)))
-            row = {"name": name, "route": "cuda",
-                   "source": "paddle_tpu_torch/csrc/paged_decode_attention.cu",
-                   "replaces": "paddle_tpu/ops/pallas/paged_attention.py:"
-                               + ("422" if new else "274"),
-                   "max_abs_err": err,
-                   "ms": timed_ms(torch, lambda: call(fn, mine), 50),
-                   "plain_ms": timed_ms(torch, lambda: call(plain, ref), 5),
-                   "bound_ms": bound, "bound_by": bound_by,
-                   "library_ms": None}
+            row = decode_row(torch, name, lambda: call(fn, mine),
+                             lambda: call(plain, ref), err, bound, bound_by)
             emit({"phase": "kernel", **row, "pools": mode,
                   "group": H // KVH, "heads": H, "kv_heads": KVH,
                   "lens": DECODE_LENS, "pools_equal": pools_equal,
@@ -2219,15 +2237,9 @@ def mixed_kernels(torch, gen, dev, table):
         bound, bound_by = bound_ms(*decode_cost(32, 8, False, bool(new),
                                                 el_q=4, el_p=2))
         key = f"{name}_float32_q_bfloat16_pools"
-        table[key] = {
-            "name": key, "route": "cuda",
-            "source": "paddle_tpu_torch/csrc/paged_decode_attention.cu",
-            "replaces": "paddle_tpu/ops/pallas/paged_attention.py:"
-                        + ("422" if new else "274"),
-            "max_abs_err": err,
-            "ms": timed_ms(torch, lambda: call(fn, mine), 50),
-            "plain_ms": timed_ms(torch, lambda: call(plain, ref), 5),
-            "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+        table[key] = decode_row(torch, key, lambda: call(fn, mine),
+                                lambda: call(plain, ref), err, bound,
+                                bound_by)
         emit({"phase": "kernel", **table[key], "q_dtype": "float32",
               "pool_dtype": "bfloat16", "group": 4, "lens": DECODE_LENS,
               "pools_equal": pools_equal, "tolerance": TOL})
@@ -2407,6 +2419,8 @@ def quant_serve_phases(torch, np, dev, table, model, prompts, bf16_pool_bytes):
             torch, eng, split_prompts(np, model.config.vocab_size,
                                       SEED + 11))
         emit({"phase": f"{phase}_profile", **prof})
+        check_tensor_core_route(prof, f"{phase}_profile", ("paged_decode",),
+                                design="split")
         if phase == "serve_split_int8":
             check_tensor_core_route(prof, f"{phase}_profile",
                                     ("flash_fwd",), design="3xtf32")
@@ -2997,15 +3011,15 @@ def dropout_kernels(torch, gen, dev, table):
                "max_abs_err": max(errs[o]["max_abs_err"] for o in outs),
                "ms": timed_ms(torch, fn, 10),
                "plain_ms": timed_ms(torch, plain, 2, warmup=1),
-               **f32_bounds(n_bytes, flops, tensor_cores=key == "fwd"),
+               **f32_bounds(n_bytes, flops, tensor_cores=key != "dq"),
                "library_ms": timed_ms(torch, lib, 10),
                **traced_kernel(torch, fn)}
-        design = "3xtf32" if key == "fwd" else "fma"
+        design = "fma" if key == "dq" else "3xtf32"
         check(row["design"] == design,
               f"{name} ran on {row['design']}, not {design}")
         emit({"phase": "kernel", **row, "shape": [b, s, h, d],
               "dtype": "float32", "causal": True, "dropout_p": GPT_DROP,
-              "bound_peak": F32_TC_NOTE if key == "fwd" else F32_FMA_NOTE,
+              "bound_peak": F32_FMA_NOTE if key == "dq" else F32_TC_NOTE,
               "library_note": "scaled_dot_product_attention(dropout_p=0.1)"
                               + ("" if key == "fwd" else
                                  ", its backward (dq, dk, dv)")})
@@ -3221,8 +3235,8 @@ def train_gpt2_phase(torch, np, dev, table):
 
     _, prof = profiled(torch, lambda: [step(batch) for _ in range(2)])
     emit({"phase": "train_gpt2_profile", "steps": 2, **prof})
-    check_tensor_core_route(prof, "train_gpt2_profile", ("flash_fwd",),
-                            design="3xtf32")
+    check_tensor_core_route(prof, "train_gpt2_profile",
+                            ("flash_fwd", "flash_bwd_dkv"), design="3xtf32")
     del model, step, batch
 
 
@@ -3533,7 +3547,8 @@ def main() -> int:
     for fam in ("flash_fwd_wgmma", "flash_bwd_dq_wgmma",
                 "flash_bwd_dkv_wgmma", "matmul_rope_wgmma", "gmm_wgmma",
                 "dw_wgmma", "flash_fwd_3xtf32", "gmm_rows_stream",
-                "glu_wgmma", "ragged_attend_mma", "ragged_attend_3xtf32"):
+                "glu_wgmma", "ragged_attend_mma", "ragged_attend_3xtf32",
+                "flash_bwd_dkv_3xtf32", "paged_decode_split"):
         check(any(fam in n for n in usage), f"no ptxas report of {fam}")
 
     # -- kernels against their plain versions, full-width bf16 shapes
@@ -3732,10 +3747,14 @@ def main() -> int:
     # each tensor-core row: its kernel's registers and spills (the most
     # registers and the summed spills over that kernel's instantiations)
     for row in table.values():
-        if row.get("design") in ("wgmma", "3xtf32", "stream", "mma"):
+        if row.get("design") in ("wgmma", "3xtf32", "stream", "mma",
+                                 "split"):
             name = row["name"]
             fam = (f"ragged_attend_{row['design']}" if name.startswith(
                        "ragged")
+                   else "paged_decode_split" if row["design"] == "split"
+                   else "flash_bwd_dkv_3xtf32" if row["design"] == "3xtf32"
+                   and "bwd_dkv" in name
                    else "flash_fwd_3xtf32" if row["design"] == "3xtf32"
                    else "gmm_rows_stream" if row["design"] == "stream"
                    else "matmul_rope_wgmma" if name.startswith("matmul_rope")

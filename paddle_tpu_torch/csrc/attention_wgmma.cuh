@@ -376,7 +376,7 @@ PTT_WG_TYPE(__half, "f16")
 // TF32 forms (m64nNk8: 8 f32 operands, 32 bytes, a k step; no transpose
 // bits, so both shared-memory operands are K-major).  ss: A and B
 // descriptors, scale_d the predicate.  rs: four A registers (`frag_a_tf32`
-// below) and the B descriptor, accumulating.
+// below) and the B descriptor, accumulating (scale_d 0: overwriting).
 #define PTT_TF_SS(N, DS, DOPS, AB, P)                                    \
   static __device__ __forceinline__ void ss(float(&d)[N / 2], uint64_t a, \
                                             uint64_t b, int scale_d) {   \
@@ -388,13 +388,14 @@ PTT_WG_TYPE(__half, "f16")
   }
 #define PTT_TF_RS(N, DS, DOPS, AB, P)                                    \
   static __device__ __forceinline__ void rs(                             \
-      float(&d)[N / 2], const uint32_t(&a)[4], uint64_t b) {            \
+      float(&d)[N / 2], const uint32_t(&a)[4], uint64_t b,              \
+      int scale_d = 1) {                                                 \
     asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " P ", 0;\n"          \
                  "wgmma.mma_async.sync.aligned.m64n" #N                   \
                  "k8.f32.tf32.tf32 {" DS "}, " AB ", p, 1, 1;\n}\n"       \
                  : DOPS(d)                                               \
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),   \
-                   "r"(1));                                              \
+                   "r"(scale_d));                                        \
   }
 
 // One m64nNk8 TF32 product into an f32 accumulator of N / 2 registers a
@@ -410,6 +411,16 @@ template <>
 struct WgmmaTf32<64> {
   PTT_TF_SS(64, PTT_WG_S32, PTT_WG_D32, "%32, %33", "%34")
   PTT_TF_RS(64, PTT_WG_S32, PTT_WG_D32, "{%32, %33, %34, %35}, %36", "%37")
+  // m64n32k8 into the first 16 registers of an m64n64 accumulator (its
+  // columns 0-31), accumulating
+  static __device__ __forceinline__ void ss_n32(float (&d)[32], uint64_t a,
+                                                uint64_t b) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+                 PTT_WG_S16 "}, %16, %17, p, 1, 1;\n}\n"
+                 : PTT_WG_D16(d)
+                 : "l"(a), "l"(b), "r"(1));
+  }
 };
 template <>
 struct WgmmaTf32<128> {

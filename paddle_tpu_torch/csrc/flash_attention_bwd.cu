@@ -29,7 +29,12 @@
 // products (1.1 TFLOP) and the dQ kernel three (6 D H pairs: 0.83 TFLOP,
 // 0.83 ms at 989 TFLOP/s), against some 100 MB of operands -- thousands
 // of flops per byte, far above the bf16 ridge of about 295.  So the
-// 16-bit products belong on the tensor cores.
+// 16-bit products belong on the tensor cores, and so do f32 ones: the
+// f32 checks hold the backward to 1e-5 of the plain version, which one
+// TF32 product (10 mantissa bits) misses, but three hold (3xTF32: x =
+// hi + lo, hi the TF32 rounding of x and lo that of x - hi, a product
+// taken as hi hi' + hi lo' + lo hi', about 2^-22 of it left out), at
+// 495 / 3 TFLOP/s against the FMA pipe's 67.
 //
 // dQ kernel: one block per (query tile, head, batch).
 // - bf16 / f16: `flash_bwd_dq_wgmma` (attention_wgmma.cuh), 128 query
@@ -53,7 +58,7 @@
 // - f32: `flash_bwd_dq` on the FMA pipe (flash_bwd_tile.cuh): 64 rows a
 //   block, Q (pre-scaled) and dO in shared memory as f32, 4 x 4 register
 //   tiles of s and dO V^T, ds through shared memory, dq accumulated in
-//   registers; the f32 checks hold it to 1e-5, which TF32 would not.
+//   registers (3xTF32 is the next redesign, as #4's below).
 //
 // dK/dV kernel: one block per (key tile, kv head, batch).  K and V stay
 // in shared memory; the block loops over the G query heads of the group
@@ -75,8 +80,35 @@
 //   and dK += dS^T Q (m64n<D>k16, dO and Q MN-major: the transpose bit).
 //   dK takes the scale once, in the epilogue; dK and dV leave through
 //   shared memory with 16-byte stores.
-// - f32: `flash_bwd_dkv` on the FMA pipe, 64 keys a block, 4 x 4 register
-//   tiles (flash_bwd_tile.cuh): the f32 checks hold it to 1e-5.
+// - f32 at D 64 (GPT-2's attention): `flash_bwd_dkv_3xtf32`, 128 keys a
+//   block, 64 per warpgroup.  The FMA-pipe kernel it replaced ran GPT-2's
+//   dropout backward at 7.8x its 3xTF32 bound (1.21 ms, PERF.md).  K and
+//   V are split once into hi / lo TF32 tiles [128][64] (128 KB).  Query
+//   tiles of 32 rows: TF32 wgmma has no transpose bit, so q (scaled, as
+//   the plain version scales it) and dO are each staged twice: a row
+//   tile [64][64] holding the hi rows over the lo rows, the K-major B
+//   operand of S^T = K Q^T and dP^T = V dO^T (a k step is one m64n64
+//   product, hi against hi and lo at once, and one m64n32, lo against
+//   hi: K is read from shared memory twice, where three m64n32 products
+//   read it three times, 0.53 -> 0.49 ms), and hi / lo transposed tiles
+//   [64][32], the B operand of dV += P^T dO and dK += dS^T Q (m64n64k8,
+//   P^T / dS^T hi / lo as the register A operand from `frag_a_tf32`).
+//   That operand holds accumulator columns 2 t4, 2 t4 + 1 as its k slots
+//   t4, t4 + 4, so the transposed tiles store each 8-row slice in
+//   `key_slot` order {0, 2, 4, 6, 1, 3, 5, 7}.  A tile's dV (then dK)
+//   is summed in a fresh accumulator and added to the running sums by
+//   f32 adds: chained in the tensor cores' own accumulator over GPT-2's
+//   1024 rows, the sums drifted 1.2e-5 off the plain version.  The 64 KB
+//   of query tiles keep a block in 194 KB, one an SM (232 registers);
+//   the next tile's q / dO rows come into registers while this tile's
+//   products run.  lse and delta are read by column (the query rows are
+//   wgmma's N), each element's keep bit hashed once for P and dP.  Masks
+//   as the 16-bit kernel; dK needs no scale (q is scaled).
+// - f32 at D 128 (the f32 reference checks, not a timed path):
+//   `flash_bwd_dkv` on the FMA pipe, 64 keys a block, 4 x 4 register
+//   tiles (flash_bwd_tile.cuh): at D 128 the K / V hi / lo tiles alone
+//   take 128 KB for 64 keys, and with 32-row query tiles (128 KB) a
+//   block would not fit an SM.
 #include "attention_wgmma.cuh"
 #include "flash_bwd_tile.cuh"
 
@@ -542,6 +574,336 @@ flash_bwd_dkv_wgmma(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ------------------------------------------------ dK/dV, f32: 3xTF32
+
+constexpr int kTfKeys = 128;    // keys a block of the 3xTF32 dK/dV kernel
+constexpr int kTfRows = 32;     // query rows a Q/dO tile of it
+
+// Shared memory of flash_bwd_dkv_3xtf32 (D 64): K hi / lo and V hi / lo
+// [128][D], then Q hi over lo [64][D], Q^T hi / lo [D][32], the same of
+// dO, the tile's lse and delta rows, plus 1024 to align.
+template <int D>
+struct DkvTf32Smem {
+  static constexpr int KB = kTfKeys * D * 4, QB = kTfRows * D * 4;
+  static constexpr int QOFF = 4 * KB, LOFF = QOFF + 8 * QB;
+  static constexpr size_t kBytes = LOFF + 2 * kTfRows * 4 + 1024;
+};
+
+template <int D, bool DROP>
+__global__ void __launch_bounds__(256, 1)
+flash_bwd_dkv_3xtf32(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     const float* __restrict__ mask, float* __restrict__ dk,
+                     float* __restrict__ dv, int H, int KVH, int Sq, int Sk,
+                     long long msb, long long msh, long long msq, int causal,
+                     float scale, const long long* seed, unsigned thresh,
+                     float inv_keep) {
+  using Sm = DkvTf32Smem<D>;
+  constexpr int BN = kTfKeys, BQ = kTfRows, KB = Sm::KB, QB = Sm::QB;
+  constexpr int CH = D / 4;                  // 16-byte chunks of a row
+  static_assert(D == 64 && BQ == 32, "the Q/dO tile copy is 2 chunks a "
+                                     "thread of each");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  // K, V hi / lo [BN][D]; Q hi over lo [2 BQ][D], Q^T hi / lo [D][BQ],
+  // the same of dO; swizzled f32 tiles
+  const uint32_t kh = wg::smem_addr(smem), kl = kh + KB, vh = kl + KB,
+                 vl = vh + KB, qn = kh + Sm::QOFF, qth = qn + 2 * QB,
+                 qtl = qth + QB, on = qtl + QB, oth = on + 2 * QB,
+                 otl = oth + QB;
+  float* slse = reinterpret_cast<float*>(smem + Sm::LOFF);
+  float* sdelta = slse + BQ;
+  const int kvh = blockIdx.x, b = blockIdx.y, G = H / KVH;
+  const int key0 = blockIdx.z * BN;       // the most query tiles first
+  const int tid = threadIdx.x, w = tid >> 7, wt = tid & 127;
+  const int warp = wt >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int off = Sk - Sq;
+  const long long qrs = (long long)H * D, krs = (long long)KVH * D;
+  // this warpgroup's keys and this thread's two key rows
+  const int wk0 = key0 + 64 * w;
+  const int key_a = wk0 + 16 * warp + g, key_b = key_a + 8;
+
+  // K and V rows key0.. split into hi / lo (rows past Sk zero)
+  {
+    const long long kvo = (long long)b * Sk * krs + kvh * D;
+#pragma unroll 4
+    for (int i = tid; i < BN * CH; i += 256) {
+      const int r = i / CH, c = (i % CH) * 4;
+      float4 xk = make_float4(0.f, 0.f, 0.f, 0.f), xv = xk;
+      if (key0 + r < Sk) {
+        xk = *reinterpret_cast<const float4*>(k + kvo + (key0 + r) * krs + c);
+        xv = *reinterpret_cast<const float4*>(v + kvo + (key0 + r) * krs + c);
+      }
+      uint4 hi, lo;
+      const uint32_t so = wg::swz32<BN>(r, c);
+      wg::split_tf32(xk.x, hi.x, lo.x);
+      wg::split_tf32(xk.y, hi.y, lo.y);
+      wg::split_tf32(xk.z, hi.z, lo.z);
+      wg::split_tf32(xk.w, hi.w, lo.w);
+      *reinterpret_cast<uint4*>(smem + so) = hi;
+      *reinterpret_cast<uint4*>(smem + KB + so) = lo;
+      wg::split_tf32(xv.x, hi.x, lo.x);
+      wg::split_tf32(xv.y, hi.y, lo.y);
+      wg::split_tf32(xv.z, hi.z, lo.z);
+      wg::split_tf32(xv.w, hi.w, lo.w);
+      *reinterpret_cast<uint4*>(smem + 2 * KB + so) = hi;
+      *reinterpret_cast<uint4*>(smem + 3 * KB + so) = lo;
+    }
+  }
+  // the query tiles that see the block's keys: from the first row with
+  // off + r >= key0
+  const int q0 = (causal ? max(0, key0 - off) : 0) / BQ * BQ;
+  const int nq = Sq > q0 ? (Sq - q0 + BQ - 1) / BQ : 0;
+  const int n_it = G * nq;
+
+  // Iteration it's Q and dO rows come into registers one iteration
+  // ahead: thread chunk p of each is row 16 (task % 2) + lane % 16,
+  // columns 4 (2 (task / 2) + lane / 16), task = warp + 8 p (a
+  // half-warp 16 rows of one chunk, the two halves neighbouring chunks);
+  // threads below 2 BQ take a lse (then a delta) row.
+  float4 xq[2], xo[2];
+  float xl = 0.f;
+  auto fetch = [&](int it) {
+    const int h = kvh * G + it / nq, r0 = q0 + (it % nq) * BQ;
+    const long long qo = (long long)b * Sq * qrs + (long long)h * D;
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int task = (tid >> 5) + 8 * p;
+      const int r = 16 * (task & 1) + (lane & 15);
+      const int c = (2 * (task >> 1) + (lane >> 4)) * 4;
+      xq[p] = xo[p] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r0 + r < Sq) {
+        xq[p] = *reinterpret_cast<const float4*>(q + qo + (r0 + r) * qrs + c);
+        xo[p] =
+            *reinterpret_cast<const float4*>(dout + qo + (r0 + r) * qrs + c);
+      }
+    }
+    if (tid < 2 * BQ) {
+      const int i = tid % BQ;
+      const long long lo = ((long long)b * H + h) * Sq + r0 + i;
+      xl = r0 + i < Sq ? (tid < BQ ? lse : delta)[lo] : 0.f;
+    }
+  };
+  // ... and into shared memory: q scaled (as the plain version: q *
+  // scale, rounded once) and dO, split, each as a row tile [2 BQ][D], hi
+  // rows over lo rows (the B operand of S^T and dP^T: one m64n64 product
+  // takes hi hi' and hi lo' at once), and a transposed tile [D][BQ] hi
+  // and lo whose 8-row slices hold their rows in key_slot order (the B
+  // operand of dK and dV, read against frag_a_tf32 of P^T and dS^T)
+  auto stage = [&]() {
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int task = (tid >> 5) + 8 * p;
+      const int r = 16 * (task & 1) + (lane & 15);
+      const int c = (2 * (task >> 1) + (lane >> 4)) * 4;
+      const int slot = wg::key_slot(r);
+      const uint32_t so = wg::swz32<2 * BQ>(r, c);
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const float4 x = t ? xo[p] : xq[p];
+        const float m = t ? 1.f : scale;
+        const float e[4] = {x.x * m, x.y * m, x.z * m, x.w * m};
+        uint32_t hi[4], lo[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) wg::split_tf32(e[j], hi[j], lo[j]);
+        const uint32_t base = Sm::QOFF + t * 4 * QB;   // Q..., then dO...
+        *reinterpret_cast<uint4*>(smem + base + so) =
+            make_uint4(hi[0], hi[1], hi[2], hi[3]);
+        *reinterpret_cast<uint4*>(smem + base + so + BQ * 128) =
+            make_uint4(lo[0], lo[1], lo[2], lo[3]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const uint32_t to = wg::swz32<D>(c + j, slot);
+          *reinterpret_cast<uint32_t*>(smem + base + 2 * QB + to) = hi[j];
+          *reinterpret_cast<uint32_t*>(smem + base + 3 * QB + to) = lo[j];
+        }
+      }
+    }
+    if (tid < 2 * BQ) slse[tid] = xl;          // lse rows, then delta rows
+  };
+  if (n_it > 0) fetch(0);
+
+  float adk[D / 2], adv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) adk[i] = adv[i] = 0.f;
+  Dropout drop;
+  int h_drop = -1;
+  for (int it = 0; it < n_it; ++it) {
+    const int h = kvh * G + it / nq, r0 = q0 + (it % nq) * BQ;
+    __syncthreads();                 // tile it - 1's products are done
+    stage();
+    wg::fence_async_smem();          // (and the K/V tiles at it 0)
+    __syncthreads();
+    if (it + 1 < n_it) fetch(it + 1);
+    // no key of this warpgroup, or none visible to the tile's rows
+    if (wk0 >= Sk || (causal && r0 + BQ - 1 + off < wk0)) continue;
+
+    // S^T = K Q^T and dP^T = V dO^T, three TF32 products a k step each,
+    // as two groups (P is built while dP^T runs): hi [Q hi; Q lo] on an
+    // m64n64 product (columns 0-31 hi hi', 32-63 hi lo'), then lo Q hi'
+    // into columns 0-31; the halves are summed after.  A K-major f32
+    // product streams its operands from shared memory, so this reads K
+    // hi once a k step where three m64n32 products read it twice.
+    float sc[BQ], dc[BQ];
+    const uint32_t kwh = kh + w * 64 * 128, kwl = kl + w * 64 * 128;
+    const uint32_t vwh = vh + w * 64 * 128, vwl = vl + w * 64 * 128;
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      wg::WgmmaTf32<2 * BQ>::ss(sc, wg::desc_k<BN>(kwh, kk),
+                                wg::desc_k<2 * BQ>(qn, kk), kk > 0);
+      wg::WgmmaTf32<2 * BQ>::ss_n32(sc, wg::desc_k<BN>(kwl, kk),
+                                    wg::desc_k<2 * BQ>(qn, kk));
+    }
+    wg::commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      wg::WgmmaTf32<2 * BQ>::ss(dc, wg::desc_k<BN>(vwh, kk),
+                                wg::desc_k<2 * BQ>(on, kk), kk > 0);
+      wg::WgmmaTf32<2 * BQ>::ss_n32(dc, wg::desc_k<BN>(vwl, kk),
+                                    wg::desc_k<2 * BQ>(on, kk));
+    }
+    wg::commit();
+    wg::wait<1>();
+    wg::keep(sc);
+    float s[BQ / 2], dp[BQ / 2];
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) s[i] = sc[i] + sc[i + BQ / 2];
+
+    if constexpr (DROP) {
+      if (h != h_drop) {
+        drop.init(seed, b, h, thresh, inv_keep);
+        h_drop = h;
+      }
+    }
+    // element i: key row (i & 2 ? key_b : key_a), query row r0 + lq(i)
+    auto lq = [&](int i) { return 8 * (i >> 2) + 2 * t4 + (i & 1); };
+    // the keep bits of the thread's elements, hashed once for P and dP
+    uint32_t keep = 0;
+    if constexpr (DROP) {
+#pragma unroll
+      for (int j = 0; j < BQ / 4; ++j) {
+        const uint32_t rk = drop.row(r0 + 8 * (j >> 1) + 2 * t4 + (j & 1));
+        const int i = 4 * (j >> 1) + (j & 1);    // its elements i, i + 2
+        keep |= (drop_mix(rk, (uint32_t)key_a) >= drop.thresh ? 1u : 0u) << i;
+        keep |= (drop_mix(rk, (uint32_t)key_b) >= drop.thresh ? 1u : 0u)
+                << (i + 2);
+      }
+    }
+    auto kept = [&](int i, float x) {
+      return (keep >> i) & 1u ? x * drop.inv : 0.f;
+    };
+    const float* mb = mask ? mask + b * msb + h * msh : nullptr;
+    // P^T = exp(s - lse) (q is scaled): masked tiles (a mask, the causal
+    // diagonal, ragged ends) element by element, the subtraction first
+    // (exact where both are -1e30); the others one FFMA an element
+    const bool edge = mb != nullptr || r0 + BQ > Sq || wk0 + 64 > Sk ||
+                      (causal && wk0 + 63 > off + r0);
+    if (edge) {
+#pragma unroll
+      for (int i = 0; i < BQ / 2; ++i) {
+        const int r = r0 + lq(i), key = (i & 2) ? key_b : key_a;
+        float x = s[i];
+        const bool ok = key < Sk && r < Sq;
+        if (ok && mb) x += mb[(long long)r * msq + key];
+        if (causal && key > off + r) x = kMasked;
+        s[i] = ok ? wg::ex2((x - slse[lq(i)]) * wg::kLog2e) : 0.f;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < BQ / 2; ++i)
+        s[i] = wg::ex2(fmaf(s[i], wg::kLog2e, -slse[lq(i)] * wg::kLog2e));
+    }
+    // dV += P^T dO (dropped p in dropout mode): hi hi + hi lo + lo hi
+    // into a tile accumulator that the first product overwrites, the
+    // tile's sum then added to dV (and dK's to dK) by f32 adds.  Chained
+    // in the tensor cores' own accumulator over all 1024 rows of GPT-2's
+    // keys (384 products a k element), dK / dV drifted 1.2e-5 (relative
+    // L2) off the plain version; a tile's 12 products stay near 2e-6.
+    uint32_t ph[BQ / 8][4], pl[BQ / 8][4];
+    if constexpr (DROP) {
+      float pd[BQ / 2];
+#pragma unroll
+      for (int i = 0; i < BQ / 2; ++i) pd[i] = kept(i, s[i]);
+#pragma unroll
+      for (int kk = 0; kk < BQ / 8; ++kk)
+        wg::frag_a_tf32(pd, kk, ph[kk], pl[kk]);
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < BQ / 8; ++kk)
+        wg::frag_a_tf32(s, kk, ph[kk], pl[kk]);
+    }
+    float tacc[D / 2];
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 8; ++kk) {
+      wg::WgmmaTf32<D>::rs(tacc, ph[kk], wg::desc_k<D>(oth, kk), kk > 0);
+      wg::WgmmaTf32<D>::rs(tacc, ph[kk], wg::desc_k<D>(otl, kk));
+      wg::WgmmaTf32<D>::rs(tacc, pl[kk], wg::desc_k<D>(oth, kk));
+    }
+    wg::commit();
+
+    wg::wait<1>();                   // dP^T (dV may still run)
+    wg::keep(dc);
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) dp[i] = dc[i] + dc[i + BQ / 2];
+    // dS^T = P^T (dP'^T - delta), while dV runs
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) {
+      float dpv = dp[i];
+      if constexpr (DROP) dpv = kept(i, dpv);
+      dp[i] = s[i] * (dpv - sdelta[lq(i)]);
+    }
+    wg::wait<0>();
+    wg::keep(tacc);
+    wg::keep(ph);
+    wg::keep(pl);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) adv[i] += tacc[i];
+    // dK += dS^T (q scale), the same way
+    uint32_t dh[BQ / 8][4], dl[BQ / 8][4];
+#pragma unroll
+    for (int kk = 0; kk < BQ / 8; ++kk) wg::frag_a_tf32(dp, kk, dh[kk], dl[kk]);
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 8; ++kk) {
+      wg::WgmmaTf32<D>::rs(tacc, dh[kk], wg::desc_k<D>(qth, kk), kk > 0);
+      wg::WgmmaTf32<D>::rs(tacc, dh[kk], wg::desc_k<D>(qtl, kk));
+      wg::WgmmaTf32<D>::rs(tacc, dl[kk], wg::desc_k<D>(qth, kk));
+    }
+    wg::commit();
+    wg::wait<0>();
+    wg::keep(tacc);
+    wg::keep(dh);
+    wg::keep(dl);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) adk[i] += tacc[i];
+  }
+  if (wk0 >= Sk) return;
+
+  // dK and dV rows out: a quad writes 8 neighbouring floats a store
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int c = 8 * j + 2 * t4;
+    if (key_a < Sk) {
+      const long long o = ((long long)b * Sk + key_a) * krs + kvh * D + c;
+      *reinterpret_cast<float2*>(dk + o) = make_float2(adk[4 * j], adk[4 * j + 1]);
+      *reinterpret_cast<float2*>(dv + o) = make_float2(adv[4 * j], adv[4 * j + 1]);
+    }
+    if (key_b < Sk) {
+      const long long o = ((long long)b * Sk + key_b) * krs + kvh * D + c;
+      *reinterpret_cast<float2*>(dk + o) =
+          make_float2(adk[4 * j + 2], adk[4 * j + 3]);
+      *reinterpret_cast<float2*>(dv + o) =
+          make_float2(adv[4 * j + 2], adv[4 * j + 3]);
+    }
+  }
+}
+
 constexpr int kDqRows = 128;    // query rows a block of the wgmma dQ kernel
 constexpr int kDqKeys = 64;     // keys a K/V tile of it
 
@@ -792,6 +1154,23 @@ cudaError_t launch_dkv_wgmma(const BwdArgs& a) {
   return cudaGetLastError();
 }
 
+template <int D, bool DROP>
+cudaError_t launch_dkv_3xtf32(const BwdArgs& a) {
+  const size_t smem = DkvTf32Smem<D>::kBytes;
+  static bool smem_set = false;
+  cudaError_t e =
+      allow_smem(flash_bwd_dkv_3xtf32<D, DROP>, smem, &smem_set);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(a.KVH, a.B, (a.Sk + kTfKeys - 1) / kTfKeys);
+  flash_bwd_dkv_3xtf32<D, DROP><<<grid, 256, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      a.lse, a.delta, a.mask, static_cast<float*>(a.o0),
+      static_cast<float*>(a.o1), a.H, a.KVH, a.Sq, a.Sk, a.ms[0], a.ms[1],
+      a.ms[2], a.causal, a.scale, a.seed, a.thresh, a.inv_keep);
+  return cudaGetLastError();
+}
+
 template <typename T, int D, bool DROP>
 cudaError_t launch_dq_wgmma(const BwdArgs& a) {
   const size_t smem = DqWgmmaSmem<D>::kBytes;
@@ -808,13 +1187,16 @@ cudaError_t launch_dq_wgmma(const BwdArgs& a) {
   return cudaGetLastError();
 }
 
-// dQ (which 0) and dK/dV (which 1): f32 on the FMA pipe, bf16 / f16 on
-// wgmma
+// dQ (which 0) and dK/dV (which 1): bf16 / f16 on wgmma; f32 dQ on the
+// FMA pipe, f32 dK/dV on 3xTF32 wgmma at D 64 and on the FMA pipe at
+// D 128 (whose K, V and Q-side hi / lo tiles would not fit an SM)
 template <typename T, int D, bool DROP>
 cudaError_t launch(int which, const BwdArgs& a) {
-  if constexpr (std::is_same<T, float>::value)
-    return which == 0 ? launch_dq<T, D, DROP>(a) : launch_dkv<T, D, DROP>(a);
-  else
+  if constexpr (std::is_same<T, float>::value) {
+    if (which == 0) return launch_dq<T, D, DROP>(a);
+    if constexpr (D == 64) return launch_dkv_3xtf32<D, DROP>(a);
+    else return launch_dkv<T, D, DROP>(a);
+  } else
     return which == 0 ? launch_dq_wgmma<T, D, DROP>(a)
                       : launch_dkv_wgmma<T, D, DROP>(a);
 }

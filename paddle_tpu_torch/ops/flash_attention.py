@@ -577,10 +577,11 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, mask, mstrides,
                             causal, dropout_p: float = 0.0, seed=None):
     """Launch of the dK/dV kernel on ``flash_attention_bwd_operands``:
     one block per (key tile, kv head, batch) -- 128 keys on the tensor
-    cores for bf16/f16 (``flash_bwd_dkv_wgmma``), 64 on the FMA pipe for
-    f32 (``flash_bwd_dkv``) -- looping over the query-head group and the
-    query tiles that see its keys.  Returns (dk, dv) [B, Sk, KVH, D],
-    written once, without atomics."""
+    cores for bf16/f16 (``flash_bwd_dkv_wgmma``) and for f32 at head_dim
+    64 (``flash_bwd_dkv_3xtf32``, three TF32 products a product), 64 on
+    the FMA pipe for f32 at 128 (``flash_bwd_dkv``) -- looping over the
+    query-head group and the query tiles that see its keys.  Returns
+    (dk, dv) [B, Sk, KVH, D], written once, without atomics."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("flash_attention_bwd_dkv", (dk, dv), q, k, v, do, lse, delta,
             mask, mstrides, causal, dropout_p, seed)

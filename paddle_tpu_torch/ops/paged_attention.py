@@ -53,6 +53,7 @@ from . import _build
 __all__ = ["paged_write", "paged_write_quant", "paged_write_rows",
            "paged_write_rows_quant", "paged_attention",
            "paged_attention_reference", "paged_decode_append_attend",
+           "paged_decode_split_reference", "decode_span",
            "paged_decode_append_attend_reference",
            "ragged_paged_append_attend",
            "ragged_paged_append_attend_reference"]
@@ -201,6 +202,75 @@ def paged_decode_append_attend_reference(q, k_pages, v_pages, k_new,
                                      seq_lens + 1, k_scales, v_scales)
 
 
+def decode_span(d, pool_dtype):
+    """Keys a block of the split decode kernel takes (its ``Geo::SPAN``)
+    for pools of ``pool_dtype`` at head dim ``d``: a lane takes min(8,
+    16 / itemsize) elements of a key row, so a row is L lanes of a
+    256-thread block, and a lane group takes min(8, 128 / (256 / L))
+    keys: 128 keys, or 64 for f32 pools at d 128."""
+    vec = min(8, 16 // torch.empty((), dtype=pool_dtype).element_size())
+    groups = 256 // (d // vec)
+    return groups * min(8, 128 // groups)
+
+
+def paged_decode_split_reference(q, k_pages, v_pages, page_table, seq_lens,
+                                 k_scales=None, v_scales=None):
+    """Plain mirror of the split decode kernel's arithmetic: row b's keys
+    cut into spans of :func:`decode_span` keys, each span's f32 state
+    (max m, sum l of exp(s - m), unnormalised P V) taken alone, then
+    merged in span order with a running max M, numerator and
+    denominator: c = exp(M - max(M, m_i)), w_i = exp(m_i - max(M, m_i))
+    (0 for a span that saw no key), num = num c + w_i acc_i, den = den c
+    + w_i l_i; out = num / max(den, 1e-30), a row of one span acc /
+    max(l, 1e-30).  The same arguments and
+    result as :func:`paged_attention_reference` (int8 pools: the key's
+    scale on the score, the value's on the probability)."""
+    b, h, d = q.shape
+    kvh, _, P, _ = k_pages.shape
+    span = decode_span(d, k_pages.dtype)
+    tables = page_table.to(torch.long)
+    n = tables.shape[1] * P
+    kg = _gather_pages(k_pages, None, tables)            # [B, KVH, S, D]
+    vg = _gather_pages(v_pages, None, tables)
+    qs = q.float().reshape(b, kvh, h // kvh, d) * (1.0 / math.sqrt(d))
+    s = torch.einsum("bkgd,bksd->bkgs", qs, kg)
+    if k_scales is not None:
+        s = s * k_scales[:, tables].reshape(kvh, b, n).transpose(0, 1)[
+            :, :, None]
+        vsc = v_scales[:, tables].reshape(kvh, b, n).transpose(0, 1)
+    lens = seq_lens.to(device=q.device, dtype=torch.long)
+    kpos = torch.arange(n, device=q.device)
+    s = s.masked_fill(~(kpos[None, :] < lens[:, None])[:, None, None],
+                      -math.inf)
+    nsp = -(-n // span)
+    m = torch.full((nsp, b, kvh, h // kvh), -math.inf, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((nsp, b, kvh, h // kvh, d), device=q.device)
+    for i in range(nsp):
+        st = s[..., i * span:(i + 1) * span]
+        mi = st.amax(-1)
+        p = torch.where(st == -math.inf, torch.zeros((), device=q.device),
+                        torch.exp(st - mi[..., None]))
+        m[i], l[i] = mi, p.sum(-1)
+        if v_scales is not None:
+            p = p * vsc[:, :, None, i * span:(i + 1) * span]
+        acc[i] = torch.einsum("bkgs,bksd->bkgd", p,
+                              vg[:, :, i * span:(i + 1) * span])
+    zero = torch.zeros((), device=q.device)
+    mx = torch.full_like(m[0], -math.inf)
+    num, den = torch.zeros_like(acc[0]), torch.zeros_like(l[0])
+    for i in range(nsp):                   # spans past a row's end: m -inf
+        mn = torch.maximum(mx, m[i])
+        c = torch.where(mx == mn, torch.ones((), device=q.device),
+                        torch.exp(mx - mn))
+        w = torch.where(m[i] == -math.inf, zero, torch.exp(m[i] - mn))
+        num = num * c[..., None] + acc[i] * w[..., None]
+        den = den * c + l[i] * w
+        mx = mn
+    out = num / torch.clamp(den, min=1e-30)[..., None]
+    return out.reshape(b, h, d).to(q.dtype)
+
+
 def _rows_of_descriptors(q_start, q_len, kv_len):
     """(descriptor, offset, flat row, position) of every live row."""
     dev = q_start.device
@@ -313,7 +383,7 @@ def _cuda_checks(what, d, tensors, ints, aligned):
         enforce(x.is_contiguous(), f"the {what} kernel takes contiguous "
                                    f"tensors")
     enforce(all(x.data_ptr() % 16 == 0 for x in aligned),
-            "pools and new rows must be 16-byte aligned")
+            "q, pools and new rows must be 16-byte aligned")
 
 
 def _ptr(x):
@@ -432,6 +502,21 @@ def ragged_paged_append_attend(q, k_pages, v_pages, k_new, v_new,
 ragged_paged_append_attend.launches = 0
 
 
+# the split decode kernel's merge counters a device, one a (row, kv
+# head): zeroed once here, left zero by every launch (the block that
+# merges a row's spans resets its counter), so launches on a device
+# share them in stream order
+_COUNTERS = {}
+
+
+def _split_counters(device, n):
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+        _COUNTERS[device] = buf
+    return buf
+
+
 def _decode_launch(what, q, k_pages, v_pages, k_new, v_new, page_table,
                    seq_lens, k_scales, v_scales):
     """Shape checks of kernels #6 and #7 and, on CUDA tensors, their
@@ -462,20 +547,35 @@ def _decode_launch(what, q, k_pages, v_pages, k_new, v_new, page_table,
     if (h // kvh) not in (1, 2, 4, 8):
         raise NotImplementedError(
             f"{what} kernel GQA group {h // kvh} (built for 1, 2, 4, 8)")
+    if k_scales is not None and P % 4:
+        raise NotImplementedError(
+            f"{what} kernel over int8 pools of page size {P} (its scale "
+            f"rows are copied in 16-byte units: a multiple of 4)")
     _cuda_checks(what, d, (q, k_pages, v_pages, page_table, seq_lens,
                            *new_rows, *scales), (page_table, seq_lens),
-                 (k_pages, v_pages, *new_rows))
+                 (q, k_pages, v_pages, *new_rows))
     out = torch.empty_like(q)
     src = "paged_decode_attention"
-    lib = _kernel(src, "paged_decode_attention", 10, 7, 3)
+    lib = _kernel(src, "paged_decode_attention", 12, 7, 3)
+    # scratch: each span's f32 sums [B, KVH, nsp, G, D] and (max, sum)
+    # [B, KVH, nsp, G], nsp = ceil(maxp P / span) spans a (row, kv head)
+    maxp = page_table.shape[1]
+    span_of = lib.paged_decode_span
+    if span_of.argtypes is None:
+        span_of.argtypes = [ctypes.c_int, ctypes.c_int]
+        span_of.restype = ctypes.c_int
+    span = span_of(d, pool)
+    nsp = -(-(maxp * P) // span)
+    part = torch.empty(b * h * nsp * (d + 2), dtype=torch.float32,
+                       device=q.device)
     with torch.cuda.device(q.device):
         err = lib.paged_decode_attention(
             q.data_ptr(), _ptr(k_new), _ptr(v_new), k_pages.data_ptr(),
             v_pages.data_ptr(), _ptr(k_scales), _ptr(v_scales),
             page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-            b, h, kvh, n_pages, P, d, page_table.shape[1],
-            1.0 / math.sqrt(d), _DTYPE_CODE[q.dtype], pool,
-            int(k_new is not None),
+            part.data_ptr(), _split_counters(q.device, b * kvh).data_ptr(),
+            b, h, kvh, n_pages, P, d, maxp, 1.0 / math.sqrt(d),
+            _DTYPE_CODE[q.dtype], pool, int(k_new is not None),
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, lib, src, what)
     return out

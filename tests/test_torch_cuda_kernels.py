@@ -53,7 +53,15 @@ spans, at GQA groups 1, 4 and 8, D 64 and 128 and pages of 16 and 128
 keys: outputs within the coarser dtype's tolerance, pools bit-equal,
 the rows without a query exactly zero over memory that held NaN, the
 same bits on two launches, and nothing launched but its append and its
-route's attention kernel.
+route's attention kernel.  The span-split #7 and #6 are held in every
+mode (16-bit, f32, int8 and mixed pools) at GQA groups 1, 4 and 8 at
+lengths 0, 1, span - 1, span, span + 1, an append that opens a new page
+and the table's last slot: outputs within the coarser dtype's
+tolerance, pools bit-equal, the same bits on two launches, one kernel a
+call.  #4's f32 route (3xTF32 at D 64, the FMA pipe at 128) is held to
+1e-5 of the largest gradient element with dropout 0, 0.1 and 0.5,
+causal or not, masks, GQA 2 and ragged lengths, gives the same bits on
+two launches and launches ``flash_bwd_dkv_3xtf32`` alone.
 """
 import ctypes
 
@@ -512,6 +520,10 @@ def test_paged_kernels_refuse_what_they_do_not_take(dev):
         pa.paged_attention(q[:, :8], pools.to(torch.int8),
                            pools.to(torch.int8), table, lens,
                            torch.zeros(4, 3, 8, device=dev), None)
+    odd = torch.zeros(4, 3, 6, 128, device=dev, dtype=torch.int8)
+    scales = torch.zeros(4, 3, 6, device=dev)
+    with pytest.raises(NotImplementedError, match="page size 6"):
+        pa.paged_attention(q[:, :8], odd, odd, table, lens, scales, scales)
 
 
 @pytest.mark.parametrize("dtype", list(TOL), ids=str)
@@ -1774,3 +1786,167 @@ def test_flash_3xtf32_launches_its_kernels_alone(dev):
                  if ev.device_type == torch.autograd.DeviceType.CUDA]
         assert names and all("flash_fwd_3xtf32" in nm for nm in names), names
         assert any("merge" in nm for nm in names) == split, names
+
+
+# The span-split #7 and #6 (a block a span of keys of a (row, kv head),
+# the last span to finish merging the row): every mode at lengths on
+# and around the edges of the kernel's spans.
+SPLIT_MODES = [  # (q dtype, pool dtype or "int8")
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+    (torch.float16, torch.float16), (torch.bfloat16, "int8"),
+    (torch.float32, "int8"), (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.float32)]
+
+
+def _split_edge_case(gen, dev, qdt, pdt, P, D, G, kvh=2):
+    """Rows of seq_lens 0 (its own table), 1, span - 1, span, span + 1,
+    P (#7's append opens the row's second page) and maxp P - 1 (#7
+    appends the table's last slot), span the kernel's for these pools,
+    each row its own pages; float or int8 pools (with scales).  Returns
+    (q, new rows, pools, tables, lens)."""
+    span = pa.decode_span(D, torch.int8 if pdt == "int8" else pdt)
+    maxp = -(-3 * span // P) + 1
+    lens = [0, 1, span - 1, span, span + 1, P, maxp * P - 1]
+    b, n_pages = len(lens), len(lens) * maxp + 1
+    perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
+    tables = perm.reshape(b, maxp).to(torch.int32).contiguous()
+
+    def rnd(*shape, dtype=qdt):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    q, new = rnd(b, kvh * G, D), [rnd(b, kvh, D) for _ in range(2)]
+    if pdt == "int8":
+        codes, scales = _int8_pools(gen, dev, kvh, n_pages, P, D)
+        pools = codes + scales
+    else:
+        pools = [rnd(kvh, n_pages, P, D, dtype=pdt) for _ in range(2)] + [
+            None, None]
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return q, new, pools, tables, lens
+
+
+@pytest.mark.parametrize("qdt,pdt", SPLIT_MODES, ids=str)
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("P,D", [(128, 128), (16, 64)])
+@pytest.mark.parametrize("append", [True, False], ids=["n7", "n6"])
+def test_paged_decode_split_matches_plain_at_span_edges(dev, qdt, pdt, P, D,
+                                                        G, append):
+    """#7 (append) and #6 at lengths on and around the span edges: outputs
+    within the coarser dtype's tolerance, the pools (codes and scales)
+    equal the plain version's bit for bit, #6's row of length 0 zero."""
+    gen = torch.Generator(device=dev).manual_seed(41)
+    q, new, pools, tables, lens = _split_edge_case(gen, dev, qdt, pdt, P, D,
+                                                   G)
+    mine = [None if p is None else p.clone() for p in pools]
+    plain = [None if p is None else p.clone() for p in pools]
+    fn, ref = ((pa.paged_decode_append_attend,
+                pa.paged_decode_append_attend_reference) if append else
+               (pa.paged_attention, pa.paged_attention_reference))
+    new = new if append else []
+    before = fn.launches
+    got = fn(q, mine[0], mine[1], *new, tables, lens, mine[2], mine[3])
+    want = ref(q, plain[0], plain[1], *new, tables, lens, plain[2], plain[3])
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert all(a is None or torch.equal(a, b) for a, b in zip(mine, plain))
+    tol = max(TOL[qdt], TOL.get(pdt, 0.0))
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+    if not append:
+        assert not got[0].any()
+
+
+def test_paged_decode_split_is_bit_identical_on_two_launches(dev):
+    """The merge runs in span order in whichever block finishes a row
+    last: two launches on equal pools give the same bits."""
+    gen = torch.Generator(device=dev).manual_seed(42)
+    q, new, pools, tables, lens = _split_edge_case(
+        gen, dev, torch.bfloat16, torch.bfloat16, 128, 128, 4)
+    outs = []
+    for _ in range(2):
+        ps = [None if p is None else p.clone() for p in pools]
+        outs.append(pa.paged_decode_append_attend(
+            q, ps[0], ps[1], *new, tables, lens, ps[2], ps[3]))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("pdt", [torch.bfloat16, "int8"], ids=str)
+def test_paged_decode_launch_is_the_split_kernel_alone(dev, pdt):
+    """A #7 call launches the span-split kernel and nothing else (its
+    merge counters are zero from the call before)."""
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device=dev).manual_seed(43)
+    q, new, pools, tables, lens = _split_edge_case(
+        gen, dev, torch.bfloat16, pdt, 128, 128, 4)
+
+    def call():
+        return pa.paged_decode_append_attend(q, pools[0], pools[1], *new,
+                                             tables, lens, pools[2],
+                                             pools[3])
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    names = {ev.key.split("(")[0] for ev in prof.key_averages()
+             if ev.device_type == torch.autograd.DeviceType.CUDA}
+    assert len(names) == 1 and "paged_decode_split<" in names.pop(), names
+
+
+# #4's f32 route: 3xTF32 on wgmma at D 64 (``flash_bwd_dkv_3xtf32``), the
+# FMA pipe at D 128; both held to the f32 gradient tolerance.
+DKV_F32_CASES = [
+    # b, sq, sk, h, kvh, d, causal, mask shape, dropout p
+    (2, 130, 130, 4, 4, 64, True, None, 0.1),
+    (1, 100, 130, 8, 4, 64, True, None, 0.5),
+    (2, 130, 100, 4, 2, 64, False, (2, 1, 130, 100), 0.1),
+    (1, 100, 130, 8, 4, 64, True, (1, 8, 1, 130), 0.0),
+    (1, 1024, 1024, 4, 4, 64, True, None, 0.1),
+    (1, 100, 130, 8, 4, 128, True, None, 0.1),
+    (1, 130, 100, 4, 2, 128, False, (1, 4, 1, 100), 0.5),
+]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kvh,d,causal,mshape,p", DKV_F32_CASES)
+def test_flash_dkv_f32_matches_plain(dev, b, sq, sk, h, kvh, d, causal,
+                                     mshape, p):
+    """dK and dV against the plain backward fed the same seed: within
+    1e-5 of the largest element (3xTF32 leaves out lo lo', about 2^-22 of
+    a product)."""
+    q, k, v, do = _attn_inputs(dev, torch.float32, b, sq, sk, h, kvh, d)
+    mask = None
+    if mshape is not None:
+        gen = torch.Generator(device=dev).manual_seed(10)
+        mask = torch.randn(mshape, generator=gen, device=dev)
+        mask[..., -(sk // 4):] = -1e30
+    seed = torch.tensor(777, dtype=torch.int64, device=dev)
+    kw = dict(causal=causal, mask=mask, dropout_p=p,
+              seed=seed if p else None)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    ops = fa.flash_attention_bwd_operands(q, k, v, out, lse, do, causal,
+                                          mask)
+    got = fa.flash_attention_bwd_dkv(*ops, causal, p, kw["seed"])
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, **kw)[1:]
+    torch.cuda.synchronize()
+    _assert_grads_close(got, want, torch.float32)
+
+
+def test_flash_dkv_3xtf32_is_bit_identical_and_alone(dev):
+    """The 3xTF32 dK/dV writes each kv head's rows once, without atomics:
+    two launches give the same bits, and a D 64 f32 call launches
+    ``flash_bwd_dkv_3xtf32`` and nothing else."""
+    from torch.profiler import ProfilerActivity, profile
+    q, k, v, do = _attn_inputs(dev, torch.float32, 2, 700, 700, 8, 4, 64)
+    seed = torch.tensor(778, dtype=torch.int64, device=dev)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True, dropout_p=0.1,
+                                      seed=seed)
+    ops = fa.flash_attention_bwd_operands(q, k, v, out, lse, do, True, None)
+    first = fa.flash_attention_bwd_dkv(*ops, True, 0.1, seed)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        second = fa.flash_attention_bwd_dkv(*ops, True, 0.1, seed)
+        torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    names = {ev.key.split("(")[0] for ev in prof.key_averages()
+             if ev.device_type == torch.autograd.DeviceType.CUDA}
+    assert names == {"void ptt::flash_bwd_dkv_3xtf32<64, true>"}, names

@@ -279,6 +279,49 @@ def test_route_gate_holds_the_f32_routes_to_their_designs(phase, old):
                                    (fam,), design=design)
 
 
+# the routes redesigned after those: #4's f32 dK/dV (3xTF32 on wgmma) on
+# the GPT-2 step, and #7 spread over blocks by key span on the split
+# path's serves (float and int8 pools)
+SPAN_AND_DKV_ROUTES = {
+    # phase: (family, design, new kernel names, the name it replaced)
+    "train_gpt2_profile": ("flash_bwd_dkv", "3xtf32", [
+        "void ptt::flash_bwd_dkv_3xtf32<64, true>"],
+        "void ptt::flash_bwd_dkv<float, 64, true>"),
+    "serve_split_profile": ("paged_decode", "split", [
+        "void ptt::pd::paged_decode_split<__nv_bfloat16, __nv_bfloat16, "
+        "128, 4>"],
+        "void ptt::paged_decode<__nv_bfloat16, __nv_bfloat16, 128, 4>"),
+    "serve_split_int8_profile": ("paged_decode", "split", [
+        "void ptt::pd::paged_decode_split<__nv_bfloat16, signed char, "
+        "128, 4>"],
+        "void ptt::paged_decode<__nv_bfloat16, signed char, 128, 4>"),
+}
+
+
+@pytest.mark.parametrize("phase", list(SPAN_AND_DKV_ROUTES))
+@pytest.mark.parametrize("old", [False, True], ids=["new", "old_kernel"])
+def test_route_gate_holds_the_split_decode_and_f32_dkv(phase, old):
+    """The design labels read from the redesigned #7 and f32 #4 kernels'
+    traced names, and the gate on them: the new kernels pass, a trace
+    that still shows the kernel they replaced fails."""
+    cs = _chip_smoke()
+    fam, design, names, replaced = SPAN_AND_DKV_ROUTES[phase]
+    assert fam in cs.ROUTED_FAMILIES
+    assert {cs.design_of(n) for n in names} == {design}
+    assert {cs.kernel_family(n) for n in names} == {fam}
+    assert cs.kernel_family(replaced) == fam
+    assert cs.design_of(replaced) == "fma"
+    prof = {n: 1.0 for n in names}
+    if old:
+        prof[replaced] = 1.0
+        with pytest.raises(cs.SmokeFailure, match=f"{design} route"):
+            cs.check_tensor_core_route({"routed_kernel_ms": prof}, phase,
+                                       (fam,), design=design)
+    else:
+        cs.check_tensor_core_route({"routed_kernel_ms": prof}, phase,
+                                   (fam,), design=design)
+
+
 # #1's routes in the traced serves: the bf16 serves (Llama-3-8B at group
 # 4, Qwen1.5-MoE at group 1) on mma.sync, the f32-weight serve over bf16
 # pools on 3xTF32; each with its append
