@@ -1044,12 +1044,18 @@ def matmul_rope_kernel(torch, np, gen, dev, table):
     bound, bound_by = bound_ms(
         (x32.numel() + w32.numel() + got.numel() + 2 * s32 * hd) * 4,
         2 * s32 * hidden * w32.shape[1], peak=PEAK_F32_FLOPS)
+    # the library's yardstick, timed only: the same product alone in full
+    # f32 (TF32 off)
+    torch.backends.cuda.matmul.allow_tf32 = False
     emit({"phase": "check", "what": "matmul_rope f32 (FMA path)",
           "shape": [1, s32, hidden], "heads": 32, "rel_l2_err": err,
           "tolerance": 1e-5, "ms": timed_ms(torch, run32, 5),
           "plain_ms": timed_ms(torch, lambda: ft.matmul_rope_reference(
               x32, w32, c32, s32t, 32, hd), 5),
-          "bound_ms": bound, "bound_by": bound_by, **traced})
+          "bound_ms": bound, "bound_by": bound_by, "bound_peak": F32_FMA_NOTE,
+          "library_ms": timed_ms(torch, lambda: torch.matmul(x32, w32), 10),
+          "library_note": "torch.matmul of the product alone, f32 with "
+                          "allow_tf32 False", **traced})
     check(err <= 1e-5, f"f32 matmul_rope off its plain version: {err}")
     check(traced["design"] == "fma",
           f"f32 matmul_rope left the FMA pipe: {traced}")
@@ -1242,12 +1248,15 @@ def train_reference_phase(torch, np, dev):
         fmodel.config.recompute = policy is not None
         fmodel.config.recompute_granularity = policy or "full"
         fa.flash_attention_fwd.launches = 0
+        ft.matmul_rope_raw.launches = 0
         floss, fgrads = fstep.grad_step(batch)
         f_loss_rel, f_rel, f_worst = errors(floss, fgrads)
         fused[str(policy)] = {
             "loss_rel_err": f_loss_rel, "grad_rel_l2_max": f_rel[f_worst],
             "grad_rel_l2_worst": f_worst,
-            "flash_fwd_launches": fa.flash_attention_fwd.launches}
+            "flash_fwd_launches": fa.flash_attention_fwd.launches,
+            # the f32 matmul+rope (#10's FMA-pipe route) in one step
+            "matmul_rope_launches": ft.matmul_rope_raw.launches}
         check(f_loss_rel <= 1e-5 and f_rel[f_worst] <= 1e-4,
               f"fused chain, recompute {policy}: loss off the plain "
               f"composition by {f_loss_rel}, gradient {f_worst} by "
@@ -3011,15 +3020,14 @@ def dropout_kernels(torch, gen, dev, table):
                "max_abs_err": max(errs[o]["max_abs_err"] for o in outs),
                "ms": timed_ms(torch, fn, 10),
                "plain_ms": timed_ms(torch, plain, 2, warmup=1),
-               **f32_bounds(n_bytes, flops, tensor_cores=key != "dq"),
+               **f32_bounds(n_bytes, flops, tensor_cores=True),
                "library_ms": timed_ms(torch, lib, 10),
                **traced_kernel(torch, fn)}
-        design = "fma" if key == "dq" else "3xtf32"
-        check(row["design"] == design,
-              f"{name} ran on {row['design']}, not {design}")
+        check(row["design"] == "3xtf32",
+              f"{name} ran on {row['design']}, not 3xtf32")
         emit({"phase": "kernel", **row, "shape": [b, s, h, d],
               "dtype": "float32", "causal": True, "dropout_p": GPT_DROP,
-              "bound_peak": F32_FMA_NOTE if key == "dq" else F32_TC_NOTE,
+              "bound_peak": F32_TC_NOTE,
               "library_note": "scaled_dot_product_attention(dropout_p=0.1)"
                               + ("" if key == "fwd" else
                                  ", its backward (dq, dk, dv)")})
@@ -3036,6 +3044,16 @@ def dropout_kernels(torch, gen, dev, table):
                   q, k, v, do, seed, REL_L2_TOL)
     del q, k, v, do
     torch.cuda.empty_cache()
+
+
+def dbias_cost(b, s, h, d):
+    """(flops, bytes) of #5 over a causal [b, s, h, d] f32 attention with
+    a bias [1, h, s, s]: S and dP for each visible pair of every (b, h);
+    q, k, v and dO read once, lse and delta, the bias read and its
+    gradient written."""
+    flops = 4 * d * h * b * causal_pairs(s)
+    n_bytes = 4 * b * s * h * d * 4 + 2 * b * h * s * 4 + 2 * h * s * s * 4
+    return flops, n_bytes
 
 
 def dbias_kernels(torch, gen, dev, table):
@@ -3115,22 +3133,27 @@ def dbias_kernels(torch, gen, dev, table):
     note = (f"scaled_dot_product_attention on {backend.name} with an "
             f"attn_mask that requires grad: its backward (dq, dk, dv and "
             f"dbias in one call)")
-    flops = 4 * d * h * b * causal_pairs(s)         # s and dP per pair
-    n_bytes = 4 * b * s * h * d * 4 + 2 * b * h * s * 4 + 2 * h * s * s * 4
+    flops, n_bytes = dbias_cost(b, s, h, d)
+
+    def fn():
+        return fa.flash_attention_bwd_dbias(*ops[:6], bias, True, GPT_DROP,
+                                            seed)
     row = {"name": "flash_attention_dbias", "route": "cuda",
            "source": "paddle_tpu_torch/csrc/flash_attention_dbias.cu",
            "replaces": "paddle_tpu/ops/pallas/flash_attention.py:608",
            "max_abs_err": err["max_abs_err"],
-           "ms": timed_ms(torch, lambda: fa.flash_attention_bwd_dbias(
-               *ops[:6], bias, True, GPT_DROP, seed), 10),
+           "ms": timed_ms(torch, fn, 10),
            "plain_ms": timed_ms(torch, lambda: fa.flash_attention_dbias_reference(
                q, k, v, out, lse, do, bias, **kw), 2, warmup=1),
-           **f32_bounds(n_bytes, flops, tensor_cores=False),
-           "library_ms": timed_ms(torch, library, 10)}
+           **f32_bounds(n_bytes, flops, tensor_cores=True),
+           "library_ms": timed_ms(torch, library, 10),
+           **traced_kernel(torch, fn)}
+    check(row["design"] == "3xtf32",
+          f"flash_attention_dbias ran on {row['design']}, not 3xtf32")
     emit({"phase": "kernel", **row, "shape": [b, s, h, d],
           "bias": [1, h, s, s], "dtype": "float32", "causal": True,
           "dropout_p": GPT_DROP,
-          "bound_peak": F32_FMA_NOTE,
+          "bound_peak": F32_TC_NOTE,
           "library_note": note, "library_refused": refused})
     table["flash_attention_dbias"] = row
     del timed, ops, q, k, v, do, bias, out, lse, lib_in, lib_out, library
@@ -3236,7 +3259,8 @@ def train_gpt2_phase(torch, np, dev, table):
     _, prof = profiled(torch, lambda: [step(batch) for _ in range(2)])
     emit({"phase": "train_gpt2_profile", "steps": 2, **prof})
     check_tensor_core_route(prof, "train_gpt2_profile",
-                            ("flash_fwd", "flash_bwd_dkv"), design="3xtf32")
+                            ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                            design="3xtf32")
     del model, step, batch
 
 
@@ -3361,12 +3385,15 @@ def plain_encoder(torch, layer, x, bias):
     return ln(h + _nn.dropout(f, layer.dropout2.p), layer.norm2), pre
 
 
-def encoder_run(torch, dev, activation, counters=None):
+def encoder_run(torch, dev, activation, counters=None, trace=False):
     """One post-norm ``TransformerEncoderLayer`` at GPT-2 width (768, 12
     heads, FFN 3072), batch 8 x seq 1024, dropout 0.1, with a trained
     ``attn_mask`` [1, 12, 1024, 1024], forward and backward through the
     kernels, then through the plain composition from the same generator
-    seed.  With ``counters``, their launches count the kernel route alone.
+    seed.  With ``counters``, their launches count the kernel route alone;
+    with ``trace``, the kernel route runs twice under the profiler
+    (``prof``; a trace of one run lost the events of its first kernels on
+    the card, flash forward among them).
     Returns what the bias-gradient kernel was given and gave (captured
     from the layer's own backward), both routes' dbias and outputs, how
     many of linear1's pre-activations differ in sign between them, and
@@ -3399,11 +3426,19 @@ def encoder_run(torch, dev, activation, counters=None):
     try:
         for fn in (counters or {}).values():
             fn.launches = 0
+
+        def routed():
+            with rng_guard(torch.Generator(device=dev).manual_seed(
+                    SEED + 7)):
+                out = layer(x, bias)
+                return out, torch.autograd.grad((out * ct).sum(), params)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with rng_guard(torch.Generator(device=dev).manual_seed(SEED + 7)):
-            out = layer(x, bias)
-            grads = torch.autograd.grad((out * ct).sum(), params)
+        if trace:
+            (out, grads), prof = profiled(
+                torch, lambda: [routed() for _ in range(2)][-1])
+        else:
+            (out, grads), prof = routed(), None
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {n: fn.launches for n, fn in (counters or {}).items()}
@@ -3415,7 +3450,7 @@ def encoder_run(torch, dev, activation, counters=None):
         want, = torch.autograd.grad((want_out * ct).sum(), [bias])
     flipped = (seen["pre"] > 0) != (want_pre > 0)       # [B, S, FFN]
     finite = all(bool(torch.isfinite(g).all()) for g in grads)
-    return {"wall": wall, "launches": launches, "seen": seen,
+    return {"wall": wall, "launches": launches, "seen": seen, "prof": prof,
             "dbias": grads[0], "want": want, "out": out,
             "want_out": want_out, "flips": int(flipped.sum()),
             "flipped_rows": flipped.any(-1).any(0), "finite": finite}
@@ -3470,7 +3505,20 @@ def encoder_bias_phase(torch, dev, table):
               "fwd_bwd_wall_s": relu["wall"], "finite": relu["finite"]}
     del relu
     torch.cuda.empty_cache()
-    gelu = encoder_run(torch, dev, "gelu")
+    # the GELU layer's kernel route traced (again where the profiler
+    # dropped a family's events): every f32 attention kernel of it (#2-#5)
+    # is a 3xTF32 one
+    families = FLASH_FAMILIES + ("flash_dbias",)
+    for retry in range(TRACE_RETRIES + 1):
+        gelu = encoder_run(torch, dev, "gelu", trace=True)
+        prof = gelu["prof"]
+        if all(prof["kernel_count_by_family"].get(f) for f in families):
+            break
+        emit({"phase": "trace_retry", "family": "encoder_bias_profile",
+              "top_kernels": prof["top_kernels"]})
+    emit({"phase": "encoder_bias_profile", "trace_retries": retry, **prof})
+    check_tensor_core_route(prof, "encoder_bias_profile", families,
+                            design="3xtf32")
     gelu_err = rel_l2(gelu["dbias"], gelu["want"])
     gelu_res = {"dbias_rel_l2_err": gelu_err,
                 "out_rel_l2_err": rel_l2(gelu["out"], gelu["want_out"]),
@@ -3548,7 +3596,8 @@ def main() -> int:
                 "flash_bwd_dkv_wgmma", "matmul_rope_wgmma", "gmm_wgmma",
                 "dw_wgmma", "flash_fwd_3xtf32", "gmm_rows_stream",
                 "glu_wgmma", "ragged_attend_mma", "ragged_attend_3xtf32",
-                "flash_bwd_dkv_3xtf32", "paged_decode_split"):
+                "flash_bwd_dkv_3xtf32", "paged_decode_split",
+                "flash_bwd_dq_3xtf32", "flash_dbias_3xtf32"):
         check(any(fam in n for n in usage), f"no ptxas report of {fam}")
 
     # -- kernels against their plain versions, full-width bf16 shapes
@@ -3753,9 +3802,11 @@ def main() -> int:
             fam = (f"ragged_attend_{row['design']}" if name.startswith(
                        "ragged")
                    else "paged_decode_split" if row["design"] == "split"
-                   else "flash_bwd_dkv_3xtf32" if row["design"] == "3xtf32"
-                   and "bwd_dkv" in name
-                   else "flash_fwd_3xtf32" if row["design"] == "3xtf32"
+                   else ("flash_bwd_dkv_3xtf32" if "bwd_dkv" in name
+                         else "flash_bwd_dq_3xtf32" if "bwd_dq" in name
+                         else "flash_dbias_3xtf32" if "dbias" in name
+                         else "flash_fwd_3xtf32")
+                   if row["design"] == "3xtf32"
                    else "gmm_rows_stream" if row["design"] == "stream"
                    else "matmul_rope_wgmma" if name.startswith("matmul_rope")
                    else "gmm_wgmma" if name == "grouped_matmul"

@@ -1,8 +1,10 @@
 // Hopper tensor-core tile code for the port's 16-bit kernels and the f32
-// flash forward's 3xTF32 products (`WgmmaTf32`, `split_tf32`, `swz32`,
-// `frag_a_tf32`): the flash
+// attention kernels' 3xTF32 products (`WgmmaTf32`, `split_tf32`, `swz32`,
+// `frag_a_tf32`, and the backward's S / dP stage `sdp_issue_3xtf32` /
+// `ds_3xtf32`): the flash
 // forward #2 (flash_attention_fwd.cu), the dQ kernel #3 and the dK/dV
-// kernel #4 (flash_attention_bwd.cu), the matmul+rope kernel #10
+// kernel #4 (flash_attention_bwd.cu), the bias gradient #5
+// (flash_attention_dbias.cu), the matmul+rope kernel #10
 // (matmul_rope.cu) and the grouped matmuls #11 and #13
 // (grouped_matmul.cu): warpgroup matrix multiplies (`wgmma.mma_async`, f32
 // accumulate), 128-byte-swizzled shared-memory tiles filled by
@@ -81,6 +83,12 @@ __device__ __forceinline__ void cp_commit() {
 }
 __device__ __forceinline__ void cp_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+// Waits until at most N of this thread's committed copy groups are
+// pending.
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 // Orders this thread's finished shared-memory writes before later reads
 // by wgmma (the async proxy); a barrier then publishes them.
@@ -221,14 +229,24 @@ __device__ __forceinline__ uint32_t tf32(float x) {
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
   return y;
 }
+// The same rounding by two integer operations, bit for bit `tf32`'s for
+// finite x: half a unit of the 13 dropped bits added to the magnitude
+// (ties away from zero), then the bits dropped.  The kernels that split
+// every operand of every tile (#3's and #5's f32 routes) use this one:
+// there it ran faster than cvt.rna.tf32 (PERF.md).
+__device__ __forceinline__ uint32_t tf32_int(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
 // x = hi + lo to about 2^-22 of x: hi its TF32 rounding, lo the TF32
 // rounding of the remainder (exact in f32).  A product of two such pairs
 // taken as hi hi' + hi lo' + lo hi' (3xTF32) leaves out lo lo', about
-// 2^-22 of the product.
+// 2^-22 of the product.  INT: rounded by `tf32_int`.
+template <bool INT = false>
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
                                            uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
+  hi = INT ? tf32_int(x) : tf32(x);
+  const float r = x - __uint_as_float(hi);
+  lo = INT ? tf32_int(r) : tf32(r);
 }
 
 // Byte offset of f32 element (r, c) in a swizzled [R][D] tile: D / 32
@@ -248,14 +266,14 @@ __device__ __forceinline__ uint32_t swz32(int r, int c) {
 // carries key 2 t4 and column t4 + 4 key 2 t4 + 1: the product sums over
 // the keys in the order {0, 2, 4, 6, 1, 3, 5, 7}, and the B operand's k
 // rows must follow it (`key_slot`).
-template <int M>
+template <bool INT = false, int M>
 __device__ __forceinline__ void frag_a_tf32(const float (&d)[M], int kk,
                                             uint32_t (&hi)[4],
                                             uint32_t (&lo)[4]) {
-  split_tf32(d[4 * kk + 0], hi[0], lo[0]);   // row g,     key 2 t4
-  split_tf32(d[4 * kk + 2], hi[1], lo[1]);   // row g + 8, key 2 t4
-  split_tf32(d[4 * kk + 1], hi[2], lo[2]);   // row g,     key 2 t4 + 1
-  split_tf32(d[4 * kk + 3], hi[3], lo[3]);   // row g + 8, key 2 t4 + 1
+  split_tf32<INT>(d[4 * kk + 0], hi[0], lo[0]);   // row g,     key 2 t4
+  split_tf32<INT>(d[4 * kk + 2], hi[1], lo[1]);   // row g + 8, key 2 t4
+  split_tf32<INT>(d[4 * kk + 1], hi[2], lo[2]);   // row g,     key 2 t4 + 1
+  split_tf32<INT>(d[4 * kk + 3], hi[3], lo[3]);   // row g + 8, key 2 t4 + 1
 }
 // The k position of key j in a B operand read against frag_a_tf32.
 __device__ __forceinline__ int key_slot(int j) {
@@ -444,6 +462,95 @@ struct WgmmaTf32<128> {
 #undef PTT_WG_D32
 #undef PTT_WG_D16
 #undef PTT_F8
+
+// -------- the f32 backward's S / dP stage on 3xTF32 (dQ #3, dbias #5)
+//
+// One warpgroup's 64 query rows against 32 keys.  Q (scaled) and dO are
+// the A operands: swizzled [RQ][D] hi and lo tiles, the warpgroup's rows
+// at qh / ql / oh / ol.  K and V are the B operands, each a hi-over-lo
+// row tile [64][D] (the 32 keys' hi rows over their lo rows, `swz32<64>`):
+// one m64n64 product a k step takes hi hi' into columns 0-31 and hi lo'
+// into 32-63, one m64n32 (lo against the hi rows) adds lo hi' to 0-31,
+// and the halves are summed after.
+
+// Issues S = Q K^T and dP = dO V^T as two wgmma groups (sc, then dc:
+// m64n64 accumulators); `ds_3xtf32` waits for them.
+template <int RQ, int D>
+__device__ __forceinline__ void sdp_issue_3xtf32(float (&sc)[32],
+                                                 float (&dc)[32],
+                                                 uint32_t qh, uint32_t ql,
+                                                 uint32_t oh, uint32_t ol,
+                                                 uint32_t kn, uint32_t vn) {
+  fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    WgmmaTf32<64>::ss(sc, desc_k<RQ>(qh, kk), desc_k<64>(kn, kk), kk > 0);
+    WgmmaTf32<64>::ss_n32(sc, desc_k<RQ>(ql, kk), desc_k<64>(kn, kk));
+  }
+  commit();
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    WgmmaTf32<64>::ss(dc, desc_k<RQ>(oh, kk), desc_k<64>(vn, kk), kk > 0);
+    WgmmaTf32<64>::ss_n32(dc, desc_k<RQ>(ol, kk), desc_k<64>(vn, kk));
+  }
+  commit();
+}
+
+// A thread's two query rows of the warpgroup's tile (d[4j + {0, 1}] on
+// r_a, d[4j + {2, 3}] on r_b = r_a + 8): lse, lse in log2 units, delta,
+// and the rows' dropout keys.
+struct TfRows {
+  int r_a, r_b;
+  float lse_a, lse_b, ml_a, ml_b, dl_a, dl_b;
+  uint32_t rk_a, rk_b;
+};
+
+// dS = P (dP' - delta) of the 32 keys from t0 (element i: row i & 2 ?
+// r_b : r_a, key t0 + 8 (i >> 2) + 2 t4 + (i & 1)), with P = exp(s -
+// lse) built while dP runs.  `edge` tiles (a mask or bias, the causal
+// diagonal, the ragged key end) go element by element: the addend
+// add(i, r, key), then causal masking to -1e30, the subtraction s - lse
+// first (exact where both are -1e30, so a row whose every key is hidden
+// weighs them alike, as the plain version does), and 0 past Sq or Sk;
+// the others take one FFMA an element.  In dropout mode dP' = keep ?
+// dP / (1 - p) : 0, one hash an element.
+template <bool DROP, typename Add>
+__device__ __forceinline__ void ds_3xtf32(float (&ds)[16], float (&sc)[32],
+                                          float (&dc)[32], const TfRows& rw,
+                                          int t0, int t4, bool edge,
+                                          bool causal, int off, int Sq,
+                                          int Sk, const Dropout& drop,
+                                          Add add) {
+  wait<1>();
+  keep(sc);
+  if (edge) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int r = (i & 2) ? rw.r_b : rw.r_a;
+      const int key = t0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+      const bool ok = key < Sk && r < Sq;
+      float x = sc[i] + sc[i + 16];
+      if (ok) x += add(i, r, key);
+      if (causal && key > off + r) x = kMasked;
+      ds[i] = ok ? ex2((x - ((i & 2) ? rw.lse_b : rw.lse_a)) * kLog2e) : 0.f;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      ds[i] = ex2(fmaf(sc[i] + sc[i + 16], kLog2e,
+                       (i & 2) ? -rw.ml_b : -rw.ml_a));
+  }
+  wait<0>();
+  keep(dc);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    float dpv = dc[i] + dc[i + 16];
+    if constexpr (DROP)
+      dpv = drop.apply((i & 2) ? rw.rk_b : rw.rk_a,
+                       t0 + 8 * (i >> 2) + 2 * t4 + (i & 1), dpv);
+    ds[i] *= dpv - ((i & 2) ? rw.dl_b : rw.dl_a);
+  }
+}
 
 }  // namespace wg
 }  // namespace ptt

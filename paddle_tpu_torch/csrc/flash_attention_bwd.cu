@@ -55,10 +55,39 @@
 //   once, in the epilogue, and leaves through shared memory with 16-byte
 //   stores: each row is written once, without atomics.  Query tiles
 //   with the most keys launch first, heads fastest.
-// - f32: `flash_bwd_dq` on the FMA pipe (flash_bwd_tile.cuh): 64 rows a
-//   block, Q (pre-scaled) and dO in shared memory as f32, 4 x 4 register
-//   tiles of s and dO V^T, ds through shared memory, dq accumulated in
-//   registers (3xTF32 is the next redesign, as #4's below).
+// - f32 at D 64 (GPT-2's attention): `flash_bwd_dq_3xtf32`, 128 query
+//   rows a block, 64 per warpgroup.  The FMA-pipe kernel it replaced ran
+//   GPT-2's dropout backward at 8.0x its 3xTF32 bound (0.9341 ms on an
+//   NVIDIA H100 80GB HBM3 at 700 W, PERF.md).  Q (scaled, as the plain
+//   version scales it) and dO are split once into TF32 hi / lo A tiles
+//   [128][64] (128 KB).  Key tiles of 32 pass through a 2-stage ring (48
+//   KB a stage): K and V each as a hi-over-lo row tile [64][64] (the 32
+//   keys' hi rows over their lo rows), the B operand of S = Q K^T and
+//   dP = dO V^T (a k step is one m64n64 product, hi against hi and lo at
+//   once, and one m64n32, lo against hi: the same stage as the bias
+//   gradient's, `sdp_issue_3xtf32` / `ds_3xtf32`); and K again as
+//   transposed hi / lo tiles [64][32] in `key_slot` order, the B operand
+//   of dQ += dS K with dS's hi / lo parts as the register A operand
+//   (`frag_a_tf32`).  TF32 wgmma has no transpose bit, so this is #4's
+//   problem mirrored: #4 stages Q^T and dO^T.  Each thread reads its
+//   chunks of the tile after next into registers and splits the next
+//   tile into the free stage while this tile's products run; TF32
+//   rounding by integer operations (`split_tf32<true>`, where
+//   cvt.rna.tf32 was slower).  Each tile's dQ is summed in a fresh
+//   accumulator and added to the running sum by f32 adds (chained in
+//   the tensor cores' accumulator over 1024 keys, #4's sums drifted
+//   1.2e-5); each element's keep bit is hashed once; masks only on the
+//   tiles that need them.  225 KB: one block an SM, query tiles with the
+//   most keys first.  A 32-key tile leaves room for the second stage
+//   (64-key tiles take 96 KB a stage, one stage); warpgroups freed from
+//   the block's barrier by an mbarrier ring were slower (PERF.md).
+// - f32 at D 128 (the f32 reference checks): `flash_bwd_dq` on the FMA
+//   pipe (flash_bwd_tile.cuh): 64 rows a block, Q (pre-scaled) and dO in
+//   shared memory as f32, 4 x 4 register tiles of s and dO V^T, ds
+//   through shared memory, dq accumulated in registers.  At D 128 the
+//   hi / lo tiles of Q and dO take 256 KB for 128 rows (128 KB for 64)
+//   and those of K, V and K^T 96 KB a 32-key stage: they do not fit an
+//   SM's 227 KB.
 //
 // dK/dV kernel: one block per (key tile, kv head, batch).  K and V stay
 // in shared memory; the block loops over the G query heads of the group
@@ -1090,6 +1119,245 @@ flash_bwd_dq_wgmma(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------- dQ, f32: 3xTF32
+
+constexpr int kDqTfRows = 128;  // query rows a block of the 3xTF32 dQ kernel
+constexpr int kDqTfKeys = 32;   // keys a K/V tile of it
+
+// Shared memory of flash_bwd_dq_3xtf32 (D 64): Q hi / lo and dO hi / lo
+// [128][D], then 2 stages of K hi over lo and V hi over lo [64][D] and
+// K^T hi / lo [D][32], plus 1024 to align.
+template <int D>
+struct DqTf32Smem {
+  static constexpr int QB = kDqTfRows * D * 4;
+  static constexpr int NB = 2 * kDqTfKeys * D * 4, TB = kDqTfKeys * D * 4;
+  static constexpr int kStage = 2 * NB + 2 * TB;
+  static constexpr size_t kBytes = 4 * (size_t)QB + 2 * (size_t)kStage + 1024;
+};
+
+template <int D, bool DROP>
+__global__ void __launch_bounds__(256, 1)
+flash_bwd_dq_3xtf32(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    const float* __restrict__ mask, float* __restrict__ dq,
+                    int H, int KVH, int Sq, int Sk, long long msb,
+                    long long msh, long long msq, int causal, float scale,
+                    const long long* seed, unsigned thresh, float inv_keep) {
+  using Sm = DqTf32Smem<D>;
+  constexpr int BR = kDqTfRows, BN = kDqTfKeys, QB = Sm::QB, NB = Sm::NB,
+                TB = Sm::TB;
+  constexpr int CH = D / 4;                  // 16-byte chunks of a row
+  static_assert(D == 64 && BN == 32, "the K/V tile copy is 2 chunks a "
+                                     "thread of each");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  // Q hi / lo, dO hi / lo [BR][D]; stage s at soff(s): K hi over lo, V hi
+  // over lo [2 BN][D], K^T hi / lo [D][BN]; swizzled f32 tiles
+  const uint32_t base = wg::smem_addr(smem);
+  auto soff = [&](int s) { return 4 * QB + s * Sm::kStage; };
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int row0 = (gridDim.z - 1 - blockIdx.z) * BR;   // most keys first
+  const int kvh = h / (H / KVH);
+  const int tid = threadIdx.x, w = tid >> 7, wt = tid & 127;
+  const int warp = wt >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int off = Sk - Sq;
+  const long long qrs = (long long)H * D, krs = (long long)KVH * D;
+  // the keys the block's rows may see, and this warpgroup's
+  const int key_end =
+      causal ? min(Sk, off + min(Sq - 1, row0 + BR - 1) + 1) : Sk;
+  const int wrow0 = row0 + 64 * w;
+  const int wkey_end =
+      wrow0 >= Sq ? 0
+                  : (causal ? min(Sk, off + min(Sq - 1, wrow0 + 63) + 1) : Sk);
+
+  // Q scaled (as the plain version: q * scale, rounded once) and dO,
+  // split into hi / lo (rows past Sq zero)
+  {
+    const long long qo = (long long)b * Sq * qrs + (long long)h * D;
+#pragma unroll 4
+    for (int i = tid; i < BR * CH; i += 256) {
+      const int r = i / CH, c = (i % CH) * 4;
+      float4 xq = make_float4(0.f, 0.f, 0.f, 0.f), xo = xq;
+      if (row0 + r < Sq) {
+        xq = *reinterpret_cast<const float4*>(q + qo + (row0 + r) * qrs + c);
+        xo = *reinterpret_cast<const float4*>(dout + qo + (row0 + r) * qrs +
+                                              c);
+      }
+      uint4 hi, lo;
+      const uint32_t so = wg::swz32<BR>(r, c);
+      wg::split_tf32<true>(xq.x * scale, hi.x, lo.x);
+      wg::split_tf32<true>(xq.y * scale, hi.y, lo.y);
+      wg::split_tf32<true>(xq.z * scale, hi.z, lo.z);
+      wg::split_tf32<true>(xq.w * scale, hi.w, lo.w);
+      *reinterpret_cast<uint4*>(smem + so) = hi;
+      *reinterpret_cast<uint4*>(smem + QB + so) = lo;
+      wg::split_tf32<true>(xo.x, hi.x, lo.x);
+      wg::split_tf32<true>(xo.y, hi.y, lo.y);
+      wg::split_tf32<true>(xo.z, hi.z, lo.z);
+      wg::split_tf32<true>(xo.w, hi.w, lo.w);
+      *reinterpret_cast<uint4*>(smem + 2 * QB + so) = hi;
+      *reinterpret_cast<uint4*>(smem + 3 * QB + so) = lo;
+    }
+  }
+
+  // Tile it's K and V rows come into registers two tiles ahead: thread
+  // chunk p of each is key 16 (task % 2) + lane % 16, columns 4 (2 (task
+  // / 2) + lane / 16), task = warp + 8 p (a half-warp 16 keys of one
+  // chunk, the two halves neighbouring chunks).  Every key below Sk is
+  // read: a row whose keys are all hidden weighs those past its
+  // diagonal too, as the plain version does.
+  const float* kb = k + (long long)b * Sk * krs + kvh * D;
+  const float* vb = v + (long long)b * Sk * krs + kvh * D;
+  float4 xk[2], xv[2];
+  auto fetch = [&](int it) {
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int task = (tid >> 5) + 8 * p;
+      const int r = 16 * (task & 1) + (lane & 15), key = it * BN + r;
+      const int c = (2 * (task >> 1) + (lane >> 4)) * 4;
+      xk[p] = xv[p] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (key < Sk) {
+        xk[p] = *reinterpret_cast<const float4*>(kb + key * krs + c);
+        xv[p] = *reinterpret_cast<const float4*>(vb + key * krs + c);
+      }
+    }
+  };
+  // ... and into stage s, split: K and V each as a row tile, hi rows
+  // over lo rows (the B operand of S = Q K^T and dP = dO V^T), and K as a
+  // transposed tile [D][BN] hi and lo whose 8-key slices hold their keys
+  // in key_slot order (the B operand of dQ += dS K, read against
+  // frag_a_tf32 of dS: TF32 wgmma has no transpose bit)
+  auto stage = [&](int s) {
+    const uint32_t o = soff(s);
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int task = (tid >> 5) + 8 * p;
+      const int r = 16 * (task & 1) + (lane & 15);
+      const int c = (2 * (task >> 1) + (lane >> 4)) * 4;
+      const int slot = wg::key_slot(r);
+      const uint32_t so = wg::swz32<2 * BN>(r, c);
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {          // K, then V
+        const float4 x = t ? xv[p] : xk[p];
+        const float e[4] = {x.x, x.y, x.z, x.w};
+        uint32_t hi[4], lo[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) wg::split_tf32<true>(e[j], hi[j], lo[j]);
+        *reinterpret_cast<uint4*>(smem + o + t * NB + so) =
+            make_uint4(hi[0], hi[1], hi[2], hi[3]);
+        *reinterpret_cast<uint4*>(smem + o + t * NB + so + BN * 128) =
+            make_uint4(lo[0], lo[1], lo[2], lo[3]);
+        if (t == 0) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const uint32_t to = wg::swz32<D>(c + j, slot);
+            *reinterpret_cast<uint32_t*>(smem + o + 2 * NB + to) = hi[j];
+            *reinterpret_cast<uint32_t*>(smem + o + 2 * NB + TB + to) = lo[j];
+          }
+        }
+      }
+    }
+  };
+  const int ntiles = (key_end + BN - 1) / BN;
+  if (ntiles > 0) {
+    fetch(0);
+    stage(0);
+  }
+  if (ntiles > 1) fetch(1);
+
+  // this thread's two rows: lse, delta and dropout keys; rows past Sq
+  // take 0 and are never stored
+  wg::TfRows rw;
+  rw.r_a = wrow0 + 16 * warp + g;
+  rw.r_b = rw.r_a + 8;
+  const long long lo = ((long long)b * H + h) * Sq;
+  rw.lse_a = rw.r_a < Sq ? lse[lo + rw.r_a] : 0.f;
+  rw.lse_b = rw.r_b < Sq ? lse[lo + rw.r_b] : 0.f;
+  rw.dl_a = rw.r_a < Sq ? delta[lo + rw.r_a] : 0.f;
+  rw.dl_b = rw.r_b < Sq ? delta[lo + rw.r_b] : 0.f;
+  rw.ml_a = rw.lse_a * wg::kLog2e;
+  rw.ml_b = rw.lse_b * wg::kLog2e;
+  Dropout drop;
+  rw.rk_a = rw.rk_b = 0;
+  if constexpr (DROP) {
+    drop.init(seed, b, h, thresh, inv_keep);
+    rw.rk_a = drop.row(rw.r_a);
+    rw.rk_b = drop.row(rw.r_b);
+  }
+  const float* mb = mask ? mask + b * msb + h * msh : nullptr;
+  auto add = [&](int, int r, int key) {
+    return mb ? mb[(long long)r * msq + key] : 0.f;
+  };
+  const uint32_t qw = base + w * 64 * 128;   // this warpgroup's Q / dO rows
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int it = 0; it < ntiles; ++it) {
+    const int t0 = it * BN;
+    wg::fence_async_smem();
+    __syncthreads();            // stage it is in; tile it - 1 is read
+    const bool mine = t0 < wkey_end;         // uniform over the warpgroup
+    const uint32_t st = base + soff(it & 1);
+    float sc[32], dc[32];
+    if (mine)
+      wg::sdp_issue_3xtf32<BR, D>(sc, dc, qw, qw + QB, qw + 2 * QB,
+                                  qw + 3 * QB, st, st + NB);
+    // the next tile into the other stage while the products run, and
+    // the one after it into registers
+    if (it + 1 < ntiles) stage((it + 1) & 1);
+    if (it + 2 < ntiles) fetch(it + 2);
+    if (!mine) continue;
+
+    const bool edge = mb != nullptr || t0 + BN > Sk ||
+                      (causal && t0 + BN - 1 > off + wrow0);
+    float ds[16];
+    wg::ds_3xtf32<DROP>(ds, sc, dc, rw, t0, t4, edge, causal, off, Sq, Sk,
+                        drop, add);
+    // dQ += dS K: hi hi + hi lo + lo hi into a tile accumulator that the
+    // first product overwrites, added to dQ by f32 adds (a sum chained in
+    // the tensor cores' accumulator over 1024 keys drifts, as #4's did)
+    uint32_t dh[BN / 8][4], dl[BN / 8][4];
+#pragma unroll
+    for (int kk = 0; kk < BN / 8; ++kk)
+      wg::frag_a_tf32<true>(ds, kk, dh[kk], dl[kk]);
+    float tacc[D / 2];
+    const uint32_t kth = st + 2 * NB, ktl = kth + TB;
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 8; ++kk) {
+      wg::WgmmaTf32<D>::rs(tacc, dh[kk], wg::desc_k<D>(kth, kk), kk > 0);
+      wg::WgmmaTf32<D>::rs(tacc, dh[kk], wg::desc_k<D>(ktl, kk));
+      wg::WgmmaTf32<D>::rs(tacc, dl[kk], wg::desc_k<D>(kth, kk));
+    }
+    wg::commit();
+    wg::wait<0>();
+    wg::keep(tacc);
+    wg::keep(dh);
+    wg::keep(dl);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] += tacc[i];
+  }
+
+  // dQ rows out (scaled once): a quad writes 8 neighbouring floats a store
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int c = 8 * j + 2 * t4;
+    if (rw.r_a < Sq)
+      *reinterpret_cast<float2*>(dq + ((long long)b * Sq + rw.r_a) * qrs +
+                                 (long long)h * D + c) =
+          make_float2(acc[4 * j] * scale, acc[4 * j + 1] * scale);
+    if (rw.r_b < Sq)
+      *reinterpret_cast<float2*>(dq + ((long long)b * Sq + rw.r_b) * qrs +
+                                 (long long)h * D + c) =
+          make_float2(acc[4 * j + 2] * scale, acc[4 * j + 3] * scale);
+  }
+}
+
 // The operands of one backward launch, as the C entry points take them.
 struct BwdArgs {
   const void *q, *k, *v, *dout;
@@ -1187,15 +1455,34 @@ cudaError_t launch_dq_wgmma(const BwdArgs& a) {
   return cudaGetLastError();
 }
 
-// dQ (which 0) and dK/dV (which 1): bf16 / f16 on wgmma; f32 dQ on the
-// FMA pipe, f32 dK/dV on 3xTF32 wgmma at D 64 and on the FMA pipe at
-// D 128 (whose K, V and Q-side hi / lo tiles would not fit an SM)
+template <int D, bool DROP>
+cudaError_t launch_dq_3xtf32(const BwdArgs& a) {
+  const size_t smem = DqTf32Smem<D>::kBytes;
+  static bool smem_set = false;
+  cudaError_t e = allow_smem(flash_bwd_dq_3xtf32<D, DROP>, smem, &smem_set);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(a.H, a.B, (a.Sq + kDqTfRows - 1) / kDqTfRows);
+  flash_bwd_dq_3xtf32<D, DROP><<<grid, 256, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      a.lse, a.delta, a.mask, static_cast<float*>(a.o0), a.H, a.KVH, a.Sq,
+      a.Sk, a.ms[0], a.ms[1], a.ms[2], a.causal, a.scale, a.seed, a.thresh,
+      a.inv_keep);
+  return cudaGetLastError();
+}
+
+// dQ (which 0) and dK/dV (which 1): bf16 / f16 on wgmma; f32 on 3xTF32
+// wgmma at D 64 and on the FMA pipe at D 128 (whose hi / lo tiles would
+// not fit an SM)
 template <typename T, int D, bool DROP>
 cudaError_t launch(int which, const BwdArgs& a) {
   if constexpr (std::is_same<T, float>::value) {
-    if (which == 0) return launch_dq<T, D, DROP>(a);
-    if constexpr (D == 64) return launch_dkv_3xtf32<D, DROP>(a);
-    else return launch_dkv<T, D, DROP>(a);
+    if constexpr (D == 64)
+      return which == 0 ? launch_dq_3xtf32<D, DROP>(a)
+                        : launch_dkv_3xtf32<D, DROP>(a);
+    else
+      return which == 0 ? launch_dq<T, D, DROP>(a)
+                        : launch_dkv<T, D, DROP>(a);
   } else
     return which == 0 ? launch_dq_wgmma<T, D, DROP>(a)
                       : launch_dkv_wgmma<T, D, DROP>(a);

@@ -563,9 +563,11 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, mask, mstrides,
                            causal, dropout_p: float = 0.0, seed=None):
     """Launch of the dQ kernel on ``flash_attention_bwd_operands``: one
     block per (query tile, head, batch) -- 128 rows on the tensor cores
-    for bf16/f16 (``flash_bwd_dq_wgmma``), 64 on the FMA pipe for f32
-    (``flash_bwd_dq``) -- streaming K/V tiles up to the causal diagonal.
-    Returns dq [B, Sq, H, D], each row written once, without atomics."""
+    for bf16/f16 (``flash_bwd_dq_wgmma``) and for f32 at head_dim 64
+    (``flash_bwd_dq_3xtf32``, three TF32 products a product), 64 on the
+    FMA pipe for f32 at 128 (``flash_bwd_dq``) -- streaming K/V tiles up
+    to the causal diagonal.  Returns dq [B, Sq, H, D], each row written
+    once, without atomics."""
     dq = torch.empty_like(q)
     _launch("flash_attention_bwd_dq", (dq,), q, k, v, do, lse, delta, mask,
             mstrides, causal, dropout_p, seed)
@@ -607,8 +609,11 @@ def flash_attention_bwd_dbias(q, k, v, do, lse, delta, bias, causal,
     """Launch of the bias-gradient kernel on the operands of
     ``flash_attention_bwd_operands`` and the trained bias ``[B|1, H|1,
     Sq, Sk]``: one block per (64-key tile, 64-row query tile, bias batch
-    x bias head), summing the broadcast dims in registers.  Returns
-    dbias ``[MB, MH, Sq, Sk]`` f32, written once, without atomics."""
+    x bias head), summing the broadcast dims in registers -- on the
+    tensor cores for f32 at head_dim 64 (``flash_dbias_3xtf32``), on the
+    FMA pipe for 16-bit inputs and head_dim 128 (``flash_dbias``).
+    Returns dbias ``[MB, MH, Sq, Sk]`` f32, written once, without
+    atomics."""
     b4 = _bias4(q, bias).contiguous()
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]

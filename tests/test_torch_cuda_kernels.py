@@ -61,7 +61,13 @@ tolerance, pools bit-equal, the same bits on two launches, one kernel a
 call.  #4's f32 route (3xTF32 at D 64, the FMA pipe at 128) is held to
 1e-5 of the largest gradient element with dropout 0, 0.1 and 0.5,
 causal or not, masks, GQA 2 and ragged lengths, gives the same bits on
-two launches and launches ``flash_bwd_dkv_3xtf32`` alone.
+two launches and launches ``flash_bwd_dkv_3xtf32`` alone.  So is #3's
+f32 route (3xTF32 at D 64, the FMA pipe at 128), also at Sk > Sq under
+causal masking, on rows whose every key is hidden and at GQA 4, with
+``flash_bwd_dq_3xtf32`` alone on its launch; and #5's f32 route at D 64
+(``flash_dbias_3xtf32``) at every bias broadcast, GQA 1 and 4 and
+ragged tiles, the same bits on two launches and alone on its launch,
+while f32 at D 128 stays on ``flash_dbias``.
 """
 import ctypes
 
@@ -1950,3 +1956,150 @@ def test_flash_dkv_3xtf32_is_bit_identical_and_alone(dev):
     names = {ev.key.split("(")[0] for ev in prof.key_averages()
              if ev.device_type == torch.autograd.DeviceType.CUDA}
     assert names == {"void ptt::flash_bwd_dkv_3xtf32<64, true>"}, names
+
+
+# #3's f32 route: 3xTF32 on wgmma at D 64 (``flash_bwd_dq_3xtf32``), the
+# FMA pipe at D 128; both held to the f32 gradient tolerance.  "+rows"
+# also hides every key of some rows, which the plain version weighs
+# alike: with causal masking those rows lie in the last 64 rows (a row
+# above them sees only the keys its 64-row tile reaches).
+DQ_F32_CASES = [
+    # b, sq, sk, h, kvh, d, causal, mask, dropout p
+    (2, 130, 130, 4, 4, 64, True, None, 0.1),
+    (1, 100, 230, 8, 4, 64, True, None, 0.0),
+    (1, 100, 230, 8, 2, 64, True, None, 0.5),
+    (2, 130, 100, 8, 2, 64, False, "b1qk", 0.1),
+    (1, 100, 130, 8, 4, 64, True, "1h1k", 0.0),
+    (1, 200, 260, 8, 2, 64, True, "11qk+rows", 0.1),
+    (1, 130, 200, 4, 1, 64, False, "11qk+rows", 0.0),
+    (1, 1024, 1024, 4, 4, 64, True, None, 0.1),
+    (1, 100, 130, 8, 4, 128, True, None, 0.1),
+    (1, 130, 100, 4, 2, 128, False, "1h1k", 0.5),
+]
+
+
+def _f32_mask(dev, b, sq, sk, h, causal, mshape):
+    if mshape is None:
+        return None
+    gen = torch.Generator(device=dev).manual_seed(12)
+    kind, _, rows = mshape.partition("+")
+    shape = {"b1qk": (b, 1, sq, sk), "1h1k": (1, h, 1, sk),
+             "11qk": (1, 1, sq, sk)}[kind]
+    mask = torch.randn(shape, generator=gen, device=dev)
+    mask[..., -(sk // 4):] = -1e30
+    if rows:
+        first = 64 * ((sq - 1) // 64) if causal else 0
+        mask[..., first::3, :] = -1e30
+        mask[..., -1, :] = -1e30
+    return mask
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kvh,d,causal,mshape,p", DQ_F32_CASES)
+def test_flash_dq_f32_matches_plain(dev, b, sq, sk, h, kvh, d, causal,
+                                    mshape, p):
+    """dQ against the plain backward fed the same seed: within 1e-5 of the
+    largest element (3xTF32 leaves out lo lo', about 2^-22 of a
+    product), at ragged Sq / Sk, Sk > Sq under causal masking, fully
+    hidden rows, GQA groups 1, 2 and 4 and dropout 0, 0.1 and 0.5."""
+    q, k, v, do = _attn_inputs(dev, torch.float32, b, sq, sk, h, kvh, d)
+    mask = _f32_mask(dev, b, sq, sk, h, causal, mshape)
+    seed = torch.tensor(779, dtype=torch.int64, device=dev)
+    kw = dict(causal=causal, mask=mask, dropout_p=p,
+              seed=seed if p else None)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    ops = fa.flash_attention_bwd_operands(q, k, v, out, lse, do, causal,
+                                          mask)
+    got = fa.flash_attention_bwd_dq(*ops, causal, p, kw["seed"])
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, **kw)[0]
+    torch.cuda.synchronize()
+    _assert_grads_close([got], [want], torch.float32)
+
+
+def _traced_names(fn):
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, {ev.key.split("(")[0] for ev in prof.key_averages()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def test_flash_dq_3xtf32_is_bit_identical_and_alone(dev):
+    """The 3xTF32 dQ writes each row once, without atomics: two launches
+    give the same bits, and a D 64 f32 call launches
+    ``flash_bwd_dq_3xtf32`` and nothing else."""
+    q, k, v, do = _attn_inputs(dev, torch.float32, 2, 700, 700, 8, 4, 64)
+    seed = torch.tensor(780, dtype=torch.int64, device=dev)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True, dropout_p=0.1,
+                                      seed=seed)
+    ops = fa.flash_attention_bwd_operands(q, k, v, out, lse, do, True, None)
+    first = fa.flash_attention_bwd_dq(*ops, True, 0.1, seed)
+    torch.cuda.synchronize()
+    second, names = _traced_names(
+        lambda: fa.flash_attention_bwd_dq(*ops, True, 0.1, seed))
+    assert torch.equal(first, second)
+    assert names == {"void ptt::flash_bwd_dq_3xtf32<64, true>"}, names
+
+
+# #5's f32 route at D 64: 3xTF32 on wgmma (``flash_dbias_3xtf32``); D 128
+# stays on the FMA pipe
+@pytest.mark.parametrize("mshape,kvh", [((1, 8, 130, 100), 8),
+                                        ((2, 1, 130, 100), 2),
+                                        ((1, 1, 130, 100), 8),
+                                        ((2, 8, 130, 100), 2),
+                                        ((1, 8, 130, 100), 2)], ids=str)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_dbias_f32_matches_plain_at_ragged_tiles(dev, mshape, kvh, causal,
+                                                 p):
+    """#5 f32 D 64 against its plain version at Sq 130 and Sk 100 (off
+    the 64 tiles, Sk < Sq only without causal masking) with every bias
+    broadcast and GQA groups 1 and 4: 1e-5 of the largest element."""
+    sq, sk = (130, 100) if not causal else (100, 130)
+    mshape = mshape[:2] + (sq, sk)
+    q, k, v, do = _attn_inputs(dev, torch.float32, 2, sq, sk, 8, kvh, 64)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    bias = torch.randn(mshape, generator=gen, device=dev) * 0.5
+    seed = torch.tensor(781, dtype=torch.int64, device=dev)
+    kw = dict(causal=causal, dropout_p=p, seed=seed)
+    out, lse = fa.flash_attention_fwd(q, k, v, mask=bias, **kw)
+    got = fa.flash_attention_dbias(q, k, v, out, lse, do, bias, **kw)
+    want = fa.flash_attention_dbias_reference(q, k, v, out, lse, do, bias,
+                                              **kw)
+    torch.cuda.synchronize()
+    _assert_grads_close([got], [want], torch.float32)
+
+
+def test_dbias_f32_d128_stays_on_its_kernel(dev):
+    """f32 at D 128 still runs ``flash_dbias`` (FMA pipe), within 1e-5."""
+    q, k, v, do = _attn_inputs(dev, torch.float32, 2, 96, 96, 4, 2, 128)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    bias = torch.randn(1, 4, 96, 96, generator=gen, device=dev) * 0.5
+    seed = torch.tensor(782, dtype=torch.int64, device=dev)
+    kw = dict(causal=True, dropout_p=0.1, seed=seed)
+    out, lse = fa.flash_attention_fwd(q, k, v, mask=bias, **kw)
+    got, names = _traced_names(lambda: fa.flash_attention_dbias(
+        q, k, v, out, lse, do, bias, **kw))
+    want = fa.flash_attention_dbias_reference(q, k, v, out, lse, do, bias,
+                                              **kw)
+    _assert_grads_close([got], [want], torch.float32)
+    assert "void ptt::flash_dbias<float, 128, true>" in names, names
+
+
+def test_dbias_3xtf32_is_bit_identical_and_alone(dev):
+    """The 3xTF32 dbias sums the broadcast (b, h) in a fixed order and
+    writes each element once: two launches give the same bits, and the
+    launch is ``flash_dbias_3xtf32`` alone."""
+    q, k, v, do = _attn_inputs(dev, torch.float32, 4, 300, 300, 8, 2, 64)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    bias = torch.randn(1, 8, 300, 300, generator=gen, device=dev) * 0.5
+    seed = torch.tensor(783, dtype=torch.int64, device=dev)
+    kw = dict(causal=True, dropout_p=0.1, seed=seed)
+    out, lse = fa.flash_attention_fwd(q, k, v, mask=bias, **kw)
+    ops = fa.flash_attention_bwd_operands(q, k, v, out, lse, do, True, bias)
+    first = fa.flash_attention_bwd_dbias(*ops[:6], bias, True, 0.1, seed)
+    torch.cuda.synchronize()
+    second, names = _traced_names(lambda: fa.flash_attention_bwd_dbias(
+        *ops[:6], bias, True, 0.1, seed))
+    assert torch.equal(first, second)
+    assert names == {"void ptt::flash_dbias_3xtf32<64, true>"}, names

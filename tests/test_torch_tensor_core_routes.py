@@ -13,7 +13,9 @@ CPU.
   the MoE step, the grouped matmul, fused gate/up and dW families too);
   a traced serve only if #1's attention kernels are its route's
   (``mma.sync`` for bf16 over bf16 pools, 3xTF32 for f32 q over bf16
-  pools) and not the FMA-pipe ``ragged_attend`` they replaced.
+  pools) and not the FMA-pipe ``ragged_attend`` they replaced; the f32
+  routes (#2, #4, #3 and #5 on 3xTF32, #11's streaming rows, the split
+  decode) only if no traced kernel is the one they replaced.
 - The plain dW (the yardstick of the wgmma dW kernel on the card)
   against the reference's ``_gmm_dw_call`` in interpret mode: rows past
   an expert's count are never read, whatever they hold, and the plan's
@@ -320,6 +322,43 @@ def test_route_gate_holds_the_split_decode_and_f32_dkv(phase, old):
     else:
         cs.check_tensor_core_route({"routed_kernel_ms": prof}, phase,
                                    (fam,), design=design)
+
+
+# #3's f32 dQ and #5's f32 bias gradient (3xTF32 on wgmma): the GPT-2
+# step's dQ and the encoder layer's dbias
+DQ_DBIAS_ROUTES = {
+    # family: (phase, new kernel names, the name it replaced)
+    "flash_bwd_dq": ("train_gpt2_profile", [
+        "void ptt::flash_bwd_dq_3xtf32<64, true>"],
+        "void ptt::flash_bwd_dq<float, 64, true>"),
+    "flash_dbias": ("encoder_bias_profile", [
+        "void ptt::flash_dbias_3xtf32<64, true>"],
+        "void ptt::flash_dbias<float, 64, true>"),
+}
+
+
+@pytest.mark.parametrize("fam", list(DQ_DBIAS_ROUTES))
+@pytest.mark.parametrize("old", [False, True], ids=["new", "old_kernel"])
+def test_route_gate_holds_the_f32_dq_and_dbias(fam, old):
+    """The design labels read from the 3xTF32 dQ and dbias kernels'
+    traced names, and the gate on them: the new kernels pass, a trace
+    that still shows the FMA-pipe kernel they replaced fails."""
+    cs = _chip_smoke()
+    phase, names, replaced = DQ_DBIAS_ROUTES[fam]
+    assert fam in cs.ROUTED_FAMILIES
+    assert {cs.design_of(n) for n in names} == {"3xtf32"}
+    assert {cs.kernel_family(n) for n in names} == {fam}
+    assert cs.kernel_family(replaced) == fam
+    assert cs.design_of(replaced) == "fma"
+    prof = {n: 1.0 for n in names}
+    if old:
+        prof[replaced] = 1.0
+        with pytest.raises(cs.SmokeFailure, match="3xtf32 route"):
+            cs.check_tensor_core_route({"routed_kernel_ms": prof}, phase,
+                                       (fam,), design="3xtf32")
+    else:
+        cs.check_tensor_core_route({"routed_kernel_ms": prof}, phase,
+                                   (fam,), design="3xtf32")
 
 
 # #1's routes in the traced serves: the bf16 serves (Llama-3-8B at group

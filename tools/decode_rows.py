@@ -1,22 +1,28 @@
 #!/usr/bin/env python3
-"""The split decode kernels' rows (#7, #6) and #4's f32 dropout row alone,
-as ``chip_smoke.py`` builds them.
+"""The split decode kernels' rows (#7, #6) and the f32 dropout backward
+rows (#4's dK/dV, #3's dQ) and #5's f32 row alone, as ``chip_smoke.py``
+builds them.
 
-    python3 tools/decode_rows.py [--decode-only | --dkv-only]
+    python3 tools/decode_rows.py [--decode-only | --dkv-only | --dq-only
+                                  | --dbias-only]
 
 Run from the root of a checkout (or of a copy holding a variant of
-``paddle_tpu_torch/csrc/paged_decode_attention.cu`` or
-``flash_attention_bwd.cu``; the script reads nothing of the checkout
-beyond ``chip_smoke.py``'s case builders) on a machine with a CUDA GPU.
-At the split serve's decode shape (``chip_smoke.decode_case``) it holds
-#7 and #6 against their plain versions in five modes (bf16 pools at GQA
-group 4 and 1, int8 pools at group 4 and 1, f32 q over bf16 pools), and
-at GPT-2's training attention ([8, 1024, 12, 64] f32, causal, dropout
-0.1) the dK/dV kernel against the plain backward, and prints a JSON
-line each: CUDA-event ms, the traced device ms a call of the kernel's
-family, the names of the traced kernels, the bound, the largest error
-and (decode) whether the pools equal the plain version's.  It checks
-nothing: ``chip_smoke.py`` is the check.
+``paddle_tpu_torch/csrc/paged_decode_attention.cu``,
+``flash_attention_bwd.cu`` or ``flash_attention_dbias.cu``; the script
+reads nothing of the checkout beyond ``chip_smoke.py``'s case builders)
+on a machine with a CUDA GPU.  At the split serve's decode shape
+(``chip_smoke.decode_case``) it holds #7 and #6 against their plain
+versions in five modes (bf16 pools at GQA group 4 and 1, int8 pools at
+group 4 and 1, f32 q over bf16 pools); at GPT-2's training attention
+([8, 1024, 12, 64] f32, causal, dropout 0.1) the dK/dV and the dQ
+kernels against the plain backward; and at the trained bias of
+``encoder_bias`` ([1, 12, 1024, 1024] over that attention) the bias
+gradient against its plain version.  It prints a JSON line each:
+CUDA-event ms, the traced device ms a call of the kernel's family, the
+names of the traced kernels, the bound, the errors and whether two
+launches give the same bits (decode: whether the pools equal the plain
+version's).  With no option it runs every row; an option runs its rows
+alone.  It checks nothing: ``chip_smoke.py`` is the check.
 """
 import json
 import sys
@@ -83,36 +89,87 @@ def decode_rows(dev, gen):
         torch.cuda.empty_cache()
 
 
-def dkv_row(dev, gen):
+def gpt_attention(dev, gen):
+    """GPT-2's training attention: q, k, v, dO [8, 1024, 12, 64] f32, the
+    seed and keyword arguments of its dropout."""
     b, s, h, d = cs.GPT_BATCH, cs.GPT_SEQ, cs.GPT_HEADS, \
         cs.GPT_WIDTH // cs.GPT_HEADS
     q, k, v, do = (torch.randn((b, s, h, d), generator=gen, device=dev)
                    for _ in range(4))
     seed = torch.tensor(cs.SEED + 11, dtype=torch.int64, device=dev)
-    kw = dict(causal=True, dropout_p=cs.GPT_DROP, seed=seed)
+    return (q, k, v, do), seed, dict(causal=True, dropout_p=cs.GPT_DROP,
+                                     seed=seed)
+
+
+def bwd_row(dev, gen, key):
+    """#4's dK/dV (``key`` "dkv") or #3's dQ ("dq") at GPT-2's dropout
+    attention."""
+    (q, k, v, do), seed, kw = gpt_attention(dev, gen)
     out, lse = fa.flash_attention_fwd(q, k, v, **kw)
     ops = fa.flash_attention_bwd_operands(q, k, v, out, lse, do, True, None)
+    launch = fa.flash_attention_bwd_dkv if key == "dkv" \
+        else fa.flash_attention_bwd_dq
 
     def fn():
-        return fa.flash_attention_bwd_dkv(*ops, True, cs.GPT_DROP, seed)
-    dk, dv = fn()
-    _, want_dk, want_dv = fa.flash_attention_bwd_reference(
-        q, k, v, out, lse, do, **kw)
+        got = launch(*ops, True, cs.GPT_DROP, seed)
+        return got if key == "dkv" else (got,)
+    got = fn()
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, **kw)
+    want = want[1:] if key == "dkv" else want[:1]
     torch.cuda.synchronize()
+    names = ("dk", "dv") if key == "dkv" else ("dq",)
     errs = {n: {"rel_l2_err": cs.rel_l2(g, w), "rel_err": cs.rel_err(g, w)}
-            for n, g, w in (("dk", dk, want_dk), ("dv", dv, want_dv))}
+            for n, g, w in zip(names, got, want)}
     again = fn()
     torch.cuda.synchronize()
-    flops, n_bytes = cs.attention_cost(b, s, h, h, d, 4)["dkv"]
+    flops, n_bytes = cs.attention_cost(*q.shape[:3], k.shape[2],
+                                       q.shape[3], 4)[key]
     ms = cs.timed_ms(torch, fn, 10)
-    dev_ms, count, names = traced(fn, "flash_bwd_dkv")
-    print(json.dumps({"name": "flash_attention_bwd_dkv_dropout", "ms": ms,
-                      "device_ms": dev_ms, "traced_count": count,
-                      "kernels": names,
+    dev_ms, count, kernels = traced(fn, f"flash_bwd_{key}")
+    print(json.dumps({"name": f"flash_attention_bwd_{key}_dropout",
+                      "ms": ms, "device_ms": dev_ms, "traced_count": count,
+                      "kernels": kernels,
                       **cs.f32_bounds(n_bytes, flops, tensor_cores=True),
                       "errors": errs,
-                      "bit_identical": torch.equal(again[0], dk)
-                      and torch.equal(again[1], dv)}), flush=True)
+                      "bit_identical": all(torch.equal(a, b)
+                                           for a, b in zip(again, got))}),
+          flush=True)
+
+
+def dbias_row(dev, gen):
+    """#5 at ``encoder_bias``'s bias [1, 12, 1024, 1024] over GPT-2's
+    dropout attention."""
+    (q, k, v, do), seed, kw = gpt_attention(dev, gen)
+    b, s, h, d = q.shape
+    bias = 0.5 * torch.randn((1, h, s, s), generator=gen, device=dev)
+    out, lse = fa.flash_attention_fwd(q, k, v, mask=bias, **kw)
+    ops = fa.flash_attention_bwd_operands(q, k, v, out, lse, do, True, bias)
+
+    def fn():
+        return fa.flash_attention_bwd_dbias(*ops[:6], bias, True,
+                                            cs.GPT_DROP, seed)
+    got = fn()
+    want = fa.flash_attention_dbias_reference(q, k, v, out, lse, do, bias,
+                                              **kw)
+    again = fn()
+    torch.cuda.synchronize()
+    flops, n_bytes = cs.dbias_cost(b, s, h, d)
+    ms = cs.timed_ms(torch, fn, 10)
+    dev_ms, count, kernels = traced(fn, "flash_dbias")
+    print(json.dumps({"name": "flash_attention_dbias", "ms": ms,
+                      "device_ms": dev_ms, "traced_count": count,
+                      "kernels": kernels,
+                      **cs.f32_bounds(n_bytes, flops, tensor_cores=True),
+                      "errors": {"rel_l2_err": cs.rel_l2(got, want),
+                                 "rel_err": cs.rel_err(got, want)},
+                      "bit_identical": torch.equal(again, got)}),
+          flush=True)
+
+
+ROWS = {"--decode-only": decode_rows,
+        "--dkv-only": lambda dev, gen: bwd_row(dev, gen, "dkv"),
+        "--dq-only": lambda dev, gen: bwd_row(dev, gen, "dq"),
+        "--dbias-only": dbias_row}
 
 
 def main():
@@ -121,10 +178,10 @@ def main():
         return 1
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
-    if "--dkv-only" not in sys.argv:
-        decode_rows(dev, gen)
-    if "--decode-only" not in sys.argv:
-        dkv_row(dev, gen)
+    chosen = [opt for opt in ROWS if opt in sys.argv[1:]] or list(ROWS)
+    for opt in chosen:
+        ROWS[opt](dev, gen)
+        torch.cuda.empty_cache()
     return 0
 
 
