@@ -61,7 +61,16 @@ with the launch counts set to 0 just before and read just after:
   forward whose K and V are rounded to bf16; then preemption on that
   engine: requests suspended into the host swap pool, past a full pool
   (recomputed through #7), and migrated to a second engine, each
-  request's tokens held against an unpreempted run.
+  request's tokens held against an unpreempted run;
+- sampling and speculative decoding on the ``serve`` model and requests:
+  ``LLMEngine`` with ``top_k`` 50, ``top_p`` 0.9, temperature 0.8 and a
+  seed (unified and split), its threefry draws against the CPU's and
+  against ``filtered_probs``; ``model.generate`` (batch 4 x 128 prompt
+  ids, 32 new tokens: greedy, sampling, beam search) with its #2, #9 and
+  #10 launches counted; ``LLMEngine(draft_model=..., spec_k=4)`` with a
+  random draft at Llama-3.2-1B's widths, with the target drafting for
+  itself and in rejection mode, #1, #2 and #7 counted; then the same
+  paths at f32, 2 layers, against the engine's greedy tokens.
 
 Every 16-bit training step must trace only the tensor-core (``wgmma``)
 kernels of the flash forward, dQ and dK/dV families, the fused step
@@ -86,6 +95,7 @@ table, the card's name and power limit as nvidia-smi reports them, and
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import gc
@@ -2579,6 +2589,12 @@ PREEMPT_NEW = 48
 LATE_LENS = {"n50": 50, "n150": 150, "n20": 20}
 LATE_NEW = 16
 MARGIN_TOL = 1e-3       # relative top-2 logit margin of a tolerated split
+# bf16 logits at full depth: a tolerated split's top-2 margin in bf16 steps
+# of the top logit (a step is 2^-8 to 2^-7 of it).  Coarse: two paths'
+# bf16 logits over 32 random layers part by several steps (first splits
+# seen at 3 and 4), so it catches gross errors only; the f32 2-layer
+# checks (``f32_decode_agreement``) hold the same paths to MARGIN_TOL
+BF16_MARGIN_STEPS = 8
 
 
 def serve_default_pools(torch, dev, table, model, prompts):
@@ -2620,11 +2636,22 @@ def top2_margin(logits):
     return ((top[0] - top[1]) / top[0].abs().clamp_min(1e-30)).item()
 
 
+def bf16_steps(logits):
+    """The top-2 margin of bf16 logits in bf16 steps (2^(e - 7) at the
+    top logit's binade 2^e)."""
+    top = logits.float().topk(2).values
+    step = 2.0 ** (math.floor(math.log2(top[0].abs().clamp_min(1e-30)
+                                        .item())) - 7)
+    return ((top[0] - top[1]) / step).item()
+
+
 def agreement(torch, eng, prompts, got, want):
     """Per request: tokens equal, or the first divergence with the top-2
     margin (relative) of the unpreempted run's choice there, from a
     prefill of the prompt and the unpreempted tokens before it on
-    ``eng``.  Fails on a divergence whose margin exceeds MARGIN_TOL."""
+    ``eng``.  Fails on a divergence whose margin exceeds MARGIN_TOL, or,
+    where ``eng``'s logits are bf16 (a relative step of 2^-8 to 2^-7),
+    BF16_MARGIN_STEPS bf16 steps of the top logit."""
     rep = {}
     for rid, w in want.items():
         g = got[rid]
@@ -2640,6 +2667,14 @@ def agreement(torch, eng, prompts, got, want):
         margin = top2_margin(logits)
         rep[rid] = {"equal": False, "first_divergence": j,
                     "top2_margin_rel": margin}
+        if logits.dtype == torch.bfloat16:
+            steps = bf16_steps(logits)
+            rep[rid]["top2_margin_bf16_steps"] = steps
+            check(steps <= BF16_MARGIN_STEPS,
+                  f"request {rid} parts from the other run at token {j} "
+                  f"where the top-2 margin is {steps} bf16 steps, above "
+                  f"{BF16_MARGIN_STEPS}")
+            continue
         check(margin <= MARGIN_TOL,
               f"request {rid} parts from the unpreempted run at token {j} "
               f"where the top-2 margin is {margin} (relative), above "
@@ -2774,6 +2809,453 @@ def preempt_phase(torch, np, dev, model, kw):
           "run_s": run_s, "agreement": rep,
           "all_equal": all(v["equal"] for v in rep.values())})
     del eng, dst
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# -- sampling, the model's own decode and speculative decoding ---------------
+SAMPLING = dict(decode_strategy="sampling", top_k=50, top_p=0.9,
+                temperature=0.8, seed=1234)
+SAMPLING_SPLIT_SPS = 8
+TV_DRAWS, TV_CHUNK, TV_TOL = 65536, 2048, 0.03
+DRAW_ROWS = 64              # card against CPU draws of one logits row
+DRAW_GAP = 1e-5             # a row's tokens must agree above this gap
+GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 128, 32
+SPEC_K = 4
+MIN_SELF_ACCEPTANCE = 0.9
+# the f32 2-layer decode check: prompts (the first two, of equal length,
+# also through generate) and new tokens
+F32_DECODE_LENS, F32_DECODE_NEW = (128, 128, 37, 200), 16
+
+
+def llama32_1b_draft_config(cfg):
+    """A draft at Llama-3.2-1B's published widths (hidden 2048, MLP 8192,
+    16 layers, 32 heads of 64, 8 KV heads, tied embeddings, rope theta
+    500000; without Llama 3.2's rope scaling), the target's vocabulary
+    and position limit."""
+    return dataclasses.replace(
+        cfg, hidden_size=2048, intermediate_size=8192, num_hidden_layers=16,
+        num_attention_heads=32, num_key_value_heads=8,
+        tie_word_embeddings=True, rope_theta=500000.0)
+
+
+def draws_card_vs_cpu(torch, np, dev, logits):
+    """One bf16 logits row repeated over DRAW_ROWS rows, drawn per row on
+    the card and on the CPU with the same key: the random words equal,
+    and the tokens equal in every row whose two largest perturbed
+    filtered logits are more than DRAW_GAP apart (``log`` rounds on its
+    own on each device).  Unfiltered and with the phase's filters."""
+    from paddle_tpu_torch.common import prng
+    from paddle_tpu_torch.nn.generation import _filtered_logits, sample_logits
+    key = prng.prng_key(SAMPLING["seed"])
+    v = logits.shape[-1]
+    x = logits[None].expand(DRAW_ROWS, v)
+    rows = np.arange(DRAW_ROWS)
+    rep = {"rows": DRAW_ROWS,
+           "bits_equal": bool(torch.equal(
+               prng.random_bits(key, (DRAW_ROWS, v), device=dev).cpu(),
+               prng.random_bits(key, (DRAW_ROWS, v))))}
+    check(rep["bits_equal"], "threefry words on the card differ from the CPU")
+    keys = prng.fold_in_rows(key, torch.as_tensor(rows))
+    noise = prng._gumbel_from_bits(prng._bits_at(
+        keys[:, 0:1], keys[:, 1:2], torch.arange(v)[None]))
+    for name, kw in (("unfiltered", {}),
+                     ("filtered", {k: SAMPLING[k] for k in
+                                   ("top_k", "top_p", "temperature")})):
+        got, _ = sample_logits(x, key, strategy="sampling", row_ids=rows,
+                               **kw)
+        want, _ = sample_logits(x.cpu(), key, strategy="sampling",
+                                row_ids=rows, **kw)
+        filt = _filtered_logits(x.cpu(), kw.get("top_k", 0),
+                                kw.get("top_p", 1.0),
+                                kw.get("temperature", 1.0))
+        top2 = (filt + noise).topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > DRAW_GAP
+        same = got.cpu() == want
+        rep[name] = {"rows_clear": int(clear.sum()),
+                     "tokens_equal": int(same.sum()),
+                     "unequal_clear_rows": int((clear & ~same).sum())}
+        check(bool(same[clear].all()),
+              f"{name} draws on the card differ from the CPU: {rep[name]}")
+    return rep
+
+
+def draws_fit_filtered_probs(torch, np, dev, logits):
+    """TV_DRAWS per-row draws (row ids 0 ..) from one bf16 logits row
+    with the phase's knobs; their histogram against ``filtered_probs``
+    of the row (total variation)."""
+    from paddle_tpu_torch.common import prng
+    from paddle_tpu_torch.nn.generation import filtered_probs, sample_logits
+    kw = {k: SAMPLING[k] for k in ("top_k", "top_p", "temperature")}
+    key = prng.prng_key(SAMPLING["seed"])
+    v = logits.shape[-1]
+    counts = torch.zeros(v, dtype=torch.float64, device=dev)
+    t0 = time.perf_counter()
+    for r0 in range(0, TV_DRAWS, TV_CHUNK):
+        tok, _ = sample_logits(logits[None].expand(TV_CHUNK, v), key,
+                               strategy="sampling",
+                               row_ids=np.arange(r0, r0 + TV_CHUNK), **kw)
+        counts += torch.bincount(tok.long(), minlength=v).double()
+    torch.cuda.synchronize()
+    p = filtered_probs(logits[None], strategy="sampling", **kw)[0].double()
+    tv = 0.5 * (counts / TV_DRAWS - p).abs().sum().item()
+    rep = {"draws": TV_DRAWS, "support": int((p > 0).sum()),
+           "total_variation": tv, "tolerance": TV_TOL,
+           "draw_s": time.perf_counter() - t0}
+    check(tv <= TV_TOL, f"draws off filtered_probs: total variation {tv}")
+    return rep
+
+
+def top1_draws_only(torch, np, eng):
+    """Make ``eng`` (``top_k=1``) check each token it draws: its logit is
+    its row's largest, bit for bit (bf16 logits tie often, and top-k
+    keeps every tied entry where greedy takes the first).  Returns the
+    running counts of draws and of draws off the first arg max."""
+    counts = {"draws": 0, "off_first_argmax": 0}
+    draw = eng._sample
+
+    def checked(logits, key, rows):
+        out = draw(logits, key, rows)
+        rows = np.asarray(list(rows), np.int64)
+        if rows.size:
+            x = logits[torch.as_tensor(rows, device=logits.device)].float()
+            tok = torch.as_tensor(out[rows], device=logits.device)
+            check(bool((x.gather(-1, tok[:, None])[:, 0]
+                        == x.max(-1).values).all()),
+                  "top_k=1 drew a token below its row's largest logit")
+            counts["draws"] += int(rows.size)
+            counts["off_first_argmax"] += int((tok != x.argmax(-1)).sum())
+        return out
+
+    eng._sample = checked
+    return counts
+
+
+def serve_sampling_phase(torch, np, dev, model, prompts, greedy, greedy_stats):
+    """The ``serve`` model and requests under the sampling knobs, unified
+    (twice: equal tokens for one seed), with ``top_k=1`` (the greedy
+    tokens, by the margin rule), then split at steps_per_sync 8; the
+    draws on the card against the CPU and against ``filtered_probs``."""
+    from paddle_tpu_torch.inference.engine import LLMEngine
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import paged_attention as pa
+    layers = model.config.num_hidden_layers
+    vocab = model.config.vocab_size
+    geom = dict(max_seqs=8, max_len=2048, page_size=128,
+                dtype=torch.bfloat16)
+    counters = {"ragged_paged_append_attend": pa.ragged_paged_append_attend,
+                "flash_attention_fwd": fa.flash_attention_fwd}
+    runs = []
+    for _ in range(2):
+        eng = LLMEngine(model, **geom, **SAMPLING)
+        stats, results = serve_run(torch, eng, prompts, counters)
+        n = stats["launches"]
+        check(n["ragged_paged_append_attend"] == layers * stats["steps"]
+              and n["flash_attention_fwd"] == layers * -(-len(
+                  prompts["a200"]) // 128),
+              f"serve_sampling launches {n} in {stats['steps']} steps")
+        for rid, out in results.items():
+            check(all(0 <= t < vocab for t in out),
+                  f"serve_sampling: {rid} drew a token outside the "
+                  f"vocabulary")
+        runs.append((stats, results))
+    (stats, results), (_, again) = runs
+    check(again == results, "serve_sampling: one seed, other tokens")
+    check(results != greedy, "serve_sampling drew the greedy tokens")
+    eng = LLMEngine(model, **geom, **dict(SAMPLING, top_k=1))
+    ties = top1_draws_only(torch, np, eng)
+    _, k1 = serve_run(torch, eng, prompts, counters)
+    k1_rep = {"draws": ties, **agreement(torch, eng, prompts, k1, greedy)}
+    slot = eng.cache.allocate(len(prompts["b37"]) + 1)
+    logits = eng._prefill_seq(slot, prompts["b37"], 0)
+    eng.cache.release(slot)
+    del eng
+    draws = draws_card_vs_cpu(torch, np, dev, logits)
+    tv = draws_fit_filtered_probs(torch, np, dev, logits)
+    split = LLMEngine(model, **geom, **SAMPLING, unified_step=False,
+                      steps_per_sync=SAMPLING_SPLIT_SPS)
+    counters["paged_decode_append_attend"] = pa.paged_decode_append_attend
+    split_stats = serve_split_run(torch, split, prompts, counters)
+    check_split_launches(split_stats, layers, "serve_sampling split")
+    del split
+    emit({"phase": "serve_sampling", "model": "llama3_8b", "layers": layers,
+          "knobs": SAMPLING, **stats, "same_seed_tokens_equal": True,
+          "greedy_decode_tok_s": greedy_stats["decode_tok_s"],
+          "greedy_ttft_s": greedy_stats["ttft_s"],
+          "top_k1_agreement": k1_rep, "draws_card_vs_cpu": draws,
+          "draws_vs_filtered_probs": tv,
+          "split": {"steps_per_sync": SAMPLING_SPLIT_SPS, **split_stats}})
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def generate_phase(torch, np, dev, model):
+    """``model.generate`` on the ``serve`` model: GEN_BATCH prompts of
+    GEN_PROMPT ids, GEN_NEW new tokens, greedy (its tokens against the
+    engine's greedy tokens for the same prompts, margin rule), sampling
+    with the phase's knobs twice (equal tokens), then beam search (4
+    beams, 2 prompts, length penalty 1, an EOS).  Each call counts its
+    launches from 0: the causal flash forward #2 once a layer (the
+    prefill), matmul+rope #10 twice (q, k) and add+RMSNorm #9 once a layer
+    a forward (GEN_NEW forwards: the prefill and GEN_NEW - 1 steps)."""
+    from paddle_tpu_torch.inference.engine import LLMEngine
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_train as ft
+    layers = model.config.num_hidden_layers
+    vocab = model.config.vocab_size
+    rng = np.random.default_rng(SEED + 15)
+    ids = rng.integers(0, vocab, (GEN_BATCH, GEN_PROMPT))
+    counters = {"flash_attention_fwd": fa.flash_attention_fwd,
+                "matmul_rope": ft.matmul_rope_raw,
+                "add_norm": ft.add_rms_norm_raw}
+    want = {"flash_attention_fwd": layers, "matmul_rope": 2 * layers * GEN_NEW,
+            "add_norm": layers * GEN_NEW}
+    rep = {}
+
+    def run(name, ids, **kw):
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, scores = model.generate(torch.as_tensor(ids, device=dev),
+                                     max_new_tokens=GEN_NEW, **kw)
+        out, scores = out.cpu(), scores.cpu()
+        dt = time.perf_counter() - t0
+        launches = {n: fn.launches for n, fn in counters.items()}
+        check(launches == want, f"generate {name} launched {launches}, not "
+                                f"{want}")
+        check(out.shape == (ids.shape[0], GEN_NEW)
+              and bool(((out >= 0) & (out < vocab)).all())
+              and bool(torch.isfinite(scores).all()),
+              f"generate {name}: bad output {out.shape} {scores}")
+        rep[name] = {"batch": int(ids.shape[0]), "seconds": dt,
+                     "decode_tok_s": ids.shape[0] * GEN_NEW / dt,
+                     "launches": launches, "scores": scores.tolist()}
+        return out
+
+    greedy = run("greedy", ids)
+    prompts = {f"g{i}": ids[i].tolist() for i in range(GEN_BATCH)}
+    eng = LLMEngine(model, max_seqs=8, max_len=2048, page_size=128,
+                    dtype=torch.bfloat16)
+    for rid, p in prompts.items():
+        eng.add_request(rid, p, max_new_tokens=GEN_NEW)
+    while eng.has_work():
+        eng.step()
+    rep["greedy"]["engine_agreement"] = agreement(
+        torch, eng, prompts, {r: greedy[i].tolist()
+                              for i, r in enumerate(prompts)},
+        {r: eng.result(r) for r in prompts})
+    del eng
+    a = run("sampling", ids, **SAMPLING)
+    b = run("sampling_again", ids, **SAMPLING)
+    check(torch.equal(a, b), "generate sampling: one seed, other tokens")
+    eos = int(greedy[0, 5])
+    beam = run("beam_search", ids[:2], decode_strategy="beam_search",
+               num_beams=4, length_penalty=1.0, eos_token_id=eos,
+               pad_token_id=0)
+    for row in beam.tolist():
+        if eos in row:
+            check(all(t == 0 for t in row[row.index(eos) + 1:]),
+                  f"beam search: tokens after EOS {row}")
+    rep["beam_search"]["eos"] = eos
+    emit({"phase": "generate", "model": "llama3_8b", "layers": layers,
+          "dtype": "bfloat16", "prompt_len": GEN_PROMPT,
+          "new_tokens": GEN_NEW, "knobs": SAMPLING, **rep})
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def spec_serve(torch, eng, prompts, counters):
+    """``serve_run`` on a speculative engine, with its draft forwards,
+    draft prefill chunks and verify windows counted from 0, and the #1,
+    #2 and #7 launches checked against them: #1 once a target layer a
+    plain unified step (prefill pending) or verify, #7 (the draft's only
+    attention kernel; the target's unified path never runs it) once a
+    draft layer a draft forward, #2 once a target layer an add_request
+    prefill chunk and once a draft layer a draft prefill chunk."""
+    seen = {"draft_forwards": 0, "draft_chunks": 0, "plain_steps": 0}
+    draft, prefill = eng._draft_decode, eng._spec_prefill
+    mixed = eng._step_mixed
+
+    def draft_decode(*a):
+        seen["draft_forwards"] += 1
+        return draft(*a)
+
+    def spec_prefill(dslot, seq):
+        seen["draft_chunks"] += -(-len(seq) // eng._spec_cache.page_size)
+        return prefill(dslot, seq)
+
+    def step_mixed():
+        seen["plain_steps"] += 1
+        return mixed()
+
+    eng._draft_decode, eng._spec_prefill = draft_decode, spec_prefill
+    eng._step_mixed = step_mixed
+    stats, results = serve_run(torch, eng, prompts, counters)
+    st = eng.spec_stats
+    n = stats["launches"]
+    t_layers = eng.config.num_hidden_layers
+    d_layers = len(eng._spec["layers"])
+    P = eng.cache.page_size
+    want = {"ragged_paged_append_attend":
+            t_layers * (seen["plain_steps"] + st["windows"]),
+            "paged_decode_append_attend": d_layers * seen["draft_forwards"],
+            "flash_attention_fwd": t_layers * -(-len(prompts["a200"]) // P)
+            + d_layers * seen["draft_chunks"]}
+    check(n == want, f"serve_spec launches {n}, not {want} ({seen}, {st})")
+    check(st["proposed"] >= st["accepted"] >= 0 and st["windows"] > 0,
+          f"spec_stats inconsistent: {st}")
+    for rid, out in results.items():
+        check(all(0 <= t < eng.config.vocab_size for t in out),
+              f"serve_spec: {rid} returned a token outside the vocabulary")
+    return dict(stats, **seen, spec_stats=dict(st),
+                acceptance=st["accepted"] / st["proposed"]), results
+
+
+@contextlib.contextmanager
+def verify_rejections(torch):
+    """Within it, each greedy rejection of a speculative window records
+    the target's margin of its own token over the rejected draft token in
+    that verify row's logits, in bf16 steps of the row's top logit (a
+    draft that is the target itself parts from it only where the two
+    paths' roundings tip a near tie)."""
+    from paddle_tpu_torch.inference import engine as E
+    from paddle_tpu_torch.inference import speculative as SP
+    seen = {"rejections": 0, "max_margin_bf16_steps": 0.0}
+    state = {}
+    mixed, accept = E._mixed_forward, SP.greedy_accept
+
+    def mixed_rec(*args, **kw):
+        state["logits"], state["row"] = mixed(*args, **kw), 0
+        return state["logits"]
+
+    def accept_rec(draft, target):
+        toks, a = accept(draft, target)
+        k, i = len(draft), state["row"]
+        state["row"] += 1
+        if a < k:
+            x = state["logits"][i * (k + 1) + a].float()
+            step = 2.0 ** (math.floor(math.log2(x.max().abs().item())) - 7)
+            seen["rejections"] += 1
+            seen["max_margin_bf16_steps"] = max(
+                seen["max_margin_bf16_steps"],
+                ((x[int(target[a])] - x[int(draft[a])]) / step).item())
+        return toks, a
+
+    E._mixed_forward, SP.greedy_accept = mixed_rec, accept_rec
+    try:
+        yield seen
+    finally:
+        E._mixed_forward, SP.greedy_accept = mixed, accept
+
+
+def serve_spec_phase(torch, np, dev, model, prompts, greedy, greedy_stats):
+    """The ``serve`` model as the target with SPEC_K: a random draft at
+    Llama-3.2-1B's widths (greedy: the plain engine's tokens by the margin
+    rule), the target drafting for itself (its draft runs the split path,
+    #7, the verify #1: in bf16 over 32 random layers they part at near
+    ties, so each rejection must be within BF16_MARGIN_STEPS of the
+    target's top logit; ``decode_reference`` holds its acceptance to
+    MIN_SELF_ACCEPTANCE at f32), and the random draft under the sampling
+    knobs (rejection acceptance)."""
+    from paddle_tpu_torch.inference.engine import LLMEngine
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import paged_attention as pa
+    counters = {"ragged_paged_append_attend": pa.ragged_paged_append_attend,
+                "paged_decode_append_attend": pa.paged_decode_append_attend,
+                "flash_attention_fwd": fa.flash_attention_fwd}
+    geom = dict(max_seqs=8, max_len=2048, page_size=128,
+                dtype=torch.bfloat16, spec_k=SPEC_K)
+    dcfg = llama32_1b_draft_config(model.config)
+    draft = LlamaForCausalLM(
+        dcfg, device=dev, dtype=torch.bfloat16,
+        generator=torch.Generator(device=dev).manual_seed(SEED + 2))
+    rep = {"draft": {k: getattr(dcfg, k) for k in (
+        "hidden_size", "intermediate_size", "num_hidden_layers",
+        "num_attention_heads", "num_key_value_heads", "tie_word_embeddings",
+        "rope_theta")}, "spec_k": SPEC_K,
+        "greedy_decode_tok_s": greedy_stats["decode_tok_s"]}
+    eng = LLMEngine(model, draft_model=draft, **geom)
+    rep["random_draft"], got = spec_serve(torch, eng, prompts, counters)
+    rep["random_draft"]["agreement"] = agreement(torch, eng, prompts, got,
+                                                 greedy)
+    del eng
+    eng = LLMEngine(model, draft_model=model, **geom)
+    with verify_rejections(torch) as rejections:
+        rep["self_draft"], _ = spec_serve(torch, eng, prompts, counters)
+    rep["self_draft"]["rejections"] = rejections
+    check(rejections["max_margin_bf16_steps"] <= BF16_MARGIN_STEPS,
+          f"the target drafting for itself was rejected away from a near "
+          f"tie: {rejections}")
+    del eng
+    eng = LLMEngine(model, draft_model=draft, **geom, **SAMPLING)
+    rep["rejection"], _ = spec_serve(torch, eng, prompts, counters)
+    del eng, draft
+    emit({"phase": "serve_spec", "model": "llama3_8b", **rep})
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def f32_decode_agreement(torch, np, dev):
+    """The decode paths of this slice at f32, full width and 2 layers,
+    where kernels and plain versions agree to f32 rounding (as
+    ``serve_reference``): the engine's greedy tokens against
+    ``generate``'s (the two prompts of equal length), against a
+    speculative engine's with a random 2-layer draft at Llama-3.2-1B's
+    widths and with the target drafting for itself (acceptance at least
+    MIN_SELF_ACCEPTANCE), and against ``top_k=1`` sampling, each by the
+    margin rule at MARGIN_TOL."""
+    from paddle_tpu_torch.inference.engine import LLMEngine
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                               llama3_8b_config)
+    cfg = dataclasses.replace(llama3_8b_config(), num_hidden_layers=2)
+    model = LlamaForCausalLM(
+        cfg, device=dev, dtype=torch.float32,
+        generator=torch.Generator(device=dev).manual_seed(SEED + 1))
+    draft = LlamaForCausalLM(
+        dataclasses.replace(llama32_1b_draft_config(cfg),
+                            num_hidden_layers=2),
+        device=dev, dtype=torch.float32,
+        generator=torch.Generator(device=dev).manual_seed(SEED + 2))
+    rng = np.random.default_rng(SEED + 16)
+    prompts = {f"f{i}": rng.integers(0, cfg.vocab_size, n).tolist()
+               for i, n in enumerate(F32_DECODE_LENS)}
+    geom = dict(max_seqs=8, max_len=2048, page_size=128)
+
+    def serve(eng):
+        for rid, ids in prompts.items():
+            eng.add_request(rid, ids, max_new_tokens=F32_DECODE_NEW)
+        while eng.has_work():
+            eng.step()
+        return {rid: eng.result(rid) for rid in prompts}
+
+    eng = LLMEngine(model, **geom)
+    plain = serve(eng)
+    pair = {r: prompts[r] for r in ("f0", "f1")}
+    out, _ = model.generate(torch.tensor([pair["f0"], pair["f1"]],
+                                         device=dev),
+                            max_new_tokens=F32_DECODE_NEW)
+    rep = {"layers": 2, "prompt_lens": list(F32_DECODE_LENS),
+           "new_tokens": F32_DECODE_NEW,
+           "generate": agreement(torch, eng, pair, {
+               r: out[i].tolist() for i, r in enumerate(pair)},
+               {r: plain[r] for r in pair})}
+    spec = LLMEngine(model, **geom, draft_model=draft, spec_k=SPEC_K)
+    rep["spec"] = agreement(torch, eng, prompts, serve(spec), plain)
+    rep["spec_stats"] = dict(spec.spec_stats)
+    own = LLMEngine(model, **geom, draft_model=model, spec_k=SPEC_K)
+    rep["self_draft"] = agreement(torch, eng, prompts, serve(own), plain)
+    st = own.spec_stats
+    rep["self_draft_acceptance"] = st["accepted"] / st["proposed"]
+    check(rep["self_draft_acceptance"] >= MIN_SELF_ACCEPTANCE,
+          f"f32: the target drafting for itself accepted "
+          f"{rep['self_draft_acceptance']}")
+    del own
+    rep["top_k1"] = agreement(torch, eng, prompts, serve(LLMEngine(
+        model, **geom, **dict(SAMPLING, top_k=1))), plain)
+    emit({"phase": "decode_reference", "dtype": "float32", **rep})
+    del eng, spec, model, draft
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3743,6 +4225,13 @@ def main() -> int:
     del eng
     gc.collect()
     torch.cuda.empty_cache()
+
+    # -- the same model and requests sampled, through generate, and with a
+    # draft model
+    serve_sampling_phase(torch, np, dev, model, prompts, results, stats)
+    generate_phase(torch, np, dev, model)
+    serve_spec_phase(torch, np, dev, model, prompts, results, stats)
+    f32_decode_agreement(torch, np, dev)
 
     # -- the same model on the split path and with int8 pools and weights,
     # then with the pools at their default dtype (f32)

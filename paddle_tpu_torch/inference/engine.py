@@ -74,9 +74,28 @@ path's decode forward (kernel #7), in power-of-two windows.
 ``export_request``/``import_request`` move a suspended request to
 another engine (its swap entry as a portable blob).
 
-Greedy decoding only.  Knobs of the reference engine that this port does
-not take yet raise ``NotImplementedError`` naming their ROADMAP item;
-metrics, tracing spans and request capsules are not ported.
+Sampling (``decode_strategy="sampling"`` with ``top_k``, ``top_p``,
+``temperature`` and ``seed``) keeps the reference's key discipline on
+the threefry stream of ``common/prng.py``, so a seed gives the
+reference's tokens: the engine key splits once at each synchronous
+admission (the first token drawn as row 0), once a ``step()`` on the
+unified path and once a window on the split path, and the window key
+once a forward (``inference/sampling.py``); row i of a forward draws on
+``fold_row(step_key, i)``.  Only the rows whose tokens are kept are
+drawn (a row's draw does not depend on the others).  Recompute replay
+feeds the recorded tokens and leaves the key alone.
+
+Speculative decoding (``draft_model``, ``spec_k``): a dense draft
+backbone over its own ``PagedKVCache`` proposes ``k`` tokens a sequence
+through the split path's forward (kernel #7), the target verifies ``[last,
+d_1 .. d_k]`` of every sequence in one ragged forward (kernel #1, ``k +
+1`` query rows a sequence) and ``inference/speculative.py`` accepts:
+greedily (the plain greedy tokens) or by rejection sampling (the
+target's distribution); rejected suffixes roll back on both caches.
+
+Knobs of the reference engine that this port does not take yet raise
+``NotImplementedError`` naming their ROADMAP item; metrics, tracing
+spans and request capsules are not ported.
 
 Weights are read per layer from the model's own parameters (no stacked
 copy), and the engine runs on the model's device: the GPU by default,
@@ -89,9 +108,10 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..common import prng
 from ..common.errors import enforce
 from ..models.llama import _rotate_half
-from ..nn.generation import sample_logits
+from ..nn.generation import filtered_probs, sample_logits
 from ..ops import _nn
 from ..ops.flash_attention import flash_attention_raw
 from ..ops.paged_attention import (paged_decode_append_attend,
@@ -102,7 +122,9 @@ from ..quantization.ops import (quantize_absmax, quantize_rows,
 from ..runtime.device import resolve_device
 from .backbone import resolve_backbone
 from .moe_dispatch import MoEArch, moe_ffn
+from . import speculative as _spec_mod
 from .paged_cache import PagedKVCache
+from .sampling import spec_window_keys, split_step
 
 __all__ = ["LLMEngine", "GenRequest"]
 
@@ -128,6 +150,9 @@ class GenRequest:
         # its swap entry (None: resume recomputes)
         self.suspended = False
         self.swap_handle: Optional[int] = None
+        # speculative decoding: the draft cache's slot, attached at the
+        # request's first speculative window
+        self.draft_slot: Optional[int] = None
 
 
 def _rope(x, cos, sin):
@@ -145,6 +170,17 @@ def _mm(x, w):
 def _wout(w) -> int:
     """Output width of a float weight or an int8 pair."""
     return (w[0] if isinstance(w, tuple) else w).shape[-1]
+
+
+def _rope_tables(spec, page_size: int):
+    """A backbone's f32 rope tables, and the same padded to a page
+    multiple for the chunked prefill, which slices a full page of rows
+    at the last chunk's base (the padded rows back padding ids only)."""
+    rope = (spec.rope_cos.float(), spec.rope_sin.float())
+    maxpos = rope[0].shape[0]
+    pad_to = -(-max(maxpos, page_size) // page_size) * page_size
+    return rope, tuple(torch.nn.functional.pad(r, (0, 0, 0, pad_to - maxpos))
+                       for r in rope)
 
 
 def _head(x, head_w, tied):
@@ -349,8 +385,8 @@ def _decode_forward(layers, norm_w, head_w, embed_w, rope, k_pages,
 
 
 class LLMEngine:
-    """Continuous batching for Llama-family and Qwen2-MoE models (greedy
-    decoding).
+    """Continuous batching for Llama-family and Qwen2-MoE models, greedy
+    or sampled, optionally speculative.
 
     ``dtype`` is the KV pools' dtype (float32 by default, as the
     reference's, whatever the weights' dtype; a float ``kv_dtype`` name
@@ -362,9 +398,8 @@ class LLMEngine:
     tensors only) and ``moe_dropless`` (only True) apply to MoE
     backbones.  The reference's other keywords are taken at the value
     the port runs (``scan_decode=False``: the host-chained decode window,
-    which gives the reference's tokens; the sampling knobs at their
-    defaults, which greedy decoding does not read; no metrics; the
-    default ``tp_axis`` and ``spec_k``) and raise otherwise."""
+    which gives the reference's tokens; no metrics; no mesh and the
+    default ``tp_axis``) and raise otherwise."""
 
     def __init__(self, model, max_seqs: int = 8, max_len: int = 2048,
                  page_size: int = 128, n_pages: Optional[int] = None,
@@ -386,36 +421,25 @@ class LLMEngine:
                  moe_dispatch: str = "grouped", moe_dropless: bool = True,
                  moe_capacity_factor: Optional[float] = None):
         serving = "Port: the rest of serving"
+        devices = "Multi-device"
         todo = {
             "scan_decode=True (the decode window as one device program)": (
                 scan_decode, "Port: speed of what is ported"),
-            "top_k (sampling)": (top_k != 0, serving),
-            "top_p (sampling)": (top_p != 1.0, serving),
-            "temperature (sampling)": (temperature != 1.0, serving),
-            "seed (sampling)": (seed != 0, serving),
             "enable_metrics=True (engine metrics)": (
                 enable_metrics, serving),
-            "tp_axis (tensor-parallel serving)": (
-                tp_axis != "tp", "Port: remaining modules"),
-            "spec_k (speculative decoding)": (
-                spec_k != 4, "Port: remaining modules"),
+            "mesh (tensor-parallel serving)": (mesh is not None, devices),
+            "tp_axis (tensor-parallel serving)": (tp_axis != "tp", devices),
             "moe_dropless=False (capacity-factor MoE dispatch)": (
                 not moe_dropless, serving),
             "moe_capacity_factor (capacity-factor MoE dispatch)": (
                 moe_capacity_factor is not None, serving),
-            "decode_strategy='sampling'": (
-                decode_strategy == "sampling", "Port: remaining modules"),
-            "mesh (tensor-parallel serving)": (
-                mesh is not None, "Port: remaining modules"),
-            "draft_model (speculative decoding)": (
-                draft_model is not None, "Port: remaining modules"),
         }
         for knob, (asked, item) in todo.items():
             if asked:
                 raise NotImplementedError(
                     f"LLMEngine {knob} is not ported yet (ROADMAP "
                     f"'{item}')")
-        enforce(decode_strategy == "greedy_search",
+        enforce(decode_strategy in ("greedy_search", "sampling"),
                 f"unsupported decode_strategy {decode_strategy!r}")
         enforce(kv_dtype in (None, "int8") or kv_dtype in _FLOAT_KV,
                 f"unsupported kv_dtype {kv_dtype!r}")
@@ -441,6 +465,10 @@ class LLMEngine:
         self.last_window_steps = 0     # forwards of the last split window
         self.steps_per_sync = steps_per_sync
         self.decode_strategy = decode_strategy
+        self.top_k = int(top_k)
+        self.top_p = float(top_p)
+        self.temperature = float(temperature)
+        self._key = prng.prng_key(seed)
         self.max_seqs = max_seqs
         self.max_len = max_len
         self.enable_prefix_caching = bool(enable_prefix_caching)
@@ -477,14 +505,7 @@ class LLMEngine:
         # or quantized here under weight_dtype="int8"
         self._arch = None
         if spec.moe is None:
-            w = self._weight
-            self._layers = [
-                (l.input_layernorm.weight, w(l.self_attn.q_proj),
-                 w(l.self_attn.k_proj), w(l.self_attn.v_proj),
-                 w(l.self_attn.o_proj),
-                 l.post_attention_layernorm.weight, w(l.mlp.gate_proj),
-                 w(l.mlp.up_proj), w(l.mlp.down_proj))
-                for l in spec.layers]
+            self._layers = self._dense_layers(spec.layers)
         else:
             m = spec.moe
             self._arch = MoEArch(
@@ -500,19 +521,24 @@ class LLMEngine:
         self._tied = spec.lm_head is None
         self._embed_w = embed
         self._head_w = embed if self._tied else self._weight(spec.lm_head)
-        self._rope = (spec.rope_cos.float(), spec.rope_sin.float())
-        # the chunked prefill slices a full page of rope rows at the
-        # last chunk's base: pad the tables to a page multiple so the
-        # slice never runs short (padded rows back padding ids only)
-        maxpos = self._rope[0].shape[0]
-        pad_to = -(-max(maxpos, page_size) // page_size) * page_size
-        self._rope_prefill = tuple(
-            torch.nn.functional.pad(r, (0, 0, 0, pad_to - maxpos))
-            for r in self._rope)
+        self._rope, self._rope_prefill = _rope_tables(spec, page_size)
         self.requests: Dict[object, GenRequest] = {}
         self._active: List[GenRequest] = []
+        self._spec = None
+        if draft_model is not None:
+            self._init_spec(draft_model, spec_k, dtype, page_size)
 
     # -- internals -------------------------------------------------------------
+    def _dense_layers(self, layers):
+        """Each dense decoder layer's weights: (iln, qw, kw, vw, ow, pln,
+        gw, uw, dw)."""
+        w = self._weight
+        return [(l.input_layernorm.weight, w(l.self_attn.q_proj),
+                 w(l.self_attn.k_proj), w(l.self_attn.v_proj),
+                 w(l.self_attn.o_proj), l.post_attention_layernorm.weight,
+                 w(l.mlp.gate_proj), w(l.mlp.up_proj), w(l.mlp.down_proj))
+                for l in layers]
+
     def _weight(self, mod):
         """A projection's weight [in, out] as the forwards take it: the
         float parameter itself, or an int8 ``(values, scale)`` pair with
@@ -612,11 +638,15 @@ class LLMEngine:
         """Recompute-resume tail: re-append the KV of the already
         generated ``toks`` through the split path's forward (kernel #7 in
         every layer), in the reference's power-of-two windows of
-        host-chained forwards over the padded batch.  Each forward takes
-        the recorded token; its logits are dropped."""
+        host-chained forwards over the padded batch (1-token windows
+        under sampling, as the reference's).  Each forward takes the
+        recorded token; its logits are dropped and the engine key is
+        left alone."""
         i = 0
         while i < len(toks):
             nsteps = min(self.steps_per_sync, len(toks) - i)
+            if self.decode_strategy != "greedy_search":
+                nsteps = 1
             while nsteps & (nsteps - 1):
                 nsteps &= nsteps - 1
             self.cache.extend(slot, nsteps)
@@ -637,6 +667,21 @@ class LLMEngine:
                     tied=self._tied, arch=self._arch,
                     k_scales=self.cache.k_scales,
                     v_scales=self.cache.v_scales)
+
+    def _sample(self, logits, key, rows):
+        """Tokens of the flat rows ``rows`` of ``logits`` [T, V], row r
+        drawn on ``fold_row(key, r)`` (greedy: the arg max).  Returns a
+        host int64 array over all T rows, zero where not drawn."""
+        rows = np.asarray(rows, np.int64)
+        out = np.zeros(logits.shape[0], np.int64)
+        if rows.size:
+            tok, _ = sample_logits(
+                logits[self._dev(rows, torch.long)], key,
+                strategy=self.decode_strategy, top_k=self.top_k,
+                top_p=self.top_p, temperature=self.temperature,
+                row_ids=rows)
+            out[rows] = tok.cpu().numpy()
+        return out
 
     def _admit(self, rid, prompt_ids, max_new_tokens, eos_token_id):
         """Shared admission: validate, look up the cached prefix and
@@ -678,6 +723,270 @@ class LLMEngine:
         else:
             self._active.append(req)
 
+    # -- speculative decoding --------------------------------------------------
+    def _init_spec(self, draft_model, spec_k: int, dtype, page_size: int):
+        """Attach a draft backbone: its weights (int8 under
+        ``weight_dtype="int8"``, as the target's), a second
+        ``PagedKVCache`` of its geometry with no swap pool, and the
+        acceptance counts ``spec_stats``.  A request's draft slot
+        attaches at its first speculative window, and retire, suspend
+        and abort release it."""
+        enforce(spec_k >= 1, "spec_k must be >= 1")
+        dspec = resolve_backbone(draft_model)
+        enforce(dspec.moe is None,
+                "speculative draft must be a dense backbone "
+                "(MoE drafts defeat the point of a small draft)")
+        c, dc = self.config, dspec.config
+        enforce(dc.vocab_size == c.vocab_size,
+                f"draft vocab ({dc.vocab_size}) must match target "
+                f"vocab ({c.vocab_size})")
+        d_maxpos = int(dspec.rope_cos.shape[0])
+        t_maxpos = int(self._rope[0].shape[0])
+        enforce(d_maxpos >= min(self.max_len, t_maxpos),
+                f"draft max_position_embeddings ({d_maxpos}) too short "
+                f"for the engine's sequence limit "
+                f"({min(self.max_len, t_maxpos)})")
+        dembed = dspec.embed_tokens.weight
+        enforce(dembed.device == self.device,
+                f"draft parameters live on {dembed.device}, the engine on "
+                f"{self.device}")
+        self.spec_k = int(spec_k)
+        self._spec_mode = "greedy" \
+            if self.decode_strategy == "greedy_search" else "rejection"
+        dkvh = dc.num_key_value_heads
+        dhd = dc.hidden_size // dc.num_attention_heads
+        self._spec_cache = PagedKVCache(
+            n_pages=self.max_seqs * (self.max_len // page_size) + 1,
+            page_size=page_size, n_kv_heads=dkvh, head_dim=dhd,
+            max_seqs=self.max_seqs, max_len=self.max_len, dtype=dtype,
+            num_layers=len(dspec.layers),
+            kv_dtype="int8" if self.kv_dtype == "int8" else None,
+            swap_pool_pages=0, device=self.device)
+        tied = dspec.lm_head is None
+        rope, rope_prefill = _rope_tables(dspec, page_size)
+        self._spec = {
+            "layers": self._dense_layers(dspec.layers),
+            "norm_w": dspec.norm.weight, "embed_w": dembed,
+            "head_w": dembed if tied else self._weight(dspec.lm_head),
+            "rope": rope, "rope_prefill": rope_prefill,
+            "kw": dict(eps=dc.rms_norm_eps, kvh=dkvh, head_dim=dhd,
+                       tied=tied, arch=None)}
+        # ``accepted`` counts surviving draft tokens; the correction or
+        # bonus token rides ``delivered``
+        self.spec_stats = {"windows": 0, "proposed": 0, "accepted": 0,
+                           "delivered": 0}
+
+    def _draft_kw(self):
+        d = self._spec_cache
+        return dict(self._spec["kw"], k_scales=d.k_scales,
+                    v_scales=d.v_scales)
+
+    def _draft_decode(self, tokens, dtables, lens):
+        """One split-path forward of the draft (kernel #7 in every layer)
+        over the padded batch (host tokens and lengths, device tables);
+        returns logits [max_seqs, V]."""
+        sp, d = self._spec, self._spec_cache
+        return _decode_forward(
+            sp["layers"], sp["norm_w"], sp["head_w"], sp["embed_w"],
+            sp["rope"], d.k_pages, d.v_pages, self._dev(tokens, torch.long),
+            dtables, self._dev(lens), **self._draft_kw())
+
+    def _spec_prefill(self, dslot, seq):
+        """Chunked prefill of ``seq`` into draft slot ``dslot``
+        (``_prefill_seq`` over the draft's weights and cache)."""
+        sp, d = self._spec, self._spec_cache
+        P = d.page_size
+        plen = len(seq)
+        table = self._dev(d.page_table[dslot], torch.long)
+        for ci in range(-(-plen // P)):
+            base = ci * P
+            chunk = np.zeros(P, np.int64)
+            real = min(P, plen - base)
+            chunk[:real] = seq[base:base + real]
+            _paged_prefill_chunk(
+                sp["layers"], sp["norm_w"], sp["head_w"], sp["embed_w"],
+                sp["rope_prefill"], d.k_pages, d.v_pages,
+                self._dev(chunk, torch.long), table, base,
+                int(d.page_table[dslot, ci]), min(plen - 1 - base, P - 1),
+                **self._draft_kw())
+        d.set_len(dslot, plen)
+
+    def _spec_attach(self, req):
+        """Attach the request's draft slot at its first speculative
+        window: reserve its full page budget on the draft cache and
+        prefill ``prompt + out[:-1]``, the draft's mirror of the target
+        (K/V through ``cur - 1``, next input ``out[-1]``)."""
+        req.draft_slot = self._spec_cache.allocate(
+            len(req.prompt) + req.max_new)
+        self._spec_prefill(req.draft_slot, list(req.prompt) + req.out[:-1])
+
+    def _spec_release(self, req):
+        """Drop the request's draft slot (a no-op without one)."""
+        if self._spec is not None and req.draft_slot is not None:
+            self._spec_cache.release(req.draft_slot)
+            req.draft_slot = None
+
+    def _spec_window(self, rows, sub, k_run):
+        """One speculative window over ``rows`` (dicts with the target
+        ``slot``, the draft ``dslot``, the ``last`` input token, the
+        ``cur`` K/V length, the full token ``seq`` and the draw id
+        ``row``): draft catch-up and propose, one ragged verify, accept,
+        and the advance / rollback of both caches.  ``sub`` is the
+        window's fork of the engine key; ``k_run`` (<= ``spec_k``) the
+        draft length.  Returns ``[(tokens, n_accepted)]`` in the order of
+        ``rows``."""
+        d = self._spec_cache
+        sampled = self._spec_mode == "rejection"
+        draft_root, accept_root, resample_root = spec_window_keys(sub)
+        B = self.max_seqs
+        maxp_d = d.page_table.shape[1]
+
+        # draft catch-up: teacher-force the draft level with the target
+        # (one behind after a fully accepted window, more after plain
+        # windows), one forward a level; level rows ride as pad rows
+        while True:
+            lag = [r for r in rows if int(d.seq_lens[r["dslot"]]) < r["cur"]]
+            if not lag:
+                break
+            ids = np.zeros(B, np.int64)
+            tabs = np.zeros((B, maxp_d), np.int32)
+            lens = np.zeros(B, np.int32)
+            for j, r in enumerate(lag):
+                dl = int(d.seq_lens[r["dslot"]])
+                d.extend(r["dslot"], 1)
+                ids[j] = r["seq"][dl]
+                tabs[j] = d.page_table[r["dslot"]]
+                lens[j] = dl
+            self._draft_decode(ids, self._dev(tabs), lens)
+            d.advance([r["dslot"] for r in lag], 1)
+
+        # propose: k_run free-running draft tokens a row (later draft
+        # steps would not change these)
+        ids = np.zeros(B, np.int64)
+        tabs = np.zeros((B, maxp_d), np.int32)
+        lens = np.zeros(B, np.int32)
+        for j, r in enumerate(rows):
+            d.extend(r["dslot"], k_run)
+            ids[j] = r["last"]
+            tabs[j] = d.page_table[r["dslot"]]
+            lens[j] = r["cur"]
+        dtabs = self._dev(tabs)
+        toks_d, q_all = _spec_mod._paged_draft_propose(
+            lambda t, ln: self._draft_decode(t, dtabs, ln), ids, lens,
+            draft_root, rows[0]["row"] if len(rows) == 1 else 0,
+            n_live=len(rows), n_steps=k_run,
+            strategy=self.decode_strategy, top_k=self.top_k,
+            top_p=self.top_p, temperature=self.temperature,
+            collect_probs=sampled)
+        d.advance([r["dslot"] for r in rows], k_run)
+
+        # verify: one ragged forward over k_run + 1 rows a sequence
+        # [last, d_1 .. d_k], descriptors split at page boundaries (a
+        # descriptor's index is its first flat row)
+        P = self.cache.page_size
+        maxp = self.cache.page_table.shape[1]
+        T = self.max_seqs * (self.spec_k + 1)
+        kw = k_run + 1
+        v_ids = np.zeros(T, np.int64)
+        positions = np.zeros(T, np.int64)
+        q_start = np.zeros(T, np.int32)
+        q_len = np.zeros(T, np.int32)
+        kv_len = np.zeros(T, np.int32)
+        desc_tables = np.zeros((T, maxp), np.int32)
+        desc_of_row = np.arange(T, dtype=np.int64)
+        off_of_row = np.zeros(T, np.int64)
+        for i, r in enumerate(rows):
+            self.cache.extend(r["slot"], kw)
+            tbl = self.cache.page_table[r["slot"]]
+            r0 = i * kw
+            v_ids[r0] = r["last"]
+            v_ids[r0 + 1:r0 + kw] = toks_d[:k_run, i]
+            positions[r0:r0 + kw] = np.arange(r["cur"], r["cur"] + kw)
+            s = 0
+            while s < kw:
+                pos0 = r["cur"] + s
+                seg = min(kw - s, P - pos0 % P)
+                dsc = r0 + s
+                q_start[dsc] = dsc
+                q_len[dsc] = seg
+                kv_len[dsc] = pos0
+                desc_tables[dsc] = tbl
+                desc_of_row[dsc:dsc + seg] = dsc
+                off_of_row[dsc:dsc + seg] = np.arange(seg)
+                s += seg
+        logits = self._note_expert_counts(_mixed_forward(
+            self._layers, self._norm_w, self._head_w, self._embed_w,
+            self._rope, self.cache.k_pages, self.cache.v_pages,
+            self._dev(v_ids, torch.long), self._dev(positions, torch.long),
+            self._dev(q_start), self._dev(q_len), self._dev(kv_len),
+            self._dev(desc_tables), self._dev(desc_of_row, torch.long),
+            self._dev(off_of_row, torch.long), **self._fwd_kw()))
+        live = logits[:len(rows) * kw]
+        if sampled:
+            p_all = filtered_probs(
+                live, strategy=self.decode_strategy, top_k=self.top_k,
+                top_p=self.top_p, temperature=self.temperature
+            ).double().cpu().numpy()
+        else:
+            nxt = torch.argmax(live, dim=-1).cpu().numpy()
+        self.cache.advance([r["slot"] for r in rows], kw)
+
+        # accept, and roll back the rejected suffix on both caches: the
+        # target keeps [last, d_1 .. d_a]; the draft [last, d_1 ..
+        # d_{a-1}] when a < k_run, one short after full acceptance (the
+        # next catch-up teacher-forces d_k)
+        out = []
+        for i, r in enumerate(rows):
+            r0 = i * kw
+            if sampled:
+                toks, a = _spec_mod.rejection_accept(
+                    toks_d[:k_run, i], q_all[:, i], p_all[r0:r0 + kw],
+                    accept_root, resample_root, r["row"])
+            else:
+                toks, a = _spec_mod.greedy_accept(toks_d[:k_run, i],
+                                                  nxt[r0:r0 + kw])
+            self.cache.rollback(r["slot"], k_run - a)
+            if a < k_run:
+                d.rollback(r["dslot"], k_run - a - 1)
+            out.append((toks, a))
+        return out
+
+    def _step_spec(self) -> Dict[object, List[int]]:
+        """The speculative window: propose ``k_run`` draft tokens for
+        every active request, verify them in one ragged forward and
+        deliver the accepted prefix plus the correction or bonus token.
+        Greedy acceptance gives the plain greedy tokens; rejection
+        acceptance keeps the target's filtered distribution.  With
+        prefill pending it runs the plain unified step (drafts catch up
+        at the next window)."""
+        if self._prefilling:
+            return self._step_mixed()
+        if not self._active:
+            return {}
+        batch = list(self._active)
+        for req in batch:
+            if req.draft_slot is None:
+                self._spec_attach(req)
+        # never draft past the tightest budget: the window delivers at
+        # most k_run + 1 tokens and the merge truncates the last one
+        k_run = max(min([self.spec_k] +
+                        [r.max_new - len(r.out) for r in batch]), 1)
+        self._key, sub = prng.split(self._key)
+        rows = [{"slot": r.slot, "dslot": r.draft_slot, "last": r.out[-1],
+                 "cur": len(r.prompt) + len(r.out) - 1,
+                 "seq": list(r.prompt) + r.out, "row": i}
+                for i, r in enumerate(batch)]
+        results = self._spec_window(rows, sub, k_run)
+        out = self._retire_tokens(batch, [toks for toks, _ in results])
+        self.last_window_steps = max((len(v) for v in out.values()),
+                                     default=0)
+        st = self.spec_stats
+        st["windows"] += 1
+        st["proposed"] += len(batch) * k_run
+        st["accepted"] += sum(a for _, a in results)
+        st["delivered"] += sum(len(v) for v in out.values())
+        return out
+
     # -- admission -------------------------------------------------------------
     def add_request(self, rid, prompt_ids, max_new_tokens: int = 64,
                     eos_token_id: Optional[int] = None):
@@ -690,9 +999,9 @@ class LLMEngine:
         P = self.cache.page_size
         try:
             logits = self._prefill_seq(req.slot, req.prompt, cached // P)
-            tok, _ = sample_logits(logits[None],
-                                   strategy=self.decode_strategy)
-            first = int(tok[0])
+            # one split of the engine key; the first token draws as row 0
+            self._key, sub = prng.split(self._key)
+            first = int(self._sample(logits[None], sub, [0])[0])
         except BaseException:
             # the slot and its page references must not leak
             self.cache.release(req.slot)
@@ -731,9 +1040,18 @@ class LLMEngine:
         When no prefill is pending, a window of up to ``steps_per_sync``
         decode steps runs host-chained, each step's tokens fed back as
         the next input.  Split (``unified_step=False``): a decode window
-        of the split path (``_step_split``)."""
+        of the split path (``_step_split``).  With a draft model, a
+        speculative window (``_step_spec``)."""
+        if self._spec is not None:
+            return self._step_spec()
         if not self.unified_step:
             return self._step_split()
+        return self._step_mixed()
+
+    def _step_mixed(self) -> Dict[object, List[int]]:
+        """The unified step of ``step()``: one key split, then one
+        ``split_step`` a forward; every decode row and each finishing
+        prefill chunk's last row draws on its own flat row id."""
         if not self._active and not self._prefilling:
             return {}
         P = self.cache.page_size
@@ -807,6 +1125,10 @@ class LLMEngine:
         ddesc_tables = self._dev(desc_tables)
         ddesc_of_row = self._dev(desc_of_row, torch.long)
         doff_of_row = self._dev(off_of_row, torch.long)
+        # rows whose tokens are kept: the decode rows, and on the first
+        # forward the last row of each finishing prefill chunk
+        first_rows = list(range(n)) + [row for _, row in finishing]
+        self._key, key = prng.split(self._key)
         toks_all = []
         for si in range(nsteps):
             logits = self._note_expert_counts(_mixed_forward(
@@ -815,8 +1137,9 @@ class LLMEngine:
                 self._dev(ids, torch.long), self._dev(positions, torch.long),
                 dq_start, dq_len, self._dev(kv_len), ddesc_tables,
                 ddesc_of_row, doff_of_row, **self._fwd_kw()))
-            nxt, _ = sample_logits(logits, strategy=self.decode_strategy)
-            nxt = nxt.cpu().numpy()
+            key, sub = split_step(key)
+            nxt = self._sample(logits, sub,
+                               first_rows if si == 0 else range(n))
             toks_all.append(nxt)
             if n:
                 self.cache.advance(slots, 1)
@@ -827,7 +1150,8 @@ class LLMEngine:
                 positions[:n] += 1
                 kv_len[:n] += 1
 
-        out = self._retire_tokens(batch, toks_all)
+        out = self._retire_tokens(batch, [[int(t[i]) for t in toks_all]
+                                          for i in range(n)])
         # prefill bookkeeping after the forward succeeded — a raise
         # above leaves every pf_pos where it was
         for req, pos, cl, row0, d in plan:
@@ -849,22 +1173,22 @@ class LLMEngine:
         return nsteps
 
     def _retire_tokens(self, batch, toks) -> Dict[object, List[int]]:
-        """Merge a window's tokens (``toks[j][i]``: step j, row i) into
+        """Merge a window's tokens (``toks[i]``: row i's, in order) into
         the requests, stopping each at its EOS or budget and releasing
         it; returns {rid: new tokens}."""
         out = {}
-        for i, req in enumerate(batch):
+        for req, row_toks in zip(batch, toks):
             new_toks = []
-            for step_toks in toks:
+            for tok in row_toks:
                 if req.done:
                     break
-                tok = int(step_toks[i])
                 req.out.append(tok)
                 new_toks.append(tok)
                 if (req.eos is not None and tok == req.eos) or \
                         len(req.out) >= req.max_new:
                     req.done = True
                     self.cache.release(req.slot)
+                    self._spec_release(req)
                     self._active.remove(req)
             if new_toks:
                 out[req.rid] = new_toks
@@ -878,7 +1202,8 @@ class LLMEngine:
         discarded).  The window stops early once every live row has hit
         its EOS or its budget, and the cache advances by the steps run
         (``last_window_steps``), as the reference's
-        ``_paged_decode_window`` does."""
+        ``_paged_decode_window`` does.  Row i draws on ``fold_row(key,
+        i)``."""
         if not self._active:
             return {}
         batch = list(self._active)
@@ -898,11 +1223,14 @@ class LLMEngine:
         done = np.arange(self.max_seqs) >= n
         emitted = np.zeros(self.max_seqs, np.int64)
         dtables = self._dev(tables)
+        # one split of the engine key a window, one of the window key a
+        # forward
+        self._key, key = prng.split(self._key)
         toks = []
         for _ in range(nsteps):
             logits = self._decode(tokens, dtables, lens, live)
-            nxt, _ = sample_logits(logits, strategy=self.decode_strategy)
-            nxt = nxt.cpu().numpy()
+            key, sub = split_step(key)
+            nxt = self._sample(logits, sub, range(n))
             toks.append(nxt)
             fresh = ~done
             emitted += fresh
@@ -914,7 +1242,8 @@ class LLMEngine:
                 break
         self.cache.advance(slots, len(toks))
         self.last_window_steps = len(toks)
-        return self._retire_tokens(batch, toks)
+        return self._retire_tokens(batch, [[int(t[i]) for t in toks]
+                                           for i in range(n)])
 
     def has_work(self) -> bool:
         return bool(self._active or self._prefilling)
@@ -964,6 +1293,9 @@ class LLMEngine:
             req.pf_pos = 0
         else:
             self._active.remove(req)
+            # the draft slot never swaps: the next speculative window
+            # prefills it again
+            self._spec_release(req)
             req.swap_handle = self.cache.swap_out(req.slot)
         req.slot = None
         req.suspended = True
@@ -1105,6 +1437,7 @@ class LLMEngine:
             return True
         if req in self._active:
             self._active.remove(req)
+            self._spec_release(req)
         else:
             self._prefilling.remove(req)
         self.cache.release(req.slot)

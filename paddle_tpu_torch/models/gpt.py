@@ -21,8 +21,14 @@ Attention goes through ``nn.functional.scaled_dot_product_attention``:
 the flash kernels, with the attention dropout inside them while the
 model trains.  Hidden dropout is plain (``nn/common.py`` ``Dropout``).
 Both draw from the guarded generator of ``ops/random.py``, which
-``CompiledTrainStep`` seeds from its ``seed``.  The model's own cached
-decode (``caches``, ``gen_caches``) raises.
+``CompiledTrainStep`` seeds from its ``seed``.
+
+The model's own cached decode is the reference's concat cache:
+``gen_caches`` gives every block an empty ``(k, v)`` ``[B, 0, NH, D]``,
+and a forward with ``caches`` appends its K/V to them, attends causally
+with its queries as the last rows, takes positions after the cached
+length and returns ``(logits, new caches)``.  As in the reference, GPT-2
+has no ``generate``.
 """
 from __future__ import annotations
 
@@ -39,11 +45,6 @@ from ..runtime.device import resolve_device
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM",
            "GPTPretrainingCriterion", "gpt2_124m_config", "gpt2_tiny_config"]
-
-_CACHED_DECODE = ("the model's own cached decode (caches, gen_caches) is "
-                  "not ported yet (ROADMAP §A 1 'Port: the rest of "
-                  "serving', 'The model's own cached decode')")
-
 
 @dataclass
 class GPTConfig:
@@ -90,16 +91,20 @@ class GPTAttention(nn.Module):
         self.dropout_p = c.attention_probs_dropout_prob
 
     def forward(self, x, cache=None):
-        if cache is not None:
-            raise NotImplementedError(_CACHED_DECODE)
+        """With a concat ``cache`` ``(k, v)`` the new K/V are appended
+        and (out, (k, v)) returned."""
         b, s, h = x.shape
         qkv = self.qkv_proj(x).reshape(b, s, 3, self.num_heads,
                                        self.head_dim)
         q, k, v = qkv.unbind(2)
+        if cache is not None:
+            k = torch.cat([cache[0], k], dim=1)
+            v = torch.cat([cache[1], v], dim=1)
         out = F.scaled_dot_product_attention(
             q, k, v, dropout_p=self.dropout_p if self.training else 0.0,
             is_causal=True, training=self.training)
-        return self.out_proj(out.reshape(b, s, h))
+        out = self.out_proj(out.reshape(b, s, h))
+        return out if cache is None else (out, (k, v))
 
 
 class GPTMLP(nn.Module):
@@ -127,10 +132,12 @@ class GPTBlock(nn.Module):
         self.dropout = Dropout(config.hidden_dropout_prob)
 
     def forward(self, x, cache=None):
-        if cache is not None:
-            raise NotImplementedError(_CACHED_DECODE)
-        x = x + self.dropout(self.attn(self.ln_1(x)))
-        return x + self.dropout(self.mlp(self.ln_2(x)))
+        if cache is None:
+            x = x + self.dropout(self.attn(self.ln_1(x)))
+            return x + self.dropout(self.mlp(self.ln_2(x)))
+        attn, cache = self.attn(self.ln_1(x), cache)
+        x = x + self.dropout(attn)
+        return x + self.dropout(self.mlp(self.ln_2(x))), cache
 
 
 class GPTModel(nn.Module):
@@ -148,15 +155,24 @@ class GPTModel(nn.Module):
         self.ln_f = init.layer_norm(c.hidden_size, c.layer_norm_epsilon)
 
     def forward(self, input_ids, position_ids=None, caches=None):
-        if caches is not None:
-            raise NotImplementedError(_CACHED_DECODE)
+        """Final-norm hidden states; with ``caches`` also the new
+        caches."""
         s = input_ids.shape[1]
+        past = 0 if caches is None or caches[0] is None else \
+            caches[0][0].shape[1]
         if position_ids is None:
-            position_ids = torch.arange(s, device=input_ids.device)[None]
+            position_ids = torch.arange(past, past + s,
+                                        device=input_ids.device)[None]
         x = self.drop(self.wte(input_ids) + self.wpe(position_ids))
-        for block in self.h:
-            x = block(x)
-        return self.ln_f(x)
+        if caches is None:
+            for block in self.h:
+                x = block(x)
+            return self.ln_f(x)
+        new_caches = []
+        for i, block in enumerate(self.h):
+            x, cache = block(x, caches[i])
+            new_caches.append(cache)
+        return self.ln_f(x), new_caches
 
 
 class GPTForCausalLM(nn.Module):
@@ -181,14 +197,25 @@ class GPTForCausalLM(nn.Module):
                         config.initializer_range, bias=False)
 
     def forward(self, input_ids, position_ids=None, caches=None):
-        """Logits ``[B, S, V]`` in the parameters' dtype."""
-        hidden = self.gpt(input_ids, position_ids, caches)
+        """Logits ``[B, S, V]`` in the parameters' dtype; with ``caches``
+        (``gen_caches``) (logits, new caches)."""
+        out = self.gpt(input_ids, position_ids, caches)
+        hidden = out if caches is None else out[0]
         if self.lm_head is not None:
-            return self.lm_head(hidden)
-        return hidden @ self.gpt.wte.weight.t()
+            logits = self.lm_head(hidden)
+        else:
+            logits = hidden @ self.gpt.wte.weight.t()
+        return logits if caches is None else (logits, out[1])
 
     def gen_caches(self, batch_size):
-        raise NotImplementedError(_CACHED_DECODE)
+        """Empty concat caches, one ``(k, v)`` ``[B, 0, NH, D]`` a
+        block, in the weights' dtype."""
+        c = self.config
+        w = self.gpt.wte.weight
+        shape = (batch_size, 0, c.num_attention_heads,
+                 c.hidden_size // c.num_attention_heads)
+        return [(w.new_zeros(shape), w.new_zeros(shape))
+                for _ in range(c.num_hidden_layers)]
 
 
 class GPTPretrainingCriterion(nn.Module):

@@ -1,5 +1,5 @@
-"""Llama-3 model family: configuration, parameter tree and the training
-forward.
+"""Llama-3 model family: configuration, parameter tree, the training
+forward and the model's own cached decode.
 
 Counterpart of ``paddle_tpu/models/llama.py``.  The module tree carries
 the reference's parameter names (``llama.layers.0.self_attn.q_proj.
@@ -24,6 +24,13 @@ norms stay plain, as there.  ``recompute`` recomputes every decoder
 layer in the backward under ``recompute_granularity`` ("full",
 "core_attn" or "dots", ``jit/recompute.py``).  ``sequence_parallel``
 and the other model-family knobs raise.
+
+The cached forwards of the reference are here too: concat caches
+(``gen_caches``; each call appends its K/V and attends causally as the
+last rows) and the static caches of ``generate`` (``gen_static_caches``,
+``forward(ids, caches=..., pos=..., prefill=...)``: a prefill through
+the flash path, then one token a call through ``cached_attention_raw``;
+``nn/generation.py``).  ``LlamaForCausalLM`` takes ``GenerationMixin``.
 """
 from __future__ import annotations
 
@@ -35,9 +42,12 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..common.errors import enforce
 from ..jit.recompute import recompute
 from ..nn import functional as F
 from ..nn.common import Init
+from ..nn.generation import (GenerationMixin, StaticCache,
+                             cached_attention_raw, write_cache_raw)
 from ..ops import _nn
 from ..ops.fused_train import _rotate_half
 from ..runtime.device import resolve_device
@@ -159,7 +169,30 @@ class LlamaAttention(nn.Module):
         # unfused rope path; the port refuses fuse_qkv at construction
         self.fuse_norm_rope = c.fuse_norm_rope and not bias
 
-    def forward(self, x, cos_sin):
+    def _attend(self, q, k, v):
+        """Causal attention, the queries as the last rows of the keys."""
+        if self.use_flash:
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        if q.device.type == "cpu":
+            return F.scaled_dot_product_attention_ref(q, k, v,
+                                                      is_causal=True)
+        raise NotImplementedError(
+            "use_flash_attention=False selects the plain attention, "
+            "which runs on CPU tensors only; on the card attention goes "
+            "through the flash kernels (ROADMAP 'Port: remaining "
+            "modules')")
+
+    def forward(self, x, cos_sin, cache=None, pos=None, prefill=False):
+        """Training / full forward with neither ``cache`` nor ``pos``.
+        With ``pos`` (the static-cache protocol of ``nn/generation.py``)
+        ``cache`` is a ``StaticCache``: a prefill (``prefill`` and more
+        than one row, at position 0) attends causally over the prompt
+        through the flash path and then writes the prompt's K/V; any
+        other call goes through ``cached_attention_raw``.  Returns (out,
+        StaticCache).  With ``cache`` alone it is a concat cache ``(k,
+        v)`` ``[B, past, KVH, D]``: the new K/V are appended and the
+        queries attend causally as the last rows; returns (out, (k,
+        v))."""
         b, s, _ = x.shape
         cos, sin = cos_sin
         if self.fuse_norm_rope:
@@ -174,17 +207,21 @@ class LlamaAttention(nn.Module):
             k = self.k_proj(x).view(b, s, self.num_kv_heads, self.head_dim)
             v = self.v_proj(x).view(b, s, self.num_kv_heads, self.head_dim)
             q, k = _apply_rope(q, k, cos, sin)
-        if self.use_flash:
-            out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
-        elif x.device.type == "cpu":
-            out = F.scaled_dot_product_attention_ref(q, k, v, is_causal=True)
-        else:
-            raise NotImplementedError(
-                "use_flash_attention=False selects the plain attention, "
-                "which runs on CPU tensors only; on the card attention goes "
-                "through the flash kernels (ROADMAP 'Port: remaining "
-                "modules')")
-        return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
+        if pos is not None:
+            if prefill and s > 1:
+                out = self._attend(q, k, v)
+                kb, vb = write_cache_raw(k, v, cache.k, cache.v, pos)
+            else:
+                out, kb, vb = cached_attention_raw(q, k, v, cache.k,
+                                                   cache.v, pos)
+            out = out.reshape(b, s, self.num_heads * self.head_dim)
+            return self.o_proj(out), StaticCache(kb, vb)
+        if cache is not None:
+            k = torch.cat([cache[0], k], dim=1)
+            v = torch.cat([cache[1], v], dim=1)
+        out = self.o_proj(self._attend(q, k, v).reshape(
+            b, s, self.num_heads * self.head_dim))
+        return out if cache is None else (out, (k, v))
 
 
 class LlamaMLP(nn.Module):
@@ -223,9 +260,13 @@ class LlamaDecoderLayer(nn.Module):
         x = x + attn
         return x + self.mlp(self.post_attention_layernorm(x))
 
-    def forward(self, x, cos_sin):
-        return self._post_attn(
-            x, self.self_attn(self.input_layernorm(x), cos_sin))
+    def forward(self, x, cos_sin, cache=None, pos=None, prefill=False):
+        if cache is None:
+            return self._post_attn(
+                x, self.self_attn(self.input_layernorm(x), cos_sin))
+        attn, new_cache = self.self_attn(self.input_layernorm(x), cos_sin,
+                                         cache, pos=pos, prefill=prefill)
+        return self._post_attn(x, attn), new_cache
 
 
 class LlamaModel(nn.Module):
@@ -246,23 +287,35 @@ class LlamaModel(nn.Module):
         self.register_buffer("rope_sin", torch.from_numpy(
             np.sin(rope)).to(init.device), persistent=False)
 
-    def forward(self, input_ids):
+    def forward(self, input_ids, caches=None, pos=None, prefill=False):
+        """Final-norm hidden states; with ``caches`` also the new caches
+        (static ones at ``pos``, or concat ones after their length)."""
         c = self.config
-        _refuse(_forward_knobs(c), " in the training forward")
+        _refuse(_forward_knobs(c), " in the forward")
         s = input_ids.shape[1]
-        cos_sin = (self.rope_cos[:s], self.rope_sin[:s])
         x = self.embed_tokens(input_ids)
-        for layer in self.layers:
-            if c.recompute:
-                gran = c.recompute_granularity
-                x = recompute(layer, x, cos_sin,
-                              policy=None if gran == "full" else gran)
-            else:
-                x = layer(x, cos_sin)
-        return self.norm(x)
+        if caches is None:
+            cos_sin = (self.rope_cos[:s], self.rope_sin[:s])
+            for layer in self.layers:
+                if c.recompute:
+                    gran = c.recompute_granularity
+                    x = recompute(layer, x, cos_sin,
+                                  policy=None if gran == "full" else gran)
+                else:
+                    x = layer(x, cos_sin)
+            return self.norm(x)
+        start = int(pos) if pos is not None else (
+            caches[0][0].shape[1] if caches[0] is not None else 0)
+        cos_sin = (self.rope_cos[start:start + s],
+                   self.rope_sin[start:start + s])
+        new_caches = []
+        for i, layer in enumerate(self.layers):
+            x, cache = layer(x, cos_sin, caches[i], pos=pos, prefill=prefill)
+            new_caches.append(cache)
+        return self.norm(x), new_caches
 
 
-class LlamaForCausalLM(nn.Module):
+class LlamaForCausalLM(GenerationMixin, nn.Module):
     """Llama parameters on ``device`` (default: the GPU; raises on a
     machine without one unless ``device="cpu"`` is passed).
 
@@ -284,22 +337,56 @@ class LlamaForCausalLM(nn.Module):
             config.hidden_size, config.vocab_size, config.initializer_range,
             bias=False)
 
-    def forward(self, input_ids, labels=None):
+    def forward(self, input_ids, caches=None, labels=None, pos=None,
+                prefill=False):
         """Logits ``[B, S, V]``, or with ``labels`` (-100 = ignored) the
         mean cross-entropy: chunked and fused with the head product when
         ``fuse_linear_cross_entropy`` (the f32 logits never exist
-        whole), else through ``LlamaPretrainingCriterion``."""
-        hidden = self.llama(input_ids)
+        whole), else through ``LlamaPretrainingCriterion``.  With
+        ``caches`` (concat ones from ``gen_caches``, or static ones from
+        ``gen_static_caches`` at position ``pos``) it returns (logits or
+        loss, new caches)."""
         tied = self.lm_head is None
         head_w = self.llama.embed_tokens.weight if tied \
             else self.lm_head.weight
+        if caches is None:
+            hidden, new_caches = self.llama(input_ids), None
+        else:
+            hidden, new_caches = self.llama(input_ids, caches, pos=pos,
+                                            prefill=prefill)
         if labels is not None and self.config.fuse_linear_cross_entropy:
-            return _nn.fused_linear_cross_entropy(
+            out = _nn.fused_linear_cross_entropy(
                 hidden, head_w, labels, transpose_weight=tied)
-        logits = hidden @ (head_w.t() if tied else head_w)
-        if labels is not None:
-            return LlamaPretrainingCriterion()(logits, labels)
-        return logits
+        else:
+            out = hidden @ (head_w.t() if tied else head_w)
+            if labels is not None:
+                out = LlamaPretrainingCriterion()(out, labels)
+        return out if caches is None else (out, new_caches)
+
+    def gen_caches(self, batch_size: int):
+        """Empty concat caches, one ``(k, v)`` ``[B, 0, KVH, D]`` a
+        layer."""
+        c = self.config
+        w = self.llama.embed_tokens.weight
+        shape = (batch_size, 0, c.num_key_value_heads,
+                 c.hidden_size // c.num_attention_heads)
+        return [(w.new_zeros(shape), w.new_zeros(shape))
+                for _ in range(c.num_hidden_layers)]
+
+    def gen_static_caches(self, batch_size: int, total_len: int):
+        """Fixed-size decode buffers ``[B, total_len, KVH, D]`` in the
+        weights' dtype, one ``StaticCache`` a layer (the
+        ``GenerationMixin`` protocol)."""
+        c = self.config
+        enforce(total_len <= c.max_position_embeddings,
+                f"prompt + max_new_tokens = {total_len} exceeds "
+                f"max_position_embeddings = {c.max_position_embeddings} "
+                "(the RoPE table would clamp and rotations would be wrong)")
+        w = self.llama.embed_tokens.weight
+        shape = (batch_size, total_len, c.num_key_value_heads,
+                 c.hidden_size // c.num_attention_heads)
+        return [StaticCache(w.new_zeros(shape), w.new_zeros(shape))
+                for _ in range(c.num_hidden_layers)]
 
 
 class LlamaPretrainingCriterion(nn.Module):

@@ -111,11 +111,19 @@ def test_three_adamw_steps_match_reference(pair, ref_step):
 
 
 def test_cached_decode_raises(pair):
+    """The cached decode is ported (port PR 15, tests in
+    ``test_torch_generate.py``): ``gen_caches`` gives empty caches and a
+    cached forward over a prompt equals the plain forward; what still
+    raises is a cache list shorter than the model's blocks."""
     _, port = pair
-    with pytest.raises(NotImplementedError, match="cached decode"):
-        port.gen_caches(1)
-    with pytest.raises(NotImplementedError, match="cached decode"):
-        port(torch.zeros(1, 4, dtype=torch.long), caches=[None, None])
+    caches = port.gen_caches(1)
+    assert len(caches) == 2 and caches[0][0].shape == (1, 0, 4, 16)
+    ids = torch.arange(4)[None]
+    logits, new = port(ids, caches=caches)
+    torch.testing.assert_close(logits, port(ids), rtol=0, atol=1e-6)
+    assert new[0][0].shape == (1, 4, 4, 16)
+    with pytest.raises(IndexError):
+        port(ids, caches=caches[:1])
 
 
 def _dropout_losses(seed):
