@@ -70,7 +70,18 @@ with the launch counts set to 0 just before and read just after:
   #10 launches counted; ``LLMEngine(draft_model=..., spec_k=4)`` with a
   random draft at Llama-3.2-1B's widths, with the target drafting for
   itself and in rejection mode, #1, #2 and #7 counted; then the same
-  paths at f32, 2 layers, against the engine's greedy tokens.
+  paths at f32, 2 layers, against the engine's greedy tokens;
+- the observability plane on the ``serve`` model and requests: serves
+  with the engine's metrics off and on, alternated twice (tokens equal,
+  the same count of host copies and waits a step in a traced serve each
+  way), ``metrics_snapshot()``, the Prometheus text, the spans of one
+  traced request with its Chrome trace, the memory plane's rows;
+- capacity-factor MoE serving: Qwen1.5-MoE-A2.7B at full depth with
+  ``moe_dropless=False`` (the config's factor 1.25: 11 slots an expert a
+  page group) on the serve mix, unified and split, with kept + dropped
+  routed slots held to the live rows and no drops in pure-decode steps;
+  then at f32, 2 layers, factor 0.5, the prefill logits against a plain
+  forward that ranks each page chunk's slots.
 
 Every 16-bit training step must trace only the tensor-core (``wgmma``)
 kernels of the flash forward, dQ and dK/dV families, the fused step
@@ -552,8 +563,13 @@ def profiled(torch, fn):
         wall_ms = 1e3 * (time.perf_counter() - t0)
     fams, counts, top, routed = {}, {}, [], {}
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue                        # host ops: their kernels count
+        if e.device_type != torch.autograd.DeviceType.CUDA or \
+                getattr(e, "is_user_annotation", False) or \
+                e.key.startswith("llm_engine."):
+            # host ops (their kernels count), and the device spans of
+            # ``record_function`` ranges (the engine's ``RecordEvent``s,
+            # "llm_engine.*"), which cover kernels counted on their own
+            continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
@@ -565,6 +581,9 @@ def profiled(torch, fn):
             if fam in ROUTED_FAMILIES:
                 routed[e.key.split("(")[0][:80]] = us / 1e3
     busy = sum(fams.values())
+    check(busy <= 1.01 * wall_ms,
+          f"traced device time {busy} ms exceeds the wall time {wall_ms} "
+          f"ms: events counted twice ({sorted(fams.items())})")
     top.sort(reverse=True)
     return out, {"wall_ms": wall_ms,
                  "device_busy_ms": busy if busy else None,
@@ -1687,19 +1706,44 @@ def moe_router(torch, m, xf):
     return probs, gv, idx
 
 
-def plain_moe_ffn(torch, m, hn):
+def capacity_keep(torch, idx, group_start, capacity):
+    """[T, k] bool: the routed slots a capacity-factor dispatch keeps.
+    Slots run in row-major order (row t's j-th choice is slot t*k + j);
+    within each page group (the rows sharing ``group_start``) an expert
+    keeps its first ``capacity`` slots, one group and one expert at a
+    time, the plain way."""
+    k = idx.shape[1]
+    flat = idx.reshape(-1)
+    keep = torch.ones_like(flat, dtype=torch.bool)
+    groups = group_start.repeat_interleave(k)
+    for g in torch.unique(groups).tolist():
+        in_group = (groups == g).nonzero()[:, 0]
+        for e in torch.unique(flat[in_group]).tolist():
+            slots = in_group[flat[in_group] == e]
+            keep[slots[capacity:]] = False
+    return keep.view(idx.shape)
+
+
+def plain_moe_ffn(torch, m, hn, group_start=None, capacity=0):
     """The MoE FFN of layer ``m`` over rows hn [T, H], plain: the router
     in f32, then for each expert a loop over its routed rows (SwiGLU in
     f32 against the widened weights) combined by the gate values, plus
-    the gated shared expert.  Returns (out in hn's dtype, aux loss), both
-    differentiable."""
+    the gated shared expert.  With ``capacity`` and ``group_start`` [T]
+    (each row's page group's first row) only the slots
+    ``capacity_keep`` keeps compute.  Returns (out in hn's dtype, aux
+    loss), both differentiable."""
     from paddle_tpu_torch.ops import _nn
     xf = hn.float()
     probs, gv, idx = moe_router(torch, m, xf)
+    keep = None if not capacity else \
+        capacity_keep(torch, idx, group_start, capacity)
     y = torch.zeros_like(xf)
     ex = m.experts
     for e in range(m.gate.num_experts):
-        tok, slot = (idx == e).nonzero(as_tuple=True)
+        hit = idx == e
+        if keep is not None:
+            hit = hit & keep
+        tok, slot = hit.nonzero(as_tuple=True)
         if tok.numel() == 0:
             continue
         xe = xf[tok]
@@ -1717,12 +1761,13 @@ def plain_moe_ffn(torch, m, hn):
     return (y + sh).to(hn.dtype), aux
 
 
-def plain_moe_hidden(torch, model, ids):
+def plain_moe_hidden(torch, model, ids, capacity=0, page=128):
     """Final-norm hidden states [B, S, H] of a plain causal forward of a
     Qwen2-MoE model over ids [B, S] (no pages, no kernels: embedding,
     per layer RMSNorm, biased projections, f32 rope, the flash plain
     version, ``plain_moe_ffn``), and the summed aux loss; differentiable
-    by autograd."""
+    by autograd.  ``capacity``: each ``page``-row chunk of the sequence
+    is a capacity group (B = 1)."""
     from paddle_tpu_torch.models.llama import _rotate_half
     from paddle_tpu_torch.ops import _nn
     from paddle_tpu_torch.ops.flash_attention import \
@@ -1753,17 +1798,21 @@ def plain_moe_hidden(torch, model, ids):
         x = x + o.reshape(b, n, -1) @ a.o_proj.weight
         hn = _nn.rms_norm(x, layer.post_attention_layernorm.weight,
                           epsilon=c.rms_norm_eps)
-        ff, a_l = plain_moe_ffn(torch, layer.mlp, hn.reshape(b * n, -1))
+        group = None if not capacity else \
+            torch.arange(n, device=ids.device) // page * page
+        ff, a_l = plain_moe_ffn(torch, layer.mlp, hn.reshape(b * n, -1),
+                                group, capacity)
         x = x + ff.view(b, n, -1)
         aux = aux + a_l
     return _nn.rms_norm(x, model.norm.weight, epsilon=c.rms_norm_eps), aux
 
 
-def moe_reference_logits(torch, model, ids):
-    """Last-position logits of ``plain_moe_hidden`` over one prompt."""
+def moe_reference_logits(torch, model, ids, capacity=0):
+    """Last-position logits of ``plain_moe_hidden`` over one prompt
+    (``capacity``: ranked per 128-row page chunk)."""
     with torch.no_grad():
-        return plain_moe_hidden(torch, model, ids[None])[0][0, -1] \
-            @ model.lm_head.weight
+        return plain_moe_hidden(torch, model, ids[None],
+                                capacity)[0][0, -1] @ model.lm_head.weight
 
 
 def serve_moe_phase(torch, np, dev, table):
@@ -1855,7 +1904,207 @@ def serve_moe_phase(torch, np, dev, table):
     del eng
     gc.collect()
     torch.cuda.empty_cache()
+    serve_moe_capacity(torch, np, dev, model, prompts, results)
+    serve_moe_capacity_reference(torch, np, dev)
     serve_moe_split_int8(torch, np, dev, model)
+
+
+# capacity-factor MoE serving: the config's factor (1.25) at full depth,
+# 0.5 in the f32 check (drops certain); pure-decode check requests
+MOE_CF_REF = 0.5
+CAP_DECODE_LENS = (64, 100, 150, 200, 250, 300, 350, 400)
+CAP_DECODE_NEW = 8
+
+
+def moe_capacity_of(cfg, cf, page=128):
+    """The engine's per-page-group slot cap of an expert."""
+    return max(math.ceil(cfg.num_experts_per_tok * page * cf
+                         / cfg.num_experts), 1)
+
+
+def moe_plane(eng):
+    m = eng.metrics_snapshot()["moe"]
+    return {"expert_tokens": m["expert_tokens"],
+            "kept": sum(m["expert_tokens"]),
+            "dropped_tokens": m["dropped_tokens"],
+            "capacity": m["capacity"], "imbalance": m["imbalance"]}
+
+
+def token_agreement(got, want):
+    """Per request: the leading tokens equal and the positions equal."""
+    out = {}
+    for rid, w in want.items():
+        g = got[rid]
+        lead = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b),
+                    min(len(g), len(w)))
+        out[rid] = {"leading_equal": lead,
+                    "equal_positions": sum(a == b for a, b in zip(g, w)),
+                    "of": len(w)}
+    return out
+
+
+def decode_drops(torch, np, eng, vocab, seed):
+    """Dropped slots over pure-decode steps: 8 requests admitted by
+    ``add_request`` (their prefill finishes at admission), then ``step``
+    to the end.  Returns (dropped before, dropped after, decode steps)."""
+    rng = np.random.default_rng(seed)
+    for i, n in enumerate(CAP_DECODE_LENS):
+        eng.add_request(f"d{i}", rng.integers(0, vocab, n).tolist(),
+                        max_new_tokens=CAP_DECODE_NEW)
+    before = eng.metrics_snapshot()["moe"]["dropped_tokens"]
+    steps = 0
+    while eng.has_work():
+        eng.step()
+        steps += 1
+    return before, eng.metrics_snapshot()["moe"]["dropped_tokens"], steps
+
+
+def serve_moe_capacity(torch, np, dev, model, prompts, dropless):
+    """Qwen1.5-MoE-A2.7B at full depth in bf16 with capacity-factor
+    dispatch (``moe_dropless=False``; the config's factor 1.25, so cap =
+    ceil(4 x 128 x 1.25 / 60) = 11 slots an expert a page group) on the
+    serve mix, on the unified step and on the split path.  Checks: three
+    #11 launches a layer a forward; kept + dropped = live rows x top_k x
+    layers (the ``moe`` plane of ``metrics_snapshot()``); pure-decode
+    steps drop nothing.  Reports TTFT, decode tokens/s, memory and the
+    token agreement with the dropless serve (not held equal: drops change
+    the math)."""
+    from paddle_tpu_torch.inference.engine import LLMEngine
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import grouped_matmul as gm
+    from paddle_tpu_torch.ops import paged_attention as pa
+    cfg = model.config
+    layers = cfg.num_hidden_layers
+    cap = moe_capacity_of(cfg, cfg.capacity_factor)
+    counters = {"ragged_paged_append_attend": pa.ragged_paged_append_attend,
+                "flash_attention_fwd": fa.flash_attention_fwd,
+                "paged_decode_append_attend": pa.paged_decode_append_attend,
+                "grouped_matmul": gm.gmm_raw}
+    live_rows = sum(SERVE_LENS.values()) + len(SERVE_LENS) * (SERVE_NEW - 1)
+    for path in ("unified", "split"):
+        unified = path == "unified"
+        t0 = time.perf_counter()
+        eng = LLMEngine(model, max_seqs=8, max_len=2048, page_size=128,
+                        dtype=torch.bfloat16, moe_dropless=False,
+                        unified_step=unified,
+                        steps_per_sync=1 if unified else SPLIT_SPS)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        if unified:
+            stats, results = serve_run(torch, eng, prompts, counters)
+            chunks = -(-SERVE_LENS["a200"] // 128)
+            forwards = stats["steps"] + chunks
+        else:
+            stats = serve_split_run(torch, eng, prompts, counters)
+            results = {rid: eng.result(rid) for rid in prompts}
+            chunks = sum(-(-n // 128) for n in SERVE_LENS.values())
+            forwards = stats["forwards"] + chunks
+        plane = moe_plane(eng)
+        n = stats["launches"]
+        before, after, dsteps = decode_drops(torch, np, eng,
+                                             cfg.vocab_size, SEED + 17)
+        emit({"phase": "serve_moe_capacity", "path": path,
+              "model": "qwen1.5_moe_a2.7b", "layers": layers,
+              "capacity_factor": cfg.capacity_factor, "capacity": cap,
+              "dtype": "bfloat16", "setup_s": setup_s, **stats,
+              "forwards": forwards,
+              "grouped_matmul_launches_per_forward":
+              n["grouped_matmul"] / forwards,
+              "live_rows": live_rows, "moe": plane,
+              "routed_slots": live_rows * MOE_K * layers,
+              "dropped_share": plane["dropped_tokens"]
+              / (live_rows * MOE_K * layers),
+              "pure_decode_steps": dsteps,
+              "pure_decode_dropped": after - before,
+              "agreement_with_dropless": token_agreement(results,
+                                                         dropless)})
+        for rid, out in results.items():
+            check(all(0 <= t < cfg.vocab_size for t in out),
+                  f"capacity {path}: request {rid} returned a token "
+                  f"outside the vocabulary")
+        check(plane["capacity"] == cap == 11,
+              f"capacity {path}: cap {plane['capacity']}, not 11")
+        check(n["grouped_matmul"] == 3 * layers * forwards,
+              f"capacity {path}: #11 launched {n['grouped_matmul']} times "
+              f"in {forwards} forwards, not {3 * layers} a forward")
+        check(plane["kept"] + plane["dropped_tokens"]
+              == live_rows * MOE_K * layers,
+              f"capacity {path}: kept {plane['kept']} + dropped "
+              f"{plane['dropped_tokens']} != {live_rows} live rows x "
+              f"{MOE_K} x {layers}")
+        check(after == before and dsteps > 0,
+              f"capacity {path}: pure-decode steps dropped "
+              f"{after - before} slots")
+        if unified:
+            check(n["ragged_paged_append_attend"] == layers * stats["steps"]
+                  and n["flash_attention_fwd"] == layers * chunks
+                  and n["paged_decode_append_attend"] == 0,
+                  f"capacity unified: attention launches {n}")
+        else:
+            check_split_launches(stats, layers, "serve_moe_capacity")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def serve_moe_capacity_reference(torch, np, dev):
+    """Capacity-factor dispatch at f32, full width, 2 layers, factor 0.5
+    (cap ceil(4 x 128 x 0.5 / 60) = 5: drops certain): the engine's
+    first-token logits of a 300-id prompt (three page chunks, the split
+    prefill) within 1e-4 (relative L2) of a plain forward whose MoE FFN
+    keeps each expert's first 5 slots per 128-row chunk
+    (``capacity_keep``), and the unified step's first token (whole
+    chunks) equal to its arg max."""
+    from paddle_tpu_torch.inference.engine import LLMEngine
+    from paddle_tpu_torch.models.qwen2_moe import (Qwen2MoeConfig,
+                                                   Qwen2MoeForCausalLM)
+    cfg = Qwen2MoeConfig(num_hidden_layers=2)
+    cap = moe_capacity_of(cfg, MOE_CF_REF)
+    model = Qwen2MoeForCausalLM(
+        cfg, device=dev, dtype=torch.float32,
+        generator=torch.Generator(device=dev).manual_seed(SEED + 18))
+    ids = np.random.default_rng(SEED + 18).integers(
+        0, cfg.vocab_size, 300).tolist()
+    geom = dict(max_seqs=8, max_len=2048, page_size=128,
+                moe_dropless=False, moe_capacity_factor=MOE_CF_REF)
+    eng = LLMEngine(model, **geom, unified_step=False)
+    slot = eng.cache.allocate(len(ids) + 1)
+    got = eng._prefill_seq(slot, ids, 0).float()
+    eng.cache.release(slot)
+    plane = moe_plane(eng)
+    want = moe_reference_logits(torch, model, torch.tensor(ids, device=dev),
+                                capacity=cap).float()
+    dropless = moe_reference_logits(torch, model,
+                                    torch.tensor(ids, device=dev)).float()
+    rel = ((got - want).norm() / want.norm()).item()
+    rel_dropless = ((got - dropless).norm() / dropless.norm()).item()
+    uni = LLMEngine(model, **geom)
+    uni.begin_request("c", ids, max_new_tokens=1)
+    while uni.has_work():
+        uni.step()
+    first = uni.pop_result("c")[0]
+    rep = {"phase": "serve_moe_capacity_reference", "dtype": "float32",
+           "layers": 2, "capacity_factor": MOE_CF_REF, "capacity": cap,
+           "prompt_len": len(ids), "logits_rel_l2_err": rel,
+           "tolerance": 1e-4, "dropless_logits_rel_l2": rel_dropless,
+           "moe": plane, "unified_first_token": first,
+           "plain_argmax": int(want.argmax()),
+           "unified_moe": moe_plane(uni)}
+    emit(rep)
+    check(bool(torch.isfinite(got).all()), "capacity f32: logits not finite")
+    check(plane["dropped_tokens"] > 0 and plane["capacity"] == cap,
+          f"capacity f32: no slot dropped at factor {MOE_CF_REF}: {plane}")
+    check(rel <= 1e-4, f"capacity f32: prefill logits off the plain "
+                       f"capacity forward by {rel} (relative L2)")
+    check(rel_dropless > 10 * rel,
+          f"capacity f32: the drops do not show in the logits "
+          f"({rel_dropless} against the dropless forward)")
+    check(first == int(want.argmax()),
+          f"capacity f32: unified first token {first} != plain "
+          f"{int(want.argmax())}")
+    del eng, uni, model
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def train_moe_phase(torch, np, dev, table):
@@ -3149,6 +3398,147 @@ def verify_rejections(torch):
         E._mixed_forward, SP.greedy_accept = mixed, accept
 
 
+# the CUDA runtime calls that copy to the host or wait for the card, and
+# the device's copies to the host, as torch.profiler names them
+SYNC_RUNTIME = ("cudaMemcpy", "cudaMemcpyAsync", "cudaStreamSynchronize",
+                "cudaDeviceSynchronize", "cudaEventSynchronize")
+
+
+METRICS_TRACED_NEW = 8          # new tokens a request in the traced pair
+
+
+def host_syncs(torch, fn):
+    """Run ``fn()`` under torch.profiler: its result and the counts of
+    the ``SYNC_RUNTIME`` calls (device-to-host copies are
+    ``cudaMemcpyAsync`` with a stream wait; host-to-device copies of
+    host arrays go through the same call) and of the device's
+    ``Memcpy DtoH`` copies."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    counts = {}
+    for e in prof.key_averages():
+        name = e.key
+        if name in SYNC_RUNTIME or name.startswith("Memcpy DtoH"):
+            key = "Memcpy DtoH" if name.startswith("Memcpy DtoH") else name
+            counts[key] = counts.get(key, 0) + e.count
+    return out, counts
+
+
+def serve_metrics_phase(torch, np, dev, model, prompts, greedy):
+    """The serve model with the engine's metrics on (the default) and
+    off.  A fresh engine serves the serve mix four times, metrics off,
+    on, on, off (host-clock rates spread between calls, so the phase
+    reports them beside each other and holds the work instead): the
+    tokens must equal the ``serve`` phase's, and, in one traced serve
+    each way, the count of CUDA runtime calls that copy to the host or
+    wait for the card, and of the card's copies to the host, must be
+    equal with and without metrics (the mix, deferred, 8 new tokens).  Then ``metrics_snapshot()``, the
+    byte size of the registry's Prometheus text, the spans of one
+    traced request (admission, steps, a suspend and resume by swap-in)
+    and their Chrome trace, the memory plane's device row, and the
+    cache's ``memory_rows()["device_bytes"]`` against the pools' bytes."""
+    import os
+    import tempfile
+
+    from paddle_tpu_torch.inference.engine import LLMEngine
+    from paddle_tpu_torch.observability import (get_registry,
+                                                introspection, tracing)
+    geom = dict(max_seqs=8, max_len=2048, page_size=128,
+                dtype=torch.bfloat16)
+    runs = []
+    for on in (False, True, True, False):
+        eng = LLMEngine(model, **geom, enable_metrics=on)
+        stats, results = serve_run(torch, eng, prompts, {})
+        check(results == greedy,
+              f"metrics {'on' if on else 'off'}: tokens differ from the "
+              f"serve phase's")
+        runs.append({"metrics": on, "decode_tok_s": stats["decode_tok_s"],
+                     "ttft_s": stats["ttft_s"], "serve_s": stats["serve_s"],
+                     "steps": stats["steps"]})
+        del eng
+    def short_serve(eng):
+        for rid, ids in prompts.items():
+            eng.begin_request(rid, ids, max_new_tokens=METRICS_TRACED_NEW)
+        steps = 0
+        while eng.has_work():
+            eng.step()
+            steps += 1
+        return steps
+
+    syncs = {}
+    for on in (False, True):
+        eng = LLMEngine(model, **geom, enable_metrics=on)
+        steps, counts = host_syncs(torch, lambda: short_serve(eng))
+        syncs["on" if on else "off"] = {
+            "steps": steps, "counts": counts,
+            "per_step": {k: v / steps for k, v in counts.items()}}
+        if on:
+            snap = eng.metrics_snapshot()
+        del eng
+    text = get_registry().expose_text()
+    eng = LLMEngine(model, **geom)
+    rows = eng.cache.memory_rows()
+    tr = tracing.enable_tracing()
+    try:
+        eng.add_request("t_a200", prompts["a200"], max_new_tokens=8)
+        eng.begin_request("t_b37", prompts["b37"], max_new_tokens=8)
+        for _ in range(3):
+            eng.step()
+        eng.suspend("t_a200")
+        eng.step()
+        eng.resume("t_a200")
+        while eng.has_work():
+            eng.step()
+        spans = tr.finished_spans()
+        chrome = tr.to_chrome_trace()
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "serve.chrome_trace.json")
+            with open(path, "w") as f:
+                json.dump(chrome, f)
+            chrome_bytes = os.path.getsize(path)
+    finally:
+        tracing.disable_tracing()
+    names = sorted({s["name"] for s in spans})
+    memz = introspection.memz_snapshot()
+    emit({"phase": "serve_metrics", "model": "llama3_8b",
+          "runs": runs, "host_syncs": syncs, "metrics_snapshot": snap,
+          "prometheus_text_bytes": len(text.encode("utf-8")),
+          "prometheus_series_lines": sum(
+              1 for ln in text.splitlines() if not ln.startswith("#")),
+          "span_names": names, "span_count": len(spans),
+          "chrome_trace_events": len(chrome["traceEvents"]),
+          "chrome_trace_bytes": chrome_bytes,
+          "memory_rows": rows, "kv_bytes": kv_bytes(eng.cache),
+          "memz_devices": memz["devices"]})
+    check(syncs["on"]["steps"] == syncs["off"]["steps"]
+          and syncs["on"]["counts"] == syncs["off"]["counts"],
+          f"metrics on and off copy to the host or wait for the card a "
+          f"different number of times: {syncs}")
+    check(syncs["on"]["counts"].get("Memcpy DtoH", 0) > 0,
+          f"no device-to-host copy traced: {syncs}")
+    check(rows["device_bytes"] == kv_bytes(eng.cache),
+          f"memory_rows device_bytes {rows['device_bytes']} != pool bytes "
+          f"{kv_bytes(eng.cache)}")
+    for want in ("engine.prefill_chunk", "engine.mixed_step",
+                 "engine.swap_out", "engine.swap_in", "llm_engine.prefill",
+                 "llm_engine.decode"):
+        check(want in names, f"no {want} span in the traced request: "
+                             f"{names}")
+    check(snap["generated_tokens"] == len(SERVE_LENS) * METRICS_TRACED_NEW
+          and snap["requests"] == len(SERVE_LENS)
+          and snap["prefill_compiles"] == 0
+          and snap["ttft_seconds"]["count"] == len(SERVE_LENS),
+          f"metrics_snapshot of the serve: {snap}")
+    check(memz["devices"] and memz["devices"][0]["bytes_in_use"] > 0,
+          f"the memory plane read no device: {memz['devices']}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def serve_spec_phase(torch, np, dev, model, prompts, greedy, greedy_stats):
     """The ``serve`` model as the target with SPEC_K: a random draft at
     Llama-3.2-1B's widths (greedy: the plain engine's tokens by the margin
@@ -4232,6 +4622,7 @@ def main() -> int:
     generate_phase(torch, np, dev, model)
     serve_spec_phase(torch, np, dev, model, prompts, results, stats)
     f32_decode_agreement(torch, np, dev)
+    serve_metrics_phase(torch, np, dev, model, prompts, results)
 
     # -- the same model on the split path and with int8 pools and weights,
     # then with the pools at their default dtype (f32)

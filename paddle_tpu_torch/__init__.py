@@ -19,6 +19,9 @@ kernels (paged attention for the unified and split steps, flash forward
 and backward with in-kernel dropout, the trained bias's gradient, the
 fused clip + optimizer update, add + norm, matmul + rope, the MoE
 grouped matmuls) are written by hand in CUDA C++ for Hopper
-(``csrc/``).  Entry points run on the
-GPU unless the caller passes ``device="cpu"``.
+(``csrc/``).  The serving engine reports into ``observability/``
+(metrics, tracing, health, memory, request capsules; the reference's
+stdlib modules kept as copies) and ``profiler/`` (over
+``torch.profiler``).  Entry points run on the GPU unless the caller
+passes ``device="cpu"``.
 """

@@ -28,11 +28,18 @@ page-aligned prefix of the prompt, maps those pages into the new slot
 (host-side only) and prefills only the tail.
 
 MoE backbones (Qwen2-MoE, ``inference/backbone.py``): every decoder
-layer's FFN is the dropless grouped dispatch of
-``inference/moe_dispatch.py`` (kernel #11 for the gate, up and down
-projections) on both forwards, with the q/k/v biases of the model; the
-routed slots of every (layer, expert) are summed into
-``self._moe_counts`` [L, E] on the device.  Padding rows route nowhere.
+layer's FFN is the grouped dispatch of ``inference/moe_dispatch.py``
+(kernel #11 for the gate, up and down projections) on every forward,
+with the q/k/v biases of the model; the kept routed slots of every
+(layer, expert) are summed into ``self._moe_counts`` [L, E] on the
+device.  Padding rows route nowhere.  Dropless by default;
+``moe_dropless=False`` is the capacity-factor mode: each page group (a
+prefill chunk; decode rows are singleton groups and never drop) keeps
+at most ``cap = max(ceil(top_k * page_size * cf / E), 1)`` slots an
+expert (``moe_capacity_factor``, default the config's), and the unified
+planner packs whole page chunks so both paths rank a chunk alike.  The
+dropped total is the live routed slots (a host count) times the layers
+minus the kept ones; both fold into the metrics when read.
 
 ``unified_step=False`` is the split path: ``add_request`` prefills as
 above and ``step()`` decodes one token for every active request a
@@ -93,9 +100,21 @@ d_1 .. d_k]`` of every sequence in one ragged forward (kernel #1, ``k +
 greedily (the plain greedy tokens) or by rejection sampling (the
 target's distribution); rejected suffixes roll back on both caches.
 
-Knobs of the reference engine that this port does not take yet raise
-``NotImplementedError`` naming their ROADMAP item; metrics, tracing
-spans and request capsules are not ported.
+Observability (``observability/``, on by default as in the reference):
+``enable_metrics`` adds the reference's ``llm_engine_*`` series (TTFT,
+TPOT, token, request, preemption and prefix counters, per-expert load)
+to the registry and ``metrics_snapshot()`` reads them with the cache's
+``kv_cache_*`` series; tracing spans (``engine.prefill_chunk``,
+``engine.mixed_step``, ``engine.spec_window``, ``engine.swap_out``,
+``engine.swap_in``), ``RecordEvent`` ranges, health observations and
+request capsules cost one global read each while their plane is off.
+All of it is host work: nothing copies from the card to record it (the
+per-expert counts fold in when read).  The four ``*_compiles`` counters
+are 0: eager PyTorch compiles no programs.
+
+Knobs of the reference engine that this port does not take yet
+(``scan_decode=True``, ``mesh``, ``tp_axis``) raise
+``NotImplementedError`` naming their ROADMAP item.
 
 Weights are read per layer from the model's own parameters (no stacked
 copy), and the engine runs on the model's device: the GPU by default,
@@ -103,6 +122,9 @@ the CPU only when the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
+import itertools
+import math
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -112,10 +134,16 @@ from ..common import prng
 from ..common.errors import enforce
 from ..models.llama import _rotate_half
 from ..nn.generation import filtered_probs, sample_logits
+from ..observability import capsule as _capsule
+from ..observability import get_registry
+from ..observability import health as _health
+from ..observability import introspection as _insp
+from ..observability import tracing as _tracing
 from ..ops import _nn
 from ..ops.flash_attention import flash_attention_raw
 from ..ops.paged_attention import (paged_decode_append_attend,
                                    ragged_paged_append_attend)
+from ..profiler import RecordEvent
 from ..quantization.layers import QuantizedLinear
 from ..quantization.ops import (quantize_absmax, quantize_rows,
                                 quantized_matmul)
@@ -124,9 +152,23 @@ from .backbone import resolve_backbone
 from .moe_dispatch import MoEArch, moe_ffn
 from . import speculative as _spec_mod
 from .paged_cache import PagedKVCache
-from .sampling import spec_window_keys, split_step
+from .sampling import key_fingerprint, spec_window_keys, split_step
 
 __all__ = ["LLMEngine", "GenRequest"]
+
+_ENGINE_IDS = itertools.count()
+
+# the reference's serving-latency bucket ladders (seconds): TTFT spans
+# multi-chunk prompts, TPOT is per decoded token
+_TTFT_BUCKETS = (.01, .025, .05, .1, .25, .5, 1.0, 2.5, 5.0, 10.0,
+                 30.0, 60.0)
+_TPOT_BUCKETS = (.0005, .001, .0025, .005, .01, .025, .05, .1, .25,
+                 .5, 1.0)
+# accepted-draft-length ladder of speculative windows (k up to 32)
+_SPEC_LEN_BUCKETS = (0., 1., 2., 3., 4., 5., 6., 7., 8., 12., 16.,
+                     24., 32.)
+_NO_COMPILES = ("eager PyTorch compiles no programs (the CUDA kernels "
+                "are built once per process), so this is 0")
 
 # float pool dtypes that ``kv_dtype`` may name
 _FLOAT_KV = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -144,8 +186,9 @@ class GenRequest:
         self.done = False
         self.cancelled = False
         # deferred admission (begin_request): next prompt position to
-        # prefill
+        # prefill, and the submit time TTFT measures from
         self.pf_pos = 0
+        self.t_submit: Optional[float] = None
         # preemption: a suspended request holds no slot or device pages;
         # its swap entry (None: resume recomputes)
         self.suspended = False
@@ -225,12 +268,14 @@ def _attn_qkv(x, iln, qw, qb, kw, kb, vw, vb, cos, sin, eps, kvh,
     return q, k, v
 
 
-def _ffn_block(x, pln, ffn, eps, arch, live, counts):
+def _ffn_block(x, pln, ffn, eps, arch, live, counts, group=None):
     """The post-attention FFN with its residual: dense SwiGLU, or the
-    MoE FFN, whose routed-slot counts are appended to ``counts``."""
+    MoE FFN (``group``: each row's capacity page group's first row),
+    whose kept routed-slot counts are appended to ``counts``."""
     if arch is None:
         return _ffn(x, pln, *ffn, eps)
-    out, cnt = moe_ffn(_nn.rms_norm(x, pln, epsilon=eps), ffn, arch, live)
+    out, cnt = moe_ffn(_nn.rms_norm(x, pln, epsilon=eps), ffn, arch, live,
+                       group)
     counts.append(cnt)
     return x + out
 
@@ -251,7 +296,8 @@ def _paged_prefill_chunk(layers, norm_w, head_w, embed_w, rope,
     updated in place.  ``last_in_chunk`` is the row whose logits matter
     on the final chunk.  Returns logits [V]; under an MoE ``arch`` also
     the routed-slot counts [L, E] (the chunk's real rows, ``<=
-    last_in_chunk``, are the ones routed).  With the scale pools
+    last_in_chunk``, are the ones routed; the chunk is one capacity page
+    group starting at row 0).  With the scale pools
     ``k_scales``/``v_scales`` [L, KVH, n_pages, P] the pools are int8:
     the chunk's rows are quantized per token before the page write, and
     the attention runs in f32 over the dequantized pages (the chunk's
@@ -270,6 +316,8 @@ def _paged_prefill_chunk(layers, norm_w, head_w, embed_w, rope,
                         device=ids.device).masked_fill_(~allow, -1e30)
     live = None if arch is None else \
         torch.arange(c, device=ids.device) <= last_in_chunk
+    group = torch.zeros(c, dtype=torch.long, device=ids.device) \
+        if arch is not None and arch.capacity else None
     counts = []
     for li, lp in enumerate(layers):
         iln, qw, qb, kw, kb, vw, vb, ow, pln, ffn = _unpack(lp, arch)
@@ -304,7 +352,7 @@ def _paged_prefill_chunk(layers, norm_w, head_w, embed_w, rope,
                                    causal=False,
                                    mask=amask[None, None])[0].to(q.dtype)
         x = x + _mm(attn.reshape(c, -1), ow)
-        x = _ffn_block(x, pln, ffn, eps, arch, live, counts)
+        x = _ffn_block(x, pln, ffn, eps, arch, live, counts, group)
     x = _nn.rms_norm(x, norm_w, epsilon=eps)
     logits = _head(x[last_in_chunk], head_w, tied)
     return logits if arch is None else (logits, torch.stack(counts))
@@ -325,14 +373,17 @@ def _mixed_forward(layers, norm_w, head_w, embed_w, rope, k_pages,
     [S] and desc_tables [S, maxp] int32 with ``q_len == 0`` marking
     unused descriptors.  Returns logits [T, V]; under an MoE ``arch``
     also the routed-slot counts [L, E] (rows past their descriptor's
-    ``q_len`` are padding and route nowhere).  Scale pools make the
-    pools int8 (the ragged kernel's int8 mode)."""
+    ``q_len`` are padding and route nowhere; each descriptor is one
+    capacity page group, ``group_start = q_start[desc_of_row]``).  Scale
+    pools make the pools int8 (the ragged kernel's int8 mode)."""
     cos_t, sin_t = rope
     t = ids.shape[0]
     x = embed_w[ids]                                   # [T, H]
     cos = cos_t[positions][:, None, :]                 # [T, 1, D]
     sin = sin_t[positions][:, None, :]
     live = None if arch is None else off_of_row < q_len.long()[desc_of_row]
+    group = q_start.long()[desc_of_row] \
+        if arch is not None and arch.capacity else None
     counts = []
     for li, lp in enumerate(layers):
         iln, qw, qb, kw, kb, vw, vb, ow, pln, ffn = _unpack(lp, arch)
@@ -344,7 +395,7 @@ def _mixed_forward(layers, norm_w, head_w, embed_w, rope, k_pages,
             desc_tables, ksp, vsp)
         attn = blocks[desc_of_row, off_of_row]         # [T, NH, D]
         x = x + _mm(attn.reshape(t, -1), ow)
-        x = _ffn_block(x, pln, ffn, eps, arch, live, counts)
+        x = _ffn_block(x, pln, ffn, eps, arch, live, counts, group)
     x = _nn.rms_norm(x, norm_w, epsilon=eps)
     logits = _head(x, head_w, tied)
     return logits if arch is None else (logits, torch.stack(counts))
@@ -362,7 +413,8 @@ def _decode_forward(layers, norm_w, head_w, embed_w, rope, k_pages,
     #7 in every layer, pools updated in place (scale pools: int8).
     tokens [B] long, tables [B, maxp] and lens [B] int32.  Returns
     logits [B, V]; under an MoE ``arch`` also the routed-slot counts
-    [L, E] (``live`` [B] bool: the rows that route)."""
+    [L, E] (``live`` [B] bool: the rows that route; each row is its own
+    capacity group, so decode never drops)."""
     cos_t, sin_t = rope
     b = tokens.shape[0]
     x = embed_w[tokens]                                # [B, H]
@@ -395,10 +447,12 @@ class LLMEngine:
     swap).
     ``device`` defaults to the GPU and must hold the model.
     ``moe_dispatch`` ("grouped", or "dense": the per-row comparator, CPU
-    tensors only) and ``moe_dropless`` (only True) apply to MoE
-    backbones.  The reference's other keywords are taken at the value
-    the port runs (``scan_decode=False``: the host-chained decode window,
-    which gives the reference's tokens; no metrics; no mesh and the
+    tensors only), ``moe_dropless`` and ``moe_capacity_factor`` (the
+    capacity-factor mode) apply to MoE backbones.  ``enable_metrics``
+    (default on, as the reference's) adds the engine's series to the
+    observability registry.  The reference's other keywords are taken at
+    the value the port runs (``scan_decode=False``: the host-chained
+    decode window, which gives the reference's tokens; no mesh and the
     default ``tp_axis``) and raise otherwise."""
 
     def __init__(self, model, max_seqs: int = 8, max_len: int = 2048,
@@ -410,7 +464,7 @@ class LLMEngine:
                  steps_per_sync: int = 1,
                  kv_dtype: Optional[str] = None,
                  weight_dtype: Optional[str] = None,
-                 enable_metrics: bool = False,
+                 enable_metrics: bool = True,
                  enable_prefix_caching: bool = True,
                  swap_pool_pages: Optional[int] = None,
                  unified_step: bool = True,
@@ -420,19 +474,12 @@ class LLMEngine:
                  spec_k: int = 4, device=None,
                  moe_dispatch: str = "grouped", moe_dropless: bool = True,
                  moe_capacity_factor: Optional[float] = None):
-        serving = "Port: the rest of serving"
         devices = "Multi-device"
         todo = {
             "scan_decode=True (the decode window as one device program)": (
                 scan_decode, "Port: speed of what is ported"),
-            "enable_metrics=True (engine metrics)": (
-                enable_metrics, serving),
             "mesh (tensor-parallel serving)": (mesh is not None, devices),
             "tp_axis (tensor-parallel serving)": (tp_axis != "tp", devices),
-            "moe_dropless=False (capacity-factor MoE dispatch)": (
-                not moe_dropless, serving),
-            "moe_capacity_factor (capacity-factor MoE dispatch)": (
-                moe_capacity_factor is not None, serving),
         }
         for knob, (asked, item) in todo.items():
             if asked:
@@ -508,15 +555,38 @@ class LLMEngine:
             self._layers = self._dense_layers(spec.layers)
         else:
             m = spec.moe
+            cf = float(moe_capacity_factor if moe_capacity_factor
+                       is not None else m["capacity_factor"])
+            # capacity-factor mode: the per-page-group per-expert slot
+            # cap (a group is one prefill page chunk of page_size rows)
+            cap = 0 if moe_dropless else max(
+                int(math.ceil(m["top_k"] * page_size * cf
+                              / m["num_experts"])), 1)
             self._arch = MoEArch(
                 num_experts=m["num_experts"], top_k=m["top_k"],
                 norm_topk=m["norm_topk"], shared=m["shared"],
                 shared_gate=m["shared_gate"], attn_bias=spec.attn_bias,
-                dispatch=moe_dispatch)
+                dispatch=moe_dispatch, capacity=cap)
+            if cap and unified_step:
+                # ranks are per page group, so the unified planner
+                # packs whole page chunks: the static budget must hold
+                # one
+                enforce(self._pf_budget_static >= page_size,
+                        "capacity-factor MoE with unified_step needs "
+                        f"prefill_token_budget >= page_size "
+                        f"({page_size}) — the planner packs whole "
+                        "page chunks so capacity ranks match the "
+                        "split path")
             self._layers = [self._moe_layer(l) for l in spec.layers]
+            # kept routed slots per (layer, expert), on the device; the
+            # live routed slots a layer (kept + dropped), on the host
             self._moe_counts = torch.zeros(
                 (len(spec.layers), m["num_experts"]), dtype=torch.int64,
                 device=self.device)
+            self._moe_routed = 0
+            self._moe_folded = np.zeros(
+                (len(spec.layers), m["num_experts"]), np.int64)
+            self._moe_dropped_folded = 0
         self._norm_w = spec.norm.weight
         self._tied = spec.lm_head is None
         self._embed_w = embed
@@ -524,9 +594,203 @@ class LLMEngine:
         self._rope, self._rope_prefill = _rope_tables(spec, page_size)
         self.requests: Dict[object, GenRequest] = {}
         self._active: List[GenRequest] = []
+        self._init_metrics(enable_metrics)
+        # the paged pool (device pages and host swap) as a memory-plane
+        # row, weakly held
+        _insp.register_memory_consumer(f"kv_cache:{self.engine_id}",
+                                       self.cache)
+        # the request-capsule config fingerprint: what a replay needs to
+        # call two engines the same (the model hash is a config hash)
+        self._capsule_fp = {
+            "engine": self.engine_id,
+            "model_hash": _capsule.model_fingerprint(model),
+            "kv_dtype": kv_dtype, "weight_dtype": weight_dtype,
+            "page_size": page_size, "n_pages": int(n_pages),
+            "max_seqs": max_seqs, "max_len": max_len,
+            "steps_per_sync": steps_per_sync,
+            "unified_step": self.unified_step,
+            "scan_decode": False,
+            "decode_strategy": decode_strategy,
+            "top_k": self.top_k, "top_p": self.top_p,
+            "temperature": self.temperature, "seed": seed,
+            "prefix_caching": self.enable_prefix_caching,
+            "tp": 1,
+            # router geometry is token-affecting; the dispatch mode is
+            # not (grouped and dense give the same tokens)
+            "moe": None if self._arch is None else {
+                "num_experts": self._arch.num_experts,
+                "top_k": self._arch.top_k,
+                "norm_topk": self._arch.norm_topk,
+                "dropless": self._arch.capacity == 0,
+                "capacity": self._arch.capacity,
+                "shared": self._arch.shared,
+                "shared_gate": self._arch.shared_gate,
+            },
+            "spec": None,                  # filled by _init_spec
+        }
         self._spec = None
         if draft_model is not None:
             self._init_spec(draft_model, spec_k, dtype, page_size)
+
+    # -- metrics ---------------------------------------------------------------
+    def _init_metrics(self, enabled: bool):
+        """Per-engine children (label engine=<id>) of the reference's
+        ``llm_engine_*`` series in the global registry.  Recording is a
+        few host float adds a step window; the per-expert counts live on
+        the device and fold in at read time (``_fold_expert_counts``, a
+        collect hook of the registry and a step of ``metrics_snapshot``)."""
+        self.engine_id = str(next(_ENGINE_IDS))
+        self._metrics = None
+        if not enabled:
+            return
+        reg = get_registry()
+        lbl = ("engine",)
+        eid = self.engine_id
+        self._metrics = {
+            "ttft": reg.histogram(
+                "llm_engine_ttft_seconds",
+                "Time to first token: add_request() entry to the "
+                "prefill-produced token (includes any compile).",
+                lbl, buckets=_TTFT_BUCKETS).labels(eid),
+            "tpot": reg.histogram(
+                "llm_engine_tpot_seconds",
+                "Per-token decode latency: step() window wall time / "
+                "tokens in the window.", lbl,
+                buckets=_TPOT_BUCKETS).labels(eid),
+            "prompt_tokens": reg.counter(
+                "llm_engine_prompt_tokens_total",
+                "Prompt tokens admitted.", lbl).labels(eid),
+            "generated_tokens": reg.counter(
+                "llm_engine_generated_tokens_total",
+                "Tokens returned to requests (prefill token "
+                "included).", lbl).labels(eid),
+            "requests": reg.counter(
+                "llm_engine_requests_total",
+                "Requests admitted.", lbl).labels(eid),
+            "aborted": reg.counter(
+                "llm_engine_aborted_total",
+                "Requests cancelled via abort() before finishing "
+                "(suspended requests included — their swap entry is "
+                "dropped).", lbl).labels(eid),
+            "suspended": reg.counter(
+                "llm_engine_suspended_total",
+                "Requests preempted out of the decode batch "
+                "(suspend()).", lbl).labels(eid),
+            "resumed": reg.counter(
+                "llm_engine_resumed_total",
+                "Suspended requests re-admitted, by restore path "
+                "(swap_in: host pages copied back; recompute: prompt "
+                "+ generated tokens replayed).", ("engine", "path")),
+            "migrated_out": reg.counter(
+                "llm_engine_migrated_out_total",
+                "Suspended requests exported as migration packages "
+                "(export_request) — they now belong to another "
+                "engine.", lbl).labels(eid),
+            "migrated_in": reg.counter(
+                "llm_engine_migrated_in_total",
+                "Migration packages adopted (import_request) — they "
+                "resume here via resume().", lbl).labels(eid),
+            "queue_depth": reg.gauge(
+                "llm_engine_queue_depth",
+                "Requests active in the decode batch.", lbl).labels(eid),
+            "occupancy": reg.gauge(
+                "llm_engine_batch_occupancy",
+                "Active requests / max_seqs in the last decode "
+                "window.", lbl).labels(eid),
+            "prefix_hit_tokens": reg.counter(
+                "llm_engine_prefix_hit_tokens_total",
+                "Prompt tokens served from cached prefix pages (no "
+                "prefill compute).", lbl).labels(eid),
+            "prefix_miss_tokens": reg.counter(
+                "llm_engine_prefix_miss_tokens_total",
+                "Prompt tokens that ran chunked prefill.",
+                lbl).labels(eid),
+            "prefix_shared_pages": reg.counter(
+                "llm_engine_prefix_shared_pages_total",
+                "Cached pages mapped read-shared into admitted "
+                "slots.", lbl).labels(eid),
+            "prefix_hit_rate": reg.gauge(
+                "llm_engine_prefix_cache_hit_rate",
+                "Cumulative cached / total prompt tokens (0 when "
+                "prefix caching is off or nothing admitted).",
+                lbl).labels(eid),
+            "mixed_decode_slots": reg.gauge(
+                "llm_engine_mixed_batch_decode_slots",
+                "Decode rows packed into the last unified mixed "
+                "step.", lbl).labels(eid),
+            "mixed_prefill_tokens": reg.gauge(
+                "llm_engine_mixed_batch_prefill_tokens",
+                "Prefill-chunk tokens packed into the last unified "
+                "mixed step (interleave ratio = this / (this + decode "
+                "slots)).", lbl).labels(eid),
+        }
+        if self._arch is not None:
+            self._metrics["expert_tokens"] = reg.counter(
+                "llm_engine_expert_tokens_total",
+                "Routed token-slots kept per (layer, expert) — "
+                "capacity-dropped slots are excluded (see "
+                "llm_engine_expert_dropped_tokens_total).",
+                ("engine", "layer", "expert"))
+            self._metrics["expert_dropped"] = reg.counter(
+                "llm_engine_expert_dropped_tokens_total",
+                "Routed token-slots dropped by the capacity factor "
+                "(always 0 dropless).", lbl).labels(eid)
+            self._metrics["expert_imbalance"] = reg.gauge(
+                "llm_engine_expert_imbalance",
+                "Max/mean cumulative per-expert routed load across "
+                "layers (the MoE balance SLO; 1.0 = uniform).",
+                lbl).labels(eid)
+            reg.add_collect_hook(self._fold_expert_counts)
+        self._metrics["prefill_compiles"] = reg.gauge(
+            "llm_engine_prefill_compiles",
+            f"Distinct compiled prefill programs: {_NO_COMPILES}.")
+        self._metrics["decode_compiles"] = reg.gauge(
+            "llm_engine_decode_compiles",
+            f"Distinct compiled decode programs: {_NO_COMPILES}.")
+        self._metrics["mixed_compiles"] = reg.gauge(
+            "llm_engine_mixed_compiles",
+            f"Distinct compiled unified mixed-step programs: "
+            f"{_NO_COMPILES}.")
+        self._metrics["window_compiles"] = reg.gauge(
+            "llm_engine_window_compiles",
+            f"Distinct compiled on-device decode-window programs: "
+            f"{_NO_COMPILES}.")
+
+    def _record_compiles(self):
+        m = self._metrics
+        m["prefill_compiles"].set(self.prefill_compiles())
+        m["decode_compiles"].set(self.decode_compiles())
+        m["mixed_compiles"].set(self.mixed_compiles())
+        m["window_compiles"].set(self.window_compiles())
+
+    def _fold_expert_counts(self):
+        """Copy the kept per-(layer, expert) counts to the host once (the
+        read this fold exists for) and fold what is new since the last
+        fold into the registry: ``expert_tokens`` children, the dropped
+        total (live routed slots times layers minus the kept slots) and
+        the imbalance gauge.  Returns (counts [L, E], dropped)."""
+        cnt = self._moe_counts.cpu().numpy()
+        dropped = self._moe_routed * cnt.shape[0] - int(cnt.sum())
+        if self._metrics is not None:
+            delta = cnt - self._moe_folded
+            fam = self._metrics["expert_tokens"]
+            eid = self.engine_id
+            for l, e in zip(*np.nonzero(delta)):
+                fam.labels(eid, str(l), str(e)).inc(int(delta[l, e]))
+            if dropped > self._moe_dropped_folded:
+                self._metrics["expert_dropped"].inc(
+                    dropped - self._moe_dropped_folded)
+            tot = cnt.sum(axis=0).astype(np.float64)
+            if tot.sum() > 0:
+                self._metrics["expert_imbalance"].set(
+                    float(tot.max() / tot.mean()))
+        self._moe_folded = cnt
+        self._moe_dropped_folded = dropped
+        return cnt, dropped
+
+    def config_fingerprint(self) -> dict:
+        """This engine's capsule config fingerprint (a copy)."""
+        return dict(self._capsule_fp)
 
     # -- internals -------------------------------------------------------------
     def _dense_layers(self, layers):
@@ -577,13 +841,16 @@ class LLMEngine:
                 w(mlp.shared_down) if shared else None,
                 w(mlp.shared_expert_gate))
 
-    def _note_expert_counts(self, out):
-        """Split an MoE forward's (logits, counts [L, E]) and add the
-        counts to ``self._moe_counts`` on the device (no host copy)."""
+    def _note_expert_counts(self, out, live_rows: int = 0):
+        """Split an MoE forward's (logits, counts [L, E]): the kept
+        counts add to ``self._moe_counts`` on the device, and the
+        forward's live routed slots a layer (``live_rows`` x top_k, kept
+        and dropped) to the host count ``_moe_routed``.  No host copy."""
         if self._arch is None:
             return out
         logits, counts = out
         self._moe_counts += counts
+        self._moe_routed += int(live_rows) * self._arch.top_k
         return logits
 
     def _dev(self, a, dtype=torch.int32):
@@ -603,12 +870,16 @@ class LLMEngine:
             chunk = np.zeros(P, np.int64)
             real = min(P, plen - base)
             chunk[:real] = seq[base:base + real]
+            # one span a page of prompt (NULL_SPAN with tracing off)
+            chunk_span = _tracing.span("engine.prefill_chunk")
+            chunk_span.set_attr("chunk", ci).set_attr("tokens", real)
             logits = self._note_expert_counts(_paged_prefill_chunk(
                 self._layers, self._norm_w, self._head_w, self._embed_w,
                 self._rope_prefill, self.cache.k_pages, self.cache.v_pages,
                 self._dev(chunk, torch.long), table, base,
                 int(self.cache.page_table[slot, ci]),
-                min(plen - 1 - base, P - 1), **self._fwd_kw()))
+                min(plen - 1 - base, P - 1), **self._fwd_kw()), real)
+            chunk_span.end()
         return logits
 
     def _split_batch(self, slots):
@@ -624,15 +895,15 @@ class LLMEngine:
                                  np.zeros((pad, maxp), np.int32)])
         return lens, tables
 
-    def _decode(self, tokens, dtables, lens, live):
+    def _decode(self, tokens, dtables, lens, live, n_live: int):
         """One split-path forward (kernel #7 in every layer) of the padded
-        batch: tokens [max_seqs] host ints at lengths ``lens``.  Returns
-        logits [max_seqs, V]."""
+        batch: tokens [max_seqs] host ints at lengths ``lens``, the first
+        ``n_live`` rows live.  Returns logits [max_seqs, V]."""
         return self._note_expert_counts(_decode_forward(
             self._layers, self._norm_w, self._head_w, self._embed_w,
             self._rope, self.cache.k_pages, self.cache.v_pages,
             self._dev(tokens, torch.long), dtables, self._dev(lens),
-            live=live, **self._fwd_kw()))
+            live=live, **self._fwd_kw()), n_live)
 
     def _replay_decode(self, slot, toks):
         """Recompute-resume tail: re-append the KV of the already
@@ -656,7 +927,7 @@ class LLMEngine:
             for tok in toks[i:i + nsteps]:
                 tokens = np.zeros(self.max_seqs, np.int64)
                 tokens[0] = tok
-                self._decode(tokens, dtables, lens, live)
+                self._decode(tokens, dtables, lens, live, 1)
                 lens = lens + 1
             self.cache.advance([slot], nsteps)
             i += nsteps
@@ -686,7 +957,7 @@ class LLMEngine:
     def _admit(self, rid, prompt_ids, max_new_tokens, eos_token_id):
         """Shared admission: validate, look up the cached prefix and
         reserve the slot with the request's full page budget.  Returns
-        (request, cached tokens, shared pages)."""
+        (request, cached tokens, shared page count)."""
         enforce(rid not in self.requests, f"duplicate request id {rid!r}")
         enforce(max_new_tokens >= 1, "max_new_tokens must be >= 1")
         req = GenRequest(rid, prompt_ids, max_new_tokens, eos_token_id)
@@ -704,7 +975,34 @@ class LLMEngine:
         st["miss_tokens"] += plen - cached
         st["shared_pages"] += len(shared_pages)
         st["hit_requests" if cached else "miss_requests"] += 1
-        return req, cached
+        return req, cached, len(shared_pages)
+
+    def _note_admission(self, req, cached: int, n_shared: int,
+                        key_anchor, tokens):
+        """Capsule capture and the admission series of one request
+        (``key_anchor``: the admission subkey's words, None on the
+        deferred path, whose first token rides a window's key;
+        ``tokens``: the tokens delivered at admission)."""
+        cs = _capsule.get_capsule_store()
+        if cs.enabled:
+            cs.begin(req.rid, prompt=list(req.prompt),
+                     max_new=req.max_new, eos=req.eos,
+                     fingerprint=self._capsule_fp, key_anchor=key_anchor,
+                     prefix={"hit_tokens": int(cached),
+                             "shared_pages": n_shared},
+                     tokens=tokens)
+        if self._metrics is not None:
+            m = self._metrics
+            st = self.prefix_stats
+            plen = len(req.prompt)
+            m["prompt_tokens"].inc(plen)
+            m["requests"].inc()
+            m["prefix_hit_tokens"].inc(cached)
+            m["prefix_miss_tokens"].inc(plen - cached)
+            m["prefix_shared_pages"].inc(n_shared)
+            seen = st["hit_tokens"] + st["miss_tokens"]
+            m["prefix_hit_rate"].set(st["hit_tokens"] / seen
+                                     if seen else 0.0)
 
     def _finish_prefill(self, req, first: int):
         """Bookkeeping once a prompt is fully prefilled: set the length,
@@ -775,6 +1073,33 @@ class LLMEngine:
         # bonus token rides ``delivered``
         self.spec_stats = {"windows": 0, "proposed": 0, "accepted": 0,
                            "delivered": 0}
+        _insp.register_memory_consumer(
+            f"kv_cache_draft:{self.engine_id}", self._spec_cache)
+        # the draft geometry is token-affecting for sampled streams
+        self._capsule_fp["spec"] = {
+            "draft_hash": _capsule.model_fingerprint(draft_model),
+            "k": self.spec_k, "mode": self._spec_mode}
+        if self._metrics is not None:
+            reg = get_registry()
+            lbl = ("engine",)
+            eid = self.engine_id
+            self._metrics["spec_proposed"] = reg.counter(
+                "llm_engine_spec_proposed_total",
+                "Draft tokens proposed to speculative verify "
+                "windows.", lbl).labels(eid)
+            self._metrics["spec_accepted"] = reg.counter(
+                "llm_engine_spec_accepted_total",
+                "Draft tokens accepted by the target (bonus/"
+                "correction tokens excluded).", lbl).labels(eid)
+            self._metrics["spec_rate"] = reg.gauge(
+                "llm_engine_spec_acceptance_rate",
+                "Cumulative accepted/proposed draft-token ratio.",
+                lbl).labels(eid)
+            self._metrics["spec_len"] = reg.histogram(
+                "llm_engine_spec_accepted_len",
+                "Accepted draft tokens per sequence per speculative "
+                "window.", lbl,
+                buckets=_SPEC_LEN_BUCKETS).labels(eid)
 
     def _draft_kw(self):
         d = self._spec_cache
@@ -920,7 +1245,8 @@ class LLMEngine:
             self._dev(v_ids, torch.long), self._dev(positions, torch.long),
             self._dev(q_start), self._dev(q_len), self._dev(kv_len),
             self._dev(desc_tables), self._dev(desc_of_row, torch.long),
-            self._dev(off_of_row, torch.long), **self._fwd_kw()))
+            self._dev(off_of_row, torch.long), **self._fwd_kw()),
+            len(rows) * kw)
         live = logits[:len(rows) * kw]
         if sampled:
             p_all = filtered_probs(
@@ -976,15 +1302,52 @@ class LLMEngine:
                  "cur": len(r.prompt) + len(r.out) - 1,
                  "seq": list(r.prompt) + r.out, "row": i}
                 for i, r in enumerate(batch)]
-        results = self._spec_window(rows, sub, k_run)
+        t_win = time.perf_counter()
+        span = _tracing.span("engine.spec_window")
+        span.set_attr("rows", len(batch))
+        span.set_attr("k_run", k_run)
+        try:
+            with RecordEvent("llm_engine.decode"):
+                results = self._spec_window(rows, sub, k_run)
+        finally:
+            span.end()
+        dt_win = time.perf_counter() - t_win
         out = self._retire_tokens(batch, [toks for toks, _ in results])
-        self.last_window_steps = max((len(v) for v in out.values()),
-                                     default=0)
+        delivered = max((len(v) for v in out.values()), default=0)
+        self.last_window_steps = delivered
+        n_prop = len(batch) * k_run
+        n_acc = sum(a for _, a in results)
         st = self.spec_stats
         st["windows"] += 1
-        st["proposed"] += len(batch) * k_run
-        st["accepted"] += sum(a for _, a in results)
+        st["proposed"] += n_prop
+        st["accepted"] += n_acc
         st["delivered"] += sum(len(v) for v in out.values())
+        cs = _capsule.get_capsule_store()
+        if cs.enabled and out:
+            cs.on_window(out, key_fingerprint(sub), k_run + 1, delivered,
+                         "spec_window",
+                         rows={r.rid: i for i, r in enumerate(batch)},
+                         accepted={r.rid: int(a) for r, (_, a)
+                                   in zip(batch, results)})
+        # TPOT counts delivered tokens only: a draft that is rarely
+        # accepted shows as a slower token, not as phantom throughput
+        if delivered:
+            _health.get_health().observe_tpot(dt_win / delivered,
+                                              n=delivered)
+        if self._metrics is not None:
+            m = self._metrics
+            if delivered:
+                m["tpot"].observe(dt_win / delivered, n=delivered)
+            m["generated_tokens"].inc(sum(len(v) for v in out.values()))
+            m["queue_depth"].set(len(self._active))
+            m["occupancy"].set(len(batch) / self.max_seqs)
+            m["spec_proposed"].inc(n_prop)
+            m["spec_accepted"].inc(n_acc)
+            if st["proposed"]:
+                m["spec_rate"].set(st["accepted"] / st["proposed"])
+            for _, a in results:
+                m["spec_len"].observe(float(a))
+            self._record_compiles()
         return out
 
     # -- admission -------------------------------------------------------------
@@ -994,20 +1357,35 @@ class LLMEngine:
         the flash kernel); the request joins the decode batch at the
         next ``step()``.  The longest cached page-aligned prefix is
         mapped in without device work and only the tail prefills."""
-        req, cached = self._admit(rid, prompt_ids, max_new_tokens,
-                                  eos_token_id)
+        t_admit = time.perf_counter()
+        req, cached, n_shared = self._admit(rid, prompt_ids,
+                                            max_new_tokens, eos_token_id)
         P = self.cache.page_size
         try:
-            logits = self._prefill_seq(req.slot, req.prompt, cached // P)
-            # one split of the engine key; the first token draws as row 0
-            self._key, sub = prng.split(self._key)
-            first = int(self._sample(logits[None], sub, [0])[0])
+            with RecordEvent("llm_engine.prefill"):
+                logits = self._prefill_seq(req.slot, req.prompt,
+                                           cached // P)
+                # one split of the engine key; the first token draws as
+                # row 0
+                self._key, sub = prng.split(self._key)
+                first = int(self._sample(logits[None], sub, [0])[0])
         except BaseException:
             # the slot and its page references must not leak
             self.cache.release(req.slot)
             raise
         self.requests[rid] = req
+        self._note_admission(req, cached, n_shared, key_fingerprint(sub),
+                             [first])
+        # the first token is a host int: TTFT includes the device work
+        ttft = time.perf_counter() - t_admit
+        _health.get_health().observe_ttft(ttft)
+        if self._metrics is not None:
+            self._metrics["ttft"].observe(ttft)
+            self._metrics["generated_tokens"].inc(1)
+            self._record_compiles()
         self._finish_prefill(req, first)
+        if self._metrics is not None:
+            self._metrics["queue_depth"].set(len(self._active))
         return rid
 
     def begin_request(self, rid, prompt_ids, max_new_tokens: int = 64,
@@ -1021,11 +1399,13 @@ class LLMEngine:
         enforce(self.unified_step,
                 "begin_request requires unified_step=True (the split "
                 "path admits synchronously via add_request)")
-        req, cached = self._admit(rid, prompt_ids, max_new_tokens,
-                                  eos_token_id)
+        req, cached, n_shared = self._admit(rid, prompt_ids,
+                                            max_new_tokens, eos_token_id)
         req.pf_pos = cached
+        req.t_submit = time.perf_counter()
         self.requests[rid] = req
         self._prefilling.append(req)
+        self._note_admission(req, cached, n_shared, None, [])
         return rid
 
     # -- decode loop -----------------------------------------------------------
@@ -1068,14 +1448,25 @@ class LLMEngine:
                             self._pf_budget_static))
         if not batch and budget == 0:
             budget = min(P, self._pf_budget_static)
+        # capacity-factor MoE ranks per page group (a page chunk), so the
+        # planner packs whole chunks, and with only prefill pending the
+        # budget floors to one chunk (no livelock)
+        whole_chunks = self._arch is not None and self._arch.capacity > 0
+        if whole_chunks and not batch:
+            budget = max(budget, min(P, self._pf_budget_static))
         plan = []
         finishing = []                        # (req, last_row)
         cursor, desc_i, used = n, n, 0
+        stop = False
         for req in self._prefilling:
             plen = len(req.prompt)
             pos = req.pf_pos
             while pos < plen and used < budget:
-                cl = min(P - pos % P, plen - pos, budget - used)
+                chunk = min(P - pos % P, plen - pos)
+                if whole_chunks and used + chunk > budget:
+                    stop = True
+                    break
+                cl = min(chunk, budget - used)
                 plan.append((req, pos, cl, cursor, desc_i))
                 pos += cl
                 cursor += cl
@@ -1083,7 +1474,7 @@ class LLMEngine:
                 desc_i += 1
             if pos >= plen:
                 finishing.append((req, cursor - 1))
-            if used >= budget:
+            if stop or used >= budget:
                 break
         if not batch and not plan:
             return {}
@@ -1128,30 +1519,48 @@ class LLMEngine:
         # rows whose tokens are kept: the decode rows, and on the first
         # forward the last row of each finishing prefill chunk
         first_rows = list(range(n)) + [row for _, row in finishing]
-        self._key, key = prng.split(self._key)
+        self._key, win_key = prng.split(self._key)
+        key = win_key
         toks_all = []
-        for si in range(nsteps):
-            logits = self._note_expert_counts(_mixed_forward(
-                self._layers, self._norm_w, self._head_w, self._embed_w,
-                self._rope, self.cache.k_pages, self.cache.v_pages,
-                self._dev(ids, torch.long), self._dev(positions, torch.long),
-                dq_start, dq_len, self._dev(kv_len), ddesc_tables,
-                ddesc_of_row, doff_of_row, **self._fwd_kw()))
-            key, sub = split_step(key)
-            nxt = self._sample(logits, sub,
-                               first_rows if si == 0 else range(n))
-            toks_all.append(nxt)
-            if n:
-                self.cache.advance(slots, 1)
-            if si + 1 < nsteps:
-                # host-chained window (pure decode): feed each slot's
-                # token back as the next input
-                ids[:n] = nxt[:n]
-                positions[:n] += 1
-                kv_len[:n] += 1
+        t_win = time.perf_counter()
+        span = _tracing.span("engine.mixed_step")
+        span.set_attr("decode_slots", n)
+        span.set_attr("prefill_tokens", int(used))
+        span.set_attr("nsteps", nsteps)
+        try:
+            with RecordEvent("llm_engine.decode"):
+                for si in range(nsteps):
+                    logits = self._note_expert_counts(_mixed_forward(
+                        self._layers, self._norm_w, self._head_w,
+                        self._embed_w, self._rope, self.cache.k_pages,
+                        self.cache.v_pages, self._dev(ids, torch.long),
+                        self._dev(positions, torch.long), dq_start,
+                        dq_len, self._dev(kv_len), ddesc_tables,
+                        ddesc_of_row, doff_of_row, **self._fwd_kw()),
+                        n + (used if si == 0 else 0))
+                    key, sub = split_step(key)
+                    nxt = self._sample(logits, sub,
+                                       first_rows if si == 0 else range(n))
+                    toks_all.append(nxt)
+                    if n:
+                        self.cache.advance(slots, 1)
+                    if si + 1 < nsteps:
+                        # host-chained window (pure decode): feed each
+                        # slot's token back as the next input
+                        ids[:n] = nxt[:n]
+                        positions[:n] += 1
+                        kv_len[:n] += 1
+        finally:
+            span.set_attr("steps_done", len(toks_all))
+            span.end()
+        dt_win = time.perf_counter() - t_win
+        self.last_window_steps = nsteps
 
         out = self._retire_tokens(batch, [[int(t[i]) for t in toks_all]
                                           for i in range(n)])
+        # decode tokens delivered this window (a prefill's first token is
+        # TTFT, never TPOT)
+        delivered = max((len(v) for v in out.values()), default=0)
         # prefill bookkeeping after the forward succeeded — a raise
         # above leaves every pf_pos where it was
         for req, pos, cl, row0, d in plan:
@@ -1160,6 +1569,33 @@ class LLMEngine:
             self._prefilling.remove(req)
             self._finish_prefill(req, int(toks_all[0][last_row]))
             out[req.rid] = [req.out[-1]]
+            if req.t_submit is not None:
+                ttft = time.perf_counter() - req.t_submit
+                _health.get_health().observe_ttft(ttft)
+                if self._metrics is not None:
+                    self._metrics["ttft"].observe(ttft)
+        cs = _capsule.get_capsule_store()
+        if cs.enabled and out:
+            # draw rows: decode slots are rows 0..n-1, a finishing first
+            # token drew at its chunk's last flat row
+            rows = {r.rid: i for i, r in enumerate(batch)}
+            for req, last_row in finishing:
+                rows[req.rid] = int(last_row)
+            cs.on_window(out, key_fingerprint(win_key), nsteps, nsteps,
+                         "mixed_step", rows=rows)
+        if delivered:
+            _health.get_health().observe_tpot(dt_win / nsteps,
+                                              n=delivered)
+        if self._metrics is not None:
+            m = self._metrics
+            if delivered:
+                m["tpot"].observe(dt_win / nsteps, n=delivered)
+            m["generated_tokens"].inc(sum(len(v) for v in out.values()))
+            m["queue_depth"].set(len(self._active))
+            m["occupancy"].set(n / self.max_seqs)
+            m["mixed_decode_slots"].set(n)
+            m["mixed_prefill_tokens"].set(used)
+            self._record_compiles()
         return out
 
     def _window(self, batch) -> int:
@@ -1225,25 +1661,48 @@ class LLMEngine:
         dtables = self._dev(tables)
         # one split of the engine key a window, one of the window key a
         # forward
-        self._key, key = prng.split(self._key)
+        self._key, win_key = prng.split(self._key)
+        key = win_key
         toks = []
-        for _ in range(nsteps):
-            logits = self._decode(tokens, dtables, lens, live)
-            key, sub = split_step(key)
-            nxt = self._sample(logits, sub, range(n))
-            toks.append(nxt)
-            fresh = ~done
-            emitted += fresh
-            done |= fresh & (((eos >= 0) & (nxt == eos))
-                             | (emitted >= budgets))
-            tokens = nxt.astype(np.int64)
-            lens = lens + 1
-            if done.all():
-                break
-        self.cache.advance(slots, len(toks))
-        self.last_window_steps = len(toks)
-        return self._retire_tokens(batch, [[int(t[i]) for t in toks]
-                                           for i in range(n)])
+        t_win = time.perf_counter()
+        with RecordEvent("llm_engine.decode"):
+            for _ in range(nsteps):
+                logits = self._decode(tokens, dtables, lens, live, n)
+                key, sub = split_step(key)
+                nxt = self._sample(logits, sub, range(n))
+                toks.append(nxt)
+                fresh = ~done
+                emitted += fresh
+                done |= fresh & (((eos >= 0) & (nxt == eos))
+                                 | (emitted >= budgets))
+                tokens = nxt.astype(np.int64)
+                lens = lens + 1
+                if done.all():
+                    break
+        dt_win = time.perf_counter() - t_win
+        steps_done = len(toks)
+        self.cache.advance(slots, steps_done)
+        self.last_window_steps = steps_done
+        out = self._retire_tokens(batch, [[int(t[i]) for t in toks]
+                                          for i in range(n)])
+        cs = _capsule.get_capsule_store()
+        if cs.enabled and out:
+            cs.on_window(out, key_fingerprint(win_key), nsteps, steps_done,
+                         "decode_step",
+                         rows={r.rid: i for i, r in enumerate(batch)})
+        delivered = max((len(v) for v in out.values()), default=0)
+        if delivered:
+            _health.get_health().observe_tpot(dt_win / steps_done,
+                                              n=delivered)
+        if self._metrics is not None:
+            m = self._metrics
+            if delivered:
+                m["tpot"].observe(dt_win / steps_done, n=delivered)
+            m["generated_tokens"].inc(sum(len(v) for v in out.values()))
+            m["queue_depth"].set(len(self._active))
+            m["occupancy"].set(n / self.max_seqs)
+            self._record_compiles()
+        return out
 
     def has_work(self) -> bool:
         return bool(self._active or self._prefilling)
@@ -1288,17 +1747,29 @@ class LLMEngine:
         enforce(not req.suspended, f"request {rid!r} already suspended")
         if req in self._prefilling:
             self._prefilling.remove(req)
-            self.cache.release(req.slot)
-            req.swap_handle = None
+            with _tracing.span("engine.swap_out") as sp:
+                self.cache.release(req.slot)
+                req.swap_handle = None
+                sp.set_attr("rid", str(rid))
+                sp.set_attr("armed", False)
             req.pf_pos = 0
         else:
             self._active.remove(req)
             # the draft slot never swaps: the next speculative window
             # prefills it again
             self._spec_release(req)
-            req.swap_handle = self.cache.swap_out(req.slot)
+            with _tracing.span("engine.swap_out") as sp:
+                req.swap_handle = self.cache.swap_out(req.slot)
+                sp.set_attr("rid", str(rid))
+                sp.set_attr("armed", req.swap_handle is not None)
+            _capsule.get_capsule_store().event(
+                rid, "suspend:swap" if req.swap_handle is not None
+                else "suspend:drop")
         req.slot = None
         req.suspended = True
+        if self._metrics is not None:
+            self._metrics["suspended"].inc()
+            self._metrics["queue_depth"].set(len(self._active))
         return req.swap_handle is not None
 
     def resume(self, rid) -> str:
@@ -1321,10 +1792,15 @@ class LLMEngine:
             req.pf_pos = cached
             req.suspended = False
             self._prefilling.append(req)
+            if self._metrics is not None:
+                self._metrics["resumed"].labels(
+                    self.engine_id, "recompute").inc()
             return "recompute"
         path, slot = "recompute", None
         if req.swap_handle is not None:
-            slot = self.cache.swap_in(req.swap_handle, total)
+            with _tracing.span("engine.swap_in") as sp:
+                sp.set_attr("rid", str(rid))
+                slot = self.cache.swap_in(req.swap_handle, total)
             req.swap_handle = None             # consumed either way
             if slot is not None:
                 # prompt + generated so far, less the last token: the
@@ -1332,10 +1808,15 @@ class LLMEngine:
                 self.cache.set_len(slot, plen + len(req.out) - 1)
                 path = "swap_in"
         if slot is None:
-            slot = self._recompute_resume(req)
+            with RecordEvent("llm_engine.resume_recompute"):
+                slot = self._recompute_resume(req)
         req.slot = slot
         req.suspended = False
         self._active.append(req)
+        _capsule.get_capsule_store().event(rid, f"resume:{path}")
+        if self._metrics is not None:
+            self._metrics["resumed"].labels(self.engine_id, path).inc()
+            self._metrics["queue_depth"].set(len(self._active))
         return path
 
     def _cached_prefix(self, prompt):
@@ -1375,10 +1856,10 @@ class LLMEngine:
     # -- migration -------------------------------------------------------------
     def export_request(self, rid) -> dict:
         """Package a suspended request for another engine: its token
-        history and its swap entry as a portable blob
-        (``PagedKVCache.export_swap``), or ``swap=None`` when it has none
-        (the destination then recomputes).  The request leaves this
-        engine."""
+        history, its swap entry as a portable blob
+        (``PagedKVCache.export_swap``) or ``swap=None`` when it has none
+        (the destination then recomputes), and its capsule when capture
+        is on (plain JSON).  The request leaves this engine."""
         req = self._live(rid)
         enforce(req.suspended and not req.done,
                 f"request {rid!r} is not suspended — suspend() before "
@@ -1386,16 +1867,21 @@ class LLMEngine:
         blob = self.cache.export_swap(req.swap_handle)
         req.swap_handle = None
         del self.requests[rid]
+        if self._metrics is not None:
+            self._metrics["migrated_out"].inc()
+        cs = _capsule.get_capsule_store()
         return {"rid": rid, "prompt": list(req.prompt),
                 "out": list(req.out), "max_new": req.max_new,
-                "eos": req.eos, "swap": blob}
+                "eos": req.eos, "swap": blob,
+                "capsule": cs.export(rid) if cs.enabled else None}
 
     def import_request(self, pkg: dict):
         """Adopt a migration package: the request registers here
         suspended, its swap blob imported into this cache's host pool
-        when it fits; ``resume`` then restores it.  Raises when it
-        exceeds this engine's limits or the blob's geometry differs.
-        Returns the rid."""
+        when it fits and its capsule into the capsule store when capture
+        is on; ``resume`` then restores it.  Raises when it exceeds this
+        engine's limits or the blob's geometry differs.  Returns the
+        rid."""
         rid = pkg["rid"]
         enforce(rid not in self.requests, f"duplicate request id {rid!r}")
         plen = len(pkg["prompt"])
@@ -1418,6 +1904,11 @@ class LLMEngine:
         req.suspended = True
         req.swap_handle = self.cache.import_swap(pkg.get("swap"))
         self.requests[rid] = req
+        cs = _capsule.get_capsule_store()
+        if cs.enabled and pkg.get("capsule"):
+            cs.adopt(pkg["capsule"])
+        if self._metrics is not None:
+            self._metrics["migrated_in"].inc()
         return rid
 
     def abort(self, rid) -> bool:
@@ -1434,13 +1925,16 @@ class LLMEngine:
             self.cache.drop_swap(req.swap_handle)
             req.swap_handle = None
             req.suspended = False
-            return True
-        if req in self._active:
-            self._active.remove(req)
-            self._spec_release(req)
         else:
-            self._prefilling.remove(req)
-        self.cache.release(req.slot)
+            if req in self._active:
+                self._active.remove(req)
+                self._spec_release(req)
+            else:
+                self._prefilling.remove(req)
+            self.cache.release(req.slot)
+        if self._metrics is not None:
+            self._metrics["aborted"].inc()
+            self._metrics["queue_depth"].set(len(self._active))
         return True
 
     def result(self, rid) -> List[int]:
@@ -1459,3 +1953,110 @@ class LLMEngine:
         out = self.result(rid)
         del self.requests[rid]
         return out
+
+    # -- observability ---------------------------------------------------------
+    @staticmethod
+    def prefill_compiles() -> int:
+        """Distinct compiled prefill programs: 0.  Eager PyTorch compiles
+        no programs (the kernels are built once per process by
+        ``ops/_build.py``); the counter keeps the reference's name so
+        ``metrics_snapshot`` and dashboards read the same keys."""
+        return 0
+
+    @staticmethod
+    def decode_compiles() -> int:
+        """Distinct compiled decode programs: 0 (eager PyTorch, see
+        ``prefill_compiles``)."""
+        return 0
+
+    @staticmethod
+    def mixed_compiles() -> int:
+        """Distinct compiled unified-step programs: 0 (eager PyTorch,
+        see ``prefill_compiles``)."""
+        return 0
+
+    @staticmethod
+    def window_compiles() -> int:
+        """Distinct compiled decode-window programs: 0 (eager PyTorch,
+        and no on-device window: ``scan_decode`` is not ported)."""
+        return 0
+
+    def metrics_snapshot(self) -> dict:
+        """One JSON-able dict of what an operator tunes against: the
+        TTFT/TPOT histograms, token counters, queue and occupancy, the
+        cache's page pressure, the compile counters (0 here), and the
+        ``moe`` and ``spec`` planes.  With ``enable_metrics=False`` the
+        registry series are absent; the rest is always there.  The MoE
+        plane copies the per-expert counts to the host (this read is
+        the one sync the engine spends on them)."""
+        seen = self.prefix_stats["hit_tokens"] + \
+            self.prefix_stats["miss_tokens"]
+        snap = {
+            "engine": self.engine_id,
+            "tp": self._capsule_fp["tp"],
+            "prefill_compiles": self.prefill_compiles(),
+            "decode_compiles": self.decode_compiles(),
+            "mixed_compiles": self.mixed_compiles(),
+            "window_compiles": self.window_compiles(),
+            "unified_step": self.unified_step,
+            "scan_decode": False,
+            "last_window_steps": int(self.last_window_steps),
+            "prefill_token_budget": int(self.prefill_token_budget),
+            "kv_cache": self.cache.metrics_snapshot(),
+            "kv_page_utilization": self.cache.page_utilization(),
+            "active_requests": len(self._active),
+            "prefilling_requests": len(self._prefilling),
+            "suspended_requests": self.suspended_count(),
+            "free_slots": self.free_slots(),
+            "prefix_caching": dict(
+                self.prefix_stats,
+                enabled=self.enable_prefix_caching,
+                hit_rate=(self.prefix_stats["hit_tokens"] / seen
+                          if seen else 0.0)),
+        }
+        if self._arch is not None:
+            cnt, dropped = self._fold_expert_counts()
+            tot = cnt.sum(axis=0)
+            snap["moe"] = {
+                "num_experts": self._arch.num_experts,
+                "top_k": self._arch.top_k,
+                "dropless": self._arch.capacity == 0,
+                "capacity": self._arch.capacity,
+                "dispatch": self._arch.dispatch,
+                "shared_experts": self._arch.shared,
+                "expert_tokens": [int(v) for v in tot],
+                "dropped_tokens": int(dropped),
+                "imbalance": (float(tot.max() / tot.mean())
+                              if tot.sum() else 0.0),
+            }
+        if self._spec is not None:
+            st = self.spec_stats
+            snap["spec"] = {
+                "enabled": True,
+                "k": self.spec_k,
+                "mode": self._spec_mode,
+                "draft_hash": self._capsule_fp["spec"]["draft_hash"],
+                "windows": int(st["windows"]),
+                "proposed": int(st["proposed"]),
+                "accepted": int(st["accepted"]),
+                "delivered": int(st["delivered"]),
+                "acceptance_rate": (st["accepted"] / st["proposed"]
+                                    if st["proposed"] else 0.0),
+                "kv_cache_draft": self._spec_cache.metrics_snapshot(),
+            }
+        if self._metrics is not None:
+            m = self._metrics
+            snap.update({
+                "ttft_seconds": m["ttft"]._snapshot_value(),
+                "tpot_seconds": m["tpot"]._snapshot_value(),
+                "prompt_tokens": int(m["prompt_tokens"].value),
+                "generated_tokens": int(m["generated_tokens"].value),
+                "requests": int(m["requests"].value),
+                "queue_depth": m["queue_depth"].value,
+                "batch_occupancy": m["occupancy"].value,
+                "mixed_batch_decode_slots":
+                    m["mixed_decode_slots"].value,
+                "mixed_batch_prefill_tokens":
+                    m["mixed_prefill_tokens"].value,
+            })
+        return snap

@@ -1,5 +1,5 @@
 """The MoE FFN of the serving step (counterpart of
-``paddle_tpu/inference/moe_dispatch.py``, dropless dispatch).
+``paddle_tpu/inference/moe_dispatch.py``).
 
 :func:`moe_ffn` replaces the dense SwiGLU FFN in every decoder layer of
 the engine's forwards when the backbone is an MoE family: top-k router,
@@ -14,8 +14,22 @@ are the reference's: the sorted buffer and the expert products are f32
 
 ``dispatch="grouped"`` is the path; ``"dense"`` is the reference's
 per-row comparator (each slot gathers its expert's weights), which runs
-on CPU tensors only.  Capacity-factor dispatch is not ported (the engine
-refuses it).
+on CPU tensors only.
+
+Token dropping: ``arch.capacity == 0`` is dropless (every routed slot
+computes).  ``capacity > 0`` is the capacity-factor mode: within each
+page group an expert keeps at most ``capacity`` slots in slot order.
+``group_start`` [T] maps each row to its group's first row: the split
+path's prefill chunk is one group starting at row 0, the unified step's
+descriptors are one group each (``q_start[desc_of_row]``), so both paths
+rank a page chunk the same; decode rows are singleton groups and never
+drop (top-k picks distinct experts).  A slot's in-group rank is one
+exclusive cumsum of the live one-hot slots minus its value at the
+group's first slot.  A dropped slot's expert becomes ``E``: it goes to
+no row tile of the #11 plan, adds exactly +0.0 to the combine and is
+left out of ``counts``.  The ranks stay on the device and the plan's
+padded row count stays fixed by the shapes, so capacity adds no host
+copy and no #11 launch.
 
 Int8 weights (``weight_dtype="int8"``): an expert stack arrives as
 ``(values [E, in, out] int8, scale [E, out] f32)``, one scale per
@@ -39,8 +53,9 @@ __all__ = ["MoEArch", "moe_ffn"]
 
 class MoEArch(NamedTuple):
     """The MoE dispatch configuration of an engine: the router geometry,
-    the shared expert, the attention biases, and the dispatch mode
-    (dropless: the reference's capacity field is not ported)."""
+    the shared expert, the attention biases, the dispatch mode, and
+    ``capacity``, the per-page-group per-expert slot cap (0: dropless;
+    last here so that it can default)."""
     num_experts: int
     top_k: int
     norm_topk: bool
@@ -48,6 +63,7 @@ class MoEArch(NamedTuple):
     shared_gate: bool
     attn_bias: bool
     dispatch: str
+    capacity: int = 0
 
 
 def _mm(x, w):
@@ -80,7 +96,7 @@ def _gmm(xs, w, tile_expert, counts):
     return y * sc[tile_expert.long()].repeat_interleave(tm, dim=0)
 
 
-def moe_ffn(hn, mw, arch: MoEArch, live):
+def moe_ffn(hn, mw, arch: MoEArch, live, group_start=None):
     """The MoE FFN of one serving forward.
 
     hn [T, H] post-attention-norm rows; ``mw`` the layer's ``(rw, egw,
@@ -88,8 +104,10 @@ def moe_ffn(hn, mw, arch: MoEArch, live):
     F] / [E, F, H]; shared-expert weights, unused when ``arch.shared`` is
     off; int8 ``(values, scale)`` pairs under ``weight_dtype="int8"``);
     ``live`` [T] bool masks padding rows out of routing (their output is
-    not read).  Returns ``(ffn_out [T, H] in hn's dtype,
-    counts [E] int32)``: the routed slots of each expert."""
+    not read); ``group_start`` [T] the first row of each row's capacity
+    page group (``None``: every row its own group, the decode forwards).
+    Returns ``(ffn_out [T, H] in hn's dtype, counts [E] int32)``: the
+    kept routed slots of each expert."""
     rw, egw, euw, edw, sgw, suw, sdw, seg = mw
     t, h = hn.shape
     e, k = arch.num_experts, arch.top_k
@@ -102,7 +120,17 @@ def moe_ffn(hn, mw, arch: MoEArch, live):
         gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp(
             min=1e-9)
     eidx = expert_idx.reshape(-1)
-    keep = live.repeat_interleave(k)                        # dropless
+    keep = live.repeat_interleave(k)
+    if arch.capacity and group_start is not None:
+        # in-group rank: live same-expert slots before this one in its
+        # page group (the exclusive cumsum minus its value at the
+        # group's first slot, so groups never see each other)
+        onehot = (torch.nn.functional.one_hot(expert_idx, e)
+                  * live[:, None, None]).reshape(t * k, e)
+        ex_cum = onehot.cumsum(0) - onehot
+        base = ex_cum[group_start.long().repeat_interleave(k) * k]
+        rank = (ex_cum - base).gather(1, eidx[:, None])[:, 0]
+        keep = keep & (rank < arch.capacity)
     row_expert = torch.where(keep, eidx, torch.full_like(eidx, e))
 
     if arch.dispatch == "grouped":

@@ -48,6 +48,15 @@ the page plan, plus the host page arrays; bf16 pages travel as their
 uint16 bit patterns, which the meta record states), and
 ``import_swap`` adopts one into this cache's host pool.  ``rollback``
 un-appends a slot's last tokens (host-side length only).
+
+Telemetry: the reference's ``kv_cache_*`` counters and gauges (pages
+allocated and released, OOMs, utilization, prefix evictions,
+copy-on-write copies, swap traffic) in the observability registry under
+the label ``cache=<id>``, counted at the same sites; ``metrics_snapshot``,
+``memory_rows`` (the ``/memz`` row), ``page_utilization``,
+``free_page_count`` and ``kv_bytes_per_token`` read them, all host-side.
+``write_prefill`` bulk-writes a prompt's K/V into a slot's pages (a plain
+scatter, quantized per row for int8 pools).
 """
 from __future__ import annotations
 
@@ -62,11 +71,15 @@ import numpy as np
 import torch
 
 from ..common.errors import enforce
+from ..observability import get_registry
 from ..ops.paged_attention import (paged_attention, paged_write,
                                    paged_write_quant)
+from ..quantization.ops import quantize_rows
 from ..runtime.device import resolve_device
 
 __all__ = ["PagedKVCache"]
+
+_CACHE_IDS = itertools.count()
 
 
 def _chain_hash(prev: bytes, tokens) -> bytes:
@@ -144,6 +157,82 @@ class PagedKVCache:
         self._swap: Dict[int, _SwapEntry] = {}
         self._swap_used = 0
         self._swap_ids = itertools.count()
+        self._init_metrics()
+
+    def _init_metrics(self):
+        """This cache's children of the reference's ``kv_cache_*``
+        series (label cache=<id>, so concurrent engines scrape apart)."""
+        reg = get_registry()
+        self.cache_id = str(next(_CACHE_IDS))
+        lbl = ("cache",)
+
+        def counter(name, help):
+            return reg.counter(name, help, lbl).labels(self.cache_id)
+
+        def gauge(name, help):
+            return reg.gauge(name, help, lbl).labels(self.cache_id)
+
+        self._m_alloc = counter(
+            "kv_cache_pages_allocated_total",
+            "KV pages taken from the free list.")
+        self._m_release = counter(
+            "kv_cache_pages_released_total",
+            "KV pages returned to the free list.")
+        self._m_oom = counter(
+            "kv_cache_oom_total",
+            "Allocation/extension failures: not enough free pages.")
+        self._m_util = gauge(
+            "kv_cache_page_utilization",
+            "Fraction of usable pages referenced by live slots (page 0 "
+            "is the reserved pad page; prefix-cached LRU pages count "
+            "as reclaimable, not in use).")
+        self._m_evict = counter(
+            "kv_cache_prefix_evicted_pages_total",
+            "Prefix-cached pages evicted from the LRU pool under page "
+            "pressure.")
+        self._m_cow = counter(
+            "kv_cache_cow_pages_total",
+            "Copy-on-write page copies (a write targeted a shared "
+            "page).")
+        self._m_cached = gauge(
+            "kv_cache_prefix_cached_pages",
+            "Registered prefix pages currently unreferenced (the LRU "
+            "pool).")
+        self._m_swap_out = counter(
+            "kv_cache_swap_out_pages_total",
+            "Device pages copied to the host swap pool by swap_out "
+            "(shared prefix pages are unpinned, not copied).")
+        self._m_swap_in = counter(
+            "kv_cache_swap_in_pages_total",
+            "Host pages copied back to device pages by swap_in.")
+        self._m_swap_fallback = counter(
+            "kv_cache_swap_fallback_total",
+            "swap_out/swap_in attempts that degraded to the recompute "
+            "path (pool full or disabled, entry dropped, or a shared "
+            "prefix page evicted while suspended).")
+        self._m_swap_pool = gauge(
+            "kv_cache_swap_pool_pages",
+            "Host swap-pool pages currently holding preempted KV.")
+        self._m_swap_export = counter(
+            "kv_cache_swap_exported_pages_total",
+            "Swap-pool pages serialized into portable migration blobs "
+            "(export_swap).")
+        self._m_swap_import = counter(
+            "kv_cache_swap_imported_pages_total",
+            "Swap-pool pages restored from portable migration blobs "
+            "(import_swap).")
+
+    def page_utilization(self) -> float:
+        """Referenced fraction of the usable pool (pad page 0 excluded;
+        prefix-cached LRU pages count as reclaimable)."""
+        usable = self.n_pages - 1
+        if not usable:
+            return 0.0
+        return 1.0 - (len(self._free) + len(self._lru)) / usable
+
+    def _track_pages(self):
+        self._m_util.set(self.page_utilization())
+        self._m_cached.set(len(self._lru))
 
     # -- prefix-caching internals ----------------------------------------------
     def _unregister(self, pg: int):
@@ -158,9 +247,13 @@ class PagedKVCache:
         elif self._lru:
             pg, _ = self._lru.popitem(last=False)      # oldest first
             self._unregister(pg)
+            self._m_evict.inc()
         else:
+            self._m_oom.inc()
+            self._track_pages()
             enforce(False, f"paged cache OOM on {what}: no free or "
                            f"evictable pages")
+        self._m_alloc.inc()
         self._ref[pg] = 1
         return pg
 
@@ -197,8 +290,10 @@ class PagedKVCache:
             npg = self._grab_page("copy-on-write")
             self._copy_page(pg, npg)
             self._unref(pg)
+            self._m_release.inc()
             self._pages[slot][idx] = npg
             self._table[slot, idx] = npg
+            self._m_cow.inc()
         elif pg in self._page_key:
             self._unregister(pg)
 
@@ -224,11 +319,14 @@ class PagedKVCache:
                 del self._lru[pg]
         avail = len(self._free) + len(self._lru)
         if avail < need - len(shared):
+            self._m_oom.inc()
             for pg in reversed(shared):
                 self._unref(pg)
+            self._track_pages()
             enforce(False,
                     f"paged cache OOM: need {need - len(shared)} "
                     f"pages, {avail} free/evictable")
+        self._m_alloc.inc(len(shared))      # the shared references
         pages = shared + [self._grab_page("allocate")
                           for _ in range(need - len(shared))]
         self._used[slot] = True
@@ -236,6 +334,7 @@ class PagedKVCache:
         self._lens[slot] = 0
         self._table[slot, :] = 0
         self._table[slot, :need] = pages
+        self._track_pages()
         return slot
 
     def extend(self, slot: int, n_tokens: int = 1):
@@ -257,6 +356,7 @@ class PagedKVCache:
             pages.append(pg)
             self._table[slot, idx] = pg
             have += self.page_size
+        self._track_pages()
 
     def release(self, slot: int):
         """Drop the slot's page references.  Unregistered pages return
@@ -264,9 +364,11 @@ class PagedKVCache:
         pages = self._pages.pop(slot)
         for pg in reversed(pages):
             self._unref(pg)
+        self._m_release.inc(len(pages))
         self._used[slot] = False
         self._lens[slot] = 0
         self._table[slot, :] = 0
+        self._track_pages()
 
     # -- KV swap (preemption) --------------------------------------------------
     def _to_host(self, sel: List[int]):
@@ -319,6 +421,10 @@ class PagedKVCache:
             handle = next(self._swap_ids)
             self._swap[handle] = _SwapEntry(plan, *host)
             self._swap_used += len(data_pages)
+            self._m_swap_out.inc(len(data_pages))
+            self._m_swap_pool.set(self._swap_used)
+        else:
+            self._m_swap_fallback.inc()
         self.release(slot)
         return handle
 
@@ -335,12 +441,16 @@ class PagedKVCache:
         way: on ``None`` the caller recomputes."""
         entry = self._swap.pop(handle, None)
         if entry is None:
+            self._m_swap_fallback.inc()
             return None
 
         def _drop(shared_pinned=()):
             for pg in list(shared_pinned)[::-1]:
                 self._unref(pg)
             self._swap_used -= entry.n_host_pages
+            self._m_swap_pool.set(self._swap_used)
+            self._m_swap_fallback.inc()
+            self._track_pages()
             return None
 
         # resolve the shared chain keys first: a miss means the prefix
@@ -367,6 +477,7 @@ class PagedKVCache:
                 del self._lru[pg]
         if len(self._free) + len(self._lru) < need - len(shared):
             return _drop(shared)
+        self._m_alloc.inc(len(shared))
         sit = iter(shared)
         pages: List[int] = []
         restore: List[tuple] = []              # (device page, host row)
@@ -394,6 +505,9 @@ class PagedKVCache:
         self._table[slot, :] = 0
         self._table[slot, :need] = pages
         self._swap_used -= entry.n_host_pages
+        self._m_swap_in.inc(len(restore))
+        self._m_swap_pool.set(self._swap_used)
+        self._track_pages()
         return slot
 
     def drop_swap(self, handle: Optional[int]) -> bool:
@@ -404,6 +518,7 @@ class PagedKVCache:
         if entry is None:
             return False
         self._swap_used -= entry.n_host_pages
+        self._m_swap_pool.set(self._swap_used)
         return True
 
     def swap_pool_used(self) -> int:
@@ -435,6 +550,7 @@ class PagedKVCache:
         if entry is None:
             return None
         self._swap_used -= entry.n_host_pages
+        self._m_swap_pool.set(self._swap_used)
         n_data = entry.n_host_pages
         extra: List[int] = []
         plan: List[tuple] = []
@@ -472,6 +588,7 @@ class PagedKVCache:
                                        np.uint8)
         buf = io.BytesIO()
         np.savez(buf, **arrays)
+        self._m_swap_export.inc(meta["n_host_pages"])
         return buf.getvalue()
 
     def import_swap(self, blob: Optional[bytes]) -> Optional[int]:
@@ -502,12 +619,15 @@ class PagedKVCache:
         n_host = int(meta["n_host_pages"])
         if not self.swap_pool_pages or \
                 self._swap_used + n_host > self.swap_pool_pages:
+            self._m_swap_fallback.inc()
             return None
         plan = [("key", bytes.fromhex(val)) if kind == "key"
                 else ("data", int(val)) for kind, val in meta["plan"]]
         handle = next(self._swap_ids)
         self._swap[handle] = _SwapEntry(plan, *hosts)
         self._swap_used += n_host
+        self._m_swap_import.inc(n_host)
+        self._m_swap_pool.set(self._swap_used)
         return handle
 
     # -- prefix index ----------------------------------------------------------
@@ -544,6 +664,7 @@ class PagedKVCache:
                 self._index[key] = pg
                 self._page_key[pg] = key
                 added += 1
+        self._track_pages()
         return added
 
     def cached_page_count(self) -> int:
@@ -592,9 +713,67 @@ class PagedKVCache:
         the evictable prefix-cached LRU pool."""
         return len(self._free) + len(self._lru)
 
+    def free_page_count(self) -> int:
+        """Allocatable pages: the free list plus the prefix-cached LRU
+        pool (the reference's name of ``free_pages``)."""
+        return self.free_pages()
+
     def free_slot_count(self) -> int:
         """Sequence slots not currently bound to a live request."""
         return sum(1 for u in self._used if not u)
+
+    def kv_bytes_per_token(self) -> int:
+        """Device bytes one cached token costs across all layers and
+        both pools (int8 counts its f32 scale per row)."""
+        head_dim = self.k_pages.shape[-1]
+        kvh = self.k_pages.shape[1]
+        if self.kv_dtype == "int8":
+            per_row = head_dim * 1 + 4          # int8 values + f32 scale
+        else:
+            per_row = head_dim * self.k_pages.element_size()
+        return 2 * self.num_layers * kvh * per_row
+
+    def metrics_snapshot(self) -> dict:
+        """This cache's page-pressure counters (the same series are in
+        the registry under label cache=<id>)."""
+        return {"pages_allocated": int(self._m_alloc.value),
+                "pages_released": int(self._m_release.value),
+                "oom_events": int(self._m_oom.value),
+                "free_pages": self.free_page_count(),
+                "page_utilization": self.page_utilization(),
+                "prefix_cached_pages": self.cached_page_count(),
+                "prefix_shared_pages": self.shared_page_count(),
+                "prefix_evicted_pages": int(self._m_evict.value),
+                "cow_pages": int(self._m_cow.value),
+                "swap_pool_pages": self.swap_pool_pages,
+                "swap_pool_used": self._swap_used,
+                "swap_out_pages": int(self._m_swap_out.value),
+                "swap_in_pages": int(self._m_swap_in.value),
+                "swap_exported_pages": int(self._m_swap_export.value),
+                "swap_imported_pages": int(self._m_swap_import.value),
+                "swap_fallbacks": int(self._m_swap_fallback.value)}
+
+    def memory_rows(self) -> dict:
+        """The memory plane's row (``observability.introspection``):
+        bytes the device pools hold (values and int8 scale planes) and
+        the bytes of the host swap pool's page copies.  One device
+        holds the whole pool (``tp`` 1)."""
+        dev = sum(int(t.nbytes) for t in self._pools() if t is not None)
+        host = 0
+        for entry in self._swap.values():
+            for arr in (entry.k_host, entry.v_host,
+                        entry.k_scale_host, entry.v_scale_host):
+                if arr is not None:
+                    host += int(arr.nbytes)
+        return {"device_bytes": dev,
+                "device_bytes_per_shard": dev,
+                "tp": 1,
+                "host_bytes": host,
+                "pages": int(self.n_pages),
+                "free_pages": self.free_page_count(),
+                "bytes_per_token": self.kv_bytes_per_token(),
+                "swap_pool_pages": int(self.swap_pool_pages),
+                "swap_pool_used": int(self._swap_used)}
 
     # -- device-side ops -------------------------------------------------------
     def scales(self, layer: int):
@@ -603,6 +782,36 @@ class PagedKVCache:
         if self.k_scales is None:
             return None, None
         return self.k_scales[layer], self.v_scales[layer]
+
+    def write_prefill(self, slot: int, k, v):
+        """Bulk-write a prompt's keys/values after the slot's current
+        length: k/v [S, KVH, D] (one layer) or [L, S, KVH, D] in the
+        model's dtype.  One scatter a pool (int8 pools quantize each row
+        and scatter its scale beside), then the length advances by S.
+        Plain PyTorch on either device, the reference's jnp body."""
+        if k.dim() == 3:
+            enforce(self.num_layers == 1,
+                    f"cache holds {self.num_layers} layers; pass "
+                    f"[L, ...] keys/values")
+            k, v = k[None], v[None]
+        s = k.shape[1]
+        self.extend(slot, s)
+        start = int(self._lens[slot])
+        pos = np.arange(start, start + s)
+        pages = torch.as_tensor(self._table[slot, pos // self.page_size],
+                                dtype=torch.long, device=self.device)
+        rows = torch.as_tensor(pos % self.page_size, dtype=torch.long,
+                               device=self.device)
+        # [L, S, KVH, D] -> [L, KVH, S, D], scattered at (pages, rows)
+        kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+        if self.kv_dtype == "int8":
+            kt, ksc = quantize_rows(kt)         # + [L, KVH, S] scales
+            vt, vsc = quantize_rows(vt)
+            self.k_scales[:, :, pages, rows] = ksc
+            self.v_scales[:, :, pages, rows] = vsc
+        self.k_pages[:, :, pages, rows, :] = kt.to(self.k_pages.dtype)
+        self.v_pages[:, :, pages, rows, :] = vt.to(self.v_pages.dtype)
+        self._lens[slot] = start + s
 
     def append(self, slots, k_new, v_new):
         """Decode step: one new token for each sequence in ``slots``.

@@ -83,6 +83,10 @@ class LlamaConfig:
     recompute: bool = False
     recompute_granularity: str = "full"   # "full" | "core_attn" | "dots"
     fuse_linear_cross_entropy: bool = True
+    # a pipeline-parallel knob the port does not read (no pipeline
+    # yet); kept so that a config hashes the same in both packages
+    # (``observability.capsule.model_fingerprint``)
+    pp_stash_residuals: bool = True
 
 
 # knobs the port does not take yet: (setting, asked, ROADMAP item).

@@ -165,17 +165,15 @@ def test_abort_and_pop_result(models):
 
 
 # the ROADMAP item each knob the port still refuses names
-_STILL_REFUSED = {"moe_dropless": "Port: the rest of serving",
-                  "moe_capacity_factor": "Port: the rest of serving",
-                  "enable_metrics": "Port: the rest of serving",
-                  "scan_decode": "Port: speed of what is ported",
+_STILL_REFUSED = {"scan_decode": "Port: speed of what is ported",
                   "mesh": "Multi-device", "tp_axis": "Multi-device"}
 
 
 @pytest.mark.parametrize("knob", [
-    # a swap pool is taken; engine metrics beside it still raise.  The
-    # sampling and speculative knobs are taken since port PR 15
-    # ("draft": the port model as its own draft)
+    # a swap pool and engine metrics are taken, and so are the sampling,
+    # speculative and capacity-factor knobs ("draft": the port model as
+    # its own draft; the MoE knobs do nothing on a dense model, as in
+    # the reference)
     {"moe_dropless": False}, {"swap_pool_pages": 16, "enable_metrics": True},
     {"moe_capacity_factor": 2.0}, {"decode_strategy": "sampling"},
     {"mesh": object()}, {"draft_model": "draft"},

@@ -151,9 +151,15 @@ def test_backbone_spec_and_referenced_weights(models):
 @pytest.mark.parametrize("knob", [{"moe_dropless": False},
                                   {"moe_capacity_factor": 2.0}])
 def test_knobs_outside_the_slice_raise(models, knob):
+    """Both capacity knobs are taken: ``moe_dropless=False`` sets the
+    per-page-group cap from the config's capacity factor (1.25: ceil(2 x
+    8 x 1.25 / 8) = 3 slots an expert); a capacity factor beside the
+    default ``moe_dropless=True`` changes nothing, as in the reference."""
     _, port = models
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LLMEngine(port, device="cpu", **GEOM, **knob)
+    eng = LLMEngine(port, device="cpu", **GEOM, **knob)
+    ref_cap = 3 if knob.get("moe_dropless") is False else 0
+    assert eng._arch.capacity == ref_cap
+    assert eng.metrics_snapshot()["moe"]["capacity"] == ref_cap
 
 
 def test_dense_dispatch_refuses_tensors_off_the_cpu():
