@@ -81,7 +81,16 @@ with the launch counts set to 0 just before and read just after:
   page group) on the serve mix, unified and split, with kept + dropped
   routed slots held to the live rows and no drops in pure-decode steps;
   then at f32, 2 layers, factor 0.5, the prefill logits against a plain
-  forward that ranks each page chunk's slots.
+  forward that ranks each page chunk's slots;
+- the serving runtime (``paddle_tpu_torch.serving``) over the ``serve``
+  model: the serve mix through ``Scheduler`` against a direct run of the
+  same engine calls, an overload burst at two priorities (shedding,
+  deadlines, preemption; no cache out-of-memory); two streams through
+  ``start_http_frontend`` and its ``/metrics``, ``/healthz``,
+  ``/statusz`` and ``/memz``; two replicas on the card under
+  ``ReplicaRouter``, ``drain_replica`` migrating KV pages, then the
+  same replicas as ``RemoteReplica``s over HTTP with a dropped reply
+  resubmitted once and a drain over the wire.
 
 Every 16-bit training step must trace only the tensor-core (``wgmma``)
 kernels of the flash forward, dQ and dK/dV families, the fused step
@@ -3539,6 +3548,534 @@ def serve_metrics_phase(torch, np, dev, model, prompts, greedy):
     torch.cuda.empty_cache()
 
 
+# -- the serving runtime (paddle_tpu_torch.serving) over the serve model -----
+OVERLOAD_N = 24                 # requests in the overload burst
+OVERLOAD_LEN, OVERLOAD_NEW = 256, 64
+OVERLOAD_QUEUE = 16             # the scheduler's max_queue
+OVERLOAD_FIRST = 18             # low-priority wave: 2 past the queue bound
+OVERLOAD_DEADLINE_S = 1.5       # on every third request (host clock)
+ROUTER_STEPS = 8                # router steps before drain_replica(0)
+# a remote migration posts the KV blob base64 in JSON: one 128-token
+# bf16 page of Llama-3-8B is 32 x 8 x 128 x 128 x 2 (K, V) x 2 bytes =
+# 16 MiB, 22.4 MiB once encoded; the receiving frontend takes bodies up
+# to 256 MiB (the default 4 MiB would refuse a one-page request with 413)
+REMOTE_BODY_BYTES = 256 << 20
+
+
+def serve_counters():
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import paged_attention as pa
+    return {"ragged_paged_append_attend": pa.ragged_paged_append_attend,
+            "flash_attention_fwd": fa.flash_attention_fwd}
+
+
+def quantiles(vals):
+    """p50 and p95 of host-clock samples (nearest rank)."""
+    s = sorted(vals)
+    if not s:
+        return {"n": 0, "p50": None, "p95": None}
+    pick = lambda q: s[min(len(s) - 1, max(0, math.ceil(q * len(s)) - 1))]
+    return {"n": len(s), "p50": pick(0.50), "p95": pick(0.95)}
+
+
+def no_serving_threads():
+    """Wait (10 s at most) until no ``paddle-tpu-`` thread is alive;
+    returns the names of those still alive."""
+    import threading
+    deadline = time.monotonic() + 10.0
+    while True:
+        left = [t.name for t in threading.enumerate()
+                if t.name.startswith("paddle-tpu-") and t.is_alive()]
+        if not left or time.monotonic() > deadline:
+            return left
+        time.sleep(0.05)
+
+
+def serve_sched_phase(torch, np, dev, model, prompts, greedy, greedy_stats):
+    """``Scheduler`` over a fresh engine of the serve model.
+
+    The serve mix, all five queued before the first step, with chunked
+    admission (every prompt rides the unified step): tokens, steps and
+    the #1 and #2 launches must equal a direct run of the engine calls
+    the scheduler makes (``begin_request`` in submission order, then
+    ``step``); against the ``serve`` phase's tokens (which admit a200
+    through ``add_request``) the ``agreement`` rule.  Then an overload
+    burst: OVERLOAD_FIRST low-priority requests (two past ``max_queue``
+    shed), a step, the rest at high priority, each high-priority
+    admission preempting an active low-priority request; a deadline on
+    every third.  No cache out-of-memory event, every accepted request
+    finished or shed, and each preempted request's tokens equal to, or
+    in ``agreement`` with, an unpreempted run of its prompt."""
+    from paddle_tpu_torch.inference.engine import LLMEngine
+    from paddle_tpu_torch.serving import RejectedError, Scheduler
+    geom = dict(max_seqs=8, max_len=2048, page_size=128,
+                dtype=torch.bfloat16)
+    counters = serve_counters()
+    t_phase = time.perf_counter()
+
+    def launches():
+        return {n: fn.launches for n, fn in counters.items()}
+
+    eng = LLMEngine(model, **geom)
+    for fn in counters.values():
+        fn.launches = 0
+    for rid in SERVE_LENS:
+        eng.begin_request(rid, prompts[rid], max_new_tokens=SERVE_NEW)
+    direct_steps = 0
+    while eng.has_work():
+        eng.step()
+        direct_steps += 1
+    direct = {rid: eng.result(rid) for rid in SERVE_LENS}
+    direct_launches = launches()
+    del eng
+
+    eng = LLMEngine(model, **geom)
+    sched = Scheduler(eng, max_queue=OVERLOAD_QUEUE, chunked_prefill=True)
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    for rid in SERVE_LENS:
+        sched.submit(rid, prompts[rid], max_new_tokens=SERVE_NEW)
+    steps, streamed = 0, {rid: [] for rid in SERVE_LENS}
+    while sched.busy():
+        for rid, toks in sched.step().items():
+            streamed[rid] += toks
+        steps += 1
+    torch.cuda.synchronize()
+    mix_s = time.perf_counter() - t0
+    mix_launches = launches()
+    got = {rid: sched.result(rid) for rid in SERVE_LENS}
+    check(got == streamed, "the scheduler's stream differs from its results")
+    check(got == direct, "the scheduler's tokens differ from the direct run "
+                         "of the same engine calls")
+    check(steps == direct_steps and mix_launches == direct_launches,
+          f"scheduler: {steps} steps, launches {mix_launches}; direct: "
+          f"{direct_steps} steps, launches {direct_launches}")
+    # chunked admission prefills every prompt inside the unified step:
+    # #1 only (serve's a200 prefills through #2 in add_request)
+    check(mix_launches["ragged_paged_append_attend"] > 0,
+          f"the scheduled serve never launched #1: {mix_launches}")
+    vs_serve = agreement(torch, eng, prompts, got, greedy)
+    mix_snap = sched.metrics_snapshot()
+    mix = {"steps": steps, "launches": mix_launches, "serve_s": mix_s,
+           "serve_steps": greedy_stats["steps"],
+           "serve_launches": greedy_stats["launches"],
+           "direct_equal": True, "agreement_with_serve": vs_serve,
+           "all_equal_serve": all(v["equal"] for v in vs_serve.values()),
+           "ttft_s": {rid: sched.request_timeline(rid)["ttft"]
+                      for rid in SERVE_LENS},
+           "admitted": mix_snap["admitted"],
+           "completed": mix_snap["completed"]}
+    del sched, eng
+    gc.collect()
+
+    # -- overload: two priorities, a bounded queue, deadlines
+    rng = np.random.default_rng(SEED + 17)
+    vocab = model.config.vocab_size
+    burst = {f"o{i:02d}": rng.integers(0, vocab, OVERLOAD_LEN).tolist()
+             for i in range(OVERLOAD_N)}
+    rids = list(burst)
+    prio = {rid: (1 if i < OVERLOAD_FIRST else 0)
+            for i, rid in enumerate(rids)}
+    dl = {rid: (OVERLOAD_DEADLINE_S if i % 3 == 2 else None)
+          for i, rid in enumerate(rids)}
+    eng = LLMEngine(model, **geom)
+    sched = Scheduler(eng, max_queue=OVERLOAD_QUEUE)
+    preempted, events = set(), []
+
+    def tap(ev):
+        events.append((ev["type"], ev["rid"]))
+        if ev["type"] == "preempted":
+            preempted.add(ev["rid"])
+
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    refused = []
+
+    def submit(rid):
+        try:
+            sched.submit(rid, burst[rid], max_new_tokens=OVERLOAD_NEW,
+                         priority=prio[rid], deadline=dl[rid], on_event=tap)
+        except RejectedError:
+            refused.append(rid)
+
+    for rid in rids[:OVERLOAD_FIRST]:
+        submit(rid)
+    for _ in range(4):
+        sched.step()
+    for rid in rids[OVERLOAD_FIRST:]:
+        submit(rid)
+    steps = 4
+    while sched.busy():
+        sched.step()
+        steps += 1
+        check(steps < 4000, "the overload burst did not drain")
+    torch.cuda.synchronize()
+    burst_s = time.perf_counter() - t0
+    snap = sched.metrics_snapshot()
+    accepted = [r for r in rids if r not in refused]
+    states = {r: sched.status(r) for r in accepted}
+    check(all(s in ("finished", "shed") for s in states.values()),
+          f"a request was lost: {states}")
+    check(snap["engine"]["kv_cache"]["oom_events"] == 0,
+          f"the cache ran out of pages: {snap['engine']['kv_cache']}")
+    finished = {r: sched.result(r) for r, s in states.items()
+                if s == "finished"}
+    for r, toks in finished.items():
+        check(len(toks) == OVERLOAD_NEW,
+              f"{r} returned {len(toks)} tokens, not {OVERLOAD_NEW}")
+    check(snap["preempted"] == len([e for e in events
+                                     if e[0] == "preempted"]) > 0,
+          f"no high-priority admission preempted: {snap['preempted']}")
+    tl = {r: sched.request_timeline(r) for r in accepted}
+    ttft = {p: quantiles([tl[r]["ttft"] for r in accepted
+                          if prio[r] == p and tl[r]["ttft"] is not None])
+            for p in (0, 1)}
+    burst_launches = launches()
+    check(all(n > 0 for n in burst_launches.values()),
+          f"the overload burst never launched a kernel: {burst_launches}")
+    # the preempted requests that finished, against an unpreempted run
+    again = sorted(r for r in preempted if r in finished)
+    base = LLMEngine(model, **geom)
+    for r in again:
+        base.add_request(r, burst[r], max_new_tokens=OVERLOAD_NEW)
+    while base.has_work():
+        base.step()
+    want = {r: base.result(r) for r in again}
+    del base
+    rep = agreement(torch, eng, burst, {r: finished[r] for r in again},
+                    want)
+    qw = snap["queue_wait_seconds"]
+    emit({"phase": "serve_sched", "model": "llama3_8b",
+          "layers": model.config.num_hidden_layers, "mix": mix,
+          "overload": {
+              "requests": OVERLOAD_N, "prompt_len": OVERLOAD_LEN,
+              "max_new": OVERLOAD_NEW, "max_queue": OVERLOAD_QUEUE,
+              "low_priority": OVERLOAD_FIRST,
+              "high_priority": OVERLOAD_N - OVERLOAD_FIRST,
+              "deadline_s": OVERLOAD_DEADLINE_S,
+              "with_deadline": sum(1 for v in dl.values() if v),
+              "refused_at_submit": len(refused),
+              "shed": dict(sched.shed_stats,
+                           total=sum(sched.shed_stats.values())),
+              "shed_while_waiting": sum(1 for s in states.values()
+                                        if s == "shed"),
+              "deadline_misses": snap["deadline_miss"],
+              "preempted": snap["preempted"],
+              "preempted_requests": sorted(preempted),
+              "finished": len(finished), "steps": steps,
+              "burst_s": burst_s, "launches": burst_launches,
+              "oom_events": snap["engine"]["kv_cache"]["oom_events"],
+              "swap_out_pages": snap["engine"]["kv_cache"]["swap_out_pages"],
+              "swap_in_pages": snap["engine"]["kv_cache"]["swap_in_pages"],
+              "ttft_s_by_priority": ttft,
+              "queue_wait_s": {"count": qw["count"], "p50": qw["p50"],
+                               "p95": qw["p95"], "mean": qw["mean"],
+                               "source": "serving_sched_queue_wait_"
+                                         "seconds (bucket-interpolated)"},
+              "time_preempted_s": {
+                  k: snap["time_preempted_seconds"][k]
+                  for k in ("count", "p50", "p95", "mean")},
+              "agreement_preempted": rep,
+              "all_equal_preempted": all(v["equal"]
+                                         for v in rep.values())},
+          "seconds": time.perf_counter() - t_phase})
+    del sched, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def http_stream(port, rid, prompt, n):
+    """Stream one ``/v1/completions``; returns (tokens, lines)."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request("POST", "/v1/completions",
+                     json.dumps({"prompt": prompt, "max_tokens": n,
+                                 "id": rid}),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        check(resp.status == 200, f"{rid}: HTTP {resp.status}")
+        check(resp.getheader("Content-Type") == "application/x-ndjson",
+              f"{rid}: {resp.getheader('Content-Type')}")
+        lines = [json.loads(ln) for ln in resp.read().decode().splitlines()]
+    finally:
+        conn.close()
+    return [t for ln in lines for t in ln.get("tokens", [])], lines
+
+
+def http_get(url):
+    import urllib.error
+    import urllib.request
+    try:
+        r = urllib.request.urlopen(url, timeout=120)
+        return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def serve_http_phase(torch, np, dev, model, prompts, greedy):
+    """``start_http_frontend(Scheduler(...))`` on 127.0.0.1 over a fresh
+    engine of the serve model: two client threads stream
+    ``/v1/completions`` for b37 and a200 at once (their tokens against
+    the ``serve`` phase's by the ``agreement`` rule: the two arrive in
+    another batch than the mix), then ``/metrics``, ``/healthz``,
+    ``/statusz`` (torch, CUDA and the card; no JAX) and ``/memz`` (the
+    device bytes).  The loop thread launched every kernel and is alive
+    at the end; after ``shutdown()`` no ``paddle-tpu-`` thread is."""
+    import threading
+
+    from paddle_tpu_torch.inference.engine import LLMEngine
+    from paddle_tpu_torch.serving import Scheduler, start_http_frontend
+    counters = serve_counters()
+    t_phase = time.perf_counter()
+    eng = LLMEngine(model, max_seqs=8, max_len=2048, page_size=128,
+                    dtype=torch.bfloat16)
+    sched = Scheduler(eng, max_queue=OVERLOAD_QUEUE)
+    fe = start_http_frontend(sched)
+    want = {rid: greedy[rid] for rid in ("b37", "a200")}
+    got, errors, launch_threads = {}, [], set()
+    for fn in counters.values():
+        fn.launches = 0
+    try:
+        def client(rid):
+            try:
+                got[rid] = http_stream(fe.port, rid, prompts[rid],
+                                       SERVE_NEW)
+            except BaseException as e:
+                errors.append(f"{rid}: {type(e).__name__}: {e}")
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(rid,))
+                   for rid in want]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        stream_s = time.perf_counter() - t0
+        check(not errors, f"a streaming client failed: {errors}")
+        launched = {n: fn.launches for n, fn in counters.items()}
+        code_m, metrics = http_get(fe.url + "/metrics")
+        code_h, hz = http_get(fe.url + "/healthz")
+        code_s, st = http_get(fe.url + "/statusz")
+        code_z, mz = http_get(fe.url + "/memz")
+        alive = fe._loop_thread.is_alive()
+        loop_error = fe.loop_error
+    finally:
+        fe.shutdown()
+    left = no_serving_threads()
+    check(alive and loop_error is None,
+          f"the loop thread died: {loop_error!r}")
+    tokens = {rid: got[rid][0] for rid in want}
+    for rid, toks in tokens.items():
+        lines = got[rid][1]
+        check(len(toks) == SERVE_NEW and lines[-1].get("done")
+              and lines[-1].get("state") == "finished",
+              f"{rid} streamed {len(toks)} tokens, last line {lines[-1]}")
+    check(all(n > 0 for n in launched.values()),
+          f"the frontend's loop launched no kernel: {launched}")
+    rep = agreement(torch, eng, prompts, tokens, want)
+    check(code_m == 200 and b"serving_sched_admitted_total" in metrics
+          and b"llm_engine_generated_tokens_total" in metrics,
+          "/metrics lacks the scheduler's or the engine's series")
+    hz = json.loads(hz)
+    check(code_h == 200 and hz["status"] == "ok", f"/healthz {code_h} {hz}")
+    check(b"jax" not in st.lower(), "/statusz names JAX")
+    st = json.loads(st)
+    build = st["build"]
+    check(code_s == 200 and build["torch"] == torch.__version__
+          and build["cuda"] == torch.version.cuda
+          and build["device_name"] == torch.cuda.get_device_name(dev),
+          f"/statusz build {build}")
+    mz = json.loads(mz)
+    kv = [r for r in mz["consumers"].values()
+          if r.get("device_bytes") == kv_bytes(eng.cache)]
+    check(code_z == 200 and mz["devices"][0]["bytes_in_use"] > 0 and kv,
+          f"/memz did not report the device bytes: {mz['devices']}")
+    check(not left, f"serving threads left after shutdown(): {left}")
+    emit({"phase": "serve_http", "model": "llama3_8b",
+          "requests": list(want), "stream_s": stream_s,
+          "streamed_lines": {rid: len(got[rid][1]) for rid in want},
+          "launches": launched, "agreement": rep,
+          "all_equal_serve": all(v["equal"] for v in rep.values()),
+          "metrics_bytes": len(metrics), "healthz": hz,
+          "statusz_build": build,
+          "memz_device": mz["devices"][0],
+          "loop_thread_alive_at_end": alive,
+          "threads_left": left, "seconds": time.perf_counter() - t_phase})
+    del sched, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_router_phase(torch, np, dev, model, prompts, greedy):
+    """Two ``Scheduler`` replicas, each with its own engine over the serve
+    model on the one card, under ``ReplicaRouter``: the serve mix
+    (least-loaded: b37, b300 and a200 on replica 0), ROUTER_STEPS
+    router steps, then ``drain_replica(0)``: its requests migrate with
+    their KV pages and finish on replica 1.  Then both replicas behind
+    frontends, reached as ``RemoteReplica``s under a second router
+    (replica 1's frontend takes REMOTE_BODY_BYTES bodies): a
+    ``FaultPlan`` drops the reply of replica 1's first submit (the
+    resubmission must ack as a duplicate: admitted once), and a drain of
+    replica 0 moves its requests over HTTP.  Every request finishes once,
+    streams exactly its tokens, and agrees with the ``serve`` phase's."""
+    from paddle_tpu_torch.inference.engine import LLMEngine
+    from paddle_tpu_torch.serving import (Fault, FaultPlan, RemoteReplica,
+                                          ReplicaRouter, Scheduler,
+                                          start_http_frontend)
+    counters = serve_counters()
+    t_phase = time.perf_counter()
+    geom = dict(max_seqs=8, max_len=2048, page_size=128,
+                dtype=torch.bfloat16)
+    engines = [LLMEngine(model, **geom) for _ in range(2)]
+    scheds = [Scheduler(e, max_queue=OVERLOAD_QUEUE) for e in engines]
+    blobs = []
+    src_out = scheds[0].migrate_out
+
+    def migrate_out(rid):                       # measure the blobs
+        pkg = src_out(rid)
+        if pkg is not None:
+            blobs.append(len(pkg["swap"]) if pkg.get("swap") else 0)
+        return pkg
+
+    scheds[0].migrate_out = migrate_out
+    router = ReplicaRouter(scheds)
+    streams, finished = {rid: [] for rid in SERVE_LENS}, {}
+
+    def tap(ev):
+        if ev["type"] == "tokens":
+            streams[ev["rid"]] += ev["tokens"]
+        elif ev["type"] in ("finished", "cancelled", "shed"):
+            finished.setdefault(ev["rid"], []).append(ev["type"])
+
+    for fn in counters.values():
+        fn.launches = 0
+    placed = {rid: router.submit(rid, prompts[rid],
+                                 max_new_tokens=SERVE_NEW, on_event=tap)
+              for rid in SERVE_LENS}
+    for _ in range(ROUTER_STEPS):
+        router.step()
+    at_drain = {rid: len(v) for rid, v in streams.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    moved = router.drain_replica(0)
+    torch.cuda.synchronize()
+    migrate_s = time.perf_counter() - t0
+    router.run_until_idle()
+    launched = {n: fn.launches for n, fn in counters.items()}
+    local_blobs = list(blobs)
+    got = {rid: router.pop_result(rid) for rid in SERVE_LENS}
+    check(sorted(moved) == sorted(r for r, i in placed.items() if i == 0)
+          and moved, f"drain_replica(0) moved {moved}, placed {placed}")
+    for rid in SERVE_LENS:
+        check(finished.get(rid) == ["finished"]
+              and streams[rid] == got[rid]
+              and len(got[rid]) == SERVE_NEW,
+              f"{rid}: terminals {finished.get(rid)}, streamed "
+              f"{len(streams[rid])}, result {len(got[rid])}")
+    snap1 = scheds[1].metrics_snapshot()
+    check(snap1["migrated_in"] == len(moved)
+          and snap1["engine"]["kv_cache"]["swap_in_pages"] > 0,
+          f"replica 1 adopted {snap1['migrated_in']} requests, swapped in "
+          f"{snap1['engine']['kv_cache']['swap_in_pages']} pages")
+    rep = agreement(torch, engines[1], prompts, got, greedy)
+    local = {"placed": placed, "moved": moved, "tokens_at_drain": at_drain,
+             "migrate_s": migrate_s, "blob_bytes": local_blobs,
+             "launches": launched, "agreement": rep,
+             "all_equal_serve": all(v["equal"] for v in rep.values())}
+
+    # -- the same replicas over HTTP
+    scheds[0].resume_admission()
+    admitted0 = [s.metrics_snapshot()["admitted"] for s in scheds]
+    fes = [start_http_frontend(scheds[0]),
+           start_http_frontend(scheds[1], max_body_bytes=REMOTE_BODY_BYTES)]
+    try:
+        # load_ttl 0: every pick reads both loads fresh, so the mix
+        # alternates replicas as in-process
+        reps = [RemoteReplica(fe.url, timeout=600, load_ttl=0.0)
+                for fe in fes]
+        plan = FaultPlan([Fault(op="submit", kind="disconnect", nth=1,
+                                times=1)])
+        reps[1].set_fault_plan(plan)
+        rrouter = ReplicaRouter(reps)
+        rstreams = {f"r_{rid}": [] for rid in SERVE_LENS}
+        rfinished = {}
+
+        def rtap(ev):
+            if ev["type"] == "tokens":
+                rstreams[ev["rid"]] += ev["tokens"]
+            elif ev["type"] in ("finished", "cancelled", "shed"):
+                rfinished.setdefault(ev["rid"], []).append(ev["type"])
+
+        rplaced = {}
+        for rid in SERVE_LENS:
+            rplaced[f"r_{rid}"] = rrouter.submit(
+                f"r_{rid}", prompts[rid], max_new_tokens=SERVE_NEW,
+                on_event=rtap)
+        check(plan.injected == {"disconnect": 1},
+              f"the fault plan injected {plan.injected}")
+        on0 = [r for r, i in rplaced.items() if i == 0]
+        check(on0 and len(on0) < len(rplaced),
+              f"the remote router placed {rplaced}")
+        deadline = time.monotonic() + 300
+        while any(len(rstreams[r]) < 4 for r in on0):
+            rrouter.step()
+            check(time.monotonic() < deadline, "remote requests stalled")
+        rat_drain = {r: len(v) for r, v in rstreams.items()}
+        t0 = time.perf_counter()
+        rmoved = rrouter.drain_replica(0)
+        rmigrate_s = time.perf_counter() - t0
+        rrouter.run_until_idle()
+        rgot = {r: rrouter.pop_result(r) for r in rplaced}
+        alive = [fe._loop_thread.is_alive() for fe in fes]
+        errors = [fe.loop_error for fe in fes]
+        admitted1 = [s.metrics_snapshot()["admitted"] for s in scheds]
+        snap1 = scheds[1].metrics_snapshot()
+    finally:
+        for fe in fes:
+            fe.shutdown()
+    left = no_serving_threads()
+    check(all(alive) and errors == [None, None],
+          f"a frontend's loop thread died: {errors}")
+    check(sorted(rmoved) == sorted(on0),
+          f"the remote drain moved {rmoved}, replica 0 held {on0}")
+    for r in rplaced:
+        check(rfinished.get(r) == ["finished"] and rstreams[r] == rgot[r]
+              and len(rgot[r]) == SERVE_NEW,
+              f"{r}: terminals {rfinished.get(r)}, streamed "
+              f"{len(rstreams[r])}, result {len(rgot[r])}")
+    n1 = sum(1 for i in rplaced.values() if i == 1)
+    check([b - a for a, b in zip(admitted0, admitted1)] == [len(on0), n1],
+          f"admissions over HTTP {admitted0} -> {admitted1}: a resubmitted "
+          f"request was admitted twice")
+    check(not left, f"serving threads left after shutdown(): {left}")
+    rrep = agreement(torch, engines[1], {f"r_{k}": v for k, v in
+                                         prompts.items()},
+                     rgot, {f"r_{k}": v for k, v in greedy.items()})
+    emit({"phase": "serve_router", "model": "llama3_8b",
+          "replicas": 2, "local": local,
+          "remote": {"placed": rplaced, "moved": rmoved,
+                     "tokens_at_drain": rat_drain,
+                     "migrate_s": rmigrate_s,
+                     "blob_bytes": blobs[len(local_blobs):],
+                     "max_body_bytes": REMOTE_BODY_BYTES,
+                     "fault_injected": plan.injected,
+                     "admitted_delta": [b - a for a, b in
+                                        zip(admitted0, admitted1)],
+                     "migrated_in": snap1["migrated_in"],
+                     "agreement": rrep,
+                     "all_equal_serve": all(v["equal"]
+                                            for v in rrep.values()),
+                     "loop_threads_alive_at_end": alive,
+                     "threads_left": left},
+          "seconds": time.perf_counter() - t_phase})
+    del router, scheds, engines
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def serve_spec_phase(torch, np, dev, model, prompts, greedy, greedy_stats):
     """The ``serve`` model as the target with SPEC_K: a random draft at
     Llama-3.2-1B's widths (greedy: the plain engine's tokens by the margin
@@ -4623,6 +5160,9 @@ def main() -> int:
     serve_spec_phase(torch, np, dev, model, prompts, results, stats)
     f32_decode_agreement(torch, np, dev)
     serve_metrics_phase(torch, np, dev, model, prompts, results)
+    serve_sched_phase(torch, np, dev, model, prompts, results, stats)
+    serve_http_phase(torch, np, dev, model, prompts, results)
+    serve_router_phase(torch, np, dev, model, prompts, results)
 
     # -- the same model on the split path and with int8 pools and weights,
     # then with the pools at their default dtype (f32)

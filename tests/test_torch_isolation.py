@@ -41,7 +41,7 @@ def test_port_imports_no_jax_and_no_reference_package():
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 36       # every module imported
+    assert int(res.stdout.split()[-1]) >= 59       # every module imported
 
 
 @pytest.fixture
