@@ -51,7 +51,15 @@ with the launch counts set to 0 just before and read just after:
   against a plain composition at dropout 0 and 0.1 (the same masks from
   the same generator seed); and one post-norm ``TransformerEncoderLayer``
   at GPT-2 width with a trained attention bias (the add+norm kernel's
-  LayerNorm body, the flash kernels and the bias gradient #5);
+  LayerNorm body, the flash kernels and the bias gradient #5); then
+  the training loop's state on the same recipe: a warm-up and cosine
+  schedule with the global-norm clip, its norm tapped and a
+  ``StepTimer`` fed by ``step_flops`` (the lr #8 read each step, the
+  launches, the host copies and waits against a constant-lr step), a
+  checkpoint saved asynchronously after 3 steps and loaded into a fresh
+  trainer (params bit-equal, the losses of the uninterrupted run), and
+  the 9 optimizers without a fused kind, LBFGS and AdamW's per-leaf
+  update against #8;
 - serving as the reference's serving benches configure it: the bf16
   Llama-3-8B over the engine's default f32 pools (#1 with bf16 q over
   f32 pools); Llama-3-8B at full depth with f32 weights over bf16 pools
@@ -4955,6 +4963,423 @@ def encoder_bias_phase(torch, dev, table):
     table["add_layer_norm"]["launches"] = launches["add_layer_norm"]
 
 
+# -- the training loop's state: schedule, clip tap, timer, checkpoints,
+# the other optimizers (GPT-2 124M on bench_gpt2's recipe)
+
+TS_STEPS = 6          # LinearWarmup over 2 steps, then the cosine
+TS_LR = 1e-4
+
+
+def schedule_of(optimizer):
+    """``bench_gpt2``'s lr 1e-4 under a warm-up and cosine decay:
+    ``LinearWarmup(CosineAnnealingDecay(1e-4, T_max=8), warmup_steps=2,
+    start_lr=0, end_lr=1e-4)``."""
+    lr = optimizer.lr
+    return lr.LinearWarmup(lr.CosineAnnealingDecay(TS_LR, T_max=8),
+                           warmup_steps=2, start_lr=0.0, end_lr=TS_LR)
+
+
+def gpt_state_trainer(torch, dev, seed, *, model=None, schedule=True,
+                      opt=None, **kw):
+    """GPT-2 124M (full width and depth, f32, dropout 0.1) under
+    ``CompiledTrainStep`` with ``ClipGradByGlobalNorm(1.0)`` and the
+    grad-norm tap; AdamW on the schedule (or lr 1e-4) unless ``opt``
+    makes another optimizer of the parameters."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.jit.train import CompiledTrainStep
+    from paddle_tpu_torch.models.gpt import (GPTForCausalLM,
+                                             GPTPretrainingCriterion,
+                                             gpt2_124m_config)
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    if model is None:
+        model = GPTForCausalLM(gpt2_124m_config(), device=dev,
+                               generator=torch.Generator(
+                                   device=dev).manual_seed(seed))
+    crit = GPTPretrainingCriterion()
+    if opt is None:
+        opt = optimizer.AdamW(
+            learning_rate=schedule_of(optimizer) if schedule else TS_LR,
+            parameters=model.parameters(),
+            grad_clip=ClipGradByGlobalNorm(1.0))
+    else:
+        opt = opt(model.parameters())
+    kw.setdefault("grad_norm_tap", True)
+    return model, CompiledTrainStep(
+        model, lambda m, b: crit(m(b["x"]), b["y"]), opt, seed=seed, **kw)
+
+
+@contextlib.contextmanager
+def update_scalars():
+    """Record the ``scalars`` tensor ([lr, step, clip scale]) of each
+    step's fused update calls, by reference (nothing is read until the
+    caller reads it).  The kernel counts its launches on the module's
+    ``fused_update_flat``, the wrapper while it is installed; the count
+    goes back to the wrapped function on exit."""
+    from paddle_tpu_torch.ops import fused_train as ft
+    orig, seen = ft.fused_update_flat, []
+
+    def wrapper(*args, scalars, **kw):
+        if not seen or seen[-1] is not scalars:
+            seen.append(scalars)
+        return orig(*args, scalars=scalars, **kw)
+
+    wrapper.launches = orig.launches
+    ft.fused_update_flat = wrapper
+    try:
+        yield seen
+    finally:
+        orig.launches = wrapper.launches
+        ft.fused_update_flat = orig
+
+
+def gpt_counters(torch, model, layers):
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_train as ft
+    big = sum(p.numel() * p.element_size() >= (1 << 20)
+              for p in model.parameters())
+    return {"flash_attention_fwd": (fa.flash_attention_fwd, layers),
+            "flash_attention_bwd_dq": (fa.flash_attention_bwd_dq, layers),
+            "flash_attention_bwd_dkv": (fa.flash_attention_bwd_dkv, layers),
+            "fused_update": (ft.fused_update_flat, big + 1)}
+
+
+def train_schedule_phase(torch, np, dev):
+    """GPT-2 124M on ``bench_gpt2``'s recipe with the schedule, the clip
+    and the grad-norm tap, a ``StepTimer`` fed by ``step_flops``:
+    TS_STEPS steps.  Each step's lr as #8 read it (its scalars, read
+    after the run) equals the scheduler's float in f32; launches a step
+    are train_gpt2's; a traced step makes the same host copies and waits
+    as a constant-lr step's; step_flops within 10 % of (6N + 6LSh) x
+    tokens; the timer's MFU beside the phase's own."""
+    from paddle_tpu_torch.models.gpt import gpt2_124m_config
+    from paddle_tpu_torch.observability.metrics import MetricRegistry
+    from paddle_tpu_torch.observability.steptimer import StepTimer
+    cfg = gpt2_124m_config()
+    layers = cfg.num_hidden_layers
+    model, step = gpt_state_trainer(torch, dev, SEED + 6)
+    batch = gpt_batch(torch, np, dev, cfg.vocab_size, GPT_BATCH, GPT_SEQ)
+    tokens = GPT_BATCH * GPT_SEQ
+    n_params = sum(p.numel() for p in model.parameters())
+    t0 = time.perf_counter()
+    flops = step.step_flops(batch)
+    flops_s = time.perf_counter() - t0
+    f6n_attn = (6 * n_params + 6 * layers * GPT_SEQ * cfg.hidden_size) \
+        * tokens
+    timer = StepTimer(registry=MetricRegistry(), prefix="train_schedule",
+                      tokens_per_step=tokens, flops_per_step=flops)
+    step.attach_timer(timer)
+    sched = step.optimizer._lr_scheduler
+    counters = gpt_counters(torch, model, layers)
+    for fn, _ in counters.values():
+        fn.launches = 0
+    lrs, losses, taps = [], [], []
+    with update_scalars() as seen:
+        for _ in range(TS_STEPS):
+            lrs.append(sched())
+            losses.append(step(batch))
+            taps.append(step.last_grad_norm)
+    launches = {n: fn.launches for n, (fn, _) in counters.items()}
+    read = [float(s[0]) for s in seen]
+    losses = [float(x) for x in losses]
+    taps = [float(x) for x in taps]
+    summ = timer.summary()
+    # the fence's cost: steps with the timer attached (each returns after
+    # its fence) against steps without it that end in a synchronize
+    # (train_gpt2's measure), in turns, on the host clock
+    fenced, plain = [], []
+    for _ in range(3):
+        for attached, out in ((True, fenced), (False, plain)):
+            step.attach_timer(timer if attached else None)
+            t = time.perf_counter()
+            step(batch)
+            if not attached:
+                torch.cuda.synchronize()
+            out.append(time.perf_counter() - t)
+    step.attach_timer(None)
+    # host copies and waits of one untimed step: scheduled against
+    # constant lr
+    _, sync_sched = host_syncs(torch, lambda: step(batch))
+    _, const = gpt_state_trainer(torch, dev, SEED + 6, model=model,
+                                 schedule=False)
+    const(batch)
+    _, sync_const = host_syncs(torch, lambda: const(batch))
+    del const
+    step_s = summ["step_seconds_mean"]
+    rep = {"phase": "train_schedule", "model": "gpt2_124m",
+           "layers": layers, "dtype": "float32", "batch": GPT_BATCH,
+           "seq": GPT_SEQ, "steps": TS_STEPS,
+           "schedule": "LinearWarmup(CosineAnnealingDecay(1e-4, T_max=8), "
+                       "warmup_steps=2, start_lr=0, end_lr=1e-4)",
+           "clip": "ClipGradByGlobalNorm(1.0)", "lrs": lrs,
+           "lrs_read_by_update": read, "losses": losses,
+           "grad_norm_taps": taps, "launches": launches,
+           "step_flops": flops, "step_flops_s": flops_s,
+           "flops_6n_attn": f6n_attn,
+           "step_flops_over_6n_attn": flops / f6n_attn,
+           "timer_summary": summ, "timer_mfu": summ["mfu"],
+           "mfu_6n_attn": f6n_attn / (step_s * PEAK_BF16_FLOPS),
+           "mfu_convention": "timer: step_flops, mfu_6n_attn: (6N + 6 L S "
+                             "h) x tokens, each over the timer's mean step "
+                             "time at 989 TFLOP/s (bf16 dense peak)",
+           "fenced_step_s": fenced, "plain_step_s": plain,
+           "timer_fence_cost_s": sorted(fenced)[1] - sorted(plain)[1],
+           "host_syncs": {"scheduled": sync_sched, "constant": sync_const}}
+    emit(rep)
+    check(all(math.isfinite(x) for x in losses + taps),
+          f"losses {losses}, taps {taps}")
+    check(len(read) == TS_STEPS and all(
+        r == float(np.float32(lr)) for r, lr in zip(read, lrs)),
+          f"the update read lrs {read}, the scheduler gave {lrs}")
+    for n, (_, per_step) in counters.items():
+        check(launches[n] == per_step * TS_STEPS,
+              f"{n} launched {launches[n]} times in {TS_STEPS} scheduled "
+              f"steps, not {per_step} a step")
+    check(abs(flops / f6n_attn - 1) <= 0.1,
+          f"step_flops {flops} not within 10 % of (6N + 6LSh) x tokens "
+          f"{f6n_attn}")
+    for k in ("cudaMemcpyAsync", "cudaStreamSynchronize"):
+        check(sync_sched.get(k, 0) == sync_const.get(k, 0),
+              f"a scheduled step makes {sync_sched.get(k, 0)} {k}, a "
+              f"constant-lr step {sync_const.get(k, 0)}")
+    check(summ["steps"] == TS_STEPS and summ["mfu"] > 0
+          and timer.summary()["steps"] == TS_STEPS + 3,
+          f"timer summary {summ}, then {timer.summary()}")
+    del model, step, batch
+
+
+def bytes_equal(torch, a, b):
+    """Two tensors hold the same bytes."""
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def train_resume_phase(torch, np, dev):
+    """Save after 3 steps (``async_save``, a step taken at once, then
+    ``wait()``: the checkpoint holds the state at the save), then 2 more
+    steps: the uninterrupted losses of steps 4-6.  A fresh model and
+    trainer (other seeds) load it: params bit-equal to the saved ones;
+    its 3 steps run twice from the loaded state say whether the card's
+    step repeats bit for bit: if it does the resumed losses must equal
+    the uninterrupted ones exactly, else lie within twice that spread.
+    Save and load seconds and bytes; the directory is removed."""
+    import os
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.models.gpt import gpt2_124m_config
+    cfg = gpt2_124m_config()
+    batches = [gpt_batch(torch, np, dev, cfg.vocab_size, GPT_BATCH,
+                         GPT_SEQ)]
+    rng = np.random.default_rng(1)
+    for _ in range(5):
+        ids = rng.integers(0, cfg.vocab_size, (GPT_BATCH, GPT_SEQ + 1))
+        batches.append({"x": torch.tensor(ids[:, :-1], dtype=torch.int32,
+                                          device=dev),
+                        "y": torch.tensor(ids[:, 1:], device=dev)})
+    root = tempfile.mkdtemp(prefix="train_resume_")
+    path = os.path.join(root, "step_3")
+    try:
+        model, first = gpt_state_trainer(torch, dev, SEED + 7)
+        head = [float(first(b)) for b in batches[:3]]
+        saved = {n: p.detach().clone() for n, p in model.named_parameters()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        handle = first.save_checkpoint(path, async_save=True,
+                                       extra_state={"phase": "resume"})
+        snapshot_s = time.perf_counter() - t0
+        tail = [first(batches[3])]          # in place, at once
+        handle.wait()
+        save_s = time.perf_counter() - t0
+        tail += [first(b) for b in batches[4:]]
+        tail = [float(x) for x in tail]
+        ckpt_bytes = sum(os.path.getsize(os.path.join(d, f))
+                         for d, _, fs in os.walk(path) for f in fs)
+        del first, model
+        gc.collect()
+        model, second = gpt_state_trainer(torch, dev, SEED + 8)
+        runs, load_s = [], []
+        for i in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            extra = second.load_checkpoint(path)
+            torch.cuda.synchronize()
+            load_s.append(time.perf_counter() - t0)
+            if i == 0:
+                params_equal = all(bytes_equal(torch, p.detach(), saved[n])
+                                   for n, p in model.named_parameters())
+            runs.append([float(second(b)) for b in batches[3:]])
+        step_count = second.step_count
+        del second, model, saved
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    spread = max(abs(a - b) for a, b in zip(*runs))
+    deterministic = spread == 0.0
+    off = max(abs(a - b) for r in runs for a, b in zip(r, tail))
+    emit({"phase": "train_resume", "model": "gpt2_124m", "dtype": "float32",
+          "batch": GPT_BATCH, "seq": GPT_SEQ, "dropout": GPT_DROP,
+          "losses_before_save": head, "uninterrupted_losses": tail,
+          "resumed_losses": runs, "card_step_deterministic": deterministic,
+          "repeat_spread": spread, "resumed_off_uninterrupted": off,
+          "params_bit_equal": params_equal, "extra_state": extra,
+          "checkpoint_bytes": ckpt_bytes,
+          "async_snapshot_s": snapshot_s, "async_save_s": save_s,
+          "save_gb_s": ckpt_bytes / save_s / 1e9, "load_s": load_s,
+          "load_gb_s": [ckpt_bytes / s / 1e9 for s in load_s],
+          "step_count_after_load": 3, "step_count_after_runs": step_count,
+          "criterion": "exact if the repeat is exact, else within twice "
+                       "the repeat's spread"})
+    check(params_equal, "loaded params differ from the saved ones")
+    check(extra == {"phase": "resume"}, f"extra_state came back as {extra}")
+    check(all(math.isfinite(x) for x in head + tail), "non-finite losses")
+    if deterministic:
+        check(all(r == tail for r in runs),
+              f"resumed losses {runs} differ from the uninterrupted {tail} "
+              f"though the card repeats a step exactly")
+    else:
+        check(off <= 2 * spread,
+              f"resumed losses {runs} off the uninterrupted {tail} by {off},"
+              f" over twice the repeat's spread {spread}")
+
+
+PER_LEAF_OPTIMIZERS = ("Adagrad", "Adamax", "RMSProp", "Lamb", "Adadelta",
+                       "ASGD", "Rprop", "NAdam", "RAdam")
+
+
+def rel_max(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp(min=1e-30)).item()
+
+
+def train_optimizers_phase(torch, np, dev):
+    """The 9 optimizers without a fused kind, 2 steps each through the
+    train step on GPT-2 124M from one initial state: losses finite,
+    params changed, #8 never launched, the first update's seconds (host
+    clock, synchronized); the card's update of the 4 smallest leaves
+    against the port's CPU update within 1e-6 of the largest element.  LBFGS (history 4, max_iter 4, lr 0.05) over the
+    dropout-free model through its closure: the loss falls.  AdamW's
+    per-leaf (``fused_step=False``) and fused updates of one set of
+    gradients within 1e-6; #8 launches 0 and 51."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.models.gpt import gpt2_124m_config
+    from paddle_tpu_torch.ops import fused_train as ft
+    cfg = gpt2_124m_config()
+    batch = gpt_batch(torch, np, dev, cfg.vocab_size, GPT_BATCH, GPT_SEQ)
+    model, _ = gpt_state_trainer(torch, dev, SEED + 9)
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+    small = sorted(init, key=lambda n: init[n].numel())[:4]
+
+    def reset():
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(init[n])
+
+    rows = {}
+    for name in PER_LEAF_OPTIMIZERS:
+        reset()
+        _, step = gpt_state_trainer(
+            torch, dev, SEED + 9, model=model, grad_norm_tap=False,
+            opt=lambda ps, name=name: getattr(optimizer, name)(
+                learning_rate=1e-4 if name != "Adadelta" else 1.0,
+                parameters=ps))
+        opt = step.optimizer
+        ft.fused_update_flat.launches = 0
+        t0 = time.perf_counter()
+        loss0, grads = step.grad_step(batch)
+        cpu_p = {n: init[n].cpu() for n in small}
+        want, _ = opt.apply_gradients(
+            cpu_p, {n: grads[n].cpu() for n in small},
+            opt.init_state(cpu_p))
+        got, _ = opt.apply_gradients(
+            {n: init[n] for n in small}, {n: grads[n] for n in small},
+            opt.init_state({n: init[n] for n in small}))
+        small_err = max(rel_max(got[n].cpu(), want[n]) for n in small)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step.apply_grads(grads)
+        torch.cuda.synchronize()
+        update_s = time.perf_counter() - t1
+        loss1 = step(batch)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        changed = sum(not torch.equal(p, init[n])
+                      for n, p in model.named_parameters())
+        rows[name] = {"losses": [float(loss0), float(loss1)],
+                      "fused_update_launches": ft.fused_update_flat.launches,
+                      "params_changed": changed,
+                      "small_leaves_rel_err": small_err,
+                      "update_s": update_s, "seconds": secs}
+        del step, opt, grads
+        check(all(math.isfinite(x) for x in rows[name]["losses"]),
+              f"{name}: losses {rows[name]['losses']}")
+        check(rows[name]["fused_update_launches"] == 0,
+              f"{name} launched the fused update")
+        check(changed > 0, f"{name} changed no parameter")
+        check(small_err <= 1e-6, f"{name}: the card's update of the "
+                                 f"smallest leaves off the CPU's by "
+                                 f"{small_err}")
+    # LBFGS through its closure, dropout off so the objective repeats
+    reset()
+    lb = optimizer.LBFGS(learning_rate=0.05, max_iter=4, history_size=4,
+                         parameters=model.parameters())
+    from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
+    crit = GPTPretrainingCriterion()
+    model.eval()
+    evals = []
+
+    def closure():
+        loss = crit(model(batch["x"]), batch["y"])
+        loss.backward()
+        evals.append(float(loss.detach()))
+        return loss
+
+    t0 = time.perf_counter()
+    lb_loss = float(lb.step(closure))
+    lb_s = time.perf_counter() - t0
+    model.train()
+    for p in model.parameters():
+        p.grad = None
+    # AdamW per-leaf against fused on one set of gradients
+    reset()
+    _, fused = gpt_state_trainer(torch, dev, SEED + 9, model=model,
+                                 schedule=False, grad_norm_tap=False)
+    _, unfused = gpt_state_trainer(torch, dev, SEED + 9, model=model,
+                                   schedule=False, grad_norm_tap=False,
+                                   fused_step=False)
+    _, grads = fused.grad_step(batch)
+    adamw = {}
+    for name, st in (("unfused", unfused), ("fused", fused)):
+        reset()
+        ft.fused_update_flat.launches = 0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        st.apply_grads(grads)
+        torch.cuda.synchronize()
+        adamw[name] = ({n: p.detach().clone()
+                        for n, p in model.named_parameters()},
+                       ft.fused_update_flat.launches,
+                       time.perf_counter() - t1)
+    big = sum(p.numel() * p.element_size() >= (1 << 20)
+              for p in model.parameters())
+    adamw_err = max(rel_max(adamw["fused"][0][n], adamw["unfused"][0][n])
+                    for n in init)
+    emit({"phase": "train_optimizers", "model": "gpt2_124m",
+          "dtype": "float32", "batch": GPT_BATCH, "seq": GPT_SEQ,
+          "per_leaf": rows, "small_leaves": small,
+          "lbfgs": {"evals": evals, "final_loss": lb_loss,
+                    "seconds": lb_s, "history_size": 4, "max_iter": 4},
+          "adamw_fused_vs_unfused_rel_err": adamw_err,
+          "adamw_fused_update_launches": {
+              k: v[1] for k, v in adamw.items()},
+          "adamw_update_s": {k: v[2] for k, v in adamw.items()},
+          "tolerance": {"small_leaves_rel": 1e-6, "adamw_rel": 1e-6}})
+    check(lb_loss < evals[0], f"LBFGS loss did not fall: {evals}")
+    check(adamw["unfused"][1] == 0 and adamw["fused"][1] == big + 1,
+          f"AdamW #8 launches unfused {adamw['unfused'][1]}, fused "
+          f"{adamw['fused'][1]} (want 0 and {big + 1})")
+    check(adamw_err <= 1e-6, f"AdamW fused off per-leaf by {adamw_err}")
+    del model, init, fused, unfused, grads, adamw
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5212,6 +5637,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_gpt2_reference_phase(torch, np, dev)
     encoder_bias_phase(torch, dev, table)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the training loop's state on the same recipe: a schedule with the
+    # clip tap and the step timer, an exact resume from a checkpoint, the
+    # optimizers without a fused kind
+    train_schedule_phase(torch, np, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_resume_phase(torch, np, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_optimizers_phase(torch, np, dev)
 
     # each tensor-core row: its kernel's registers and spills (the most
     # registers and the summed spills over that kernel's instantiations)

@@ -22,6 +22,9 @@ grouped matmuls) are written by hand in CUDA C++ for Hopper
 (``csrc/``).  The serving engine reports into ``observability/``
 (metrics, tracing, health, memory, request capsules; the reference's
 stdlib modules kept as copies) and ``profiler/`` (over
-``torch.profiler``).  Entry points run on the GPU unless the caller
-passes ``device="cpu"``.
+``torch.profiler``).  The training loop's state is ported too: LR
+schedulers, the reference's 14 optimizers with the eager API, the clips
+and regularizers, ``StepTimer`` and train-state checkpoints
+(``distributed/``, the reference's on-disk format) with exact resume.
+Entry points run on the GPU unless the caller passes ``device="cpu"``.
 """

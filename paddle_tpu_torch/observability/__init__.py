@@ -23,7 +23,9 @@
 The metrics, exposition, tracing and health modules are stdlib only and
 the reference's code; the engine's instrumentation
 (``inference/engine.py``) surfaces through ``LLMEngine.metrics_snapshot()``
-and the registry.  The training ``StepTimer`` is not ported.
+and the registry.
+- :mod:`~.steptimer` — the training ``StepTimer`` (step time, tokens/s,
+  MFU against ``device_peak_flops()``, the card's dense bf16 rate).
 """
 from .metrics import (Counter, Gauge, Histogram, MetricRegistry,
                       DEFAULT_BUCKETS, get_registry)
@@ -46,6 +48,7 @@ from .capsule import (CapsuleStore, NULL_CAPSULE_STORE,
                       disable_capsule_capture, divergence_audit,
                       enable_capsule_capture, get_capsule_store,
                       model_fingerprint, replay_capsule)
+from .steptimer import StepTimer, device_peak_flops
 from . import capsule
 from . import health
 from . import introspection
@@ -68,4 +71,4 @@ __all__ = ["Counter", "Gauge", "Histogram", "MetricRegistry",
            "NULL_CAPSULE_STORE", "enable_capsule_capture",
            "disable_capsule_capture", "get_capsule_store",
            "model_fingerprint", "replay_capsule", "divergence_audit",
-           "capsule"]
+           "capsule", "StepTimer", "device_peak_flops"]

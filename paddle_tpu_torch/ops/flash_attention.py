@@ -52,6 +52,7 @@ import torch
 from ..common.errors import enforce
 from ..jit.recompute import kept
 from . import _build
+from . import flops as _flops
 
 __all__ = ["flash_attention_raw", "flash_attention_fwd",
            "flash_attention_fwd_reference", "flash_attention_bwd",
@@ -390,6 +391,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = False, mask=None,
         raise RuntimeError("flash attention launch failed: "
                            + lib.flash_error_string(err).decode())
     flash_attention_fwd.launches += 1
+    _flops.report(_attn_flops, 4, b, h, d, sq, sk, causal)
     return out, lse
 
 
@@ -539,6 +541,17 @@ def flash_attention_bwd_operands(q, k, v, out, lse, do, causal, mask):
     return q, k, v, do, lse, delta, mask, mstrides
 
 
+def _attn_flops(per_pair, b, h, d, sq, sk, causal):
+    """Operations of a flash launch: ``per_pair`` x d x h per visited
+    (query, key) pair (forward 4: S and P V; dQ 6; dK/dV 8; dbias 4)."""
+    return per_pair * d * h * _flops.attention_pairs(b, sq, sk, causal)
+
+
+def _bwd_dims(q, k):
+    b, sq, h, d = q.shape
+    return b, h, d, sq, k.shape[1]
+
+
 def _launch(fn, outs, q, k, v, do, lse, delta, mask, mstrides, causal,
             dropout_p, seed):
     b, sq, h, d = q.shape
@@ -572,6 +585,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, mask, mstrides,
     _launch("flash_attention_bwd_dq", (dq,), q, k, v, do, lse, delta, mask,
             mstrides, causal, dropout_p, seed)
     flash_attention_bwd_dq.launches += 1
+    _flops.report(_attn_flops, 6, *_bwd_dims(q, k), causal)
     return dq
 
 
@@ -588,6 +602,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, mask, mstrides,
     _launch("flash_attention_bwd_dkv", (dk, dv), q, k, v, do, lse, delta,
             mask, mstrides, causal, dropout_p, seed)
     flash_attention_bwd_dkv.launches += 1
+    _flops.report(_attn_flops, 8, *_bwd_dims(q, k), causal)
     return dk, dv
 
 
@@ -633,6 +648,7 @@ def flash_attention_bwd_dbias(q, k, v, do, lse, delta, bias, causal,
         raise RuntimeError("flash_attention_dbias launch failed: "
                            + lib.flash_dbias_error_string(err).decode())
     flash_attention_bwd_dbias.launches += 1
+    _flops.report(_attn_flops, 4, b, h, d, sq, sk, causal)
     return dbias
 
 

@@ -35,6 +35,7 @@ import torch
 from ..common.errors import enforce
 from ..jit.recompute import product
 from . import _build, _nn
+from . import flops as _flops
 
 __all__ = ["SLOT_KEYS", "fused_update_flat", "fused_update_reference",
            "update_flop_estimate", "add_rms_norm_reference",
@@ -436,6 +437,7 @@ def _matmul_rope_launch(x, w, cos, sin, n_heads, head_dim):
         raise RuntimeError("matmul_rope launch failed: "
                            + lib.matmul_rope_error_string(err).decode())
     matmul_rope_raw.launches += 1
+    _flops.report(lambda: 2 * b * s * k * n_heads * head_dim)
     return out
 
 

@@ -38,6 +38,7 @@ import torch
 
 from ..common.errors import enforce
 from . import _build
+from . import flops as _flops
 
 __all__ = ["make_dropless_plan", "make_dropless_plan_rows", "routed_rows",
            "gmm_raw", "gmm_glu_raw", "gmm_dw_raw", "gmm_reference",
@@ -289,6 +290,7 @@ def _launch_gmm(lhs, w, tile_expert, transpose_w, counts):
                       torch.cuda.current_stream(lhs.device).cuda_stream)
     _check(err, lib, "gmm")
     gmm_raw.launches += 1
+    _flops.report(lambda: 2 * m * k * n)
     return out
 
 
@@ -322,6 +324,7 @@ def _launch_glu(lhs, wg, wu, tile_expert, save_pre, counts):
                           torch.cuda.current_stream(lhs.device).cuda_stream)
     _check(err, lib, "gmm_glu")
     gmm_glu_raw.launches += 1
+    _flops.report(lambda: 4 * m * k * n)
     return tuple(outs)
 
 
@@ -350,6 +353,7 @@ def _launch_dw(lhs, dout, tile_expert, counts, num_experts):
                          torch.cuda.current_stream(lhs.device).cuda_stream)
     _check(err, lib, "gmm_dw")
     gmm_dw_raw.launches += 1
+    _flops.report(lambda: 2 * m * k * n)
     return dw
 
 

@@ -1,1 +1,4 @@
-from .optimizer import SGD, Adam, AdamW, Momentum, Optimizer  # noqa: F401
+from . import lr
+from .optimizer import (SGD, Adadelta, Adagrad, Adam, Adamax, AdamW, ASGD,
+                        Lamb, LBFGS, Momentum, NAdam, Optimizer, RAdam,
+                        RMSProp, Rprop)
