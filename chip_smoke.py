@@ -98,7 +98,19 @@ with the launch counts set to 0 just before and read just after:
   ``/statusz`` and ``/memz``; two replicas on the card under
   ``ReplicaRouter``, ``drain_replica`` migrating KV pages, then the
   same replicas as ``RemoteReplica``s over HTTP with a dropped reply
-  resubmitted once and a drain over the wire.
+  resubmitted once and a drain over the wire;
+- the rest of the model zoo: the attention kernels at ERNIE-4.5's GQA
+  groups 3 and 5, BERT's 16-bit head_dim 64 with a padding bias and
+  dropout and DiT's f32 head_dim 64, bf16 #9 at BERT's width, #10 at
+  hidden 1536 and 2560 and the grouped matmuls at 64 experts, each
+  against its plain version; ERNIE-4.5 trained on ``bench_ernie``'s
+  recipe (16 layers, 2 x 8192, full recompute, bf16) and at
+  ERNIE-A3B's widths (a dense layer and ERNIE_MOE_LAYERS MoE layers of
+  64 experts, 2 x 4096), their f32 chain against a plain composition
+  and interleaved rope against de-interleaved weights; DiT-L/2 on
+  ``bench_dit``'s recipe, ``AutoencoderKL`` at its own widths, BERT-base
+  as a masked LM over padded rows (bf16, dropout 0.1); DeepSeekMoE-16B
+  served at full depth (bf16) with its f32 2-layer check.
 
 Every 16-bit training step must trace only the tensor-core (``wgmma``)
 kernels of the flash forward, dQ and dK/dV families, the fused step
@@ -178,7 +190,14 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
+_START = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's line carries ``at_s``, the seconds since
+    the script started (where the run's time goes)."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - _START}
     print(json.dumps(obj), flush=True)
 
 
@@ -1484,20 +1503,21 @@ def group1_kernels(torch, gen, dev, table):
     torch.cuda.empty_cache()
 
 
-def moe_plan_rows(torch, gen, dev, tokens, h, dtype, empty=None):
-    """Routes of ``tokens`` tokens to 4 distinct of 60 experts (the top 4
-    of random router scores; expert ``empty`` is never chosen), their
-    dropless plan at the reference's row tile, and random rows scattered
-    into the padded buffer (padding rows zero).  Returns (xs, tile_expert,
-    counts, tm)."""
+def moe_plan_rows(torch, gen, dev, tokens, h, dtype, empty=None, e=MOE_E,
+                  k=MOE_K):
+    """Routes of ``tokens`` tokens to ``k`` distinct of ``e`` experts (4
+    of 60 by default: the top k of random router scores; expert
+    ``empty`` is never chosen), their dropless plan at the reference's
+    row tile, and random rows scattered into the padded buffer (padding
+    rows zero).  Returns (xs, tile_expert, counts, tm)."""
     from paddle_tpu_torch.ops import grouped_matmul as gm
-    scores = torch.rand(tokens, MOE_E, generator=gen, device=dev)
+    scores = torch.rand(tokens, e, generator=gen, device=dev)
     if empty is not None:
         scores[:, empty] = -1.0
-    idx = scores.topk(MOE_K, dim=-1).indices
-    tm = gm._auto_tm(MOE_E, tokens * MOE_K)
-    _, dest, te, counts, m_pad = gm.make_dropless_plan(idx, MOE_E, tm)
-    rows = torch.randn(tokens * MOE_K, h, generator=gen, device=dev)
+    idx = scores.topk(k, dim=-1).indices
+    tm = gm._auto_tm(e, tokens * k)
+    _, dest, te, counts, m_pad = gm.make_dropless_plan(idx, e, tm)
+    rows = torch.randn(tokens * k, h, generator=gen, device=dev)
     xs = torch.zeros(m_pad, h, device=dev, dtype=dtype).index_copy_(
         0, dest, rows.to(dtype))
     return xs, te, counts, tm
@@ -1745,7 +1765,8 @@ def plain_moe_ffn(torch, m, hn, group_start=None, capacity=0):
     """The MoE FFN of layer ``m`` over rows hn [T, H], plain: the router
     in f32, then for each expert a loop over its routed rows (SwiGLU in
     f32 against the widened weights) combined by the gate values, plus
-    the gated shared expert.  With ``capacity`` and ``group_start`` [T]
+    the shared expert (gated where the layer has a gate).  With
+    ``capacity`` and ``group_start`` [T]
     (each row's page group's first row) only the slots
     ``capacity_keep`` keeps compute.  Returns (out in hn's dtype, aux
     loss), both differentiable."""
@@ -1767,24 +1788,29 @@ def plain_moe_ffn(torch, m, hn, group_start=None, capacity=0):
         he = _nn.silu(xe @ ex.gate_w[e].float()) * (xe @ ex.up_w[e].float())
         y = y.index_add(0, tok, gv[tok, slot, None]
                         * (he @ ex.down_w[e].float()))
-    sh = (_nn.silu(xf @ m.shared_gate.weight.float())
-          * (xf @ m.shared_up.weight.float())) @ m.shared_down.weight.float()
-    sh = sh * torch.sigmoid(xf @ m.shared_expert_gate.weight.float())
+    if m.shared_gate is not None:
+        sh = (_nn.silu(xf @ m.shared_gate.weight.float())
+              * (xf @ m.shared_up.weight.float())) \
+            @ m.shared_down.weight.float()
+        if m.shared_expert_gate is not None:
+            sh = sh * torch.sigmoid(xf @ m.shared_expert_gate.weight.float())
+        y = y + sh
     e_n = m.gate.num_experts
     density = torch.nn.functional.one_hot(idx, e_n).float().sum(1).mean(0) \
         / m.gate.k
     aux = m.gate.balance_loss_weight * e_n * torch.sum(density
                                                        * probs.mean(0))
-    return (y + sh).to(hn.dtype), aux
+    return y.to(hn.dtype), aux
 
 
 def plain_moe_hidden(torch, model, ids, capacity=0, page=128):
     """Final-norm hidden states [B, S, H] of a plain causal forward of a
-    Qwen2-MoE model over ids [B, S] (no pages, no kernels: embedding,
-    per layer RMSNorm, biased projections, f32 rope, the flash plain
-    version, ``plain_moe_ffn``), and the summed aux loss; differentiable
-    by autograd.  ``capacity``: each ``page``-row chunk of the sequence
-    is a capacity group (B = 1)."""
+    Qwen2-MoE or ERNIE-4.5 model over ids [B, S] (no pages, no kernels:
+    embedding, per layer RMSNorm, projections with their biases if any,
+    f32 rope, the flash plain version, ``plain_moe_ffn`` or, for a dense
+    layer, a plain SwiGLU), and the summed aux loss of the MoE layers;
+    differentiable by autograd.  ``capacity``: each ``page``-row chunk
+    of the sequence is a capacity group (B = 1)."""
     from paddle_tpu_torch.models.llama import _rotate_half
     from paddle_tpu_torch.ops import _nn
     from paddle_tpu_torch.ops.flash_attention import \
@@ -1800,7 +1826,8 @@ def plain_moe_hidden(torch, model, ids, capacity=0, page=128):
         return (xf * cos + _rotate_half(xf) * sin).to(x.dtype)
 
     def proj(x, lin):
-        return x @ lin.weight + lin.bias
+        y = x @ lin.weight
+        return y if lin.bias is None else y + lin.bias
 
     x = model.embed_tokens.weight[ids.long()]
     aux = 0.0
@@ -1815,6 +1842,11 @@ def plain_moe_hidden(torch, model, ids, capacity=0, page=128):
         x = x + o.reshape(b, n, -1) @ a.o_proj.weight
         hn = _nn.rms_norm(x, layer.post_attention_layernorm.weight,
                           epsilon=c.rms_norm_eps)
+        if not hasattr(layer.mlp, "experts"):        # a dense layer
+            mlp = layer.mlp
+            x = x + (_nn.silu(hn @ mlp.gate_proj.weight)
+                     * (hn @ mlp.up_proj.weight)) @ mlp.down_proj.weight
+            continue
         group = None if not capacity else \
             torch.arange(n, device=ids.device) // page * page
         ff, a_l = plain_moe_ffn(torch, layer.mlp, hn.reshape(b * n, -1),
@@ -5380,6 +5412,964 @@ def train_optimizers_phase(torch, np, dev):
     del model, init, fused, unfused, grads, adamw
 
 
+# ---------------------------------------------------------------------------
+# the rest of the model zoo: ERNIE-4.5 (dense and MoE), DiT-L/2 and its
+# KL autoencoder, BERT-base, DeepSeekMoE-16B serving
+# ---------------------------------------------------------------------------
+
+# bench.py bench_ernie's single-chip recipe: hidden 1536, 16 layers,
+# 12 / 4 heads (GQA group 3), vocab 103,424, batch 2 x seq 8192
+ERNIE_WIDTH = dict(vocab_size=103424, hidden_size=1536,
+                   intermediate_size=6144, num_hidden_layers=16,
+                   num_attention_heads=12, num_key_value_heads=4,
+                   max_position_embeddings=8192)
+ERNIE_BATCH, ERNIE_SEQ = 2, 8192
+# ernie45_a3b_config's widths (hidden 2560, 20 / 4 heads: group 5; 64
+# experts top-6 of 1536 and 2 shared), the first layer dense, then
+# ERNIE_MOE_LAYERS MoE layers, at batch 2 x 4096: the depth that keeps
+# the step's peak memory under ERNIE_MOE_PEAK (each MoE layer holds
+# about 9.5 GB of bf16 parameters and gradients and f32 moments: 4 MoE
+# layers peaked at 48.5 GB on the card, so 6 reach about 68)
+ERNIE_MOE_LAYERS, ERNIE_MOE_SEQ, ERNIE_MOE_PEAK = 6, 4096, 70e9
+# bench.py bench_dit: DiT-L/2 on 32 x 32 x 4 latents, batch 16
+DIT_WIDTH = dict(input_size=32, patch_size=2, hidden_size=1024, depth=24,
+                 num_heads=16)
+DIT_BATCH, DIT_STEPS = 16, 8
+# AutoencoderKL at its own widths (base 32, 8 groups) on 8 x 3 x 256^2
+VAE_BATCH, VAE_SIZE, VAE_STEPS = 8, 256, 5
+# BERT-base (BertConfig() defaults, dropout 0.1) as a masked LM, batch
+# 16 x 512, the last quarter of each row padded, 15 % of the rest
+# predicted
+BERT_BATCH, BERT_SEQ = 16, 512
+ZOO_STEPS = 5
+
+
+def update_launches(params):
+    """Launches of the fused update (#8) a step: one for each leaf of 1
+    MiB or more, one for each dtype among the smaller leaves (packed)."""
+    big = sum(p.numel() * p.element_size() >= 1 << 20 for p in params)
+    small = {p.dtype for p in params
+             if p.numel() * p.element_size() < 1 << 20}
+    return big + len(small)
+
+
+def zoo_flash_rows(torch, table, tag, q, k, v, do, *, causal, mask=None,
+                   dropout_p=0.0, seed=None, launches_from):
+    """#2, #3 and #4 at one path's attention: each against its plain
+    version (the same seed under dropout), timed beside its bound and
+    one PyTorch call (``scaled_dot_product_attention`` with the path's
+    GQA, mask and dropout; for the backward, its autograd backward:
+    dq, dk and dv in one call).  16-bit rows must trace the wgmma
+    kernels and stay within 2^-7 relative L2 (and 0.02 of the largest
+    element); f32 rows (D 64) the 3xTF32 kernels, within 1e-5."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    b, s, h, d = q.shape
+    hk = k.shape[2]
+    f32 = q.dtype == torch.float32
+    el = q.element_size()
+    kw = dict(causal=causal, mask=mask, dropout_p=dropout_p, seed=seed)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    ops = fa.flash_attention_bwd_operands(q, k, v, out, lse, do, causal,
+                                          mask)
+    got = {"out": out, "dq": fa.flash_attention_bwd_dq(*ops, causal,
+                                                       dropout_p, seed)}
+    got["dk"], got["dv"] = fa.flash_attention_bwd_dkv(*ops, causal,
+                                                      dropout_p, seed)
+    want = dict(zip(("dq", "dk", "dv"), fa.flash_attention_bwd_reference(
+        q, k, v, out, lse, do, **kw)))
+    want["out"] = fa.flash_attention_fwd_reference(q, k, v, **kw)[0]
+    torch.cuda.synchronize()
+    errs = {n: {"rel_l2_err": rel_l2(g, want[n]),
+                "rel_to_largest": rel_err(g, want[n]),
+                "max_abs_err": (g.float() - want[n].float()).abs().max()
+                .item()} for n, g in got.items()}
+    del want
+    for n, e in errs.items():
+        ok = e["rel_l2_err"] <= F32_REL_L2_TOL if f32 else \
+            e["rel_l2_err"] <= REL_L2_TOL and e["rel_to_largest"] <= GRAD_TOL
+        check(ok, f"flash {n} ({tag}) off its plain version: {e}")
+    pairs = fa._flops.attention_pairs(b, s, s, causal)
+    qb, kb = b * s * h * d * el, b * s * hk * d * el
+    mb = 0 if mask is None else mask.numel() * 4
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt, dot = (x.detach().transpose(1, 2) for x in (q, k, v, do))
+    lib_mask = None if mask is None else mask.to(q.dtype)
+    lkw = dict(attn_mask=lib_mask, dropout_p=dropout_p, is_causal=causal)
+    if hk != h:
+        lkw["enable_gqa"] = True
+    lq, lk, lv = (x.clone().requires_grad_() for x in (qt, kt, vt))
+    lout = sdpa(lq, lk, lv, **lkw)
+
+    def fwd_library():
+        sdpa(qt, kt, vt, **lkw)
+
+    def bwd_library():
+        torch.autograd.grad(lout, (lq, lk, lv), dot, retain_graph=True)
+
+    for name, src, line, fn, flops, n_bytes, plain, lib, outs in (
+            (f"flash_attention_fwd_{tag}", "flash_attention_fwd.cu",
+             "flash_attention.py:164",
+             lambda: fa.flash_attention_fwd(q, k, v, **kw),
+             4 * d * h * pairs, 2 * qb + 2 * kb + mb + b * h * s * 4,
+             lambda: fa.flash_attention_fwd_reference(q, k, v, **kw),
+             fwd_library, ("out",)),
+            (f"flash_attention_bwd_dq_{tag}", "flash_attention_bwd.cu",
+             "flash_attention.py:390",
+             lambda: fa.flash_attention_bwd_dq(*ops, causal, dropout_p,
+                                               seed),
+             6 * d * h * pairs, 3 * qb + 2 * kb + mb + 2 * b * h * s * 4,
+             lambda: fa.flash_attention_bwd_reference(
+                 q, k, v, out, lse, do, **kw), bwd_library, ("dq",)),
+            (f"flash_attention_bwd_dkv_{tag}", "flash_attention_bwd.cu",
+             "flash_attention.py:431",
+             lambda: fa.flash_attention_bwd_dkv(*ops, causal, dropout_p,
+                                                seed),
+             8 * d * h * pairs, 2 * qb + 4 * kb + mb + 2 * b * h * s * 4,
+             lambda: fa.flash_attention_bwd_reference(
+                 q, k, v, out, lse, do, **kw), bwd_library, ("dk", "dv"))):
+        bound = f32_bounds(n_bytes, flops, True) if f32 else dict(zip(
+            ("bound_ms", "bound_by"), bound_ms(n_bytes, flops)))
+        # the plain backward holds tens of GB in the allocator's cache:
+        # free it before the trace (a trace taken over a nearly full
+        # card came back empty)
+        plain_ms = timed_ms(torch, plain, 1, warmup=1)
+        torch.cuda.empty_cache()
+        row = {"name": name, "route": "cuda",
+               "source": f"paddle_tpu_torch/csrc/{src}",
+               "replaces": f"paddle_tpu/ops/pallas/{line}",
+               "launches": None,
+               "max_abs_err": max(errs[o]["max_abs_err"] for o in outs),
+               "ms": timed_ms(torch, fn, 5, warmup=1),
+               "plain_ms": plain_ms, **bound,
+               "library_ms": timed_ms(torch, lib, 5, warmup=1),
+               **traced_kernel(torch, fn)}
+        want_design = "3xtf32" if f32 else "wgmma"
+        check(row["design"] == want_design,
+              f"{name} ran on {row['design']}, not {want_design}")
+        table[name] = row
+        launches_from[name] = name[:-len(tag) - 1]       # its wrapper
+        torch.cuda.empty_cache()
+        emit({"phase": "kernel", **row, "shape": list(q.shape),
+              "kv_heads": hk, "group": h // hk, "causal": causal,
+              "mask": None if mask is None else list(mask.shape),
+              "dropout_p": dropout_p, "dtype": str(q.dtype),
+              "errors": {o: errs[o] for o in outs},
+              "plain_note": None if name.startswith("flash_attention_fwd")
+              else "the whole plain backward (dq, dk, dv)",
+              "library_note": "scaled_dot_product_attention"
+              + ("" if name.startswith("flash_attention_fwd")
+                 else "'s autograd backward (dq, dk, dv)")
+              + (" (its own dropout mask)" if dropout_p else "")})
+    del ops, got, lout, lq, lk, lv
+    torch.cuda.empty_cache()
+
+
+def zoo_kernels(torch, np, gen, dev, table):
+    """The kernels at the shapes the new paths give them, each against
+    its plain version, timed beside its bound and a library call:
+
+    - #2-#4 at ERNIE's attention [2, 8192, 12, 128] over 4 KV heads
+      (group 3, causal, bf16), ERNIE-A3B's [2, 4096, 20, 128] over 4
+      (group 5), BERT's [16, 512, 12, 64] bf16 with the [16, 1, 1, 512]
+      padding bias and dropout 0.1, and DiT-L/2's [16, 256, 16, 64] f32
+      (the reference's amp O2 leaves DiT's blocks in f32);
+    - #9's LayerNorm body in bf16 at BERT's [16, 512, 768];
+    - #10 at ERNIE's q [16384 x 1536] x [1536 x 1536] and k [1536 x 512],
+      and at ERNIE-A3B's hidden 2560 (20 heads; k 4 heads);
+    - #11-#13 at ERNIE-A3B's experts: 8192 tokens top-6 of 64 experts,
+      H 2560, F 1536, bf16 (tm 256), and #11's f32 rows at
+      DeepSeekMoE-16B's serving step (136 rows top-6 of 64, H 2048, F
+      1408).
+
+    Returns {row: (wrapper's count name, path)} for the launches that
+    the paths fill in."""
+    from paddle_tpu_torch.models.llama import _rope_cos_sin
+    from paddle_tpu_torch.ops import fused_train as ft
+    from paddle_tpu_torch.ops import grouped_matmul as gm
+    bf = torch.bfloat16
+    src = {}
+
+    def rnd(*shape, dtype=bf):
+        return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+
+    for tag, (b, s, h, hk, d, dt, causal) in (
+            ("ernie", (ERNIE_BATCH, ERNIE_SEQ, 12, 4, 128, bf, True)),
+            ("ernie_moe", (ERNIE_BATCH, ERNIE_MOE_SEQ, 20, 4, 128, bf,
+                           True)),
+            ("bert", (BERT_BATCH, BERT_SEQ, 12, 12, 64, bf, False)),
+            ("dit", (DIT_BATCH, 256, 16, 16, 64, torch.float32, False))):
+        q, k, v, do = (rnd(b, s, n, d, dtype=dt) for n in (h, hk, hk, h))
+        mask = seed = None
+        p = 0.0
+        if tag == "bert":
+            keep = torch.ones(b, s, device=dev)
+            keep[:, s - s // 4:] = 0.0
+            mask = ((keep - 1.0) * 1e30)[:, None, None, :]
+            p = 0.1
+            seed = torch.tensor(SEED + 31, dtype=torch.int64, device=dev)
+        zoo_flash_rows(torch, table, tag, q, k, v, do, causal=causal,
+                       mask=mask, dropout_p=p, seed=seed, launches_from=src)
+        del q, k, v, do
+
+    # #9, the LayerNorm body in bf16 at BERT's post-norm residuals
+    shape, hdim = (BERT_BATCH, BERT_SEQ, 768), 768
+    x, r = rnd(*shape), rnd(*shape)
+    w = (1 + 0.1 * rnd(hdim, dtype=torch.float32)).to(bf)
+    bb = (0.1 * rnd(hdim, dtype=torch.float32)).to(bf)
+
+    def run():
+        return ft.add_layer_norm_raw(x, r, w, bb, 1e-12)
+
+    def plain():
+        return ft.add_layer_norm_reference(x, r, w, bb, 1e-12)
+
+    (hh, y), (want_h, want_y) = run(), plain()
+    torch.cuda.synchronize()
+    err = rel_l2(y, want_y)
+    check(torch.equal(hh, want_h) and err <= REL_L2_TOL,
+          f"bf16 add_layer_norm off its plain version: {err}")
+    n = x.numel()
+    bound, bound_by = bound_ms(4 * n * 2 + 2 * hdim * 2, 9 * n,
+                               peak=PEAK_F32_FLOPS)
+    table["add_layer_norm_bf16"] = {
+        "name": "add_layer_norm_bf16", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/add_norm.cu",
+        "replaces": "paddle_tpu/ops/pallas/fused_train.py:322",
+        "launches": None,
+        "max_abs_err": (y.float() - want_y.float()).abs().max().item(),
+        "ms": timed_ms(torch, run, 20),
+        "device_ms": traced_kernel(torch, run, "add_norm")["device_ms"],
+        "plain_ms": timed_ms(torch, plain, 5), "bound_ms": bound,
+        "bound_by": bound_by, "library_ms": None,
+        "composed_ms": timed_ms(torch, lambda: torch.nn.functional.layer_norm(
+            x + r, (hdim,), w, bb, 1e-12), 20)}
+    emit({"phase": "kernel", **table["add_layer_norm_bf16"],
+          "shape": list(shape), "dtype": "bfloat16", "rel_l2_err": err,
+          "h_equal": True, "tolerance": {"rel_l2_err": REL_L2_TOL},
+          "library_note": "no single PyTorch call adds the residual and "
+                          "normalises; composed_ms: x + r, then "
+                          "torch.nn.functional.layer_norm"})
+    src["add_layer_norm_bf16"] = "add_layer_norm"
+    del x, r, hh, y, want_h, want_y
+
+    # #10 at ERNIE's and ERNIE-A3B's widths, tables in bf16 as amp O2
+    # leaves them
+    for tag, b, s, hidden, heads in (
+            ("ernie_q", ERNIE_BATCH, ERNIE_SEQ, 1536, 12),
+            ("ernie_k", ERNIE_BATCH, ERNIE_SEQ, 1536, 4),
+            ("ernie_moe_q", ERNIE_BATCH, ERNIE_MOE_SEQ, 2560, 20),
+            ("ernie_moe_k", ERNIE_BATCH, ERNIE_MOE_SEQ, 2560, 4)):
+        hd = 128
+        ang = _rope_cos_sin(s, hd, 500000.0)
+        cos, sin = (torch.from_numpy(f(ang)).to(dev, bf)
+                    for f in (np.cos, np.sin))
+        x = rnd(b, s, hidden)
+        w = (0.02 * rnd(hidden, heads * hd, dtype=torch.float32)).to(bf)
+
+        def run():
+            return ft.matmul_rope_raw(x, w, cos, sin, n_heads=heads,
+                                      head_dim=hd)
+
+        def plain():
+            return ft.matmul_rope_reference(x, w, cos, sin, heads, hd)
+
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        err = rel_l2(got, want)
+        check(err <= REL_L2_TOL,
+              f"matmul_rope {tag} off its plain version: {err}")
+        rows = b * s
+        bound, bound_by = bound_ms(
+            (x.numel() + w.numel() + got.numel() + 2 * s * hd) * 2,
+            2 * rows * hidden * heads * hd)
+        name = f"matmul_rope_{tag}"
+        table[name] = {
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/matmul_rope.cu",
+            "replaces": "paddle_tpu/ops/pallas/fused_train.py:501",
+            "launches": None,
+            "max_abs_err": (got.float() - want.float()).abs().max().item(),
+            "ms": timed_ms(torch, run, 10),
+            "plain_ms": timed_ms(torch, plain, 3),
+            "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": timed_ms(torch, lambda: torch.matmul(x, w), 10),
+            **traced_kernel(torch, run, "matmul_rope")}
+        check(table[name]["design"] == "wgmma",
+              f"{name}: the bf16 call did not reach the tensor cores")
+        emit({"phase": "kernel", **table[name], "shape": [b, s, hidden],
+              "heads": heads, "head_dim": hd, "rel_l2_err": err,
+              "tolerance": {"rel_l2_err": REL_L2_TOL},
+              "library_note": "torch.matmul of the product alone (no rope)"})
+        src[name] = "matmul_rope"
+        del x, w, got, want
+
+    # #11-#13 at ERNIE-A3B's experts (the MoE step's shapes, one layer)
+    e, kk, hdim, fdim = 64, 6, 2560, 1536
+
+    def stack(*shape):
+        return (torch.randn(shape, generator=gen, device=dev)
+                / math.sqrt(shape[1])).to(bf)
+
+    wg, wu, wd = stack(e, hdim, fdim), stack(e, hdim, fdim), \
+        stack(e, fdim, hdim)
+    xs, te, counts, tm = moe_plan_rows(
+        torch, gen, dev, ERNIE_BATCH * ERNIE_MOE_SEQ, hdim, bf,
+        empty=e - 1, e=e, k=kk)
+    live = (xs[:, :1] != 0).to(bf)
+    hs = torch.randn(xs.shape[0], fdim, generator=gen, device=dev).to(
+        bf) * live
+    dys = torch.randn(xs.shape[0], hdim, generator=gen, device=dev).to(
+        bf) * live
+    routed, alive = int(counts.sum()), int((counts > 0).sum())
+    for name, fn, plain, lib, flops, n_bytes, ref_line, path in (
+            ("grouped_matmul_e64",
+             lambda: gm.gmm_raw(hs, wd, te, counts=counts),
+             lambda: gm.gmm_reference(hs, wd, te),
+             grouped_mm_library(torch, counts, tm, hs, wd),
+             2 * routed * fdim * hdim,
+             2 * (routed * (fdim + hdim) + alive * fdim * hdim),
+             "grouped_matmul.py:89", "grouped_matmul"),
+            ("grouped_matmul_e64_dx",
+             lambda: gm.gmm_raw(dys, wd, te, transpose_w=True,
+                                counts=counts),
+             lambda: gm.gmm_reference(dys, wd, te, transpose_w=True),
+             grouped_mm_library(torch, counts, tm, dys, wd.transpose(1, 2)),
+             2 * routed * fdim * hdim,
+             2 * (routed * (fdim + hdim) + alive * fdim * hdim),
+             "grouped_matmul.py:89", "grouped_matmul"),
+            ("grouped_matmul_glu_e64",
+             lambda: gm.gmm_glu_raw(xs, wg, wu, te, save_pre=True,
+                                    counts=counts),
+             lambda: gm.gmm_glu_reference(xs, wg, wu, te, save_pre=True),
+             (None, "no single PyTorch call fuses the two products with "
+                    "SwiGLU"),
+             4 * routed * hdim * fdim,
+             2 * (routed * (hdim + 3 * fdim) + 2 * alive * hdim * fdim),
+             "grouped_matmul.py:161", "grouped_matmul_glu"),
+            ("grouped_matmul_dw_e64",
+             lambda: gm.gmm_dw_raw(hs, dys, te, counts, e),
+             lambda: gm.gmm_dw_reference(hs, dys, te, counts, e),
+             grouped_mm_library(torch, counts, tm, hs.t(), dys),
+             2 * routed * fdim * hdim,
+             2 * (routed * (fdim + hdim) + e * fdim * hdim),
+             "grouped_matmul.py:278", "grouped_matmul_dw")):
+        got, want = fn(), plain()
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        errs = [rel_l2(g, w_) for g, w_ in zip(got, want)]
+        check(max(errs) <= REL_L2_TOL, f"{name} off its plain version: "
+                                       f"{errs}")
+        if name == "grouped_matmul_dw_e64":
+            check(not got[0][e - 1].any(),
+                  f"{name}: the empty expert's gradient is not zero")
+        bound, bound_by = bound_ms(n_bytes, flops)
+        lib_fn, lib_note = lib
+        table[name] = {
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/grouped_matmul.cu",
+            "replaces": f"paddle_tpu/ops/pallas/{ref_line}",
+            "launches": None,
+            "max_abs_err": max((g.float() - w_.float()).abs().max().item()
+                               for g, w_ in zip(got, want)),
+            "plain_ms": timed_ms(torch, plain, 1, warmup=1),
+            "ms": timed_ms(torch, fn, 10),
+            "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": None if lib_fn is None
+            else timed_ms(torch, lib_fn, 10)}
+        torch.cuda.empty_cache()
+        table[name].update(traced_kernel(torch, fn, path))
+        if path == "grouped_matmul_glu":    # no one call: a composition
+            composed, note = glu_composed(torch, counts, tm, xs, wg, wu)
+            table[name]["composed_ms"] = None if composed is None \
+                else timed_ms(torch, composed, 10)
+            lib_note += "; composed_ms: " + note
+        check(table[name]["design"] == "wgmma",
+              f"{name} ran on {table[name]['design']}, not wgmma")
+        emit({"phase": "kernel", **table[name], "experts": e, "top_k": kk,
+              "hidden": hdim, "ffn": fdim, "m_pad": xs.shape[0], "tm": tm,
+              "routed_rows": routed, "rel_l2_err": errs,
+              "tolerance": {"rel_l2_err": REL_L2_TOL},
+              "library_note": lib_note})
+        src[name] = path
+        del got, want
+    del xs, hs, dys, live, wg, wu, wd
+    torch.cuda.empty_cache()
+
+    # #11's f32 rows at DeepSeekMoE-16B's mixed serving step
+    e, kk, hdim, fdim = 64, 6, 2048, 1408
+    wgs = stack(e, hdim, fdim)
+    xs, te, counts, tm = moe_plan_rows(torch, gen, dev, 136, hdim,
+                                       torch.float32, e=e, k=kk)
+
+    def run():
+        return gm.gmm_raw(xs, wgs, te, counts=counts)
+
+    got, want = run(), gm.gmm_reference(xs, wgs, te)
+    torch.cuda.synchronize()
+    err = rel_l2(got, want)
+    check(err <= F32_REL_L2_TOL, f"f32 rows at 64 experts: {err}")
+    routed, alive = int(counts.sum()), int((counts > 0).sum())
+    bound, bound_by = bound_ms(routed * (hdim + fdim) * 4
+                               + alive * hdim * fdim * 2,
+                               2 * routed * hdim * fdim,
+                               peak=PEAK_F32_FLOPS)
+    table["grouped_matmul_f32_rows_e64"] = {
+        "name": "grouped_matmul_f32_rows_e64", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/grouped_matmul.cu",
+        "replaces": "paddle_tpu/ops/pallas/grouped_matmul.py:89",
+        "launches": None,
+        "max_abs_err": (got - want).abs().max().item(),
+        "ms": timed_ms(torch, run, 10),
+        "plain_ms": timed_ms(torch, lambda: gm.gmm_reference(xs, wgs, te),
+                             3),
+        "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+        **traced_kernel(torch, run, "grouped_matmul")}
+    check(table["grouped_matmul_f32_rows_e64"]["design"] == "stream",
+          "f32 rows at 64 experts left the streaming kernel")
+    emit({"phase": "kernel", **table["grouped_matmul_f32_rows_e64"],
+          "case": "DeepSeekMoE-16B serve gate, f32 rows, 816 slots",
+          "tm": tm, "routed_rows": routed, "rel_l2_err": err,
+          "tolerance": {"rel_l2_err": F32_REL_L2_TOL},
+          "library_note": "torch._grouped_mm takes bf16 operands, not "
+                          "these f32 rows"})
+    src["grouped_matmul_f32_rows_e64"] = "grouped_matmul"
+    del xs, wgs, got, want
+    torch.cuda.empty_cache()
+    return src
+
+
+def zoo_train(torch, step, batch, counters, steps):
+    """``steps`` optimizer steps of ``step`` on one repeated batch, the
+    launch counts set to 0 just before and read just after; each counter
+    (wrapper, launches a step) must count exactly that.  Returns the
+    losses, step times (the first warms up), launches and peak memory."""
+    torch.cuda.reset_peak_memory_stats()
+    for fn, _ in counters.values():
+        fn.launches = 0
+    losses, times = [], []
+    for _ in range(steps):
+        t = time.perf_counter()
+        losses.append(step(batch))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    launches = {n: fn.launches for n, (fn, _) in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    for n, (_, per_step) in counters.items():
+        check(launches[n] == per_step * steps,
+              f"{n} launched {launches[n]} times in {steps} steps, not "
+              f"{per_step} a step")
+    return {"losses": losses, "step_s": times,
+            "mean_step_s": sum(times[1:]) / (len(times) - 1),
+            "max_memory_allocated": peak, "launches": launches,
+            "launches_per_step": {n: c / steps
+                                  for n, c in launches.items()}}
+
+
+def fill_launches(table, src, path_launches):
+    """Each zoo row takes the launches its wrapper counted on its path."""
+    for row, count in src.items():
+        if count in path_launches and table[row].get("launches") is None:
+            table[row]["launches"] = path_launches[count]
+
+
+def ernie_trainer(torch, dev, cfg, seed):
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.jit.train import CompiledTrainStep
+    from paddle_tpu_torch.models.ernie import Ernie45ForCausalLM
+    model = Ernie45ForCausalLM(
+        cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(
+            seed))
+    model = amp.decorate(model, level="O2", dtype="bfloat16")
+    opt = optimizer.AdamW(learning_rate=1e-4, parameters=model.parameters())
+    return model, CompiledTrainStep(
+        model, lambda m, b: m(b["input_ids"], labels=b["labels"]), opt)
+
+
+def train_ernie_phase(torch, np, dev, table, src, *, moe):
+    """ERNIE-4.5 training.  Dense (``train_ernie``): ``bench.py``
+    ``bench_ernie``'s single-chip recipe with no cut, hidden 1536, 16
+    layers, 12 / 4 heads, vocab 103,424, full recompute, amp O2 (bf16),
+    AdamW(1e-4), batch 2 x 8192.  MoE (``train_ernie_moe``):
+    ``ernie45_a3b_config``'s widths, the first layer dense and
+    ERNIE_MOE_LAYERS MoE layers, batch 2 x 4096, full recompute.  Under
+    full recompute a layer launches a step: the flash forward twice, dQ
+    and dK/dV once, #10 four times (q and k, forward and recompute); a
+    MoE layer also #12 twice, #11 five times and #13 three times.  Then
+    one step's ``step_flops`` (the timer's MFU) and a traced step."""
+    from paddle_tpu_torch.models.ernie import (Ernie45Config,
+                                               ernie45_a3b_config)
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_train as ft
+    from paddle_tpu_torch.ops import grouped_matmul as gm
+    if moe:
+        cfg = dataclasses.replace(
+            ernie45_a3b_config(), num_hidden_layers=1 + ERNIE_MOE_LAYERS,
+            max_position_embeddings=ERNIE_MOE_SEQ, recompute=True)
+        phase, seq, n_moe = "train_ernie_moe", ERNIE_MOE_SEQ, ERNIE_MOE_LAYERS
+    else:
+        cfg = Ernie45Config(**ERNIE_WIDTH, recompute=True)
+        phase, seq, n_moe = "train_ernie", ERNIE_SEQ, 0
+    layers = cfg.num_hidden_layers
+    t0 = time.perf_counter()
+    model, step = ernie_trainer(torch, dev, cfg, SEED + 40 + moe)
+    ids, labels = train_batch(np, cfg.vocab_size, ERNIE_BATCH, seq)
+    batch = {"input_ids": torch.tensor(ids, device=dev),
+             "labels": torch.tensor(labels, device=dev)}
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    params = list(model.parameters())
+    n_params = sum(p.numel() for p in params)
+    expert_params = sum(p.numel() for n, p in model.named_parameters()
+                        if ".experts." in n)
+    active = n_params - expert_params + (
+        expert_params * cfg.moe_k // cfg.moe_num_experts if moe else 0)
+    state_bytes = torch.cuda.memory_allocated()
+    counters = {
+        "flash_attention_fwd": (fa.flash_attention_fwd, 2 * layers),
+        "flash_attention_bwd_dq": (fa.flash_attention_bwd_dq, layers),
+        "flash_attention_bwd_dkv": (fa.flash_attention_bwd_dkv, layers),
+        "matmul_rope": (ft.matmul_rope_raw, 4 * layers),
+        "fused_update": (ft.fused_update_flat, update_launches(params))}
+    if moe:
+        counters.update({
+            "grouped_matmul_glu": (gm.gmm_glu_raw, 2 * n_moe),
+            "grouped_matmul": (gm.gmm_raw, 5 * n_moe),
+            "grouped_matmul_dw": (gm.gmm_dw_raw, 3 * n_moe)})
+    res = zoo_train(torch, step, batch, counters, ZOO_STEPS)
+    tokens = ERNIE_BATCH * seq
+    tok_s = tokens / res["mean_step_s"]
+    h = cfg.hidden_size
+    sigma = cfg.initializer_range * math.sqrt(h)
+    init_loss = math.log(cfg.vocab_size) + sigma ** 2 / 2 \
+        + cfg.moe_aux_loss_coef * n_moe
+    f6n = 6 * active
+    fattn = f6n + 6 * layers * seq * h
+    flops = step.step_flops(batch)
+    emit({"phase": phase, "model": "ernie45 a3b width" if moe
+          else "ernie45 bench_ernie recipe", "layers": layers,
+          "moe_layers": n_moe, "recompute": "full", "dtype": "bfloat16",
+          "batch": ERNIE_BATCH, "seq": seq, "params": n_params,
+          "active_params_per_token": active, "setup_s": setup_s,
+          "tokens_per_s": tok_s,
+          "mfu_6n": f6n * tok_s / PEAK_BF16_FLOPS,
+          "mfu_6n_attn": fattn * tok_s / PEAK_BF16_FLOPS,
+          "step_flops": flops,
+          "step_flops_over_6n_attn": flops / (fattn * tokens),
+          "timer_mfu": flops / res["mean_step_s"] / PEAK_BF16_FLOPS,
+          "ln_vocab": math.log(cfg.vocab_size),
+          "expected_first_loss": init_loss, "state_bytes": state_bytes,
+          **res, "peak_limit": ERNIE_MOE_PEAK if moe else 80e9})
+    losses = res["losses"]
+    check(abs(losses[0] - init_loss) <= 0.5,
+          f"{phase}: first loss {losses[0]} not within 0.5 of {init_loss}")
+    check(losses[-1] < losses[0], f"{phase}: loss did not fall: {losses}")
+    check(res["max_memory_allocated"] < (ERNIE_MOE_PEAK if moe else 80e9),
+          f"{phase}: peak memory {res['max_memory_allocated']}")
+    tagged = {"flash_attention_fwd": "flash_attention_fwd",
+              "flash_attention_bwd_dq": "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv": "flash_attention_bwd_dkv"}
+    tag = "ernie_moe" if moe else "ernie"
+    fill_launches(table, {f"{k}_{tag}": v for k, v in tagged.items()},
+                  res["launches"])
+    for proj in ("q", "k"):     # half of #10's launches are each
+        table[f"matmul_rope_{tag}_{proj}"]["launches"] = \
+            res["launches"]["matmul_rope"] // 2
+    if moe:
+        fill_launches(table, {n: p for n, p in src.items()
+                              if "_e64" in n and "f32" not in n},
+                      res["launches"])
+    _, prof = profiled(torch, lambda: step(batch))
+    emit({"phase": f"{phase}_profile", **prof})
+    check_tensor_core_route(prof, phase, FLASH_FAMILIES + ("matmul_rope",)
+                            + (GROUPED_FAMILIES if moe else ()))
+    del model, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_ernie_reference_phase(torch, np, dev):
+    """At f32 (TF32 off), ERNIE-A3B width, 2 layers (one dense, one MoE:
+    group 5, 64 experts), batch 1, seq 256: the loss and every gradient
+    of ``grad_step`` (the fused chain: #10's f32 route, the flash
+    kernels, #11-#13 f32) against autograd of ``plain_moe_hidden``
+    (dense layer included) + a log-softmax cross-entropy + the aux loss,
+    with recompute off and on.  Then interleaved rope on raw weights
+    (its plain rope) against contiguous rope on the weights whose q/k
+    lanes ``_deinterleave_heads`` permuted (#10): logits within 1e-5."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.jit.train import CompiledTrainStep
+    from paddle_tpu_torch.models.convert import _deinterleave_heads
+    from paddle_tpu_torch.models.ernie import (Ernie45ForCausalLM,
+                                               ernie45_a3b_config)
+    from paddle_tpu_torch.ops import fused_train as ft
+    cfg = dataclasses.replace(ernie45_a3b_config(), num_hidden_layers=2,
+                              max_position_embeddings=1024)
+    model = Ernie45ForCausalLM(
+        cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(
+            SEED + 42))
+    step = CompiledTrainStep(
+        model, lambda m, b: m(b["input_ids"], labels=b["labels"]),
+        optimizer.AdamW(learning_rate=1e-4, parameters=model.parameters()))
+    ids, labels = train_batch(np, cfg.vocab_size, 1, 256)
+    batch = {"input_ids": torch.tensor(ids, device=dev),
+             "labels": torch.tensor(labels, device=dev)}
+    params = step.state["params"]
+    x, aux = plain_moe_hidden(torch, model, batch["input_ids"])
+    logp = torch.log_softmax((x @ model.lm_head.weight).float(), dim=-1)
+    lab = batch["labels"].long()
+    valid = lab != -100
+    tok = -logp.gather(-1, torch.where(valid, lab, 0)[..., None])[..., 0]
+    want_loss = (tok * valid).sum() / valid.sum() \
+        + cfg.moe_aux_loss_coef * aux
+    want_grads = dict(zip(params, torch.autograd.grad(
+        want_loss, list(params.values()))))
+    wl = float(want_loss.detach())
+    del x, aux, logp, tok, want_loss
+    rep = {}
+    for recompute_on in (False, True):
+        model.config.recompute = recompute_on
+        ft.matmul_rope_raw.launches = 0
+        loss, grads = step.grad_step(batch)
+        rel = {n: ((grads[n] - w).norm() / w.norm().clamp(min=1e-30)).item()
+               for n, w in want_grads.items()}
+        worst = max(rel, key=rel.get)
+        loss_rel = abs(float(loss) - wl) / abs(wl)
+        rep["recompute" if recompute_on else "no_recompute"] = {
+            "loss": float(loss), "loss_rel_err": loss_rel,
+            "grad_rel_l2_max": rel[worst], "grad_rel_l2_worst": worst,
+            "matmul_rope_launches": ft.matmul_rope_raw.launches}
+        check(loss_rel <= 1e-5 and rel[worst] <= 1e-4,
+              f"ERNIE f32, recompute {recompute_on}: loss off the plain "
+              f"composition by {loss_rel}, gradient {worst} by "
+              f"{rel[worst]}")
+        check(ft.matmul_rope_raw.launches == 4 * (1 + recompute_on),
+              f"#10 launched {ft.matmul_rope_raw.launches} times")
+        del grads
+    del want_grads, step
+    # interleaved rope on raw weights against contiguous rope on the
+    # de-interleaved ones
+    hd = cfg.hidden_size // cfg.num_attention_heads
+    inter = Ernie45ForCausalLM(
+        dataclasses.replace(cfg, rope_interleaved=True), device=dev,
+        generator=torch.Generator(device=dev).manual_seed(SEED + 43))
+    with torch.no_grad():
+        for (n, p), q in zip(inter.named_parameters(), model.parameters()):
+            if n.endswith(("q_proj.weight", "k_proj.weight")):
+                v = _deinterleave_heads(p.cpu().numpy(), hd, axis=1)
+                q.copy_(torch.from_numpy(np.ascontiguousarray(v)))
+            else:
+                q.copy_(p)
+        ft.matmul_rope_raw.launches = 0
+        a = inter(batch["input_ids"]).float()
+        inter_launches = ft.matmul_rope_raw.launches
+        b = model(batch["input_ids"]).float()
+    rel = ((a - b).norm() / a.norm()).item()
+    rep["interleaved_vs_deinterleaved"] = {
+        "logits_rel_l2_err": rel, "tolerance": 1e-5,
+        "interleaved_matmul_rope_launches": inter_launches,
+        "contiguous_matmul_rope_launches":
+        ft.matmul_rope_raw.launches - inter_launches}
+    check(rel <= 1e-5, f"interleaved rope off the de-interleaved weights "
+                       f"by {rel}")
+    check(inter_launches == 0 and ft.matmul_rope_raw.launches == 4,
+          f"#10 launches {rep['interleaved_vs_deinterleaved']}")
+    emit({"phase": "train_ernie_reference", "dtype": "float32",
+          "layers": 2, "seq": 256, "group": 5, "experts": 64, **rep,
+          "tolerance": {"loss_rel": 1e-5, "grad_rel_l2": 1e-4}})
+    del model, inter
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_dit_phase(torch, np, dev, table, src):
+    """``bench.py`` ``bench_dit``'s recipe: DiT-L/2 (32 x 32 x 4 latents,
+    patch 2, hidden 1024, depth 24, 16 heads) with the DDPM objective,
+    amp O2 (bf16), AdamW(1e-4), batch 16, DIT_STEPS steps on one batch
+    (timesteps, noise and label drop drawn anew each step from the
+    trainer's generator).  The reference's promotions keep the blocks in
+    f32 (the timestep features are f32), so the attention is the f32
+    3xTF32 route: a step launches the flash forward, dQ and dK/dV once a
+    block.  The MSE starts at about 1 (the zero-initialised final layer
+    predicts 0) and falls."""
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.jit.train import CompiledTrainStep
+    from paddle_tpu_torch.models.dit import DiTConfig, DiTWithDiffusion
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_train as ft
+    cfg = DiTConfig(**DIT_WIDTH)
+    t0 = time.perf_counter()
+    model = DiTWithDiffusion(
+        cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(
+            SEED + 50))
+    model = amp.decorate(model, level="O2", dtype="bfloat16")
+    step = CompiledTrainStep(model, lambda m, b: m(b["x"], b["y"]),
+                             optimizer.AdamW(learning_rate=1e-4,
+                                             parameters=model.parameters()),
+                             seed=SEED + 51)
+    rng = np.random.default_rng(SEED + 50)
+    batch = {"x": torch.tensor(rng.standard_normal(
+        (DIT_BATCH, cfg.in_channels, cfg.input_size, cfg.input_size)
+    ).astype(np.float32), device=dev),
+        "y": torch.tensor(rng.integers(0, cfg.num_classes, DIT_BATCH),
+                          dtype=torch.int32, device=dev)}
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    params = list(model.parameters())
+    blocks = cfg.depth
+    counters = {
+        "flash_attention_fwd": (fa.flash_attention_fwd, blocks),
+        "flash_attention_bwd_dq": (fa.flash_attention_bwd_dq, blocks),
+        "flash_attention_bwd_dkv": (fa.flash_attention_bwd_dkv, blocks),
+        "fused_update": (ft.fused_update_flat, update_launches(params))}
+    res = zoo_train(torch, step, batch, counters, DIT_STEPS)
+    flops = step.step_flops(batch)
+    losses = res["losses"]
+    tail = sum(losses[-3:]) / 3
+    emit({"phase": "train_dit", "model": "DiT-L/2", "depth": blocks,
+          "hidden": cfg.hidden_size, "heads": cfg.num_heads,
+          "dtype": "bfloat16 params (blocks compute in f32)",
+          "batch": DIT_BATCH, "params": sum(p.numel() for p in params),
+          "setup_s": setup_s, "imgs_per_s": DIT_BATCH / res["mean_step_s"],
+          "step_flops": flops,
+          "timer_mfu_bf16_peak": flops / res["mean_step_s"]
+          / PEAK_BF16_FLOPS, "mean_last_3": tail, **res})
+    check(abs(losses[0] - 1.0) <= 0.05,
+          f"train_dit: first loss {losses[0]} not about 1")
+    check(tail < losses[0], f"train_dit: loss did not fall: {losses}")
+    fill_launches(table, {f"{k}_dit": k for k in (
+        "flash_attention_fwd", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkv")}, res["launches"])
+    _, prof = profiled(torch, lambda: step(batch))
+    emit({"phase": "train_dit_profile", **prof})
+    check_tensor_core_route(prof, "train_dit", FLASH_FAMILIES,
+                            design="3xtf32")
+    del model, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def vae_phase(torch, np, dev):
+    """``AutoencoderKL()`` at its own widths (base 32, 8 groups; conv and
+    GroupNorm, no kernel of the port but the update) on 8 x 3 x 256 x
+    256 images, f32 (cuDNN with TF32 off), AdamW(1e-3): its
+    ``training_loss`` (reconstruction MSE + 1e-4 KL, the latent sample's
+    noise from the trainer's generator) falls over VAE_STEPS steps."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.jit.train import CompiledTrainStep
+    from paddle_tpu_torch.models.dit import AutoencoderKL
+    from paddle_tpu_torch.ops import fused_train as ft
+    model = AutoencoderKL(device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED + 60))
+    step = CompiledTrainStep(model, lambda m, b: m.training_loss(b["x"]),
+                             optimizer.AdamW(learning_rate=1e-3,
+                                             parameters=model.parameters()),
+                             seed=SEED + 61)
+    rng = np.random.default_rng(SEED + 60)
+    batch = {"x": torch.tensor(rng.uniform(
+        -1, 1, (VAE_BATCH, 3, VAE_SIZE, VAE_SIZE)).astype(np.float32),
+        device=dev)}
+    params = list(model.parameters())
+    counters = {"fused_update": (ft.fused_update_flat,
+                                 update_launches(params))}
+    res = zoo_train(torch, step, batch, counters, VAE_STEPS)
+    with torch.no_grad():
+        mean, logvar = model.encode(batch["x"])
+        recon = model.decode(mean)
+    emit({"phase": "vae", "model": "AutoencoderKL(base=32, groups=8)",
+          "dtype": "float32", "shape": list(batch["x"].shape),
+          "params": sum(p.numel() for p in params),
+          "latent_shape": list(mean.shape),
+          "imgs_per_s": VAE_BATCH / res["mean_step_s"], **res})
+    check(tuple(mean.shape) == (VAE_BATCH, 4, VAE_SIZE // 2, VAE_SIZE // 2)
+          and tuple(recon.shape) == tuple(batch["x"].shape)
+          and bool(torch.isfinite(recon).all()),
+          f"vae: latent {tuple(mean.shape)}, reconstruction "
+          f"{tuple(recon.shape)}")
+    check(res["losses"][-1] < res["losses"][0],
+          f"vae: loss did not fall: {res['losses']}")
+    del model, step, batch, mean, logvar, recon
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_bert_phase(torch, np, dev, table, src):
+    """BERT-base (``BertConfig()``: 12 layers of 768, 12 heads of 64,
+    hidden and attention dropout 0.1) as ``BertForMaskedLM``, amp O2
+    (bf16), AdamW(1e-4), batch 16 x 512 with the last quarter of each
+    row padded (attention_mask 0) and 15 % of the rest predicted.  A
+    step launches #2-#4 once a layer (16-bit D 64 with the [B, 1, 1, S]
+    padding bias and dropout inside the kernels) and #9's LayerNorm body
+    twice a layer (the post-norm residuals)."""
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.jit.train import CompiledTrainStep
+    from paddle_tpu_torch.models.bert import BertConfig, BertForMaskedLM
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_train as ft
+    cfg = BertConfig()
+    t0 = time.perf_counter()
+    model = BertForMaskedLM(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED + 70))
+    model = amp.decorate(model, level="O2", dtype="bfloat16")
+    step = CompiledTrainStep(
+        model, lambda m, b: m(b["input_ids"], attention_mask=b["mask"],
+                              labels=b["labels"]),
+        optimizer.AdamW(learning_rate=1e-4, parameters=model.parameters()),
+        seed=SEED + 71)
+    rng = np.random.default_rng(SEED + 70)
+    b, s = BERT_BATCH, BERT_SEQ
+    ids = rng.integers(1, cfg.vocab_size, (b, s)).astype(np.int32)
+    mask = np.ones((b, s), np.int32)
+    mask[:, s - s // 4:] = 0
+    ids[mask == 0] = cfg.pad_token_id
+    labels = np.where((rng.random((b, s)) < 0.15) & (mask == 1), ids,
+                      -100).astype(np.int32)
+    batch = {k: torch.tensor(v, device=dev) for k, v in
+             (("input_ids", ids), ("mask", mask), ("labels", labels))}
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    params = list(model.parameters())
+    layers = cfg.num_hidden_layers
+    counters = {
+        "flash_attention_fwd": (fa.flash_attention_fwd, layers),
+        "flash_attention_bwd_dq": (fa.flash_attention_bwd_dq, layers),
+        "flash_attention_bwd_dkv": (fa.flash_attention_bwd_dkv, layers),
+        "add_layer_norm": (ft.add_layer_norm_raw, 2 * layers),
+        "fused_update": (ft.fused_update_flat, update_launches(params))}
+    res = zoo_train(torch, step, batch, counters, ZOO_STEPS)
+    flops = step.step_flops(batch)
+    n_params = sum(p.numel() for p in params)
+    tokens = b * s
+    tok_s = tokens / res["mean_step_s"]
+    sigma = cfg.initializer_range * math.sqrt(cfg.hidden_size)
+    init_loss = math.log(cfg.vocab_size) + sigma ** 2 / 2
+    emit({"phase": "train_bert", "model": "bert-base MLM",
+          "layers": layers, "dtype": "bfloat16", "batch": b, "seq": s,
+          "padded_per_row": s // 4, "predicted": int((labels != -100).sum()),
+          "params": n_params, "setup_s": setup_s, "tokens_per_s": tok_s,
+          "mfu_6n": 6 * n_params * tok_s / PEAK_BF16_FLOPS,
+          "step_flops": flops,
+          "timer_mfu": flops / res["mean_step_s"] / PEAK_BF16_FLOPS,
+          "expected_first_loss": init_loss, **res})
+    losses = res["losses"]
+    check(abs(losses[0] - init_loss) <= 0.5,
+          f"train_bert: first loss {losses[0]} not within 0.5 of "
+          f"{init_loss}")
+    check(losses[-1] < losses[0], f"train_bert: loss did not fall: "
+                                  f"{losses}")
+    fill_launches(table, {f"{k}_bert": k for k in (
+        "flash_attention_fwd", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkv")}, res["launches"])
+    table["add_layer_norm_bf16"]["launches"] = \
+        res["launches"]["add_layer_norm"]
+    _, prof = profiled(torch, lambda: step(batch))
+    emit({"phase": "train_bert_profile", **prof})
+    check_tensor_core_route(prof, "train_bert", FLASH_FAMILIES)
+    del model, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_deepseek_phase(torch, np, dev, table):
+    """DeepSeekMoE-16B (``deepseek_moe_16b_config()``: 28 layers, 64
+    experts top-6 of 1408, shared experts 2816 wide without a gate, no
+    attention biases; bf16, random weights from a seeded generator, bf16
+    KV pools) through ``LLMEngine(max_seqs=8, max_len=2048,
+    page_size=128)`` and its Qwen2-MoE backbone on the serving mix.
+    Every forward launches #11 three times a layer and routes 6 slots a
+    live row a layer (dropless).  Then a 2-layer f32 model's prefill
+    logits and greedy tokens against a dense plain forward (1e-4), and
+    the full-depth bf16 logits (0.2)."""
+    from paddle_tpu_torch.inference.engine import LLMEngine
+    from paddle_tpu_torch.models.qwen2_moe import (Qwen2MoeForCausalLM,
+                                                   deepseek_moe_16b_config)
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import grouped_matmul as gm
+    from paddle_tpu_torch.ops import paged_attention as pa
+    cfg = deepseek_moe_16b_config()
+    t0 = time.perf_counter()
+    model = Qwen2MoeForCausalLM(
+        cfg, device=dev, dtype=torch.bfloat16,
+        generator=torch.Generator(device=dev).manual_seed(SEED + 80))
+    eng = LLMEngine(model, max_seqs=8, max_len=2048, page_size=128,
+                    dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    pool_bytes = 2 * eng.cache.k_pages.numel() * \
+        eng.cache.k_pages.element_size()
+    rng = np.random.default_rng(SEED + 80)
+    prompts = {rid: rng.integers(0, cfg.vocab_size, n).tolist()
+               for rid, n in SERVE_LENS.items()}
+    counters = {"ragged_paged_append_attend": pa.ragged_paged_append_attend,
+                "flash_attention_fwd": fa.flash_attention_fwd,
+                "grouped_matmul": gm.gmm_raw}
+    stats, results = serve_run(torch, eng, prompts, counters)
+    launches = stats["launches"]
+    layers = cfg.num_hidden_layers
+    chunks = -(-SERVE_LENS["a200"] // 128)
+    forwards = stats["steps"] + chunks
+    per_layer = eng._moe_counts.sum(dim=1).tolist()
+    live_rows = sum(SERVE_LENS.values()) + len(SERVE_LENS) * (SERVE_NEW - 1)
+    k = cfg.num_experts_per_tok
+    emit({"phase": "serve_deepseek", "model": "deepseek_moe_16b",
+          "layers": layers, "experts": cfg.num_experts, "top_k": k,
+          "dtype": "bfloat16", "weight_bytes": weight_bytes,
+          "kv_pool_bytes": pool_bytes, "setup_s": setup_s, **stats,
+          "forwards": forwards,
+          "grouped_matmul_launches_per_forward":
+          launches["grouped_matmul"] / forwards,
+          "routed_slots_per_layer": per_layer[0]})
+    for rid, out in results.items():
+        check(all(0 <= t < cfg.vocab_size for t in out),
+              f"request {rid} returned a token outside the vocabulary")
+    check(launches["grouped_matmul"] == 3 * layers * forwards,
+          f"#11 launched {launches['grouped_matmul']} times in {forwards} "
+          f"forwards, not {3 * layers} a forward")
+    check(launches["ragged_paged_append_attend"] == layers * stats["steps"]
+          and launches["flash_attention_fwd"] == layers * chunks,
+          f"attention launches {launches}")
+    check(all(n == k * live_rows for n in per_layer),
+          f"routed slots per layer {per_layer}, not {k} x {live_rows}")
+    table["grouped_matmul_f32_rows_e64"]["launches"] = \
+        launches["grouped_matmul"]
+
+    cfg32 = dataclasses.replace(cfg, num_hidden_layers=2)
+    model32 = Qwen2MoeForCausalLM(
+        cfg32, device=dev, dtype=torch.float32,
+        generator=torch.Generator(device=dev).manual_seed(SEED + 81))
+    eng32 = LLMEngine(model32, max_seqs=8, max_len=2048, page_size=128,
+                      device=dev)
+    rep = serve_reference(
+        torch, dev, prompts["b37"],
+        (("f32_2_layers", model32, eng32, 1e-4),
+         ("bf16_28_layers", model, eng, 0.2)),
+        lambda m, ids: moe_reference_logits(torch, m, ids))
+    emit({"phase": "reference_deepseek", **rep})
+    del eng32, model32, eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def zoo_paths(torch, np, dev, table, src):
+    """Each new path, each model freed before the next; the zoo's kernel
+    rows (``zoo_kernels``, whose rows ``src`` names) take their launches
+    from them."""
+    train_ernie_phase(torch, np, dev, table, src, moe=False)
+    train_ernie_phase(torch, np, dev, table, src, moe=True)
+    train_ernie_reference_phase(torch, np, dev)
+    train_dit_phase(torch, np, dev, table, src)
+    vae_phase(torch, np, dev)
+    train_bert_phase(torch, np, dev, table, src)
+    serve_deepseek_phase(torch, np, dev, table)
+    missing = [n for n in src if table[n].get("launches") is None]
+    check(not missing, f"zoo rows no path launched: {missing}")
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5518,6 +6508,10 @@ def main() -> int:
     ragged_int8_kernel(torch, gen, dev, table)
     mixed_kernels(torch, gen, dev, table)
     torch.cuda.empty_cache()
+    zoo_rows = zoo_kernels(torch, np, torch.Generator(
+        device=dev).manual_seed(SEED + 30), dev, table)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # -- serve Llama-3-8B through the engine's entry points
     cfg = llama3_8b_config()
@@ -5650,6 +6644,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train_optimizers_phase(torch, np, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the rest of the model zoo (its kernel rows ran above): ERNIE-4.5
+    # dense and MoE training and their f32 checks, DiT-L/2, the KL
+    # autoencoder, BERT-base, DeepSeekMoE-16B serving
+    zoo_paths(torch, np, dev, table, zoo_rows)
 
     # each tensor-core row: its kernel's registers and spills (the most
     # registers and the summed spills over that kernel's instantiations)
@@ -5667,9 +6668,9 @@ def main() -> int:
                    if row["design"] == "3xtf32"
                    else "gmm_rows_stream" if row["design"] == "stream"
                    else "matmul_rope_wgmma" if name.startswith("matmul_rope")
-                   else "gmm_wgmma" if name == "grouped_matmul"
                    else "glu_wgmma" if name.startswith("grouped_matmul_glu")
-                   else "dw_wgmma" if name == "grouped_matmul_dw"
+                   else "dw_wgmma" if name.startswith("grouped_matmul_dw")
+                   else "gmm_wgmma" if name.startswith("grouped_matmul")
                    else "flash_bwd_dq_wgmma" if "bwd_dq" in name
                    else "flash_bwd_dkv_wgmma" if "bwd_dkv" in name
                    else "flash_fwd_wgmma")
@@ -5695,7 +6696,8 @@ def main() -> int:
         "ragged_paged_append_attend_float32_q_bfloat16_pools",
         "ragged_paged_append_attend_bfloat16_q_float32_pools",
         "paged_decode_append_attend_float32_q_bfloat16_pools",
-        "paged_attention_float32_q_bfloat16_pools")]})
+        "paged_attention_float32_q_bfloat16_pools")] + [
+            table[n] for n in zoo_rows]})
     print(smi[0], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -90,6 +90,14 @@ def _build_llama(model) -> BackboneSpec:
     enforce(getattr(layers[0].self_attn.q_proj, "bias", None) is None,
             "Llama backbone with attention biases is not servable by "
             "the dense engine path")
+    # the engine's rope is the contiguous-half one: an interleaved
+    # model would attend with wrong rotations, so refuse it; a
+    # checkpoint served here is de-interleaved once instead
+    # (models/convert.py ``_deinterleave_heads``)
+    enforce(not getattr(model.config, "rope_interleaved", False),
+            "a Llama backbone with rope_interleaved=True is not servable: "
+            "de-interleave its q/k weights and serve it with "
+            "rope_interleaved=False")
     return BackboneSpec(
         arch="llama", config=model.config, layers=layers,
         norm=lm.norm, embed_tokens=lm.embed_tokens,

@@ -146,12 +146,13 @@ def product(x, w, names=("dot",)):
 
 def _outputs(out):
     """The region's outputs as a tuple, and whether it returned one
-    tensor."""
+    tensor.  A tuple may hold None (a dense decoder layer's aux loss),
+    which passes through."""
     single = isinstance(out, torch.Tensor)
     outs = (out,) if single else tuple(out)
-    enforce(all(isinstance(t, torch.Tensor) for t in outs),
+    enforce(all(t is None or isinstance(t, torch.Tensor) for t in outs),
             "recompute takes a region that returns a tensor or a tuple of "
-            "tensors")
+            "tensors (or None)")
     return outs, single
 
 
@@ -187,7 +188,8 @@ class _Recompute(torch.autograd.Function):
         finally:
             gen.set_state(later)
         # a gradient for each output that carries one
-        live = [(o, g) for o, g in zip(outs, grads) if o.requires_grad]
+        live = [(o, g) for o, g in zip(outs, grads)
+                if o is not None and o.requires_grad]
         wrt = [t for t, r in zip(args + list(ctx.params), need) if r]
         grads = iter(torch.autograd.grad([o for o, _ in live], wrt,
                                          [g for _, g in live],
@@ -199,7 +201,9 @@ class _Recompute(torch.autograd.Function):
 def recompute(function, *args, policy=None, **kwargs):
     """``function(*args, **kwargs)`` -- a module or a plain function that
     returns a tensor or a tuple of tensors (a decoder layer's ``(x,
-    aux_loss)``) -- with its activations recomputed in the backward, keeping what ``policy`` names (see the module docstring).
+    aux_loss)``, the aux loss None for a dense layer) -- with its
+    activations recomputed in the backward, keeping what ``policy``
+    names (see the module docstring).
     Tensors may sit inside tuples, lists or dicts of the arguments.
     Without grad, or when nothing requires grad, it just runs."""
     keep = _resolve_policy(policy)

@@ -124,8 +124,9 @@ class CompiledTrainStep:
     def step_flops(self, batch) -> Optional[float]:
         """FLOPs of one step (the MFU numerator), counted once and
         cached: one forward and backward on ``batch`` under
-        ``torch.utils.flop_counter.FlopCounterMode`` (PyTorch's
-        operators), plus the operations the hand-written kernels report
+        ``ops.flops.OperatorFlops`` (PyTorch's operators by
+        ``FlopCounterMode``'s formulas; recomputed regions count twice,
+        as they run), plus the operations the hand-written kernels report
         where they launch (``ops/flops.py``: invisible to the mode), plus
         the optimizer's ``update_flop_estimate``.  It applies no update
         and leaves the trainer's generator as it found it, so the
@@ -133,13 +134,12 @@ class CompiledTrainStep:
         nothing was counted."""
         if self._flops_cache is not None:
             return self._flops_cache if self._flops_cache > 0 else None
-        from torch.utils.flop_counter import FlopCounterMode
         rng = self.generator.get_state()
         try:
-            with FlopCounterMode(display=False) as counter, \
+            with _flops.OperatorFlops() as counter, \
                     _flops.counting() as kernels:
                 self.grad_step(batch)
-            flops = float(counter.get_total_flops()) + kernels[0]
+            flops = float(counter.total) + kernels[0]
         finally:
             self.generator.set_state(rng)
         if flops > 0:

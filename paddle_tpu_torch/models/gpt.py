@@ -41,7 +41,6 @@ from torch import nn
 
 from ..nn import functional as F
 from ..nn.common import Dropout, Init
-from ..runtime.device import resolve_device
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM",
            "GPTPretrainingCriterion", "gpt2_124m_config", "gpt2_tiny_config"]
@@ -186,10 +185,7 @@ class GPTForCausalLM(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        dev = resolve_device(device)
-        if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(0)
-        init = Init(dev, dtype, generator)
+        init = Init.on(device, dtype, generator)
         self.config = config
         self.gpt = GPTModel(config, init)
         self.lm_head = None if config.tie_word_embeddings else \

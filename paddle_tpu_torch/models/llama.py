@@ -43,18 +43,18 @@ import torch
 from torch import nn
 
 from ..common.errors import enforce
-from ..jit.recompute import recompute
+from ..jit.recompute import product, recompute
 from ..nn import functional as F
 from ..nn.common import Init
 from ..nn.generation import (GenerationMixin, StaticCache,
                              cached_attention_raw, write_cache_raw)
 from ..ops import _nn
-from ..ops.fused_train import _rotate_half
-from ..runtime.device import resolve_device
+from ..ops.fused_train import (_interleaved_tables, _rotate_half,
+                               _rotate_half_interleaved)
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM",
            "LlamaPretrainingCriterion", "llama3_8b_config",
-           "llama_tiny_config"]
+           "llama_tiny_config", "apply_rotary_pos_emb"]
 
 
 @dataclass
@@ -89,17 +89,7 @@ class LlamaConfig:
     pp_stash_residuals: bool = True
 
 
-# knobs the port does not take yet: (setting, asked, ROADMAP item).
-# ``LlamaAttention`` takes ``attention_bias`` (the Qwen2-MoE decoder
-# builds it so); ``LlamaForCausalLM`` still refuses a biased Llama.
-def _model_knobs(c: LlamaConfig):
-    return [("attention_bias=True", c.attention_bias,
-             "Port: remaining modules"),
-            ("rope_interleaved=True", c.rope_interleaved,
-             "Port: remaining modules"),
-            ("fuse_qkv=True", c.fuse_qkv, "Port: remaining modules")]
-
-
+# knobs the port does not take yet: (setting, asked, ROADMAP item)
 def _forward_knobs(c: LlamaConfig):
     return [("sequence_parallel=True", c.sequence_parallel,
              "Port: remaining modules")]
@@ -136,13 +126,18 @@ def _rope_cos_sin(seq_len: int, head_dim: int, theta: float,
     return emb.astype(dtype)
 
 
-def _apply_rope(q, k, cos, sin):
+def apply_rotary_pos_emb(q, k, cos, sin, interleaved: bool = False):
     """q/k ``[B, S, H, D]``; cos/sin ``[S, D]`` (cat(freqs, freqs)
-    layout), applied in f32 and cast back."""
+    layout), applied in f32 and cast back.  ``interleaved`` is the
+    GPT-J / ERNIE-4.5 pairing: lanes (2i, 2i+1) rotate together by angle
+    i, the angles repeated from the tables' first half."""
+    if interleaved:
+        cos, sin = _interleaved_tables(cos, sin)
+    rot = _rotate_half_interleaved if interleaved else _rotate_half
     cos, sin = cos[None, :, None, :], sin[None, :, None, :]
     qf, kf = q.float(), k.float()
-    return ((qf * cos + _rotate_half(qf) * sin).to(q.dtype),
-            (kf * cos + _rotate_half(kf) * sin).to(k.dtype))
+    return ((qf * cos + rot(qf) * sin).to(q.dtype),
+            (kf * cos + rot(kf) * sin).to(k.dtype))
 
 
 class LlamaAttention(nn.Module):
@@ -169,9 +164,13 @@ class LlamaAttention(nn.Module):
                                   c.hidden_size, out_std, bias=False,
                                   names=("dot", "attn_out"))
         self.use_flash = c.use_flash_attention
-        # as in the reference, a biased attention (Qwen2's) takes the
-        # unfused rope path; the port refuses fuse_qkv at construction
-        self.fuse_norm_rope = c.fuse_norm_rope and not bias
+        self.rope_interleaved = c.rope_interleaved
+        self.fuse_qkv = c.fuse_qkv
+        # as in the reference, a biased attention (Qwen2's) and the
+        # one-product qkv take the unfused rope path; interleaved rope
+        # goes into the fused chain, which takes its plain rope for it
+        self.fuse_norm_rope = c.fuse_norm_rope and not bias \
+            and not c.fuse_qkv
 
     def _attend(self, q, k, v):
         """Causal attention, the queries as the last rows of the keys."""
@@ -185,6 +184,18 @@ class LlamaAttention(nn.Module):
             "which runs on CPU tensors only; on the card attention goes "
             "through the flash kernels (ROADMAP 'Port: remaining "
             "modules')")
+
+    def _qkv_one_product(self, x):
+        """``fuse_qkv``: one ``x @ [Wq | Wk | Wv]`` product (the weights
+        stay three parameters, concatenated per call, as the
+        reference), plus the concatenated biases; split back into q, k
+        and v."""
+        projs = (self.q_proj, self.k_proj, self.v_proj)
+        w = torch.cat([p.weight for p in projs], dim=1)
+        qkv = product(x, w)
+        if self.q_proj.bias is not None:
+            qkv = qkv + torch.cat([p.bias for p in projs])
+        return qkv.split([p.weight.shape[1] for p in projs], dim=-1)
 
     def forward(self, x, cos_sin, cache=None, pos=None, prefill=False):
         """Training / full forward with neither ``cache`` nor ``pos``.
@@ -205,12 +216,18 @@ class LlamaAttention(nn.Module):
             q, k, v = F.qkv_rope(
                 x, self.q_proj.weight, self.k_proj.weight,
                 self.v_proj.weight, cos, sin, n_heads=self.num_heads,
-                n_kv=self.num_kv_heads, head_dim=self.head_dim)
+                n_kv=self.num_kv_heads, head_dim=self.head_dim,
+                interleaved=self.rope_interleaved)
         else:
-            q = self.q_proj(x).view(b, s, self.num_heads, self.head_dim)
-            k = self.k_proj(x).view(b, s, self.num_kv_heads, self.head_dim)
-            v = self.v_proj(x).view(b, s, self.num_kv_heads, self.head_dim)
-            q, k = _apply_rope(q, k, cos, sin)
+            if self.fuse_qkv:
+                q, k, v = self._qkv_one_product(x)
+            else:
+                q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
+            q = q.reshape(b, s, self.num_heads, self.head_dim)
+            k = k.reshape(b, s, self.num_kv_heads, self.head_dim)
+            v = v.reshape(b, s, self.num_kv_heads, self.head_dim)
+            q, k = apply_rotary_pos_emb(q, k, cos, sin,
+                                        interleaved=self.rope_interleaved)
         if pos is not None:
             if prefill and s > 1:
                 out = self._attend(q, k, v)
@@ -330,11 +347,7 @@ class LlamaForCausalLM(GenerationMixin, nn.Module):
                  dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        _refuse(_model_knobs(config), "")
-        dev = resolve_device(device)
-        if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(0)
-        init = Init(dev, dtype, generator)
+        init = Init.on(device, dtype, generator)
         self.config = config
         self.llama = LlamaModel(config, init)
         self.lm_head = None if config.tie_word_embeddings else init.linear(

@@ -27,13 +27,12 @@ from torch import nn
 from ..jit.recompute import recompute
 from ..nn.moe import MoELayer
 from ..ops import _nn
-from ..runtime.device import resolve_device
 from ..nn.common import Init
 from .llama import (LlamaAttention, LlamaConfig, LlamaPretrainingCriterion,
                     _rope_cos_sin)
 
 __all__ = ["Qwen2MoeConfig", "Qwen2MoeDecoderLayer", "Qwen2MoeForCausalLM",
-           "qwen2_moe_tiny_config"]
+           "deepseek_moe_16b_config", "qwen2_moe_tiny_config"]
 
 
 @dataclass
@@ -77,6 +76,25 @@ class Qwen2MoeConfig:
             initializer_range=self.initializer_range,
             attention_bias=self.attention_bias,
             use_flash_attention=self.use_flash_attention)
+
+
+def deepseek_moe_16b_config() -> Qwen2MoeConfig:
+    """DeepSeekMoE-16B-class geometry (Hugging Face
+    ``deepseek-ai/deepseek-moe-16b-base``): 28 layers at hidden 2048,
+    16 heads and 16 KV heads, 64 fine-grained experts top-6 of width
+    1408, shared experts 2816 wide without a gate, no attention biases,
+    top-k weights not renormalised, vocab 102,400.  The Qwen2-MoE
+    architecture class, so it trains and serves through this module and
+    the engine's ``qwen2_moe`` backbone."""
+    return Qwen2MoeConfig(
+        vocab_size=102400, hidden_size=2048, num_hidden_layers=28,
+        num_attention_heads=16, num_key_value_heads=16,
+        moe_intermediate_size=1408,
+        shared_expert_intermediate_size=2816,
+        num_experts=64, num_experts_per_tok=6,
+        max_position_embeddings=4096, rope_theta=10000.0,
+        norm_topk_prob=False, attention_bias=False,
+        use_shared_expert_gate=False)
 
 
 def qwen2_moe_tiny_config() -> Qwen2MoeConfig:
@@ -130,10 +148,8 @@ class Qwen2MoeForCausalLM(nn.Module):
             raise NotImplementedError(
                 "Qwen2MoeConfig sequence_parallel=True is not ported yet "
                 "(ROADMAP 'Port: remaining modules')")
-        dev = resolve_device(device)
-        if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(0)
-        init = Init(dev, dtype, generator)
+        init = Init.on(device, dtype, generator)
+        dev = init.device
         self.config = c
         self.embed_tokens = init.embedding(c.vocab_size, c.hidden_size,
                                            c.initializer_range)

@@ -3,7 +3,10 @@ of ``paddle_tpu/nn/common.py``).
 
 Paddle's layouts are kept: a ``Linear`` weight is ``[in_features,
 out_features]`` and computes ``x @ W + b``; an ``Embedding`` weight is
-``[num_embeddings, embedding_dim]``.  Parameters are drawn on ``device``
+``[num_embeddings, embedding_dim]``.  Operands of two float dtypes meet
+in the wider one, as jnp promotes them in the reference (under amp O2 an
+f32 input to a bf16 ``Linear`` gives an f32 output).  Parameters are
+drawn on ``device``
 (default: the GPU; ``device="cpu"`` on request) from ``generator``, or
 from the dropout stream's generator of that device (``ops/random.py``,
 the reference's global key) when none is given.  ``weight_attr`` is an
@@ -63,7 +66,13 @@ class Linear(nn.Module):
                               generator)
 
     def forward(self, x):
-        y = product(x, self.weight, self.names)
+        w = self.weight
+        if x.dtype != w.dtype:
+            # the reference's jnp promotion: an f32 input to a 16-bit
+            # weight (amp O2) computes in f32, and so on
+            dt = torch.promote_types(x.dtype, w.dtype)
+            x, w = x.to(dt), w.to(dt)
+        y = product(x, w, self.names)
         return y if self.bias is None else y + self.bias
 
     def extra_repr(self):
@@ -128,6 +137,16 @@ class Init:
                  generator: torch.Generator):
         self.device, self.dtype, self.gen = device, dtype, generator
         self.kw = dict(device=device, dtype=dtype, generator=generator)
+
+    @classmethod
+    def on(cls, device=None, dtype: torch.dtype = torch.float32,
+           generator: Optional[torch.Generator] = None) -> "Init":
+        """An ``Init`` on ``device`` (default: the GPU) drawing from
+        ``generator``, or from a new one there seeded with 0."""
+        dev = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        return cls(dev, dtype, generator)
 
     def normal(self, shape, std: float) -> nn.Parameter:
         return nn.Parameter(Normal(0.0, std)(

@@ -13,8 +13,10 @@ port has no device mesh yet.
 
 ``add_rms_norm``, ``add_layer_norm`` and ``qkv_rope`` are the fused step
 regions of ``ops/fused_train.py`` (the add+norm and matmul+rope
-kernels); ``dropout``, ``gelu``, ``linear``, ``embedding`` and
-``cross_entropy`` are plain PyTorch, as the reference's are jnp.
+kernels); ``dropout``, ``gelu``, ``silu``, ``embedding``,
+``cross_entropy``, ``mse_loss``, ``conv2d``, ``group_norm`` and
+``interpolate`` are plain PyTorch, as the reference's are jnp and XLA
+convolutions (no Pallas kernel computes any of them).
 """
 from __future__ import annotations
 
@@ -29,13 +31,19 @@ from ..ops import random as _random
 from ..ops.flash_attention import dropout_keep, flash_attention_raw
 
 __all__ = ["scaled_dot_product_attention",
-           "scaled_dot_product_attention_ref", "dropout", "gelu",
-           "embedding", "cross_entropy", "add_rms_norm", "add_layer_norm",
+           "scaled_dot_product_attention_ref", "dropout", "gelu", "silu",
+           "embedding", "cross_entropy", "mse_loss", "conv2d",
+           "group_norm", "interpolate", "add_rms_norm", "add_layer_norm",
            "qkv_rope"]
 
 dropout = _nn.dropout
 gelu = _nn.gelu
+silu = _nn.silu
 cross_entropy = _nn.cross_entropy
+mse_loss = _nn.mse_loss
+conv2d = _nn.conv2d
+group_norm = _nn.group_norm
+interpolate = _nn.interpolate
 
 
 def embedding(ids, weight, padding_idx=None):

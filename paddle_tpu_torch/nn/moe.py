@@ -26,7 +26,6 @@ from torch import nn
 from ..common.errors import enforce
 from ..ops import _nn
 from ..ops.grouped_matmul import dropless_moe_ffn
-from ..runtime.device import resolve_device
 from .common import Init
 
 __all__ = ["TopKGate", "ExpertFFN", "MoELayer"]
@@ -74,12 +73,7 @@ def _router_topk(x, wg, *, k, balance_coef, z_coef, norm_topk=True):
 
 
 def _default_init(init, device, dtype, generator):
-    if init is not None:
-        return init
-    dev = resolve_device(device)
-    if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(0)
-    return Init(dev, dtype, generator)
+    return init if init is not None else Init.on(device, dtype, generator)
 
 
 class TopKGate(nn.Module):

@@ -1,8 +1,9 @@
-"""Normalization layers (the ``LayerNorm`` and ``RMSNorm`` of
-``paddle_tpu/nn/norm.py``).
+"""Normalization layers (the ``LayerNorm``, ``RMSNorm`` and
+``GroupNorm`` of ``paddle_tpu/nn/norm.py``).
 
-Each has ``forward(x)`` and ``forward_residual(x, residual) -> (h, y)``
-with ``h = residual + x`` and ``y = self(h)``: the residual add fused
+``LayerNorm`` and ``RMSNorm`` each have ``forward(x)`` and
+``forward_residual(x, residual) -> (h, y)`` with ``h = residual + x``
+and ``y = self(h)``: the residual add fused
 into the norm, one launch of the add+norm kernel on the card
 (``nn/functional.py`` -> ``ops/fused_train.py``).
 """
@@ -15,7 +16,7 @@ from ..ops import _nn
 from ..runtime.device import resolve_device
 from . import functional as F
 
-__all__ = ["LayerNorm", "RMSNorm"]
+__all__ = ["LayerNorm", "RMSNorm", "GroupNorm"]
 
 
 class LayerNorm(nn.Module):
@@ -71,3 +72,32 @@ class RMSNorm(nn.Module):
         """``(h, y)``: ``h = residual + x``, ``y = self(h)`` -- the
         Llama decoder's post-attention chain as one fused pass."""
         return F.add_rms_norm(x, residual, self.weight, self.epsilon)
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm over ``[N, C, *spatial]`` (``data_format`` "NCHW"; NHWC
+    raises) with f32 statistics (``F.group_norm``); ``weight_attr=False``
+    / ``bias_attr=False`` drop the per-channel scale (ones) / shift
+    (zeros)."""
+
+    def __init__(self, num_groups: int, num_channels: int, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 name=None, *, device=None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_groups = num_groups
+        self.num_channels = num_channels
+        self.epsilon = epsilon
+        self.data_format = data_format
+        kw = dict(device=resolve_device(device), dtype=dtype)
+        self.weight = None if weight_attr is False else nn.Parameter(
+            torch.ones(num_channels, **kw))
+        self.bias = None if bias_attr is False else nn.Parameter(
+            torch.zeros(num_channels, **kw))
+
+    def forward(self, x):
+        return F.group_norm(x, self.num_groups, self.weight, self.bias,
+                            self.epsilon, self.data_format)
+
+    def extra_repr(self):
+        return f"groups={self.num_groups}, channels={self.num_channels}"

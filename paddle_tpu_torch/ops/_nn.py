@@ -13,8 +13,9 @@ import torch
 from ..common.errors import enforce
 from . import random as _random
 
-__all__ = ["rms_norm", "layer_norm", "silu", "gelu", "dropout",
-           "cross_entropy", "fused_linear_cross_entropy"]
+__all__ = ["rms_norm", "layer_norm", "group_norm", "silu", "gelu",
+           "dropout", "conv2d", "interpolate", "cross_entropy",
+           "mse_loss", "fused_linear_cross_entropy"]
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -82,6 +83,88 @@ def layer_norm(x: torch.Tensor, normalized_shape, weight=None, bias=None,
     if bias is not None:
         out = out + bias
     return out
+
+
+def _nchw_only(data_format):
+    if data_format != "NCHW":
+        raise NotImplementedError(
+            f"data_format {data_format!r} is not ported yet (ROADMAP "
+            "'Port: remaining modules'); the models use NCHW")
+
+
+def group_norm(x: torch.Tensor, num_groups: int, weight=None, bias=None,
+               epsilon: float = 1e-5,
+               data_format: str = "NCHW") -> torch.Tensor:
+    """GroupNorm over ``[N, C, *spatial]`` (NCHW) with f32 statistics (the
+    variance is the mean squared deviation): normalise in f32, cast
+    back, then scale and shift per channel in the input dtype -- the
+    reference's order of roundings.  ``torch.nn.functional.group_norm``
+    does the f32 normalisation (no TPU kernel does it in the reference
+    either: XLA fuses it there)."""
+    _nchw_only(data_format)
+    dt = x.dtype
+    out = torch.nn.functional.group_norm(x.float(), num_groups,
+                                         eps=epsilon).to(dt)
+    shape = (1, x.shape[1]) + (1,) * (x.dim() - 2)
+    if weight is not None:
+        out = out * weight.reshape(shape)
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    return out
+
+
+def conv2d(x: torch.Tensor, weight: torch.Tensor, bias=None, stride=1,
+           padding=0, dilation=1, groups: int = 1,
+           data_format: str = "NCHW") -> torch.Tensor:
+    """Paddle's ``conv2d``: weight ``[C_out, C_in / groups, kH, kW]``
+    (PyTorch's layout).  Under amp O2 a 16-bit weight pulls the input to
+    its dtype, as the reference's ``_match_conv_dtypes``; the bias is
+    added after the convolution.  ``torch.nn.functional.conv2d`` runs it
+    (cuDNN on the card): the reference leaves it to XLA, outside any
+    Pallas kernel."""
+    _nchw_only(data_format)
+    if isinstance(padding, str):
+        padding = padding.lower()
+    if x.dtype != weight.dtype:
+        x = x.to(weight.dtype)
+    out = torch.nn.functional.conv2d(x, weight, None, stride, padding,
+                                     dilation, groups)
+    if bias is not None:
+        out = out + bias.reshape(1, -1, 1, 1)
+    return out
+
+
+def interpolate(x: torch.Tensor, size=None, scale_factor=None,
+                mode: str = "nearest", align_corners: bool = False,
+                data_format: str = "NCHW") -> torch.Tensor:
+    """Nearest-neighbour resize of ``[N, C, H, W]`` to ``size`` or by
+    ``scale_factor`` (the reference's ``jax.image.resize`` nearest: at
+    an integer factor each output pixel repeats input pixel
+    ``i // factor``, as PyTorch's ``"nearest"``)."""
+    _nchw_only(data_format)
+    if mode != "nearest":
+        raise NotImplementedError(
+            f"interpolate mode {mode!r} is not ported yet (ROADMAP 'Port: "
+            "remaining modules')")
+    h, w = x.shape[2], x.shape[3]
+    if size is None:
+        sf = (scale_factor, scale_factor) \
+            if isinstance(scale_factor, (int, float)) else scale_factor
+        size = (int(h * sf[0]), int(w * sf[1]))
+    elif isinstance(size, int):
+        size = (size, size)
+    return torch.nn.functional.interpolate(x, size=tuple(size),
+                                           mode="nearest")
+
+
+def mse_loss(input: torch.Tensor, label: torch.Tensor,
+             reduction: str = "mean") -> torch.Tensor:
+    """Squared error, reduced by ``reduction``."""
+    _check_reduction(reduction)
+    sq = (input - label).square()
+    if reduction == "mean":
+        return sq.mean()
+    return sq.sum() if reduction == "sum" else sq
 
 
 def _reduce(per_tok, count, reduction):

@@ -353,6 +353,20 @@ def _rotate_half(x):
     return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
 
 
+def _rotate_half_interleaved(x):
+    """GPT-J pairing over (even, odd) lanes: ``(x0, x1) -> (-x1, x0)``."""
+    return torch.stack([-x[..., 1::2], x[..., 0::2]], dim=-1).reshape(
+        x.shape)
+
+
+def _interleaved_tables(cos, sin):
+    """The cat(freqs, freqs) tables as the interleaved rope reads them:
+    angle i for lanes 2i and 2i + 1 (the first half repeated)."""
+    half = cos.shape[-1] // 2
+    return (cos[..., :half].repeat_interleave(2, dim=-1),
+            sin[..., :half].repeat_interleave(2, dim=-1))
+
+
 def _rotate_half_t(x):
     """The transpose of ``_rotate_half``: its backward."""
     half = x.shape[-1] // 2
@@ -368,17 +382,23 @@ def _product_f32_acc(x, w):
     return x @ w
 
 
-def matmul_rope_reference(x, w, cos, sin, n_heads, head_dim):
+def matmul_rope_reference(x, w, cos, sin, n_heads, head_dim,
+                          interleaved=False):
     """``reshape(x @ w) -> rope`` for one projection: the product summed
     in f32 and rounded to x's dtype, then the rotary embedding in f32
     (the tables widened) and rounded again.  x ``[B, S, K]``, w ``[K,
     n_heads * head_dim]``, cos/sin ``[S, head_dim]`` in the cat(freqs,
-    freqs) layout; returns ``[B, S, n_heads, head_dim]``."""
+    freqs) layout; returns ``[B, S, n_heads, head_dim]``.
+    ``interleaved``: the GPT-J pairing (``models/llama.py``
+    ``apply_rotary_pos_emb``)."""
     b, s = x.shape[0], x.shape[1]
     y = _product_f32_acc(x, w).reshape(b, s, n_heads, head_dim)
+    if interleaved:
+        cos, sin = _interleaved_tables(cos, sin)
+    rot = _rotate_half_interleaved if interleaved else _rotate_half
     cosb, sinb = cos[None, :, None, :].float(), sin[None, :, None, :].float()
     yf = y.float()
-    return (yf * cosb + _rotate_half(yf) * sinb).to(y.dtype)
+    return (yf * cosb + rot(yf) * sinb).to(y.dtype)
 
 
 def _mmr_kernel() -> ctypes.CDLL:
@@ -480,8 +500,13 @@ def matmul_rope_raw(x, w, cos, sin, *, n_heads, head_dim,
     tensor cores (``matmul_rope_wgmma``: TMA-fed ``wgmma``), float32 on
     the FMA pipe (``matmul_rope_f32``), chosen by dtype alone; f32 and
     bf16 tables are read as they are.  On CPU tensors the plain
-    version.  Differentiable in x and w.  Interleaved (GPT-J)
-    rope raises: the port's models refuse ``rope_interleaved``."""
+    version.  Differentiable in x and w.
+
+    Interleaved (GPT-J) rope takes the plain version on any device, in
+    autograd ops: the reference's ``_mmr_eligible`` sends it to its
+    plain rope (``paddle_tpu/ops/pallas/fused_train.py:474-476``), and
+    the port makes the same choice on the same knob.  It launches
+    nothing and counts nothing."""
     enforce(x.dim() == 3 and cos.shape == (x.shape[1], head_dim)
             and sin.shape == cos.shape,
             f"matmul_rope takes x [B, S, K] and cos/sin [S, {head_dim}], "
@@ -489,9 +514,8 @@ def matmul_rope_raw(x, w, cos, sin, *, n_heads, head_dim,
     enforce(not (cos.requires_grad or sin.requires_grad),
             "matmul_rope's rope tables are constants")
     if interleaved:
-        raise NotImplementedError(
-            "interleaved rope in matmul_rope is not ported yet (ROADMAP "
-            "'Port: remaining modules')")
+        return matmul_rope_reference(x, w, cos, sin, n_heads, head_dim,
+                                     interleaved=True)
     return _MatmulRope.apply(x, w, cos, sin, n_heads, head_dim)
 
 

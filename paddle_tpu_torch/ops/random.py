@@ -1,5 +1,6 @@
-"""The port's dropout RNG stream (counterpart of ``paddle_tpu/ops/random.py``:
-``seed``, ``rng_guard``, ``split_key``).
+"""The port's RNG stream (counterpart of ``paddle_tpu/ops/random.py``:
+``seed``, ``rng_guard``, ``split_key``, ``rand``, ``randn``,
+``randint``).
 
 The reference threads a splittable ``jax.random`` key: a global one, or
 inside ``rng_guard(key)`` the trainer's per-step key, split once for
@@ -16,7 +17,11 @@ model's device:
 - ``next_seed(device)`` draws one per-call seed for an in-kernel
   dropout mask as an int64 scalar **on the device**: the draw advances
   the generator's own counter, and no value crosses to the host, so a
-  training step never waits for it.
+  training step never waits for it;
+- ``rand``, ``randn`` and ``randint`` draw uniform, normal and integer
+  tensors on ``device`` from the same generator (the diffusion model's
+  timesteps, noise and label drop, ``models/dit.py``), so under the
+  trainer's guard they follow its seed too.
 
 ``jax.random`` and ``torch.Generator`` give other numbers from one seed:
 no draw here equals the reference's bit for bit (the tests hand both
@@ -30,7 +35,8 @@ from typing import Dict
 
 import torch
 
-__all__ = ["rng_guard", "generator_for", "next_seed"]
+__all__ = ["rng_guard", "generator_for", "next_seed", "rand", "randn",
+           "randint"]
 
 _SEED_HIGH = 2 ** 31 - 1      # the reference draws int32 seeds in [0, 2^31 - 1)
 
@@ -82,3 +88,34 @@ def next_seed(device) -> torch.Tensor:
     dev = _device(device)
     return torch.randint(0, _SEED_HIGH, (), generator=generator_for(dev),
                          device=dev, dtype=torch.int64)
+
+
+def _shape(shape):
+    return [int(s) for s in shape]
+
+
+def rand(shape, *, device) -> torch.Tensor:
+    """Uniform [0, 1) f32 of ``shape`` on ``device``."""
+    dev = _device(device)
+    return torch.rand(_shape(shape), generator=generator_for(dev),
+                      device=dev, dtype=torch.float32)
+
+
+def randn(shape, dtype=torch.float32, *, device) -> torch.Tensor:
+    """Standard normal of ``shape`` on ``device``, drawn in f32 and cast
+    to ``dtype``."""
+    dev = _device(device)
+    out = torch.randn(_shape(shape), generator=generator_for(dev),
+                      device=dev, dtype=torch.float32)
+    return out.to(dtype)
+
+
+def randint(low=0, high=None, shape=(1,), *, device) -> torch.Tensor:
+    """Integers in [low, high) (``[0, low)`` when ``high`` is None) of
+    ``shape`` on ``device``, int32 as the reference's."""
+    if high is None:
+        low, high = 0, low
+    dev = _device(device)
+    return torch.randint(int(low), int(high), _shape(shape),
+                         generator=generator_for(dev), device=dev,
+                         dtype=torch.int32)

@@ -67,7 +67,12 @@ causal masking, on rows whose every key is hidden and at GQA 4, with
 ``flash_bwd_dq_3xtf32`` alone on its launch; and #5's f32 route at D 64
 (``flash_dbias_3xtf32``) at every bias broadcast, GQA 1 and 4 and
 ragged tiles, the same bits on two launches and alone on its launch,
-while f32 at D 128 stays on ``flash_dbias``.
+while f32 at D 128 stays on ``flash_dbias``.  The model zoo's shapes:
+#2-#4 at GQA groups 3 and 5 (ERNIE-4.5), at 16-bit D 64 under a
+``[B, 1, 1, S]`` padding bias with and without dropout (BERT; the padded
+keys' dK and dV exactly zero), #10 at hidden 1536 and 2560, and #11-#13
+at 64 experts with H 2560 and F 1536, each within the tolerances above;
+interleaved rope takes #10's plain version and launches nothing.
 """
 import ctypes
 
@@ -1351,10 +1356,16 @@ def test_fused_regions_refuse_what_the_kernels_do_not_take(dev):
         ft.matmul_rope_raw(x[..., :90], torch.zeros(
             90, 64, device=dev, dtype=torch.bfloat16), cos, cos, n_heads=1,
             head_dim=64)
-    with pytest.raises(NotImplementedError, match="interleaved"):
-        ft.matmul_rope_raw(x, torch.zeros(96, 64, device=dev,
-                                          dtype=torch.bfloat16), cos, cos,
-                           n_heads=1, head_dim=64, interleaved=True)
+    # interleaved rope takes the plain version on the knob, as the
+    # reference's kernel declines it: no launch
+    before = ft.matmul_rope_raw.launches
+    w = torch.randn(96, 64, device=dev).to(torch.bfloat16)
+    got = ft.matmul_rope_raw(x + 1, w, cos, cos, n_heads=1, head_dim=64,
+                             interleaved=True)
+    want = ft.matmul_rope_reference(x + 1, w, cos, cos, 1, 64,
+                                    interleaved=True)
+    assert ft.matmul_rope_raw.launches == before
+    assert torch.equal(got, want)
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):
@@ -2103,3 +2114,116 @@ def test_dbias_3xtf32_is_bit_identical_and_alone(dev):
         *ops[:6], bias, True, 0.1, seed))
     assert torch.equal(first, second)
     assert names == {"void ptt::flash_dbias_3xtf32<64, true>"}, names
+
+
+# -- the model zoo's shapes: ERNIE's GQA groups 3 and 5, BERT's padding
+# mask over heads and rows with 16-bit dropout at D 64, ERNIE's #10
+# widths and the 64-expert grouped matmuls ---------------------------------
+
+ZOO_FLASH = [
+    # b, sq, sk, h, kvh, d, causal: ERNIE (12 / 4 and 20 / 4 heads of 128)
+    (2, 300, 300, 12, 4, 128, True), (1, 520, 520, 20, 4, 128, True),
+    (2, 200, 200, 12, 4, 64, True), (1, 130, 260, 15, 3, 64, True),
+    (2, 257, 257, 10, 2, 128, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("b,sq,sk,h,kvh,d,causal", ZOO_FLASH)
+def test_flash_kernels_at_groups_3_and_5_match_plain(dev, dtype, b, sq, sk,
+                                                     h, kvh, d, causal):
+    """#2, #3 and #4 (dK/dV summed over groups of 3 and 5 query heads)
+    against the plain versions."""
+    q, k, v, do = _attn_inputs(dev, dtype, b, sq, sk, h, kvh, d, seed=21)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    want_out, want_lse = fa.flash_attention_fwd_reference(q, k, v,
+                                                          causal=causal)
+    ops = fa.flash_attention_bwd_operands(q, k, v, out, lse, do, causal,
+                                          None)
+    dq = fa.flash_attention_bwd_dq(*ops, causal)
+    dk, dv = fa.flash_attention_bwd_dkv(*ops, causal)
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
+                                            causal=causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), want_out.float(), rtol=0,
+                               atol=TOL[dtype])
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-3)
+    _assert_grads_close((dq, dk, dv), want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("b,s,h", [(4, 200, 12), (2, 512, 12), (3, 130, 4)])
+def test_flash_kernels_padding_mask_dropout_match_plain(dev, dtype, p, b, s,
+                                                        h):
+    """BERT's attention: D 64, a ``[B, 1, 1, S]`` bias of 0 / -1e30 that
+    pads a quarter of each row's keys (broadcast over heads and query
+    rows), attention dropout from one seed: #2, #3 and #4 against the
+    plain versions fed the same seed."""
+    q, k, v, do = _attn_inputs(dev, dtype, b, s, s, h, h, 64, seed=22)
+    keep = torch.ones(b, s, device=dev)
+    for i in range(b):
+        keep[i, s - (s // 4) - 7 * i:] = 0.0
+    mask = ((keep - 1.0) * 1e30)[:, None, None, :]
+    seed = torch.tensor(991, dtype=torch.int64, device=dev) if p else None
+    kw = dict(causal=False, mask=mask, dropout_p=p, seed=seed)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    want_out, want_lse = fa.flash_attention_fwd_reference(q, k, v, **kw)
+    ops = fa.flash_attention_bwd_operands(q, k, v, out, lse, do, False,
+                                          mask)
+    dq = fa.flash_attention_bwd_dq(*ops, False, p, seed)
+    dk, dv = fa.flash_attention_bwd_dkv(*ops, False, p, seed)
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), want_out.float(), rtol=0,
+                               atol=TOL[dtype])
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-3)
+    _assert_grads_close((dq, dk, dv), want, dtype)
+    # padded keys get no gradient
+    assert dk[keep == 0].abs().max().item() == 0.0
+    assert dv[keep == 0].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("b,s,k,heads", [
+    (1, 512, 1536, 12),     # ERNIE q: hidden 1536, 12 heads of 128
+    (1, 512, 1536, 4),      # ERNIE k: 4 KV heads (N 512)
+    (1, 384, 2560, 20),     # ERNIE-A3B q: hidden 2560, 20 heads
+    (2, 200, 2560, 4)])     # ERNIE-A3B k, rows off the tile
+def test_matmul_rope_kernel_at_ernie_widths_matches_plain(dev, b, s, k,
+                                                          heads):
+    _, x, w, cos, sin = _rope_case(dev, torch.bfloat16, b, s, k, heads, 128)
+    before = ft.matmul_rope_raw.launches
+    got = ft.matmul_rope_raw(x, w, cos, sin, n_heads=heads, head_dim=128)
+    want = ft.matmul_rope_reference(x, w, cos, sin, heads, 128)
+    torch.cuda.synchronize()
+    assert ft.matmul_rope_raw.launches == before + 1
+    assert _rel(got, want) <= REL_TOL[torch.bfloat16], _rel(got, want)
+
+
+@pytest.mark.parametrize("tm", [128, 256])
+def test_grouped_kernels_at_64_experts_match_plain(dev, tm):
+    """ERNIE-A3B's expert FFN, cut in rows: 64 experts top-6 at H 2560,
+    F 1536 in bf16 (every expert a whole tile or more of padding):
+    #12, #11 (both transpose_w) and #13 against the plain versions."""
+    gen = torch.Generator(device=dev).manual_seed(23)
+    e, h, f = 64, 2560, 1536
+    xs, te, counts = _plan_rows(dev, gen, torch.bfloat16, t=512, k=6, e=e,
+                                h=h, tm=tm)
+    wg, wu = ((torch.randn(e, h, f, generator=gen, device=dev)
+               / h ** 0.5).to(torch.bfloat16) for _ in range(2))
+    wd = (torch.randn(e, f, h, generator=gen, device=dev)
+          / f ** 0.5).to(torch.bfloat16)
+    (hs,) = gm.gmm_glu_raw(xs, wg, wu, te, counts=counts)
+    (want_hs,) = gm.gmm_glu_reference(xs, wg, wu, te)
+    out = gm.gmm_raw(hs, wd, te, counts=counts)
+    want_out = gm.gmm_reference(hs, wd, te)
+    dx = gm.gmm_raw(out, wd, te, transpose_w=True, counts=counts)
+    want_dx = gm.gmm_reference(out, wd, te, transpose_w=True)
+    dw = gm.gmm_dw_raw(hs, out, te, counts, e)
+    want_dw = gm.gmm_dw_reference(hs, out, te, counts, e)
+    torch.cuda.synchronize()
+    for got, want in ((hs, want_hs), (out, want_out), (dx, want_dx),
+                      (dw, want_dw)):
+        assert _rel_l2(got, want) <= REL_TOL[torch.bfloat16], \
+            _rel_l2(got, want)
+    # the expert with no rows gets exactly zero dW
+    assert dw[2].abs().max().item() == 0.0

@@ -244,13 +244,17 @@ def test_fused_regions_refuse_tensors_off_the_cpu():
         ft.matmul_rope_raw(x, torch.zeros(64, 64, **m), cos, cos,
                            n_heads=4, head_dim=16)
     cos = torch.zeros(8, 64, **m)
-    with pytest.raises(NotImplementedError, match="interleaved"):
-        ft.matmul_rope_raw(x, torch.zeros(64, 128, **m), cos, cos,
-                           n_heads=2, head_dim=64, interleaved=True)
-    with pytest.raises(NotImplementedError, match="interleaved"):
-        ft.matmul_rope_raw(torch.zeros(2, 8, 64), torch.zeros(64, 128),
-                           torch.zeros(8, 64), torch.zeros(8, 64),
-                           n_heads=2, head_dim=64, interleaved=True)
+    # interleaved rope is the reference's own plain route on any device
+    # (its kernel declines it), chosen on the knob: no launch, no raise
+    before = ft.matmul_rope_raw.launches
+    out = ft.matmul_rope_raw(x, torch.zeros(64, 128, **m), cos, cos,
+                             n_heads=2, head_dim=64, interleaved=True)
+    assert out.shape == (2, 8, 2, 64) and out.device.type == "meta"
+    out = ft.matmul_rope_raw(torch.zeros(2, 8, 64), torch.zeros(64, 128),
+                             torch.zeros(8, 64), torch.zeros(8, 64),
+                             n_heads=2, head_dim=64, interleaved=True)
+    assert out.shape == (2, 8, 2, 64)
+    assert ft.matmul_rope_raw.launches == before
     with pytest.raises(ValueError, match="CUDA device"):
         ft.matmul_rope_raw(x, torch.zeros(64, 128, **m), cos, cos,
                            n_heads=2, head_dim=64)

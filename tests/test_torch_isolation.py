@@ -15,8 +15,15 @@ import torch
 
 from paddle_tpu_torch.common.errors import UnavailableError
 from paddle_tpu_torch.inference.engine import LLMEngine
+from paddle_tpu_torch.models.bert import BertForMaskedLM, bert_tiny_config
+from paddle_tpu_torch.models.dit import (AutoencoderKL, DiTWithDiffusion,
+                                         dit_tiny_config)
+from paddle_tpu_torch.models.ernie import (Ernie45ForCausalLM,
+                                           ernie45_tiny_config)
 from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt2_tiny_config
 from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_tiny_config
+from paddle_tpu_torch.nn.conv import Conv2D
+from paddle_tpu_torch.nn.norm import GroupNorm
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -59,3 +66,16 @@ def test_entry_points_default_to_the_gpu(no_cuda):
     with pytest.raises(UnavailableError, match="device='cpu'"):
         LLMEngine(model, max_len=64, page_size=8)
     LLMEngine(model, max_len=64, page_size=8, device="cpu")
+
+
+@pytest.mark.parametrize("make", [
+    lambda: Ernie45ForCausalLM(ernie45_tiny_config()),
+    lambda: DiTWithDiffusion(dit_tiny_config()),
+    lambda: AutoencoderKL(base=8, groups=4),
+    lambda: BertForMaskedLM(bert_tiny_config()),
+    lambda: Conv2D(3, 4, 3),
+    lambda: GroupNorm(2, 4)],
+    ids=["ernie", "dit", "vae", "bert", "conv2d", "group_norm"])
+def test_zoo_entry_points_default_to_the_gpu(no_cuda, make):
+    with pytest.raises(UnavailableError, match="device='cpu'"):
+        make()

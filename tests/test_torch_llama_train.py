@@ -245,9 +245,15 @@ def test_unknown_recompute_granularity_raises(gran):
 @pytest.mark.parametrize("setting", ["attention_bias", "rope_interleaved",
                                      "fuse_qkv"])
 def test_model_settings_outside_the_slice_raise(setting):
+    """The three attention knobs are ported (their parity with the
+    reference: ``test_torch_llama_options.py``); the one model knob left
+    outside the port, ``sequence_parallel``, raises in the forward."""
     cfg = LlamaConfig(**{**vars(llama_tiny_config()), setting: True})
+    m = LlamaForCausalLM(cfg, device="cpu")
+    assert m(torch.zeros(1, 4, dtype=torch.long)).shape == (1, 4, 256)
+    cfg.sequence_parallel = True
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LlamaForCausalLM(cfg, device="cpu")
+        m(torch.zeros(1, 4, dtype=torch.long))
 
 
 def test_trainer_and_optimizer_knobs_outside_the_slice_raise():
