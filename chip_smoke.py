@@ -557,6 +557,9 @@ def kernel_family(name):
                      ("flash_bwd_dkv", "flash_bwd_dkv"),
                      ("flash_dbias", "flash_dbias"),
                      ("fused_update", "fused_update"),
+                     # add_norm_bwd and add_norm_bwd_reduce before the
+                     # forward's add_norm_fwd
+                     ("add_norm_bwd", "add_norm_bwd"),
                      ("add_norm", "add_norm"),
                      ("matmul_rope", "matmul_rope"),
                      # grouped_matmul.cu, whatever the design: gmm_wgmma,
@@ -972,14 +975,121 @@ def rel_l2(got, want):
             / want.float().norm()).item()
 
 
+def host_us(torch, fn, calls=1000):
+    """Host microseconds a call of ``fn`` over ``calls`` calls, none
+    synchronised (a CPU timer; at a shape whose device time is below the
+    host's, so the launch queue never fills)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = 1e6 * (time.perf_counter() - t0) / calls
+    torch.cuda.synchronize()
+    return us
+
+
+def add_norm_bwd_row(torch, table, name, fwd, h, w, b, dh, dy, eps, tol):
+    """The add+norm backward kernel (``add_norm_bwd`` + its partials'
+    ``add_norm_bwd_reduce``) on the forward kernel's h, held against the
+    plain backward (dx, dw, db within ``tol`` relative L2; dw and db the
+    same bits on a second call), timed, traced and bounded: h, dy, dh
+    (when given) and the weight read, dx, dw (and db) written.  The
+    library figure is ``native_layer_norm_backward`` for the LayerNorm
+    body, from h with its statistics; RMSNorm's is
+    ``_fused_rms_norm_backward`` where this PyTorch has it."""
+    from paddle_tpu_torch.ops import fused_train as ft
+    ln = fwd == "add_layer_norm"
+    if ln:
+        def run():
+            return ft.add_layer_norm_backward_raw(h, w, b, dh, dy, eps)
+
+        def plain():
+            return ft.add_layer_norm_backward_reference(h, w, b, dh, dy, eps)
+    else:
+        def run():
+            return ft.add_rms_norm_backward_raw(h, w, dh, dy, eps)
+
+        def plain():
+            return ft.add_rms_norm_backward_reference(h, w, dh, dy, eps)
+    got, again, want = run(), run(), plain()
+    torch.cuda.synchronize()
+    errs = {k: rel_l2(g, wn) for k, g, wn in zip(("dx", "dw", "db"), got,
+                                                 want) if wn is not None}
+    same = all(torch.equal(g, a) for g, a in zip(got[1:], again[1:])
+               if g is not None)
+    check(all(e <= tol for e in errs.values()),
+          f"{name} off its plain version: relative L2 {errs}")
+    check(same, f"{name}: dw / db differ between two calls")
+    n, hdim = h.numel(), h.shape[-1]
+    el, ew = h.element_size(), w.element_size()
+    n_bytes = (n * (2 * el + dy.element_size() + (el if dh is not None
+                                                  else 0))
+               + hdim * ew * (2 + (b is not None)))
+    bound, bound_by = bound_ms(n_bytes, (16 if ln else 12) * n,
+                               peak=PEAK_F32_FLOPS)
+    library, note = None, None
+    if ln:
+        _, mean, rstd = torch.ops.aten.native_layer_norm(h, [hdim], w, b,
+                                                         eps)
+        dyl = dy.to(h.dtype)
+
+        def lib_call():
+            torch.ops.aten.native_layer_norm_backward(
+                dyl, h, [hdim], mean, rstd, w, b, [True, True, b is not None])
+        library = timed_ms(torch, lib_call, 20)
+        note = ("torch.ops.aten.native_layer_norm_backward from h and its "
+                "mean and rstd (dx, dw, db; no dh added)")
+    else:
+        rms_bwd = getattr(torch.ops.aten, "_fused_rms_norm_backward", None)
+        try:
+            _, rstd = torch.ops.aten._fused_rms_norm(h, [hdim], w, eps)
+            dyl = dy.to(h.dtype)
+
+            def lib_call():
+                rms_bwd(dyl, h, [hdim], rstd, w, [True, True])
+            lib_call()
+            library = timed_ms(torch, lib_call, 20)
+            note = ("torch.ops.aten._fused_rms_norm_backward from h and "
+                    "its rstd (dx, dw; no dh added)")
+        except (AttributeError, NotImplementedError, RuntimeError,
+                TypeError) as e:
+            note = (f"no PyTorch call computes RMSNorm's backward here "
+                    f"({type(e).__name__})")
+    row = {"name": name, "route": "cuda",
+           "source": "paddle_tpu_torch/csrc/add_norm.cu",
+           "replaces": "paddle_tpu/ops/pallas/fused_train.py:322",
+           "launches": None,
+           "max_abs_err": (got[0].float() - want[0].float()).abs().max()
+           .item(),
+           "ms": timed_ms(torch, run, 20),
+           "device_ms": traced_kernel(torch, run, "add_norm_bwd")[
+               "device_ms"],
+           "plain_ms": timed_ms(torch, plain, 5),
+           "bound_ms": bound, "bound_by": bound_by, "library_ms": library}
+    emit({"phase": "kernel", **row, "body": fwd, "shape": list(h.shape),
+          "dtype": str(h.dtype), "dh": dh is not None, "rel_l2_err": errs,
+          "dw_db_bitwise_repeat": same, "tolerance": {"rel_l2_err": tol},
+          "host_us": host_us(torch, lambda: (ft.add_layer_norm_backward_raw(
+              h[:1, :8], w, b, None, dy[:1, :8], eps) if ln else
+              ft.add_rms_norm_backward_raw(h[:1, :8], w, None, dy[:1, :8],
+                                           eps))),
+          "library_note": note})
+    table[name] = row
+    del got, again, want
+
+
 def add_norm_kernel(torch, gen, dev, table):
-    """The add+norm kernel (#9) at its paths' shapes: the RMS body at the
-    Llama training path's post-attention residual add, x (the attention
-    output) and r (the residual) [1, 8192, 4096] bf16, w [4096] bf16 (h
-    equal to its plain version, y within 2^-7 relative L2); the
-    LayerNorm body with a bias at the post-norm encoder layer's shape
-    (``encoder_bias``), [8, 1024, 768] f32 (h equal, y within 1e-5
-    relative L2)."""
+    """The add+norm kernel (#9) at its paths' shapes, forward and
+    backward: the RMS body at the Llama training path's post-attention
+    residual add, x (the attention output) and r (the residual) [1, 8192,
+    4096] bf16, w [4096] bf16 (h equal to its plain version, y within
+    2^-7 relative L2; the backward with h's own gradient, as the residual
+    stream carries it); the LayerNorm body with a bias at the post-norm
+    encoder layer's shape (``encoder_bias``), [8, 1024, 768] f32 (h
+    equal, y within 1e-5 relative L2; the backward without dh: the layer
+    drops h).  ``host_us``: the wrapper's host time a call at a one-block
+    shape."""
     from paddle_tpu_torch.ops import fused_train as ft
     for name, shape, dt, tol in (
             ("add_rms_norm", (1, TRAIN_SEQ, 4096), torch.bfloat16,
@@ -999,6 +1109,9 @@ def add_norm_kernel(torch, gen, dev, table):
 
             def plain():
                 return ft.add_rms_norm_reference(x, r, w, 1e-5)
+
+            def small():
+                return ft.add_rms_norm_raw(x[:, :8], r[:, :8], w, 1e-5)
         else:
             vectors, flops = 2, 9
 
@@ -1007,6 +1120,10 @@ def add_norm_kernel(torch, gen, dev, table):
 
             def plain():
                 return ft.add_layer_norm_reference(x, r, w, b, 1e-5)
+
+            def small():
+                return ft.add_layer_norm_raw(x[:1, :8], r[:1, :8], w, b,
+                                             1e-5)
         n, el = x.numel(), x.element_size()
         (h, y), (want_h, want_y) = run(), plain()
         torch.cuda.synchronize()
@@ -1029,10 +1146,18 @@ def add_norm_kernel(torch, gen, dev, table):
         emit({"phase": "kernel", **row, "body": name, "shape": list(shape),
               "dtype": str(dt), "rel_l2_err": err, "h_equal": True,
               "tolerance": {"rel_l2_err": tol},
+              "host_us": host_us(torch, small),
               "library_note": "no single PyTorch call adds the residual "
                               "and normalises"})
         table[row["name"]] = row
-        del x, r, h, y, want_h, want_y
+        del x, r, want_h, want_y
+        dy = torch.randn(shape, generator=gen, device=dev, dtype=y.dtype)
+        rms = name == "add_rms_norm"
+        dh = torch.randn(shape, generator=gen, device=dev, dtype=dt) \
+            if rms else None
+        add_norm_bwd_row(torch, table, row["name"] + "_bwd", name, h, w,
+                         None if rms else b, dh, dy, 1e-5, tol)
+        del h, y, dy, dh
 
 
 def matmul_rope_kernel(torch, np, gen, dev, table):
@@ -1166,7 +1291,8 @@ def train_phase(torch, np, dev, table, *, phase, layers, fused):
     # of the 7 projections of a layer, the embedding and the head, and
     # once for the packed norm weights.  Under core_attn the recompute
     # reruns the add+norm and the q and k matmul+rope kernels of every
-    # layer, but not the flash forward (its output is kept).
+    # layer, but not the flash forward (its output is kept); the add+norm
+    # backward runs once a layer.
     counters = {
         "flash_attention_fwd": (fa.flash_attention_fwd, layers),
         "flash_attention_bwd_dq": (fa.flash_attention_bwd_dq, layers),
@@ -1174,6 +1300,7 @@ def train_phase(torch, np, dev, table, *, phase, layers, fused):
         "fused_update": (ft.fused_update_flat, 7 * layers + 3)}
     if fused:
         counters["add_norm"] = (ft.add_rms_norm_raw, 2 * layers)
+        counters["add_norm_bwd"] = (ft.add_rms_norm_backward_raw, layers)
         counters["matmul_rope"] = (ft.matmul_rope_raw, 4 * layers)
     torch.cuda.reset_peak_memory_stats()
     for fn, _ in counters.values():
@@ -1231,6 +1358,8 @@ def train_phase(torch, np, dev, table, *, phase, layers, fused):
     emit({"phase": f"{phase}_profile", **prof})
     check_tensor_core_route(prof, phase, FLASH_FAMILIES + (
         ("matmul_rope",) if fused else ()))
+    check(not fused or prof["kernel_count_by_family"].get("add_norm_bwd"),
+          f"{phase}: the add+norm backward kernel was not traced")
 
 
 FLASH_FAMILIES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
@@ -4908,8 +5037,9 @@ def encoder_run(torch, dev, activation, counters=None, trace=False):
 def encoder_bias_phase(torch, dev, table):
     """The post-norm ``TransformerEncoderLayer`` with a trained bias
     (``encoder_run``), at the layer's default ReLU: the add+norm kernel's
-    LayerNorm body (#9, twice: norm1 and norm2), the flash forward, dQ,
-    dK/dV and the bias gradient (#2-#5, once each) launch; #5's result
+    LayerNorm body (#9, twice: norm1 and norm2, and its backward twice),
+    the flash forward, dQ, dK/dV and the bias gradient (#2-#5, once each)
+    launch; #5's result
     is held within 1e-5 (relative L2) of its plain version on exactly
     the tensors the layer's backward gave it.  The layer's dbias is held
     against the plain composition's within 1e-5 where no ReLU derivative
@@ -4925,11 +5055,13 @@ def encoder_bias_phase(torch, dev, table):
     from paddle_tpu_torch.ops import fused_train as ft
     e, h, s, b = GPT_WIDTH, GPT_HEADS, GPT_SEQ, GPT_BATCH
     counters = {"add_layer_norm": ft.add_layer_norm_raw,
+                "add_layer_norm_bwd": ft.add_layer_norm_backward_raw,
                 "flash_attention_fwd": fa.flash_attention_fwd,
                 "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
                 "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
                 "flash_attention_dbias": fa.flash_attention_bwd_dbias}
-    expect = {"add_layer_norm": 2, "flash_attention_fwd": 1,
+    expect = {"add_layer_norm": 2, "add_layer_norm_bwd": 2,
+              "flash_attention_fwd": 1,
               "flash_attention_bwd_dq": 1, "flash_attention_bwd_dkv": 1,
               "flash_attention_dbias": 1}
     relu = encoder_run(torch, dev, "relu", counters)
@@ -4993,6 +5125,7 @@ def encoder_bias_phase(torch, dev, table):
     table["flash_attention_dbias"]["launches"] = \
         launches["flash_attention_dbias"]
     table["add_layer_norm"]["launches"] = launches["add_layer_norm"]
+    table["add_layer_norm_bwd"]["launches"] = launches["add_layer_norm_bwd"]
 
 
 # -- the training loop's state: schedule, clip tap, timer, checkpoints,
@@ -5573,7 +5706,8 @@ def zoo_kernels(torch, np, gen, dev, table):
       (group 5), BERT's [16, 512, 12, 64] bf16 with the [16, 1, 1, 512]
       padding bias and dropout 0.1, and DiT-L/2's [16, 256, 16, 64] f32
       (the reference's amp O2 leaves DiT's blocks in f32);
-    - #9's LayerNorm body in bf16 at BERT's [16, 512, 768];
+    - #9's LayerNorm body in bf16 at BERT's [16, 512, 768], forward and
+      backward (no dh: BERT drops h);
     - #10 at ERNIE's q [16384 x 1536] x [1536 x 1536] and k [1536 x 512],
       and at ERNIE-A3B's hidden 2560 (20 heads; k 4 heads);
     - #11-#13 at ERNIE-A3B's experts: 8192 tokens top-6 of 64 experts,
@@ -5646,11 +5780,19 @@ def zoo_kernels(torch, np, gen, dev, table):
     emit({"phase": "kernel", **table["add_layer_norm_bf16"],
           "shape": list(shape), "dtype": "bfloat16", "rel_l2_err": err,
           "h_equal": True, "tolerance": {"rel_l2_err": REL_L2_TOL},
+          "host_us": host_us(torch, lambda: ft.add_layer_norm_raw(
+              x[:1, :8], r[:1, :8], w, bb, 1e-12)),
           "library_note": "no single PyTorch call adds the residual and "
                           "normalises; composed_ms: x + r, then "
                           "torch.nn.functional.layer_norm"})
     src["add_layer_norm_bf16"] = "add_layer_norm"
-    del x, r, hh, y, want_h, want_y
+    del x, r, want_h, want_y
+    # its backward as BERT runs it: h dropped, so no dh
+    add_norm_bwd_row(torch, table, "add_layer_norm_bf16_bwd",
+                     "add_layer_norm", hh, w, bb, None, rnd(*shape), 1e-12,
+                     REL_L2_TOL)
+    src["add_layer_norm_bf16_bwd"] = "add_layer_norm_bwd"
+    del hh, y
 
     # #10 at ERNIE's and ERNIE-A3B's widths, tables in bf16 as amp O2
     # leaves them
@@ -6202,7 +6344,8 @@ def train_bert_phase(torch, np, dev, table, src):
     row padded (attention_mask 0) and 15 % of the rest predicted.  A
     step launches #2-#4 once a layer (16-bit D 64 with the [B, 1, 1, S]
     padding bias and dropout inside the kernels) and #9's LayerNorm body
-    twice a layer (the post-norm residuals)."""
+    twice a layer (the post-norm residuals) with its backward kernel once
+    a call."""
     from paddle_tpu_torch import amp, optimizer
     from paddle_tpu_torch.jit.train import CompiledTrainStep
     from paddle_tpu_torch.models.bert import BertConfig, BertForMaskedLM
@@ -6237,6 +6380,7 @@ def train_bert_phase(torch, np, dev, table, src):
         "flash_attention_bwd_dq": (fa.flash_attention_bwd_dq, layers),
         "flash_attention_bwd_dkv": (fa.flash_attention_bwd_dkv, layers),
         "add_layer_norm": (ft.add_layer_norm_raw, 2 * layers),
+        "add_layer_norm_bwd": (ft.add_layer_norm_backward_raw, 2 * layers),
         "fused_update": (ft.fused_update_flat, update_launches(params))}
     res = zoo_train(torch, step, batch, counters, ZOO_STEPS)
     flops = step.step_flops(batch)
@@ -6264,9 +6408,13 @@ def train_bert_phase(torch, np, dev, table, src):
         "flash_attention_bwd_dkv")}, res["launches"])
     table["add_layer_norm_bf16"]["launches"] = \
         res["launches"]["add_layer_norm"]
+    table["add_layer_norm_bf16_bwd"]["launches"] = \
+        res["launches"]["add_layer_norm_bwd"]
     _, prof = profiled(torch, lambda: step(batch))
     emit({"phase": "train_bert_profile", **prof})
     check_tensor_core_route(prof, "train_bert", FLASH_FAMILIES)
+    check(prof["kernel_count_by_family"].get("add_norm_bwd"),
+          "train_bert: the add+norm backward kernel was not traced")
     del model, step, batch
     gc.collect()
     torch.cuda.empty_cache()
@@ -6688,9 +6836,10 @@ def main() -> int:
         "flash_attention_fwd_dropout", "flash_attention_fwd_f32_prefill",
         "flash_attention_bwd_dq_dropout", "flash_attention_bwd_dkv_dropout",
         "flash_attention_dbias", "fused_update", "add_norm",
-        "add_layer_norm", "matmul_rope", "grouped_matmul",
-        "grouped_matmul_f32_rows", "grouped_matmul_f32_rows_down",
-        "grouped_matmul_f32_rows_decode", "grouped_matmul_glu",
+        "add_norm_bwd", "add_layer_norm", "add_layer_norm_bwd",
+        "matmul_rope", "grouped_matmul", "grouped_matmul_f32_rows",
+        "grouped_matmul_f32_rows_down", "grouped_matmul_f32_rows_decode",
+        "grouped_matmul_glu",
         "grouped_matmul_glu_hs", "grouped_matmul_dw", "paged_attention",
         "paged_decode_append_attend", "ragged_paged_append_attend_int8",
         "ragged_paged_append_attend_float32_q_bfloat16_pools",

@@ -21,9 +21,10 @@ and Adam with L2 decay or AdamW with decoupled decay, all in f32.
 immutable, it updates the parameter and its slots in place: an 8B-wide
 model cannot hold a second copy of its optimizer state.
 
-Add + norm and matmul + rope are differentiable: their backward is the
-reference math in plain PyTorch, as the reference's ``custom_vjp``
-rules are (it has no backward kernel for either).
+Add + norm and matmul + rope are differentiable.  The add + norm
+backward is a kernel too (``add_norm_bwd``), beside its plain version,
+the reference's ``custom_vjp`` rule in closed form; matmul + rope's is
+the reference math in plain PyTorch around cuBLAS.
 """
 from __future__ import annotations
 
@@ -40,8 +41,10 @@ from . import flops as _flops
 __all__ = ["SLOT_KEYS", "fused_update_flat", "fused_update_reference",
            "update_flop_estimate", "add_rms_norm_reference",
            "add_layer_norm_reference", "add_rms_norm_raw",
-           "add_layer_norm_raw", "matmul_rope_reference", "matmul_rope_raw",
-           "qkv_rope_raw"]
+           "add_layer_norm_raw", "add_rms_norm_backward_reference",
+           "add_layer_norm_backward_reference", "add_rms_norm_backward_raw",
+           "add_layer_norm_backward_raw", "matmul_rope_reference",
+           "matmul_rope_raw", "qkv_rope_raw"]
 
 SLOT_KEYS = {"sgd": (), "momentum": ("velocity",),
              "adam": ("moment1", "moment2")}
@@ -223,22 +226,87 @@ def add_layer_norm_reference(x, residual, weight, bias, epsilon=1e-5):
     return h, _nn.layer_norm(h, h.shape[-1], weight, bias, epsilon)
 
 
+def _norm_backward_plain(h, weight, bias, dh, dy, epsilon, ln):
+    """(dx, dw, db) of ``(h, y) = add_norm(x, r, w, b)`` from h: the VJP
+    of the plain chain in closed form, keeping its roundings where they
+    fall on a 16-bit tensor -- ``dy * w`` in the product's dtype, then
+    rounded to h's (the gradient reaching the normalised value, which
+    the forward rounded to h's dtype); the gradient reaching h rounded
+    to h's dtype before ``dh`` is added; ``dw`` the row sum of ``dy *
+    round(n)`` in dy's dtype.  Statistics and the rest in f32."""
+    t = h.dtype
+    hf = h.float()
+    d = hf - hf.mean(-1, keepdim=True) if ln else hf
+    rstd = torch.rsqrt(d.square().mean(-1, keepdim=True) + epsilon)
+    n = (d * rstd).to(t)
+    g = (dy if weight is None else dy * weight).to(t).float()
+    k = -(g * d).sum(-1, keepdim=True) * rstd.pow(3) / h.shape[-1]
+    gh = g * rstd + d * k
+    if ln:
+        gh = gh - gh.mean(-1, keepdim=True)
+    dx = gh.to(t)
+    if dh is not None:
+        dx = dx + dh
+    rows = tuple(range(dy.dim() - 1))
+    dw = None if weight is None else (dy * n).sum(rows).to(weight.dtype)
+    db = None if bias is None else dy.sum(rows).to(bias.dtype)
+    return dx, dw, db
+
+
+def add_rms_norm_backward_reference(h, weight, dh, dy, epsilon=1e-6):
+    """Plain backward of :func:`add_rms_norm_raw` from its output h:
+    returns ``(dx, dw, None)``, dx the gradient of both x and residual;
+    ``dh`` (h's own gradient) may be None."""
+    return _norm_backward_plain(h, weight, None, dh, dy, epsilon, False)
+
+
+def add_layer_norm_backward_reference(h, weight, bias, dh, dy,
+                                      epsilon=1e-5):
+    """Plain backward of :func:`add_layer_norm_raw` from its output h:
+    returns ``(dx, dw, db)`` (db None without a bias)."""
+    return _norm_backward_plain(h, weight, bias, dh, dy, epsilon, True)
+
+
+_norm_lib = None
+_bwd_blocks: Dict[tuple, int] = {}
+# the current stream's raw handle without building a Stream object
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def _norm_kernel() -> ctypes.CDLL:
-    lib = _build.load(_NORM_SOURCE)
-    fn = lib.add_norm
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [
+    global _norm_lib
+    if _norm_lib is None:
+        lib = _build.load(_NORM_SOURCE)
+        lib.add_norm.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [
             ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        lib.add_norm_bwd_blocks.argtypes = [ctypes.c_int] * 5 + [
+            ctypes.c_longlong, ctypes.c_int]
+        lib.add_norm_bwd.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        for fn in (lib.add_norm, lib.add_norm_bwd_blocks, lib.add_norm_bwd):
+            fn.restype = ctypes.c_int
         lib.add_norm_error_string.argtypes = [ctypes.c_int]
         lib.add_norm_error_string.restype = ctypes.c_char_p
-    return lib
+        _norm_lib = lib
+    return _norm_lib
 
 
-def _add_norm_launch(x, residual, weight, bias, epsilon, ln):
-    """(h, y) from the kernel of ``csrc/add_norm.cu``; raises on what it
-    does not take."""
+def _launch(x, launch):
+    """Run ``launch(stream)`` on x's device and current stream; the
+    device is switched only when it is not the current one."""
+    idx = x.get_device()
+    if idx == torch.cuda.current_device():
+        return launch(_raw_stream(idx) if _raw_stream is not None else
+                      torch.cuda.current_stream(idx).cuda_stream)
+    with torch.cuda.device(idx):
+        return launch(torch.cuda.current_stream(idx).cuda_stream)
+
+
+def _add_norm_refuse(x, residual, weight, bias, ln):
+    """Raise on what the kernel does not take (the checks, with their
+    messages, behind one cheap test in the launch)."""
     kind = "add_layer_norm" if ln else "add_rms_norm"
     if weight is None:
         raise NotImplementedError(f"the {kind} kernel needs a weight")
@@ -261,28 +329,43 @@ def _add_norm_launch(x, residual, weight, bias, epsilon, ln):
     enforce(x.device.type == "cuda" and all(t.device == x.device
                                             for t in ops),
             f"{kind} arguments must share one CUDA device")
-    x, residual, weight = (t.contiguous() for t in (x, residual, weight))
+    raise AssertionError(f"{kind}: operands the kernel takes were refused")
+
+
+def _add_norm_launch(x, residual, weight, bias, epsilon, ln):
+    """(h, y) from the kernel of ``csrc/add_norm.cu``; raises on what it
+    does not take."""
+    hdim = x.shape[-1]
+    dev = x.device
+    if not (weight is not None and x.dtype in _NORM_DTYPE
+            and weight.dtype in _NORM_DTYPE and 0 < hdim <= _NORM_MAX_H
+            and dev.type == "cuda" and residual.shape == x.shape
+            and residual.dtype == x.dtype and residual.device == dev
+            and weight.shape == (hdim,) and weight.device == dev
+            and (bias is None or (bias.shape == (hdim,) and bias.device == dev
+                                  and bias.dtype == weight.dtype))):
+        _add_norm_refuse(x, residual, weight, bias, ln)
+    x, residual, weight = x.contiguous(), residual.contiguous(), \
+        weight.contiguous()
     bias = None if bias is None else bias.contiguous()
     h = torch.empty_like(x)
-    y = torch.empty(x.shape, device=x.device,
-                    dtype=torch.promote_types(x.dtype, weight.dtype))
+    y = torch.empty_like(x, dtype=torch.promote_types(x.dtype, weight.dtype))
     rows = x.numel() // hdim
     if rows == 0:
         return h, y
-    operands = [x, residual, weight, h, y] + ([] if bias is None
-                                              else [bias])
-    vec = 8 if hdim % 8 == 0 and all(t.data_ptr() % 16 == 0
-                                     for t in operands) else 1
+    bp = 0 if bias is None else bias.data_ptr()
+    ptrs = (x.data_ptr(), residual.data_ptr(), weight.data_ptr(), bp,
+            h.data_ptr(), y.data_ptr())
+    vec = 1 if hdim % 8 or (ptrs[0] | ptrs[1] | ptrs[2] | bp | ptrs[4]
+                            | ptrs[5]) & 15 else 8
     lib = _norm_kernel()
-    with torch.cuda.device(x.device):
-        err = lib.add_norm(
-            int(ln), x.data_ptr(), residual.data_ptr(), weight.data_ptr(),
-            None if bias is None else bias.data_ptr(), h.data_ptr(),
-            y.data_ptr(), rows, hdim, float(epsilon), _NORM_DTYPE[x.dtype],
-            _NORM_DTYPE[weight.dtype], vec,
-            torch.cuda.current_stream(x.device).cuda_stream)
+    err = _launch(x, lambda s: lib.add_norm(
+        int(ln), ptrs[0], ptrs[1], ptrs[2], bp or None, ptrs[4], ptrs[5],
+        rows, hdim, epsilon, _NORM_DTYPE[x.dtype], _NORM_DTYPE[weight.dtype],
+        vec, s))
     if err:
-        raise RuntimeError(f"{kind} launch failed: "
+        raise RuntimeError(("add_layer_norm" if ln else "add_rms_norm")
+                           + " launch failed: "
                            + lib.add_norm_error_string(err).decode())
     (add_layer_norm_raw if ln else add_rms_norm_raw).launches += 1
     return h, y
@@ -294,31 +377,105 @@ def _add_norm_plain(x, residual, weight, bias, epsilon, ln):
     return add_rms_norm_reference(x, residual, weight, epsilon)
 
 
+def _add_norm_bwd_launch(h, weight, bias, dh, dy, epsilon, ln):
+    """(dx, dw, db) from the backward kernels of ``csrc/add_norm.cu``
+    (``add_norm_bwd``, then ``add_norm_bwd_reduce`` summing the blocks'
+    dw and db partials in a fixed order); raises on what they do not
+    take.  h, weight and bias are the forward's, which checked them."""
+    kind = "add_layer_norm" if ln else "add_rms_norm"
+    hdim = h.shape[-1]
+    out_dt = torch.promote_types(h.dtype, weight.dtype)
+    if not (dy.shape == h.shape and dy.dtype == out_dt
+            and dy.device == h.device and (dh is None or (
+                dh.shape == h.shape and dh.dtype == h.dtype
+                and dh.device == h.device))):
+        raise ValueError(
+            f"{kind} backward: dy must be {tuple(h.shape)} {out_dt} and dh "
+            f"{h.dtype} on {h.device}, not {tuple(dy.shape)} {dy.dtype} on "
+            f"{dy.device} and {None if dh is None else (dh.dtype, dh.device)}")
+    dy = dy.contiguous()
+    dh = None if dh is None else dh.contiguous()
+    dx = torch.empty_like(h)
+    dw = torch.empty_like(weight)
+    db = None if bias is None else torch.empty_like(bias)
+    rows = h.numel() // hdim
+    if rows == 0:
+        return dx, dw.zero_(), None if db is None else db.zero_()
+    hp = 0 if dh is None else dh.data_ptr()
+    ptrs = (h.data_ptr(), dy.data_ptr(), weight.data_ptr(), dx.data_ptr())
+    vec = 1 if hdim % 8 or (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3] | hp) & 15 \
+        else 8
+    lib = _norm_kernel()
+    codes = (_NORM_DTYPE[h.dtype], _NORM_DTYPE[weight.dtype])
+    key = (h.get_device(), ln, db is not None, codes, vec, rows, hdim)
+    blocks = _bwd_blocks.get(key)
+    if blocks is None:
+        blocks = _launch(h, lambda s: lib.add_norm_bwd_blocks(
+            int(ln), int(db is not None), *codes, vec, rows, hdim))
+        if blocks <= 0:
+            raise RuntimeError(f"{kind} backward: no grid: "
+                               + lib.add_norm_error_string(-blocks).decode())
+        _bwd_blocks[key] = blocks
+    part = torch.empty((1 if db is None else 2) * blocks * hdim,
+                       dtype=torch.float32, device=h.device)
+    err = _launch(h, lambda s: lib.add_norm_bwd(
+        int(ln), ptrs[0], ptrs[1], hp or None, ptrs[2], ptrs[3],
+        part.data_ptr(), dw.data_ptr(),
+        None if db is None else db.data_ptr(), rows, hdim, epsilon, *codes,
+        vec, blocks, s))
+    if err:
+        raise RuntimeError(f"{kind} backward launch failed: "
+                           + lib.add_norm_error_string(err).decode())
+    (add_layer_norm_backward_raw if ln
+     else add_rms_norm_backward_raw).launches += 1
+    return dx, dw, db
+
+
+def _add_norm_backward(h, weight, bias, dh, dy, epsilon, ln):
+    if h.device.type == "cpu":
+        return _norm_backward_plain(h, weight, bias, dh, dy, epsilon, ln)
+    return _add_norm_bwd_launch(h, weight, bias, dh, dy, epsilon, ln)
+
+
 class _AddNorm(torch.autograd.Function):
-    """The kernel (CUDA) or the plain version (CPU) forward; the
-    backward differentiates the plain version from the saved inputs, as
-    the reference's ``_add_rms_bwd`` / ``_add_ln_bwd`` do."""
+    """The kernel (CUDA) or the plain version (CPU), forward and
+    backward.  The backward reads the forward's output h (not x and the
+    residual) with the weight and bias; h's gradient is None when h is
+    unused, so none is read."""
 
     @staticmethod
     def forward(ctx, x, residual, weight, bias, epsilon, ln):
-        ctx.save_for_backward(x, residual, weight, bias)
-        ctx.cfg = (epsilon, ln)
+        ctx.set_materialize_grads(False)
         if x.device.type == "cpu":
-            return _add_norm_plain(x, residual, weight, bias, epsilon, ln)
-        return _add_norm_launch(x, residual, weight, bias, epsilon, ln)
+            h, y = _add_norm_plain(x, residual, weight, bias, epsilon, ln)
+        else:
+            h, y = _add_norm_launch(x, residual, weight, bias, epsilon, ln)
+        ctx.save_for_backward(h, weight, bias)
+        ctx.cfg = (epsilon, ln)
+        return h, y
 
     @staticmethod
     def backward(ctx, dh, dy):
-        need = ctx.needs_input_grad[:4]
-        with torch.enable_grad():
-            ins = [None if t is None else t.detach().requires_grad_(r)
-                   for t, r in zip(ctx.saved_tensors, need)]
-            outs = _add_norm_plain(*ins, *ctx.cfg)
-            wrt = [t for t, r in zip(ins, need) if r]
-            grads = iter(torch.autograd.grad(outs, wrt, (dh, dy),
-                                             allow_unused=True))
-        return tuple(next(grads) if r else None for r in need) + (None,
-                                                                 None)
+        h, weight, bias = ctx.saved_tensors
+        if dy is None:
+            dx, dw, db = dh, None, None
+        else:
+            dx, dw, db = _add_norm_backward(h, weight, bias, dh, dy,
+                                            *ctx.cfg)
+        need = ctx.needs_input_grad
+        return (dx if need[0] else None, dx if need[1] else None,
+                dw if need[2] else None, db if need[3] else None, None,
+                None)
+
+
+def _add_norm(x, residual, weight, bias, epsilon, ln):
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, residual, weight, bias)):
+        return _AddNorm.apply(x, residual, weight, bias, epsilon, ln)
+    if x.device.type == "cpu":
+        return _add_norm_plain(x, residual, weight, bias, epsilon, ln)
+    return _add_norm_launch(x, residual, weight, bias, epsilon, ln)
 
 
 def add_rms_norm_raw(x, residual, weight, epsilon=1e-6):
@@ -326,18 +483,37 @@ def add_rms_norm_raw(x, residual, weight, epsilon=1e-6):
     ``h = residual + x`` and ``y = rms_norm(h, weight)``, y in the
     promoted dtype of x and weight.  On CUDA tensors one launch of the
     kernel of ``csrc/add_norm.cu`` (float32/bfloat16, rows of up to 8192,
-    a weight; other inputs raise); on CPU tensors the plain version."""
-    return _AddNorm.apply(x, residual, weight, None, float(epsilon), False)
+    a weight; other inputs raise), and its backward one call of
+    :func:`add_rms_norm_backward_raw`; on CPU tensors the plain
+    versions."""
+    return _add_norm(x, residual, weight, None, float(epsilon), False)
 
 
 def add_layer_norm_raw(x, residual, weight, bias, epsilon=1e-5):
     """Fused residual add + last-axis LayerNorm: returns ``(h, y)``.
     Same dispatch as :func:`add_rms_norm_raw`; ``bias`` may be None."""
-    return _AddNorm.apply(x, residual, weight, bias, float(epsilon), True)
+    return _add_norm(x, residual, weight, bias, float(epsilon), True)
+
+
+def add_rms_norm_backward_raw(h, weight, dh, dy, epsilon=1e-6):
+    """The backward of :func:`add_rms_norm_raw` from its output h:
+    ``(dx, dw, None)``, dx the gradient of x and of the residual, ``dh``
+    h's own gradient or None.  On CUDA tensors one call of the backward
+    kernels of ``csrc/add_norm.cu`` (counted once); on CPU tensors
+    :func:`add_rms_norm_backward_reference`."""
+    return _add_norm_backward(h, weight, None, dh, dy, float(epsilon),
+                              False)
+
+
+def add_layer_norm_backward_raw(h, weight, bias, dh, dy, epsilon=1e-5):
+    """The backward of :func:`add_layer_norm_raw`: ``(dx, dw, db)``."""
+    return _add_norm_backward(h, weight, bias, dh, dy, float(epsilon), True)
 
 
 add_rms_norm_raw.launches = 0
 add_layer_norm_raw.launches = 0
+add_rms_norm_backward_raw.launches = 0
+add_layer_norm_backward_raw.launches = 0
 
 
 # ---------------------------------------------------------------------------

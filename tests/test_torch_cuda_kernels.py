@@ -36,7 +36,11 @@ f32 1e-5 (row statistics and products summed in another order), bf16
 2^-7 (one bf16 step at the largest element's binade: a sum in another
 order can cross a rounding edge).  For y the dtype that counts is h's:
 the normalised value is rounded to it before the scale, so a bf16 h
-gives an f32 y bf16 steps too.  The bf16 grouped matmul #11 (both
+gives an f32 y bf16 steps too.  Its backward kernel's dx, dw and db are
+held to the plain backward by relative L2 (f32 1e-5, 16-bit 2^-7) at
+every width layout, with and without h's own gradient, and dw and db
+must give the same bits on two launches; through autograd a CUDA
+tensor never reaches the plain backward.  The bf16 grouped matmul #11 (both
 transpose_w) and its dW #13 (tensor cores, TMA-fed) are held to 2^-7
 relative L2 at Qwen1.5-MoE's training widths cut in rows (spread and
 hot-expert routes, an empty expert whose dW must be exactly zero), at a
@@ -821,11 +825,15 @@ def _rel(got, want):
             / want.float().abs().max()).item()
 
 
-@pytest.mark.parametrize("hdim", [64, 100, 4096, 8192])
-@pytest.mark.parametrize("xdt,wdt", [
-    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
-    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)],
-    ids=str)
+NORM_PAIRS = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+              (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)]
+# H 64 and 768 take a warp a row, 4096 a warpgroup, 8192 the block, 100
+# the one-element path
+NORM_WIDTHS = [64, 100, 768, 4096, 8192]
+
+
+@pytest.mark.parametrize("hdim", NORM_WIDTHS)
+@pytest.mark.parametrize("xdt,wdt", NORM_PAIRS, ids=str)
 @pytest.mark.parametrize("body", ["rms", "ln", "ln_bias"])
 def test_add_norm_kernel_matches_plain(dev, body, xdt, wdt, hdim):
     """Both bodies, with and without bias, every dtype pair; H 100 takes
@@ -850,6 +858,94 @@ def test_add_norm_kernel_matches_plain(dev, body, xdt, wdt, hdim):
     assert y.dtype == want_y.dtype == torch.promote_types(xdt, wdt)
     # the normalised value is rounded to h's dtype before the scale
     assert _rel(y, want_y) <= REL_TOL[xdt], _rel(y, want_y)
+
+
+def _rel_l2(got, want):
+    return ((got.float() - want.float()).norm()
+            / want.float().norm().clamp(min=1e-30)).item()
+
+
+@pytest.mark.parametrize("with_dh", [True, False], ids=["dh", "no_dh"])
+@pytest.mark.parametrize("hdim", NORM_WIDTHS)
+@pytest.mark.parametrize("xdt,wdt", NORM_PAIRS, ids=str)
+@pytest.mark.parametrize("body", ["rms", "ln", "ln_bias"])
+def test_add_norm_backward_kernel_matches_plain(dev, body, xdt, wdt, hdim,
+                                                with_dh):
+    """The backward kernel (``add_norm_bwd`` + ``add_norm_bwd_reduce``)
+    against the plain backward on the forward kernel's h: dx, dw and db
+    within relative L2 1e-5 (f32: sums in another order) or 2^-7 (a
+    16-bit h or y: one rounding edge crossed), one launch counted a
+    call, dw and db the same bits on a second call (no float atomics)."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x, r, dh = (torch.randn(2, 19, hdim, generator=gen, device=dev).to(xdt)
+                for _ in range(3))
+    w = (1 + 0.2 * torch.randn(hdim, generator=gen, device=dev)).to(wdt)
+    b = (0.2 * torch.randn(hdim, generator=gen, device=dev)).to(wdt) \
+        if body == "ln_bias" else None
+    dy = torch.randn(2, 19, hdim, generator=gen, device=dev).to(
+        torch.promote_types(xdt, wdt))
+    dh = dh if with_dh else None
+    if body == "rms":
+        h, _ = ft.add_rms_norm_raw(x, r, w, 1e-5)
+        fn, plain = ft.add_rms_norm_backward_raw, \
+            ft.add_rms_norm_backward_reference
+        args = (h, w, dh, dy, 1e-5)
+    else:
+        h, _ = ft.add_layer_norm_raw(x, r, w, b, 1e-5)
+        fn, plain = ft.add_layer_norm_backward_raw, \
+            ft.add_layer_norm_backward_reference
+        args = (h, w, b, dh, dy, 1e-5)
+    before = fn.launches
+    got = fn(*args)
+    again = fn(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    tol = 1e-5 if xdt == wdt == torch.float32 else 2.0 ** -7
+    assert got[0].dtype == xdt and got[1].dtype == wdt
+    for name, g, wnt in zip(("dx", "dw", "db"), got, want):
+        if wnt is None:
+            assert g is None
+            continue
+        assert _rel_l2(g, wnt) <= tol, (name, _rel_l2(g, wnt))
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    assert b is None or torch.equal(got[2], again[2])
+
+
+@pytest.mark.parametrize("body", ["rms", "ln_bias"])
+def test_add_norm_autograd_launches_the_backward_kernel(dev, body):
+    """Through autograd, a call launches one forward and one backward; x
+    and the residual, both leaves, get equal grads in their own storage;
+    a CUDA tensor never reaches the plain backward."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    x, r = (torch.randn(4, 64, 768, generator=gen, device=dev,
+                        dtype=torch.bfloat16).requires_grad_()
+            for _ in range(2))
+    w = torch.ones(768, device=dev, dtype=torch.bfloat16,
+                   requires_grad=True)
+    b = torch.zeros(768, device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    fwd, bwd = ((ft.add_rms_norm_raw, ft.add_rms_norm_backward_raw)
+                if body == "rms" else
+                (ft.add_layer_norm_raw, ft.add_layer_norm_backward_raw))
+    counts = (fwd.launches, bwd.launches)
+    plain = ft._norm_backward_plain
+
+    def refuse(*args):
+        raise AssertionError("the plain backward ran on the card")
+
+    ft._norm_backward_plain = refuse
+    try:
+        h, y = fwd(x, r, w, 1e-5) if body == "rms" else \
+            fwd(x, r, w, b, 1e-5)
+        (h.float().sum() + (y.float() ** 2).sum()).backward()
+    finally:
+        ft._norm_backward_plain = plain
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches) == (counts[0] + 1, counts[1] + 1)
+    assert torch.equal(x.grad, r.grad)
+    assert x.grad.data_ptr() != r.grad.data_ptr()
+    assert w.grad is not None and (body == "rms" or b.grad is not None)
 
 
 def _rope_case(dev, dtype, b, s, k, heads, d, table_dtype=None):
