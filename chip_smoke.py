@@ -110,7 +110,18 @@ with the launch counts set to 0 just before and read just after:
   and interleaved rope against de-interleaved weights; DiT-L/2 on
   ``bench_dit``'s recipe, ``AutoencoderKL`` at its own widths, BERT-base
   as a masked LM over padded rows (bf16, dropout 0.1); DeepSeekMoE-16B
-  served at full depth (bf16) with its f32 2-layer check.
+  served at full depth (bf16) with its f32 2-layer check;
+- the encoder-decoder Transformer (Transformer-base: 512 wide, 8 heads,
+  6 + 6 layers) composed from the port's layers with a shared
+  37,000-token embedding tied to the output: the attention kernels at
+  its shapes (bf16 and f16 under its -inf masks, cross attention,
+  one-token decoding) and the add+norm kernel's mixed mode (a 16-bit
+  block output over the f32 residual stream) against their plain
+  versions; trained under amp O1 bf16 with label-smoothed cross entropy
+  through ``CompiledTrainStep`` (AdamW, Noam), under O1 f16 on the eager
+  API with ``GradScaler`` from an overflowing scale; its f32 chain at 2 +
+  2 layers against a plain composition; greedy decoding with
+  ``gen_cache`` against a full recompute.
 
 Every 16-bit training step must trace only the tensor-core (``wgmma``)
 kernels of the flash forward, dQ and dK/dV families, the fused step
@@ -139,6 +150,7 @@ import contextlib
 import ctypes
 import dataclasses
 import gc
+import itertools
 import json
 import math
 import re
@@ -591,10 +603,11 @@ RAGGED_FAMILIES = ("ragged_append", "ragged_attend")
 def profiled(torch, fn):
     """Run ``fn()`` under torch.profiler; return its result and the wall
     time, the summed kernel time by family, and the device's idle share
-    of the wall time (one stream: kernels do not overlap)."""
+    of the wall time (one stream: kernels do not overlap).  Only the
+    device is traced: recording every host op as well multiplied a
+    host-bound serve's traced wall time and took seconds to summarise."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn()
@@ -2959,6 +2972,7 @@ def serve_quant_reference(torch, np, dev):
                                                llama3_8b_config)
     cfg = dataclasses.replace(llama3_8b_config(), num_hidden_layers=2)
     cpu = torch.device("cpu")
+    t_models = time.perf_counter()
     model_cpu = LlamaForCausalLM(
         cfg, device=cpu, dtype=torch.float32,
         generator=torch.Generator(device=cpu).manual_seed(SEED + 10))
@@ -2969,7 +2983,7 @@ def serve_quant_reference(torch, np, dev):
     rng = np.random.default_rng(SEED + 10)
     prompts = {"q37": rng.integers(0, cfg.vocab_size, 37).tolist(),
                "q150": rng.integers(0, cfg.vocab_size, 150).tolist()}
-    rep = {}
+    rep, seconds = {}, {"models": time.perf_counter() - t_models}
     for name, kw, tol in (
             ("split_float", {"unified_step": False}, 1e-4),
             ("unified_int8", {"kv_dtype": "int8", "weight_dtype": "int8"},
@@ -2978,6 +2992,7 @@ def serve_quant_reference(torch, np, dev):
                             "weight_dtype": "int8"}, 1e-3)):
         out = []
         for m, d in ((model_gpu, dev), (model_cpu, cpu)):
+            t_eng = time.perf_counter()
             eng = LLMEngine(m, max_seqs=4, max_len=512, page_size=128,
                             steps_per_sync=SPLIT_SPS, device=d, **kw)
             slot = eng.cache.allocate(len(prompts["q37"]) + 1)
@@ -2988,6 +3003,7 @@ def serve_quant_reference(torch, np, dev):
             while eng.has_work():
                 eng.step()
             out.append((logits, {r: eng.result(r) for r in prompts}))
+            seconds[f"{name}_{d.type}"] = time.perf_counter() - t_eng
             del eng
         (lg, tg), (lc, tc) = out
         rel = ((lg - lc).norm() / lc.norm()).item()
@@ -2997,7 +3013,7 @@ def serve_quant_reference(torch, np, dev):
         check(rel <= tol, f"{name}: card logits off the CPU's by {rel}")
         check(tg == tc, f"{name}: card tokens {tg} != CPU tokens {tc}")
     emit({"phase": "serve_quant_reference", "dtype": "float32", "layers": 2,
-          **rep})
+          **rep, "seconds": seconds})
     del model_cpu, model_gpu
     gc.collect()
     torch.cuda.empty_cache()
@@ -3582,7 +3598,7 @@ SYNC_RUNTIME = ("cudaMemcpy", "cudaMemcpyAsync", "cudaStreamSynchronize",
                 "cudaDeviceSynchronize", "cudaEventSynchronize")
 
 
-METRICS_TRACED_NEW = 8          # new tokens a request in the traced pair
+METRICS_TRACED_NEW = 4          # new tokens a request in the traced pair
 
 
 def host_syncs(torch, fn):
@@ -3607,10 +3623,10 @@ def host_syncs(torch, fn):
 
 def serve_metrics_phase(torch, np, dev, model, prompts, greedy):
     """The serve model with the engine's metrics on (the default) and
-    off.  A fresh engine serves the serve mix four times, metrics off,
-    on, on, off (host-clock rates spread between calls, so the phase
-    reports them beside each other and holds the work instead): the
-    tokens must equal the ``serve`` phase's, and, in one traced serve
+    off.  A fresh engine serves the serve mix twice, metrics off, then
+    on (host-clock rates spread between calls, so the phase reports them
+    beside each other and holds the work instead): the tokens must equal
+    the ``serve`` phase's, and, in one traced serve
     each way, the count of CUDA runtime calls that copy to the host or
     wait for the card, and of the card's copies to the host, must be
     equal with and without metrics (the mix, deferred, 8 new tokens).  Then ``metrics_snapshot()``, the
@@ -3626,8 +3642,9 @@ def serve_metrics_phase(torch, np, dev, model, prompts, greedy):
                                                 introspection, tracing)
     geom = dict(max_seqs=8, max_len=2048, page_size=128,
                 dtype=torch.bfloat16)
-    runs = []
-    for on in (False, True, True, False):
+    runs, seconds = [], {}
+    t0 = time.perf_counter()
+    for on in (False, True):
         eng = LLMEngine(model, **geom, enable_metrics=on)
         stats, results = serve_run(torch, eng, prompts, {})
         check(results == greedy,
@@ -3646,6 +3663,8 @@ def serve_metrics_phase(torch, np, dev, model, prompts, greedy):
             steps += 1
         return steps
 
+    seconds["serves"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     syncs = {}
     for on in (False, True):
         eng = LLMEngine(model, **geom, enable_metrics=on)
@@ -3656,6 +3675,8 @@ def serve_metrics_phase(torch, np, dev, model, prompts, greedy):
         if on:
             snap = eng.metrics_snapshot()
         del eng
+    seconds["host_syncs"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     text = get_registry().expose_text()
     eng = LLMEngine(model, **geom)
     rows = eng.cache.memory_rows()
@@ -3681,6 +3702,7 @@ def serve_metrics_phase(torch, np, dev, model, prompts, greedy):
         tracing.disable_tracing()
     names = sorted({s["name"] for s in spans})
     memz = introspection.memz_snapshot()
+    seconds["traced_request"] = time.perf_counter() - t0
     emit({"phase": "serve_metrics", "model": "llama3_8b",
           "runs": runs, "host_syncs": syncs, "metrics_snapshot": snap,
           "prometheus_text_bytes": len(text.encode("utf-8")),
@@ -3690,7 +3712,7 @@ def serve_metrics_phase(torch, np, dev, model, prompts, greedy):
           "chrome_trace_events": len(chrome["traceEvents"]),
           "chrome_trace_bytes": chrome_bytes,
           "memory_rows": rows, "kv_bytes": kv_bytes(eng.cache),
-          "memz_devices": memz["devices"]})
+          "memz_devices": memz["devices"], "seconds": seconds})
     check(syncs["on"]["steps"] == syncs["off"]["steps"]
           and syncs["on"]["counts"] == syncs["off"]["counts"],
           f"metrics on and off copy to the host or wait for the card a "
@@ -5587,29 +5609,34 @@ def update_launches(params):
 
 
 def zoo_flash_rows(torch, table, tag, q, k, v, do, *, causal, mask=None,
-                   dropout_p=0.0, seed=None, launches_from):
+                   dropout_p=0.0, seed=None, launches_from, pairs=None,
+                   backward=True):
     """#2, #3 and #4 at one path's attention: each against its plain
     version (the same seed under dropout), timed beside its bound and
     one PyTorch call (``scaled_dot_product_attention`` with the path's
     GQA, mask and dropout; for the backward, its autograd backward:
     dq, dk and dv in one call).  16-bit rows must trace the wgmma
     kernels and stay within 2^-7 relative L2 (and 0.02 of the largest
-    element); f32 rows (D 64) the 3xTF32 kernels, within 1e-5."""
+    element); f32 rows (D 64) the 3xTF32 kernels, within 1e-5.  The
+    bounds count the (query, key) pairs that causality leaves, or
+    ``pairs`` (those an additive mask leaves finite); ``backward``
+    False: #2 alone (decoding)."""
     from paddle_tpu_torch.ops import flash_attention as fa
     b, s, h, d = q.shape
-    hk = k.shape[2]
+    sk, hk = k.shape[1], k.shape[2]
     f32 = q.dtype == torch.float32
     el = q.element_size()
     kw = dict(causal=causal, mask=mask, dropout_p=dropout_p, seed=seed)
     out, lse = fa.flash_attention_fwd(q, k, v, **kw)
-    ops = fa.flash_attention_bwd_operands(q, k, v, out, lse, do, causal,
-                                          mask)
-    got = {"out": out, "dq": fa.flash_attention_bwd_dq(*ops, causal,
-                                                       dropout_p, seed)}
-    got["dk"], got["dv"] = fa.flash_attention_bwd_dkv(*ops, causal,
-                                                      dropout_p, seed)
-    want = dict(zip(("dq", "dk", "dv"), fa.flash_attention_bwd_reference(
-        q, k, v, out, lse, do, **kw)))
+    got, want = {"out": out}, {}
+    if backward:
+        ops = fa.flash_attention_bwd_operands(q, k, v, out, lse, do, causal,
+                                              mask)
+        got["dq"] = fa.flash_attention_bwd_dq(*ops, causal, dropout_p, seed)
+        got["dk"], got["dv"] = fa.flash_attention_bwd_dkv(*ops, causal,
+                                                          dropout_p, seed)
+        want = dict(zip(("dq", "dk", "dv"), fa.flash_attention_bwd_reference(
+            q, k, v, out, lse, do, **kw)))
     want["out"] = fa.flash_attention_fwd_reference(q, k, v, **kw)[0]
     torch.cuda.synchronize()
     errs = {n: {"rel_l2_err": rel_l2(g, want[n]),
@@ -5621,8 +5648,9 @@ def zoo_flash_rows(torch, table, tag, q, k, v, do, *, causal, mask=None,
         ok = e["rel_l2_err"] <= F32_REL_L2_TOL if f32 else \
             e["rel_l2_err"] <= REL_L2_TOL and e["rel_to_largest"] <= GRAD_TOL
         check(ok, f"flash {n} ({tag}) off its plain version: {e}")
-    pairs = fa._flops.attention_pairs(b, s, s, causal)
-    qb, kb = b * s * h * d * el, b * s * hk * d * el
+    if pairs is None:
+        pairs = fa._flops.attention_pairs(b, s, sk, causal)
+    qb, kb = b * s * h * d * el, b * sk * hk * d * el
     mb = 0 if mask is None else mask.numel() * 4
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt, dot = (x.detach().transpose(1, 2) for x in (q, k, v, do))
@@ -5631,7 +5659,7 @@ def zoo_flash_rows(torch, table, tag, q, k, v, do, *, causal, mask=None,
     if hk != h:
         lkw["enable_gqa"] = True
     lq, lk, lv = (x.clone().requires_grad_() for x in (qt, kt, vt))
-    lout = sdpa(lq, lk, lv, **lkw)
+    lout = sdpa(lq, lk, lv, **lkw) if backward else None
 
     def fwd_library():
         sdpa(qt, kt, vt, **lkw)
@@ -5639,7 +5667,7 @@ def zoo_flash_rows(torch, table, tag, q, k, v, do, *, causal, mask=None,
     def bwd_library():
         torch.autograd.grad(lout, (lq, lk, lv), dot, retain_graph=True)
 
-    for name, src, line, fn, flops, n_bytes, plain, lib, outs in (
+    rows = (
             (f"flash_attention_fwd_{tag}", "flash_attention_fwd.cu",
              "flash_attention.py:164",
              lambda: fa.flash_attention_fwd(q, k, v, **kw),
@@ -5659,7 +5687,9 @@ def zoo_flash_rows(torch, table, tag, q, k, v, do, *, causal, mask=None,
                                                 seed),
              8 * d * h * pairs, 2 * qb + 4 * kb + mb + 2 * b * h * s * 4,
              lambda: fa.flash_attention_bwd_reference(
-                 q, k, v, out, lse, do, **kw), bwd_library, ("dk", "dv"))):
+                 q, k, v, out, lse, do, **kw), bwd_library, ("dk", "dv")))
+    for name, src, line, fn, flops, n_bytes, plain, lib, outs in \
+            rows[:3 if backward else 1]:
         bound = f32_bounds(n_bytes, flops, True) if f32 else dict(zip(
             ("bound_ms", "bound_by"), bound_ms(n_bytes, flops)))
         # the plain backward holds tens of GB in the allocator's cache:
@@ -5693,7 +5723,7 @@ def zoo_flash_rows(torch, table, tag, q, k, v, do, *, causal, mask=None,
               + ("" if name.startswith("flash_attention_fwd")
                  else "'s autograd backward (dq, dk, dv)")
               + (" (its own dropout mask)" if dropout_p else "")})
-    del ops, got, lout, lq, lk, lv
+    del got, lout, lq, lk, lv
     torch.cuda.empty_cache()
 
 
@@ -6518,6 +6548,742 @@ def zoo_paths(torch, np, dev, table, src):
 
 
 
+# -- the encoder-decoder Transformer (Transformer-base) ---------------------
+
+# Vaswani et al. 2017, Table 3 "base": d_model 512, 8 heads of 64, 6 + 6
+# layers, d_ff 2048, dropout 0.1, post-norm, relu (paddle_tpu_torch's
+# Transformer defaults); a shared 37,000-token vocabulary; batches of 32
+# pairs, source 128 and target 120 tokens, about a quarter of each row's
+# trailing positions padded; label smoothing 0.1
+TF_VOCAB, TF_PAD, TF_BOS = 37000, 0, 1
+TF_BATCH, TF_SRC, TF_TGT = 32, 128, 120
+TF_STEPS = 6                      # the first warms up
+TF_FP16_STEPS = 8
+TF_SMOOTH = 0.1
+TF_DECODE_SOURCES, TF_DECODE_NEW = 8, 32
+# copies of #9's mixed rows' operands, timed in turn: a call's 27.5 MB
+# would stay in the H100's 50 MB L2 between calls; eight (220 MB) do not
+TF_NORM_COPIES = 8
+# amp O1 float16 with GradScaler: a first scale that must overflow (f16
+# gradients of the logits alone pass 65504 above about 2^28), backed off
+# in one step to 2^16, then grown every 2 good steps
+TF_SCALER = dict(init_loss_scaling=2.0 ** 40, decr_ratio=2.0 ** -24,
+                 incr_every_n_steps=2, decr_every_n_nan_or_inf=1)
+
+
+def sinusoid_table(torch, n, d, dev):
+    """The paper's positional encodings [n, d] f32: sin on even
+    dimensions, cos on odd, wavelengths 2 pi .. 10000 x 2 pi."""
+    pos = torch.arange(n, dtype=torch.float32, device=dev)[:, None]
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32, device=dev)
+                    * (-math.log(10000.0) / d))
+    t = torch.zeros(n, d, device=dev)
+    t[:, 0::2] = torch.sin(pos * div)
+    t[:, 1::2] = torch.cos(pos * div)
+    return t
+
+
+def seq2seq_model(torch, dev, seed, layers=6):
+    """Transformer-base composed from the port's layers as a user builds
+    it: a shared embedding (N(0, 512^-1/2), the pad row reads zeros)
+    scaled by sqrt(512) plus sinusoidal positions and dropout 0.1, the
+    ``Transformer``, and the pre-softmax projection tied to the
+    embedding (``F.linear`` with its transpose)."""
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.nn.initializer import Normal
+
+    class Seq2Seq(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            self.d_model = 512
+            self.embed = pnn.Embedding(TF_VOCAB, 512, padding_idx=TF_PAD,
+                                       weight_attr=Normal(0.0, 512 ** -0.5),
+                                       device=dev, generator=gen)
+            self.transformer = pnn.Transformer(
+                num_encoder_layers=layers, num_decoder_layers=layers,
+                device=dev, generator=gen)
+            self.register_buffer("pos", sinusoid_table(torch, 256, 512,
+                                                       dev))
+            self.p = 0.1
+
+        def embed_at(self, ids, start=0):
+            x = self.embed(ids) * math.sqrt(self.d_model) + \
+                self.pos[start:start + ids.shape[1]]
+            return F.dropout(x, self.p, training=self.training)
+
+        def logits(self, h):
+            return F.linear(h, self.embed.weight.t())
+
+        def forward(self, src, tgt, src_mask, tgt_mask):
+            h = self.transformer(self.embed_at(src), self.embed_at(tgt),
+                                 src_mask, tgt_mask, src_mask)
+            return self.logits(h)
+
+    return Seq2Seq()
+
+
+def seq2seq_masks(torch, src, tgt):
+    """The additive masks a user builds: key padding ``[B, 1, 1, S]``
+    (-inf on pad ids) for the encoder and the cross attention, and the
+    target's ``generate_square_subsequent_mask`` plus its key padding,
+    ``[B, 1, T, T]``."""
+    from paddle_tpu_torch.nn.transformer import Transformer
+    neg = float("-inf")
+    src_mask = torch.zeros(src.shape, device=src.device).masked_fill(
+        src == TF_PAD, neg)[:, None, None, :]
+    tgt_pad = torch.zeros(tgt.shape, device=tgt.device).masked_fill(
+        tgt == TF_PAD, neg)[:, None, None, :]
+    causal = Transformer.generate_square_subsequent_mask(tgt.shape[1],
+                                                         device=tgt.device)
+    return src_mask, causal + tgt_pad
+
+
+def seq2seq_batch(torch, np, dev, seed, batch=TF_BATCH):
+    """``batch`` pairs of random ids (2 .. V-1) from ``seed``: each row's
+    last 0 to half of its positions padded (a quarter on average), the
+    target's input starts with BOS and its labels are the target shifted
+    (-> pad = ignored)."""
+    rng = np.random.default_rng(seed)
+
+    def rows(n):
+        ids = rng.integers(2, TF_VOCAB, (batch, n))
+        for i, k in enumerate(rng.integers(0, n // 2 + 1, batch)):
+            ids[i, n - k:] = TF_PAD
+        return ids
+
+    src, out = rows(TF_SRC), rows(TF_TGT)
+    tgt = np.concatenate([np.full((batch, 1), TF_BOS), out[:, :-1]], 1)
+    tgt[out == TF_PAD] = TF_PAD
+    b = {k: torch.tensor(v, device=dev) for k, v in
+         (("src", src), ("tgt", tgt), ("labels", out))}
+    b["src_mask"], b["tgt_mask"] = seq2seq_masks(torch, b["src"], b["tgt"])
+    return b
+
+
+def seq2seq_loss(m, b):
+    """Label-smoothed cross entropy over the target's tokens, pads
+    ignored."""
+    from paddle_tpu_torch.nn import functional as F
+    logits = m(b["src"], b["tgt"], b["src_mask"], b["tgt_mask"])
+    return F.cross_entropy(logits.reshape(-1, TF_VOCAB),
+                           b["labels"].reshape(-1), ignore_index=TF_PAD,
+                           label_smoothing=TF_SMOOTH)
+
+
+def smoothed_init_loss(sigma2=1.0):
+    """The label-smoothed loss at random weights: logits of variance
+    ``sigma2`` (a LayerNorm output of unit variance against embedding
+    rows of variance 1/512 over 512 dimensions) give each class
+    ln V + sigma2 / 2 on average, whatever the target distribution."""
+    return math.log(TF_VOCAB) + sigma2 / 2
+
+
+def add_norm_mixed_rows(torch, gen, dev, table, xdt, tag):
+    """#9's LayerNorm body in the mixed mode at the O1 Transformer's
+    post-norm residuals: x ``xdt`` (a 16-bit block output) over an f32
+    residual [32, 120, 512], f32 weight and bias, forward and backward
+    (no dh: the layer drops h), each against its plain version, timed
+    beside its bound (bytes: x at 2, r, h, y at 4 bytes an element; the
+    backward h, dy read, dx at 2 and dr at 4 written) and the library:
+    ``x.float() + r`` then ``layer_norm`` / ``native_layer_norm_backward``
+    from h.  Every timing takes ``TF_NORM_COPIES`` copies of x, r and dy
+    in turn, so each call reads its operands from HBM, as the path
+    does."""
+    from paddle_tpu_torch.ops import fused_train as ft
+    shape, hdim = (TF_BATCH, TF_TGT, 512), 512
+    x = torch.randn(shape, generator=gen, device=dev).to(xdt)
+    r = torch.randn(shape, generator=gen, device=dev)
+    w = 1 + 0.1 * torch.randn(hdim, generator=gen, device=dev)
+    bb = 0.1 * torch.randn(hdim, generator=gen, device=dev)
+    dy = torch.randn(shape, generator=gen, device=dev)
+    sets = [(x, r, dy)] + [
+        tuple(torch.randn(shape, generator=gen, device=dev).to(dt)
+              for dt in (xdt, torch.float32, torch.float32))
+        for _ in range(TF_NORM_COPIES - 1)]
+    tol = REL_L2_TOL if xdt == torch.bfloat16 else 2.0 ** -10
+
+    def rotating(fn):
+        turn = itertools.cycle(sets)
+        return lambda: fn(*next(turn))
+
+    def fwd(x, r, dy):
+        return ft.add_layer_norm_raw(x, r, w, bb, 1e-5)
+
+    def fwd_plain(x, r, dy):
+        return ft.add_layer_norm_reference(x, r, w, bb, 1e-5)
+
+    (hh, y), (want_h, want_y) = fwd(*sets[0]), fwd_plain(*sets[0])
+    torch.cuda.synchronize()
+    err = rel_l2(y, want_y)
+    check(hh.dtype == y.dtype == torch.float32 and torch.equal(hh, want_h)
+          and err <= F32_REL_L2_TOL,
+          f"mixed add_layer_norm ({xdt}) off its plain version: {err}")
+    n = x.numel()
+    bound, bound_by = bound_ms(n * (2 + 4 + 4 + 4) + 2 * hdim * 4, 9 * n,
+                               peak=PEAK_F32_FLOPS)
+    name = f"add_layer_norm_{tag}"
+    table[name] = {
+        "name": name, "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/add_norm_mixed.cu",
+        "replaces": "paddle_tpu/ops/pallas/fused_train.py:322",
+        "launches": None,
+        "max_abs_err": (y - want_y).abs().max().item(),
+        "ms": timed_ms(torch, rotating(fwd), 20),
+        "device_ms": traced_kernel(torch, rotating(fwd),
+                                   "add_norm")["device_ms"],
+        "plain_ms": timed_ms(torch, rotating(fwd_plain), 5),
+        "bound_ms": bound, "bound_by": bound_by,
+        "library_ms": timed_ms(torch, rotating(
+            lambda x, r, dy: torch.nn.functional.layer_norm(
+                x.float() + r, (hdim,), w, bb, 1e-5)), 20)}
+    emit({"phase": "kernel", **table[name], "shape": list(shape),
+          "x_dtype": str(xdt), "residual_dtype": "torch.float32",
+          "rel_l2_err": err, "h_equal": True, "copies": len(sets),
+          "tolerance": {"rel_l2_err": F32_REL_L2_TOL},
+          "library_note": "x.float() + r, then "
+                          "torch.nn.functional.layer_norm"})
+    # the backward's operands: each copy's h, dy and LayerNorm statistics
+    hs = [fwd(*ops)[0] for ops in sets]
+    stats = [torch.ops.aten.native_layer_norm(h_, [hdim], w, bb, 1e-5)[1:]
+             for h_ in hs]
+    sets = [(hs[i], sets[i][2], *stats[i]) for i in range(len(sets))]
+
+    def bwd(h, dy, *_):
+        return ft.add_layer_norm_backward_raw(h, w, bb, None, dy, 1e-5,
+                                              x_dtype=xdt)
+
+    def bwd_plain(h, dy, *_):
+        return ft.add_layer_norm_backward_reference(h, w, bb, None, dy,
+                                                    1e-5)
+
+    ((dn, dr), dw, db), again = bwd(*sets[0]), bwd(*sets[0])
+    want_d, want_dw, want_db = bwd_plain(*sets[0])
+    torch.cuda.synchronize()
+    errs = {"dx": rel_l2(dn, want_d.to(xdt)), "dr": rel_l2(dr, want_d),
+            "dw": rel_l2(dw, want_dw), "db": rel_l2(db, want_db)}
+    check(dn.dtype == xdt and dr.dtype == torch.float32
+          and errs["dx"] <= tol and max(errs["dr"], errs["dw"],
+                                        errs["db"]) <= F32_REL_L2_TOL,
+          f"mixed add_layer_norm backward ({xdt}): {errs}")
+    check(torch.equal(dw, again[1]) and torch.equal(db, again[2]),
+          f"mixed add_layer_norm backward ({xdt}): dw / db differ between "
+          f"two calls")
+    bound, bound_by = bound_ms(n * (4 + 4 + 2 + 4) + 3 * hdim * 4, 16 * n,
+                               peak=PEAK_F32_FLOPS)
+    bname = f"{name}_bwd"
+    table[bname] = {
+        "name": bname, "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/add_norm_mixed.cu",
+        "replaces": "paddle_tpu/ops/pallas/fused_train.py:322",
+        "launches": None,
+        "max_abs_err": (dr - want_d).abs().max().item(),
+        "ms": timed_ms(torch, rotating(bwd), 20),
+        "device_ms": traced_kernel(torch, rotating(bwd),
+                                   "add_norm_bwd")["device_ms"],
+        "plain_ms": timed_ms(torch, rotating(bwd_plain), 5),
+        "bound_ms": bound, "bound_by": bound_by,
+        "library_ms": timed_ms(torch, rotating(
+            lambda h, dy, mean, rstd:
+            torch.ops.aten.native_layer_norm_backward(
+                dy, h, [hdim], mean, rstd, w, bb, [True, True, True])), 20)}
+    emit({"phase": "kernel", **table[bname], "shape": list(shape),
+          "x_dtype": str(xdt), "rel_l2_err": errs, "copies": len(sets),
+          "tolerance": {"dx": tol, "dr_dw_db": F32_REL_L2_TOL},
+          "dw_db_bitwise_repeat": True,
+          "library_note": "torch.ops.aten.native_layer_norm_backward from "
+                          "h and its statistics (one f32 dx, dw, db)"})
+    del x, r, hh, y, want_h, want_y, dn, dr, again, sets, hs, stats
+    torch.cuda.empty_cache()
+
+
+def transformer_kernels(torch, gen, dev, table):
+    """#2-#4 and #9 at the O1 Transformer's shapes, each against its
+    plain version: self attention bf16 [32, 120, 8, 64] under the -inf
+    causal-plus-padding mask [32, 1, 120, 120] with dropout 0.1; cross
+    attention q [32, 120, 8, 64] over k/v [32, 128, 8, 64] under the key
+    padding [32, 1, 1, 128]; #2 at one-token decoding (Sq 1; Sk 1 and
+    33, 8 sources); #2-#4's f16 routes at the self-attention shape;
+    #9's mixed mode (bf16 and f16 x over an f32 residual).  The bounds
+    count the pairs the masks leave finite (the kernels compute the
+    masked ones too).  Returns {row: wrapper name} for the paths'
+    launches."""
+    src = {}
+    b, h, d = TF_BATCH, 8, 64
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    ids = torch.zeros(b, TF_SRC, dtype=torch.long, device=dev)
+    tgt = torch.zeros(b, TF_TGT, dtype=torch.long, device=dev)
+    for i in range(b):
+        pad = int(torch.randint(0, TF_SRC // 2 + 1, (1,), generator=gen,
+                                device=dev))
+        ids[i, :TF_SRC - pad] = 2
+        pad = int(torch.randint(0, TF_TGT // 2 + 1, (1,), generator=gen,
+                                device=dev))
+        tgt[i, :TF_TGT - pad] = 2
+    src_mask, tgt_mask = seq2seq_masks(torch, ids, tgt)
+    for tag, dt, sk, mask, p in (
+            ("tf_self", torch.bfloat16, TF_TGT, tgt_mask, 0.1),
+            ("tf_cross", torch.bfloat16, TF_SRC, src_mask, 0.1),
+            ("tf_self_f16", torch.float16, TF_TGT, tgt_mask, 0.1)):
+        q, do = rnd(b, TF_TGT, h, d, dtype=dt), rnd(b, TF_TGT, h, d, dtype=dt)
+        k, v = rnd(b, sk, h, d, dtype=dt), rnd(b, sk, h, d, dtype=dt)
+        m = mask.expand(b, 1, TF_TGT, sk)
+        seed = torch.tensor(SEED + 80, dtype=torch.int64, device=dev)
+        zoo_flash_rows(torch, table, tag, q, k, v, do, causal=False,
+                       mask=mask, dropout_p=p, seed=seed, launches_from=src,
+                       pairs=int(m.isfinite().sum().item()))
+        del q, k, v, do, m
+    n = TF_DECODE_SOURCES
+    for tag, sk in (("tf_decode1", 1), ("tf_decode33", 33)):
+        q, do = rnd(n, 1, h, d), rnd(n, 1, h, d)
+        k, v = rnd(n, sk, h, d), rnd(n, sk, h, d)
+        zoo_flash_rows(torch, table, tag, q, k, v, do, causal=False,
+                       launches_from=src, backward=False)
+    for xdt, tag in ((torch.bfloat16, "tf_bf16_over_f32"),
+                     (torch.float16, "tf_f16_over_f32")):
+        add_norm_mixed_rows(torch, gen, dev, table, xdt, tag)
+        src[f"add_layer_norm_{tag}"] = "add_layer_norm"
+        src[f"add_layer_norm_{tag}_bwd"] = "add_layer_norm_bwd"
+    return src
+
+
+def tf_counters(layers, params):
+    """Launches a step of the Transformer's kernels: #2-#4 once an
+    attention (an encoder layer has one, a decoder layer two), #9's
+    LayerNorm body and its backward twice an encoder layer and three
+    times a decoder layer, #8 as ``update_launches`` (``params`` None:
+    no fused update)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_train as ft
+    attn = 3 * layers
+    counters = {
+        "flash_attention_fwd": (fa.flash_attention_fwd, attn),
+        "flash_attention_bwd_dq": (fa.flash_attention_bwd_dq, attn),
+        "flash_attention_bwd_dkv": (fa.flash_attention_bwd_dkv, attn),
+        "add_layer_norm": (ft.add_layer_norm_raw, 5 * layers),
+        "add_layer_norm_bwd": (ft.add_layer_norm_backward_raw, 5 * layers)}
+    if params is not None:
+        counters["fused_update"] = (ft.fused_update_flat,
+                                    update_launches(params))
+    return counters
+
+
+def kernel_names(torch, fn):
+    """The CUDA kernels one call of ``fn`` launches, by full name (a
+    trace that came back empty taken again, up to TRACE_RETRIES
+    times)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(TRACE_RETRIES + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = {e.key for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA}
+        if names:
+            return names
+    return names
+
+
+def profiled_step(torch, fn, phase):
+    """``profiled`` of one ``fn()``, taken again where the trace came back
+    empty (up to TRACE_RETRIES times)."""
+    for _ in range(TRACE_RETRIES + 1):
+        _, prof = profiled(torch, fn)
+        if prof["device_busy_ms"]:
+            return prof
+        emit({"phase": "trace_retry", "family": phase})
+    return prof
+
+
+def train_transformer_phase(torch, np, dev, table, src):
+    """Transformer-base (6 + 6 layers, full width) trained as users of
+    the reference train it: amp O1 bf16 (``auto_cast`` around the loss;
+    f32 parameters), label-smoothed cross entropy with the pads ignored,
+    AdamW (beta 0.9 / 0.98, eps 1e-9) under ``NoamDecay(512, 4000)``
+    entered at its peak (step 4000, lr 6.99e-4: the warm-up's first
+    steps move nothing measurable in a few steps) through
+    ``CompiledTrainStep`` (``fused_step=True``: #8), batch 32 x (128 +
+    120) tokens.  Every step launches #2-#4 18 times (bf16, the masks'
+    -inf and dropout in the kernels) and #9 and its backward 30 times
+    each in the mixed mode.  Returns the trained model."""
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.jit.train import CompiledTrainStep
+    from paddle_tpu_torch.observability.metrics import MetricRegistry
+    from paddle_tpu_torch.observability.steptimer import StepTimer
+    t0 = time.perf_counter()
+    model = seq2seq_model(torch, dev, SEED + 90)
+    model = amp.decorate(model, level="O1", dtype="bfloat16")
+
+    def loss_fn(m, b):
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            return seq2seq_loss(m, b)
+
+    sched = optimizer.lr.NoamDecay(512, 4000, last_epoch=3999)
+    opt = optimizer.AdamW(learning_rate=sched, beta1=0.9, beta2=0.98,
+                          epsilon=1e-9, parameters=model.parameters())
+    step = CompiledTrainStep(model, loss_fn, opt, seed=SEED + 91)
+    batch = seq2seq_batch(torch, np, dev, SEED + 90)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    params = list(model.parameters())
+    check(all(p.dtype == torch.float32 for p in params),
+          "amp O1 left a parameter outside f32")
+    counters = tf_counters(6, params)
+    tokens = int((batch["labels"] != TF_PAD).sum())
+    flops = None
+    res = zoo_train(torch, step, batch, counters, TF_STEPS)
+    flops = step.step_flops(batch)
+    timer = StepTimer(registry=MetricRegistry(), prefix="train_transformer",
+                      tokens_per_step=tokens, flops_per_step=flops)
+    step.attach_timer(timer)
+    for _ in range(2):
+        step(batch)
+    step.attach_timer(None)
+    n_params = sum(p.numel() for p in params)
+    tok_s = tokens / res["mean_step_s"]
+    init_loss = smoothed_init_loss()
+    emit({"phase": "train_transformer", "model": "transformer-base",
+          "layers": [6, 6], "d_model": 512, "heads": 8, "ffn": 2048,
+          "vocab": TF_VOCAB, "amp": "O1 bfloat16", "batch": TF_BATCH,
+          "src": TF_SRC, "tgt": TF_TGT, "target_tokens": tokens,
+          "source_tokens": int((batch["src"] != TF_PAD).sum()),
+          "params": n_params, "setup_s": setup_s,
+          "target_tokens_per_s": tok_s,
+          "mfu_6n": 6 * n_params * tok_s / PEAK_BF16_FLOPS,
+          "step_flops": flops,
+          "timer_mfu": flops / res["mean_step_s"] / PEAK_BF16_FLOPS,
+          "step_timer": timer.summary(), "lr": sched(),
+          "expected_first_loss": init_loss, **res})
+    losses = res["losses"]
+    check(abs(losses[0] - init_loss) <= 0.5,
+          f"train_transformer: first loss {losses[0]} not within 0.5 of "
+          f"{init_loss}")
+    check(losses[-1] < losses[0], f"train_transformer: loss did not fall: "
+                                  f"{losses}")
+    for row in ("tf_self", "tf_cross"):
+        for k in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                  "flash_attention_bwd_dkv"):
+            table[f"{k}_{row}"]["launches"] = res["launches"][k]
+    for k in ("add_layer_norm", "add_layer_norm_bwd"):
+        table[k.replace("add_layer_norm", "add_layer_norm_tf_bf16_over_f32",
+                        1)]["launches"] = res["launches"][k]
+    prof = profiled_step(torch, lambda: step(batch), "train_transformer")
+    emit({"phase": "train_transformer_profile", **prof})
+    check_tensor_core_route(prof, "train_transformer", FLASH_FAMILIES)
+    check(prof["kernel_count_by_family"].get("add_norm_bwd"),
+          "train_transformer: the add+norm backward kernel was not traced")
+    names = kernel_names(torch, lambda: step(batch))
+    check(any("add_norm_fwd<__nv_bfloat16, float" in n for n in names),
+          "train_transformer: #9 did not run in its mixed mode: "
+          f"{[n for n in names if 'add_norm' in n]}")
+    del step, opt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return model
+
+
+def reference_scaler(kw, found_inf):
+    """The reference ``GradScaler``'s decisions (paddle_tpu/amp/
+    grad_scaler.py ``update``) for a sequence of found-inf flags: the
+    state after each step."""
+    scale, good, bad, out = kw["init_loss_scaling"], 0, 0, []
+    for inf in found_inf:
+        if inf:
+            bad, good = bad + 1, 0
+            if bad >= kw["decr_every_n_nan_or_inf"]:
+                scale, bad = max(scale * kw["decr_ratio"], 1.0), 0
+        else:
+            good, bad = good + 1, 0
+            if good >= kw["incr_every_n_steps"]:
+                scale, good = scale * 2.0, 0
+        out.append((scale, good, bad))
+    return out
+
+
+def train_transformer_fp16_phase(torch, np, dev, table):
+    """The same model under amp O1 float16 on the eager API (``AdamW``'s
+    ``step``, ``clear_grad``) with ``GradScaler``: TF_FP16_STEPS steps
+    from a scale that overflows.  Each skipped step leaves every
+    parameter bit-equal; the scale, good and bad counts equal the
+    reference's rule on the same found-inf sequence; #2-#4 and #9 run
+    in their f16 modes (traced names), launched exactly as in bf16."""
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.ops.random import rng_guard
+    model = seq2seq_model(torch, dev, SEED + 92)
+    opt = optimizer.AdamW(learning_rate=5e-4, beta1=0.9, beta2=0.98,
+                          epsilon=1e-9, parameters=model.parameters())
+    scaler = amp.GradScaler(**TF_SCALER)
+    batch = seq2seq_batch(torch, np, dev, SEED + 92)
+    counters = tf_counters(6, None)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 93)
+
+    def one_step():
+        with rng_guard(gen), amp.auto_cast(level="O1", dtype="float16"):
+            loss = seq2seq_loss(model, batch)
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        opt.clear_grad()
+        return loss
+
+    for fn, _ in counters.values():
+        fn.launches = 0
+    losses, states, skipped, times = [], [], [], []
+    for _ in range(TF_FP16_STEPS):
+        before = [p.detach().clone() for p in model.parameters()]
+        t = time.perf_counter()
+        losses.append(float(one_step().detach()))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        skipped.append(all(torch.equal(a, p) for a, p in
+                           zip(before, model.parameters())))
+        s = scaler.state_dict()
+        states.append((s["scale"], s["good_steps"], s["bad_steps"]))
+        del before
+    launches = {n: fn.launches for n, (fn, _) in counters.items()}
+    want = reference_scaler(TF_SCALER, skipped)
+    emit({"phase": "train_transformer_fp16", "amp": "O1 float16",
+          "scaler": TF_SCALER, "losses": losses, "step_s": times,
+          "skipped": skipped, "scaler_states": states,
+          "reference_states": want, "launches": launches})
+    check(all(math.isfinite(x) for x in losses), f"fp16 losses {losses}")
+    check(skipped[0] and not all(skipped),
+          f"fp16: the first step must overflow and a later one apply: "
+          f"{skipped}")
+    check(states == want, f"fp16 scaler states {states}, the reference's "
+                          f"rule {want}")
+    for n, (_, per_step) in counters.items():
+        check(launches[n] == per_step * TF_FP16_STEPS,
+              f"fp16: {n} launched {launches[n]} times in "
+              f"{TF_FP16_STEPS} steps, not {per_step} a step")
+    applied = [x for x, s in zip(losses, skipped) if not s]
+    check(len(applied) < 2 or applied[-1] < losses[0],
+          f"fp16: the loss did not fall over the applied steps: {losses}")
+    names = kernel_names(torch, one_step)
+    for fam, key in (("flash_fwd_wgmma", "flash_fwd_wgmma<__half"),
+                     ("flash_bwd_dq_wgmma", "flash_bwd_dq_wgmma<__half"),
+                     ("flash_bwd_dkv_wgmma", "flash_bwd_dkv_wgmma<__half"),
+                     ("add_norm_fwd", "add_norm_fwd<__half, float"),
+                     ("add_norm_bwd", "add_norm_bwd<__half, float")):
+        check(any(key in n for n in names),
+              f"fp16: no {fam} in its f16 mode: "
+              f"{sorted(n[:60] for n in names if fam in n)}")
+    for k in ("flash_attention_fwd", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv"):
+        table[f"{k}_tf_self_f16"]["launches"] = launches[k]
+    for k in ("add_layer_norm", "add_layer_norm_bwd"):
+        table[k.replace("add_layer_norm", "add_layer_norm_tf_f16_over_f32",
+                        1)]["launches"] = launches[k]
+    del model, opt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def plain_seq2seq_loss(torch, model, b):
+    """The Transformer's loss as a composition of plain versions from the
+    model's weights: dense attention (``scaled_dot_product_attention_ref``),
+    ``x @ W + b``, plain LayerNorm after each residual add, and the
+    label-smoothed cross entropy written out over f32 log-softmax."""
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import _nn
+    t = model.transformer
+
+    def lin(x, layer):
+        return x @ layer.weight + layer.bias
+
+    def ln(x, norm):
+        return _nn.layer_norm(x, [512], norm.weight, norm.bias, 1e-5)
+
+    def mha(att, x, kv, mask):
+        bsz = x.shape[0]
+        q, k, v = (lin(a, p).reshape(bsz, a.shape[1], 8, 64) for a, p in
+                   ((x, att.q_proj), (kv, att.k_proj), (kv, att.v_proj)))
+        o = F.scaled_dot_product_attention_ref(q, k, v, attn_mask=mask,
+                                               training=False)
+        return lin(o.reshape(bsz, x.shape[1], 512), att.out_proj)
+
+    def ffn(layer, x):
+        return lin(torch.relu(lin(x, layer.linear1)), layer.linear2)
+
+    emb = model.embed.weight
+    scale = math.sqrt(512)
+
+    def embed(ids):
+        e = emb[ids] * (ids != TF_PAD)[..., None]
+        return e * scale + model.pos[:ids.shape[1]]
+
+    x = embed(b["src"])
+    for layer in t.encoder.layers:
+        x = ln(x + mha(layer.self_attn, x, x, b["src_mask"]), layer.norm1)
+        x = ln(x + ffn(layer, x), layer.norm2)
+    y = embed(b["tgt"])
+    for layer in t.decoder.layers:
+        y = ln(y + mha(layer.self_attn, y, y, b["tgt_mask"]), layer.norm1)
+        y = ln(y + mha(layer.cross_attn, y, x, b["src_mask"]), layer.norm2)
+        y = ln(y + ffn(layer, y), layer.norm3)
+    logp = torch.log_softmax((y @ emb.t()).reshape(-1, TF_VOCAB).float(), -1)
+    lab = b["labels"].reshape(-1)
+    keep = lab != TF_PAD
+    onehot = torch.zeros_like(logp).scatter_(1, lab[:, None].clamp(min=0),
+                                             1.0)
+    target = onehot * (1 - TF_SMOOTH) + TF_SMOOTH / TF_VOCAB
+    per_tok = -(target * logp).sum(-1) * keep
+    return per_tok.sum() / keep.sum()
+
+
+def transformer_reference_phase(torch, np, dev):
+    """At f32 (full matmul precision), base width, 2 + 2 layers, batch 8:
+    the loss and every gradient of the kernel chain (the flash kernels'
+    f32 route under the -inf masks, #9 in f32) against
+    ``plain_seq2seq_loss``, dropout off (eval mode; autograd as in
+    training): within 1e-5 and 1e-4."""
+    model = seq2seq_model(torch, dev, SEED + 94, layers=2).eval()
+    batch = seq2seq_batch(torch, np, dev, SEED + 94, batch=8)
+    params = dict(model.named_parameters())
+    counters = tf_counters(2, None)
+    for fn, _ in counters.values():
+        fn.launches = 0
+    loss = seq2seq_loss(model, batch)
+    grads = dict(zip(params, torch.autograd.grad(loss,
+                                                 list(params.values()))))
+    launches = {n: fn.launches for n, (fn, _) in counters.items()}
+    want_loss = plain_seq2seq_loss(torch, model, batch)
+    want = dict(zip(params, torch.autograd.grad(want_loss,
+                                                list(params.values()))))
+    # the key projections' biases: zero gradient in exact arithmetic (a
+    # shift shared by every key leaves the softmax as it is), so both
+    # sides hold rounding noise, each below 1e-4 of the largest gradient
+    scale = max(w.norm().item() for w in want.values())
+    kbias = {n: max(grads[n].norm().item(), want[n].norm().item()) / scale
+             for n in want if n.endswith("k_proj.bias")}
+    rel = {n: ((grads[n] - w).norm() / w.norm()).item()
+           for n, w in want.items() if n not in kbias}
+    worst = max(rel, key=rel.get)
+    loss, want_loss = float(loss.detach()), float(want_loss.detach())
+    loss_rel = abs(loss - want_loss) / abs(want_loss)
+    emit({"phase": "transformer_reference", "dtype": "float32",
+          "layers": [2, 2], "batch": 8, "loss": float(loss),
+          "loss_rel_err": loss_rel, "grad_rel_l2_max": rel[worst],
+          "grad_rel_l2_worst": worst,
+          "k_proj_bias_grad_over_largest_max": max(kbias.values()),
+          "launches": launches,
+          "tolerance": {"loss_rel": 1e-5, "grad_rel_l2": 1e-4,
+                        "k_proj_bias_over_largest": 1e-4}})
+    check(max(kbias.values()) <= 1e-4, f"transformer k_proj bias "
+                                       f"gradients {kbias}")
+    check(loss_rel <= 1e-5, f"transformer loss off the plain composition "
+                            f"by {loss_rel}")
+    check(rel[worst] <= 1e-4, f"transformer gradient {worst} off the plain "
+                              f"composition by {rel[worst]}")
+    for n, (_, per_step) in counters.items():
+        check(launches[n] == per_step, f"transformer_reference: {n} "
+                                       f"launched {launches[n]} times")
+    del model, grads, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def greedy_decode(torch, model, src, src_mask, n_new, cached):
+    """Greedy decoding of ``n_new`` tokens from BOS: with ``cached``, a
+    token at a time through ``decoder.gen_cache(memory)`` (a ``Cache``
+    for the self attention, a ``StaticCache`` for the cross attention);
+    else the whole prefix through the decoder again each step under the
+    subsequent mask.  Returns the tokens [B, n_new]."""
+    from paddle_tpu_torch.nn.transformer import Transformer
+    t = model.transformer
+    memory = t.encoder(model.embed_at(src), src_mask)
+    ys = torch.full((src.shape[0], 1), TF_BOS, dtype=torch.long,
+                    device=src.device)
+    cache = t.decoder.gen_cache(memory) if cached else None
+    for i in range(n_new):
+        if cached:
+            h, cache = t.decoder(model.embed_at(ys[:, -1:], start=i), memory,
+                                 None, src_mask, cache)
+        else:
+            mask = Transformer.generate_square_subsequent_mask(
+                ys.shape[1], device=src.device)
+            h = t.decoder(model.embed_at(ys), memory, mask, src_mask)
+        nxt = model.logits(h[:, -1]).float().argmax(-1)
+        ys = torch.cat([ys, nxt[:, None]], 1)
+    return ys[:, 1:]
+
+
+def translate_phase(torch, np, dev, table, src, model):
+    """Greedy translation of TF_DECODE_SOURCES sources (padded, with the
+    memory mask) by the trained model in eval mode, TF_DECODE_NEW tokens:
+    in f32 the cached decode's tokens must equal the full recompute's;
+    decode tokens/s for f32 and for amp O1 bf16 (#2 at Sq 1 in bf16,
+    #9 mixed), whose launches fill the decode rows."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_train as ft
+    model.eval()
+    b = seq2seq_batch(torch, np, dev, SEED + 95, batch=TF_DECODE_SOURCES)
+    s, sm = b["src"], b["src_mask"]
+    out = {}
+    with torch.no_grad():
+        for tag, ctx in (("f32", contextlib.nullcontext),
+                         ("o1_bf16", lambda: amp.auto_cast(
+                             level="O1", dtype="bfloat16"))):
+            with ctx():
+                greedy_decode(torch, model, s, sm, 2, True)      # warm-up
+                fa.flash_attention_fwd.launches = 0
+                ft.add_layer_norm_raw.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                toks = greedy_decode(torch, model, s, sm, TF_DECODE_NEW,
+                                     True)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+            out[tag] = {"tokens": toks, "seconds": dt,
+                        "tokens_per_s": toks.numel() / dt,
+                        "flash_fwd_launches": fa.flash_attention_fwd.launches,
+                        "add_norm_launches": ft.add_layer_norm_raw.launches}
+        full = greedy_decode(torch, model, s, sm, TF_DECODE_NEW, False)
+    layers = 6
+    want_fwd = layers + layers * 2 * TF_DECODE_NEW
+    agree = float((out["o1_bf16"]["tokens"] == out["f32"]["tokens"])
+                  .float().mean())
+    emit({"phase": "translate", "sources": TF_DECODE_SOURCES,
+          "new_tokens": TF_DECODE_NEW,
+          **{f"{k}_{m}": v[m] for k, v in out.items()
+             for m in ("seconds", "tokens_per_s", "flash_fwd_launches",
+                       "add_norm_launches")},
+          "f32_equal_full_recompute": bool(torch.equal(out["f32"]["tokens"],
+                                                       full)),
+          "o1_bf16_token_agreement_with_f32": agree})
+    check(torch.equal(out["f32"]["tokens"], full),
+          "translate: the cached f32 decode's tokens differ from the full "
+          "recompute's")
+    for tag in out:
+        check(out[tag]["flash_fwd_launches"] == want_fwd,
+              f"translate {tag}: #2 launched "
+              f"{out[tag]['flash_fwd_launches']} times, not {want_fwd}")
+    for row in ("tf_decode1", "tf_decode33"):
+        table[f"flash_attention_fwd_{row}"]["launches"] = \
+            out["o1_bf16"]["flash_fwd_launches"]
+    model.train()
+
+
+def transformer_paths(torch, np, dev, table, src):
+    """The encoder-decoder Transformer's paths, after the zoo: its
+    training under O1 bf16 and f16, the f32 check of its chain, and
+    translation; the new kernel rows (``src``) take their launches from
+    them."""
+    model = train_transformer_phase(torch, np, dev, table, src)
+    translate_phase(torch, np, dev, table, src, model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_transformer_fp16_phase(torch, np, dev, table)
+    transformer_reference_phase(torch, np, dev)
+    missing = [n for n in src if table[n].get("launches") is None]
+    check(not missing, f"transformer rows no path launched: {missing}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6550,7 +7316,8 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _build.build(["ragged_paged_attention", "flash_attention_fwd",
                           "flash_attention_bwd", "flash_attention_dbias",
-                          "fused_update", "add_norm", "matmul_rope",
+                          "fused_update", "add_norm", "add_norm_half",
+                          "add_norm_mixed", "matmul_rope",
                           "grouped_matmul", "paged_decode_attention"])
     for name, rep in built.items():
         print(f"--- ptxas report, {name}\n{rep['ptxas']}", file=sys.stderr)
@@ -6658,6 +7425,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     zoo_rows = zoo_kernels(torch, np, torch.Generator(
         device=dev).manual_seed(SEED + 30), dev, table)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # #2-#4 and #9's mixed mode at the encoder-decoder Transformer's
+    # shapes (its paths run after the zoo's)
+    tf_rows = transformer_kernels(torch, torch.Generator(
+        device=dev).manual_seed(SEED + 40), dev, table)
+    emit({"phase": "transformer_kernels", "rows": sorted(tf_rows)})
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -6799,6 +7573,13 @@ def main() -> int:
     # dense and MoE training and their f32 checks, DiT-L/2, the KL
     # autoencoder, BERT-base, DeepSeekMoE-16B serving
     zoo_paths(torch, np, dev, table, zoo_rows)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the encoder-decoder Transformer (Transformer-base; its kernel rows
+    # ran above): O1 bf16 training and translation, O1 f16 with
+    # GradScaler, the f32 check of its chain
+    transformer_paths(torch, np, dev, table, tf_rows)
 
     # each tensor-core row: its kernel's registers and spills (the most
     # registers and the summed spills over that kernel's instantiations)
@@ -6846,7 +7627,7 @@ def main() -> int:
         "ragged_paged_append_attend_bfloat16_q_float32_pools",
         "paged_decode_append_attend_float32_q_bfloat16_pools",
         "paged_attention_float32_q_bfloat16_pools")] + [
-            table[n] for n in zoo_rows]})
+            table[n] for n in zoo_rows] + [table[n] for n in tf_rows]})
     print(smi[0], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -6,25 +6,25 @@ it is.  This package mirrors its module paths (``models/llama.py``,
 finds each counterpart, but imports only ``torch`` and ``numpy``:
 nothing of JAX and nothing of ``paddle_tpu``.
 
-It ports two paths so far.  Serving: ``LLMEngine``'s ragged unified
-step, its split decode path and synchronous chunked prefill, with float
-or int8 KV pools and float or int8 weights (``quantization/``), for the
-Llama and Qwen2-MoE families.  Training: ``LlamaForCausalLM``'s and
-``Qwen2MoeForCausalLM``'s forward with the chunked linear +
-cross-entropy, ``GPTForCausalLM`` with hidden and attention dropout
-(``ops/random.py``'s generator), ``amp.decorate``, AdamW with a
-global-norm clip and ``CompiledTrainStep``; ``nn/transformer.py``'s
-attention and encoder layers, with a trained attention bias.  Their
-kernels (paged attention for the unified and split steps, flash forward
-and backward with in-kernel dropout, the trained bias's gradient, the
-fused clip + optimizer update, add + norm, matmul + rope, the MoE
-grouped matmuls) are written by hand in CUDA C++ for Hopper
-(``csrc/``).  The serving engine reports into ``observability/``
-(metrics, tracing, health, memory, request capsules; the reference's
-stdlib modules kept as copies) and ``profiler/`` (over
-``torch.profiler``).  The training loop's state is ported too: LR
-schedulers, the reference's 14 optimizers with the eager API, the clips
-and regularizers, ``StepTimer`` and train-state checkpoints
+What is ported.  Serving: ``LLMEngine``'s ragged unified step, its
+split decode path and synchronous chunked prefill, float or int8 KV
+pools and weights (``quantization/``), sampling, ``generate`` and
+speculative decoding, preemption, the observability plane
+(``observability/``, ``profiler/``) and the serving runtime
+(``serving/``).  Training: the Llama, Qwen2-MoE, GPT-2, ERNIE-4.5, BERT
+and DiT families (with ``AutoencoderKL``) through ``CompiledTrainStep``
+with fused regions, remat and dropout; ``nn/transformer.py``'s encoder
+and decoder layers and the encoder-decoder ``Transformer``; amp O1
+(``amp.auto_cast``, by op name) and O2 (``amp.decorate``) with
+``GradScaler``; the reference's losses and loss layers; the LR
+schedulers, the 14 optimizers with the eager API, the clips and
+regularizers, ``StepTimer`` and train-state checkpoints
 (``distributed/``, the reference's on-disk format) with exact resume.
+``nn`` and ``inference`` export the reference's names of what is
+ported.  The 13 TPU kernels' counterparts (paged attention for the
+unified and split steps, flash forward and backward with in-kernel
+dropout, the trained bias's gradient, the fused clip + optimizer
+update, add + norm with its backward, matmul + rope, the MoE grouped
+matmuls) are written by hand in CUDA C++ for Hopper (``csrc/``).
 Entry points run on the GPU unless the caller passes ``device="cpu"``.
 """

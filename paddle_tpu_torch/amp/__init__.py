@@ -1,1 +1,3 @@
-from .auto_cast import decorate  # noqa: F401
+from .auto_cast import (amp_guard, amp_state, auto_cast, black_list,  # noqa: F401
+                        decorate, white_list)
+from .grad_scaler import GradScaler  # noqa: F401

@@ -36,8 +36,11 @@ Function records that generator and its state where the region starts,
 and runs the recompute under it, set back to that state (restoring its
 later state after), so the recompute draws what the first run drew,
 wherever the backward runs, as the reference's ``jax.checkpoint``
-replays its keys.  A region is differentiated once (no
-``retain_graph``).
+replays its keys.  In the same way the recompute runs under the
+``amp.auto_cast`` state of the first run (the loss function's
+``auto_cast`` has exited when the backward runs), so an O1 region casts
+as it did, as the reference's ``jax.checkpoint`` replays the casts it
+traced.  A region is differentiated once (no ``retain_graph``).
 """
 from __future__ import annotations
 
@@ -48,6 +51,7 @@ import torch
 from torch import nn
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
+from ..amp.auto_cast import amp_restored, amp_state
 from ..common.errors import enforce
 from ..ops import random as _random
 
@@ -165,6 +169,7 @@ class _Recompute(torch.autograd.Function):
         with _in_frame(frame):
             outs, single = _outputs(run(*tensors[:n_args]))
         ctx.run, ctx.frame, ctx.single = run, frame, single
+        ctx.amp = amp_state()
         ctx.save_for_backward(*tensors[:n_args])
         ctx.params = tensors[n_args:]        # the module's own Parameters
         return outs[0] if single else outs
@@ -183,7 +188,7 @@ class _Recompute(torch.autograd.Function):
         gen.set_state(state)
         try:
             with torch.enable_grad(), _in_frame(frame), \
-                    _random.rng_guard(gen):
+                    _random.rng_guard(gen), amp_restored(ctx.amp):
                 outs, _ = _outputs(ctx.run(*args))
         finally:
             gen.set_state(later)

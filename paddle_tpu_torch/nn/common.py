@@ -12,8 +12,10 @@ from the dropout stream's generator of that device (``ops/random.py``,
 the reference's global key) when none is given.  ``weight_attr`` is an
 initializer of ``nn/initializer.py`` (default ``XavierNormal`` for
 ``Linear``, ``Normal(0, 1)`` for ``Embedding``); ``bias_attr=False``
-drops the bias, which is zeros otherwise.  A ``Linear``'s product is a
-"dot" to the recompute policies (``names``, ``jit/recompute.py``).
+drops the bias, which is zeros otherwise.  A ``Linear`` computes
+``F.linear`` (under ``amp.auto_cast`` O1 its f32 operands in the amp
+dtype, as the reference's), whose product is a "dot" to the recompute
+policies (``names``, ``jit/recompute.py``).
 
 ``Init`` is the models' parameter factory: one device, dtype and seeded
 generator, from which every parameter is drawn in construction order.
@@ -25,7 +27,6 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..jit.recompute import product
 from ..ops import random as _random
 from ..runtime.device import resolve_device
 from . import functional as F
@@ -66,14 +67,7 @@ class Linear(nn.Module):
                               generator)
 
     def forward(self, x):
-        w = self.weight
-        if x.dtype != w.dtype:
-            # the reference's jnp promotion: an f32 input to a 16-bit
-            # weight (amp O2) computes in f32, and so on
-            dt = torch.promote_types(x.dtype, w.dtype)
-            x, w = x.to(dt), w.to(dt)
-        y = product(x, w, self.names)
-        return y if self.bias is None else y + self.bias
+        return F.linear(x, self.weight, self.bias, self.names)
 
     def extra_repr(self):
         return f"in={self.in_features}, out={self.out_features}"

@@ -1,18 +1,24 @@
 """Transformer layers (counterpart of ``paddle_tpu/nn/transformer.py``):
 ``MultiHeadAttention`` (with ``Cache`` / ``StaticCache``),
-``TransformerEncoderLayer`` in pre- and post-norm form, and
-``TransformerEncoder``.
+``TransformerEncoderLayer`` and ``TransformerDecoderLayer`` in pre- and
+post-norm form, ``TransformerEncoder``, ``TransformerDecoder`` and the
+encoder-decoder ``Transformer`` (its defaults: the base model of
+Vaswani et al. 2017).
 
 Attention goes through ``nn.functional.scaled_dot_product_attention``
 (the flash kernels): an additive ``attn_mask`` that requires grad is a
 trained bias and gets its gradient from the bias-gradient kernel, and
 attention dropout runs inside the kernels while the layer trains.  The
-post-norm encoder layer fuses each residual add into its LayerNorm
+post-norm layers fuse each residual add into its LayerNorm
 (``LayerNorm.forward_residual``: the add+norm kernel's LayerNorm body on
-the card).  Layers take ``device`` (default: the GPU), ``dtype`` and a
-``generator`` for their weights, as ``nn/common.py``'s.
-``TransformerDecoderLayer``, ``TransformerDecoder`` and ``Transformer``
-are not ported yet.
+the card, two calls an encoder layer and three a decoder layer; under
+amp O1 the add meets a 16-bit block output and an f32 residual, the
+kernel's mixed-dtype mode).  The decoder's self attention grows a
+``Cache`` (f32 zeros at first, as the reference's, so an amp O2 decoder
+attends with bf16 queries over f32 keys, promoted), its cross attention
+reads a ``StaticCache`` of the memory's keys and values.  Layers take
+``device`` (default: the GPU), ``dtype`` and a ``generator`` for their
+weights, as ``nn/common.py``'s.
 """
 from __future__ import annotations
 
@@ -27,8 +33,11 @@ from . import functional as F
 from .common import Dropout, Linear
 from .norm import LayerNorm
 
+from ..runtime.device import resolve_device
+
 __all__ = ["MultiHeadAttention", "TransformerEncoderLayer",
-           "TransformerEncoder"]
+           "TransformerEncoder", "TransformerDecoderLayer",
+           "TransformerDecoder", "Transformer"]
 
 
 class MultiHeadAttention(nn.Module):
@@ -197,3 +206,164 @@ class TransformerEncoder(nn.Module):
 
     def gen_cache(self, src):
         return [layer.gen_cache(src) for layer in self.layers]
+
+
+class TransformerDecoderLayer(nn.Module):
+    """Self attention over the target, cross attention over the encoder's
+    ``memory`` and a feed-forward block, each with dropout on its output
+    and a residual add (pre-norm normalises each block's input;
+    post-norm normalises after the add, through the fused
+    ``LayerNorm.forward_residual``).  With ``cache`` (from
+    :meth:`gen_cache`: a ``Cache`` for the self attention, a
+    ``StaticCache`` of the memory for the cross attention) it decodes
+    incrementally and returns ``(output, new cache)``."""
+
+    def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
+                 activation="relu", attn_dropout=None, act_dropout=None,
+                 normalize_before=False, weight_attr=None, bias_attr=None,
+                 layer_norm_eps=1e-5, *, device=None,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        attn_dropout = dropout if attn_dropout is None else attn_dropout
+        act_dropout = dropout if act_dropout is None else act_dropout
+        kw = dict(device=device, dtype=dtype, generator=generator)
+        self.normalize_before = normalize_before
+        self.self_attn = MultiHeadAttention(d_model, nhead, attn_dropout,
+                                            weight_attr=weight_attr,
+                                            bias_attr=bias_attr, **kw)
+        self.cross_attn = MultiHeadAttention(d_model, nhead, attn_dropout,
+                                             weight_attr=weight_attr,
+                                             bias_attr=bias_attr, **kw)
+        self.linear1 = Linear(d_model, dim_feedforward, weight_attr,
+                              bias_attr, **kw)
+        self.dropout = Dropout(act_dropout)
+        self.linear2 = Linear(dim_feedforward, d_model, weight_attr,
+                              bias_attr, **kw)
+        dev = self.linear1.weight.device
+        self.norm1, self.norm2, self.norm3 = (
+            LayerNorm(d_model, epsilon=layer_norm_eps, device=dev,
+                      dtype=dtype) for _ in range(3))
+        self.dropout1, self.dropout2, self.dropout3 = (
+            Dropout(dropout) for _ in range(3))
+        self.activation = _ACTIVATIONS[activation]
+
+    def _residual(self, norm, out, residual):
+        if self.normalize_before:
+            return residual + out
+        return norm.forward_residual(out, residual)[1]
+
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None,
+                cache=None):
+        residual = tgt
+        if self.normalize_before:
+            tgt = self.norm1(tgt)
+        if cache is None:
+            tgt = self.self_attn(tgt, tgt, tgt, tgt_mask)
+        else:
+            tgt, new_inc = self.self_attn(tgt, tgt, tgt, tgt_mask, cache[0])
+        tgt = self._residual(self.norm1, self.dropout1(tgt), residual)
+        residual = tgt
+        if self.normalize_before:
+            tgt = self.norm2(tgt)
+        tgt = self.cross_attn(tgt, memory, memory, memory_mask,
+                              None if cache is None else cache[1])
+        tgt = self._residual(self.norm2, self.dropout2(tgt), residual)
+        residual = tgt
+        if self.normalize_before:
+            tgt = self.norm3(tgt)
+        tgt = self.linear2(self.dropout(self.activation(self.linear1(tgt))))
+        tgt = self._residual(self.norm3, self.dropout3(tgt), residual)
+        return tgt if cache is None else (tgt, (new_inc, cache[1]))
+
+    def gen_cache(self, memory):
+        """``(Cache, StaticCache)``: an empty self-attention cache and
+        the cross attention's keys and values of ``memory``."""
+        return (self.self_attn.gen_cache(memory),
+                self.cross_attn.gen_cache(
+                    memory, memory, type=MultiHeadAttention.StaticCache))
+
+
+class TransformerDecoder(nn.Module):
+    """``num_layers`` copies of ``decoder_layer`` (deep copies with equal
+    weights, as the reference), then ``norm`` if given."""
+
+    def __init__(self, decoder_layer, num_layers, norm=None):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            [decoder_layer if i == 0 else copy.deepcopy(decoder_layer)
+             for i in range(num_layers)])
+        self.num_layers = num_layers
+        self.norm = norm
+
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None,
+                cache=None):
+        output = tgt
+        new_caches = []
+        for i, mod in enumerate(self.layers):
+            if cache is None:
+                output = mod(output, memory, tgt_mask, memory_mask)
+            else:
+                output, new_cache = mod(output, memory, tgt_mask,
+                                        memory_mask, cache[i])
+                new_caches.append(new_cache)
+        if self.norm is not None:
+            output = self.norm(output)
+        return output if cache is None else (output, new_caches)
+
+    def gen_cache(self, memory):
+        return [layer.gen_cache(memory) for layer in self.layers]
+
+
+class Transformer(nn.Module):
+    """The encoder-decoder Transformer; the defaults are Vaswani et al.
+    2017's base model (d_model 512, 8 heads, 6 + 6 layers, d_ff 2048,
+    dropout 0.1, post-norm, relu).  ``forward(src, tgt, ...)`` takes
+    embedded ``[B, S, d_model]`` sequences: the embeddings, positions
+    and output projection are the caller's, as in the reference."""
+
+    def __init__(self, d_model=512, nhead=8, num_encoder_layers=6,
+                 num_decoder_layers=6, dim_feedforward=2048, dropout=0.1,
+                 activation="relu", attn_dropout=None, act_dropout=None,
+                 normalize_before=False, weight_attr=None, bias_attr=None,
+                 custom_encoder=None, custom_decoder=None, *, device=None,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype, generator=generator)
+        args = (d_model, nhead, dim_feedforward, dropout, activation,
+                attn_dropout, act_dropout, normalize_before, weight_attr,
+                bias_attr)
+
+        def final_norm():
+            return LayerNorm(d_model, device=device, dtype=dtype) \
+                if normalize_before else None
+
+        if custom_encoder is not None:
+            self.encoder = custom_encoder
+        else:
+            self.encoder = TransformerEncoder(
+                TransformerEncoderLayer(*args, **kw), num_encoder_layers,
+                final_norm())
+        if custom_decoder is not None:
+            self.decoder = custom_decoder
+        else:
+            self.decoder = TransformerDecoder(
+                TransformerDecoderLayer(*args, **kw), num_decoder_layers,
+                final_norm())
+        self.d_model = d_model
+        self.nhead = nhead
+
+    def forward(self, src, tgt, src_mask=None, tgt_mask=None,
+                memory_mask=None):
+        memory = self.encoder(src, src_mask=src_mask)
+        return self.decoder(tgt, memory, tgt_mask=tgt_mask,
+                            memory_mask=memory_mask)
+
+    @staticmethod
+    def generate_square_subsequent_mask(length, device=None):
+        """The additive causal mask ``[length, length]`` f32: 0 on and
+        below the diagonal, -inf above, on ``device`` (default: the
+        GPU)."""
+        return torch.full((length, length), float("-inf"),
+                          device=resolve_device(device)).triu(1)

@@ -49,6 +49,7 @@ import math
 
 import torch
 
+from ..amp.auto_cast import amp_cast
 from ..common.errors import enforce
 from ..jit.recompute import kept
 from . import _build
@@ -780,11 +781,21 @@ def flash_attention_raw(q, k, v, causal: bool = False, mask=None,
       NotImplementedError on CUDA tensors (the reference falls back to
       its jnp path there);
     - ``dropout_p`` > 0 drops attention probabilities in the kernels,
-      with the keep mask of the int64 scalar ``seed`` tensor.
+      with the keep mask of the int64 scalar ``seed`` tensor;
+    - q, k and v of two float dtypes are cast to their common one, as
+      jnp promotes them (an amp O2 decoder's bf16 queries against its
+      f32 ``Cache``): that dtype's route runs and the output is in it;
+    - under ``amp.auto_cast`` the white-listed ``"flash_attention_raw"``
+      takes f32 q, k and v in the amp dtype.
 
     Otherwise the output of ``flash_attention_fwd``, differentiable in
     q, k and v through ``_FlashAttention`` when grad mode is on and one
     of them requires grad."""
+    q, k, v = amp_cast("flash_attention_raw", q, k, v)
+    if not q.dtype == k.dtype == v.dtype:
+        dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype),
+                                 v.dtype)
+        q, k, v = q.to(dt), k.to(dt), v.to(dt)
     if mask is not None and mask.dtype == torch.bool:
         mask = torch.zeros(mask.shape, dtype=torch.float32,
                            device=mask.device).masked_fill_(~mask, _NEG_INF)

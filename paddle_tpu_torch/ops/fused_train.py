@@ -5,7 +5,7 @@ kernel beside its plain PyTorch version:
 1. the optimizer update with the global-norm clip folded in
    (``csrc/fused_update.cu``);
 2. the residual add fused with RMSNorm or LayerNorm
-   (``csrc/add_norm.cu``);
+   (``csrc/add_norm.cuh``, built as three libraries by dtype);
 3. a q or k projection fused with the rotary embedding
    (``csrc/matmul_rope.cu``).
 
@@ -29,6 +29,7 @@ the reference math in plain PyTorch around cuBLAS.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict
 
 import torch
@@ -206,8 +207,8 @@ fused_update_flat.launches = 0
 # 2. fused residual add + norm
 # ---------------------------------------------------------------------------
 
-_NORM_SOURCE = "add_norm"
-_NORM_DTYPE = {torch.float32: 0, torch.bfloat16: 1}
+_NORM_DTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_NORM_HALF = (torch.bfloat16, torch.float16)
 _NORM_MAX_H = 8192
 
 
@@ -267,30 +268,41 @@ def add_layer_norm_backward_reference(h, weight, bias, dh, dy,
     return _norm_backward_plain(h, weight, bias, dh, dy, epsilon, True)
 
 
-_norm_lib = None
+_norm_libs: Dict[tuple, ctypes.CDLL] = {}     # (narrow, h, w) -> library
 _bwd_blocks: Dict[tuple, int] = {}
 # the current stream's raw handle without building a Stream object
 _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
-def _norm_kernel() -> ctypes.CDLL:
-    global _norm_lib
-    if _norm_lib is None:
-        lib = _build.load(_NORM_SOURCE)
+def _norm_source(narrow, hdt, wdt) -> str:
+    """The #9 library that holds the kernels of these dtypes: the header
+    ``csrc/add_norm.cuh`` is built as three translation units, one a
+    family of dtype combinations, in parallel."""
+    if narrow != hdt:
+        return "add_norm_mixed"
+    if torch.float16 in (hdt, wdt):
+        return "add_norm_half"
+    return "add_norm"
+
+
+def _norm_kernel(narrow, hdt, wdt) -> ctypes.CDLL:
+    lib = _norm_libs.get((narrow, hdt, wdt))
+    if lib is None:
+        lib = _build.load(_norm_source(narrow, hdt, wdt))
         lib.add_norm.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        lib.add_norm_bwd_blocks.argtypes = [ctypes.c_int] * 5 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_float] + [
+            ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.add_norm_bwd_blocks.argtypes = [ctypes.c_int] * 6 + [
             ctypes.c_longlong, ctypes.c_int]
-        lib.add_norm_bwd.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.add_norm_bwd.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_float] + [
+            ctypes.c_int] * 5 + [ctypes.c_void_p]
         for fn in (lib.add_norm, lib.add_norm_bwd_blocks, lib.add_norm_bwd):
             fn.restype = ctypes.c_int
         lib.add_norm_error_string.argtypes = [ctypes.c_int]
         lib.add_norm_error_string.restype = ctypes.c_char_p
-        _norm_lib = lib
-    return _norm_lib
+        _norm_libs[(narrow, hdt, wdt)] = lib
+    return lib
 
 
 def _launch(x, launch):
@@ -304,6 +316,30 @@ def _launch(x, launch):
         return launch(torch.cuda.current_stream(idx).cuda_stream)
 
 
+@functools.lru_cache(maxsize=None)      # a lookup on every launch
+def _norm_dtypes(xd, rd, wd):
+    """The kernel's operand order and dtypes for x, the residual and the
+    weight: ``(swap, narrow, h)`` -- the narrower operand's dtype (x's
+    unless ``swap``: the residual is the narrower), h's (the promoted
+    one) -- or None for dtypes the kernel does not take.  It takes x and
+    the residual in one of float32, bfloat16 and float16, or one 16-bit
+    and one float32 (the mixed mode); the weight in h's dtype or float32
+    (an f32 h also takes a 16-bit weight), in the mixed mode float32 or
+    the narrower operand's dtype."""
+    if xd not in _NORM_DTYPE or rd not in _NORM_DTYPE or \
+            wd not in _NORM_DTYPE:
+        return None
+    if xd == rd:
+        return (False, xd, xd) if (wd in (xd, torch.float32)
+                                   or xd == torch.float32) else None
+    swap = xd == torch.float32
+    narrow = rd if swap else xd
+    if narrow not in _NORM_HALF or torch.float32 not in (xd, rd):
+        return None
+    return (swap, narrow, torch.float32) if wd in (narrow, torch.float32) \
+        else None
+
+
 def _add_norm_refuse(x, residual, weight, bias, ln):
     """Raise on what the kernel does not take (the checks, with their
     messages, behind one cheap test in the launch)."""
@@ -311,17 +347,19 @@ def _add_norm_refuse(x, residual, weight, bias, ln):
     if weight is None:
         raise NotImplementedError(f"the {kind} kernel needs a weight")
     hdim = x.shape[-1]
-    if x.dtype not in _NORM_DTYPE or weight.dtype not in _NORM_DTYPE:
+    if _norm_dtypes(x.dtype, residual.dtype, weight.dtype) is None:
         raise NotImplementedError(
-            f"the {kind} kernel takes float32 and bfloat16, not "
-            f"{x.dtype} / {weight.dtype}")
+            f"the {kind} kernel takes x and the residual in one dtype of "
+            f"float32, bfloat16 and float16 or one 16-bit over float32, "
+            f"the weight in h's dtype or float32 (see _norm_dtypes), not "
+            f"{x.dtype} / {residual.dtype} / {weight.dtype}")
     if not 0 < hdim <= _NORM_MAX_H:
         raise NotImplementedError(
             f"the {kind} kernel takes rows of up to {_NORM_MAX_H} "
             f"elements, not {hdim}")
-    enforce(residual.shape == x.shape and residual.dtype == x.dtype,
-            f"{kind}: residual {tuple(residual.shape)} {residual.dtype} "
-            f"must match x {tuple(x.shape)} {x.dtype}")
+    enforce(residual.shape == x.shape,
+            f"{kind}: residual {tuple(residual.shape)} must match x "
+            f"{tuple(x.shape)}")
     enforce(weight.shape == (hdim,) and (bias is None or (
         bias.shape == (hdim,) and bias.dtype == weight.dtype)),
             f"{kind}: weight and bias must be [{hdim}] in one dtype")
@@ -333,23 +371,28 @@ def _add_norm_refuse(x, residual, weight, bias, ln):
 
 
 def _add_norm_launch(x, residual, weight, bias, epsilon, ln):
-    """(h, y) from the kernel of ``csrc/add_norm.cu``; raises on what it
+    """(h, y) from the kernel of ``csrc/add_norm.cuh``; raises on what it
     does not take."""
     hdim = x.shape[-1]
     dev = x.device
-    if not (weight is not None and x.dtype in _NORM_DTYPE
-            and weight.dtype in _NORM_DTYPE and 0 < hdim <= _NORM_MAX_H
+    combo = None if weight is None else _norm_dtypes(
+        x.dtype, residual.dtype, weight.dtype)
+    if not (combo is not None and 0 < hdim <= _NORM_MAX_H
             and dev.type == "cuda" and residual.shape == x.shape
-            and residual.dtype == x.dtype and residual.device == dev
+            and residual.device == dev
             and weight.shape == (hdim,) and weight.device == dev
             and (bias is None or (bias.shape == (hdim,) and bias.device == dev
                                   and bias.dtype == weight.dtype))):
         _add_norm_refuse(x, residual, weight, bias, ln)
+    swap, narrow, hdt = combo
+    if swap:            # h = r + x is symmetric: the narrower goes first
+        x, residual = residual, x
     x, residual, weight = x.contiguous(), residual.contiguous(), \
         weight.contiguous()
     bias = None if bias is None else bias.contiguous()
-    h = torch.empty_like(x)
-    y = torch.empty_like(x, dtype=torch.promote_types(x.dtype, weight.dtype))
+    h = torch.empty_like(residual)
+    y = torch.empty_like(residual,
+                         dtype=torch.promote_types(hdt, weight.dtype))
     rows = x.numel() // hdim
     if rows == 0:
         return h, y
@@ -358,11 +401,11 @@ def _add_norm_launch(x, residual, weight, bias, epsilon, ln):
             h.data_ptr(), y.data_ptr())
     vec = 1 if hdim % 8 or (ptrs[0] | ptrs[1] | ptrs[2] | bp | ptrs[4]
                             | ptrs[5]) & 15 else 8
-    lib = _norm_kernel()
+    lib = _norm_kernel(narrow, hdt, weight.dtype)
     err = _launch(x, lambda s: lib.add_norm(
         int(ln), ptrs[0], ptrs[1], ptrs[2], bp or None, ptrs[4], ptrs[5],
-        rows, hdim, epsilon, _NORM_DTYPE[x.dtype], _NORM_DTYPE[weight.dtype],
-        vec, s))
+        rows, hdim, epsilon, _NORM_DTYPE[narrow], _NORM_DTYPE[hdt],
+        _NORM_DTYPE[weight.dtype], vec, s))
     if err:
         raise RuntimeError(("add_layer_norm" if ln else "add_rms_norm")
                            + " launch failed: "
@@ -377,11 +420,13 @@ def _add_norm_plain(x, residual, weight, bias, epsilon, ln):
     return add_rms_norm_reference(x, residual, weight, epsilon)
 
 
-def _add_norm_bwd_launch(h, weight, bias, dh, dy, epsilon, ln):
-    """(dx, dw, db) from the backward kernels of ``csrc/add_norm.cu``
-    (``add_norm_bwd``, then ``add_norm_bwd_reduce`` summing the blocks'
-    dw and db partials in a fixed order); raises on what they do not
-    take.  h, weight and bias are the forward's, which checked them."""
+def _add_norm_bwd_launch(h, weight, bias, dh, dy, epsilon, ln, narrow):
+    """(dx in h's dtype, dx in ``narrow``, dw, db) from the backward
+    kernels of ``csrc/add_norm.cuh`` (``add_norm_bwd``, then
+    ``add_norm_bwd_reduce`` summing the blocks' dw and db partials in a
+    fixed order); raises on what they do not take.  h, weight and bias
+    are the forward's, which checked them; ``narrow`` is the narrower
+    operand's dtype (h's when both share it)."""
     kind = "add_layer_norm" if ln else "add_rms_norm"
     hdim = h.shape[-1]
     out_dt = torch.promote_types(h.dtype, weight.dtype)
@@ -393,20 +438,28 @@ def _add_norm_bwd_launch(h, weight, bias, dh, dy, epsilon, ln):
             f"{kind} backward: dy must be {tuple(h.shape)} {out_dt} and dh "
             f"{h.dtype} on {h.device}, not {tuple(dy.shape)} {dy.dtype} on "
             f"{dy.device} and {None if dh is None else (dh.dtype, dh.device)}")
+    if _norm_dtypes(narrow, h.dtype, weight.dtype) is None:
+        raise NotImplementedError(
+            f"{kind} backward: no kernel for x {narrow} under h {h.dtype} "
+            f"with a {weight.dtype} weight")
     dy = dy.contiguous()
     dh = None if dh is None else dh.contiguous()
-    dx = torch.empty_like(h)
+    dx = torch.empty_like(h, dtype=narrow)
+    dr = torch.empty_like(h) if narrow != h.dtype else None
     dw = torch.empty_like(weight)
     db = None if bias is None else torch.empty_like(bias)
     rows = h.numel() // hdim
     if rows == 0:
-        return dx, dw.zero_(), None if db is None else db.zero_()
+        return (dx if dr is None else dr), dx, dw.zero_(), \
+            None if db is None else db.zero_()
     hp = 0 if dh is None else dh.data_ptr()
+    rp = 0 if dr is None else dr.data_ptr()
     ptrs = (h.data_ptr(), dy.data_ptr(), weight.data_ptr(), dx.data_ptr())
-    vec = 1 if hdim % 8 or (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3] | hp) & 15 \
-        else 8
-    lib = _norm_kernel()
-    codes = (_NORM_DTYPE[h.dtype], _NORM_DTYPE[weight.dtype])
+    vec = 1 if hdim % 8 or (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3] | hp
+                            | rp) & 15 else 8
+    lib = _norm_kernel(narrow, h.dtype, weight.dtype)
+    codes = (_NORM_DTYPE[narrow], _NORM_DTYPE[h.dtype],
+             _NORM_DTYPE[weight.dtype])
     key = (h.get_device(), ln, db is not None, codes, vec, rows, hdim)
     blocks = _bwd_blocks.get(key)
     if blocks is None:
@@ -419,7 +472,7 @@ def _add_norm_bwd_launch(h, weight, bias, dh, dy, epsilon, ln):
     part = torch.empty((1 if db is None else 2) * blocks * hdim,
                        dtype=torch.float32, device=h.device)
     err = _launch(h, lambda s: lib.add_norm_bwd(
-        int(ln), ptrs[0], ptrs[1], hp or None, ptrs[2], ptrs[3],
+        int(ln), ptrs[0], ptrs[1], hp or None, ptrs[2], ptrs[3], rp or None,
         part.data_ptr(), dw.data_ptr(),
         None if db is None else db.data_ptr(), rows, hdim, epsilon, *codes,
         vec, blocks, s))
@@ -428,13 +481,18 @@ def _add_norm_bwd_launch(h, weight, bias, dh, dy, epsilon, ln):
                            + lib.add_norm_error_string(err).decode())
     (add_layer_norm_backward_raw if ln
      else add_rms_norm_backward_raw).launches += 1
-    return dx, dw, db
+    return (dx if dr is None else dr), dx, dw, db
 
 
-def _add_norm_backward(h, weight, bias, dh, dy, epsilon, ln):
+def _add_norm_backward(h, weight, bias, dh, dy, epsilon, ln, narrow):
+    """(dx in h's dtype, dx in ``narrow``, dw, db): the plain version on
+    the CPU (dx rounded once to ``narrow``, the VJP of jnp's cast), the
+    kernels on the card."""
     if h.device.type == "cpu":
-        return _norm_backward_plain(h, weight, bias, dh, dy, epsilon, ln)
-    return _add_norm_bwd_launch(h, weight, bias, dh, dy, epsilon, ln)
+        dx, dw, db = _norm_backward_plain(h, weight, bias, dh, dy, epsilon,
+                                          ln)
+        return dx, dx.to(narrow), dw, db
+    return _add_norm_bwd_launch(h, weight, bias, dh, dy, epsilon, ln, narrow)
 
 
 class _AddNorm(torch.autograd.Function):
@@ -452,18 +510,23 @@ class _AddNorm(torch.autograd.Function):
             h, y = _add_norm_launch(x, residual, weight, bias, epsilon, ln)
         ctx.save_for_backward(h, weight, bias)
         ctx.cfg = (epsilon, ln)
+        ctx.dtypes = (x.dtype, residual.dtype)
         return h, y
 
     @staticmethod
     def backward(ctx, dh, dy):
         h, weight, bias = ctx.saved_tensors
+        xd, rd = ctx.dtypes
+        narrow = rd if xd == h.dtype else xd
         if dy is None:
-            dx, dw, db = dh, None, None
+            gh, dw, db = dh, None, None
+            gn = dh.to(narrow)
         else:
-            dx, dw, db = _add_norm_backward(h, weight, bias, dh, dy,
-                                            *ctx.cfg)
+            gh, gn, dw, db = _add_norm_backward(h, weight, bias, dh, dy,
+                                                *ctx.cfg, narrow)
         need = ctx.needs_input_grad
-        return (dx if need[0] else None, dx if need[1] else None,
+        return ((gh if xd == h.dtype else gn) if need[0] else None,
+                (gh if rd == h.dtype else gn) if need[1] else None,
                 dw if need[2] else None, db if need[3] else None, None,
                 None)
 
@@ -481,11 +544,12 @@ def _add_norm(x, residual, weight, bias, epsilon, ln):
 def add_rms_norm_raw(x, residual, weight, epsilon=1e-6):
     """Fused residual add + RMSNorm: returns ``(h, y)`` with
     ``h = residual + x`` and ``y = rms_norm(h, weight)``, y in the
-    promoted dtype of x and weight.  On CUDA tensors one launch of the
-    kernel of ``csrc/add_norm.cu`` (float32/bfloat16, rows of up to 8192,
-    a weight; other inputs raise), and its backward one call of
-    :func:`add_rms_norm_backward_raw`; on CPU tensors the plain
-    versions."""
+    promoted dtype of h and weight (h's: x's and the residual's).  On
+    CUDA tensors one launch of the kernel of ``csrc/add_norm.cuh`` (x and
+    the residual in one of float32, bfloat16 and float16 or one 16-bit
+    over float32, rows of up to 8192, a weight; other inputs raise), and
+    its backward one call of :func:`add_rms_norm_backward_raw`; on CPU
+    tensors the plain versions."""
     return _add_norm(x, residual, weight, None, float(epsilon), False)
 
 
@@ -495,19 +559,30 @@ def add_layer_norm_raw(x, residual, weight, bias, epsilon=1e-5):
     return _add_norm(x, residual, weight, bias, float(epsilon), True)
 
 
-def add_rms_norm_backward_raw(h, weight, dh, dy, epsilon=1e-6):
+def _backward_raw(h, weight, bias, dh, dy, epsilon, ln, x_dtype):
+    narrow = h.dtype if x_dtype is None else x_dtype
+    gh, gn, dw, db = _add_norm_backward(h, weight, bias, dh, dy,
+                                        float(epsilon), ln, narrow)
+    return (gh if narrow == h.dtype else (gn, gh)), dw, db
+
+
+def add_rms_norm_backward_raw(h, weight, dh, dy, epsilon=1e-6,
+                              x_dtype=None):
     """The backward of :func:`add_rms_norm_raw` from its output h:
     ``(dx, dw, None)``, dx the gradient of x and of the residual, ``dh``
-    h's own gradient or None.  On CUDA tensors one call of the backward
-    kernels of ``csrc/add_norm.cu`` (counted once); on CPU tensors
+    h's own gradient or None.  In the mixed mode (``x_dtype`` narrower
+    than h's) dx is the pair (x's gradient in ``x_dtype``, the
+    residual's in h's dtype).  On CUDA tensors one call of the backward
+    kernels of ``csrc/add_norm.cuh`` (counted once); on CPU tensors
     :func:`add_rms_norm_backward_reference`."""
-    return _add_norm_backward(h, weight, None, dh, dy, float(epsilon),
-                              False)
+    return _backward_raw(h, weight, None, dh, dy, epsilon, False, x_dtype)
 
 
-def add_layer_norm_backward_raw(h, weight, bias, dh, dy, epsilon=1e-5):
-    """The backward of :func:`add_layer_norm_raw`: ``(dx, dw, db)``."""
-    return _add_norm_backward(h, weight, bias, dh, dy, float(epsilon), True)
+def add_layer_norm_backward_raw(h, weight, bias, dh, dy, epsilon=1e-5,
+                                x_dtype=None):
+    """The backward of :func:`add_layer_norm_raw`: ``(dx, dw, db)``, dx
+    as :func:`add_rms_norm_backward_raw`'s."""
+    return _backward_raw(h, weight, bias, dh, dy, epsilon, True, x_dtype)
 
 
 add_rms_norm_raw.launches = 0

@@ -150,7 +150,23 @@ def test_capsule_travels_in_the_migration_package(models, stores):
         assert capsule.replay_capsule(cap, eng)["first_divergence"] is None
 
 
+def _dense_logprob_delta(ref, context, want, got):
+    """logp(got) - logp(want) under the reference model's own dense
+    forward over ``context`` (its last position's logits, f64 on the
+    host as the replay computes them): a value no engine state can race
+    with, unlike the reference replay's scratch-slot prefill."""
+    logits = np.asarray(ref(paddle.to_tensor(np.asarray(
+        [context], np.int32))).value, np.float64)[0, -1]
+    logits -= logits.max()
+    logz = np.log(np.exp(logits).sum())
+    return (logits[got] - logz) - (logits[want] - logz)
+
+
 def test_tampered_capsule_diverges_where_the_reference_says(models, stores):
+    """The divergence step and tokens are the reference replay's; the
+    logprob delta is held against the reference model's dense forward
+    over the prompt plus the verified tokens (1e-4), which does not read
+    the reference engine's page tables."""
     ref, port = models
     ref_eng = RefEngine(ref, **GEOM, scan_decode=False)
     port_eng = LLMEngine(port, device="cpu", **GEOM)
@@ -166,8 +182,11 @@ def test_tampered_capsule_diverges_where_the_reference_says(models, stores):
             for k in ("first_divergence", "expected", "got",
                       "steps_compared"):
                 assert got[k] == want[k], (rid, step, k)
-            np.testing.assert_allclose(got["logprob_delta"],
-                                       want["logprob_delta"], atol=1e-4)
+            delta = _dense_logprob_delta(
+                ref, bad["prompt"] + bad["tokens"][:step], got["expected"],
+                got["got"])
+            np.testing.assert_allclose(got["logprob_delta"], delta,
+                                       atol=1e-4)
 
 
 @pytest.mark.parametrize("case", ["greedy_split", "sampling_unified"])

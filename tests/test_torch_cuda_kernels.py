@@ -76,7 +76,19 @@ while f32 at D 128 stays on ``flash_dbias``.  The model zoo's shapes:
 ``[B, 1, 1, S]`` padding bias with and without dropout (BERT; the padded
 keys' dK and dV exactly zero), #10 at hidden 1536 and 2560, and #11-#13
 at 64 experts with H 2560 and F 1536, each within the tolerances above;
-interleaved rope takes #10's plain version and launches nothing.
+interleaved rope takes #10's plain version and launches nothing.  The
+encoder-decoder Transformer's shapes: #2-#4 in bf16 and f16 under its
+additive masks with -inf entries (the subsequent mask plus key padding,
+key padding alone), with Sq != Sk (cross attention) and at one-token
+decoding from one key and from 33, within the tolerances above; q, k
+and v of two dtypes promoted to their common one (f32 out, within
+1e-4); #9 in float16 and in its mixed mode (a 16-bit x over an f32
+residual, either operand first, an f32 or 16-bit weight, at every width
+layout): h equal to r + x, y within 1e-5, the narrow operand's gradient
+within one rounding of its dtype and the f32 ones within 1e-5, through
+autograd one launch each way with each gradient in its operand's dtype.
+The per-leaf update is a supported route on the card (a
+``fused_step=False`` step launches no update kernel).
 """
 import ctypes
 
@@ -817,7 +829,8 @@ def test_update_kernel_matches_plain(dev, kind, hyper, clip, pdtype):
     assert ((p.float() - want_p.float()).abs() <= ulp).all()
 
 
-REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7,
+           torch.float16: 2.0 ** -10}
 
 
 def _rel(got, want):
@@ -826,7 +839,8 @@ def _rel(got, want):
 
 
 NORM_PAIRS = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
-              (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)]
+              (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16),
+              (torch.float16, torch.float16), (torch.float16, torch.float32)]
 # H 64 and 768 take a warp a row, 4096 a warpgroup, 8192 the block, 100
 # the one-element path
 NORM_WIDTHS = [64, 100, 768, 4096, 8192]
@@ -901,7 +915,8 @@ def test_add_norm_backward_kernel_matches_plain(dev, body, xdt, wdt, hdim,
     want = plain(*args)
     torch.cuda.synchronize()
     assert fn.launches == before + 2
-    tol = 1e-5 if xdt == wdt == torch.float32 else 2.0 ** -7
+    tol = 1e-5 if xdt == wdt == torch.float32 else \
+        2.0 ** -10 if torch.float16 in (xdt, wdt) else 2.0 ** -7
     assert got[0].dtype == xdt and got[1].dtype == wdt
     for name, g, wnt in zip(("dx", "dw", "db"), got, want):
         if wnt is None:
@@ -946,6 +961,164 @@ def test_add_norm_autograd_launches_the_backward_kernel(dev, body):
     assert torch.equal(x.grad, r.grad)
     assert x.grad.data_ptr() != r.grad.data_ptr()
     assert w.grad is not None and (body == "rms" or b.grad is not None)
+
+
+# the mixed mode: a 16-bit x over an f32 residual (amp O1's post-norm
+# block), with an f32 weight or one in x's dtype, either operand first
+MIXED = [(torch.bfloat16, torch.float32), (torch.float16, torch.float32),
+         (torch.bfloat16, torch.bfloat16), (torch.float16, torch.float16)]
+
+
+@pytest.mark.parametrize("x_first", [True, False], ids=["x16", "r16"])
+@pytest.mark.parametrize("hdim", [64, 100, 512, 768, 4096])
+@pytest.mark.parametrize("xdt,wdt", MIXED, ids=str)
+@pytest.mark.parametrize("body", ["rms", "ln", "ln_bias"])
+def test_add_norm_mixed_mode_matches_plain(dev, body, xdt, wdt, hdim,
+                                           x_first):
+    """#9 with x and the residual in two dtypes: h (f32) equal to r + x,
+    y within 1e-5 (h is f32, so y is f32 rounded once: 16-bit weights
+    give an f32 y too), and its backward: the narrow operand's gradient
+    within one rounding of its dtype (2^-7 bf16, 2^-10 f16, relative
+    L2), the f32 one's and dw, db within 1e-5 (f32 weights) or 2^-7."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    narrow = torch.randn(2, 19, hdim, generator=gen, device=dev).to(xdt)
+    wide = torch.randn(2, 19, hdim, generator=gen, device=dev)
+    x, r = (narrow, wide) if x_first else (wide, narrow)
+    w = (1 + 0.2 * torch.randn(hdim, generator=gen, device=dev)).to(wdt)
+    b = (0.2 * torch.randn(hdim, generator=gen, device=dev)).to(wdt) \
+        if body == "ln_bias" else None
+    dy = torch.randn(2, 19, hdim, generator=gen, device=dev)
+    if body == "rms":
+        fwd, bwd = ft.add_rms_norm_raw, ft.add_rms_norm_backward_raw
+        plain, plain_bwd = ft.add_rms_norm_reference, \
+            ft.add_rms_norm_backward_reference
+        fargs, wb = (w, 1e-5), (w,)
+    else:
+        fwd, bwd = ft.add_layer_norm_raw, ft.add_layer_norm_backward_raw
+        plain, plain_bwd = ft.add_layer_norm_reference, \
+            ft.add_layer_norm_backward_reference
+        fargs, wb = (w, b, 1e-5), (w, b)
+    counts = (fwd.launches, bwd.launches)
+    h, y = fwd(x, r, *fargs)
+    want_h, want_y = plain(x, r, *fargs)
+    (dn, dr), dw, db = bwd(h, *wb, None, dy, 1e-5, x_dtype=xdt)
+    want_d, want_dw, want_db = plain_bwd(want_h, *wb, None, dy, 1e-5)
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches) == (counts[0] + 1, counts[1] + 1)
+    assert h.dtype == y.dtype == torch.float32 and torch.equal(h, want_h)
+    assert _rel(y, want_y) <= 1e-5
+    assert dn.dtype == xdt and dr.dtype == torch.float32
+    tol_w = 1e-5 if wdt == torch.float32 else REL_TOL[wdt]
+    assert _rel_l2(dr, want_d) <= 1e-5
+    assert _rel_l2(dn, want_d.to(xdt)) <= REL_TOL[xdt]
+    assert _rel_l2(dw, want_dw) <= tol_w
+    assert db is None or _rel_l2(db, want_db) <= tol_w
+
+
+@pytest.mark.parametrize("xdt", [torch.bfloat16, torch.float16], ids=str)
+def test_add_norm_mixed_mode_autograd(dev, xdt):
+    """Through autograd in the mixed mode: one forward and one backward
+    launch; x's gradient in x's dtype, the residual's in f32, the same
+    values rounded once; the plain backward never runs."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn(32, 120, 512, generator=gen, device=dev).to(
+        xdt).requires_grad_()
+    r = torch.randn(32, 120, 512, generator=gen, device=dev,
+                    requires_grad=True)
+    w = torch.ones(512, device=dev, requires_grad=True)
+    b = torch.zeros(512, device=dev, requires_grad=True)
+    counts = (ft.add_layer_norm_raw.launches,
+              ft.add_layer_norm_backward_raw.launches)
+    plain = ft._norm_backward_plain
+
+    def refuse(*args):
+        raise AssertionError("the plain backward ran on the card")
+
+    ft._norm_backward_plain = refuse
+    try:
+        _, y = ft.add_layer_norm_raw(x, r, w, b, 1e-5)
+        (y ** 2).sum().backward()
+    finally:
+        ft._norm_backward_plain = plain
+    torch.cuda.synchronize()
+    assert (ft.add_layer_norm_raw.launches,
+            ft.add_layer_norm_backward_raw.launches) == (counts[0] + 1,
+                                                          counts[1] + 1)
+    assert x.grad.dtype == xdt and r.grad.dtype == torch.float32
+    assert torch.equal(x.grad, r.grad.to(xdt))
+
+
+# -- #2-#4 at the encoder-decoder Transformer's shapes ----------------------
+
+def _neg_inf_mask(dev, b, sq, sk, causal, seed):
+    """The decoder's additive masks: -inf above the diagonal (causal)
+    and on each row's trailing padded keys (0-31 of them, fewer than
+    Sk: every row keeps a key)."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    m = torch.zeros(b, 1, sq if causal else 1, sk)
+    for i in range(b):
+        n = int(torch.randint(0, min(32, sk), (1,), generator=gen))
+        if n:
+            m[i, ..., sk - n:] = float("-inf")
+    if causal:
+        m = m + torch.full((sq, sk), float("-inf")).triu(1)
+    return m.to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("b,sq,sk,causal", [
+    (4, 120, 120, True),          # target self attention
+    (4, 120, 128, False),         # cross attention over the memory
+    (8, 1, 1, False),             # the first decode step
+    (8, 1, 33, False),            # a later one
+], ids=["self", "cross", "decode1", "decode33"])
+def test_flash_kernels_at_decoder_shapes_match_plain(dev, dtype, b, sq, sk,
+                                                     causal):
+    """#2-#4 at the Transformer's shapes (8 heads of 64): an additive
+    mask with -inf entries (the subsequent mask plus key padding, or key
+    padding alone), Sq != Sk, and one-token decoding from one key: out
+    within one output rounding, gradients within the flash backward
+    tolerances of the largest gradient element."""
+    q, k, v, do = _attn_inputs(dev, dtype, b, sq, sk, 8, 8, 64, seed=13)
+    mask = _neg_inf_mask(dev, b, sq, sk, causal, 13)
+    tol = 2e-3 if dtype == torch.float16 else 1e-2
+    counts = (fa.flash_attention_fwd.launches,
+              fa.flash_attention_bwd_dq.launches,
+              fa.flash_attention_bwd_dkv.launches)
+    out, lse = fa.flash_attention_fwd(q, k, v, mask=mask)
+    want, want_lse = fa.flash_attention_fwd_reference(q, k, v, mask=mask)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, mask=mask)
+    ref = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, mask=mask)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_fwd.launches,
+            fa.flash_attention_bwd_dq.launches,
+            fa.flash_attention_bwd_dkv.launches) == tuple(
+                c + 1 for c in counts)
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    assert (out.float() - want.float()).abs().max().item() <= tol
+    assert (lse - want_lse).abs().max().item() <= 1e-3
+    # relative to the largest gradient element of the three: from one key
+    # (Sk 1) dq and dk are zero in exact arithmetic, rounding noise alone
+    scale = max(w.float().abs().max().item() for w in ref)
+    for g, w in zip(got, ref):
+        assert torch.isfinite(g).all()
+        assert (g.float() - w.float()).abs().max().item() <= tol * scale
+
+
+def test_flash_attention_promotes_mixed_dtypes(dev):
+    """An amp O2 decoder's bf16 queries against its f32 cache: the entry
+    casts q to f32 (the operands' common dtype), the f32 route runs, the
+    output is f32, as the reference's jnp attention promotes."""
+    q, k, v, _ = _attn_inputs(dev, torch.float32, 2, 1, 9, 8, 8, 64,
+                              seed=14)
+    q16 = q.bfloat16()
+    before = fa.flash_attention_fwd.launches
+    out = fa.flash_attention_raw(q16, k, v)
+    want = fa.flash_attention_fwd_reference(q16.float(), k, v)[0]
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches == before + 1
+    assert out.dtype == torch.float32
+    assert (out - want).abs().max().item() <= 1e-4
 
 
 def _rope_case(dev, dtype, b, s, k, heads, d, table_dtype=None):
@@ -1431,8 +1604,12 @@ def test_grouped_matmul_refuses_what_the_kernels_do_not_take(dev):
 def test_fused_regions_refuse_what_the_kernels_do_not_take(dev):
     x = torch.zeros(4, 64, device=dev, dtype=torch.float16)
     w = torch.ones(64, device=dev)
-    with pytest.raises(NotImplementedError, match="float32 and bfloat16"):
-        ft.add_rms_norm_raw(x, x, w)
+    # float16 and a 16-bit x over an f32 residual are #9's modes; two
+    # 16-bit dtypes, or a weight in the other 16-bit dtype, are not
+    with pytest.raises(NotImplementedError, match="one 16-bit over float32"):
+        ft.add_rms_norm_raw(x, x.bfloat16(), w)
+    with pytest.raises(NotImplementedError, match="one 16-bit over float32"):
+        ft.add_rms_norm_raw(x.bfloat16(), x.bfloat16(), w.half())
     big = torch.zeros(2, 8200, device=dev)
     with pytest.raises(NotImplementedError, match="up to 8192"):
         ft.add_layer_norm_raw(big, big, torch.ones(8200, device=dev), None)
@@ -1526,25 +1703,43 @@ def test_engine_refuses_float_pools_of_another_dtype(dev):
 
 
 def test_plain_paths_refuse_cuda_tensors(dev):
-    """The settings that would run plain PyTorch instead of a kernel
-    raise on the card: ``use_flash_attention=False``,
-    ``fused_step=False`` and the per-leaf ``apply_gradients``."""
+    """``use_flash_attention=False`` (plain PyTorch attention) raises on
+    the card.  ``fused_step=False`` and the per-leaf ``apply_gradients``
+    are the reference's own update path, chosen as the reference chooses
+    it, so they run on the card: a ``fused_step=False`` step updates the
+    parameters without launching the update kernel, and the per-leaf
+    step returns new parameters and state on the card."""
     from paddle_tpu_torch import optimizer as optim
     from paddle_tpu_torch.jit.train import CompiledTrainStep
     from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
                                                llama_tiny_config)
+    from paddle_tpu_torch.ops import fused_train as ft
     cfg = llama_tiny_config()
     cfg.fuse_norm_rope = False
     cfg.use_flash_attention = False
     m = LlamaForCausalLM(cfg, device=dev)
     with pytest.raises(NotImplementedError, match="flash kernels"):
         m(torch.zeros(1, 8, dtype=torch.long, device=dev))
+    # the flash kernels take head_dim 64 or 128: two heads of 64
+    cfg.use_flash_attention = True
+    cfg.hidden_size, cfg.num_attention_heads = 128, 2
+    cfg.num_key_value_heads = 1
+    m = LlamaForCausalLM(cfg, device=dev)
     opt = optim.AdamW(learning_rate=1e-3, parameters=m.parameters())
-    with pytest.raises(NotImplementedError, match="fused_step=False"):
-        CompiledTrainStep(m, lambda mm, b: mm(b["x"]), opt, fused_step=False)
-    params = dict(m.named_parameters())
-    with pytest.raises(NotImplementedError, match="CPU tensors only"):
-        opt.apply_gradients(params, params, opt.init_state(params))
+    step = CompiledTrainStep(m, lambda mm, b: mm(b["x"], labels=b["x"]),
+                             opt, fused_step=False)
+    before = {n: p.detach().clone() for n, p in m.named_parameters()}
+    launches = ft.fused_update_flat.launches
+    loss = step({"x": torch.randint(0, cfg.vocab_size, (1, 8), device=dev)})
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss) and ft.fused_update_flat.launches == launches
+    assert any(not torch.equal(before[n], p)
+               for n, p in m.named_parameters())
+    params = {n: p.detach() for n, p in m.named_parameters()}
+    new_p, st = opt.apply_gradients(params, params, opt.init_state(params))
+    assert all(new_p[n].device == p.device and new_p[n].shape == p.shape
+               and torch.isfinite(new_p[n]).all() for n, p in params.items())
+    assert st["step"].is_cuda and int(st["step"]) == 1
 
 
 # -- attention dropout (#2-#4 dropout mode) and the bias gradient (#5) -----

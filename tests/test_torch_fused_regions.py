@@ -232,8 +232,12 @@ def test_fused_regions_refuse_tensors_off_the_cpu():
     w = torch.zeros(64, **m)
     with pytest.raises(NotImplementedError, match="needs a weight"):
         F.add_rms_norm(x, x, None)
-    with pytest.raises(NotImplementedError, match="float32 and bfloat16"):
-        F.add_rms_norm(x.half(), x.half(), w)
+    # float16 and a 16-bit x over an f32 residual are kernel modes; two
+    # 16-bit dtypes, or a weight in the other 16-bit dtype, are not
+    with pytest.raises(NotImplementedError, match="one 16-bit over float32"):
+        F.add_rms_norm(x.half(), x.bfloat16(), w)
+    with pytest.raises(NotImplementedError, match="one 16-bit over float32"):
+        F.add_rms_norm(x.bfloat16(), x.bfloat16(), w.half())
     big = torch.zeros(2, 8192 + 128, **m)
     with pytest.raises(NotImplementedError, match="up to 8192"):
         F.add_layer_norm(big, big, torch.zeros(8192 + 128, **m), None)

@@ -257,11 +257,12 @@ def test_model_settings_outside_the_slice_raise(setting):
 
 
 def test_trainer_and_optimizer_knobs_outside_the_slice_raise():
-    """What stays outside the port: a sharded train state ('Multi-device')
-    and amp O1.  ``donate=False``, ``has_aux``, ``grad_norm_tap``,
+    """What stays outside the port: a sharded train state
+    ('Multi-device').  ``donate=False``, ``has_aux``, ``grad_norm_tap``,
     checkpoints and LR schedulers are ported (``test_torch_train_state``,
-    ``test_torch_lr``); a learning rate that is neither a float nor a
-    scheduler is refused."""
+    ``test_torch_lr``), and so is amp O1 (``test_torch_amp.py``): its
+    ``decorate`` casts no parameter; a learning rate that is neither a
+    float nor a scheduler is refused."""
     m = LlamaForCausalLM(llama_tiny_config(), device="cpu")
     opt = optim.AdamW(learning_rate=LR, parameters=m.parameters())
     with pytest.raises(NotImplementedError, match="Multi-device"):
@@ -271,5 +272,7 @@ def test_trainer_and_optimizer_knobs_outside_the_slice_raise():
         CompiledTrainStep(m, _loss, opt, **knob)
     with pytest.raises(ValueError, match="LRScheduler"):
         optim.AdamW(learning_rate=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        amp.decorate(m, level="O1")
+    before = {n: p.detach().clone() for n, p in m.named_parameters()}
+    assert amp.decorate(m, level="O1") is m
+    for n, p in m.named_parameters():
+        assert p.dtype == torch.float32 and torch.equal(p, before[n]), n

@@ -99,10 +99,13 @@ def test_cross_entropy_matches_reference(reduction):
 
 
 def test_losses_refuse_what_they_do_not_take():
+    """A bias of another length than the vocabulary, and an unknown
+    reduction (a bias of the right length is ported:
+    ``test_torch_losses.py``)."""
     x, w, lab = _inputs(False)
     t = torch.from_numpy
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="bias"):
         _nn.fused_linear_cross_entropy(t(x), t(w), t(lab),
-                                       bias=torch.zeros(V))
+                                       bias=torch.zeros(V + 1))
     with pytest.raises(ValueError, match="reduction"):
         _nn.fused_linear_cross_entropy(t(x), t(w), t(lab), reduction="max")

@@ -113,9 +113,9 @@ def test_fused_chain_trains_like_the_reference(policy):
                 <= 1e-4 * np.abs(want).max(), (n, k)
 
 
-def _grads(policy, state, dtype=torch.float32):
+def _grads(policy, state, dtype=torch.float32, loss=_loss):
     model = _port(policy, state).to(dtype)
-    step = CompiledTrainStep(model, _loss, optim.AdamW(
+    step = CompiledTrainStep(model, loss, optim.AdamW(
         learning_rate=LR, parameters=model.parameters()))
     return step.grad_step(_batch())
 
@@ -127,6 +127,27 @@ def test_every_policy_gives_the_gradients_without_recompute(dtype):
     loss, want = _grads(None, state, dtype)
     for policy in POLICIES[1:]:
         got_loss, got = _grads(policy, state, dtype)
+        assert float(got_loss) == float(loss), policy
+        for n, g in got.items():
+            torch.testing.assert_close(g, want[n], rtol=0, atol=0,
+                                       msg=f"{policy} {n}")
+
+
+@pytest.mark.parametrize("amp_dtype", ["bfloat16", "float16"])
+def test_o1_gradients_equal_those_without_recompute(amp_dtype):
+    """amp O1 is active while the loss function runs; the backward, where
+    the recompute replays each layer, runs after it has exited.  The
+    replay takes the forward's amp state, so its products run in the
+    same dtypes and every gradient is the one without recompute."""
+    def o1_loss(m, b):
+        with amp.auto_cast(level="O1", dtype=amp_dtype):
+            return _loss(m, b)
+
+    state = LlamaForCausalLM(llama_tiny_config(), device="cpu").state_dict()
+    state = {k: v.numpy() for k, v in state.items()}
+    loss, want = _grads(None, state, loss=o1_loss)
+    for policy in POLICIES[1:]:
+        got_loss, got = _grads(policy, state, loss=o1_loss)
         assert float(got_loss) == float(loss), policy
         for n, g in got.items():
             torch.testing.assert_close(g, want[n], rtol=0, atol=0,

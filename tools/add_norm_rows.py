@@ -2,7 +2,7 @@
 """#9 (add + norm) at its paths' shapes, forward and backward, and the
 paths it runs on, for the tree at ``--root`` (default: this checkout).
 
-    python3 tools/add_norm_rows.py [--root DIR] [--paths]
+    python3 tools/add_norm_rows.py [--root DIR] [--paths [PHASES]]
 
 Run on a machine with a CUDA GPU.  ``--root`` names the root of a
 checkout whose ``paddle_tpu_torch`` and ``chip_smoke.py`` are measured,
@@ -19,10 +19,14 @@ JSON line: the forward's CUDA-event ms and traced device ms, the
 backward's (one ``torch.autograd.grad`` on a retained graph: every
 kernel it launches, the ``kernels`` a call), and the host microseconds
 a call of each at a one-block shape (1000 calls, none synchronised).
-``--paths`` runs instead ``chip_smoke.py``'s ``train_fused`` and
-``train_bert`` phases of that tree (their step times, peak memory,
-launches and traced families).  It checks nothing: ``chip_smoke.py`` is
-the check.
+A last line gives the host microseconds a call of the other functions
+on a host-bound training step's path, the same way: a bf16 ``Linear``
+of 768 forward, and ``F.cross_entropy`` with ``ignore_index`` over
+[64, 1000] bf16 logits.  ``--paths`` runs instead ``chip_smoke.py``'s
+``train_fused`` and ``train_bert`` phases of that tree (their step
+times, peak memory, launches and traced families), or those of the
+comma-separated ``PHASES``.  It checks nothing: ``chip_smoke.py`` is the
+check.
 """
 import argparse
 import collections
@@ -103,10 +107,26 @@ def host_us(torch, fn, calls=1000):
     return us
 
 
+def other_host_us(torch, dev):
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.nn.common import Linear
+    lin = Linear(768, 768, device=dev).to(torch.bfloat16)
+    x = torch.randn(1, 8, 768, device=dev, dtype=torch.bfloat16)
+    logits = torch.randn(64, 1000, device=dev, dtype=torch.bfloat16)
+    labels = torch.randint(0, 1000, (64,), device=dev)
+    labels[::4] = -100
+    with torch.no_grad():
+        out = {"name": "host_us",
+               "linear_fwd": host_us(torch, lambda: lin(x)),
+               "cross_entropy": host_us(torch, lambda: F.cross_entropy(
+                   logits, labels, ignore_index=-100))}
+    print(json.dumps(out), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=".")
-    ap.add_argument("--paths", action="store_true")
+    ap.add_argument("--paths", nargs="?", const="train_fused,train_bert")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.root).resolve()))
     import numpy as np
@@ -127,12 +147,16 @@ def main():
     if not args.paths:
         for spec in SHAPES:
             row(torch, cs, ft, dev, *spec)
+        other_host_us(torch, dev)
     else:
         table = collections.defaultdict(dict)
-        cs.train_phase(torch, np, dev, table, phase="train_fused",
-                       layers=cs.FUSED_LAYERS, fused=True)
-        torch.cuda.empty_cache()
-        cs.train_bert_phase(torch, np, dev, table, {})
+        phases = args.paths.split(",")
+        if "train_fused" in phases:
+            cs.train_phase(torch, np, dev, table, phase="train_fused",
+                           layers=cs.FUSED_LAYERS, fused=True)
+            torch.cuda.empty_cache()
+        if "train_bert" in phases:
+            cs.train_bert_phase(torch, np, dev, table, {})
     return 0
 
 
