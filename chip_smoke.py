@@ -121,7 +121,20 @@ with the launch counts set to 0 just before and read just after:
   through ``CompiledTrainStep`` (AdamW, Noam), under O1 f16 on the eager
   API with ``GradScaler`` from an overflowing scale; its f32 chain at 2 +
   2 layers against a plain composition; greedy decoding with
-  ``gen_cache`` against a full recompute.
+  ``gen_cache`` against a full recompute;
+- the high-level trainer (``hapi.Model``) over the ``io`` loaders:
+  BERT-base as a 4-way classifier (bf16 O2, 16 x 512, a quarter of each
+  row padded) through ``fit`` over a shuffled ``DataLoader`` with two
+  worker processes, an eval each epoch, ``LRScheduler`` and ``VisualDL``
+  callbacks, then ``evaluate``, ``predict``, ``save`` and ``load``:
+  losses bit-equal to a direct ``CompiledTrainStep`` loop over the same
+  batches, exact launches of #2-#4, #9 and #8 a step, train accuracies
+  equal to numpy's, predictions equal to a ``no_grad`` forward and
+  bit-equal after a reload; a stopped ``fit`` over a
+  ``CheckpointableLoader`` resumed by a fresh model with bit-equal
+  losses; GPT-2 124M fed from a token file through the native reader
+  (``core/csrc/dataio.cpp``, built here with ``g++``) and through
+  ``DataLoader(num_workers=2)`` into ``fit``.
 
 Every 16-bit training step must trace only the tensor-core (``wgmma``)
 kernels of the flash forward, dQ and dK/dV families, the fused step
@@ -7284,6 +7297,568 @@ def transformer_paths(torch, np, dev, table, src):
     check(not missing, f"transformer rows no path launched: {missing}")
 
 
+# -- the high-level trainer: hapi.Model.fit over the io loaders ------------
+
+FIT_BATCHES, FIT_EPOCHS, FIT_CLASSES = 8, 2, 4
+FIT_EVAL_BATCHES = 2
+# fit_resume: batches an epoch, checkpoint every RESUME_SAVE_STEPS steps,
+# interrupted after RESUME_STOP, at full width and RESUME_LAYERS deep
+RESUME_BATCHES, RESUME_SAVE_STEPS, RESUME_STOP, RESUME_LAYERS = 6, 2, 3, 12
+# fit_gpt2_tokens: the token file, its sub-vocabulary (so that a few
+# steps lower the loss) and the steps fit takes
+TOKEN_SEQS, TOKEN_SUBVOCAB, TOKEN_FIT_STEPS = 512, 4096, 8
+WORKER_TIMEOUT_S = 120          # a hung worker fails the phase
+
+
+def fit_counters(ft, fa):
+    """The kernels of a BERT step and their wrappers."""
+    return {"flash_attention_fwd": fa.flash_attention_fwd,
+            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
+            "add_layer_norm": ft.add_layer_norm_raw,
+            "add_layer_norm_bwd": ft.add_layer_norm_backward_raw,
+            "fused_update": ft.fused_update_flat}
+
+
+def bert_classifier(torch, dev, cfg, seed):
+    """``BertForSequenceClassification`` behind a forward of ``(ids,
+    attention_mask)`` (its third positional argument is position_ids),
+    cast to bf16 as amp O2 does."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models.bert import BertForSequenceClassification
+
+    class BertCls(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.cls = BertForSequenceClassification(
+                cfg, num_classes=FIT_CLASSES, device=dev,
+                generator=torch.Generator(device=dev).manual_seed(seed))
+
+        def forward(self, ids, mask):
+            return self.cls(ids, attention_mask=mask)
+
+    return amp.decorate(BertCls(), level="O2", dtype="bfloat16")
+
+
+def classifier_rows(np, cfg, n, seed):
+    """[n, 512] ids with the last quarter of each row padded (id and mask
+    0) and labels made from the ids."""
+    rng = np.random.default_rng(seed)
+    s = BERT_SEQ
+    ids = rng.integers(1, cfg.vocab_size, (n, s)).astype(np.int32)
+    mask = np.ones((n, s), np.int32)
+    mask[:, s - s // 4:] = 0
+    ids[mask == 0] = cfg.pad_token_id
+    labels = (ids[:, 0] % FIT_CLASSES).astype(np.int64)
+    return ids, mask, labels
+
+
+def step_log(counters, stop_after=None):
+    """A hapi callback recording each step's logs, its launches of the
+    ``counters`` kernels (from the step's begin to its end), its host
+    times and each epoch's wait for its first batch; it stops ``fit``
+    after ``stop_after`` steps."""
+    import numpy as np
+
+    from paddle_tpu_torch.hapi import Callback
+
+    class StepLog(Callback):
+        def __init__(self):
+            super().__init__()
+            self.logs, self.launches = [], []
+            self.step_s, self.interval_s, self.epoch_of = [], [], []
+            self.first_batch_wait_s = []
+            self._last_end = None
+
+        def on_epoch_begin(self, epoch, logs=None):
+            self._epoch = epoch
+            self._last_end = None
+            self._epoch_t0 = time.perf_counter()
+
+        def on_train_batch_begin(self, step, logs=None):
+            self._before = {n: f.launches for n, f in counters.items()}
+            self._t0 = time.perf_counter()
+            if step == 0:           # the loader's start (its workers)
+                self.first_batch_wait_s.append(self._t0 - self._epoch_t0)
+
+        def on_train_batch_end(self, step, logs=None):
+            t = time.perf_counter()
+            self.step_s.append(t - self._t0)
+            self.interval_s.append(None if self._last_end is None
+                                   else t - self._last_end)
+            self._last_end = t
+            self.epoch_of.append(self._epoch)
+            self.launches.append({n: f.launches - self._before[n]
+                                  for n, f in counters.items()})
+            self.logs.append({k: float(np.asarray(v).ravel()[0])
+                              for k, v in (logs or {}).items()})
+            if stop_after is not None and len(self.logs) >= stop_after:
+                self.model.stop_training = True
+
+    return StepLog()
+
+
+def mean_after_first(vals, epochs):
+    """The mean of per-step values, each epoch's first step left out (it
+    starts the workers, and the first one also prices the step)."""
+    keep = [v for i, v in enumerate(vals) if v is not None and i > 0
+            and epochs[i] == epochs[i - 1]]
+    return sum(keep) / len(keep) if keep else None
+
+
+def check_step_launches(log, per_step, extra_first, name):
+    """Every step launched ``per_step``; the first one also the kernels of
+    ``step_flops``' forward and backward (``extra_first``)."""
+    for i, got in enumerate(log.launches):
+        want = {n: c + (extra_first.get(n, 0) if i == 0 else 0)
+                for n, c in per_step.items()}
+        check(got == want, f"{name}: step {i} launched {got}, not {want}")
+
+
+def numpy_topk_hits(np, logits, labels, ks):
+    """Top-k accuracy of f32 logits by numpy (a stable sort)."""
+    order = np.argsort(-logits, axis=-1, kind="stable")
+    return [float((order[:, :k] == labels[:, None]).any(-1).mean())
+            for k in ks]
+
+
+def fit_bert_phase(torch, np, dev, table):
+    """BERT-base (``BertConfig()``: 12 x 768, 12 heads of 64, dropout 0.1)
+    as a 4-way classifier, amp O2 bf16, through ``hapi.Model``: ``fit``
+    for FIT_EPOCHS epochs over a shuffled ``DataLoader`` (two worker
+    processes) of FIT_BATCHES batches of 16 x 512 (a quarter of each row
+    padded), an eval each epoch, ``LRScheduler`` and ``VisualDL``
+    callbacks; then ``evaluate``, ``predict``, ``save`` and ``load``.
+    Its losses must equal, bit for bit, a direct ``CompiledTrainStep``
+    loop (seed 0, as ``Model`` builds it) over the same batches in the
+    same order from a copy of the same weights; its launches a step equal
+    #2-#4 12 each, #9 24 + 24 and #8 ``update_launches``; its train
+    accuracies numpy's over that loop's logits."""
+    import copy
+    import os
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.hapi import LRScheduler, Model, VisualDL
+    from paddle_tpu_torch.io import DataLoader, TensorDataset
+    from paddle_tpu_torch.jit.train import CompiledTrainStep
+    from paddle_tpu_torch.metric import Accuracy
+    from paddle_tpu_torch.models.bert import BertConfig
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_train as ft
+    cfg = BertConfig()
+    layers = cfg.num_hidden_layers
+    b, n = BERT_BATCH, FIT_BATCHES * BERT_BATCH
+    t0 = time.perf_counter()
+    net = bert_classifier(torch, dev, cfg, SEED + 90)
+    direct_net = copy.deepcopy(net)
+    ids, mask, labels = classifier_rows(np, cfg, n, SEED + 90)
+    eids, emask, elabels = classifier_rows(
+        np, cfg, FIT_EVAL_BATCHES * b, SEED + 91)
+    train_ds = TensorDataset([ids, mask, labels])
+    eval_ds = TensorDataset([eids, emask, elabels])
+    loss_fn = CrossEntropyLoss()
+    model = Model(net)
+    model.prepare(optimizer.AdamW(1e-4, parameters=net.parameters()),
+                  loss_fn, Accuracy(topk=(1, 2)))
+    counters = fit_counters(ft, fa)
+    params = list(net.parameters())
+    per_step = {"flash_attention_fwd": layers,
+                "flash_attention_bwd_dq": layers,
+                "flash_attention_bwd_dkv": layers,
+                "add_layer_norm": 2 * layers,
+                "add_layer_norm_bwd": 2 * layers,
+                "fused_update": update_launches(params)}
+    extra = {n: c for n, c in per_step.items() if n != "fused_update"}
+    log = step_log(counters)
+    root = tempfile.mkdtemp(prefix="fit_bert_")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    try:
+        loader = DataLoader(train_ds, batch_size=b, shuffle=True,
+                            num_workers=2, timeout=WORKER_TIMEOUT_S)
+        vdl = VisualDL(os.path.join(root, "vdl"))
+        # its writer imports TensorBoard where one is installed, which can
+        # draw from the global numpy stream: opened before the seed
+        vdl._w()
+        np.random.seed(SEED + 92)
+        for f in counters.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        model.fit(loader, eval_data=eval_ds, batch_size=b,
+                  epochs=FIT_EPOCHS, verbose=0, num_workers=2,
+                  callbacks=[log, LRScheduler(), vdl])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = {n: f.launches for n, f in counters.items()}
+        with open(os.path.join(root, "vdl", "scalars.jsonl")) as fh:
+            scalars = [json.loads(line) for line in fh]
+        mfu = [s["value"] for s in scalars if s["tag"] == "train/mfu"]
+        t0 = time.perf_counter()
+        ev = model.evaluate(eval_ds, batch_size=b, verbose=0)
+        evaluate_s = time.perf_counter() - t0
+        pred = model.predict(eval_ds, batch_size=b, stack_outputs=True)[0]
+        net.eval()
+        with torch.no_grad():
+            plain_pred = torch.cat([
+                net(torch.from_numpy(eids[i:i + b]).to(dev),
+                    torch.from_numpy(emask[i:i + b]).to(dev))
+                for i in range(0, len(eids), b)]).float().cpu().numpy()
+        net.train()
+        path = os.path.join(root, "ckpt", "bert")
+        t0 = time.perf_counter()
+        model.save(path)
+        save_s = time.perf_counter() - t0
+        file_bytes = sum(os.path.getsize(path + ext)
+                         for ext in (".pdparams", ".pdopt"))
+        fresh = Model(bert_classifier(torch, dev, cfg, SEED + 93))
+        fresh.prepare(optimizer.AdamW(1e-4), loss_fn, Accuracy(topk=(1, 2)))
+        t0 = time.perf_counter()
+        fresh.load(path)
+        load_s = time.perf_counter() - t0
+        fresh_pred = fresh.predict(eval_ds, batch_size=b,
+                                   stack_outputs=True)[0]
+        fresh._ensure_train_step()
+        opt_equal = all(
+            bytes_equal(torch, fresh._train_step.state["opt"]["slots"][p][k],
+                        v)
+            for p, s in model._train_step.state["opt"]["slots"].items()
+            for k, v in s.items())
+        del fresh
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # the direct loop: the same batches in the same order (the loader's
+    # permutations of the global numpy stream from the same seed), a
+    # CompiledTrainStep as Model builds it
+    def direct_loss(m, bt):
+        out = m(*bt["inputs"])
+        return loss_fn(out, *bt["labels"]), (out,)
+
+    step = CompiledTrainStep(
+        direct_net, direct_loss,
+        optimizer.AdamW(1e-4, parameters=direct_net.parameters()),
+        has_aux=True)
+    np.random.seed(SEED + 92)
+    orders = [np.random.permutation(n) for _ in range(FIT_EPOCHS)]
+    direct, direct_acc, direct_s = [], [], []
+    for order in orders:
+        for i in range(FIT_BATCHES):
+            idx = order[i * b:(i + 1) * b]
+            cpu = [t[torch.from_numpy(idx)] for t in train_ds.tensors]
+            # timed as fit's step is: the copies to the card, the step,
+            # the loss read on the host
+            t = time.perf_counter()
+            ins = tuple(x.to(dev) for x in cpu)
+            loss, (logits,) = step({"inputs": ins[:2], "labels": ins[2:]})
+            direct.append(float(loss))
+            direct_s.append(time.perf_counter() - t)
+            direct_acc.append(numpy_topk_hits(
+                np, logits.float().cpu().numpy(), labels[idx], (1, 2)))
+    fit_losses = [l["loss"] for l in log.logs]
+    fit_acc = [[l["acc_top1"], l["acc_top2"]] for l in log.logs]
+
+    # host copies and waits a step: one more epoch of 3 batches through
+    # fit (in-process loader), against the direct loop's 3 steps
+    small = TensorDataset([ids[:3 * b], mask[:3 * b], labels[:3 * b]])
+    _, fit_syncs = host_syncs(torch, lambda: model.fit(
+        small, batch_size=b, epochs=1, shuffle=False, verbose=0))
+    _, direct_syncs = host_syncs(torch, lambda: [float(step({
+        "inputs": tuple(small.tensors[k][i * b:(i + 1) * b].to(dev)
+                        for k in (0, 1)),
+        "labels": (small.tensors[2][i * b:(i + 1) * b].to(dev),)})[0])
+        for i in range(3)])
+    fit_step_s = mean_after_first(log.step_s, log.epoch_of)
+    fit_interval_s = mean_after_first(log.interval_s, log.epoch_of)
+    direct_step_s = sum(direct_s[1:]) / (len(direct_s) - 1)
+    emit({"phase": "fit_bert", "model": "bert-base classifier",
+          "layers": layers, "dtype": "bfloat16 (amp O2)", "batch": b,
+          "seq": BERT_SEQ, "padded_per_row": BERT_SEQ // 4,
+          "steps": len(fit_losses), "epochs": FIT_EPOCHS,
+          "loader": "DataLoader(shuffle=True, num_workers=2)",
+          "setup_s": setup_s, "fit_s": fit_s, "losses": fit_losses,
+          "direct_losses": direct, "losses_bit_equal": fit_losses == direct,
+          "ln_classes": math.log(FIT_CLASSES), "train_acc": fit_acc,
+          "numpy_acc": direct_acc, "eval": ev, "evaluate_s": evaluate_s,
+          "fit_step_s": fit_step_s, "fit_interval_s": fit_interval_s,
+          "direct_step_s": direct_step_s,
+          "step_s": log.step_s, "direct_s": direct_s,
+          "first_batch_wait_s": log.first_batch_wait_s,
+          "timer_mfu": mfu, "host_syncs_fit_3_steps": fit_syncs,
+          "host_syncs_direct_3_steps": direct_syncs,
+          "launches": launches, "launches_per_step": log.launches,
+          "predict_equal_no_grad_forward": bool(
+              np.array_equal(pred, plain_pred)),
+          "save_s": save_s, "load_s": load_s, "saved_bytes": file_bytes,
+          "reload_predict_bit_equal": bool(np.array_equal(pred, fresh_pred)),
+          "reload_opt_state_bit_equal": opt_equal,
+          "kernel_rows_at_these_shapes": [
+              "flash_attention_fwd_bert", "flash_attention_bwd_dq_bert",
+              "flash_attention_bwd_dkv_bert", "add_layer_norm_bf16",
+              "add_layer_norm_bf16_bwd", "fused_update"]})
+    check(all(math.isfinite(x) for x in fit_losses), f"losses {fit_losses}")
+    check(fit_losses == direct,
+          f"fit_bert: fit's losses {fit_losses} are not bit-equal to the "
+          f"direct loop's {direct}")
+    check(abs(fit_losses[0] - math.log(FIT_CLASSES)) <= 0.3,
+          f"fit_bert: first loss {fit_losses[0]} not within 0.3 of ln 4")
+    check(fit_acc == direct_acc,
+          f"fit_bert: train accuracies {fit_acc} differ from numpy's "
+          f"{direct_acc}")
+    check_step_launches(log, per_step, extra, "fit_bert")
+    check(np.array_equal(pred, plain_pred),
+          "fit_bert: predict differs from a no_grad forward")
+    check(np.array_equal(pred, fresh_pred) and opt_equal,
+          "fit_bert: a loaded model predicts otherwise, or its optimizer "
+          "state differs")
+    check(all(0.0 <= ev[k] <= 1.0 for k in ("acc_top1", "acc_top2"))
+          and math.isfinite(ev["loss"]), f"fit_bert: evaluate gave {ev}")
+    check(mfu and all(0.0 < m < 1.0 for m in mfu),
+          f"fit_bert: StepTimer MFU {mfu}")
+    for row, name in (("flash_attention_fwd_bert", "flash_attention_fwd"),
+                      ("flash_attention_bwd_dq_bert",
+                       "flash_attention_bwd_dq"),
+                      ("flash_attention_bwd_dkv_bert",
+                       "flash_attention_bwd_dkv"),
+                      ("add_layer_norm_bf16", "add_layer_norm"),
+                      ("add_layer_norm_bf16_bwd", "add_layer_norm_bwd"),
+                      ("fused_update", "fused_update")):
+        table[row]["launches_fit_bert"] = launches[name]
+    del model, net, direct_net, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def fit_resume_phase(torch, np, dev):
+    """``fit`` over a ``CheckpointableLoader`` (shuffled, seeded) of
+    RESUME_BATCHES batches of BERT-base classifier rows with
+    ``checkpoint_dir`` and ``save_steps=RESUME_SAVE_STEPS``: uninterrupted,
+    then stopped by a callback after RESUME_STOP steps, then resumed by
+    a fresh model (other weights) with ``auto_resume``.  The resumed
+    losses must equal the uninterrupted run's bit for bit.  Save and
+    restore seconds and GB/s from the manager's calls."""
+    import os
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed.ckpt_manager import CheckpointManager
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.io import CheckpointableLoader, TensorDataset
+    from paddle_tpu_torch.models.bert import BertConfig
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    cfg = dataclasses.replace(BertConfig(), num_hidden_layers=RESUME_LAYERS)
+    b = BERT_BATCH
+    ids, mask, labels = classifier_rows(np, cfg, RESUME_BATCHES * b,
+                                        SEED + 94)
+    ds = TensorDataset([ids, mask, labels])
+
+    def run(seed, root=None, stop=None):
+        net = bert_classifier(torch, dev, cfg, seed)
+        model = Model(net)
+        model.prepare(optimizer.AdamW(1e-4, parameters=net.parameters()),
+                      CrossEntropyLoss())
+        log = step_log({}, stop_after=stop)
+        times = {"save": [], "restore": []}
+        manager = None
+        if root is not None:
+            manager = CheckpointManager(root)
+            for what in ("save", "restore"):
+                def timed(*a, _f=getattr(manager, what), _w=what, **k):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    out = _f(*a, **k)
+                    times[_w].append(time.perf_counter() - t)
+                    return out
+                setattr(manager, what, timed)
+        model.fit(CheckpointableLoader(ds, batch_size=b, shuffle=True,
+                                       seed=SEED + 95),
+                  epochs=1, verbose=0, callbacks=[log],
+                  checkpoint_dir=manager, save_steps=RESUME_SAVE_STEPS)
+        del model, net
+        gc.collect()
+        torch.cuda.empty_cache()
+        return [l["loss"] for l in log.logs], times
+
+    root = tempfile.mkdtemp(prefix="fit_resume_")
+    t0 = time.perf_counter()
+    try:
+        whole, _ = run(SEED + 96)
+        head, saves = run(SEED + 96, root, stop=RESUME_STOP)
+        steps_on_disk = CheckpointManager(root).steps_on_disk()
+        ckpt_bytes = sum(
+            os.path.getsize(os.path.join(d, f))
+            for d, _, fs in os.walk(os.path.join(
+                root, f"step_{RESUME_STOP:08d}"))
+            for f in fs)
+        tail, resumed = run(SEED + 97, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    phase_s = time.perf_counter() - t0
+    emit({"phase": "fit_resume", "model": "bert-base classifier",
+          "layers": RESUME_LAYERS, "dtype": "bfloat16 (amp O2)", "batch": b,
+          "seq": BERT_SEQ, "steps": RESUME_BATCHES,
+          "save_steps": RESUME_SAVE_STEPS, "stopped_after": RESUME_STOP,
+          "uninterrupted_losses": whole, "losses_before_stop": head,
+          "resumed_losses": tail, "steps_on_disk_at_stop": steps_on_disk,
+          "checkpoint_bytes": ckpt_bytes,
+          "save_s": saves["save"] + resumed["save"],
+          "save_gb_s": [ckpt_bytes / s / 1e9
+                        for s in saves["save"] + resumed["save"]],
+          "restore_s": resumed["restore"],
+          "restore_gb_s": [ckpt_bytes / s / 1e9
+                           for s in resumed["restore"]],
+          "phase_s": phase_s})
+    check(head == whole[:RESUME_STOP],
+          f"fit_resume: the interrupted run's losses {head} differ from "
+          f"the uninterrupted {whole[:RESUME_STOP]}")
+    check(tail == whole[RESUME_STOP:],
+          f"fit_resume: resumed losses {tail} are not bit-equal to the "
+          f"uninterrupted run's {whole[RESUME_STOP:]}")
+    check(steps_on_disk == [RESUME_SAVE_STEPS, RESUME_STOP],
+          f"fit_resume: checkpoints at {steps_on_disk}")
+
+
+def fit_gpt2_tokens_phase(torch, np, dev, table):
+    """GPT-2 124M on ``bench_gpt2``'s recipe (f32, dropout 0.1, batch 8 x
+    1024) fed from a token file: TOKEN_SEQS seeded sequences of 1025 ids
+    (drawn from TOKEN_SUBVOCAB ids).  The native ``TokenFileLoader``
+    (``core/csrc/dataio.cpp``, built here) must load, cover the file and
+    give its batch rate; then a map-style dataset over
+    ``TokenFileDataset`` yielding ``(ids[:-1], ids[1:])`` feeds
+    ``DataLoader(num_workers=2)`` (worker processes forked from this
+    CUDA-initialised process) into ``Model(GPTForCausalLM)`` with
+    ``GPTPretrainingCriterion`` for TOKEN_FIT_STEPS steps: losses start
+    within 0.5 of ln 50304 and fall; #2-#4 12 launches a step, #8 one a
+    leaf of 1 MiB or more and one for the rest."""
+    import os
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.core import load_native
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.io import (DataLoader, Dataset, Subset,
+                                     TokenFileDataset, TokenFileLoader)
+    from paddle_tpu_torch.models.gpt import (GPTForCausalLM,
+                                             GPTPretrainingCriterion,
+                                             gpt2_124m_config)
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_train as ft
+    cfg = gpt2_124m_config()
+    seq = GPT_SEQ + 1
+    root = tempfile.mkdtemp(prefix="fit_gpt2_")
+    try:
+        rng = np.random.default_rng(SEED + 98)
+        sub = rng.choice(cfg.vocab_size, TOKEN_SUBVOCAB, replace=False)
+        tokens = sub[rng.integers(0, TOKEN_SUBVOCAB, TOKEN_SEQS * seq)
+                     ].astype(np.int32)
+        path = os.path.join(root, "tokens.bin")
+        tokens.tofile(path)
+        t0 = time.perf_counter()
+        lib = load_native()
+        build_s = time.perf_counter() - t0
+        reader = TokenFileLoader(path, seq_len=seq, batch_size=GPT_BATCH,
+                                 shuffle_seed=SEED + 99)
+        native = reader.is_native
+        check(native, "fit_gpt2_tokens: the native token reader did not "
+                      f"load (library {lib})")
+        t0 = time.perf_counter()
+        blocks = [reader.next() for _ in range(len(reader))]
+        read_s = time.perf_counter() - t0
+        reader.close()
+        covered = np.array_equal(np.sort(np.concatenate(
+            [x.ravel() for x in blocks])), np.sort(tokens))
+        check(covered, "fit_gpt2_tokens: the reader's epoch does not cover "
+                       "the file")
+
+        class Shifted(Dataset):
+            def __init__(self, tds):
+                self.tds = tds
+
+            def __getitem__(self, i):
+                ids = self.tds[i]
+                return ids[:-1], ids[1:].astype(np.int64)
+
+            def __len__(self):
+                return len(self.tds)
+
+        data = Subset(Shifted(TokenFileDataset(path, seq)),
+                      range(TOKEN_FIT_STEPS * GPT_BATCH))
+        loader = DataLoader(data, batch_size=GPT_BATCH, shuffle=True,
+                            num_workers=2, timeout=WORKER_TIMEOUT_S)
+        net = GPTForCausalLM(cfg, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(SEED + 99))
+        model = Model(net)
+        model.prepare(optimizer.AdamW(1e-4, parameters=net.parameters()),
+                      GPTPretrainingCriterion())
+        layers = cfg.num_hidden_layers
+        counters = {n: f for n, f in fit_counters(ft, fa).items()
+                    if not n.startswith("add_layer_norm")}
+        big = sum(p.numel() * p.element_size() >= (1 << 20)
+                  for p in net.parameters())
+        per_step = {"flash_attention_fwd": layers,
+                    "flash_attention_bwd_dq": layers,
+                    "flash_attention_bwd_dkv": layers,
+                    "fused_update": big + 1}
+        extra = {n: c for n, c in per_step.items() if n != "fused_update"}
+        log = step_log(counters)
+        np.random.seed(SEED + 99)
+        for f in counters.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        model.fit(loader, epochs=1, verbose=0, callbacks=[log])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = {n: f.launches for n, f in counters.items()}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    losses = [l["loss"] for l in log.logs]
+    step_s = mean_after_first(log.step_s, log.epoch_of)
+    interval_s = mean_after_first(log.interval_s, log.epoch_of)
+    emit({"phase": "fit_gpt2_tokens", "model": "gpt2_124m",
+          "dtype": "float32", "batch": GPT_BATCH, "seq": GPT_SEQ,
+          "token_file": {"sequences": TOKEN_SEQS, "ids_a_sequence": seq,
+                         "sub_vocabulary": TOKEN_SUBVOCAB,
+                         "bytes": int(tokens.nbytes)},
+          "native_reader": native, "native_build_s": build_s,
+          "reader_batches": len(blocks), "reader_s": read_s,
+          "reader_batches_per_s": len(blocks) / read_s,
+          "step_batches_per_s": 1 / step_s, "fit_s": fit_s,
+          "fit_step_s": step_s, "fit_interval_s": interval_s,
+          "step_s": log.step_s, "first_batch_wait_s": log.first_batch_wait_s,
+          "losses": losses, "ln_vocab": math.log(cfg.vocab_size),
+          "loader": "DataLoader(shuffle=True, num_workers=2), fork",
+          "launches": launches, "launches_per_step": log.launches})
+    check(len(losses) == TOKEN_FIT_STEPS, f"fit_gpt2_tokens: {len(losses)} "
+                                          f"steps, not {TOKEN_FIT_STEPS}")
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(abs(losses[0] - math.log(cfg.vocab_size)) <= 0.5,
+          f"fit_gpt2_tokens: first loss {losses[0]} not within 0.5 of ln V")
+    check(losses[-1] < losses[0],
+          f"fit_gpt2_tokens: loss did not fall: {losses}")
+    check_step_launches(log, per_step, extra, "fit_gpt2_tokens")
+    for n in ("fwd", "bwd_dq", "bwd_dkv"):
+        table[f"flash_attention_{n}_dropout"]["launches_fit_gpt2_tokens"] = \
+            launches[f"flash_attention_{n}"]
+    table["fused_update"]["launches_fit_gpt2_tokens"] = \
+        launches["fused_update"]
+    del model, net
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def fit_paths(torch, np, dev, table):
+    """The high-level trainer's paths: BERT-base through ``Model.fit``
+    against a direct loop, its crash-safe resume, GPT-2 fed from the
+    native token reader."""
+    fit_bert_phase(torch, np, dev, table)
+    fit_resume_phase(torch, np, dev)
+    fit_gpt2_tokens_phase(torch, np, dev, table)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7580,6 +8155,12 @@ def main() -> int:
     # ran above): O1 bf16 training and translation, O1 f16 with
     # GradScaler, the f32 check of its chain
     transformer_paths(torch, np, dev, table, tf_rows)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the high-level trainer (hapi.Model) over the io loaders: BERT-base
+    # fit against a direct loop, its exact resume, GPT-2 from token files
+    fit_paths(torch, np, dev, table)
 
     # each tensor-core row: its kernel's registers and spills (the most
     # registers and the summed spills over that kernel's instantiations)

@@ -27,4 +27,15 @@ dropout, the trained bias's gradient, the fused clip + optimizer
 update, add + norm with its backward, matmul + rope, the MoE grouped
 matmuls) are written by hand in CUDA C++ for Hopper (``csrc/``).
 Entry points run on the GPU unless the caller passes ``device="cpu"``.
+The high-level trainer (``Model``, ``hapi.callbacks``), ``io`` (datasets,
+samplers, ``DataLoader``, the native token reader), ``metric`` and
+``save`` / ``load`` are exported here as ``paddle_tpu/__init__.py``
+exports them.
 """
+from . import io
+from .framework.io import load, save
+from . import metric
+from . import visualdl
+from . import hapi
+from .hapi import Model
+from .hapi import callbacks

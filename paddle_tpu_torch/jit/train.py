@@ -111,8 +111,14 @@ class CompiledTrainStep:
         return self._step_count
 
     def _batch(self, batch):
-        return {k: torch.as_tensor(v, device=self._device)
-                for k, v in batch.items()}
+        """The batch with every tensor and array on the model's device;
+        dicts, lists and tuples (``hapi.Model``'s ``{"inputs": (...),
+        "labels": (...)}``) keep their shape."""
+        if isinstance(batch, dict):
+            return {k: self._batch(v) for k, v in batch.items()}
+        if isinstance(batch, (list, tuple)):
+            return type(batch)(self._batch(v) for v in batch)
+        return torch.as_tensor(batch, device=self._device)
 
     # -- telemetry -----------------------------------------------------------
     def attach_timer(self, timer):

@@ -88,7 +88,10 @@ layout): h equal to r + x, y within 1e-5, the narrow operand's gradient
 within one rounding of its dtype and the f32 ones within 1e-5, through
 autograd one launch each way with each gradient in its operand's dtype.
 The per-leaf update is a supported route on the card (a
-``fused_step=False`` step launches no update kernel).
+``fused_step=False`` step launches no update kernel).  ``hapi.Model.fit``
+on a small bf16 BERT launches #2-#4, #9 and #8 each step (exact counts)
+and hands the network its batches on the card; the token-file reader
+runs natively.
 """
 import ctypes
 
@@ -2518,3 +2521,105 @@ def test_grouped_kernels_at_64_experts_match_plain(dev, tm):
             _rel_l2(got, want)
     # the expert with no rows gets exactly zero dW
     assert dw[2].abs().max().item() == 0.0
+
+
+def _fit_counters():
+    return {"flash_attention_fwd": fa.flash_attention_fwd,
+            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
+            "add_layer_norm": ft.add_layer_norm_raw,
+            "add_layer_norm_bwd": ft.add_layer_norm_backward_raw,
+            "fused_update": ft.fused_update_flat}
+
+
+def test_model_fit_launches_the_kernels_and_keeps_batches_on_card(dev):
+    """``hapi.Model.fit`` on a 2-layer BERT (2 heads of 64, bf16 O2, a
+    quarter of each row padded, dropout 0.1): every step launches #2-#4
+    once a layer, #9's LayerNorm forward and backward twice a layer and
+    the update #8; the network sees its batches on the card."""
+    import numpy as np
+
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.hapi import Callback, Model
+    from paddle_tpu_torch.io import TensorDataset
+    from paddle_tpu_torch.metric import Accuracy
+    from paddle_tpu_torch.models.bert import (BertConfig,
+                                              BertForSequenceClassification)
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+
+    cfg = BertConfig(vocab_size=512, hidden_size=128, num_hidden_layers=2,
+                     num_attention_heads=2, intermediate_size=256,
+                     max_position_embeddings=128)
+    seen = []
+
+    class Net(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.cls = BertForSequenceClassification(
+                cfg, num_classes=3, device=dev,
+                generator=torch.Generator(device=dev).manual_seed(0))
+
+        def forward(self, ids, mask):
+            seen.append((ids.device, mask.device))
+            return self.cls(ids, attention_mask=mask)
+
+    class PerStep(Callback):
+        def __init__(self):
+            super().__init__()
+            self.deltas = []
+
+        def on_train_batch_begin(self, step, logs=None):
+            self.before = {n: f.launches for n, f in _fit_counters().items()}
+
+        def on_train_batch_end(self, step, logs=None):
+            self.deltas.append({n: f.launches - self.before[n]
+                                for n, f in _fit_counters().items()})
+
+    net = amp.decorate(Net(), level="O2", dtype="bfloat16")
+    rng = np.random.default_rng(0)
+    ids = rng.integers(1, cfg.vocab_size, (16, 128)).astype(np.int32)
+    mask = np.ones_like(ids)
+    mask[:, 96:] = 0
+    ids[mask == 0] = 0
+    labels = (ids[:, 0] % 3).astype(np.int64)
+    model = Model(net)
+    model.prepare(optimizer.AdamW(1e-4, parameters=net.parameters()),
+                  CrossEntropyLoss(), Accuracy())
+    per = PerStep()
+    model.fit(TensorDataset([ids, mask, labels]), batch_size=4, epochs=1,
+              verbose=0, callbacks=[per])
+    params = list(net.parameters())
+    big = sum(p.numel() * p.element_size() >= 1 << 20 for p in params)
+    small = {p.dtype for p in params
+             if p.numel() * p.element_size() < 1 << 20}
+    want = {"flash_attention_fwd": 2, "flash_attention_bwd_dq": 2,
+            "flash_attention_bwd_dkv": 2, "add_layer_norm": 4,
+            "add_layer_norm_bwd": 4, "fused_update": big + len(small)}
+    assert len(per.deltas) == 4
+    for i, d in enumerate(per.deltas):
+        # the first step also prices a forward and backward (step_flops)
+        extra = 2 if i == 0 else 1
+        assert d == {n: c * (1 if n == "fused_update" else extra)
+                     for n, c in want.items()}, (i, d)
+    assert seen and all(a.type == "cuda" and b.type == "cuda"
+                        for a, b in seen)
+    assert all(p.device.type == "cuda" for p in net.parameters())
+    # the last item of a sample is its label, dropped by predict
+    pred = model.predict(TensorDataset([ids[:8], mask[:8], labels[:8]]),
+                         batch_size=4, stack_outputs=True)[0]
+    assert pred.shape == (8, 3) and np.isfinite(pred).all()
+
+
+def test_token_file_loader_is_native(dev, tmp_path):
+    import numpy as np
+
+    from paddle_tpu_torch.io import TokenFileLoader
+    arr = np.arange(64 * 10, dtype=np.int32)
+    path = tmp_path / "tokens.bin"
+    arr.tofile(path)
+    loader = TokenFileLoader(str(path), seq_len=64, batch_size=2,
+                             shuffle_seed=3)
+    assert loader.is_native and len(loader) == 5
+    seen = np.sort(np.concatenate([b.ravel() for b in loader]))
+    np.testing.assert_array_equal(seen, arr)
+    loader.close()
