@@ -166,6 +166,7 @@ import gc
 import itertools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -202,6 +203,7 @@ MOE_LAYERS, MOE_BATCH, MOE_SEQ = 6, 4, 4096
 # attention and hidden dropout 0.1; 12 heads of 64
 GPT_BATCH, GPT_SEQ, GPT_WIDTH, GPT_HEADS, GPT_STEPS = 8, 1024, 768, 12, 5
 GPT_DROP = 0.1
+GPT_LAYERS_124M = 12
 # relative L2 error of an f32 output against its plain version: f32 sums
 # in another order
 F32_REL_L2_TOL = 1e-5
@@ -216,6 +218,8 @@ def check(cond, msg):
 
 
 _START = time.perf_counter()
+# figures one phase hands to a later one
+RESULTS = {}
 
 
 def emit(obj):
@@ -4842,6 +4846,7 @@ def train_gpt2_phase(torch, np, dev, table):
     # causal attention: 6 L S h a token (the two S x S products, forward
     # and backward, over the visible half)
     fattn = f6n + 6 * layers * GPT_SEQ * cfg.hidden_size
+    RESULTS["train_gpt2_mean_step_s"] = step_s
     emit({"phase": "train_gpt2", "model": "gpt2_124m", "layers": layers,
           "dtype": "float32", "seq": GPT_SEQ, "batch": GPT_BATCH,
           "dropout": {"attention": cfg.attention_probs_dropout_prob,
@@ -7859,6 +7864,255 @@ def fit_paths(torch, np, dev, table):
     fit_gpt2_tokens_phase(torch, np, dev, table)
 
 
+# -- multi-device training: a gang through the port's launcher -------------
+
+DIST_STEPS = 4
+DIST_STAGES = (1, 2, 3)
+DIST_DEVICE = None          # each rank's card (its local rank)
+
+
+def gpt_sharded_trainer(torch, cfg, dev, seed, stage):
+    """``gpt_trainer``'s recipe through fleet: ``distributed_model`` /
+    ``distributed_optimizer`` and ``ShardedTrainStep`` at ``stage``."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed import ShardedTrainStep, fleet
+    from paddle_tpu_torch.models.gpt import (GPTForCausalLM,
+                                             GPTPretrainingCriterion)
+    model = fleet.distributed_model(GPTForCausalLM(
+        cfg, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(seed)))
+    crit = GPTPretrainingCriterion()
+    opt = fleet.distributed_optimizer(optimizer.AdamW(
+        learning_rate=1e-4, parameters=model.parameters()))
+    return model, ShardedTrainStep(model, lambda m, b: crit(m(b["x"]),
+                                                            b["y"]),
+                                   opt, stage=stage, seed=seed, device=dev)
+
+
+def dist_counters(fa, ft):
+    return {"flash_attention_fwd": fa.flash_attention_fwd,
+            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
+            "fused_update": ft.fused_update_flat}
+
+
+def dist_run(torch, step, batch, counters):
+    """DIST_STEPS steps: losses (floats), host step times, launches, the
+    last step's collectives and the peak memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    losses, times = [], []
+    for _ in range(DIST_STEPS):
+        t = time.perf_counter()
+        losses.append(step(batch))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    return {"losses": [float(x) for x in losses], "step_s": times,
+            "mean_step_s": sum(times[1:]) / (len(times) - 1),
+            "launches": {n: fn.launches for n, fn in counters.items()},
+            "comm": dict(getattr(step, "comm", {})),
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def whole_slots(torch, step):
+    """The sharded trainer's slots whole (gathered over the sharding
+    group: every rank calls this)."""
+    from paddle_tpu_torch import distributed as dist
+    g = step.hcg.get_sharding_parallel_group()
+    out = {}
+    for n, slots in step.state["opt"]["slots"].items():
+        d = step.plan.slot_dim(n)
+        for k, v in slots.items():
+            if d is None:
+                out[(n, k)] = v
+                continue
+            parts = []
+            dist.all_gather(parts, v.contiguous(), group=g)
+            out[(n, k)] = torch.cat(parts, dim=d)
+    return out
+
+
+def dist_train_worker(out_dir):
+    """One rank of the ``dist_train`` gang (started by the port's
+    launcher): GPT-2 124M on ``bench_gpt2``'s recipe, first through the
+    unsharded ``CompiledTrainStep`` on this card, then through fleet and
+    ``ShardedTrainStep`` at stages 1, 2 and 3; a stage-3 checkpoint saved
+    by the gang reloads into a single-card ``CompiledTrainStep``.  At a
+    world of one the recipe is the one ``train_gpt2`` runs (dropout 0.1);
+    in a larger gang dropout is 0, so the world's losses can be held
+    against a single card's, and stages 2 and 3 shard over every card.
+    Writes ``rank<r>.json`` into ``out_dir``."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.models.gpt import gpt2_124m_config
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_train as ft
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    hcg = dist.fleet.init(device=DIST_DEVICE)
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dist.barrier()                      # NCCL's communicator comes up here
+    first_s = time.perf_counter() - t0
+    rank, world = dist.get_rank(), dist.get_world_size()
+    dev = dist.env.get_device()
+    cfg = gpt2_124m_config()
+    if world > 1:
+        cfg = dataclasses.replace(cfg, hidden_dropout_prob=0.0,
+                                  attention_probs_dropout_prob=0.0)
+    seed = SEED + 4
+    batch = gpt_batch(torch, np, dev, cfg.vocab_size, GPT_BATCH, GPT_SEQ)
+    counters = dist_counters(fa, ft)
+    res = {"rank": rank, "world": world, "backend": dist.get_backend(),
+           "native_store": dist.env.get_store().is_native,
+           "nccl": ".".join(str(v) for v in torch.cuda.nccl.version()),
+           "init_s": init_s, "first_collective_s": first_s,
+           "topology": hcg.topology(), "stages": {}}
+
+    model, step = gpt_trainer(torch, cfg, dev, seed)
+    res["unsharded"] = dist_run(torch, step, batch, counters)
+    res["n_leaves"] = len(step.state["params"])
+    ref = {n: p.detach().clone() for n, p in step.state["params"].items()}
+    del model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ckpt = os.path.join(out_dir, "ckpt_stage3")
+    for stage in DIST_STAGES:
+        if stage > 1 and world > 1:
+            # stages 2 and 3 shard over every card (fleet.init() alone
+            # made them all data parallel)
+            strategy = dist.DistributedStrategy()
+            strategy.hybrid_configs = {"sharding_degree": world}
+            dist.fleet.init(strategy=strategy, device=DIST_DEVICE)
+        model, step = gpt_sharded_trainer(torch, cfg, dev, seed, stage)
+        run = dist_run(torch, step, batch, counters)
+        full = step.full_params()
+        run["updated_leaves"] = len(step.state["params"])
+        run["params_equal"] = all(torch.equal(full[n], ref[n]) for n in ref)
+        run["params_max_rel"] = max(
+            float((full[n] - ref[n]).abs().max() /
+                  ref[n].abs().max().clamp_min(1e-30)) for n in ref)
+        if stage == 3:
+            step.save_checkpoint(ckpt)
+            slots = whole_slots(torch, step)
+            if rank == 0:
+                _, single = gpt_trainer(torch, cfg, dev, seed + 1)
+                t0 = time.perf_counter()
+                single.load_checkpoint(ckpt)
+                torch.cuda.synchronize()
+                run["ckpt_load_s"] = time.perf_counter() - t0
+                run["ckpt_params_equal"] = all(
+                    torch.equal(single.state["params"][n], full[n])
+                    for n in full)
+                run["ckpt_slots_equal"] = all(
+                    torch.equal(single.state["opt"]["slots"][n][k], v)
+                    for (n, k), v in slots.items())
+                run["ckpt_step_count"] = single.step_count
+                del single
+            del slots
+            dist.barrier()
+        res["stages"][str(stage)] = run
+        del model, step, full
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def dist_train_phase(torch, table):
+    """``dist_train``: the port's launcher starts one rank a card (NCCL,
+    the native store); each rank runs ``dist_train_worker``.  At a world
+    of one the sharded steps equal the unsharded one bit for bit
+    (losses and parameters), #2-#4 launch once a layer a step and #8
+    once a leaf a step, and the stage-3 checkpoint reloads bit-equal into
+    a single-card ``CompiledTrainStep``; a larger gang's losses are held
+    against one card's at 1e-5 relative (the CPU tests' bound)."""
+    import tempfile
+    n = torch.cuda.device_count()
+    gc.collect()
+    torch.cuda.empty_cache()
+    here = os.path.dirname(os.path.abspath(__file__))
+    out_dir = tempfile.mkdtemp(prefix="dist_train_")
+    logs = os.path.join(out_dir, "logs")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+         "--nproc_per_node", str(n), "--log_dir", logs,
+         os.path.join(here, "chip_smoke.py"), "--dist-train-worker",
+         out_dir], cwd=here, capture_output=True, text=True, timeout=600)
+    wall_s = time.perf_counter() - t0
+    tails = ""
+    if os.path.isdir(logs):
+        for f in sorted(os.listdir(logs)):
+            with open(os.path.join(logs, f)) as fh:
+                tails += f"\n--- {f}\n" + fh.read()[-4000:]
+    check(proc.returncode == 0,
+          f"dist_train gang exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}{tails}")
+    ranks = []
+    for r in range(n):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    r0 = ranks[0]
+    layers, leaves = GPT_LAYERS_124M, r0["n_leaves"]
+    stages = r0["stages"]
+    emit({"phase": "dist_train", "model": "gpt2_124m", "world": n,
+          "backend": r0["backend"], "native_store": r0["native_store"],
+          "nccl_version": r0["nccl"], "init_s": r0["init_s"],
+          "first_collective_s": r0["first_collective_s"],
+          "launcher_wall_s": wall_s, "topology": r0["topology"],
+          "train_gpt2_mean_step_s": RESULTS.get("train_gpt2_mean_step_s"),
+          "unsharded": r0["unsharded"], "stages": stages,
+          "ranks": [{k: r[k] for k in ("rank", "init_s")} for r in ranks]})
+    check(all(r["backend"] == "nccl" for r in ranks),
+          f"dist_train ran on {[r['backend'] for r in ranks]}, not nccl")
+    check(r0["native_store"], "the gang's store is not the native one")
+    base = r0["unsharded"]["losses"]
+    for st, run in stages.items():
+        per_step = {"flash_attention_fwd": layers,
+                    "flash_attention_bwd_dq": layers,
+                    "flash_attention_bwd_dkv": layers,
+                    "fused_update": run["updated_leaves"]}
+        for name, k in per_step.items():
+            got = run["launches"][name]
+            check(got == k * DIST_STEPS,
+                  f"dist_train stage {st}: {name} launched {got} times in "
+                  f"{DIST_STEPS} steps, not {k} a step")
+        if n == 1:
+            check(run["updated_leaves"] == leaves,
+                  f"stage {st} updated {run['updated_leaves']} leaves of "
+                  f"{leaves}")
+            check(run["losses"] == base,
+                  f"stage {st} losses {run['losses']} != unsharded {base}")
+            check(run["params_equal"],
+                  f"stage {st} parameters differ from the unsharded "
+                  f"step's (max relative {run['params_max_rel']})")
+        else:
+            rel = max(abs(a - b) / abs(b) for a, b in zip(run["losses"],
+                                                          base))
+            check(rel <= 1e-5, f"stage {st} world {n} losses off one "
+                               f"card's by {rel}")
+        check(all(math.isfinite(x) for x in run["losses"]),
+              f"stage {st} losses {run['losses']}")
+    s3 = stages["3"]
+    check(s3["ckpt_params_equal"] and s3["ckpt_slots_equal"],
+          "the stage-3 checkpoint did not reload bit-equal into a "
+          "single-card CompiledTrainStep")
+    check(s3["ckpt_step_count"] == DIST_STEPS,
+          f"reloaded step count {s3['ckpt_step_count']}")
+    table["fused_update"]["dist_train_launches"] = \
+        stages["3"]["launches"]["fused_update"]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -8161,6 +8415,12 @@ def main() -> int:
     # -- the high-level trainer (hapi.Model) over the io loaders: BERT-base
     # fit against a direct loop, its exact resume, GPT-2 from token files
     fit_paths(torch, np, dev, table)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- multi-device training: one rank a card through the port's
+    # launcher, NCCL, ZeRO stages 1-3 against the unsharded step
+    dist_train_phase(torch, table)
 
     # each tensor-core row: its kernel's registers and spills (the most
     # registers and the summed spills over that kernel's instantiations)
@@ -8216,6 +8476,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--dist-train-worker":
+        dist_train_worker(sys.argv[2])
+        sys.exit(0)
     try:
         sys.exit(main())
     except SmokeFailure as e:

@@ -1,6 +1,5 @@
 """Train-state checkpoints with atomic commit and sha256-verified loads
-(counterpart of ``paddle_tpu/distributed/checkpoint.py``, at world size
-1).
+(counterpart of ``paddle_tpu/distributed/checkpoint.py``).
 
 The on-disk format is the reference's: a directory of ``.npy`` chunk
 files plus ``metadata.json``, which records each array's global shape,
@@ -13,6 +12,20 @@ writes them as their 8- or 16-bit pattern viewed as the torch dtype, so
 it needs no ``ml_dtypes``.  ``load_state_dict`` assembles an array from
 whatever chunk layout the manifest describes, so a checkpoint the
 reference wrote sharded over several devices loads whole.
+
+Sharded state (a ``ShardedArray`` leaf: this rank's part of a global
+array, with its index box) is saved as the reference saves a sharded
+``jax.Array``: the manifest lists every part's box, and each part is
+written by the one rank that holds its first replica.  In a gang
+(``torch.distributed`` up with more than one rank) a save is collective:
+the coordinator draws the save's nonce and hands it on through the
+gang's store, every rank writes its own parts into the shared staging
+directory and posts their digests to the store, and the coordinator
+waits for all of them, writes the manifest and commits; the others
+return once the commit is posted.  A replicated tensor is written by
+the coordinator alone.  Loading reads each template leaf's own box from
+whatever parts cover it, so a checkpoint reloads onto another world
+size (another set of boxes).
 
 Crash safety (the reference's atomic-commit contract):
 
@@ -59,7 +72,7 @@ from ..common.errors import CorruptCheckpointError, enforce
 
 __all__ = ["save_state_dict", "load_state_dict", "get_checkpoint_metadata",
            "validate_checkpoint", "AsyncSaveHandle", "CorruptCheckpointError",
-           "ChaosCrash", "set_chaos", "clear_chaos"]
+           "ChaosCrash", "set_chaos", "clear_chaos", "ShardedArray"]
 
 _METADATA = "metadata.json"
 _VERSION = 2                 # v2: "committed" flag + per-chunk sha256/bytes
@@ -345,6 +358,9 @@ def _set_in(tree, path: str, value):
     if isinstance(old, torch.Tensor):
         with torch.no_grad():
             old.copy_(value)
+    elif isinstance(old, ShardedArray):
+        with torch.no_grad():
+            old.local.copy_(value)
     elif isinstance(node, (dict, list)):
         node[last] = value
     else:
@@ -355,7 +371,8 @@ def _set_in(tree, path: str, value):
 def _is_array(x) -> bool:
     # python int/float/bool/str round-trip as JSON literals; numpy
     # scalars count as 0-d arrays
-    return isinstance(x, (torch.Tensor, np.ndarray, np.generic))
+    return isinstance(x, (torch.Tensor, np.ndarray, np.generic,
+                          ShardedArray))
 
 
 def _fname(key: str, box: Sequence[Tuple[int, int]]) -> str:
@@ -369,6 +386,62 @@ def _fname(key: str, box: Sequence[Tuple[int, int]]) -> str:
 
 def _whole_box(shape) -> Tuple[Tuple[int, int], ...]:
     return tuple((0, int(d)) for d in shape)
+
+
+class ShardedArray:
+    """This rank's part of a global array, as a checkpoint leaf: the
+    ``local`` tensor covers ``box`` of an array of ``global_shape``,
+    which is cut into ``boxes`` (every part's box, the same list on
+    every rank); ``write`` says whether this rank writes its part (it
+    holds the part's first replica).  Loading fills ``local`` in place
+    from the checkpoint's chunks over ``box``."""
+
+    def __init__(self, local: torch.Tensor, global_shape, box, boxes,
+                 write: bool = True):
+        self.local = local
+        self.global_shape = tuple(int(d) for d in global_shape)
+        self.box = tuple(tuple(int(x) for x in b) for b in box)
+        self.boxes = [tuple(tuple(int(x) for x in b) for b in bx)
+                      for bx in boxes]
+        self.write = bool(write)
+        enforce(tuple(local.shape) == tuple(b - a for a, b in self.box),
+                f"ShardedArray: local shape {tuple(local.shape)} does not "
+                f"fill its box {self.box}")
+
+    @property
+    def dtype(self):
+        return self.local.dtype
+
+
+def _gang():
+    """(rank, world) of the gang a save or load runs in: (0, 1) outside
+    a ``torch.distributed`` world of more than one rank."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _gang_store():
+    """A connection to the gang's store of its own (an async writer's
+    blocking waits must not queue behind the trainer's)."""
+    from . import env
+    store = env.get_store()
+    if store is not None:
+        return store.client()
+    import torch.distributed as dist
+    return dist.distributed_c10d._get_default_store()
+
+
+def _store_get(store, key: str, timeout_s: float = 600.0) -> bytes:
+    from .store import TCPStore
+    if isinstance(store, TCPStore):
+        return store.get(key, timeout_ms=int(timeout_s * 1000))
+    return store.get(key)
+
+
+_SAVE_SEQ = [0]
 
 
 def _dtype_name(leaf) -> str:
@@ -427,8 +500,8 @@ def save_state_dict(state_dict, path: str, process_group=None,
                     coordinator_rank: int = 0, async_save: bool = False
                     ) -> Optional[AsyncSaveHandle]:
     """Write ``state_dict`` (any tree of dicts and lists over tensors on
-    any device, numpy arrays, scalars and JSON literals) as a checkpoint
-    directory at ``path``.
+    any device, ``ShardedArray`` parts, numpy arrays, scalars and JSON
+    literals) as a checkpoint directory at ``path``.
 
     Every tensor leaf is copied to host memory before this returns, so
     the caller may update the state in place at once.  With
@@ -436,9 +509,26 @@ def save_state_dict(state_dict, path: str, process_group=None,
     an :class:`AsyncSaveHandle` is returned; a writer failure re-raises
     on ``handle.wait()`` or, unwaited, at the next save.  The commit is
     atomic (module docstring); orphaned staging dirs of killed saves are
-    swept by the next successful save to the same path."""
+    swept by the next successful save to the same path.  In a gang every
+    rank calls this, in one order, with the same ``path``; the
+    coordinator commits."""
     _surface_failed_async_saves()
-    nonce = format(int.from_bytes(os.urandom(4), "little"), "08x")
+    rank, nproc = _gang()
+    store = None
+    if nproc > 1:
+        # the save's nonce, drawn by the coordinator and handed on
+        # through the store (the gang's saves are numbered alike)
+        store = _gang_store()
+        _SAVE_SEQ[0] += 1
+        tag = f"paddle_ckpt/{_SAVE_SEQ[0]}"
+        if rank == coordinator_rank:
+            nonce = format(int.from_bytes(os.urandom(4), "little"), "08x")
+            store.set(f"{tag}/nonce", nonce.encode())
+        else:
+            nonce = _store_get(store, f"{tag}/nonce").decode()
+    else:
+        nonce = format(int.from_bytes(os.urandom(4), "little"), "08x")
+    coordinator = rank == coordinator_rank
     path = path.rstrip("/")
     parent = os.path.dirname(path) or "."
     os.makedirs(parent, exist_ok=True)
@@ -451,21 +541,30 @@ def save_state_dict(state_dict, path: str, process_group=None,
                                 "arrays": {}, "literals": {},
                                 "data_dir": data_dir}
     arrays: Dict[str, Any] = {}
+    files: Dict[str, str] = {}
     for key, leaf in flat.items():
         if not _is_array(leaf):
             enforce(leaf is None or isinstance(leaf, (str, int, float, bool)),
                     f"unsupported checkpoint leaf at {key!r}: {type(leaf)}")
             manifest["literals"][key] = leaf
             continue
-        arrays[key] = leaf
-        box = _whole_box(leaf.shape)
+        if isinstance(leaf, ShardedArray):
+            shape, boxes = leaf.global_shape, leaf.boxes
+            mine, own = leaf.box, leaf.write
+            value = leaf.local
+        else:
+            shape = tuple(leaf.shape)
+            boxes = [_whole_box(shape)]
+            mine, own, value = boxes[0], coordinator, leaf
         manifest["arrays"][key] = {
-            "global_shape": list(leaf.shape), "dtype": _dtype_name(leaf),
-            "chunks": [{"file": f"{data_dir}/{_fname(key, box)}",
-                        "box": [list(b) for b in box]}]}
+            "global_shape": list(shape), "dtype": _dtype_name(value),
+            "chunks": [{"file": f"{data_dir}/{_fname(key, b)}",
+                        "box": [list(x) for x in b]} for b in boxes]}
+        if own:
+            arrays[key] = value
+            files[key] = f"{data_dir}/{_fname(key, mine)}"
     host = _snapshot(arrays, owned=async_save)
-    writes = [(manifest["arrays"][k]["chunks"][0]["file"], a)
-              for k, a in host.items()]
+    writes = [(files[k], a) for k, a in host.items()]
     os.makedirs(os.path.join(staging, data_dir), exist_ok=True)
     _track_staging(staging)
 
@@ -499,6 +598,19 @@ def save_state_dict(state_dict, path: str, process_group=None,
         if _chaos_hit("pre-manifest"):
             _chaos_crash("pre-manifest")
 
+        if nproc > 1:
+            # each rank posts its chunks' digests; the coordinator waits
+            # for every rank's, then writes the manifest and commits
+            store.set(f"{tag}/done/{rank}", json.dumps(digests).encode())
+            if not coordinator:
+                _untrack_staging(staging)
+                _store_get(store, f"{tag}/committed")
+                return
+            for r in range(nproc):
+                if r != rank:
+                    digests.update(json.loads(
+                        _store_get(store, f"{tag}/done/{r}").decode()))
+
         # per-chunk integrity, then the committed manifest, written only
         # after every chunk is flushed
         for entry in manifest["arrays"].values():
@@ -529,6 +641,8 @@ def save_state_dict(state_dict, path: str, process_group=None,
             os.rename(staging, path)
             _fsync_dir(parent)
         _untrack_staging(staging)
+        if nproc > 1:
+            store.set(f"{tag}/committed", b"1")
         if _chaos_hit("post-commit"):
             _chaos_crash("post-commit")
 
@@ -662,15 +776,18 @@ def _storage_dtype(name: str) -> np.dtype:
 
 
 def _read_box(path: str, entry: Dict[str, Any],
-              verify_cache: Optional[Set[str]] = None) -> np.ndarray:
-    """Assemble the whole array of ``entry`` from the chunk files that
-    cover it, whatever their boxes (a checkpoint sharded over several
-    devices loads whole).  Chunks are memory-mapped; with a
-    ``verify_cache`` each is sha256-verified first."""
+              verify_cache: Optional[Set[str]] = None,
+              want_box=None) -> np.ndarray:
+    """Assemble ``want_box`` (default: the whole array) of ``entry``'s
+    array from the chunk files that cover it, whatever their boxes (a
+    checkpoint sharded over several devices loads whole, or onto
+    another set of shards).  Chunks are memory-mapped; with a
+    ``verify_cache`` each one read is sha256-verified first."""
     shape = tuple(entry["global_shape"])
     dtype = _storage_dtype(entry["dtype"])
-    want_box = _whole_box(shape)
-    out = np.empty(shape, dtype=dtype)
+    if want_box is None:
+        want_box = _whole_box(shape)
+    out = np.empty(tuple(b - a for a, b in want_box), dtype=dtype)
     filled = 0
     for chunk in entry["chunks"]:
         cbox = [tuple(b) for b in chunk["box"]]
@@ -687,11 +804,12 @@ def _read_box(path: str, entry: Dict[str, Any],
             src = src.view(dtype)
         src_sl = tuple(slice(a - c0, b - c0)
                        for (a, b), (c0, _) in zip(inter, cbox))
-        dst_sl = tuple(slice(a, b) for a, b in inter)
+        dst_sl = tuple(slice(a - w0, b - w0)
+                       for (a, b), (w0, _) in zip(inter, want_box))
         out[dst_sl] = src[src_sl]
         filled += int(np.prod([b - a for a, b in inter]))
     enforce(filled == out.size,
-            f"checkpoint chunks do not cover {list(shape)} (covered "
+            f"checkpoint chunks do not cover {list(want_box)} (covered "
             f"{filled}/{out.size} elements)",
             error_cls=CorruptCheckpointError)
     return out
@@ -709,6 +827,8 @@ def load_state_dict(state_dict, path: str, process_group=None,
                     verify: bool = True):
     """Fill ``state_dict`` (a template tree, e.g. a fresh model's and
     optimizer's state) from the checkpoint at ``path``; returns it.
+    A ``ShardedArray`` leaf is filled from the checkpoint over its own
+    box, whatever boxes the checkpoint was written in.
 
     Tensor leaves are overwritten in place, in their own dtype and on
     their own device (the template's precision wins over the
@@ -731,8 +851,16 @@ def load_state_dict(state_dict, path: str, process_group=None,
             continue
         entry = meta["arrays"].get(key)
         enforce(entry is not None, f"{key!r} not found in checkpoint {path}")
-        arr = _read_box(path, entry, verify_cache)
         name = entry["dtype"]
+        if isinstance(leaf, ShardedArray):
+            enforce(tuple(leaf.global_shape) == tuple(entry["global_shape"]),
+                    f"{key!r}: template global shape {leaf.global_shape} "
+                    f"!= checkpoint global shape "
+                    f"{tuple(entry['global_shape'])}")
+            arr = _read_box(path, entry, verify_cache, leaf.box)
+            new_flat[key] = _as_tensor(arr, name).to(leaf.dtype)
+            continue
+        arr = _read_box(path, entry, verify_cache)
         if isinstance(leaf, torch.Tensor):
             enforce(tuple(leaf.shape) == tuple(arr.shape),
                     f"{key!r}: template shape {tuple(leaf.shape)} != "

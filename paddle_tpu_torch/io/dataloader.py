@@ -250,8 +250,9 @@ class BatchSampler(Sampler):
 
 class DistributedBatchSampler(BatchSampler):
     """Shards sample indices across data-parallel ranks (one process a
-    rank feeds its slice).  ``num_replicas`` and ``rank`` must be given:
-    the distributed environment is not ported."""
+    rank feeds its slice).  ``num_replicas`` and ``rank`` default to the
+    distributed environment's world size and rank, as the reference's
+    do."""
 
     def __init__(self, dataset, batch_size, num_replicas=None, rank=None,
                  shuffle=False, drop_last=False):
@@ -259,12 +260,12 @@ class DistributedBatchSampler(BatchSampler):
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
-        if num_replicas is None or rank is None:
-            # the reference reads them from distributed.env
-            raise NotImplementedError(
-                "DistributedBatchSampler without num_replicas and rank "
-                "(the ranks of the distributed environment) is not "
-                "ported yet (ROADMAP 'Multi-device')")
+        if num_replicas is None:
+            from ..distributed import env as dist_env
+            num_replicas = dist_env.get_world_size()
+        if rank is None:
+            from ..distributed import env as dist_env
+            rank = dist_env.get_rank()
         self.nranks = num_replicas
         self.local_rank = rank
         self.epoch = 0

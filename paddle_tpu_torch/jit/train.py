@@ -63,7 +63,10 @@ class CompiledTrainStep:
     and any optimizer or clip the kernel does not hold).  With
     ``grad_norm_tap`` the step keeps the f32 global norm of its
     gradients in ``last_grad_norm``, a device tensor (the same norm the
-    clip's scale comes from), read by no one on the host."""
+    clip's scale comes from), read by no one on the host.
+    ``state_sharding_fn(state)`` returns the state the trainer keeps
+    (``distributed.ShardedTrainStep`` passes its plan's, which keeps this
+    rank's parts of the sharded leaves)."""
 
     _program_name = "train.compiled_step"
 
@@ -71,10 +74,6 @@ class CompiledTrainStep:
                  optimizer: Optimizer, seed: int = 0, donate: bool = True,
                  state_sharding_fn=None, has_aux: bool = False,
                  fused_step: bool = True, grad_norm_tap: bool = False):
-        if state_sharding_fn is not None:
-            raise NotImplementedError(
-                "CompiledTrainStep state_sharding_fn (a sharded train "
-                "state) is not ported yet (ROADMAP 'Multi-device')")
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer
@@ -93,6 +92,9 @@ class CompiledTrainStep:
         self.state: Dict[str, Any] = {
             "params": self._state_params(),
             "opt": optimizer.init_state(self._params)}
+        if state_sharding_fn is not None:
+            # e.g. distributed.ShardingPlan.shard_state: this rank's parts
+            self.state = state_sharding_fn(self.state)
         self._timer = None
         self._flops_cache: Optional[float] = None
         self._step_count = 0

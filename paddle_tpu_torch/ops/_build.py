@@ -8,11 +8,15 @@ hash of the sources, so an edited kernel rebuilds and an unchanged one
 loads as it is.  Nothing is built when the package is imported: the
 first kernel call on a CUDA tensor builds what it needs, and
 ``build()`` builds several sources at once, one ``nvcc`` process each,
-all started together.  The assembler's register/spill report of each
+all started together.  The compiles run under one file lock a library
+(named by its hash), taken in a fixed order, so ranks that start
+together on a fresh tree build each library once: the first compiles,
+the others wait and load it.  The assembler's register/spill report of each
 build is kept beside its library, so a cached build reports it too.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -23,6 +27,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable
+
+from ..common.filelock import file_lock
 
 __all__ = ["build", "load", "CSRC", "BUILD_DIR"]
 
@@ -65,10 +71,26 @@ def build(names: Iterable[str]) -> Dict[str, dict]:
     report = {n: {"seconds": None, "ptxas": _report_path(n).read_text()}
               for n in names
               if _lib_path(n).exists() and _report_path(n).exists()}
-    todo = [n for n in names if n not in report]
+    todo = sorted(n for n in names if n not in report)
     if not todo:
         return report
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with contextlib.ExitStack() as locks:
+        for name in todo:
+            locks.enter_context(file_lock(str(_lib_path(name)) + ".lock"))
+        # another process may have built them while this one waited
+        for name in todo:
+            if _lib_path(name).exists() and _report_path(name).exists():
+                report[name] = {"seconds": None,
+                                "ptxas": _report_path(name).read_text()}
+        _compile([n for n in todo if n not in report], report)
+    return report
+
+
+def _compile(todo, report) -> None:
+    """One ``nvcc`` a source, all started together; fills ``report``."""
+    if not todo:
+        return
     nvcc = _nvcc()
     procs = {}
     t0 = time.perf_counter()
@@ -93,7 +115,6 @@ def build(names: Iterable[str]) -> Dict[str, dict]:
         report[name] = {"seconds": time.perf_counter() - t0, "ptxas": out}
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    return report
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -89,11 +89,19 @@ def test_sampler_orders_match_reference(kind):
     assert SAMPLERS[kind](dl, ds) == got          # the seed decides
 
 
-def test_distributed_sampler_needs_its_ranks():
-    with pytest.raises(NotImplementedError, match="Multi-device"):
-        io.DistributedBatchSampler(ArrDataset(), 4)
-    with pytest.raises(NotImplementedError, match="Multi-device"):
-        io.DistributedBatchSampler(ArrDataset(), 4, num_replicas=2)
+def test_distributed_sampler_needs_its_ranks(monkeypatch):
+    """Without ``num_replicas`` / ``rank`` the sampler takes the
+    distributed environment's, as the reference's does."""
+    for k in ("PADDLE_TRAINERS_NUM", "PADDLE_TRAINER_ID"):
+        monkeypatch.delenv(k, raising=False)
+    s = io.DistributedBatchSampler(ArrDataset(), 4)
+    assert (s.nranks, s.local_rank) == (1, 0)
+    monkeypatch.setenv("PADDLE_TRAINERS_NUM", "2")
+    monkeypatch.setenv("PADDLE_TRAINER_ID", "1")
+    s = io.DistributedBatchSampler(ArrDataset(), 4)
+    assert (s.nranks, s.local_rank) == (2, 1)
+    s = io.DistributedBatchSampler(ArrDataset(), 4, num_replicas=2)
+    assert (s.nranks, s.local_rank) == (2, 1)
     s = io.DistributedBatchSampler(ArrDataset(), 4, num_replicas=2, rank=1,
                                    shuffle=True)
     s.set_epoch(3)

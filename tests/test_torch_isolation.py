@@ -37,7 +37,20 @@ names = [m.name for m in pkgutil.walk_packages(
 new = ["paddle_tpu_torch.hapi.model", "paddle_tpu_torch.hapi.callbacks",
        "paddle_tpu_torch.io.dataloader", "paddle_tpu_torch.io.token_dataset",
        "paddle_tpu_torch.core.build", "paddle_tpu_torch.metric",
-       "paddle_tpu_torch.framework.io", "paddle_tpu_torch.visualdl"]
+       "paddle_tpu_torch.framework.io", "paddle_tpu_torch.visualdl",
+       "paddle_tpu_torch.distributed.env",
+       "paddle_tpu_torch.distributed.store",
+       "paddle_tpu_torch.distributed.strategy",
+       "paddle_tpu_torch.distributed.topology",
+       "paddle_tpu_torch.distributed.collective",
+       "paddle_tpu_torch.distributed.fleet",
+       "paddle_tpu_torch.distributed.sharding",
+       "paddle_tpu_torch.distributed.trainer",
+       "paddle_tpu_torch.distributed.launch",
+       "paddle_tpu_torch.distributed.launch.main",
+       "paddle_tpu_torch.distributed.launch.controller",
+       "paddle_tpu_torch.distributed.launch.__main__",
+       "paddle_tpu_torch.common.filelock"]
 assert not set(new) - set(names), sorted(set(new) - set(names))
 for name in names + ["chip_smoke"]:
     importlib.import_module(name)
@@ -53,7 +66,18 @@ def test_port_imports_no_jax_and_no_reference_package():
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 85       # every module imported
+    assert int(res.stdout.split()[-1]) >= 98       # every module imported
+
+
+def test_worker_of_the_gang_tests_imports_no_jax():
+    """``tests/torch_dist_worker.py`` runs in the gang's ranks: it too
+    must import neither JAX nor the reference package."""
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['paddle_tpu'] = None; sys.path.insert(0, 'tests'); "
+            "import torch_dist_worker, paddle_tpu_torch.distributed")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
 
 
 @pytest.fixture
@@ -84,3 +108,23 @@ def test_entry_points_default_to_the_gpu(no_cuda):
 def test_zoo_entry_points_default_to_the_gpu(no_cuda, make):
     with pytest.raises(UnavailableError, match="device='cpu'"):
         make()
+
+
+@pytest.mark.parametrize("make", [
+    lambda: __import__("paddle_tpu_torch.distributed",
+                       fromlist=["fleet"]).fleet.init(),
+    lambda: __import__("paddle_tpu_torch.distributed",
+                       fromlist=["init_parallel_env"]).init_parallel_env(),
+    lambda: __import__("paddle_tpu_torch.distributed",
+                       fromlist=["ShardedTrainStep"]).ShardedTrainStep(
+        LlamaForCausalLM(llama_tiny_config(), device="cpu"),
+        lambda m, b: None, None)],
+    ids=["fleet_init", "init_parallel_env", "sharded_train_step"])
+def test_distributed_entry_points_default_to_the_gpu(no_cuda, make):
+    """Each joins (or trains in) an NCCL gang on the card unless
+    ``device="cpu"`` is passed: without a card they raise before any
+    process group exists."""
+    import torch.distributed as tdist
+    with pytest.raises(UnavailableError, match="device='cpu'"):
+        make()
+    assert not tdist.is_initialized()

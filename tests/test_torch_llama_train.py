@@ -257,16 +257,21 @@ def test_model_settings_outside_the_slice_raise(setting):
 
 
 def test_trainer_and_optimizer_knobs_outside_the_slice_raise():
-    """What stays outside the port: a sharded train state
-    ('Multi-device').  ``donate=False``, ``has_aux``, ``grad_norm_tap``,
-    checkpoints and LR schedulers are ported (``test_torch_train_state``,
-    ``test_torch_lr``), and so is amp O1 (``test_torch_amp.py``): its
-    ``decorate`` casts no parameter; a learning rate that is neither a
-    float nor a scheduler is refused."""
+    """Every trainer knob is ported now: ``state_sharding_fn`` (a sharded
+    train state, ``distributed.ShardedTrainStep``'s) is applied to the
+    state at construction, as the reference's is; ``donate=False``,
+    ``has_aux``, ``grad_norm_tap``, checkpoints and LR schedulers
+    (``test_torch_train_state``, ``test_torch_lr``) and amp O1
+    (``test_torch_amp.py``: its ``decorate`` casts no parameter) run.  A
+    learning rate that is neither a float nor a scheduler is refused."""
     m = LlamaForCausalLM(llama_tiny_config(), device="cpu")
     opt = optim.AdamW(learning_rate=LR, parameters=m.parameters())
-    with pytest.raises(NotImplementedError, match="Multi-device"):
-        CompiledTrainStep(m, _loss, opt, state_sharding_fn=lambda s: s)
+    seen = []
+    step = CompiledTrainStep(
+        m, _loss, opt, state_sharding_fn=lambda s: seen.append(s) or
+        {**s, "tag": 1})
+    assert len(seen) == 1 and step.state["tag"] == 1
+    assert set(seen[0]) == {"params", "opt"}
     for knob in ({"donate": False}, {"has_aux": True},
                  {"grad_norm_tap": True}):
         CompiledTrainStep(m, _loss, opt, **knob)
