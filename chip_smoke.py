@@ -714,6 +714,231 @@ def traced_kernel(torch, fn, family=None, calls=3):
             "device_ms": ms / calls, "trace_retries": retries}
 
 
+# one rank's heads of a tensor-parallel mesh: (query heads, KV heads,
+# what shards that way); each rank launches #1, #2, #6 and #7 once a
+# layer a forward at these shapes
+TP_RAGGED_SHARDS = ((16, 4, "llama3_8b tp 2"), (8, 2, "llama3_8b tp 4"),
+                    (4, 4, "qwen1.5_moe_a2.7b tp 4"))
+TP_SPLIT_SHARD = (8, 2, "llama3_8b tp 4")
+
+
+def tp_shard_kernels(torch, gen, dev):
+    """#1 at the unified step's shapes and #7, #6 and #2 at the split
+    path's, at the heads one rank of a mesh holds (``TP_RAGGED_SHARDS``,
+    ``TP_SPLIT_SHARD``), each against its plain version (outputs within
+    ``TOL``, pools after an append equal), timed, traced and bounded.
+    NCCL takes no two ranks on one card, so these rows are what holds
+    the kernels at a tp > 1 rank's geometry on one card.  They run with
+    the other kernel rows (traces taken after a traced serve lost kernel
+    events); ``serve_tp_phase`` fills ``launches`` (a rank's count in its
+    run of the serve mix, one a layer a forward at any tp; #6 and #7
+    None, that run is unified) and prints them."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import paged_attention as pa
+    t0 = time.perf_counter()
+    rows = []
+    for H, KVH, shard in TP_RAGGED_SHARDS:
+        args, n_bytes, flops = ragged_case(torch, gen, dev, H, KVH)
+
+        def ragged(fn, kp, vp):
+            return fn(args["q"], kp, vp, args["k_new"], args["v_new"],
+                      args["q_start"], args["q_len"], args["kv_len"],
+                      args["page_tables"])
+        kp_k, vp_k = (args[n].clone() for n in ("k_pages", "v_pages"))
+        kp_p, vp_p = (args[n].clone() for n in ("k_pages", "v_pages"))
+        got = ragged(pa.ragged_paged_append_attend, kp_k, vp_k)
+        want = ragged(pa.ragged_paged_append_attend_reference, kp_p, vp_p)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        name = f"ragged_paged_append_attend_h{H}_kv{KVH}"
+        check(torch.equal(kp_k, kp_p) and torch.equal(vp_k, vp_p),
+              f"{name} appended other K/V than its plain version")
+        check(err <= TOL, f"{name} off its plain version by {err}")
+        rows.append(dict(ragged_row(
+            torch, name,
+            lambda: ragged(pa.ragged_paged_append_attend, kp_k, vp_k),
+            lambda: ragged(pa.ragged_paged_append_attend_reference, kp_p,
+                           vp_p), err, bound_ms(n_bytes, flops), "mma"),
+            launches="ragged_paged_append_attend", shard=shard, heads=H,
+            kv_heads=KVH))
+        del args, kp_k, vp_k, kp_p, vp_p, got, want
+    H, KVH, shard = TP_SPLIT_SHARD
+    q, kn, vn, pools, tables, lens = decode_case(torch, gen, dev, H, KVH)
+    for name, fn, plain, new in (
+            ("paged_decode_append_attend", pa.paged_decode_append_attend,
+             pa.paged_decode_append_attend_reference, (kn, vn)),
+            ("paged_attention", pa.paged_attention,
+             pa.paged_attention_reference, ())):
+        mine = [None if p is None else p.clone() for p in pools]
+        ref = [None if p is None else p.clone() for p in pools]
+
+        def call(f, ps):
+            return f(q, ps[0], ps[1], *new, tables, lens, ps[2], ps[3])
+        got, want = call(fn, mine), call(plain, ref)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        name = f"{name}_h{H}_kv{KVH}"
+        check(err <= TOL, f"{name} off its plain version by {err}")
+        check(all(a is None or torch.equal(a, b)
+                  for a, b in zip(mine, ref)),
+              f"{name} wrote other pools than its plain version")
+        bound, bound_by = bound_ms(*decode_cost(H, KVH, False, bool(new)))
+        rows.append(dict(decode_row(
+            torch, name, lambda: call(fn, mine), lambda: call(plain, ref),
+            err, bound, bound_by), launches=None, shard=shard, heads=H,
+            kv_heads=KVH))
+        del mine, ref, got, want
+    del q, kn, vn, pools
+    args, n_bytes, flops = flash_case(torch, gen, dev, H, KVH)
+    kw = dict(causal=False, mask=args["mask"])
+    out, _ = fa.flash_attention_fwd(args["q"], args["k"], args["v"], **kw)
+    ref_out, _ = fa.flash_attention_fwd_reference(args["q"], args["k"],
+                                                  args["v"], **kw)
+    torch.cuda.synchronize()
+    err = (out.float() - ref_out.float()).abs().max().item()
+    name = f"flash_attention_fwd_h{H}_kv{KVH}"
+    check(err <= TOL, f"{name} off its plain version by {err}")
+    qt, kt, vt = (args[n].transpose(1, 2) for n in ("q", "k", "v"))
+    mask_b = args["mask"].to(torch.bfloat16)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bound, bound_by = bound_ms(n_bytes, flops)
+    rows.append({
+        "name": name, "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
+        "replaces": "paddle_tpu/ops/pallas/flash_attention.py:164",
+        "max_abs_err": err,
+        "ms": timed_ms(torch, lambda: fa.flash_attention_fwd(
+            args["q"], args["k"], args["v"], **kw), 20),
+        "plain_ms": timed_ms(torch, lambda: fa.flash_attention_fwd_reference(
+            args["q"], args["k"], args["v"], **kw), 5),
+        "bound_ms": bound, "bound_by": bound_by,
+        "library_ms": timed_ms(torch, lambda: sdpa(
+            qt, kt, vt, attn_mask=mask_b, enable_gqa=True), 20),
+        **traced_kernel(torch, lambda: fa.flash_attention_fwd(
+            args["q"], args["k"], args["v"], **kw)),
+        "launches": "flash_attention_fwd", "shard": shard, "heads": H,
+        "kv_heads": KVH})
+    emit({"phase": "tp_shard_kernels", "seconds": time.perf_counter() - t0,
+          "rows": [row["name"] for row in rows]})
+    return rows
+
+
+@contextlib.contextmanager
+def counted_forwards(collectives=False):
+    """Counts the engine's forwards (``_mixed_forward``,
+    ``_paged_prefill_chunk``, ``_decode_forward``) and, with
+    ``collectives``, the ``torch.distributed`` collectives the process
+    makes (``all_gather_into_tensor``, and every other under "other"),
+    while the block runs; yields the counts."""
+    import torch.distributed as tdist
+
+    from paddle_tpu_torch.inference import engine as E
+    counts = {"forwards": 0, "all_gather_into_tensor": 0, "other": 0}
+    saved = [(E, n, getattr(E, n)) for n in (
+        "_mixed_forward", "_paged_prefill_chunk", "_decode_forward")]
+    if collectives:
+        saved += [(tdist, n, getattr(tdist, n)) for n in (
+            "all_gather_into_tensor", "all_reduce", "all_gather",
+            "reduce_scatter_tensor", "broadcast", "all_to_all_single")]
+
+    def wrap(mod, name, fn):
+        key = "forwards" if mod is E else (
+            name if name in counts else "other")
+
+        def wrapped(*a, **k):
+            counts[key] += 1
+            return fn(*a, **k)
+        return wrapped
+    try:
+        for mod, name, fn in saved:
+            setattr(mod, name, wrap(mod, name, fn))
+        yield counts
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def serve_tp_phase(torch, dev, prompts, greedy, greedy_stats, shard_rows):
+    """``serve_tp``, the smoke's last phase: the serve mix through
+    ``LLMEngine(mesh=serving_mesh(1))`` in an NCCL world of one in this
+    process, on ``serve``'s model built again from its seed.  A mesh of
+    one shards nothing and each gather copies the one rank's part, so
+    the tokens must equal ``serve``'s bit for bit and #1's and #2's
+    launches ``serve``'s; every forward makes 4 gathers a layer (128) and
+    no other collective, and the engine holds the model's own weights
+    (nothing copied).  The process group is torn down at the end.  Then
+    the rows of ``tp_shard_kernels`` are printed with their launches
+    from this run (the kernel names they carry in ``launches``)."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.inference.engine import LLMEngine
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                               llama3_8b_config)
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import paged_attention as pa
+    t_phase = time.perf_counter()
+    dist.env.init_parallel_env()
+    mesh = dist.topology.serving_mesh(1)
+    init_s = time.perf_counter() - t_phase
+    model = LlamaForCausalLM(
+        llama3_8b_config(), device=dev, dtype=torch.bfloat16,
+        generator=torch.Generator(device=dev).manual_seed(SEED))
+    t0 = time.perf_counter()
+    eng = LLMEngine(model, max_seqs=8, max_len=2048, page_size=128,
+                    dtype=torch.bfloat16, mesh=mesh)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    q0 = model.llama.layers[0].self_attn.q_proj.weight
+    check(eng._layers[0][1].data_ptr() == q0.data_ptr(),
+          "serve_tp copied the weights at tp 1 on the model's card")
+    counters = {"ragged_paged_append_attend": pa.ragged_paged_append_attend,
+                "flash_attention_fwd": fa.flash_attention_fwd}
+    with counted_forwards(collectives=True) as counts:
+        stats, results = serve_run(torch, eng, prompts, counters)
+    comm, rows, layers = eng.tp_comm(), eng.cache.memory_rows(), \
+        len(eng._layers)
+    n_fwd = counts["forwards"]
+    calls = {k: v for k, v in counts.items() if k != "forwards"}
+    backend = dist.get_backend()
+    emit({"phase": "serve_tp", "model": "llama3_8b", "layers": layers,
+          "tp": eng.tp, "backend": backend,
+          "nccl_version": ".".join(str(v) for v in
+                                   torch.cuda.nccl.version()),
+          "init_s": init_s, "setup_s": setup_s, **stats,
+          "serve_serve_s": greedy_stats["serve_s"],
+          "serve_decode_tok_s": greedy_stats["decode_tok_s"],
+          "forwards": n_fwd, "gathers": comm["gathers"],
+          "gather_bytes": comm["bytes"],
+          "gathers_per_forward": comm["gathers"] / max(n_fwd, 1),
+          "collective_calls": calls,
+          "kv_pool_bytes": rows["device_bytes"],
+          "kv_pool_bytes_per_shard": rows["device_bytes_per_shard"]})
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    check(backend == "nccl", f"serve_tp ran on {backend}")
+    check(results == greedy,
+          "serve_tp's tokens differ from serve's at a mesh of one")
+    check(stats["launches"] == greedy_stats["launches"],
+          f"serve_tp launched {stats['launches']}, serve "
+          f"{greedy_stats['launches']}")
+    check(n_fwd > 0 and comm["gathers"] == 4 * layers * n_fwd,
+          f"serve_tp gathered {comm['gathers']} times in {n_fwd} "
+          f"forwards, not {4 * layers} a forward")
+    check(calls == {"all_gather_into_tensor": comm["gathers"], "other": 0},
+          f"serve_tp's collectives were {calls}, not its gathers alone")
+    check(rows["tp"] == 1 and rows["device_bytes_per_shard"] ==
+          rows["device_bytes"], f"serve_tp memory rows {rows}")
+    for row in shard_rows:
+        if row["launches"] is not None:
+            row["launches"] = stats["launches"][row["launches"]]
+        emit({"phase": "kernel_tp_shard", **row, "tolerance": TOL})
+    emit({"phase": "serve_tp_done", "seconds":
+          time.perf_counter() - t_phase,
+          "shard_rows": [row["name"] for row in shard_rows]})
+    return shard_rows
+
+
 def serve_run(torch, eng, prompts, counters):
     """Serve ``prompts`` (``SERVE_LENS``' ids: the "b" ones through
     ``begin_request`` + ``step``, then "a200" through ``add_request``),
@@ -8251,6 +8476,9 @@ def main() -> int:
     decode_kernels(torch, gen, dev, table)
     ragged_int8_kernel(torch, gen, dev, table)
     mixed_kernels(torch, gen, dev, table)
+    # #1, #7, #6 and #2 at a tp > 1 rank's heads (printed by serve_tp)
+    tp_rows = tp_shard_kernels(torch, torch.Generator(
+        device=dev).manual_seed(SEED + 50), dev)
     torch.cuda.empty_cache()
     zoo_rows = zoo_kernels(torch, np, torch.Generator(
         device=dev).manual_seed(SEED + 30), dev, table)
@@ -8421,6 +8649,11 @@ def main() -> int:
     # -- multi-device training: one rank a card through the port's
     # launcher, NCCL, ZeRO stages 1-3 against the unsharded step
     dist_train_phase(torch, table)
+
+    # -- tensor-parallel serving: the serve mix through a serving mesh of
+    # one (NCCL, this process; last, so no phase runs after its process
+    # group)
+    serve_tp_phase(torch, dev, prompts, results, stats, tp_rows)
 
     # each tensor-core row: its kernel's registers and spills (the most
     # registers and the summed spills over that kernel's instantiations)

@@ -3,10 +3,13 @@ the process-group runtime (``env``: ranks, ``init_parallel_env``,
 ``spawn``; ``store``: the TCPStore; ``launch``), the collectives, the
 rank topology and ``fleet``, ZeRO stages 1-3 (``sharding``,
 ``trainer.ShardedTrainStep``) and train-state checkpoints (sharded ones
-too) with the ``CheckpointManager``.  One process drives one card: NCCL
-on the card, gloo when the caller asks for the CPU.  Tensor, pipeline,
-sequence, context and expert parallelism and ``auto_parallel`` are not
-ported (ROADMAP 'Multi-device'): they are not exported, and their knobs
+too) with the ``CheckpointManager``, and tensor-parallel serving's mesh
+and plan (``topology.serving_mesh``, ``sharding.TPShardings``, which
+``inference.LLMEngine(mesh=)`` takes).  One process drives one card:
+NCCL on the card, gloo when the caller asks for the CPU.  Tensor-parallel
+training (``parallel_layers``, ``mp_degree``), pipeline, sequence,
+context and expert parallelism and ``auto_parallel`` are not ported
+(ROADMAP 'Multi-device'): they are not exported, and their knobs
 raise."""
 import torch.distributed as _dist
 

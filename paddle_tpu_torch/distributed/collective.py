@@ -27,8 +27,9 @@ import torch.distributed as _dist
 from ..common.errors import enforce
 from .topology import CommGroup
 
-__all__ = ["ReduceOp", "all_reduce", "all_gather", "reduce_scatter",
-           "all_to_all", "alltoall", "broadcast", "scatter", "reduce",
+__all__ = ["ReduceOp", "all_reduce", "all_gather", "all_gather_concat",
+           "reduce_scatter", "all_to_all", "alltoall", "broadcast",
+           "scatter", "reduce",
            "barrier", "new_group", "get_group", "send", "recv", "isend",
            "irecv", "wait", "all_to_all_single", "alltoall_single",
            "gather", "destroy_process_group", "all_gather_object",
@@ -203,6 +204,31 @@ def all_gather(tensor_or_list, tensor=None, group=None,
     if not g.is_member:
         return t
     return torch.cat(_gather_list(t, g), dim=0)
+
+
+def all_gather_concat(x: torch.Tensor, dim: int, group=None
+                      ) -> torch.Tensor:
+    """Every member's ``x`` (one shape and dtype on every member)
+    concatenated on ``dim`` in group order, the tensor-parallel
+    engine's gather.  c10d gathers on dim 0: one
+    ``all_gather_into_tensor`` into a flat buffer of ``n`` parts, then
+    one copy that moves the part axis beside ``dim`` (none when ``dim``
+    is 0 or the group holds one rank).  The copy is kept rather than
+    reordering the consuming weight's rows at load, which would turn the
+    next product into a sum over parts in another order than one card's:
+    the gathered rows are what a single card's product reads."""
+    g = _group(group)
+    x = x.contiguous()
+    n = g.nranks
+    flat = torch.empty(n * x.numel(), dtype=x.dtype, device=x.device)
+    if g.pg is None:
+        flat.copy_(x.view(-1))
+    else:
+        _dist.all_gather_into_tensor(flat, x.view(-1), group=g.pg)
+    d = dim % x.dim()
+    buf = flat.view((n,) + tuple(x.shape))
+    shape = x.shape[:d] + (n * x.shape[d],) + x.shape[d + 1:]
+    return buf.movedim(0, d).reshape(shape)
 
 
 def reduce_scatter(tensor, op=ReduceOp.SUM, group=None,

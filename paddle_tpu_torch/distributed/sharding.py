@@ -10,12 +10,15 @@ replicated (it is not padded).  The plan here computes the same dims
 (so a checkpoint's chunk boxes equal the reference's) and slices this
 rank's part: the ``sharding`` coordinate ``s`` of ``n`` holds rows
 ``[s * d / n, (s + 1) * d / n)`` of the sharded dim ``d``.
+``TPShardings`` is the tensor-parallel serving plan over a serving mesh.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
 
 import torch
+
+from ..common.errors import enforce
 
 __all__ = ["ShardingPlan", "plan_param_spec", "group_sharded_parallel",
            "TPShardings", "shard_slice", "shard_boxes"]
@@ -24,12 +27,84 @@ _AXIS = "sharding"
 
 
 class TPShardings:
-    """The reference's tensor-parallel serving plan: not ported."""
+    """The tensor-parallel serving plan over a 1-D serving mesh (the
+    reference's ``TPShardings``; ``topology.serving_mesh`` builds the
+    mesh).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "TPShardings (tensor-parallel serving) is not ported yet "
-            "(ROADMAP 'Multi-device')")
+    The reference commits arrays onto its mesh (``put``) and constrains
+    traced values (``constrain``); with one process a card its two
+    halves are this rank's part of a weight and an eager all-gather:
+
+    - ``put(w, dim)``: a contiguous copy of this rank's slice of ``w``
+      on ``dim`` (rank ``r`` of ``tp`` holds ``[r * n / tp, (r + 1) * n
+      / tp)``), on ``device`` when given; the whole of ``w`` where
+      ``dim`` is None or ``tp`` does not divide ``w.shape[dim]`` (the
+      reference's ``_put``).  An int8 ``(values, scales)`` pair is
+      sliced together.  Where the slice is the whole tensor on its own
+      device and contiguous, ``w``'s own storage comes back (nothing is
+      copied).
+    - ``gather(x, dim)``: every rank's ``x`` concatenated on ``dim``
+      (``collective.all_gather_concat``): moves bits and adds no floats,
+      so every product downstream runs whole on one rank.  ``comm``
+      counts the gathers and the bytes this rank sent.
+
+    Equal plans hash alike (the mesh's ranks and axis)."""
+
+    __slots__ = ("mesh", "axis", "comm")
+
+    def __init__(self, mesh, axis: str = "tp"):
+        from .topology import ServingMesh
+        enforce(isinstance(mesh, ServingMesh),
+                f"mesh must be a serving mesh "
+                f"(paddle.distributed.topology.serving_mesh), got "
+                f"{type(mesh).__name__}")
+        self.mesh = mesh
+        self.axis = axis
+        self.comm = {"gathers": 0, "bytes": 0}
+
+    @property
+    def tp(self) -> int:
+        return self.mesh.shape.get(self.axis, 1)
+
+    @property
+    def rank(self) -> int:
+        """This process's index on the mesh (-1 outside it)."""
+        return self.mesh.rank
+
+    @property
+    def group(self):
+        return self.mesh
+
+    def put(self, w, dim: Optional[int] = None, device=None):
+        if isinstance(w, tuple):
+            return tuple(self.put(a, dim, device) for a in w)
+        if w is None:
+            return None
+        if dim is not None and w.shape[dim] % self.tp == 0:
+            w = shard_slice(w, dim % w.dim(), self.rank, self.tp)
+        w = w.detach()
+        if device is not None:
+            w = w.to(device)
+        return w.contiguous()
+
+    def gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        from .collective import all_gather_concat
+        self.comm["gathers"] += 1
+        self.comm["bytes"] += x.numel() * x.element_size()
+        return all_gather_concat(x, dim, self.mesh)
+
+    def __hash__(self):
+        return hash((tuple(self.mesh.ranks), self.mesh.axis_names,
+                     self.axis))
+
+    def __eq__(self, other):
+        return (isinstance(other, TPShardings)
+                and self.mesh.ranks == other.mesh.ranks
+                and self.mesh.axis_names == other.mesh.axis_names
+                and self.axis == other.axis)
+
+    def __repr__(self):
+        return f"TPShardings(tp={self.tp}, axis={self.axis!r})"
 
 
 def _shardable_dim(shape: Tuple[int, ...], size: int,

@@ -12,7 +12,8 @@ order, as ``new_group`` requires); a line of one rank in a larger world
 gets a group with no process group behind it, on which the collectives
 are local.  In a world of one rank every group is the world's process
 group, so a gang of one runs its collectives through the backend as a
-larger gang does.
+larger gang does.  ``serving_mesh`` lays the first ``tp`` ranks out as
+the 1-D mesh of tensor-parallel serving.
 """
 from __future__ import annotations
 
@@ -24,17 +25,41 @@ import torch.distributed as _dist
 from ..common.errors import enforce
 from .strategy import HybridConfig
 
-__all__ = ["HybridCommunicateGroup", "CommGroup", "AXES", "rank_grid",
-           "serving_mesh"]
+__all__ = ["HybridCommunicateGroup", "CommGroup", "ServingMesh", "AXES",
+           "rank_grid", "serving_mesh"]
 
 AXES = ("pp", "dp", "sharding", "ep", "sep", "mp")
 
 
-def serving_mesh(tp: int, axis: str = "tp", devices=None):
-    """The reference's tensor-parallel serving mesh: not ported."""
-    raise NotImplementedError(
-        "serving_mesh (tensor-parallel serving) is not ported yet "
-        "(ROADMAP 'Multi-device')")
+def serving_mesh(tp: int, axis: str = "tp",
+                 devices: Optional[Sequence[int]] = None) -> "ServingMesh":
+    """The 1-D tensor-parallel serving mesh (``LLMEngine(mesh=...)``):
+    the first ``tp`` ranks of the initialised world, or the first ``tp``
+    of the ranks ``devices`` names, as one line of ranks with
+    ``.shape == {axis: tp}``.
+
+    One process drives one card, so the reference's first ``tp``
+    devices are the first ``tp`` ranks here.  ``new_group`` is
+    collective: every rank of the world calls ``serving_mesh`` with the
+    same arguments, members of the mesh or not.  A mesh of the whole
+    world is the world's process group."""
+    enforce(_dist.is_available() and _dist.is_initialized(),
+            "serving_mesh needs the process group: call "
+            "paddle.distributed.init_parallel_env() first")
+    world = _dist.get_world_size()
+    ranks = list(range(world)) if devices is None \
+        else [int(r) for r in devices]
+    enforce(tp >= 1, f"tp degree must be >= 1, got {tp}")
+    enforce(tp <= len(ranks),
+            f"serving mesh tp={tp} needs {tp} devices, have {len(ranks)}")
+    ranks = ranks[:tp]
+    enforce(all(0 <= r < world for r in ranks) and
+            len(set(ranks)) == len(ranks),
+            f"serving mesh ranks {ranks} are not distinct ranks of the "
+            f"world of {world}")
+    pg = _dist.group.WORLD if ranks == list(range(world)) \
+        else _dist.new_group(ranks)
+    return ServingMesh(ranks, pg, (axis,), _dist.get_rank())
 
 
 def rank_grid(hybrid: HybridConfig) -> np.ndarray:
@@ -79,6 +104,19 @@ class CommGroup:
     def __repr__(self):
         return (f"CommGroup(axes={self.axis_names}, ranks={self.ranks}, "
                 f"rank={self.rank})")
+
+
+class ServingMesh(CommGroup):
+    """A line of ranks laid out as a 1-D mesh: ``shape`` is
+    ``{axis: nranks}``, as a ``jax.sharding.Mesh``'s is."""
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {self.axis_names[0]: self.nranks}
+
+    def __repr__(self):
+        return (f"ServingMesh({self.axis_names[0]}={self.nranks}, "
+                f"ranks={self.ranks}, rank={self.rank})")
 
 
 def _world_group(my_rank: int, world: int, axes) -> CommGroup:

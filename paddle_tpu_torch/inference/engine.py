@@ -112,13 +112,48 @@ All of it is host work: nothing copies from the card to record it (the
 per-expert counts fold in when read).  The four ``*_compiles`` counters
 are 0: eager PyTorch compiles no programs.
 
-Knobs of the reference engine that this port does not take yet
-(``scan_decode=True``, ``mesh``, ``tp_axis``) raise
-``NotImplementedError`` naming their ROADMAP item.
+Tensor-parallel serving (``mesh=distributed.topology.serving_mesh(tp)``,
+``tp_axis``): one process a card, as the reference's multi-process
+semantics.  Every rank of the mesh builds the engine with the same
+arguments and makes the same engine calls in the same order with the
+same arguments (``add_request``, ``begin_request``, ``step``,
+``suspend``, ``resume``, ``export_request``, ``import_request``,
+``abort``), as ``ShardedTrainStep`` takes the global batch on every
+rank; the results are identical on every rank.  Each rank holds its
+slice of every projection on its output axis (q/k/v and their biases by
+whole heads, o_proj, gate/up and down_proj by columns), ``KVH / tp``
+heads of every page (``PagedKVCache(shardings=)``) and the whole of what
+the reference replicates (norms, embedding, head, rope tables and, under
+MoE, the router, the expert stacks and the shared expert).  The
+reference's placement discipline (only output axes sharded, every
+contraction input gathered first) becomes an all-gather wherever the
+reference constrains a sharded producer to replicated: the attention
+output before o_proj, o_proj's output, the SwiGLU hidden before
+down_proj and down_proj's output (4 a dense layer, 2 an MoE layer,
+counted with the bytes this rank sent in ``tp_comm()``).  No float is
+summed across ranks, so every product runs whole on one rank and the
+logits are whole on every rank: greedy and sampled tokens agree across
+ranks (the threefry keys are host values).  The kernels (#1, #2, #7)
+run at the shard's ``NH / tp`` query heads over ``KVH / tp`` KV heads,
+the GQA group unchanged.  At construction the ranks all-gather their config
+fingerprints and geometry and every rank raises on a mismatch, rather
+than hanging in a later collective.  An exception on one rank during a
+step leaves the others blocked in their next gather.  A speculative
+draft runs replicated on every rank (the reference's placement).  The
+serving runtime (``serving/``) over an engine of tp > 1 is not ported
+(its clock-driven decisions would differ between ranks).
 
-Weights are read per layer from the model's own parameters (no stacked
-copy), and the engine runs on the model's device: the GPU by default,
-the CPU only when the caller passes ``device="cpu"``.
+``scan_decode=True`` raises ``NotImplementedError`` naming its ROADMAP
+item.
+
+Without a mesh, weights are read per layer from the model's own
+parameters (no stacked copy), and the engine runs on the model's device:
+the GPU by default, the CPU only when the caller passes
+``device="cpu"``.  Under a mesh the engine runs on this rank's card
+(``cuda:<local rank>``, over an NCCL process group) or, with
+``device="cpu"``, on the CPU over gloo; it holds contiguous copies of
+its slices on its device, taken from the model's parameters wherever
+they live (a mesh of one card and a model on it copies nothing).
 """
 from __future__ import annotations
 
@@ -132,6 +167,7 @@ import torch
 
 from ..common import prng
 from ..common.errors import enforce
+from ..distributed.sharding import TPShardings
 from ..models.llama import _rotate_half
 from ..nn.generation import filtered_probs, sample_logits
 from ..observability import capsule as _capsule
@@ -230,9 +266,23 @@ def _head(x, head_w, tied):
     return x @ head_w.T if tied else _mm(x, head_w)
 
 
-def _ffn(x, pln, gw, uw, dw, eps):
+def _whole(y, sh):
+    """``y`` [..., k] whole: this rank's columns gathered over the mesh
+    (``sh``, a ``TPShardings``), ``y`` itself without one."""
+    return y if sh is None else sh.gather(y, -1)
+
+
+def _attn_out(x, attn, ow, sh):
+    """The residual after attention: ``attn`` [N, heads * D] (this
+    rank's heads), gathered, through o_proj (this rank's columns),
+    gathered."""
+    return x + _whole(_mm(_whole(attn, sh), ow), sh)
+
+
+def _ffn(x, pln, gw, uw, dw, eps, sh=None):
     hn = _nn.rms_norm(x, pln, epsilon=eps)
-    return x + _mm(_nn.silu(_mm(hn, gw)) * _mm(hn, uw), dw)
+    return x + _whole(_mm(_whole(_nn.silu(_mm(hn, gw)) * _mm(hn, uw), sh),
+                          dw), sh)
 
 
 def _unpack(lp, arch):
@@ -268,12 +318,14 @@ def _attn_qkv(x, iln, qw, qb, kw, kb, vw, vb, cos, sin, eps, kvh,
     return q, k, v
 
 
-def _ffn_block(x, pln, ffn, eps, arch, live, counts, group=None):
-    """The post-attention FFN with its residual: dense SwiGLU, or the
-    MoE FFN (``group``: each row's capacity page group's first row),
-    whose kept routed-slot counts are appended to ``counts``."""
+def _ffn_block(x, pln, ffn, eps, arch, live, counts, group=None, sh=None):
+    """The post-attention FFN with its residual: dense SwiGLU (its
+    hidden and output gathered over the mesh ``sh``), or the MoE FFN
+    (replicated, whole on every rank; ``group``: each row's capacity
+    page group's first row), whose kept routed-slot counts are appended
+    to ``counts``."""
     if arch is None:
-        return _ffn(x, pln, *ffn, eps)
+        return _ffn(x, pln, *ffn, eps, sh)
     out, cnt = moe_ffn(_nn.rms_norm(x, pln, epsilon=eps), ffn, arch, live,
                        group)
     counts.append(cnt)
@@ -286,7 +338,7 @@ def _paged_prefill_chunk(layers, norm_w, head_w, embed_w, rope,
                          page_slot: int, last_in_chunk: int, *,
                          eps: float, kvh: int, head_dim: int,
                          tied: bool, arch: Optional[MoEArch] = None,
-                         k_scales=None, v_scales=None):
+                         k_scales=None, v_scales=None, sh=None):
     """Chunked prefill of ``ids`` [C] — one page-sized chunk of one
     prompt — against the paged cache.  The chunk's K/V fill exactly one
     page (``page_slot``; C == page_size), written whole, and its queries
@@ -301,7 +353,9 @@ def _paged_prefill_chunk(layers, norm_w, head_w, embed_w, rope,
     ``k_scales``/``v_scales`` [L, KVH, n_pages, P] the pools are int8:
     the chunk's rows are quantized per token before the page write, and
     the attention runs in f32 over the dequantized pages (the chunk's
-    own rows after their round trip through int8)."""
+    own rows after their round trip through int8).  Under a mesh ``sh``
+    the weights and pools are this rank's (``kvh`` its KV heads) and the
+    layer's outputs are gathered whole."""
     cos_t, sin_t = rope
     c = ids.shape[0]
     maxp = table.shape[0]
@@ -351,8 +405,8 @@ def _paged_prefill_chunk(layers, norm_w, head_w, embed_w, rope,
         attn = flash_attention_raw(qa[None], k_full[None], v_full[None],
                                    causal=False,
                                    mask=amask[None, None])[0].to(q.dtype)
-        x = x + _mm(attn.reshape(c, -1), ow)
-        x = _ffn_block(x, pln, ffn, eps, arch, live, counts, group)
+        x = _attn_out(x, attn.reshape(c, -1), ow, sh)
+        x = _ffn_block(x, pln, ffn, eps, arch, live, counts, group, sh)
     x = _nn.rms_norm(x, norm_w, epsilon=eps)
     logits = _head(x[last_in_chunk], head_w, tied)
     return logits if arch is None else (logits, torch.stack(counts))
@@ -364,7 +418,7 @@ def _mixed_forward(layers, norm_w, head_w, embed_w, rope, k_pages,
                    desc_tables, desc_of_row, off_of_row, *, eps: float,
                    kvh: int, head_dim: int, tied: bool,
                    arch: Optional[MoEArch] = None, k_scales=None,
-                   v_scales=None):
+                   v_scales=None, sh=None):
     """One forward of the ragged unified step over a flat batch of T
     rows: every row appends its K/V at its own position and attends over
     its own sequence's pages (the ragged kernel, pools updated in
@@ -375,7 +429,8 @@ def _mixed_forward(layers, norm_w, head_w, embed_w, rope, k_pages,
     also the routed-slot counts [L, E] (rows past their descriptor's
     ``q_len`` are padding and route nowhere; each descriptor is one
     capacity page group, ``group_start = q_start[desc_of_row]``).  Scale
-    pools make the pools int8 (the ragged kernel's int8 mode)."""
+    pools make the pools int8 (the ragged kernel's int8 mode).  Under a
+    mesh ``sh``: this rank's heads, its outputs gathered whole."""
     cos_t, sin_t = rope
     t = ids.shape[0]
     x = embed_w[ids]                                   # [T, H]
@@ -394,8 +449,8 @@ def _mixed_forward(layers, norm_w, head_w, embed_w, rope, k_pages,
             q, k_pages[li], v_pages[li], k, v, q_start, q_len, kv_len,
             desc_tables, ksp, vsp)
         attn = blocks[desc_of_row, off_of_row]         # [T, NH, D]
-        x = x + _mm(attn.reshape(t, -1), ow)
-        x = _ffn_block(x, pln, ffn, eps, arch, live, counts, group)
+        x = _attn_out(x, attn.reshape(t, -1), ow, sh)
+        x = _ffn_block(x, pln, ffn, eps, arch, live, counts, group, sh)
     x = _nn.rms_norm(x, norm_w, epsilon=eps)
     logits = _head(x, head_w, tied)
     return logits if arch is None else (logits, torch.stack(counts))
@@ -406,7 +461,7 @@ def _decode_forward(layers, norm_w, head_w, embed_w, rope, k_pages,
                     v_pages, tokens, tables, lens, *, eps: float, kvh: int,
                     head_dim: int, tied: bool,
                     arch: Optional[MoEArch] = None, live=None,
-                    k_scales=None, v_scales=None):
+                    k_scales=None, v_scales=None, sh=None):
     """One decode token for each of B rows, the split path's step: row b
     (token ``tokens[b]`` at position ``lens[b]``) appends its K/V at
     ``lens[b]`` and attends over ``lens[b] + 1`` tokens through kernel
@@ -414,7 +469,8 @@ def _decode_forward(layers, norm_w, head_w, embed_w, rope, k_pages,
     tokens [B] long, tables [B, maxp] and lens [B] int32.  Returns
     logits [B, V]; under an MoE ``arch`` also the routed-slot counts
     [L, E] (``live`` [B] bool: the rows that route; each row is its own
-    capacity group, so decode never drops)."""
+    capacity group, so decode never drops).  Under a mesh ``sh``: this
+    rank's heads, its outputs gathered whole."""
     cos_t, sin_t = rope
     b = tokens.shape[0]
     x = embed_w[tokens]                                # [B, H]
@@ -429,8 +485,8 @@ def _decode_forward(layers, norm_w, head_w, embed_w, rope, k_pages,
         ksp, vsp = _layer_scales(k_scales, v_scales, li)
         attn = paged_decode_append_attend(
             q, k_pages[li], v_pages[li], k, v, tables, lens, ksp, vsp)
-        x = x + _mm(attn.reshape(b, -1), ow)
-        x = _ffn_block(x, pln, ffn, eps, arch, live, counts)
+        x = _attn_out(x, attn.reshape(b, -1), ow, sh)
+        x = _ffn_block(x, pln, ffn, eps, arch, live, counts, sh=sh)
     x = _nn.rms_norm(x, norm_w, epsilon=eps)
     logits = _head(x, head_w, tied)
     return logits if arch is None else (logits, torch.stack(counts))
@@ -450,10 +506,14 @@ class LLMEngine:
     tensors only), ``moe_dropless`` and ``moe_capacity_factor`` (the
     capacity-factor mode) apply to MoE backbones.  ``enable_metrics``
     (default on, as the reference's) adds the engine's series to the
-    observability registry.  The reference's other keywords are taken at
-    the value the port runs (``scan_decode=False``: the host-chained
-    decode window, which gives the reference's tokens; no mesh and the
-    default ``tp_axis``) and raise otherwise."""
+    observability registry.  ``mesh`` (a ``serving_mesh``) and
+    ``tp_axis`` serve tensor-parallel, one process a card: every rank of
+    the mesh builds the engine with the same arguments and makes the
+    same calls in the same order (module docstring); ``tp_axis`` without
+    a mesh is taken and does nothing, as in the reference.
+    ``scan_decode`` is taken at the value the port runs (False: the
+    host-chained decode window, which gives the reference's tokens) and
+    raises otherwise."""
 
     def __init__(self, model, max_seqs: int = 8, max_len: int = 2048,
                  page_size: int = 128, n_pages: Optional[int] = None,
@@ -474,18 +534,11 @@ class LLMEngine:
                  spec_k: int = 4, device=None,
                  moe_dispatch: str = "grouped", moe_dropless: bool = True,
                  moe_capacity_factor: Optional[float] = None):
-        devices = "Multi-device"
-        todo = {
-            "scan_decode=True (the decode window as one device program)": (
-                scan_decode, "Port: speed of what is ported"),
-            "mesh (tensor-parallel serving)": (mesh is not None, devices),
-            "tp_axis (tensor-parallel serving)": (tp_axis != "tp", devices),
-        }
-        for knob, (asked, item) in todo.items():
-            if asked:
-                raise NotImplementedError(
-                    f"LLMEngine {knob} is not ported yet (ROADMAP "
-                    f"'{item}')")
+        if scan_decode:
+            raise NotImplementedError(
+                "LLMEngine scan_decode=True (the decode window as one "
+                "device program) is not ported yet (ROADMAP 'Port: speed "
+                "of what is ported')")
         enforce(decode_strategy in ("greedy_search", "sampling"),
                 f"unsupported decode_strategy {decode_strategy!r}")
         enforce(kv_dtype in (None, "int8") or kv_dtype in _FLOAT_KV,
@@ -499,8 +552,14 @@ class LLMEngine:
         spec = resolve_backbone(model)
         c = spec.config
         self.config = c
+        self.eps = c.rms_norm_eps
+        self.kvh = c.num_key_value_heads
+        self.head_dim = c.hidden_size // c.num_attention_heads
+        self._sh = None if mesh is None else self._init_mesh(
+            mesh, tp_axis, dense=spec.moe is None)
+        self.tp = 1 if self._sh is None else self._sh.tp
         embed = spec.embed_tokens.weight
-        enforce(embed.device == self.device,
+        enforce(self._sh is not None or embed.device == self.device,
                 f"model parameters live on {embed.device}, the engine on "
                 f"{self.device}")
         dtype = _FLOAT_KV.get(kv_dtype, dtype)
@@ -531,9 +590,6 @@ class LLMEngine:
         self.prefix_stats = {"hit_tokens": 0, "miss_tokens": 0,
                              "shared_pages": 0, "hit_requests": 0,
                              "miss_requests": 0}
-        self.eps = c.rms_norm_eps
-        self.kvh = c.num_key_value_heads
-        self.head_dim = c.hidden_size // c.num_attention_heads
         if n_pages is None:
             n_pages = max_seqs * (max_len // page_size) + 1
         # host swap pool for preemption: as many pages as the device
@@ -545,14 +601,16 @@ class LLMEngine:
             head_dim=self.head_dim, max_seqs=max_seqs, max_len=max_len,
             dtype=dtype, num_layers=len(spec.layers),
             kv_dtype="int8" if kv_dtype == "int8" else None,
-            swap_pool_pages=swap_pool_pages, device=self.device)
+            swap_pool_pages=swap_pool_pages, device=self.device,
+            shardings=self._sh)
         # per-layer references to the model's own weights: a stacked
         # copy would duplicate every weight (16 GB at 8B).  Int8 weights
         # are (values, scale) pairs: a quantize_model'd model's buffers,
-        # or quantized here under weight_dtype="int8"
+        # or quantized here under weight_dtype="int8".  Under a mesh:
+        # this rank's slices (copies, on the engine's device)
         self._arch = None
         if spec.moe is None:
-            self._layers = self._dense_layers(spec.layers)
+            self._layers = self._dense_layers(spec.layers, self._sh)
         else:
             m = spec.moe
             cf = float(moe_capacity_factor if moe_capacity_factor
@@ -587,11 +645,14 @@ class LLMEngine:
             self._moe_folded = np.zeros(
                 (len(spec.layers), m["num_experts"]), np.int64)
             self._moe_dropped_folded = 0
-        self._norm_w = spec.norm.weight
+        rep = self._rep
+        self._norm_w = rep(spec.norm.weight)
         self._tied = spec.lm_head is None
-        self._embed_w = embed
-        self._head_w = embed if self._tied else self._weight(spec.lm_head)
-        self._rope, self._rope_prefill = _rope_tables(spec, page_size)
+        self._embed_w = rep(embed)
+        self._head_w = self._embed_w if self._tied \
+            else self._weight(spec.lm_head, self._sh, dim=None)
+        self._rope, self._rope_prefill = (
+            tuple(rep(t) for t in r) for r in _rope_tables(spec, page_size))
         self.requests: Dict[object, GenRequest] = {}
         self._active: List[GenRequest] = []
         self._init_metrics(enable_metrics)
@@ -614,7 +675,9 @@ class LLMEngine:
             "top_k": self.top_k, "top_p": self.top_p,
             "temperature": self.temperature, "seed": seed,
             "prefix_caching": self.enable_prefix_caching,
-            "tp": 1,
+            # not token-affecting (capsule._TOKEN_AFFECTING): tp = N
+            # gives tp = 1's tokens, so a capsule replays across tp
+            "tp": self.tp,
             # router geometry is token-affecting; the dispatch mode is
             # not (grouped and dense give the same tokens)
             "moe": None if self._arch is None else {
@@ -631,6 +694,66 @@ class LLMEngine:
         self._spec = None
         if draft_model is not None:
             self._init_spec(draft_model, spec_k, dtype, page_size)
+        if self._sh is not None:
+            self._check_gang(dtype, swap_pool_pages)
+
+    # -- tensor parallelism ----------------------------------------------------
+    def _init_mesh(self, mesh, tp_axis: str, dense: bool) -> TPShardings:
+        """The plan of ``mesh`` after the reference's checks (and, for a
+        ``dense`` MLP, that tp divides its hidden width), and this
+        rank's: a member of the mesh, on the device its backend serves
+        (NCCL: the card; gloo: the CPU)."""
+        import torch.distributed as dist
+        sh = TPShardings(mesh, tp_axis)
+        tp = sh.tp
+        nh = self.config.num_attention_heads
+        enforce(tp >= 1 and mesh.shape.get(tp_axis) is not None,
+                f"mesh has no {tp_axis!r} axis: {mesh!r}")
+        enforce(self.kvh % tp == 0,
+                f"tp={tp} must divide num_key_value_heads ({self.kvh}) — "
+                f"each shard holds whole KV heads")
+        enforce(nh % tp == 0,
+                f"tp={tp} must divide num_attention_heads ({nh})")
+        inter = self.config.intermediate_size if dense else tp
+        enforce(inter % tp == 0,
+                f"tp={tp} must divide intermediate_size ({inter}) — each "
+                f"shard holds whole columns of the MLP")
+        enforce(mesh.is_member,
+                f"rank {dist.get_rank()} is not on the serving mesh "
+                f"{mesh.ranks}: only the mesh's ranks build its engine")
+        backend = dist.get_backend(mesh.pg)
+        want = "nccl" if self.device.type == "cuda" else "gloo"
+        enforce(backend == want,
+                f"an engine on {self.device} serves over {want}, but the "
+                f"mesh's process group is {backend}: call "
+                f"init_parallel_env(device=...) with the engine's device")
+        return sh
+
+    def _check_gang(self, pool_dtype, swap_pool_pages):
+        """Every rank's config fingerprint and geometry, all-gathered
+        over the mesh: a rank built with other arguments makes every
+        rank raise here instead of hanging in a later gather."""
+        from ..distributed import collective
+        mine = {k: v for k, v in self._capsule_fp.items() if k != "engine"}
+        mine.update(pool_dtype=str(pool_dtype),
+                    swap_pool_pages=int(swap_pool_pages),
+                    prefill_token_budget=self._pf_budget_static,
+                    kv_heads=self.kvh, head_dim=self.head_dim,
+                    layers=self.cache.num_layers,
+                    vocab=int(self.config.vocab_size))
+        seen = []
+        collective.all_gather_object(seen, mine, group=self._sh.group)
+        bad = sorted({k for fp in seen for k in set(fp) | set(mine)
+                      if fp.get(k) != mine.get(k)})
+        enforce(not bad,
+                f"the ranks of the serving mesh built their engines with "
+                f"other arguments ({', '.join(bad)} differ): every rank "
+                f"builds the same engine")
+
+    def _rep(self, t):
+        """A replicated tensor as the engine holds it: the model's own
+        without a mesh, else whole on the engine's device."""
+        return t if self._sh is None else self._sh.put(t, None, self.device)
 
     # -- metrics ---------------------------------------------------------------
     def _init_metrics(self, enabled: bool):
@@ -792,33 +915,47 @@ class LLMEngine:
         """This engine's capsule config fingerprint (a copy)."""
         return dict(self._capsule_fp)
 
+    def tp_comm(self) -> Optional[dict]:
+        """The mesh's gathers so far and the bytes this rank sent in
+        them (a copy; None without a mesh)."""
+        return None if self._sh is None else dict(self._sh.comm)
+
     # -- internals -------------------------------------------------------------
-    def _dense_layers(self, layers):
+    def _dense_layers(self, layers, sh):
         """Each dense decoder layer's weights: (iln, qw, kw, vw, ow, pln,
-        gw, uw, dw)."""
-        w = self._weight
-        return [(l.input_layernorm.weight, w(l.self_attn.q_proj),
+        gw, uw, dw); under the mesh ``sh`` the projections are this
+        rank's slices and the norms whole copies."""
+        def w(mod):
+            return self._weight(mod, sh)
+        rep = self._rep if sh is not None else (lambda t: t)
+        return [(rep(l.input_layernorm.weight), w(l.self_attn.q_proj),
                  w(l.self_attn.k_proj), w(l.self_attn.v_proj),
-                 w(l.self_attn.o_proj), l.post_attention_layernorm.weight,
+                 w(l.self_attn.o_proj), rep(l.post_attention_layernorm.weight),
                  w(l.mlp.gate_proj), w(l.mlp.up_proj), w(l.mlp.down_proj))
                 for l in layers]
 
-    def _weight(self, mod):
+    def _weight(self, mod, sh=None, dim=-1):
         """A projection's weight [in, out] as the forwards take it: the
         float parameter itself, or an int8 ``(values, scale)`` pair with
         one scale per output channel (a ``QuantizedLinear``'s buffers,
-        or quantized here under ``weight_dtype="int8"``)."""
+        or quantized here under ``weight_dtype="int8"``).  Under the mesh
+        ``sh``: this rank's slice on ``dim`` (the output axis; None:
+        whole) on the engine's device; a slice of output channels
+        quantizes to the slice of the whole's quantization."""
         if mod is None:
             return None
         if isinstance(mod, QuantizedLinear):
-            return (mod.qweight, mod.weight_scale)
-        if self.weight_dtype == "int8":
-            return quantize_absmax(mod.weight, axis=0)
-        return mod.weight
+            w = (mod.qweight, mod.weight_scale)
+            return w if sh is None else sh.put(w, dim, self.device)
+        w = mod.weight if sh is None else sh.put(mod.weight, dim,
+                                                 self.device)
+        return quantize_absmax(w, axis=0) if self.weight_dtype == "int8" \
+            else w
 
     def _stack(self, w):
-        """An expert stack [E, in, out]; int8 per (expert, output
-        channel) under ``weight_dtype="int8"``."""
+        """An expert stack [E, in, out] (whole on every rank); int8 per
+        (expert, output channel) under ``weight_dtype="int8"``."""
+        w = self._rep(w)
         return quantize_absmax(w, axis=1) \
             if self.weight_dtype == "int8" else w
 
@@ -829,17 +966,26 @@ class LLMEngine:
         skip them).  The router stays float."""
         a, mlp = l.self_attn, l.mlp
         ex = mlp.experts
-        w = self._weight
+        sh, rep = self._sh, self._rep
+
+        def w(mod):                    # attention: this rank's heads
+            return self._weight(mod, sh)
+
+        def bias(b):
+            return b if sh is None else sh.put(b, -1, self.device)
+
+        def r(mod):                    # the FFN: whole on every rank
+            return self._weight(mod, sh, dim=None)
         shared = mlp.shared_gate is not None
-        return (l.input_layernorm.weight, w(a.q_proj), a.q_proj.bias,
-                w(a.k_proj), a.k_proj.bias, w(a.v_proj),
-                a.v_proj.bias, w(a.o_proj),
-                l.post_attention_layernorm.weight, mlp.gate.weight,
+        return (rep(l.input_layernorm.weight), w(a.q_proj),
+                bias(a.q_proj.bias), w(a.k_proj), bias(a.k_proj.bias),
+                w(a.v_proj), bias(a.v_proj.bias), w(a.o_proj),
+                rep(l.post_attention_layernorm.weight), rep(mlp.gate.weight),
                 self._stack(ex.gate_w), self._stack(ex.up_w),
                 self._stack(ex.down_w),
-                w(mlp.shared_gate), w(mlp.shared_up) if shared else None,
-                w(mlp.shared_down) if shared else None,
-                w(mlp.shared_expert_gate))
+                r(mlp.shared_gate), r(mlp.shared_up) if shared else None,
+                r(mlp.shared_down) if shared else None,
+                r(mlp.shared_expert_gate))
 
     def _note_expert_counts(self, out, live_rows: int = 0):
         """Split an MoE forward's (logits, counts [L, E]): the kept
@@ -934,10 +1080,10 @@ class LLMEngine:
 
     def _fwd_kw(self):
         """The keyword arguments every forward takes."""
-        return dict(eps=self.eps, kvh=self.kvh, head_dim=self.head_dim,
-                    tied=self._tied, arch=self._arch,
-                    k_scales=self.cache.k_scales,
-                    v_scales=self.cache.v_scales)
+        return dict(eps=self.eps, kvh=self.kvh // self.tp,
+                    head_dim=self.head_dim, tied=self._tied,
+                    arch=self._arch, k_scales=self.cache.k_scales,
+                    v_scales=self.cache.v_scales, sh=self._sh)
 
     def _sample(self, logits, key, rows):
         """Tokens of the flat rows ``rows`` of ``logits`` [T, V], row r
@@ -1062,8 +1208,10 @@ class LLMEngine:
             swap_pool_pages=0, device=self.device)
         tied = dspec.lm_head is None
         rope, rope_prefill = _rope_tables(dspec, page_size)
+        # the draft runs replicated, whole on every rank of a mesh (the
+        # reference's placement: tp shards the target's verify)
         self._spec = {
-            "layers": self._dense_layers(dspec.layers),
+            "layers": self._dense_layers(dspec.layers, None),
             "norm_w": dspec.norm.weight, "embed_w": dembed,
             "head_w": dembed if tied else self._weight(dspec.lm_head),
             "rope": rope, "rope_prefill": rope_prefill,

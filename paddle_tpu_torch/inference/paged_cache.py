@@ -57,6 +57,18 @@ the label ``cache=<id>``, counted at the same sites; ``metrics_snapshot``,
 ``free_page_count`` and ``kv_bytes_per_token`` read them, all host-side.
 ``write_prefill`` bulk-writes a prompt's K/V into a slot's pages (a plain
 scatter, quantized per row for int8 pools).
+
+Tensor-parallel pools (``shardings``: a ``distributed.sharding.
+TPShardings`` plan): each rank's pools (and int8 scale pools) hold its
+``n_kv_heads / tp`` KV heads of every page on dim 1, so the host
+bookkeeping (free list, page tables, lengths, prefix index, swap plans)
+stays global and identical on every rank, which makes the same calls in
+the same order.  ``swap_out`` / ``swap_in`` move the rank's heads only;
+``export_swap`` gathers the entry's pages of all heads over the mesh (on
+the cache's device: NCCL gathers device tensors) into the blob a
+single-card cache writes, and ``import_swap`` keeps the rank's heads,
+so a blob moves between mesh shapes.  ``export_swap`` is collective
+under a mesh: every rank calls it for the same handle.
 """
 from __future__ import annotations
 
@@ -71,6 +83,7 @@ import numpy as np
 import torch
 
 from ..common.errors import enforce
+from ..distributed.collective import all_gather_concat
 from ..observability import get_registry
 from ..ops.paged_attention import (paged_attention, paged_write,
                                    paged_write_quant)
@@ -116,18 +129,24 @@ class PagedKVCache:
                  head_dim: int, max_seqs: int, max_len: int,
                  dtype: torch.dtype = torch.float32, num_layers: int = 1,
                  kv_dtype: Optional[str] = None, swap_pool_pages: int = 0,
-                 device=None):
+                 device=None, shardings=None):
         enforce(kv_dtype in (None, "int8"),
                 f"unsupported kv_dtype {kv_dtype!r} (None or 'int8')")
         self.device = resolve_device(device)
+        self._shardings = shardings
+        self.tp = 1 if shardings is None else shardings.tp
+        enforce(n_kv_heads % self.tp == 0,
+                f"tp={self.tp} must divide n_kv_heads ({n_kv_heads})")
+        self.n_kv_heads = n_kv_heads
         self.n_pages = n_pages
         self.page_size = page_size
         self.num_layers = num_layers
         self.kv_dtype = kv_dtype
         self.max_pages_per_seq = (max_len + page_size - 1) // page_size
-        # [L, KVH, n_pages, P, D]
+        # [L, KVH / tp, n_pages, P, D]: this rank's heads
         self.k_pages = torch.zeros(
-            (num_layers, n_kv_heads, n_pages, page_size, head_dim),
+            (num_layers, n_kv_heads // self.tp, n_pages, page_size,
+             head_dim),
             dtype=torch.int8 if kv_dtype == "int8" else dtype,
             device=self.device)
         self.v_pages = torch.zeros_like(self.k_pages)
@@ -135,7 +154,7 @@ class PagedKVCache:
         self.k_scales = self.v_scales = None
         if kv_dtype == "int8":
             self.k_scales = torch.zeros(
-                (num_layers, n_kv_heads, n_pages, page_size),
+                (num_layers, n_kv_heads // self.tp, n_pages, page_size),
                 dtype=torch.float32, device=self.device)
             self.v_scales = torch.zeros_like(self.k_scales)
         self._free = list(range(n_pages - 1, 0, -1))   # page 0 = pad
@@ -531,7 +550,7 @@ class PagedKVCache:
         geometry would reinterpret page bytes)."""
         return {"page_size": self.page_size,
                 "num_layers": self.num_layers,
-                "n_kv_heads": int(self.k_pages.shape[1]),
+                "n_kv_heads": int(self.n_kv_heads),
                 "head_dim": int(self.k_pages.shape[-1]),
                 "kv_dtype": self.kv_dtype or "",
                 "pool_dtype": _dtype_name(self.k_pages.dtype)}
@@ -544,7 +563,8 @@ class PagedKVCache:
         The entry is consumed.  Shared-prefix plan entries whose key
         still resolves here travel as page data (registered pages are
         immutable), the rest as keys.  ``None`` and consumed handles
-        return ``None``."""
+        return ``None``.  Under a mesh every rank calls it with the same
+        handle: the pages of all heads are gathered (a collective)."""
         entry = self._swap.pop(handle, None) if handle is not None \
             else None
         if entry is None:
@@ -569,6 +589,12 @@ class PagedKVCache:
             hosts = [m if h is None else (None if m is None else
                                           torch.cat([h, m], dim=2))
                      for h, m in zip(hosts, more)]
+        if self._shardings is not None:
+            # every head of the entry's pages, as one card's cache holds
+            # them: gathered on the device (NCCL takes device tensors)
+            hosts = [None if h is None else all_gather_concat(
+                h.to(self.device), 1, self._shardings.group).cpu()
+                for h in hosts]
         meta = dict(self._swap_geometry())
         meta["plan"] = [["key", val.hex()] if kind == "key"
                         else ["data", int(val)] for kind, val in plan]
@@ -616,6 +642,9 @@ class PagedKVCache:
                     hosts.append(torch.from_numpy(a.view(np.int16)).view(dt))
                 else:
                     hosts.append(torch.from_numpy(a))
+        if self._shardings is not None:
+            # the blob holds every head: keep this rank's
+            hosts = [self._shardings.put(h, 1) for h in hosts]
         n_host = int(meta["n_host_pages"])
         if not self.swap_pool_pages or \
                 self._swap_used + n_host > self.swap_pool_pages:
@@ -726,7 +755,7 @@ class PagedKVCache:
         """Device bytes one cached token costs across all layers and
         both pools (int8 counts its f32 scale per row)."""
         head_dim = self.k_pages.shape[-1]
-        kvh = self.k_pages.shape[1]
+        kvh = self.n_kv_heads
         if self.kv_dtype == "int8":
             per_row = head_dim * 1 + 4          # int8 values + f32 scale
         else:
@@ -756,9 +785,13 @@ class PagedKVCache:
     def memory_rows(self) -> dict:
         """The memory plane's row (``observability.introspection``):
         bytes the device pools hold (values and int8 scale planes) and
-        the bytes of the host swap pool's page copies.  One device
-        holds the whole pool (``tp`` 1)."""
-        dev = sum(int(t.nbytes) for t in self._pools() if t is not None)
+        the bytes of this process's host swap pool page copies.  Under a
+        mesh ``device_bytes`` is the whole model-side pool, as the
+        reference reports it (a tp 4 replica must not look 4 times
+        cheaper), ``device_bytes_per_shard`` what one card holds, and
+        ``tp`` the divisor."""
+        shard = sum(int(t.nbytes) for t in self._pools() if t is not None)
+        dev = shard * self.tp
         host = 0
         for entry in self._swap.values():
             for arr in (entry.k_host, entry.v_host,
@@ -766,8 +799,8 @@ class PagedKVCache:
                 if arr is not None:
                     host += int(arr.nbytes)
         return {"device_bytes": dev,
-                "device_bytes_per_shard": dev,
-                "tp": 1,
+                "device_bytes_per_shard": shard,
+                "tp": self.tp,
                 "host_bytes": host,
                 "pages": int(self.n_pages),
                 "free_pages": self.free_page_count(),

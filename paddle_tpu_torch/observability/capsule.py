@@ -527,7 +527,9 @@ def replay_capsule(capsule: dict, engine, *, logprobs: bool = True,
     row.  Teacher forcing: every window starts from the last recorded
     token, so the report pins the first divergence.  The engine's own
     key is never touched and the scratch slots are released on every
-    exit.
+    exit.  On a tensor-parallel engine every rank of its mesh replays
+    the same capsule (the forwards gather), and a capsule replays across
+    tp: tp is in the fingerprint but not token-affecting.
 
     Report: ``first_divergence`` (generated-token index, None: bit-exact),
     expected and got tokens, the logprob delta at the divergence, and

@@ -189,6 +189,14 @@ class Scheduler:
                  chunked_prefill: bool = False,
                  decode_tpot_slo: Optional[float] = None,
                  slow_ttft: Optional[float] = None):
+        if getattr(engine, "tp", 1) > 1:
+            # every rank of a mesh must make the same engine calls in
+            # the same order; this loop's clock-driven decisions would
+            # differ between ranks (a leader rank that broadcasts each
+            # step's calls is the missing piece)
+            raise NotImplementedError(
+                "the serving runtime over a tensor-parallel engine (tp > "
+                "1) is not ported yet (ROADMAP 'Multi-device')")
         enforce(max_queue >= 1, "max_queue must be >= 1")
         enforce(max_preemptions_per_request >= 0,
                 "max_preemptions_per_request must be >= 0")

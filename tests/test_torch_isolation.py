@@ -70,11 +70,13 @@ def test_port_imports_no_jax_and_no_reference_package():
 
 
 def test_worker_of_the_gang_tests_imports_no_jax():
-    """``tests/torch_dist_worker.py`` runs in the gang's ranks: it too
-    must import neither JAX nor the reference package."""
+    """``tests/torch_dist_worker.py`` and ``tests/torch_tp_worker.py`` run
+    in the gangs' ranks: they too must import neither JAX nor the
+    reference package."""
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['paddle_tpu'] = None; sys.path.insert(0, 'tests'); "
-            "import torch_dist_worker, paddle_tpu_torch.distributed")
+            "import torch_dist_worker, torch_tp_worker, "
+            "paddle_tpu_torch.distributed")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr

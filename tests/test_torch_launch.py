@@ -282,12 +282,15 @@ def test_fleet_knobs_outside_the_slice_raise(knob):
         fleet.init(strategy=s, device="cpu")
 
 
-@pytest.mark.parametrize("call", [
-    lambda: dist.topology.serving_mesh(2),
-    lambda: dist.sharding.TPShardings(None)], ids=["serving_mesh",
-                                                   "tp_shardings"])
-def test_tensor_parallel_serving_raises(call):
-    with pytest.raises(NotImplementedError, match="Multi-device"):
+@pytest.mark.parametrize("call,match", [
+    (lambda: dist.topology.serving_mesh(2), "init_parallel_env"),
+    (lambda: dist.sharding.TPShardings(None), "serving mesh")],
+    ids=["serving_mesh", "tp_shardings"])
+def test_tensor_parallel_serving_raises(call, match):
+    """Tensor-parallel serving is ported (tests/test_torch_tp_serving.py):
+    without a process group ``serving_mesh`` raises a plain error, and
+    ``TPShardings`` takes nothing but a serving mesh."""
+    with pytest.raises(ValueError, match=match):
         call()
 
 

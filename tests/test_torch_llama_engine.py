@@ -165,8 +165,10 @@ def test_abort_and_pop_result(models):
 
 
 # the ROADMAP item each knob the port still refuses names
-_STILL_REFUSED = {"scan_decode": "Port: speed of what is ported",
-                  "mesh": "Multi-device", "tp_axis": "Multi-device"}
+_STILL_REFUSED = {"scan_decode": "Port: speed of what is ported"}
+# knobs whose value here is wrong: a mesh that is not a serving mesh
+# (``tp_axis`` without a mesh is taken, as in the reference)
+_BAD_VALUE = {"mesh": "serving mesh"}
 
 
 @pytest.mark.parametrize("knob", [
@@ -185,9 +187,13 @@ def test_knobs_outside_the_slice_raise(models, knob):
     _, port = models
     knob = {k: port if v == "draft" else v for k, v in knob.items()}
     items = [_STILL_REFUSED[k] for k in knob if k in _STILL_REFUSED]
+    bad = [_BAD_VALUE[k] for k in knob if k in _BAD_VALUE]
     if items:
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP '{items[0]}'"):
+            LLMEngine(port, device="cpu", **GEOM, **knob)
+    elif bad:
+        with pytest.raises(ValueError, match=bad[0]):
             LLMEngine(port, device="cpu", **GEOM, **knob)
     else:
         LLMEngine(port, device="cpu", **GEOM, **knob)
