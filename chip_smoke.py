@@ -823,6 +823,220 @@ def tp_shard_kernels(torch, gen, dev):
     return rows
 
 
+# one rank's part of Llama-3-8B under tensor-parallel training: (mp,
+# query heads, KV heads); each rank launches #2-#4 once a layer a step
+# and #10 on its q and k columns at these shapes
+MP_SHARDS = ((4, 8, 2), (2, 16, 4))
+
+
+def mp_shard_kernels(torch, np, gen, dev):
+    """#2, #3 and #4 (causal, seq 8192) and #10 (x [1, 8192, 4096] @ the
+    rank's q and k columns) at the heads one rank of an mp group holds
+    (``MP_SHARDS``), each against its plain version, timed beside its
+    library call, traced and bounded.  One card cannot hold an mp > 1
+    gang, so these rows are what hold the kernels at an mp rank's
+    geometry in this script (``tools/mp_train_rows.py`` runs the gangs
+    on four cards).  They run with the other kernel rows;
+    ``train_mp_phase`` fills ``launches`` (its run's count of the
+    wrapper a row names, at mp 1) and prints them."""
+    from paddle_tpu_torch.models.llama import _rope_cos_sin
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_train as ft
+    t0 = time.perf_counter()
+    s, hidden, hd = TRAIN_SEQ, 4096, 128
+    ang = _rope_cos_sin(s, hd, 500000.0)
+    cos, sin = (torch.from_numpy(f(ang)).to(dev, torch.bfloat16)
+                for f in (np.cos, np.sin))
+    x = torch.randn((1, s, hidden), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    rows = []
+    for mp, h, hk in MP_SHARDS:
+        shard = {"shard": f"llama3_8b mp {mp}", "mp": mp, "heads": h,
+                 "kv_heads": hk}
+        q, k, v, do = attention_case(torch, gen, dev, s, h=h, kvh=hk)
+        errs = flash_check(torch, fa, s, q, k, v, do)
+        torch.cuda.empty_cache()
+        names = tuple(f"{n}_mp{mp}" for n in FLASH_TRAIN_ROWS)
+        for (name, row), wrapper in zip(
+                flash_train_rows(torch, fa, q, k, v, do, errs,
+                                 names).items(),
+                ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv")):
+            rows.append({**row, **shard, "launches": wrapper})
+        del q, k, v, do
+        torch.cuda.empty_cache()
+        for proj, heads in (("q", h), ("k", hk)):
+            w = (0.02 * torch.randn(hidden, heads * hd, generator=gen,
+                                    device=dev)).to(torch.bfloat16)
+            rows.append({**matmul_rope_row(
+                torch, ft, x, w, cos, sin, heads, hd, proj,
+                name=f"matmul_rope_{proj}_mp{mp}"), **shard,
+                "launches": "matmul_rope"})
+    emit({"phase": "mp_shard_kernels", "seconds": time.perf_counter() - t0,
+          "rows": [row["name"] for row in rows]})
+    return rows
+
+
+# train_mp: Llama-3-8B width at MP_LAYERS layers on the headline recipe,
+# a warm-up step and then MP_STEPS steps of each trainer
+MP_LAYERS, MP_STEPS = 4, 3
+
+
+def mp_collectives_a_step(layers, tokens, hidden, chunk=1024, el=2):
+    """(mp collectives, their bytes) of one tensor-parallel Llama step:
+    a layer's 2 forward all-reduces (o_proj, down_proj) and 2 backward
+    ones (the gradient of the q/k/v and gate/up input, ``_c_identity``),
+    each a [tokens, hidden] activation in the working dtype (``el``
+    bytes); the embedding's forward all-reduce and the head input's
+    gradient, the same size; 3 f32 all-reduces of a chunk's rows (max,
+    sum of exponentials, label logit) for each cross-entropy chunk; the
+    clip's f32 norm."""
+    chunks = -(-tokens // chunk)
+    n = 4 * layers + 2 + 3 * chunks + 1
+    nbytes = (4 * layers + 2) * tokens * hidden * el + 3 * tokens * 4 + 4
+    return n, nbytes
+
+
+def train_mp_phase(torch, np, dev, table, shard_rows):
+    """``train_mp``: Llama-3-8B width at MP_LAYERS layers on the headline
+    recipe (bf16 amp O2, seq 8192, ``fuse_norm_rope``, ``core_attn``
+    remat, the fused linear + cross-entropy, AdamW under a global-norm
+    clip), first through ``CompiledTrainStep``, then through
+    ``fleet.init`` (an NCCL world of one in this process, mp_degree 1),
+    ``fleet.distributed_model`` and ``ShardedTrainStep``: the annotated
+    Llama takes its tensor-parallel forward, so every mp collective goes
+    through c10d.  Each trainer takes a warm-up step and MP_STEPS more on
+    one batch, from one seed.  Checks: the losses equal
+    ``CompiledTrainStep``'s within 1e-5 relative (bit-equal expected);
+    #2-#4 launch once a layer a step, #10 four times (q and k, again in
+    the recompute), #9 twice a layer and its backward once, #8 once a
+    leaf; the mp collectives a step and their bytes follow
+    ``mp_collectives_a_step``.  The process group stays up for
+    ``serve_tp``.  Then the rows of ``mp_shard_kernels`` are printed
+    with their launches from this run."""
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import ShardedTrainStep, fleet
+    from paddle_tpu_torch.jit.train import CompiledTrainStep
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                               llama3_8b_config)
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_train as ft
+    t_phase = time.perf_counter()
+    layers = MP_LAYERS
+    cfg = dataclasses.replace(llama3_8b_config(), num_hidden_layers=layers,
+                              fuse_norm_rope=True, recompute=True,
+                              recompute_granularity="core_attn")
+    ids, labels = train_batch(np, cfg.vocab_size, 1, TRAIN_SEQ)
+    batch = {"input_ids": torch.tensor(ids, device=dev),
+             "labels": torch.tensor(labels, device=dev)}
+    counters = {"flash_attention_fwd": (fa.flash_attention_fwd, layers),
+                "flash_attention_bwd_dq": (fa.flash_attention_bwd_dq,
+                                           layers),
+                "flash_attention_bwd_dkv": (fa.flash_attention_bwd_dkv,
+                                            layers),
+                "matmul_rope": (ft.matmul_rope_raw, 4 * layers),
+                "add_norm": (ft.add_rms_norm_raw, 2 * layers),
+                "add_norm_bwd": (ft.add_rms_norm_backward_raw, layers),
+                "fused_update": (ft.fused_update_flat, None)}
+
+    def trainer(sharded):
+        model = LlamaForCausalLM(
+            cfg, device=dev, generator=torch.Generator(
+                device=dev).manual_seed(SEED + 6))
+        if sharded:
+            model = fleet.distributed_model(model)
+        model = amp.decorate(model, level="O2", dtype="bfloat16")
+        opt = optimizer.AdamW(learning_rate=1e-4,
+                              parameters=model.parameters(),
+                              grad_clip=ClipGradByGlobalNorm(1.0))
+        loss = lambda m, b: m(b["input_ids"], labels=b["labels"])  # noqa
+        if not sharded:
+            return model, CompiledTrainStep(model, loss, opt)
+        return model, ShardedTrainStep(
+            model, loss, fleet.distributed_optimizer(opt), stage=1,
+            device=dev)
+
+    def run(step):
+        losses = [step(batch)]                   # the warm-up step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn, _ in counters.values():
+            fn.launches = 0
+        times = []
+        for _ in range(MP_STEPS):
+            t = time.perf_counter()
+            losses.append(step(batch))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        return {"losses": [float(x) for x in losses], "step_s": times,
+                "mean_step_s": sum(times) / len(times),
+                "launches": {n: fn.launches
+                             for n, (fn, _) in counters.items()},
+                "peak_bytes": torch.cuda.max_memory_allocated()}
+
+    model, step = trainer(sharded=False)
+    plain = run(step)
+    del model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    strategy = dist.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": 1, "mp_degree": 1,
+                               "sharding_degree": 1}
+    t0 = time.perf_counter()
+    fleet.init(strategy=strategy)
+    init_s = time.perf_counter() - t0
+    model, step = trainer(sharded=True)
+    n_params = sum(p.numel() for p in model.parameters())
+    leaves = len(step.state["params"])
+    mp = run(step)
+    comm = dict(step.comm)
+    backend = dist.get_backend()
+    del model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    want_n, want_bytes = mp_collectives_a_step(layers, TRAIN_SEQ,
+                                               cfg.hidden_size)
+    tok_s = TRAIN_SEQ / mp["mean_step_s"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(mp["losses"],
+                                                  plain["losses"]))
+    emit({"phase": "train_mp", "model": "llama3_8b width",
+          "layers": layers, "mp": 1, "backend": backend,
+          "recompute": "core_attn", "dtype": "bfloat16", "seq": TRAIN_SEQ,
+          "batch": 1, "params": n_params, "leaves": leaves,
+          "init_s": init_s, "sharded": mp, "compiled": plain,
+          "losses_bit_equal": mp["losses"] == plain["losses"],
+          "losses_max_rel_gap": rel, "tokens_per_s": tok_s,
+          "mfu_6n": 6 * n_params * tok_s / PEAK_BF16_FLOPS,
+          "peak_gb": mp["peak_bytes"] / 1e9,
+          "comm": comm, "mp_collectives_formula": want_n,
+          "mp_bytes_formula": want_bytes,
+          "seconds": time.perf_counter() - t_phase})
+    check(backend == "nccl", f"train_mp ran on {backend}")
+    check(all(math.isfinite(x) for x in mp["losses"]),
+          f"train_mp losses {mp['losses']}")
+    check(rel <= 1e-5, f"train_mp losses {mp['losses']} off "
+                       f"CompiledTrainStep's {plain['losses']} by {rel}")
+    for name, (_, per_step) in counters.items():
+        got = mp["launches"][name]
+        k = leaves if per_step is None else per_step
+        check(got == k * MP_STEPS,
+              f"train_mp: {name} launched {got} times in {MP_STEPS} "
+              f"steps, not {k} a step")
+    check((comm["mp_collectives"], comm["mp_bytes"]) ==
+          (want_n, want_bytes),
+          f"train_mp made {comm['mp_collectives']} mp collectives of "
+          f"{comm['mp_bytes']} bytes a step, not {want_n} of {want_bytes}")
+    table["fused_update"]["train_mp_launches"] = \
+        mp["launches"]["fused_update"]
+    for row in shard_rows:
+        row["launches"] = mp["launches"][row["launches"]]
+        emit({"phase": "kernel_mp_shard", **row, "tolerance": TOL})
+    return mp
+
+
 @contextlib.contextmanager
 def counted_forwards(collectives=False):
     """Counts the engine's forwards (``_mixed_forward``,
@@ -1091,10 +1305,29 @@ def flash_train_kernels(torch, gen, dev, table):
     flash_check(torch, fa, 2048, *attention_case(torch, gen, dev, 2048))
     torch.cuda.empty_cache()
 
-    s, d, h, hk = TRAIN_SEQ, 128, 32, 8
-    q, k, v, do = attention_case(torch, gen, dev, s)
-    errs = flash_check(torch, fa, s, q, k, v, do)
+    q, k, v, do = attention_case(torch, gen, dev, TRAIN_SEQ)
+    errs = flash_check(torch, fa, TRAIN_SEQ, q, k, v, do)
     torch.cuda.empty_cache()
+    for name, row in flash_train_rows(
+            torch, fa, q, k, v, do, errs, FLASH_TRAIN_ROWS).items():
+        emit({"phase": "kernel", **row})
+        table[name] = row
+
+
+# the names of the rows of #2, #3 and #4 at the 8K training shape
+FLASH_TRAIN_ROWS = ("flash_attention_fwd_causal_8k", "flash_attention_bwd_dq",
+                    "flash_attention_bwd_dkv")
+
+
+def flash_train_rows(torch, fa, q, k, v, do, errs, names):
+    """The causal flash forward, dQ and dK/dV kernels (#2-#4) on one bf16
+    case (q [1, s, h, 128], k/v [1, s, kvh, 128]), rows named ``names``:
+    each timed with CUDA events, beside its plain version, its library
+    call and its bound, and traced (the tensor-core route checked);
+    ``errs`` are ``flash_check``'s for the case.  Returns {name: row},
+    each row with its shape notes."""
+    _, s, h, d = q.shape
+    hk = k.shape[2]
     pairs = causal_pairs(s)
     el = 2                                       # bf16 bytes
     qb, kb = s * h * d * el, s * hk * d * el      # one q-like, one k-like
@@ -1107,8 +1340,8 @@ def flash_train_kernels(torch, gen, dev, table):
         sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
 
     # one PyTorch call for the backward: aten's flash backward on K/V
-    # repeated to 32 heads (it takes no GQA; its dK/dV come per query
-    # head, the group sum not included)
+    # repeated to the query heads (it takes no GQA; its dK/dV come per
+    # query head, the group sum not included)
     bwd_library, bwd_note = None, None
     try:
         kr, vr = (x.repeat_interleave(h // hk, dim=1) for x in (kt, vt))
@@ -1124,53 +1357,45 @@ def flash_train_kernels(torch, gen, dev, table):
     except Exception as e:             # the yardstick only, never the port
         bwd_library, bwd_note = None, f"aten flash backward: {e}"[:200]
     rows = {}
-    for name, src, line, fn, flops, n_bytes, plain, lib in (
-            ("flash_attention_fwd_causal_8k", "flash_attention_fwd.cu",
-             "flash_attention.py:164",
+    for name, src, line, fn, flops, n_bytes, plain, lib, outs in (
+            (names[0], "flash_attention_fwd.cu", "flash_attention.py:164",
              lambda: fa.flash_attention_fwd(q, k, v, causal=True),
              4 * d * h * pairs, 2 * qb + 2 * kb + h * s * 4,
              lambda: fa.flash_attention_fwd_reference(q, k, v, causal=True),
-             fwd_library),
-            ("flash_attention_bwd_dq", "flash_attention_bwd.cu",
-             "flash_attention.py:390",
+             fwd_library, ("out",)),
+            (names[1], "flash_attention_bwd.cu", "flash_attention.py:390",
              lambda: fa.flash_attention_bwd_dq(*ops, True),
              6 * d * h * pairs, 3 * qb + 2 * kb + 2 * h * s * 4,
              lambda: fa.flash_attention_bwd_reference(
-                 q, k, v, out, lse, do, causal=True), bwd_library),
-            ("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
-             "flash_attention.py:431",
+                 q, k, v, out, lse, do, causal=True), bwd_library, ("dq",)),
+            (names[2], "flash_attention_bwd.cu", "flash_attention.py:431",
              lambda: fa.flash_attention_bwd_dkv(*ops, True),
              8 * d * h * pairs, 2 * qb + 4 * kb + 2 * h * s * 4,
              lambda: fa.flash_attention_bwd_reference(
-                 q, k, v, out, lse, do, causal=True), bwd_library)):
+                 q, k, v, out, lse, do, causal=True), bwd_library,
+             ("dk", "dv"))):
         bound, bound_by = bound_ms(n_bytes, flops)
         ms = timed_ms(torch, fn, 3, warmup=1)
         rows[name] = {
             "name": name, "route": "cuda",
             "source": f"paddle_tpu_torch/csrc/{src}",
             "replaces": f"paddle_tpu/ops/pallas/{line}",
-            "max_abs_err": None, "ms": ms,
+            "max_abs_err": max(errs[o]["max_abs_err"] for o in outs),
+            "ms": ms,
             "plain_ms": timed_ms(torch, plain, 1, warmup=1),
             "bound_ms": bound, "bound_by": bound_by,
             "library_ms": None if lib is None else timed_ms(torch, lib, 3,
                                                             warmup=1),
-            **traced_kernel(torch, fn)}
+            **traced_kernel(torch, fn),
+            "shape": [1, s, h, d], "kv_heads": hk, "causal": True}
         check(rows[name]["design"] == "wgmma",
               f"{name}: the bf16 call did not reach the tensor cores")
+        if name != names[0]:
+            rows[name]["plain_note"] = "the whole plain backward (dq, dk, dv)"
+            rows[name]["library_note"] = bwd_note or \
+                f"aten flash backward on K/V repeated to {h} heads"
         torch.cuda.empty_cache()
-    for name, outs in (("flash_attention_fwd_causal_8k", ("out",)),
-                       ("flash_attention_bwd_dq", ("dq",)),
-                       ("flash_attention_bwd_dkv", ("dk", "dv"))):
-        rows[name]["max_abs_err"] = max(errs[o]["max_abs_err"]
-                                        for o in outs)
-    for name, row in rows.items():
-        note = {"shape": [1, s, h, d], "kv_heads": hk, "causal": True}
-        if name != "flash_attention_fwd_causal_8k":
-            note["plain_note"] = "the whole plain backward (dq, dk, dv)"
-            note["library_note"] = bwd_note or \
-                "aten flash backward on K/V repeated to 32 heads"
-        emit({"phase": "kernel", **row, **note})
-        table[name] = row
+    return rows
 
 
 def update_kernel(torch, gen, dev, table):
@@ -1435,44 +1660,10 @@ def matmul_rope_kernel(torch, np, gen, dev, table):
     for proj, heads in (("q", 32), ("k", 8)):
         w = (0.02 * torch.randn(hidden, heads * hd, generator=gen,
                                 device=dev)).to(torch.bfloat16)
-
-        def run():
-            return ft.matmul_rope_raw(x, w, cos, sin, n_heads=heads,
-                                      head_dim=hd)
-
-        def plain():
-            return ft.matmul_rope_reference(x, w, cos, sin, heads, hd)
-
-        got, want = run(), plain()
-        torch.cuda.synchronize()
-        err = rel_l2(got, want)
-        check(got.shape == (1, s, heads, hd) and err <= REL_L2_TOL,
-              f"matmul_rope ({proj}) off its plain version: relative L2 "
-              f"{err}")
-        n_out = s * heads * hd
-        bound, bound_by = bound_ms(
-            (x.numel() + w.numel() + n_out + 2 * s * hd) * 2,
-            2 * s * hidden * heads * hd)
-        row = {"name": "matmul_rope", "route": "cuda",
-               "source": "paddle_tpu_torch/csrc/matmul_rope.cu",
-               "replaces": "paddle_tpu/ops/pallas/fused_train.py:501",
-               "max_abs_err": (got.float() - want.float()).abs().max().item(),
-               "ms": timed_ms(torch, run, 10),
-               "plain_ms": timed_ms(torch, plain, 5),
-               "bound_ms": bound, "bound_by": bound_by,
-               "library_ms": timed_ms(torch, lambda: torch.matmul(x, w), 10),
-               **traced_kernel(torch, run, "matmul_rope")}
-        check(row["design"] == "wgmma",
-              f"matmul_rope ({proj}): the bf16 call did not reach the "
-              f"tensor cores")
-        emit({"phase": "kernel", **row, "projection": proj,
-              "shape": [1, s, hidden], "heads": heads, "head_dim": hd,
-              "rel_l2_err": err, "tolerance": {"rel_l2_err": REL_L2_TOL},
-              "library_note": "torch.matmul of the product alone (no "
-                              "rope)"})
+        row = matmul_rope_row(torch, ft, x, w, cos, sin, heads, hd, proj)
+        emit({"phase": "kernel", **row})
         if proj == "q":
             table["matmul_rope"] = row
-        del got, want
     s32 = min(1024, s)
     x32 = torch.randn((1, s32, hidden), generator=gen, device=dev)
     w32 = 0.02 * torch.randn(hidden, 32 * hd, generator=gen, device=dev)
@@ -1504,6 +1695,49 @@ def matmul_rope_kernel(torch, np, gen, dev, table):
     check(err <= 1e-5, f"f32 matmul_rope off its plain version: {err}")
     check(traced["design"] == "fma",
           f"f32 matmul_rope left the FMA pipe: {traced}")
+
+
+def matmul_rope_row(torch, ft, x, w, cos, sin, heads, hd, proj, name=None):
+    """#10 on one bf16 projection (x [1, s, hidden] @ w [hidden, heads *
+    hd], rope from the [s, hd] tables) within 2^-7 relative L2 of its
+    plain version, timed beside it, its bound and torch.matmul of the
+    product alone (the library figure), and traced (the tensor-core
+    route checked).  Returns the row, with its shape notes."""
+    s, hidden = x.shape[1], x.shape[2]
+
+    def run():
+        return ft.matmul_rope_raw(x, w, cos, sin, n_heads=heads, head_dim=hd)
+
+    def plain():
+        return ft.matmul_rope_reference(x, w, cos, sin, heads, hd)
+
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    err = rel_l2(got, want)
+    check(got.shape == (1, s, heads, hd) and err <= REL_L2_TOL,
+          f"matmul_rope ({proj}, {heads} heads) off its plain version: "
+          f"relative L2 {err}")
+    n_out = s * heads * hd
+    bound, bound_by = bound_ms(
+        (x.numel() + w.numel() + n_out + 2 * s * hd) * 2,
+        2 * s * hidden * heads * hd)
+    row = {"name": name or "matmul_rope", "route": "cuda",
+           "source": "paddle_tpu_torch/csrc/matmul_rope.cu",
+           "replaces": "paddle_tpu/ops/pallas/fused_train.py:501",
+           "max_abs_err": (got.float() - want.float()).abs().max().item(),
+           "ms": timed_ms(torch, run, 10),
+           "plain_ms": timed_ms(torch, plain, 5),
+           "bound_ms": bound, "bound_by": bound_by,
+           "library_ms": timed_ms(torch, lambda: torch.matmul(x, w), 10),
+           **traced_kernel(torch, run, "matmul_rope"),
+           "projection": proj, "shape": [1, s, hidden], "heads": heads,
+           "head_dim": hd, "rel_l2_err": err,
+           "tolerance": {"rel_l2_err": REL_L2_TOL},
+           "library_note": "torch.matmul of the product alone (no rope)"}
+    check(row["design"] == "wgmma",
+          f"matmul_rope ({proj}, {heads} heads): the bf16 call did not "
+          f"reach the tensor cores")
+    return row
 
 
 def train_phase(torch, np, dev, table, *, phase, layers, fused):
@@ -8480,6 +8714,10 @@ def main() -> int:
     tp_rows = tp_shard_kernels(torch, torch.Generator(
         device=dev).manual_seed(SEED + 50), dev)
     torch.cuda.empty_cache()
+    # #2-#4 and #10 at an mp > 1 rank's heads (printed by train_mp)
+    mp_rows = mp_shard_kernels(torch, np, torch.Generator(
+        device=dev).manual_seed(SEED + 60), dev)
+    torch.cuda.empty_cache()
     zoo_rows = zoo_kernels(torch, np, torch.Generator(
         device=dev).manual_seed(SEED + 30), dev, table)
     gc.collect()
@@ -8649,6 +8887,13 @@ def main() -> int:
     # -- multi-device training: one rank a card through the port's
     # launcher, NCCL, ZeRO stages 1-3 against the unsharded step
     dist_train_phase(torch, table)
+
+    # -- tensor-parallel training: fleet at mp_degree 1 in an NCCL world
+    # of one in this process, the annotated Llama's mp forward against
+    # CompiledTrainStep (its process group stays up for serve_tp)
+    train_mp_phase(torch, np, dev, table, mp_rows)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # -- tensor-parallel serving: the serve mix through a serving mesh of
     # one (NCCL, this process; last, so no phase runs after its process

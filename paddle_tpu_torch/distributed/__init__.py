@@ -5,17 +5,20 @@ rank topology and ``fleet``, ZeRO stages 1-3 (``sharding``,
 ``trainer.ShardedTrainStep``) and train-state checkpoints (sharded ones
 too) with the ``CheckpointManager``, and tensor-parallel serving's mesh
 and plan (``topology.serving_mesh``, ``sharding.TPShardings``, which
-``inference.LLMEngine(mesh=)`` takes).  One process drives one card:
-NCCL on the card, gloo when the caller asks for the CPU.  Tensor-parallel
-training (``parallel_layers``, ``mp_degree``), pipeline, sequence,
-context and expert parallelism and ``auto_parallel`` are not ported
-(ROADMAP 'Multi-device'): they are not exported, and their knobs
-raise."""
+``inference.LLMEngine(mesh=)`` takes), and tensor-parallel training
+(``parallel_layers``: Megatron's layers over the mp group and the mp
+operators of ``collective``; fleet's ``mp_degree``, which
+``ShardedTrainStep`` runs over dp x mp x sharding).  One process drives
+one card: NCCL on the card, gloo when the caller asks for the CPU.
+Pipeline, sequence, context and expert parallelism and ``auto_parallel``
+are not ported (ROADMAP 'Multi-device'): they are not exported, and
+their knobs raise."""
 import torch.distributed as _dist
 
 from . import checkpoint
 from . import collective
 from . import env
+from . import parallel_layers
 from . import sharding
 from . import strategy
 from . import topology
@@ -33,6 +36,11 @@ from .collective import (ReduceOp, all_gather, all_gather_object,
                          scatter_object_list, send, stream, wait)
 from .env import ParallelEnv, get_rank, get_world_size, spawn
 from .fleet import fleet
+from .parallel_layers import (ColumnParallelLinear, GatherOp,
+                              ParallelCrossEntropy, RowParallelLinear,
+                              ScatterOp, VocabParallelEmbedding,
+                              mark_as_sequence_parallel_parameter,
+                              sharding_constraint)
 from .sharding import ShardingPlan, group_sharded_parallel
 from .store import TCPStore
 from .strategy import DistributedStrategy
@@ -57,7 +65,8 @@ def get_backend() -> str:
     return _dist.get_backend()
 
 
-__all__ = ["checkpoint", "collective", "env", "sharding", "strategy",
+__all__ = ["checkpoint", "collective", "env", "parallel_layers",
+           "sharding", "strategy",
            "topology", "AsyncSaveHandle", "CorruptCheckpointError",
            "ShardedArray", "get_checkpoint_metadata", "load_state_dict",
            "save_state_dict", "validate_checkpoint", "CheckpointManager",
@@ -70,4 +79,8 @@ __all__ = ["checkpoint", "collective", "env", "sharding", "strategy",
            "get_rank", "get_world_size", "spawn", "fleet", "ShardingPlan",
            "group_sharded_parallel", "TCPStore", "DistributedStrategy",
            "CommGroup", "HybridCommunicateGroup", "ShardedTrainStep",
-           "init_parallel_env", "is_initialized", "get_backend"]
+           "init_parallel_env", "is_initialized", "get_backend",
+           "ColumnParallelLinear", "RowParallelLinear",
+           "VocabParallelEmbedding", "ParallelCrossEntropy", "ScatterOp",
+           "GatherOp", "mark_as_sequence_parallel_parameter",
+           "sharding_constraint"]

@@ -15,9 +15,21 @@ The reference's traced forms (``psum``, ``pmean``, ``pmax`` inside
 Point-to-point transfers (``send`` / ``recv`` / ``isend`` / ``irecv``,
 ``ppermute``) and ``axis_index`` raise: pipeline parallelism brings
 them (ROADMAP 'Multi-device').
+
+The tensor-parallel (mp) operators are autograd functions over a
+group, with the names of upstream Paddle's ``mp_ops``: ``_c_identity``
+(identity forward, all-reduce of the gradient), ``_mp_allreduce``
+(all-reduce forward, identity backward), ``_c_split`` / ``_c_concat``
+(this rank's part of the last dim / every rank's parts put together)
+and ``scatter_seq`` / ``gather_seq``, the same pair on dim 1 (the
+sequence).  The reference's GSPMD program emits these collectives
+itself; here ``parallel_layers`` and the models call them.  Each call
+that reaches a backend is counted into every counter that
+``count_mp`` has open (a ``ShardedTrainStep``'s ``comm``).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -34,7 +46,10 @@ __all__ = ["ReduceOp", "all_reduce", "all_gather", "all_gather_concat",
            "irecv", "wait", "all_to_all_single", "alltoall_single",
            "gather", "destroy_process_group", "all_gather_object",
            "broadcast_object_list", "scatter_object_list", "psum", "pmean",
-           "pmax", "ppermute", "axis_index", "stream"]
+           "pmax", "ppermute", "axis_index", "stream", "count_mp",
+           "mp_all_reduce_", "mp_all_gather", "_c_identity",
+           "_mp_allreduce", "_c_split", "_c_concat", "scatter_seq",
+           "gather_seq"]
 
 
 class ReduceOp:
@@ -430,6 +445,142 @@ def axis_index(group):
     raise NotImplementedError(
         "axis_index (a traced mesh coordinate) has no eager counterpart: "
         "use the group's rank (ROADMAP 'Multi-device')")
+
+
+# -- tensor-parallel (mp) operators ---------------------------------------------
+
+_MP_COUNTERS: List[Dict[str, int]] = []
+
+
+@contextlib.contextmanager
+def count_mp(comm: Dict[str, int]):
+    """While the block runs, each mp collective that reaches a backend
+    adds one to ``comm["collectives"]`` and ``comm["mp_collectives"]``
+    and its input's bytes to ``comm["bytes"]`` and ``comm["mp_bytes"]``.
+    Yields ``comm``."""
+    for k in ("collectives", "bytes", "mp_collectives", "mp_bytes"):
+        comm.setdefault(k, 0)
+    _MP_COUNTERS.append(comm)
+    try:
+        yield comm
+    finally:
+        _MP_COUNTERS.remove(comm)
+
+
+def _count(t: torch.Tensor) -> None:
+    n = t.numel() * t.element_size()
+    for c in _MP_COUNTERS:
+        c["collectives"] += 1
+        c["mp_collectives"] += 1
+        c["bytes"] += n
+        c["mp_bytes"] += n
+
+
+def mp_all_reduce_(t: torch.Tensor, g: CommGroup, op=ReduceOp.SUM
+                   ) -> torch.Tensor:
+    """``t`` reduced over the mp group ``g`` in place (counted); a group
+    with no process group leaves it as it is."""
+    if g.pg is None:
+        return t
+    _count(t)
+    _dist.all_reduce(t, _TORCH_OPS[op], group=g.pg)
+    return t
+
+
+def mp_all_gather(x: torch.Tensor, dim: int, g: CommGroup) -> torch.Tensor:
+    """Every member's ``x`` put together on ``dim`` (counted)."""
+    if g.pg is None:
+        return x
+    _count(x)
+    return all_gather_concat(x, dim, g)
+
+
+def _part(x: torch.Tensor, dim: int, g: CommGroup) -> torch.Tensor:
+    """This member's contiguous part of ``x`` on ``dim``."""
+    n = x.shape[dim]
+    enforce(n % g.nranks == 0,
+            f"dim {dim} of {tuple(x.shape)} does not split over the mp "
+            f"group's {g.nranks} ranks")
+    k = n // g.nranks
+    return x.narrow(dim, g.rank * k, k).contiguous()
+
+
+class _Identity(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g = g
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return mp_all_reduce_(dy.contiguous().clone(), ctx.g), None
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g):
+        return mp_all_reduce_(x.contiguous().clone(), g)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, g):
+        ctx.dim, ctx.g = dim, g
+        return _part(x, dim, g)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return mp_all_gather(dy.contiguous(), ctx.dim, ctx.g), None, None
+
+
+class _Concat(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, g):
+        ctx.dim, ctx.g = dim, g
+        return mp_all_gather(x.contiguous(), dim, g)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _part(dy, ctx.dim, ctx.g), None, None
+
+
+def _c_identity(x: torch.Tensor, group: CommGroup) -> torch.Tensor:
+    """Identity; the gradient is all-reduced over ``group`` (a column-
+    parallel layer's input)."""
+    return _Identity.apply(x, group)
+
+
+def _mp_allreduce(x: torch.Tensor, group: CommGroup) -> torch.Tensor:
+    """The sum over ``group``; the gradient passes as it is (a
+    row-parallel layer's output)."""
+    return _AllReduce.apply(x, group)
+
+
+def _c_split(x: torch.Tensor, group: CommGroup) -> torch.Tensor:
+    """This rank's part of the last dim; the gradient is all-gathered."""
+    return _Split.apply(x, x.dim() - 1, group)
+
+
+def _c_concat(x: torch.Tensor, group: CommGroup) -> torch.Tensor:
+    """Every rank's part of the last dim put together in rank order; the
+    gradient is split back."""
+    return _Concat.apply(x, x.dim() - 1, group)
+
+
+def scatter_seq(x: torch.Tensor, group: CommGroup) -> torch.Tensor:
+    """This rank's part of the sequence (dim 1): a sequence-parallel
+    region's entry (``parallel_layers.ScatterOp``)."""
+    return _Split.apply(x, 1, group)
+
+
+def gather_seq(x: torch.Tensor, group: CommGroup) -> torch.Tensor:
+    """The whole sequence (dim 1) from every rank's part: a
+    sequence-parallel region's exit (``parallel_layers.GatherOp``)."""
+    return _Concat.apply(x, 1, group)
 
 
 # -- object collectives --------------------------------------------------------

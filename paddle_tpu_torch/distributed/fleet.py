@@ -4,10 +4,18 @@
 ``init`` joins the process group (``env.init_parallel_env``: NCCL on
 the card by default, gloo with ``device="cpu"``) and builds the rank
 topology from the strategy's degrees; with no degrees given, every rank
-is data parallel.  This slice runs data parallelism and ZeRO sharding
-(``dp_degree``, ``sharding_degree``); tensor, pipeline, sequence and
-expert parallelism raise (ROADMAP 'Multi-device').
-``distributed_model`` / ``distributed_optimizer`` attach the topology;
+is data parallel; otherwise the degrees multiply to the world size
+(else a ``ValueError``).  Data parallelism, ZeRO sharding and tensor
+parallelism run (``dp_degree``, ``sharding_degree``, ``mp_degree``);
+pipeline, sequence and expert parallelism raise (ROADMAP
+'Multi-device').  ``distributed_model`` attaches the topology and cuts a
+model that carries ``shard_for_mp`` (Llama) to this rank's mp part,
+which also turns its tensor-parallel forward on (at any mp degree: a
+gang of one runs the same collectives); a model the reference
+annotates for mp but the port does not split (``_mp_annotated``:
+Qwen2-MoE, ERNIE-4.5, DiT) raises at mp > 1; any other (GPT-2, BERT)
+runs replicated over mp, as in the reference.
+``distributed_optimizer`` attaches the topology;
 ``distributed.trainer.ShardedTrainStep`` does the communication.
 """
 from __future__ import annotations
@@ -27,7 +35,7 @@ __all__ = ["init", "reset", "fleet", "DistributedStrategy",
 _HCG: Optional[HybridCommunicateGroup] = None
 _STRATEGY: Optional[DistributedStrategy] = None
 
-_OUTSIDE = ("mp_degree", "pp_degree", "sep_degree", "ep_degree")
+_OUTSIDE = ("pp_degree", "sep_degree", "ep_degree")
 
 
 def reset():
@@ -49,15 +57,22 @@ def init(role_maker=None, is_collective: bool = True,
     for knob in _OUTSIDE:
         if getattr(hybrid, knob) > 1:
             raise NotImplementedError(
-                f"fleet {knob} > 1 (tensor, pipeline, sequence or expert "
+                f"fleet {knob} > 1 (pipeline, sequence or expert "
                 f"parallelism) is not ported yet (ROADMAP 'Multi-device')")
-    dist_env.init_parallel_env(device=device)
+    # the world's size before joining it (the launcher's environment)
     n_have = dist_env.get_world_size()
-    if hybrid.dp_degree * hybrid.sharding_degree == 1 and n_have > 1:
+    n_needed = hybrid.dp_degree * hybrid.sharding_degree * hybrid.mp_degree
+    if n_needed == 1 and n_have > 1:
         # no topology given: every rank is data parallel (persisted, so
         # the strategy agrees with the topology)
         hybrid.dp_degree = n_have
         strategy.hybrid_configs["dp_degree"] = n_have
+    elif n_needed != n_have:
+        raise ValueError(
+            f"fleet degrees dp {hybrid.dp_degree} x sharding "
+            f"{hybrid.sharding_degree} x mp {hybrid.mp_degree} = {n_needed} "
+            f"ranks, but the world has {n_have}")
+    dist_env.init_parallel_env(device=device)
     _STRATEGY = strategy
     _HCG = HybridCommunicateGroup(hybrid)
     return _HCG
@@ -73,8 +88,18 @@ def get_strategy() -> Optional[DistributedStrategy]:
 
 def distributed_model(model):
     """Attach the topology to the model (the step does the
-    communication: no wrapper module)."""
+    communication: no wrapper module); a model with ``shard_for_mp``
+    keeps this rank's part over the mp group and takes its
+    tensor-parallel forward."""
     enforce(_HCG is not None, "fleet.init() first")
+    mp = _HCG.get_model_parallel_world_size()
+    shard = getattr(model, "shard_for_mp", None)
+    if shard is not None:
+        shard(_HCG.get_model_parallel_group())
+    elif mp > 1 and getattr(model, "_mp_annotated", False):
+        raise NotImplementedError(
+            f"{type(model).__name__} under tensor parallelism (mp_degree "
+            f"{mp}) is not ported yet (ROADMAP 'Multi-device')")
     model._hcg = _HCG
     return model
 

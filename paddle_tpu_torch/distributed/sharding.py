@@ -6,10 +6,13 @@ stage 1/2 keep the parameters replicated over the ``sharding`` axis and
 shard the optimizer moments; stage 3 shards the parameters themselves.
 A leaf is sharded on the largest dim the sharding degree divides that
 is not sharded yet (``_shardable_dim``); a leaf with no such dim stays
-replicated (it is not padded).  The plan here computes the same dims
-(so a checkpoint's chunk boxes equal the reference's) and slices this
-rank's part: the ``sharding`` coordinate ``s`` of ``n`` holds rows
-``[s * d / n, (s + 1) * d / n)`` of the sharded dim ``d``.
+replicated (it is not padded).  A parameter's tensor-parallel
+``dist_spec`` (``"mp"`` on a dim) is folded in first, so one leaf may be
+split on two dims: mp on one, sharding on another.  The plan here
+computes the same dims (so a checkpoint's chunk boxes equal the
+reference's) and slices this rank's part: the ``sharding`` coordinate
+``s`` of ``n`` holds rows ``[s * d / n, (s + 1) * d / n)`` of the
+sharded dim ``d``, of the mp part this rank holds.
 ``TPShardings`` is the tensor-parallel serving plan over a serving mesh.
 """
 from __future__ import annotations
@@ -21,7 +24,7 @@ import torch
 from ..common.errors import enforce
 
 __all__ = ["ShardingPlan", "plan_param_spec", "group_sharded_parallel",
-           "TPShardings", "shard_slice", "shard_boxes"]
+           "TPShardings", "shard_slice", "shard_boxes", "part_boxes"]
 
 _AXIS = "sharding"
 
@@ -117,11 +120,17 @@ def _shardable_dim(shape: Tuple[int, ...], size: int,
     return None
 
 
-def plan_param_spec(shape, degree: int, stage: int
-                    ) -> Tuple[Optional[str], ...]:
-    """The parameter's spec, one entry a dim (``"sharding"`` or None):
-    at stage 3 and a degree above 1 the shardable dim is sharded."""
+def plan_param_spec(shape, degree: int, stage: int, dist_spec=None,
+                    mp: int = 1) -> Tuple[Optional[str], ...]:
+    """The parameter's spec, one entry a dim (``"mp"``, ``"sharding"`` or
+    None), from its global ``shape``: the tensor-parallel ``dist_spec``
+    entries (``"mp"``) where ``mp`` divides the dim (the reference drops
+    an axis a dim cannot divide over), then at stage 3 and a sharding
+    degree above 1 the shardable dim among the rest."""
     base: List[Optional[str]] = [None] * len(shape)
+    for i, entry in enumerate(tuple(dist_spec or ())[:len(shape)]):
+        if entry == "mp" and shape[i] % mp == 0:
+            base[i] = "mp"
     if stage >= 3 and degree > 1:
         dim = _shardable_dim(tuple(shape), degree, tuple(base))
         if dim is not None:
@@ -132,7 +141,7 @@ def plan_param_spec(shape, degree: int, stage: int
 def _slot_spec(param_spec, shape, degree: int, stage: int
                ) -> Tuple[Optional[str], ...]:
     """An optimizer moment's spec: the parameter's, plus (any stage) the
-    sharding axis where the parameter is replicated."""
+    sharding axis where the parameter is replicated over it."""
     base = list(param_spec) + [None] * (len(shape) - len(param_spec))
     if stage >= 1 and degree > 1 and _AXIS not in base:
         dim = _shardable_dim(tuple(shape), degree, tuple(base))
@@ -141,8 +150,8 @@ def _slot_spec(param_spec, shape, degree: int, stage: int
     return tuple(base)
 
 
-def _dim(spec) -> Optional[int]:
-    return spec.index(_AXIS) if _AXIS in spec else None
+def _dim(spec, axis: str = _AXIS) -> Optional[int]:
+    return spec.index(axis) if axis in spec else None
 
 
 def shard_slice(t: torch.Tensor, dim: Optional[int], index: int,
@@ -155,41 +164,69 @@ def shard_slice(t: torch.Tensor, dim: Optional[int], index: int,
     return t.narrow(dim, index * n, n)
 
 
+def part_boxes(shape, cuts) -> List[Tuple[Tuple[int, int], ...]]:
+    """The index boxes of an array of ``shape`` cut on several dims:
+    ``cuts`` is ``[(dim, count), ...]``; the boxes come in row-major
+    order of the cuts (the last cut fastest)."""
+    boxes = [[(0, int(d)) for d in shape]]
+    for dim, count in cuts:
+        n = int(shape[dim]) // count
+        out = []
+        for box in boxes:
+            for i in range(count):
+                b = list(box)
+                b[dim] = (box[dim][0] + i * n, box[dim][0] + (i + 1) * n)
+                out.append(b)
+        boxes = out
+    return [tuple(b) for b in boxes]
+
+
 def shard_boxes(shape, dim: Optional[int], count: int
                 ) -> List[Tuple[Tuple[int, int], ...]]:
     """The index boxes of the ``count`` parts of an array of ``shape``
     sharded on ``dim``, in part order (one whole box when ``dim`` is
     None)."""
-    whole = [(0, int(d)) for d in shape]
-    if dim is None:
-        return [tuple(whole)]
-    n = int(shape[dim]) // count
-    out = []
-    for i in range(count):
-        box = list(whole)
-        box[dim] = (i * n, (i + 1) * n)
-        out.append(tuple(box))
-    return out
+    return part_boxes(shape, [] if dim is None else [(dim, count)])
 
 
 class ShardingPlan:
     """The sharded dims of every parameter and its optimizer slots, for
     ``stage`` over a sharding degree (``degree``, this rank's coordinate
-    ``index`` on that axis)."""
+    ``index`` on that axis) and a tensor-parallel degree ``mp`` (this
+    rank's coordinate ``mp_index``).
+
+    A parameter's spec comes from its global shape and its ``dist_spec``
+    (``plan_param_spec``).  A parameter that ``fleet.distributed_model``
+    cut to this rank's mp part (``mp_part`` set) has a global shape
+    ``mp`` times its own on the mp dim; any other is whole.  ``shapes``
+    holds the shape this rank keeps before ZeRO sharding (the mp part),
+    ``global_shapes`` the whole one."""
 
     def __init__(self, model, degree: int = 1, stage: int = 1,
-                 index: int = 0):
+                 index: int = 0, mp: int = 1, mp_index: int = 0):
         self.model = model
         self.degree = int(degree)
         self.stage = int(stage)
         self.index = int(index)
+        self.mp = int(mp)
+        self.mp_index = int(mp_index)
         self.param_specs: Dict[str, Tuple[Optional[str], ...]] = {}
         self.slot_specs: Dict[str, Tuple[Optional[str], ...]] = {}
         self.shapes: Dict[str, Tuple[int, ...]] = {}
+        self.global_shapes: Dict[str, Tuple[int, ...]] = {}
         for name, p in model.named_parameters():
-            shape = tuple(p.shape)
-            spec = plan_param_spec(shape, self.degree, self.stage)
-            self.shapes[name] = shape
+            shape = list(p.shape)
+            dist_spec = getattr(p, "dist_spec", None)
+            cut = getattr(p, "mp_part", False)
+            if cut and "mp" in tuple(dist_spec or ()):
+                shape[tuple(dist_spec).index("mp")] *= self.mp
+            spec = plan_param_spec(tuple(shape), self.degree, self.stage,
+                                   dist_spec, self.mp)
+            local = list(shape)
+            if self.mp > 1 and "mp" in spec:
+                local[spec.index("mp")] //= self.mp
+            self.global_shapes[name] = tuple(shape)
+            self.shapes[name] = tuple(local)
             self.param_specs[name] = spec
             self.slot_specs[name] = _slot_spec(spec, shape, self.degree,
                                                self.stage)
@@ -197,13 +234,38 @@ class ShardingPlan:
     @classmethod
     def for_topology(cls, model, hcg, stage: int) -> "ShardingPlan":
         return cls(model, hcg.get_sharding_parallel_world_size(), stage,
-                   hcg.get_sharding_parallel_rank())
+                   hcg.get_sharding_parallel_rank(),
+                   hcg.get_model_parallel_world_size(),
+                   hcg.get_model_parallel_rank())
 
     def param_dim(self, name: str) -> Optional[int]:
         return _dim(self.param_specs[name])
 
     def slot_dim(self, name: str) -> Optional[int]:
         return _dim(self.slot_specs[name])
+
+    def mp_dim(self, name: str) -> Optional[int]:
+        """The dim split over the mp group (None where the parameter is
+        whole on every mp rank, and at mp 1)."""
+        return _dim(self.param_specs[name], "mp") if self.mp > 1 else None
+
+    def replicated(self, name: str) -> bool:
+        """Whole on every rank (neither ZeRO- nor mp-sharded)."""
+        return self.param_dim(name) is None and self.mp_dim(name) is None
+
+    def boxes(self, name: str, dim: Optional[int], count: int):
+        """(every part's box in the global array, this rank's index among
+        them) of a leaf of ``name`` cut on the mp dim and on ``dim`` into
+        ``count`` parts (ZeRO's)."""
+        cuts, at = [], 0
+        md = self.mp_dim(name)
+        if md is not None:
+            cuts.append((md, self.mp))
+            at = self.mp_index
+        if dim is not None:
+            cuts.append((dim, count))
+            at = at * count + self.index
+        return part_boxes(self.global_shapes[name], cuts), at
 
     def local(self, t: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
         """A copy of this rank's part of ``t`` on ``dim`` (``t`` itself

@@ -12,8 +12,10 @@ order, as ``new_group`` requires); a line of one rank in a larger world
 gets a group with no process group behind it, on which the collectives
 are local.  In a world of one rank every group is the world's process
 group, so a gang of one runs its collectives through the backend as a
-larger gang does.  ``serving_mesh`` lays the first ``tp`` ranks out as
-the 1-D mesh of tensor-parallel serving.
+larger gang does.  mp is the innermost axis, so an mp group is a run
+of neighbouring ranks, as upstream Paddle lays it out.
+``serving_mesh`` lays the first ``tp`` ranks out as the 1-D mesh of
+tensor-parallel serving.
 """
 from __future__ import annotations
 
@@ -198,9 +200,13 @@ class HybridCommunicateGroup:
     def get_sharding_parallel_rank(self) -> int:
         return self.coord["sharding"]
 
+    def get_model_parallel_rank(self) -> int:
+        return self.coord["mp"]
+
     def data_coordinate(self) -> Tuple[int, int]:
         """(index, count) of this rank's slice of the global batch: the
-        batch splits over (dp, sharding), dp major."""
+        batch splits over (dp, sharding), dp major; every mp rank of a
+        data coordinate takes the same rows."""
         s = self._hybrid.sharding_degree
         return (self.coord["dp"] * s + self.coord["sharding"],
                 self._hybrid.dp_degree * s)

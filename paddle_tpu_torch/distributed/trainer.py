@@ -30,8 +30,21 @@ groups of ``fleet.init``'s topology, NCCL on the card):
   stage 1/2 a sharded leaf's updated slice is all-gathered back into
   the replicated parameter.
 - **Clip.** ``ClipGradByGlobalNorm``: the f32 norm squared of this
-  rank's shards (a replicated leaf counted by sharding rank 0 only),
-  all-reduced over the sharding group, gives the kernel's clip scale.
+  rank's shards (a leaf whole over the sharding group counted by
+  sharding rank 0 only, one whole over the mp group by mp rank 0 only),
+  all-reduced over the sharding group and then, for a tensor-parallel
+  model, over the mp group, gives the kernel's clip scale.
+- **Tensor parallelism.** A model that holds mp parts (its layers cut
+  by ``parallel_layers.keep_part``: a Llama after
+  ``fleet.distributed_model``, or ``parallel_layers`` built under
+  ``fleet.init``) holds this rank's part of each annotated leaf
+  (``ShardingPlan`` folds its ``dist_spec`` in, so a leaf may be cut on
+  two dims) and runs its own mp collectives in the forward and
+  backward.  The mp ranks of a data coordinate compute the same rows,
+  so their gradients are complete: they reduce over the data axes
+  only.  The grad buckets hold the leaves whole on every rank (the
+  reference's fully replicated ones); mp-cut leaves reduce in buckets of
+  their own.
 - **Stage 3.** The sharded parameters live as this rank's parts; the
   model's parameters hold empty placeholders between steps.  They are
   all-gathered before the forward pass, freed after it (the tensors the
@@ -42,7 +55,8 @@ groups of ``fleet.init``'s topology, NCCL on the card):
   (``config.recompute``) keeps them gathered through the backward.
 
 ``comm`` holds the last step's collective count and bytes (each
-collective's input).  Step count, scheduler step, trace span and
+collective's input), the mp collectives among them also under
+``mp_collectives`` and ``mp_bytes`` (``collective.count_mp``).  Step count, scheduler step, trace span and
 ``StepTimer`` fence are ``CompiledTrainStep``'s.
 """
 from __future__ import annotations
@@ -59,6 +73,7 @@ from ..observability import health as _health
 from ..observability import tracing as _tracing
 from ..ops.random import rng_guard
 from ..runtime.device import resolve_device
+from . import collective as _coll
 from .checkpoint import ShardedArray
 from .fleet import get_hybrid_communicate_group, get_strategy
 from .sharding import ShardingPlan, shard_boxes, shard_slice
@@ -104,6 +119,15 @@ class ShardedTrainStep(CompiledTrainStep):
                 stage = strat.sharding_configs.stage if (
                     strat and strat.sharding) else 1
         self.hcg = hcg
+        # a model that holds mp parts (``parallel_layers.keep_part``) runs
+        # its own mp collectives; the step adds the clip's
+        split = any(getattr(p, "mp_part", False) for p in model.parameters())
+        self._mpgroup = hcg.get_model_parallel_group() if split else None
+        enforce(split or hcg.get_model_parallel_world_size() == 1
+                or not any("mp" in (getattr(p, "dist_spec", None) or ())
+                           for p in model.parameters()),
+                "a model annotated for tensor parallelism trains at "
+                "mp_degree > 1 once fleet.distributed_model has split it")
         self.plan = ShardingPlan.for_topology(model, hcg, stage)
         self.stage = int(stage)
         self._data_index, self._data_count = hcg.data_coordinate()
@@ -121,7 +145,7 @@ class ShardedTrainStep(CompiledTrainStep):
         self._bucket_bytes = int(grad_bucket_mb * 2 ** 20)
         self._bucket_plan: Optional[List[List[int]]] = None
         self._names = sorted(self._params)
-        self.comm = {"collectives": 0, "bytes": 0}
+        self.comm = self._new_comm()
         # stage 3: the sharded parameters, their gathered tensors while a
         # step uses them, and the placeholders the model holds otherwise
         self._sharded = [n for n in self._names
@@ -137,6 +161,11 @@ class ShardedTrainStep(CompiledTrainStep):
                                                device=p.device)
             p.data = self._placeholder[n]
             p.register_hook(lambda g, n=n: self._release(n))
+
+    @staticmethod
+    def _new_comm() -> Dict[str, int]:
+        return {"collectives": 0, "bytes": 0, "mp_collectives": 0,
+                "mp_bytes": 0}
 
     # -- topology facts --------------------------------------------------------
     def _slot_sharded(self, n: str) -> bool:
@@ -226,17 +255,19 @@ class ShardedTrainStep(CompiledTrainStep):
     def grad_buckets(self) -> List[List[int]]:
         """The static bucket plan (the reference's, index for index):
         buckets of indices into the sorted parameter names, over the
-        parameters that are replicated (not sharded at stage 3)."""
+        parameters that are replicated (sharded neither at stage 3 nor
+        over the mp group)."""
         if self._bucket_plan is None:
             self._bucket_plan = self._pack(
                 [i for i, n in enumerate(self._names)
-                 if self.plan.param_dim(n) is None])
+                 if self.plan.replicated(n)])
         return self._bucket_plan
 
     def _shard_buckets(self) -> List[List[int]]:
-        """Stage 3's sharded parameters, packed by the same rule."""
+        """The other parameters (stage 3's sharded ones, the mp parts),
+        packed by the same rule."""
         return self._pack([i for i, n in enumerate(self._names)
-                           if self.plan.param_dim(n) is not None])
+                           if not self.plan.replicated(n)])
 
     # -- gradient synchronisation --------------------------------------------------
     def _sync_grads(self, grads: Dict[str, torch.Tensor]
@@ -389,23 +420,33 @@ class ShardedTrainStep(CompiledTrainStep):
         """Forward + backward on this rank's rows and the gradients'
         reduction: (the global mean loss, {name: this rank's reduced
         gradient, a part where it is sharded}); nothing is updated."""
-        loss, _, grads = self._forward_backward(self._local_batch(batch))
+        with _coll.count_mp(self.comm):
+            loss, _, grads = self._forward_backward(
+                self._local_batch(batch))
         return self._mean_loss(loss), self._sync_grads(grads)
 
     def _grad_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """The f32 global norm: this rank's parts' squares, a replicated
-        leaf's counted by sharding rank 0 alone, summed over the
-        sharding group."""
+        """The f32 global norm: this rank's parts' squares, a leaf whole
+        over the sharding group counted by sharding rank 0 alone and one
+        whole over the mp group by mp rank 0 alone, summed over the
+        sharding group, then over the mp group (the clip's mp
+        collective)."""
         first = self._sgroup.rank == 0
+        mp = self._mpgroup
+        first_mp = mp is None or mp.rank == 0
         total = None
         for n in self._names:
-            if self._mode(n) == "rs" or first:
+            if (self._mode(n) == "rs" or first) and \
+                    (self.plan.mp_dim(n) is not None or first_mp):
                 s = grads[n].float().square().sum()
                 total = s if total is None else total + s
         if total is None:
             total = torch.zeros((), dtype=torch.float32,
                                 device=self._device)
         self._all_reduce(total, self._sgroup)
+        if mp is not None:
+            with _coll.count_mp(self.comm):
+                _coll.mp_all_reduce_(total, mp)
         return torch.sqrt(total)
 
     def _update(self, grads: Dict[str, torch.Tensor],
@@ -486,9 +527,10 @@ class ShardedTrainStep(CompiledTrainStep):
                 "productive_step" if self._compiled_once else "compile"):
             if self._timer is not None:
                 self._timer.start()
-            self.comm = {"collectives": 0, "bytes": 0}
-            loss, aux, grads = self._forward_backward(
-                self._local_batch(batch))
+            self.comm = self._new_comm()
+            with _coll.count_mp(self.comm):
+                loss, aux, grads = self._forward_backward(
+                    self._local_batch(batch))
             loss = self._mean_loss(loss)
             grads = self._sync_grads(grads)
             gnorm = None
@@ -518,27 +560,39 @@ class ShardedTrainStep(CompiledTrainStep):
             self._ptr_name.clear()
 
     def full_params(self) -> Dict[str, torch.Tensor]:
-        """Every parameter whole (stage 3 gathers its parts: a collective
-        every rank calls)."""
+        """Every parameter whole (stage 3 gathers its parts over the
+        sharding group, an mp-cut one its parts over the mp group:
+        collectives every rank calls)."""
+        out = {}
         with torch.no_grad():
-            return {n: self._all_gather(self.state["params"][n],
-                                        self.plan.shapes[n],
-                                        self.plan.param_dim(n))
-                    if self.plan.param_dim(n) is not None
-                    else self.state["params"][n].detach()
-                    for n in self._names}
+            for n in self._names:
+                t = self.state["params"][n].detach()
+                d = self.plan.param_dim(n)
+                if d is not None:
+                    t = self._all_gather(t, self.plan.shapes[n], d)
+                md = self.plan.mp_dim(n)
+                if md is not None:
+                    self._count(t)
+                    t = _coll.all_gather_concat(t, md, self._mpgroup)
+                out[n] = t
+        return out
 
     # -- checkpoints -------------------------------------------------------------------
     def _part(self, t: torch.Tensor, n: str, dim: Optional[int]):
-        """A state leaf as a checkpoint leaf: a sharded one as this rank's
-        ``ShardedArray`` part (written by dp rank 0 of its sharding
-        coordinate)."""
-        if dim is None:
+        """A state leaf as a checkpoint leaf: one cut on ``dim`` (ZeRO)
+        or over the mp group as this rank's ``ShardedArray`` part of the
+        global array, written by the first rank that holds it (dp rank
+        0, and sharding or mp rank 0 where the leaf is whole over that
+        group)."""
+        md = self.plan.mp_dim(n)
+        if dim is None and md is None:
             return t
-        s, count = self._sgroup.rank, self._sgroup.nranks
-        boxes = shard_boxes(self.plan.shapes[n], dim, count)
-        return ShardedArray(t, self.plan.shapes[n], boxes[s], boxes,
-                            write=self.hcg.get_data_parallel_rank() == 0)
+        boxes, at = self.plan.boxes(n, dim, self._sgroup.nranks)
+        write = self.hcg.get_data_parallel_rank() == 0 and \
+            (dim is not None or self._sgroup.rank == 0) and \
+            (md is not None or self.hcg.get_model_parallel_rank() == 0)
+        return ShardedArray(t, self.plan.global_shapes[n], boxes[at], boxes,
+                            write=write)
 
     def _ckpt_tree(self, rng_rows: Optional[int] = None):
         """The resumable state with this rank's parts as ``ShardedArray``
@@ -562,7 +616,8 @@ class ShardedTrainStep(CompiledTrainStep):
             boxes = shard_boxes((rows, rng.numel()), 0, rows)
             tree["torch_rng_states"] = ShardedArray(
                 rng.view(1, -1).clone(), (rows, rng.numel()),
-                boxes[self._data_index], boxes)
+                boxes[self._data_index], boxes,
+                write=self.hcg.get_model_parallel_rank() == 0)
         return tree
 
     def load_checkpoint(self, path: str):

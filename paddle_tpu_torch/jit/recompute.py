@@ -23,7 +23,10 @@ The site's own backward stays as it is:
 - ``None`` or ``"full"`` keeps nothing;
 - every policy keeps ``dropout_seed``, the per-call seed of the
   in-kernel attention dropout (``nn/functional.py``), so a recomputed
-  forward regenerates the first run's keep masks.
+  forward regenerates the first run's keep masks, and ``mp_reduce``,
+  a tensor-parallel row product's all-reduced output
+  (``distributed/parallel_layers.py``), so a recompute re-issues no
+  collective.
 
 The mechanism is a ``torch.autograd.Function`` around the region whose
 forward runs under ``no_grad`` and whose backward re-runs the region
@@ -57,7 +60,7 @@ from ..ops import random as _random
 
 __all__ = ["recompute", "kept", "product"]
 
-_ALWAYS = frozenset({"dropout_seed"})
+_ALWAYS = frozenset({"dropout_seed", "mp_reduce"})
 _POLICIES = {None: _ALWAYS, "full": _ALWAYS,
              "core_attn": _ALWAYS | {"attn_out", "flash_out", "flash_lse"},
              "dots": _ALWAYS | {"dot"}}
@@ -122,13 +125,16 @@ def kept(names, run):
 
 
 class _KeptProduct(torch.autograd.Function):
-    """``x @ w`` through ``kept``: the recompute hands back the kept
+    """``x @ w`` (then ``reduce`` of it, which the gradient passes
+    through as it is) through ``kept``: the recompute hands back the kept
     product and still carries the product's gradient."""
 
     @staticmethod
-    def forward(ctx, x, w, names):
+    def forward(ctx, x, w, names, reduce):
         ctx.save_for_backward(x, w)
-        return kept(names, lambda: x @ w)
+        if reduce is None:
+            return kept(names, lambda: x @ w)
+        return kept(names, lambda: reduce(x @ w))
 
     @staticmethod
     def backward(ctx, g):
@@ -137,15 +143,17 @@ class _KeptProduct(torch.autograd.Function):
         dw = None
         if ctx.needs_input_grad[1]:
             dw = x.reshape(-1, x.shape[-1]).t() @ g.reshape(-1, g.shape[-1])
-        return dx, dw, None
+        return dx, dw, None, None
 
 
-def product(x, w, names=("dot",)):
+def product(x, w, names=("dot",), reduce=None):
     """The projection ``x @ w``; inside a recomputed region whose policy
-    keeps one of ``names`` its output is kept and replayed."""
-    if not _is_kept(names):
+    keeps one of ``names`` its output is kept and replayed.  ``reduce``
+    (a tensor-parallel row product's all-reduce) is applied to the
+    product in place, and the gradient passes it as it is."""
+    if reduce is None and not _is_kept(names):
         return x @ w
-    return _KeptProduct.apply(x, w, tuple(names))
+    return _KeptProduct.apply(x, w, tuple(names), reduce)
 
 
 def _outputs(out):

@@ -184,6 +184,10 @@ class DiT(nn.Module):
     """Diffusion Transformer: the epsilon-prediction network over
     latents ``[B, C, H, W]``."""
 
+    # the reference annotates it for tensor parallelism (dist_spec);
+    # fleet.distributed_model refuses it at mp > 1 (not split here)
+    _mp_annotated = True
+
     def __init__(self, config: DiTConfig, *, device=None,
                  dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None,
@@ -228,6 +232,10 @@ class DiTWithDiffusion(nn.Module):
     """DiT with the DDPM epsilon objective: one call is the training
     loss of a batch of (latents, labels), its timesteps and noise drawn
     from the guarded generator on the latents' device."""
+
+    # the reference annotates it for tensor parallelism (dist_spec);
+    # fleet.distributed_model refuses it at mp > 1 (not split here)
+    _mp_annotated = True
 
     def __init__(self, config: DiTConfig, *, device=None,
                  dtype: torch.dtype = torch.float32,

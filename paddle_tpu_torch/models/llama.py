@@ -25,6 +25,18 @@ layer in the backward under ``recompute_granularity`` ("full",
 "core_attn" or "dots", ``jit/recompute.py``).  ``sequence_parallel``
 and the other model-family knobs raise.
 
+Tensor parallelism: the parameters carry the reference's ``dist_spec``
+(q/k/v and gate/up by columns, o/down by rows, the embedding by vocab
+rows, the untied head by vocab columns).  ``fleet.distributed_model``
+calls ``shard_for_mp``, which keeps this rank's part of each over the
+mp group and turns the Megatron forward on (at any mp degree, so a gang
+of one runs the same collectives): attention holds ``heads / mp`` and
+``kv_heads / mp`` heads, the column inputs pass ``_c_identity``, o_proj
+and down_proj end in one all-reduce each, the embedding is
+vocab-parallel (one all-reduce) and the head's cross-entropy takes three
+all-reduces a chunk (``ops/_nn.py``): 4 a layer a step, plus the
+embedding's, the head's input gradient's and the chunks'.
+
 The cached forwards of the reference are here too: concat caches
 (``gen_caches``; each call appends its K/V and attends causally as the
 last rows) and the static caches of ``generate`` (``gen_static_caches``,
@@ -43,6 +55,8 @@ import torch
 from torch import nn
 
 from ..common.errors import enforce
+from ..distributed import collective as _coll
+from ..distributed import parallel_layers as _pl
 from ..jit.recompute import product, recompute
 from ..nn import functional as F
 from ..nn.common import Init
@@ -101,6 +115,20 @@ def _refuse(knobs, where):
             raise NotImplementedError(
                 f"LlamaConfig {setting} is not ported yet{where} (ROADMAP "
                 f"'{item}')")
+
+
+def _refuse_mp(c: LlamaConfig, mp: int):
+    """The splits tensor parallelism needs: whole heads, KV heads,
+    MLP columns and vocabulary rows a rank."""
+    for what, n in (("num_key_value_heads", c.num_key_value_heads),
+                    ("num_attention_heads", c.num_attention_heads),
+                    ("intermediate_size", c.intermediate_size),
+                    ("vocab_size", c.vocab_size)):
+        if n % mp:
+            raise NotImplementedError(
+                f"LlamaConfig {what}={n} does not split over mp_degree "
+                f"{mp}: an uneven tensor-parallel split is not ported "
+                f"(ROADMAP 'Multi-device')")
 
 
 def llama3_8b_config() -> LlamaConfig:
@@ -163,6 +191,11 @@ class LlamaAttention(nn.Module):
         self.o_proj = init.linear(self.num_heads * self.head_dim,
                                   c.hidden_size, out_std, bias=False,
                                   names=("dot", "attn_out"))
+        # Megatron layout (the reference's annotations)
+        for proj in (self.q_proj, self.k_proj, self.v_proj):
+            proj.weight.dist_spec = (None, "mp")
+        self.o_proj.weight.dist_spec = ("mp", None)
+        self.mp = None                # the mp group, once split
         self.use_flash = c.use_flash_attention
         self.rope_interleaved = c.rope_interleaved
         self.fuse_qkv = c.fuse_qkv
@@ -184,6 +217,18 @@ class LlamaAttention(nn.Module):
             "which runs on CPU tensors only; on the card attention goes "
             "through the flash kernels (ROADMAP 'Port: remaining "
             "modules')")
+
+    def shard_for_mp(self, group):
+        """Keep this rank's heads: q/k/v columns (and biases), o_proj
+        rows."""
+        for proj in (self.q_proj, self.k_proj, self.v_proj):
+            _pl.keep_part(proj.weight, 1, group, (None, "mp"))
+            if proj.bias is not None:
+                _pl.keep_part(proj.bias, 0, group, ("mp",))
+        _pl.keep_part(self.o_proj.weight, 0, group, ("mp", None))
+        self.num_heads //= group.nranks
+        self.num_kv_heads //= group.nranks
+        self.mp = group
 
     def _qkv_one_product(self, x):
         """``fuse_qkv``: one ``x @ [Wq | Wk | Wv]`` product (the weights
@@ -210,6 +255,8 @@ class LlamaAttention(nn.Module):
         v))."""
         b, s, _ = x.shape
         cos, sin = cos_sin
+        if self.mp is not None:
+            x = _coll._c_identity(x, self.mp)
         if self.fuse_norm_rope:
             # rope rides the q/k projections' output write (the
             # matmul+rope kernel); v is a plain projection
@@ -240,8 +287,13 @@ class LlamaAttention(nn.Module):
         if cache is not None:
             k = torch.cat([cache[0], k], dim=1)
             v = torch.cat([cache[1], v], dim=1)
-        out = self.o_proj(self._attend(q, k, v).reshape(
-            b, s, self.num_heads * self.head_dim))
+        out = self._attend(q, k, v).reshape(b, s,
+                                            self.num_heads * self.head_dim)
+        if self.mp is not None:
+            out = _pl.row_parallel_linear(out, self.o_proj.weight, None,
+                                          self.mp, self.o_proj.names)
+        else:
+            out = self.o_proj(out)
         return out if cache is None else (out, (k, v))
 
 
@@ -256,9 +308,25 @@ class LlamaMLP(nn.Module):
                                    bias=False)
         self.down_proj = init.linear(c.intermediate_size, c.hidden_size,
                                      out_std, bias=False)
+        self.gate_proj.weight.dist_spec = (None, "mp")
+        self.up_proj.weight.dist_spec = (None, "mp")
+        self.down_proj.weight.dist_spec = ("mp", None)
+        self.mp = None
+
+    def shard_for_mp(self, group):
+        _pl.keep_part(self.gate_proj.weight, 1, group, (None, "mp"))
+        _pl.keep_part(self.up_proj.weight, 1, group, (None, "mp"))
+        _pl.keep_part(self.down_proj.weight, 0, group, ("mp", None))
+        self.mp = group
 
     def forward(self, x):
-        return self.down_proj(_nn.silu(self.gate_proj(x)) * self.up_proj(x))
+        if self.mp is None:
+            return self.down_proj(_nn.silu(self.gate_proj(x)) *
+                                  self.up_proj(x))
+        x = _coll._c_identity(x, self.mp)
+        return _pl.row_parallel_linear(
+            _nn.silu(self.gate_proj(x)) * self.up_proj(x),
+            self.down_proj.weight, None, self.mp, self.down_proj.names)
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -296,6 +364,8 @@ class LlamaModel(nn.Module):
         self.config = c
         self.embed_tokens = init.embedding(c.vocab_size, c.hidden_size,
                                            c.initializer_range)
+        self.embed_tokens.weight.dist_spec = ("mp", None)
+        self.mp = None
         self.layers = nn.ModuleList([LlamaDecoderLayer(c, init)
                                      for _ in range(c.num_hidden_layers)])
         self.norm = init.rms_norm(c.hidden_size, c.rms_norm_eps)
@@ -314,7 +384,15 @@ class LlamaModel(nn.Module):
         c = self.config
         _refuse(_forward_knobs(c), " in the forward")
         s = input_ids.shape[1]
-        x = self.embed_tokens(input_ids)
+        if self.mp is None:
+            x = self.embed_tokens(input_ids)
+        else:
+            enforce(caches is None,
+                    "the cached forwards of a tensor-parallel Llama are "
+                    "not ported (serve through LLMEngine(mesh=); ROADMAP "
+                    "'Multi-device')", error_cls=NotImplementedError)
+            x = _pl.vocab_parallel_embedding(
+                input_ids, self.embed_tokens.weight, self.mp)
         if caches is None:
             cos_sin = (self.rope_cos[:s], self.rope_sin[:s])
             for layer in self.layers:
@@ -353,6 +431,26 @@ class LlamaForCausalLM(GenerationMixin, nn.Module):
         self.lm_head = None if config.tie_word_embeddings else init.linear(
             config.hidden_size, config.vocab_size, config.initializer_range,
             bias=False)
+        if self.lm_head is not None:
+            self.lm_head.weight.dist_spec = (None, "mp")
+        self.mp_group = None
+
+    def shard_for_mp(self, group):
+        """Keep this rank's part of every annotated parameter over the mp
+        group ``group`` (a ``CommGroup``; ``fleet.distributed_model``
+        passes the topology's) and take the tensor-parallel forward.
+        Raises ``NotImplementedError`` where a split is uneven."""
+        enforce(self.mp_group is None, "the model is split already")
+        _refuse_mp(self.config, group.nranks)
+        for layer in self.llama.layers:
+            layer.self_attn.shard_for_mp(group)
+            layer.mlp.shard_for_mp(group)
+        _pl.keep_part(self.llama.embed_tokens.weight, 0, group,
+                      ("mp", None))
+        self.llama.mp = group
+        if self.lm_head is not None:
+            _pl.keep_part(self.lm_head.weight, 1, group, (None, "mp"))
+        self.mp_group = group
 
     def forward(self, input_ids, caches=None, labels=None, pos=None,
                 prefill=False):
@@ -371,7 +469,23 @@ class LlamaForCausalLM(GenerationMixin, nn.Module):
         else:
             hidden, new_caches = self.llama(input_ids, caches, pos=pos,
                                             prefill=prefill)
-        if labels is not None and self.config.fuse_linear_cross_entropy:
+        g = self.mp_group
+        if g is not None:
+            # the head's columns are this rank's vocabulary
+            hidden = _coll._c_identity(hidden, g)
+            if labels is not None and \
+                    self.config.fuse_linear_cross_entropy:
+                out = _nn.fused_linear_cross_entropy(
+                    hidden, head_w, labels, transpose_weight=tied,
+                    mp_group=g)
+            else:
+                out = hidden @ (head_w.t() if tied else head_w)
+                if labels is None:
+                    out = _coll._c_concat(out, g)
+                else:
+                    tok = _pl.vocab_parallel_cross_entropy(out, labels, g)
+                    out = tok.sum() / (labels != -100).sum().clamp(min=1)
+        elif labels is not None and self.config.fuse_linear_cross_entropy:
             out = _nn.fused_linear_cross_entropy(
                 hidden, head_w, labels, transpose_weight=tied)
         else:

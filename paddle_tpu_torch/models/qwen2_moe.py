@@ -139,6 +139,10 @@ class Qwen2MoeForCausalLM(nn.Module):
     is made there).  ``recompute`` recomputes every decoder layer in the
     backward (the "full" policy, as the reference)."""
 
+    # the reference annotates it for tensor parallelism (dist_spec);
+    # fleet.distributed_model refuses it at mp > 1 (not split here)
+    _mp_annotated = True
+
     def __init__(self, config: Qwen2MoeConfig, *, device=None,
                  dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):

@@ -572,24 +572,35 @@ class _FusedLinearCE(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x2, weight, bias, lab, transpose_weight, chunk,
-                ignore_index, reduction):
+                ignore_index, reduction, group):
         n = x2.shape[0]
         per_tok = torch.empty(n, dtype=torch.float32, device=x2.device)
         lse_all = torch.empty_like(per_tok)
         valid = lab != ignore_index
         safe = torch.where(valid, lab, torch.zeros_like(lab)).long()
+        mine = None
+        if group is not None:
+            # the vocabulary is split: this rank's rows of the labels
+            from ..distributed import parallel_layers as _pl
+            safe, mine = _pl.vocab_part(
+                safe, weight.shape[0 if transpose_weight else 1], group)
+            mine &= valid
         chunk_sums = []
         for c0 in range(0, n, chunk):
             sl = slice(c0, c0 + chunk)
             logits = _chunk_logits(x2[sl], weight, bias, transpose_weight)
-            lse = torch.logsumexp(logits, dim=-1)
             tgt = logits.gather(1, safe[sl, None])[:, 0]
+            if group is None:
+                lse = torch.logsumexp(logits, dim=-1)
+            else:
+                lse, tgt = _pl.split_vocab_lse(logits, tgt, mine[sl], group)
             tok = torch.where(valid[sl], lse - tgt, torch.zeros_like(lse))
             per_tok[sl] = tok
             lse_all[sl] = lse
             chunk_sums.append(tok.sum())
         count = valid.sum().float()
-        ctx.save_for_backward(x2, weight, bias, safe, valid, lse_all, count)
+        ctx.save_for_backward(x2, weight, bias, safe, valid, lse_all, count,
+                              mine)
         ctx.cfg = (transpose_weight, chunk, reduction)
         if reduction == "none":
             return per_tok
@@ -598,7 +609,8 @@ class _FusedLinearCE(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        x2, weight, bias, safe, valid, lse_all, count = ctx.saved_tensors
+        x2, weight, bias, safe, valid, lse_all, count, mine = \
+            ctx.saved_tensors
         transpose_weight, chunk, reduction = ctx.cfg
         if reduction == "none":
             tok_scale = g.float() * valid
@@ -618,8 +630,13 @@ class _FusedLinearCE(torch.autograd.Function):
             # d(lse - logit[label]) / d logits = softmax - onehot(label)
             dl = _chunk_logits(xc, weight, bias, transpose_weight)
             dl.sub_(lse_all[sl, None]).exp_()
-            rows = torch.arange(dl.shape[0], device=dl.device)
-            dl[rows, safe[sl]] -= 1.0
+            if mine is None:
+                rows = torch.arange(dl.shape[0], device=dl.device)
+                dl[rows, safe[sl]] -= 1.0
+            else:
+                # the onehot only where this rank holds the label's id
+                dl.scatter_add_(1, safe[sl, None],
+                                -mine[sl, None].to(dl.dtype))
             dl.mul_(tok_scale[sl, None])
             if db is not None:
                 db += dl.sum(0)
@@ -632,7 +649,7 @@ class _FusedLinearCE(torch.autograd.Function):
                 else:
                     dw.addmm_(xc.t(), dl)
         return dx, dw, None if db is None else db.to(bias.dtype), None, \
-            None, None, None, None
+            None, None, None, None, None
 
 
 def fused_linear_cross_entropy(x: torch.Tensor, weight: torch.Tensor,
@@ -640,7 +657,8 @@ def fused_linear_cross_entropy(x: torch.Tensor, weight: torch.Tensor,
                                ignore_index: int = -100,
                                reduction: str = "mean",
                                transpose_weight: bool = False,
-                               chunk_size: int = 1024) -> torch.Tensor:
+                               chunk_size: int = 1024,
+                               mp_group=None) -> torch.Tensor:
     """LM-head product + softmax cross-entropy, chunked over tokens
     (counterpart of the reference's ``fused_linear_cross_entropy``).
 
@@ -649,7 +667,14 @@ def fused_linear_cross_entropy(x: torch.Tensor, weight: torch.Tensor,
     ``[...]`` ints.  Chunks of ``chunk_size`` tokens are the unit of
     work: at most one chunk's f32 logits ``[chunk, V]`` lives at a time,
     in the forward and again in the backward, which recomputes them.
-    ``bias`` ``[V]`` is added to the f32 logits."""
+    ``bias`` ``[V]`` is added to the f32 logits.
+
+    ``mp_group`` (a tensor-parallel group): ``weight`` (and ``bias``)
+    hold this rank's part of the vocabulary, rank ``r`` ids ``[r * v, (r
+    + 1) * v)``; each chunk's loss takes three all-reduces over the group
+    (its f32 logits never exist whole across the vocabulary either), the
+    backward none: ``x``'s gradient is this rank's part of the sum, which
+    the caller's ``_c_identity`` on ``x`` all-reduces."""
     _check_reduction(reduction)
     x, weight, label, bias = amp_cast("fused_linear_cross_entropy", x,
                                       weight, label, bias)
@@ -665,5 +690,5 @@ def fused_linear_cross_entropy(x: torch.Tensor, weight: torch.Tensor,
     out = _FusedLinearCE.apply(x2, weight, bias, lab,
                                bool(transpose_weight),
                                int(min(chunk_size, x2.shape[0])),
-                               int(ignore_index), reduction)
+                               int(ignore_index), reduction, mp_group)
     return out.reshape(label.shape) if reduction == "none" else out

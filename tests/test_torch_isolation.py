@@ -70,12 +70,12 @@ def test_port_imports_no_jax_and_no_reference_package():
 
 
 def test_worker_of_the_gang_tests_imports_no_jax():
-    """``tests/torch_dist_worker.py`` and ``tests/torch_tp_worker.py`` run
-    in the gangs' ranks: they too must import neither JAX nor the
-    reference package."""
+    """``tests/torch_dist_worker.py``, ``tests/torch_tp_worker.py`` and
+    ``tests/torch_mp_worker.py`` run in the gangs' ranks: they too must
+    import neither JAX nor the reference package."""
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['paddle_tpu'] = None; sys.path.insert(0, 'tests'); "
-            "import torch_dist_worker, torch_tp_worker, "
+            "import torch_dist_worker, torch_tp_worker, torch_mp_worker, "
             "paddle_tpu_torch.distributed")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)

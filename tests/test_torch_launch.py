@@ -276,8 +276,15 @@ def test_parallel_env_reads_the_launch_env(monkeypatch):
 @pytest.mark.parametrize("knob", ["mp_degree", "pp_degree", "sep_degree",
                                   "ep_degree"])
 def test_fleet_knobs_outside_the_slice_raise(knob):
+    """Pipeline, sequence and expert degrees are not ported; mp is
+    (tests/test_torch_tensor_parallel.py), so a world of one asked for
+    mp 2 is refused only for its size, with a plain ``ValueError``."""
     s = dist.DistributedStrategy()
     s.hybrid_configs = {knob: 2}
+    if knob == "mp_degree":
+        with pytest.raises(ValueError, match="the world has 1"):
+            fleet.init(strategy=s, device="cpu")
+        return
     with pytest.raises(NotImplementedError, match="Multi-device"):
         fleet.init(strategy=s, device="cpu")
 
